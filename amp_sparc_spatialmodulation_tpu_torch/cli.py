@@ -1,0 +1,93 @@
+"""Command-line sweep front end of the PyTorch port.
+
+    python -m amp_sparc_spatialmodulation_tpu_torch.cli sweep \\
+        --algo bamp --alphabet OOK --mode segmented --Nt 128 --Na 8 \\
+        --Nr 24 --Lin 20 --Lh 3 --trunc tail --profile uniform \\
+        --epochs 262144 --start 6 --final 10 --step 0.5 --res 65536 \\
+        --two-phase 12
+
+Runs on the CUDA card unless ``--device cpu`` is given.  Only the
+``sweep`` subcommand is ported; ``plot``, ``capacity``, ``bench`` and
+``sparc-trial`` wait for ROADMAP.md Queue 1 item 12.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _add_config_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--Nt", type=int, required=True)
+    p.add_argument("--Na", type=int, required=True)
+    p.add_argument("--Nr", type=int, required=True)
+    p.add_argument("--Lin", type=int, required=True)
+    p.add_argument("--Lh", type=int, required=True)
+    p.add_argument("--mode", default="segmented",
+                   choices=["random", "segmented", "sparc"])
+    p.add_argument("--alphabet", default="OOK")
+    p.add_argument("--profile", default="uniform",
+                   choices=["uniform", "exponential"])
+    p.add_argument("--trunc", default="tail",
+                   choices=["trunc", "tail", "cyclic"])
+    p.add_argument("--iterations", type=int, default=100)
+
+
+def _build_config(args):
+    from .config import Config
+
+    return Config(Nt=args.Nt, Na=args.Na, Nr=args.Nr, Lin=args.Lin,
+                  Lh=args.Lh, mode=args.mode, alphabet=args.alphabet,
+                  profile=args.profile, trunc=args.trunc,
+                  iterations=args.iterations)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m amp_sparc_spatialmodulation_tpu_torch.cli",
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    sweep = sub.add_parser("sweep", help="run a Monte-Carlo Eb/N0 sweep")
+    _add_config_args(sweep)
+    sweep.add_argument("--algo", default="bamp",
+                       choices=["bamp", "vamp", "vamp2", "scamp"])
+    sweep.add_argument("--channel", default="sparc",
+                       choices=["sparc", "toeplitz", "iid"])
+    sweep.add_argument("--operator", default="auto",
+                       choices=["auto", "dense", "banded"])
+    sweep.add_argument("--epochs", type=int, default=100)
+    sweep.add_argument("--start", type=float, default=None)
+    sweep.add_argument("--final", type=float, default=None)
+    sweep.add_argument("--step", type=float, default=1.0)
+    sweep.add_argument("--res", type=int, default=1,
+                       help="trials per channel realization")
+    sweep.add_argument("--seed", type=int, default=0)
+    sweep.add_argument("--out", default="Simulations")
+    sweep.add_argument("--algo-dir", default=None)
+    sweep.add_argument("--resume", action="store_true")
+    sweep.add_argument("--two-phase", default=None, metavar="K1",
+                       type=lambda s: s if s == "auto" else int(s),
+                       help="continuation decoding: cap phase 1 at K1 "
+                            "iterations and finish the unconverged trials "
+                            "separately; 'auto' picks K1 from the previous "
+                            "point's mean T")
+    sweep.add_argument("--device", default=None,
+                       help="torch device (default: the CUDA card)")
+
+    args = parser.parse_args(argv)
+    cfg = _build_config(args)
+
+    from .models.montecarlo import Simulator
+
+    sim = Simulator(cfg, algo=args.algo, channel_kind=args.channel,
+                    out_root=args.out, algo_dir=args.algo_dir,
+                    seed=args.seed, operator_form=args.operator,
+                    two_phase=args.two_phase, device=args.device)
+    sim.simulate(epochs=args.epochs, start=args.start, final=args.final,
+                 step=args.step, res=args.res, resume=args.resume)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

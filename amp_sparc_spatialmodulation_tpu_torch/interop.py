@@ -1,0 +1,64 @@
+"""NumPy-in constructors for carrying shared inputs into the port.
+
+The parity tests draw their inputs with NumPy (or with the JAX package on
+the CPU, converted through NumPy) and hand the same arrays to both
+packages.  The random streams themselves differ (threefry against
+Philox), so generators are compared only by statistics.  Every
+constructor takes the device explicitly; there is no default.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .models.bamp import BAMPState
+from .ops.message import Message
+from .ops.operators import BandedOperator
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def operator_from_numpy(h, gains, Lin: int, Lout: int, trunc: str,
+                        device) -> BandedOperator:
+    """A :class:`BandedOperator` from (Lh, Nr, Nt) taps and (Lh, Lin) gains."""
+    h = np.asarray(h)
+    dtype = torch.complex64 if np.iscomplexobj(h) else torch.float32
+    return BandedOperator(h=_t(h, dtype, device),
+                          gains=np.asarray(gains, np.float32),
+                          Lin=Lin, Lout=Lout, trunc=trunc)
+
+
+def message_from_numpy(x, ant, sym, gray, flat, device) -> Message:
+    """A :class:`Message` from its dense vector and structured truth
+    (``x`` may be None)."""
+    xt = None
+    if x is not None:
+        x = np.asarray(x)
+        xt = _t(x, torch.complex64 if np.iscomplexobj(x) else torch.float32,
+                device)
+    i32 = torch.int32
+    return Message(x=xt, ant=_t(ant, i32, device), sym=_t(sym, i32, device),
+                   gray=_t(gray, i32, device), flat=_t(flat, i32, device))
+
+
+def state_from_numpy(xmap, xmmse, var, z, u, active, T, t,
+                     device) -> BAMPState:
+    """A :class:`BAMPState` from arrays in the JAX ``BAMPState`` layout."""
+    c64, f32 = torch.complex64, torch.float32
+    return BAMPState(xmap=_t(xmap, c64, device), xmmse=_t(xmmse, c64, device),
+                     var=_t(var, f32, device), z=_t(z, c64, device),
+                     u=_t(u, f32, device), active=_t(active, torch.bool,
+                                                     device),
+                     T=_t(T, torch.int32, device), t=int(t))
+
+
+def state_to_numpy(state: BAMPState) -> Dict[str, np.ndarray]:
+    """The fields of a :class:`BAMPState` as NumPy arrays."""
+    out = {f: getattr(state, f).detach().cpu().numpy()
+           for f in state._fields if f != "t"}
+    out["t"] = np.int32(state.t)
+    return out

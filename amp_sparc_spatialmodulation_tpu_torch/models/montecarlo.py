@@ -1,0 +1,294 @@
+"""Monte-Carlo sweep engine.
+
+Port of the JAX package's ``models/montecarlo.py`` for ``algo='bamp'``
+(reference ``bamp_model.py``): an Eb/N0 grid mapped to SNR via
+``+10*log10(rate)`` (`bamp_model.py:49-50`), channel regeneration every
+``res`` trials (`bamp_model.py:55-56`), per-SNR metric accumulation and
+JSON export, and the sweep's stop at ``fer < 1e-3`` (`bamp_model.py:66-67`).
+The default channel is ``generate_as_sparc`` in tap form, as in the
+reference's final sweeps.
+
+Two-phase (continuation) decoding runs eagerly: phase 1 decodes every
+trial up to ``k1`` iterations, the still-active trials are gathered
+exactly, phase 2 finishes them to the cap, and the merged state is
+evaluated.  Decodes are resumable and per-trial, so the metric sums equal
+a single-phase run's.  The JAX package's static bucket, rolling hint and
+overflow redo exist only for ``jit``'s static shapes and have no
+counterpart here.
+
+Each realization keeps its message as the small structured truth
+``(ant, sym, gray, flat)`` and drops the dense ``x`` once ``y`` is formed;
+the evaluation rebuilds ``x`` from it.  At the flagship ``res=65536`` the
+truth is 4 x 65536 x 160 int32 = 168 MB against 1.34 GB for the complex64
+``x``.
+
+Only ``algo='bamp'`` is ported; the other decoders raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops import channel as channel_ops
+from ..ops import message as message_ops
+from ..ops import operators
+from ..utils import artifacts, metrics
+from ..utils.device import make_generator, resolve_device
+from . import bamp
+
+ALGO_DIRS = {"bamp": "BAMP", "vamp": "VAMP", "vamp2": "VAMP2",
+             "scamp": "SCAMP", "random": "RANDOM"}
+
+_NOT_PORTED = {"scamp": "Queue 1 item 8", "vamp": "Queue 1 item 9",
+               "vamp2": "Queue 1 item 9"}
+
+
+def check_algo(algo: str) -> None:
+    """Raise unless ``algo`` is ported (only ``'bamp'`` so far)."""
+    if algo in _NOT_PORTED:
+        raise NotImplementedError(
+            f"algo={algo!r} is not ported to PyTorch yet (ROADMAP.md, "
+            f"{_NOT_PORTED[algo]})")
+    if algo != "bamp":
+        raise ValueError(f"unknown algo {algo!r}")
+
+
+def resolve_operator_form(channel_kind: str, operator_form: str) -> str:
+    """'auto' keeps the channel in tap form wherever it has one."""
+    if channel_kind not in ("sparc", "toeplitz", "iid"):
+        raise ValueError(f"unknown channel kind {channel_kind!r}")
+    if operator_form == "auto":
+        return "dense" if channel_kind == "iid" else "banded"
+    if operator_form == "banded" and channel_kind == "iid":
+        raise ValueError("iid channels have no banded form")
+    if operator_form not in ("banded", "dense"):
+        raise ValueError(f"unknown operator form {operator_form!r}")
+    return operator_form
+
+
+class Realization(NamedTuple):
+    """One channel realization with ``res`` trials: the operator, the
+    received vectors and the transmitted truth (dense ``x`` dropped)."""
+
+    A: object
+    y: torch.Tensor
+    msg: message_ops.Message
+    sigma2: float
+
+
+def generate_realization(gen: torch.Generator, cfg: Config,
+                         channel_kind: str, operator_form: str, res: int,
+                         snr: float) -> Realization:
+    """Channel, message and noise drawn in that order from ``gen``
+    (`bamp_model.py:54-58`), on the generator's device."""
+    if operator_form == "banded":
+        if channel_kind == "sparc":
+            _, A = operators.banded_sparc(gen, cfg)
+        else:
+            A = operators.banded_toeplitz(gen, cfg)
+    elif channel_kind == "sparc":
+        _, A = channel_ops.generate_as_sparc(gen, cfg)
+    elif channel_kind == "toeplitz":
+        A = channel_ops.generate_channel(gen, cfg)
+    else:
+        A = channel_ops.generate_as_random(gen, cfg)
+    msg = message_ops.generate_message(gen, cfg, res)
+    Ax = A.apply(msg.x) if operator_form == "banded" else msg.x @ A.T
+    y = Ax + channel_ops.awgn(gen, cfg, snr, res)
+    return Realization(A=A, y=y, msg=msg._replace(x=None),
+                       sigma2=cfg.E / snr)
+
+
+def make_realization_fn(cfg: Config, algo: str, channel_kind: str, res: int,
+                        operator_form: str = "auto"):
+    """One single-phase realization: ``fn(gen, snr) -> metric sums``
+    (`bamp_model.py:54-59`)."""
+    check_algo(algo)
+    form = resolve_operator_form(channel_kind, operator_form)
+
+    def one_realization(gen, snr):
+        r = generate_realization(gen, cfg, channel_kind, form, res, snr)
+        out = bamp.decode(r.A, r.y, r.sigma2, cfg)
+        return metrics.evaluate_sums(out.xmap, out.xmmse, r.msg, out.T, cfg)
+
+    return one_realization
+
+
+def state_take_trials(state: bamp.BAMPState, idx: torch.Tensor):
+    """Rows ``idx`` of a decoder state (the loop counter ``t`` is kept)."""
+    return state._replace(**{f: getattr(state, f)[idx]
+                             for f in state._fields if f != "t"})
+
+
+def state_merge_trials(state: bamp.BAMPState, sub: bamp.BAMPState,
+                       idx: torch.Tensor):
+    """Scatter a sub-batch state back into ``state`` at rows ``idx`` (the
+    full state's ``t`` is kept)."""
+    merged = {}
+    for f in state._fields:
+        if f == "t":
+            continue
+        v = getattr(state, f).clone()
+        v[idx] = getattr(sub, f)
+        merged[f] = v
+    return state._replace(**merged)
+
+
+def make_two_phase_fn(cfg: Config, algo: str, channel_kind: str, res: int,
+                      k1: int, operator_form: str = "auto"):
+    """One continuation-batched realization: ``fn(gen, snr) -> sums``.
+
+    Phase 1 runs every trial up to ``k1`` iterations; the still-active
+    trials are gathered exactly and phase 2 finishes them to the cap; the
+    merged state is evaluated.  The trajectory of every trial is the
+    single-phase one, so are the sums."""
+    check_algo(algo)
+    form = resolve_operator_form(channel_kind, operator_form)
+
+    def two_phase(gen, snr):
+        r = generate_realization(gen, cfg, channel_kind, form, res, snr)
+        _, state = bamp.decode(r.A, r.y, r.sigma2, cfg, iter_cap=k1,
+                               return_state=True)
+        idx = torch.nonzero(state.active).flatten()
+        if idx.numel():
+            _, sub = bamp.decode(r.A, r.y[idx], r.sigma2, cfg,
+                                 state0=state_take_trials(state, idx),
+                                 return_state=True)
+            state = state_merge_trials(state, sub, idx)
+        return metrics.evaluate_sums(state.xmap, state.xmmse, r.msg,
+                                     state.T, cfg)
+
+    return two_phase
+
+
+# Quantized k1 grid for two_phase='auto'.
+_AUTO_K1_GRID = (4, 6, 8, 10, 12, 14, 16, 20, 24, 32, 48, 64, 96, 128)
+
+
+def auto_k1(mean_t: Optional[float], cap: int) -> int:
+    """Phase-1 budget just above the expected mean T (the previous sweep
+    point's; 16 without history), on a quantized grid, clamped to
+    ``cap``."""
+    target = 16 if mean_t is None else int(np.ceil(mean_t)) + 1
+    for k in _AUTO_K1_GRID:
+        if k >= target:
+            return min(k, cap)
+    return min(_AUTO_K1_GRID[-1], cap)
+
+
+class Simulator:
+    """Sweep runner for one (config, algorithm) pair.
+
+    Args:
+        cfg: system config.
+        algo: 'bamp' (the other decoders are not ported yet and raise
+            ``NotImplementedError``).
+        channel_kind: 'sparc' (default), 'toeplitz' or 'iid'.
+        out_root: artifact root directory ('Simulations').
+        algo_dir: artifact subdirectory; defaults by algo.
+        seed: base seed; every (SNR point, realization) draws from its own
+            generator seeded from ``(seed, snr_idx, realization)``.
+        operator_form: 'auto' (tap form wherever the channel has one),
+            'banded' or 'dense'.
+        two_phase: None (single phase), an int ``k1``, or 'auto' (k1 just
+            above the previous point's mean T).
+        device: where the sweep runs; None means the CUDA card, and raises
+            when there is none.  Pass 'cpu' to run on the CPU.
+    """
+
+    def __init__(self, cfg: Config, algo: str = "bamp",
+                 channel_kind: str = "sparc", out_root: str = "Simulations",
+                 algo_dir: Optional[str] = None, seed: int = 0,
+                 operator_form: str = "auto", two_phase=None, device=None,
+                 progress: Callable[[str], None] = print):
+        check_algo(algo)
+        resolve_operator_form(channel_kind, operator_form)
+        if isinstance(two_phase, str) and two_phase != "auto":
+            raise ValueError("two_phase must be an int, 'auto', or None")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.algo = algo
+        self.channel_kind = channel_kind
+        self.seed = seed
+        self.operator_form = operator_form
+        self.two_phase = two_phase
+        self.progress = progress
+        self.path = os.path.join(out_root, algo_dir or ALGO_DIRS[algo],
+                                 cfg.name)
+        self._last_meanT = None   # previous point's mean T (auto k1)
+
+    def _realization_fn(self, res: int):
+        if self.two_phase is None:
+            return make_realization_fn(self.cfg, self.algo,
+                                       self.channel_kind, res,
+                                       self.operator_form)
+        k1 = (auto_k1(self._last_meanT, self.cfg.N_Layers)
+              if self.two_phase == "auto" else int(self.two_phase))
+        return make_two_phase_fn(self.cfg, self.algo, self.channel_kind,
+                                 res, k1, self.operator_form)
+
+    def trials_per_point(self, epochs: int, res: int = 1) -> int:
+        """Trials :meth:`run_point` decodes: whole realizations of ``res``."""
+        return max(1, int(np.ceil(epochs / res))) * res
+
+    def run_point(self, ebn0_db: float, epochs: int, res: int = 1,
+                  snr_idx: int = 0) -> Dict[str, float]:
+        """Simulate one Eb/N0 point with ``epochs`` trials, reusing each
+        channel realization for ``res`` trials (`bamp_model.py:54-58`).
+        Sums stay on the device; one transfer per point."""
+        cfg = self.cfg
+        snr_db = ebn0_db + 10 * np.log10(cfg.code_rate)
+        snr = float(10 ** (snr_db / 10))
+        n_real = max(1, int(np.ceil(epochs / res)))
+        fn = self._realization_fn(res)
+        total = None
+        for c in range(n_real):
+            gen = make_generator(self.device, self.seed, snr_idx, c)
+            total = metrics.accumulate(total, fn(gen, snr))
+        out = metrics.finalize(total, cfg)
+        self._last_meanT = out["T"]
+        return out
+
+    def simulate(self, epochs: int, final: Optional[float] = None,
+                 start: Optional[float] = None, step: float = 1.0,
+                 res: int = 1, fer_stop: float = 1e-3,
+                 resume: bool = False) -> Dict[float, Dict[str, float]]:
+        """Sweep the Eb/N0 grid, exporting one JSON per point and stopping
+        once ``fer < fer_stop`` (`bamp_model.py:44-67`)."""
+        cfg = self.cfg
+        if start is None:
+            start = int(np.ceil(cfg.shannon_limit_dB))
+        if final is None:
+            final = start + 20.0
+        grid = np.arange(start, final + step, step)
+        done = artifacts.load_manifest(self.path)["points"] if resume else {}
+        results = {}
+        for i, ebn0 in enumerate(grid):
+            snr_db = ebn0 + 10 * np.log10(cfg.code_rate)
+            if str(float(ebn0)) in done:
+                pts = artifacts.load_points(self.path)
+                results[float(ebn0)] = pts.get(float(ebn0), {})
+                fer = results[float(ebn0)].get("fer", 1.0)
+                self.progress(f"EbN0dB={ebn0} (resumed) FER={fer}")
+                if fer < fer_stop:
+                    break
+                continue
+            t0 = time.perf_counter()
+            avg = self.run_point(ebn0, epochs, res, snr_idx=i)
+            dt = time.perf_counter() - t0
+            n_trials = self.trials_per_point(epochs, res)
+            artifacts.export_point(self.path, ebn0, snr_db, cfg, avg)
+            artifacts.update_manifest(self.path, ebn0, n_trials, self.seed)
+            results[float(ebn0)] = avg
+            self.progress(
+                f"EbN0dB={ebn0} FER={avg['fer']:.3e} T={avg['T']:.1f} "
+                f"({n_trials} trials, {n_trials / dt:.1f} trials/s)")
+            if avg["fer"] < fer_stop:
+                break
+        return results

@@ -1,0 +1,100 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and entry
+points that refuse to fall back to the CPU silently."""
+import ast
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+from amp_sparc_spatialmodulation_tpu_torch.models.montecarlo import Simulator
+from amp_sparc_spatialmodulation_tpu_torch.utils.device import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "amp_sparc_spatialmodulation_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "amp_sparc_spatialmodulation_tpu")
+
+
+def _modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts), path
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_import_in_source():
+    files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
+    bad = [(str(p), name) for p in files for name in _imports(p)
+           if _forbidden(name)]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_no_jax():
+    names = [m for m, _ in _modules()]
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in names)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr({"jax", "jaxlib", "amp_sparc_spatialmodulation_tpu"})
+            + ")\nprint(len(sys.modules) > 0 and bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_entry_points_need_the_card_or_an_explicit_cpu():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        Simulator(flagship_bamp_ook(), algo="bamp")
+    Simulator(flagship_bamp_ook(), algo="bamp", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["operator_from_numpy", "message_from_numpy",
+                                  "state_from_numpy"])
+def test_interop_constructors_take_no_default_device(name):
+    """The NumPy-in constructors place nothing on a device by default."""
+    import inspect
+
+    from amp_sparc_spatialmodulation_tpu_torch import interop
+    param = inspect.signature(getattr(interop, name)).parameters["device"]
+    assert param.default is inspect.Parameter.empty
+
+
+def test_chip_smoke_fails_without_card_or_package(tmp_path):
+    """Without a card, and alone in a directory, chip_smoke.py exits
+    non-zero and prints no result."""
+    runs = []
+    if not torch.cuda.is_available():
+        runs.append(ROOT)
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", alone / "chip_smoke.py")
+    runs.append(alone)
+    for cwd in runs:
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0, cwd
+        assert '"ok"' not in out.stdout, cwd
