@@ -6,6 +6,12 @@
         --epochs 262144 --start 6 --final 10 --step 0.5 --res 65536 \\
         --two-phase 12
 
+    python -m amp_sparc_spatialmodulation_tpu_torch.cli sweep \\
+        --algo scamp --alphabet OOK --mode sparc --Nt 128 --Na 8 \\
+        --Nr 24 --Lin 20 --Lh 3 --trunc tail --profile uniform \\
+        --epochs 262144 --start 6 --final 10 --step 0.5 --res 65536 \\
+        --two-phase 8
+
 Runs on the CUDA card unless ``--device cpu`` is given.  Only the
 ``sweep`` subcommand is ported; ``plot``, ``capacity``, ``bench`` and
 ``sparc-trial`` wait for ROADMAP.md Queue 1 item 12.
@@ -72,6 +78,9 @@ def main(argv=None) -> int:
                             "iterations and finish the unconverged trials "
                             "separately; 'auto' picks K1 from the previous "
                             "point's mean T")
+    sweep.add_argument("--estimate-phi", action="store_true",
+                       help="SCAMP: empirical residual variance per output "
+                            "block (estSCAMP)")
     sweep.add_argument("--device", default=None,
                        help="torch device (default: the CUDA card)")
 
@@ -83,7 +92,8 @@ def main(argv=None) -> int:
     sim = Simulator(cfg, algo=args.algo, channel_kind=args.channel,
                     out_root=args.out, algo_dir=args.algo_dir,
                     seed=args.seed, operator_form=args.operator,
-                    two_phase=args.two_phase, device=args.device)
+                    two_phase=args.two_phase, device=args.device,
+                    estimate_phi=args.estimate_phi)
     sim.simulate(epochs=args.epochs, start=args.start, final=args.final,
                  step=args.step, res=args.res, resume=args.resume)
     return 0

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .models.bamp import BAMPState
+from .models.scamp import SCAMPState
 from .ops.message import Message
 from .ops.operators import BandedOperator
 
@@ -56,9 +57,24 @@ def state_from_numpy(xmap, xmmse, var, z, u, active, T, t,
                      T=_t(T, torch.int32, device), t=int(t))
 
 
-def state_to_numpy(state: BAMPState) -> Dict[str, np.ndarray]:
-    """The fields of a :class:`BAMPState` as NumPy arrays."""
+def scamp_state_from_numpy(xmap, xmmse, psi, phi, z, active, T, t,
+                           device) -> SCAMPState:
+    """A :class:`SCAMPState` from arrays in the JAX ``SCAMPState`` layout."""
+    c64, f32 = torch.complex64, torch.float32
+    return SCAMPState(xmap=_t(xmap, c64, device),
+                      xmmse=_t(xmmse, c64, device), psi=_t(psi, f32, device),
+                      phi=_t(phi, f32, device), z=_t(z, c64, device),
+                      active=_t(active, torch.bool, device),
+                      T=_t(T, torch.int32, device), t=int(t))
+
+
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """The fields of a decoder state (:class:`BAMPState` or
+    :class:`SCAMPState`) as NumPy arrays."""
     out = {f: getattr(state, f).detach().cpu().numpy()
            for f in state._fields if f != "t"}
     out["t"] = np.int32(state.t)
     return out
+
+
+scamp_state_to_numpy = state_to_numpy

@@ -1,10 +1,11 @@
 """Monte-Carlo sweep engine.
 
-Port of the JAX package's ``models/montecarlo.py`` for ``algo='bamp'``
-(reference ``bamp_model.py``): an Eb/N0 grid mapped to SNR via
-``+10*log10(rate)`` (`bamp_model.py:49-50`), channel regeneration every
-``res`` trials (`bamp_model.py:55-56`), per-SNR metric accumulation and
-JSON export, and the sweep's stop at ``fer < 1e-3`` (`bamp_model.py:66-67`).
+Port of the JAX package's ``models/montecarlo.py`` for ``algo='bamp'`` and
+``algo='scamp'`` (reference ``bamp_model.py``, ``scamp_model.py``): an
+Eb/N0 grid mapped to SNR via ``+10*log10(rate)`` (`bamp_model.py:49-50`),
+channel regeneration every ``res`` trials (`bamp_model.py:55-56`), per-SNR
+metric accumulation and JSON export, and the sweep's stop at
+``fer < 1e-3`` (`bamp_model.py:66-67`).
 The default channel is ``generate_as_sparc`` in tap form, as in the
 reference's final sweeps.
 
@@ -22,7 +23,7 @@ the evaluation rebuilds ``x`` from it.  At the flagship ``res=65536`` the
 truth is 4 x 65536 x 160 int32 = 168 MB against 1.34 GB for the complex64
 ``x``.
 
-Only ``algo='bamp'`` is ported; the other decoders raise
+``algo='bamp'`` and ``algo='scamp'`` are ported; VAMP and vamp2 raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -40,23 +41,25 @@ from ..ops import message as message_ops
 from ..ops import operators
 from ..utils import artifacts, metrics
 from ..utils.device import make_generator, resolve_device
-from . import bamp
+from . import bamp, scamp
 
 ALGO_DIRS = {"bamp": "BAMP", "vamp": "VAMP", "vamp2": "VAMP2",
              "scamp": "SCAMP", "random": "RANDOM"}
 
-_NOT_PORTED = {"scamp": "Queue 1 item 8", "vamp": "Queue 1 item 9",
-               "vamp2": "Queue 1 item 9"}
+_NOT_PORTED = {"vamp": "Queue 1 item 9", "vamp2": "Queue 1 item 9"}
 
 
-def check_algo(algo: str) -> None:
-    """Raise unless ``algo`` is ported (only ``'bamp'`` so far)."""
+def check_algo(algo: str, channel_kind: str) -> None:
+    """Raise unless ``algo`` is ported ('bamp' and 'scamp' so far) and can
+    run on ``channel_kind`` (SCAMP needs the SPARC base matrix)."""
     if algo in _NOT_PORTED:
         raise NotImplementedError(
             f"algo={algo!r} is not ported to PyTorch yet (ROADMAP.md, "
             f"{_NOT_PORTED[algo]})")
-    if algo != "bamp":
+    if algo not in ("bamp", "scamp"):
         raise ValueError(f"unknown algo {algo!r}")
+    if algo == "scamp" and channel_kind != "sparc":
+        raise ValueError("scamp requires the sparc channel")
 
 
 def resolve_operator_form(channel_kind: str, operator_form: str) -> str:
@@ -73,9 +76,11 @@ def resolve_operator_form(channel_kind: str, operator_form: str) -> str:
 
 
 class Realization(NamedTuple):
-    """One channel realization with ``res`` trials: the operator, the
-    received vectors and the transmitted truth (dense ``x`` dropped)."""
+    """One channel realization with ``res`` trials: the SPARC base matrix
+    (None for other channels), the operator, the received vectors and the
+    transmitted truth (dense ``x`` dropped)."""
 
+    W: Optional[torch.Tensor]
     A: object
     y: torch.Tensor
     msg: message_ops.Message
@@ -87,13 +92,14 @@ def generate_realization(gen: torch.Generator, cfg: Config,
                          snr: float) -> Realization:
     """Channel, message and noise drawn in that order from ``gen``
     (`bamp_model.py:54-58`), on the generator's device."""
+    W = None
     if operator_form == "banded":
         if channel_kind == "sparc":
-            _, A = operators.banded_sparc(gen, cfg)
+            W, A = operators.banded_sparc(gen, cfg)
         else:
             A = operators.banded_toeplitz(gen, cfg)
     elif channel_kind == "sparc":
-        _, A = channel_ops.generate_as_sparc(gen, cfg)
+        W, A = channel_ops.generate_as_sparc(gen, cfg)
     elif channel_kind == "toeplitz":
         A = channel_ops.generate_channel(gen, cfg)
     else:
@@ -101,33 +107,44 @@ def generate_realization(gen: torch.Generator, cfg: Config,
     msg = message_ops.generate_message(gen, cfg, res)
     Ax = A.apply(msg.x) if operator_form == "banded" else msg.x @ A.T
     y = Ax + channel_ops.awgn(gen, cfg, snr, res)
-    return Realization(A=A, y=y, msg=msg._replace(x=None),
+    return Realization(W=W, A=A, y=y, msg=msg._replace(x=None),
                        sigma2=cfg.E / snr)
 
 
+def decode(algo: str, r: Realization, y: torch.Tensor, cfg: Config,
+           estimate_phi: bool = False, **kw):
+    """Decode ``y`` (all of ``r.y`` or a gathered subset) on realization
+    ``r`` with ``algo``; ``kw`` are the decoders' resume arguments
+    (``state0``, ``iter_cap``, ``return_state``)."""
+    if algo == "scamp":
+        return scamp.decode(r.W, r.A, y, r.sigma2, cfg,
+                            estimate_phi=estimate_phi, **kw)
+    return bamp.decode(r.A, y, r.sigma2, cfg, **kw)
+
+
 def make_realization_fn(cfg: Config, algo: str, channel_kind: str, res: int,
-                        operator_form: str = "auto"):
+                        operator_form: str = "auto",
+                        estimate_phi: bool = False):
     """One single-phase realization: ``fn(gen, snr) -> metric sums``
     (`bamp_model.py:54-59`)."""
-    check_algo(algo)
+    check_algo(algo, channel_kind)
     form = resolve_operator_form(channel_kind, operator_form)
 
     def one_realization(gen, snr):
         r = generate_realization(gen, cfg, channel_kind, form, res, snr)
-        out = bamp.decode(r.A, r.y, r.sigma2, cfg)
+        out = decode(algo, r, r.y, cfg, estimate_phi)
         return metrics.evaluate_sums(out.xmap, out.xmmse, r.msg, out.T, cfg)
 
     return one_realization
 
 
-def state_take_trials(state: bamp.BAMPState, idx: torch.Tensor):
+def state_take_trials(state, idx: torch.Tensor):
     """Rows ``idx`` of a decoder state (the loop counter ``t`` is kept)."""
     return state._replace(**{f: getattr(state, f)[idx]
                              for f in state._fields if f != "t"})
 
 
-def state_merge_trials(state: bamp.BAMPState, sub: bamp.BAMPState,
-                       idx: torch.Tensor):
+def state_merge_trials(state, sub, idx: torch.Tensor):
     """Scatter a sub-batch state back into ``state`` at rows ``idx`` (the
     full state's ``t`` is kept)."""
     merged = {}
@@ -141,25 +158,26 @@ def state_merge_trials(state: bamp.BAMPState, sub: bamp.BAMPState,
 
 
 def make_two_phase_fn(cfg: Config, algo: str, channel_kind: str, res: int,
-                      k1: int, operator_form: str = "auto"):
+                      k1: int, operator_form: str = "auto",
+                      estimate_phi: bool = False):
     """One continuation-batched realization: ``fn(gen, snr) -> sums``.
 
     Phase 1 runs every trial up to ``k1`` iterations; the still-active
     trials are gathered exactly and phase 2 finishes them to the cap; the
     merged state is evaluated.  The trajectory of every trial is the
     single-phase one, so are the sums."""
-    check_algo(algo)
+    check_algo(algo, channel_kind)
     form = resolve_operator_form(channel_kind, operator_form)
 
     def two_phase(gen, snr):
         r = generate_realization(gen, cfg, channel_kind, form, res, snr)
-        _, state = bamp.decode(r.A, r.y, r.sigma2, cfg, iter_cap=k1,
-                               return_state=True)
+        _, state = decode(algo, r, r.y, cfg, estimate_phi, iter_cap=k1,
+                          return_state=True)
         idx = torch.nonzero(state.active).flatten()
         if idx.numel():
-            _, sub = bamp.decode(r.A, r.y[idx], r.sigma2, cfg,
-                                 state0=state_take_trials(state, idx),
-                                 return_state=True)
+            _, sub = decode(algo, r, r.y[idx], cfg, estimate_phi,
+                            state0=state_take_trials(state, idx),
+                            return_state=True)
             state = state_merge_trials(state, sub, idx)
         return metrics.evaluate_sums(state.xmap, state.xmmse, r.msg,
                                      state.T, cfg)
@@ -187,9 +205,10 @@ class Simulator:
 
     Args:
         cfg: system config.
-        algo: 'bamp' (the other decoders are not ported yet and raise
-            ``NotImplementedError``).
-        channel_kind: 'sparc' (default), 'toeplitz' or 'iid'.
+        algo: 'bamp' or 'scamp' (VAMP and vamp2 are not ported yet and
+            raise ``NotImplementedError``).
+        channel_kind: 'sparc' (default), 'toeplitz' or 'iid'; SCAMP needs
+            'sparc'.
         out_root: artifact root directory ('Simulations').
         algo_dir: artifact subdirectory; defaults by algo.
         seed: base seed; every (SNR point, realization) draws from its own
@@ -198,6 +217,7 @@ class Simulator:
             'banded' or 'dense'.
         two_phase: None (single phase), an int ``k1``, or 'auto' (k1 just
             above the previous point's mean T).
+        estimate_phi: SCAMP's empirical residual variance (estSCAMP).
         device: where the sweep runs; None means the CUDA card, and raises
             when there is none.  Pass 'cpu' to run on the CPU.
     """
@@ -206,8 +226,9 @@ class Simulator:
                  channel_kind: str = "sparc", out_root: str = "Simulations",
                  algo_dir: Optional[str] = None, seed: int = 0,
                  operator_form: str = "auto", two_phase=None, device=None,
+                 estimate_phi: bool = False,
                  progress: Callable[[str], None] = print):
-        check_algo(algo)
+        check_algo(algo, channel_kind)
         resolve_operator_form(channel_kind, operator_form)
         if isinstance(two_phase, str) and two_phase != "auto":
             raise ValueError("two_phase must be an int, 'auto', or None")
@@ -218,6 +239,7 @@ class Simulator:
         self.seed = seed
         self.operator_form = operator_form
         self.two_phase = two_phase
+        self.estimate_phi = estimate_phi
         self.progress = progress
         self.path = os.path.join(out_root, algo_dir or ALGO_DIRS[algo],
                                  cfg.name)
@@ -227,11 +249,12 @@ class Simulator:
         if self.two_phase is None:
             return make_realization_fn(self.cfg, self.algo,
                                        self.channel_kind, res,
-                                       self.operator_form)
+                                       self.operator_form, self.estimate_phi)
         k1 = (auto_k1(self._last_meanT, self.cfg.N_Layers)
               if self.two_phase == "auto" else int(self.two_phase))
         return make_two_phase_fn(self.cfg, self.algo, self.channel_kind,
-                                 res, k1, self.operator_form)
+                                 res, k1, self.operator_form,
+                                 self.estimate_phi)
 
     def trials_per_point(self, epochs: int, res: int = 1) -> int:
         """Trials :meth:`run_point` decodes: whole realizations of ``res``."""

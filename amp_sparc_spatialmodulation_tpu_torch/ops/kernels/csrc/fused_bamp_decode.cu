@@ -39,7 +39,9 @@
 // take at the decode's batch sizes; the gain-weighted adjoint input is
 // formed before the product, as the plain adjoint does; and every sum over
 // a segment or the symbol table follows the order of PyTorch's CUDA
-// reduction over a contiguous innermost dimension (torch_sum below).  The
+// reduction over a contiguous innermost dimension (torch_sum in
+// decode_common.cuh, which holds the helpers this kernel shares with the
+// SCAMP kernel).  The
 // kernel's state then matches the plain version's bit for bit, which
 // chip_smoke.py checks on the card.
 //
@@ -49,19 +51,15 @@
 // forward, so neighbouring threads read neighbouring addresses in both;
 // gains are (Lh, Lin) per (tap, column block), taken as they come.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr float kExpMax = 87.72283905206835f;  // log(FLT_MAX) - 1
-constexpr float kZeroTol = 1e-9f;
-constexpr float kRtol = 1e-5f;
-constexpr float kAtol = 1e-8f;
-constexpr int kMaxK = 16;  // largest alphabet (16PSK, 16QAM)
+using namespace decode;
 
-enum Trunc { kTrunc = 0, kTail = 1, kCyclic = 2 };
+constexpr int kThreads = 256;
+constexpr float kZeroTol = 1e-9f;
+
 enum Denoiser { kSegmented = 0, kMixture = 1 };
 
 struct Params {
@@ -92,69 +90,6 @@ struct Params {
   float Ps, P0, sigma2;
   int cap;  // remaining iteration budget
 };
-
-// Column block feeding output row block r through tap l, or -1.
-__device__ __forceinline__ int src_block(int r, int l, const Params& p) {
-  int c = r - l;
-  if (p.trunc == kCyclic) {
-    c %= p.Lin;
-    return c < 0 ? c + p.Lin : c;
-  }
-  return (c >= 0 && c < p.Lin) ? c : -1;
-}
-
-// Output row block reached from column block c through tap l, or -1.
-__device__ __forceinline__ int dst_block(int c, int l, const Params& p) {
-  const int r = c + l;
-  if (p.trunc == kCyclic) return r % p.Lin;
-  return r < p.Lout ? r : -1;
-}
-
-__device__ __forceinline__ int last_pow2(int n) {
-  int w = 1;
-  while (2 * w <= n) w *= 2;
-  return w;
-}
-
-// Sum of get(0..n-1) in the order of PyTorch's CUDA reduction over a
-// contiguous innermost dimension of n elements: w = min(last_pow2(n), 32)
-// lanes; lane t folds elements t, t+w, t+2w, ... into four accumulators in
-// turn (groups of four strides, then the tail from accumulator 0) and
-// combines them in order; then lane t takes lane t + off for off = w/2,
-// w/4, ..., 1.  (Above 128 elements PyTorch vectorizes the loads and sums
-// in another order; segments and symbol tables are far shorter.)
-
-template <class Get>
-__device__ float torch_sum(int n, Get get) {
-  const int w = n >= 32 ? 32 : last_pow2(n);
-  float lane[32];
-  for (int t = 0; t < w; ++t) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    int idx = t;
-    while (idx + 3 * w < n) {
-      for (int i = 0; i < 4; ++i) acc[i] = acc[i] + get(idx + i * w);
-      idx += 4 * w;
-    }
-    for (int i = 0; i < 4 && idx < n; ++i, idx += w) acc[i] = acc[i] + get(idx);
-    lane[t] = ((acc[0] + acc[1]) + acc[2]) + acc[3];
-  }
-  for (int off = w / 2; off >= 1; off >>= 1)
-    for (int t = 0; t < off; ++t) lane[t] = lane[t] + lane[t + off];
-  return lane[0];
-}
-
-// |re + i im|^2 as PyTorch computes .abs() ** 2 of a complex64 value.
-__device__ __forceinline__ float abs2(float re, float im) {
-  const float a = hypotf(re, im);
-  return a * a;
-}
-
-// Re((a + ib) * conj(s)) as PyTorch's complex64 product rounds it:
-// fma(a, s_re, b * s_im).
-__device__ __forceinline__ float re_conj_mul(float a, float b, float sr,
-                                             float si) {
-  return fmaf(a, sr, b * si);
-}
 
 __global__ void __launch_bounds__(kThreads) bamp_decode_kernel(Params p) {
   const int b = blockIdx.x;
@@ -322,55 +257,18 @@ __global__ void __launch_bounds__(kThreads) bamp_decode_kernel(Params p) {
     const float* si = p.sym_im;
     if (p.den == kSegmented) {
       // Thread per segment: the plain version's segmented posterior with
-      // tau = cov / 2, segment max, exp, the segment sums in PyTorch's
-      // order, and the decomposed variance.
-      const int L = N / p.M;
-      const int K = p.K;
-      for (int s = tid; s < L; s += blockDim.x) {
-        const int j0 = s * p.M;
-        auto t_of = [&](int i, int q) {
-          const int j = j0 + i;
-          const float tau = cov[j] / 2.f;
-          const float a = xmap_re[j] / tau;
-          if (real_x) return a * sr[q];
-          return re_conj_mul(a, xmap_im[j] / tau, sr[q], si[q]);
-        };
-        float segmax = -INFINITY;
-        for (int i = 0; i < p.M; ++i)
-          for (int q = 0; q < K; ++q) segmax = fmaxf(segmax, t_of(i, q));
-        auto eta = [&](int i, int q) {
-          return expf(fminf(t_of(i, q) - segmax, kExpMax));
-        };
-        // eta summed over the symbols, then over the segment
-        auto eta_m = [&](int i) {
-          return K == 1 ? eta(i, 0)
-                        : torch_sum(K, [&](int q) { return eta(i, q); });
-        };
-        const float eta2 = torch_sum(p.M, eta_m);
-        for (int i = 0; i < p.M; ++i) {
-          const int j = j0 + i;
-          float mr, mi, vn;
-          if (K == 1) {
-            const float post = eta(i, 0) / eta2;
-            mr = sr[0] * post;
-            mi = si[0] * post;
-            vn = abs2(mr, mi) * (1.f - post) +
-                 abs2(mr - sr[0], mi - si[0]) * post;
-          } else {
-            mr = torch_sum(K, [&](int q) { return sr[q] * eta(i, q); }) / eta2;
-            mi = torch_sum(K, [&](int q) { return si[q] * eta(i, q); }) / eta2;
-            const float var0 = abs2(mr, mi) * (1.f - eta_m(i) / eta2);
-            const float vs = torch_sum(K, [&](int q) {
-              return abs2(mr - sr[q], mi - si[q]) * eta(i, q);
+      // tau = cov / 2 and the decomposed variance.
+      for (int s = tid; s < N / p.M; s += blockDim.x) {
+        bad |= segment_posterior<true>(
+            s * p.M, p.M, p.K, sr, si, real_x, xmap_re, xmap_im,
+            [=](int j) { return cov[j]; },
+            [=](int j, float mr, float mi, float vn) {
+              const float old = var[j];
+              xm_re[j] = mr;
+              if (!real_x) xm_im[j] = mi;
+              var[j] = vn;
+              return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
             });
-            vn = var0 + vs / eta2;
-          }
-          const float old = var[j];
-          bad |= fabsf(vn - old) > kAtol + kRtol * fabsf(old);
-          xm_re[j] = mr;
-          if (!real_x) xm_im[j] = mi;
-          var[j] = vn;
-        }
       }
     } else {
       // Bernoulli-symbol mixture: lane-local, with the exponent clamps and

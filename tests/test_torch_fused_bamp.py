@@ -204,6 +204,24 @@ def test_build_is_keyed_on_source_and_cached(tmp_path, monkeypatch):
     assert not build.build(["k"])["k"]["cached"]
 
 
+def test_build_is_keyed_on_included_headers(tmp_path, monkeypatch):
+    """A header under csrc/ that a source includes, directly or through
+    another header, is part of the library's key; other files are not."""
+    build, csrc = _fake_toolkit(tmp_path, monkeypatch, "exit 0\n")
+    (csrc / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("// v1\n")
+    (csrc / "other.cuh").write_text("// v1\n")
+    first = build.library_path("k")
+    (csrc / "other.cuh").write_text("// v2\n")
+    assert build.library_path("k") == first
+    (csrc / "b.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// x\n')
+    assert build.library_path("k") not in (first, second)
+
+
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
     build, _ = _fake_toolkit(tmp_path, monkeypatch,
                              'echo "error: no such intrinsic"; exit 1\n')

@@ -73,7 +73,8 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
 
 
 @pytest.mark.parametrize("name", ["operator_from_numpy", "message_from_numpy",
-                                  "state_from_numpy"])
+                                  "state_from_numpy",
+                                  "scamp_state_from_numpy"])
 def test_interop_constructors_take_no_default_device(name):
     """The NumPy-in constructors place nothing on a device by default."""
     import inspect

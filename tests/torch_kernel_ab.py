@@ -1,0 +1,138 @@
+"""Time the port's CUDA kernels of this checkout against those of another
+checkout, in turns on one card.
+
+Two versions are compared only inside one process on one card: each kernel
+is built from both source trees, run once to warm up, then timed by CUDA
+events at its main path's phase-1 shape (BAMP: ``flagship_bamp_ook()``,
+65536 trials to k1=12; SCAMP: the OOK sparc point at the same dimensions,
+65536 trials to k1=8, both at Eb/N0 = 8 dB), in the order parent, change,
+change, parent (and so on for more rounds).  Every timed result must equal
+the first bit for bit.  A kernel whose source the other checkout lacks is
+timed on its own.
+
+    git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
+        (mkdir -p build/parent && tar -x -C build/parent)
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent
+
+Prints one JSON line per timing, then one summary line per kernel.  Needs
+the card and ``nvcc``; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+from amp_sparc_spatialmodulation_tpu_torch.config import (Config,
+                                                          flagship_bamp_ook)
+from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+from amp_sparc_spatialmodulation_tpu_torch.models import scamp
+from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (build,
+                                                               fused_bamp,
+                                                               fused_scamp)
+from amp_sparc_spatialmodulation_tpu_torch.utils.device import make_generator
+
+RES = 65536
+REPS = 4
+
+
+def _cases(dev):
+    """(kernel name, wrapper module, launch) per kernel; ``launch()`` runs
+    the wrapper once on a fixed realization and returns its state."""
+    out = []
+    cfg = flagship_bamp_ook()
+    snr = 10 ** ((8.0 + 10 * math.log10(cfg.code_rate)) / 10)
+    r = montecarlo.generate_realization(make_generator(dev, 11), cfg,
+                                        "sparc", "banded", RES, snr)
+    s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+    out.append(("fused_bamp_decode", fused_bamp, lambda: fused_bamp
+                .whole_decode(r.A, s0, r.y, r.sigma2, 12, cfg)))
+    scfg = Config(Nt=128, Na=8, Nr=24, Lin=20, Lh=3, mode="sparc",
+                  alphabet="OOK", profile="uniform", trunc="tail",
+                  iterations=100)
+    snr = 10 ** ((8.0 + 10 * math.log10(scfg.code_rate)) / 10)
+    rs = montecarlo.generate_realization(make_generator(dev, 21), scfg,
+                                         "sparc", "banded", RES, snr)
+    ss0 = scamp.initial_state(rs.y, scfg)
+    out.append(("fused_scamp_decode", fused_scamp, lambda: fused_scamp
+                .whole_decode(rs.A, rs.W, ss0, rs.y, rs.sigma2, 8, scfg)))
+    return out
+
+
+def _libraries(name, module, trees):
+    """The loaded library of kernel ``name`` built from each source tree
+    that has it, keyed by the tree's label."""
+    libs = {}
+    here = build.CSRC
+    try:
+        for label, csrc in trees.items():
+            if not (csrc / f"{name}.cu").is_file():
+                continue
+            build.CSRC = csrc
+            build._loaded.pop(name, None)
+            libs[label] = module._library()
+    finally:
+        build.CSRC = here
+    return libs
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in a._fields if f != "t")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--parent", type=Path, required=True,
+                   help="root of the other checkout")
+    p.add_argument("--rounds", type=int, default=2)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: no CUDA device")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    trees = {"parent": (args.parent / "amp_sparc_spatialmodulation_tpu_torch"
+                        / "ops" / "kernels" / "csrc").resolve(),
+             "change": build.CSRC}
+    for name, module, launch in _cases(dev):
+        libs = _libraries(name, module, trees)
+        order = [k for k in ("parent", "change", "change", "parent")
+                 if k in libs] * args.rounds
+        times = {k: [] for k in libs}
+        first = None
+        for label in order:
+            build._loaded[name] = libs[label]
+            out = launch()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPS):
+                out = launch()
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop) / REPS
+            first = out if first is None else first
+            if not _same(first, out):
+                raise AssertionError(f"{name}: {label} differs")
+            times[label].append(ms)
+            print(json.dumps({"kernel": name, "source": label, "ms": ms}),
+                  flush=True)
+        build._loaded.pop(name, None)
+        print(json.dumps({"kernel": name, "device": smi, "identical": True,
+                          **{f"{k}_median_ms": statistics.median(v)
+                             for k, v in times.items()},
+                          **{f"{k}_ms": v for k, v in times.items()}}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
