@@ -12,6 +12,12 @@
         --epochs 262144 --start 6 --final 10 --step 0.5 --res 65536 \\
         --two-phase 8
 
+    python -m amp_sparc_spatialmodulation_tpu_torch.cli sweep \\
+        --algo vamp --alphabet OOK --mode segmented --Nt 128 --Na 8 \\
+        --Nr 24 --Lin 20 --Lh 3 --trunc tail --profile uniform \\
+        --iterations 10 --epochs 262144 --start 6 --final 10 --res 65536
+
+VAMP and vamp2 (``--algo vamp2``) decode on the dense channel's SVD.
 Runs on the CUDA card unless ``--device cpu`` is given.  Only the
 ``sweep`` subcommand is ported; ``plot``, ``capacity``, ``bench`` and
 ``sparc-trial`` wait for ROADMAP.md Queue 1 item 12.

@@ -15,6 +15,8 @@ import torch
 
 from .models.bamp import BAMPState
 from .models.scamp import SCAMPState
+from .models.vamp import SVD, VAMPState
+from .models.vamp2 import VAMP2State
 from .ops.message import Message
 from .ops.operators import BandedOperator
 
@@ -68,9 +70,42 @@ def scamp_state_from_numpy(xmap, xmmse, psi, phi, z, active, T, t,
                       T=_t(T, torch.int32, device), t=int(t))
 
 
+def svd_from_numpy(U, s, Vh, device) -> SVD:
+    """An :class:`SVD` from the factors of ``A = U diag(s) Vh``: the tests
+    hand both packages the same factors, since singular vectors are
+    defined only up to a phase each."""
+    U, Vh = np.asarray(U), np.asarray(Vh)
+    dtype = torch.complex64 if np.iscomplexobj(U) else torch.float32
+    return SVD(U=_t(U, dtype, device), s=_t(s, torch.float32, device),
+               Vh=_t(Vh, dtype, device))
+
+
+def vamp_state_from_numpy(r_tilde, sigma2_tilde, r, var, xmmse, active, T,
+                          t, device) -> VAMPState:
+    """A :class:`VAMPState` from arrays in the JAX ``VAMPState`` layout."""
+    c64, f32 = torch.complex64, torch.float32
+    return VAMPState(r_tilde=_t(r_tilde, c64, device),
+                     sigma2_tilde=_t(sigma2_tilde, f32, device),
+                     r=_t(r, c64, device), var=_t(var, f32, device),
+                     xmmse=_t(xmmse, c64, device),
+                     active=_t(active, torch.bool, device),
+                     T=_t(T, torch.int32, device), t=int(t))
+
+
+def vamp2_state_from_numpy(r, gamma, var, xmmse, active, T, t,
+                           device) -> VAMP2State:
+    """A :class:`VAMP2State` from arrays in the JAX ``VAMP2State`` layout."""
+    c64, f32 = torch.complex64, torch.float32
+    return VAMP2State(r=_t(r, c64, device), gamma=_t(gamma, f32, device),
+                      var=_t(var, f32, device), xmmse=_t(xmmse, c64, device),
+                      active=_t(active, torch.bool, device),
+                      T=_t(T, torch.int32, device), t=int(t))
+
+
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
-    """The fields of a decoder state (:class:`BAMPState` or
-    :class:`SCAMPState`) as NumPy arrays."""
+    """The fields of a decoder state (:class:`BAMPState`,
+    :class:`SCAMPState`, :class:`VAMPState` or :class:`VAMP2State`) as
+    NumPy arrays."""
     out = {f: getattr(state, f).detach().cpu().numpy()
            for f in state._fields if f != "t"}
     out["t"] = np.int32(state.t)

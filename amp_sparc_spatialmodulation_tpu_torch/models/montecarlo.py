@@ -23,8 +23,12 @@ the evaluation rebuilds ``x`` from it.  At the flagship ``res=65536`` the
 truth is 4 x 65536 x 160 int32 = 168 MB against 1.34 GB for the complex64
 ``x``.
 
-``algo='bamp'`` and ``algo='scamp'`` are ported; VAMP and vamp2 raise
-``NotImplementedError`` naming their ROADMAP item.
+All four decoders are ported.  VAMP and vamp2 decode on the dense channel
+matrix's SVD, computed once per realization and shared by both phases
+(vamp2 takes the direct SVD: it divides by the singular values).  The
+JAX package's ``chans_per_batch`` (realization-batched VAMP) has no
+counterpart here yet: :func:`.vamp.decode_batched` exists, the sweep does
+not use it.
 """
 from __future__ import annotations
 
@@ -41,33 +45,35 @@ from ..ops import message as message_ops
 from ..ops import operators
 from ..utils import artifacts, metrics
 from ..utils.device import make_generator, resolve_device
-from . import bamp, scamp
+from . import bamp, scamp, vamp, vamp2
 
 ALGO_DIRS = {"bamp": "BAMP", "vamp": "VAMP", "vamp2": "VAMP2",
              "scamp": "SCAMP", "random": "RANDOM"}
 
-_NOT_PORTED = {"vamp": "Queue 1 item 9", "vamp2": "Queue 1 item 9"}
+SVD_ALGOS = ("vamp", "vamp2")
 
 
 def check_algo(algo: str, channel_kind: str) -> None:
-    """Raise unless ``algo`` is ported ('bamp' and 'scamp' so far) and can
-    run on ``channel_kind`` (SCAMP needs the SPARC base matrix)."""
-    if algo in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algo={algo!r} is not ported to PyTorch yet (ROADMAP.md, "
-            f"{_NOT_PORTED[algo]})")
-    if algo not in ("bamp", "scamp"):
+    """Raise unless ``algo`` is known and can run on ``channel_kind``
+    (SCAMP needs the SPARC base matrix)."""
+    if algo not in ("bamp", "scamp") + SVD_ALGOS:
         raise ValueError(f"unknown algo {algo!r}")
     if algo == "scamp" and channel_kind != "sparc":
         raise ValueError("scamp requires the sparc channel")
 
 
-def resolve_operator_form(channel_kind: str, operator_form: str) -> str:
-    """'auto' keeps the channel in tap form wherever it has one."""
+def resolve_operator_form(channel_kind: str, operator_form: str,
+                          algo: str = "bamp") -> str:
+    """'auto' keeps the channel in tap form wherever it has one, except for
+    VAMP and vamp2, which need the dense matrix for its SVD
+    (`montecarlo.py:93-100` of the JAX package)."""
     if channel_kind not in ("sparc", "toeplitz", "iid"):
         raise ValueError(f"unknown channel kind {channel_kind!r}")
     if operator_form == "auto":
-        return "dense" if channel_kind == "iid" else "banded"
+        return ("dense" if channel_kind == "iid" or algo in SVD_ALGOS
+                else "banded")
+    if operator_form == "banded" and algo in SVD_ALGOS:
+        raise ValueError("VAMP requires the dense operator (SVD)")
     if operator_form == "banded" and channel_kind == "iid":
         raise ValueError("iid channels have no banded form")
     if operator_form not in ("banded", "dense"):
@@ -77,14 +83,16 @@ def resolve_operator_form(channel_kind: str, operator_form: str) -> str:
 
 class Realization(NamedTuple):
     """One channel realization with ``res`` trials: the SPARC base matrix
-    (None for other channels), the operator, the received vectors and the
-    transmitted truth (dense ``x`` dropped)."""
+    (None for other channels), the operator, the received vectors, the
+    transmitted truth (dense ``x`` dropped) and, for VAMP and vamp2, the
+    operator's SVD (:func:`with_svd`)."""
 
     W: Optional[torch.Tensor]
     A: object
     y: torch.Tensor
     msg: message_ops.Message
     sigma2: float
+    dec: Optional[vamp.SVD] = None
 
 
 def generate_realization(gen: torch.Generator, cfg: Config,
@@ -111,14 +119,29 @@ def generate_realization(gen: torch.Generator, cfg: Config,
                        sigma2=cfg.E / snr)
 
 
+def with_svd(algo: str, r: Realization) -> Realization:
+    """``r`` with the SVD of its dense operator for VAMP and vamp2 (once
+    per realization, shared by both phases; vamp2 needs the direct SVD,
+    since it divides by ``s``, `montecarlo.py:386-390`), else ``r``."""
+    if algo not in SVD_ALGOS:
+        return r
+    return r._replace(dec=vamp.svd(
+        r.A, method="direct" if algo == "vamp2" else "auto"))
+
+
 def decode(algo: str, r: Realization, y: torch.Tensor, cfg: Config,
            estimate_phi: bool = False, **kw):
     """Decode ``y`` (all of ``r.y`` or a gathered subset) on realization
-    ``r`` with ``algo``; ``kw`` are the decoders' resume arguments
-    (``state0``, ``iter_cap``, ``return_state``)."""
+    ``r`` (for VAMP and vamp2, one that went through :func:`with_svd`) with
+    ``algo``; ``kw`` are the decoders' resume arguments (``state0``,
+    ``iter_cap``, ``return_state``)."""
     if algo == "scamp":
         return scamp.decode(r.W, r.A, y, r.sigma2, cfg,
                             estimate_phi=estimate_phi, **kw)
+    if algo == "vamp":
+        return vamp.decode(r.dec, y, r.sigma2, cfg, **kw)
+    if algo == "vamp2":
+        return vamp2.decode(r.dec, y, r.sigma2, cfg, **kw)
     return bamp.decode(r.A, y, r.sigma2, cfg, **kw)
 
 
@@ -128,10 +151,11 @@ def make_realization_fn(cfg: Config, algo: str, channel_kind: str, res: int,
     """One single-phase realization: ``fn(gen, snr) -> metric sums``
     (`bamp_model.py:54-59`)."""
     check_algo(algo, channel_kind)
-    form = resolve_operator_form(channel_kind, operator_form)
+    form = resolve_operator_form(channel_kind, operator_form, algo)
 
     def one_realization(gen, snr):
-        r = generate_realization(gen, cfg, channel_kind, form, res, snr)
+        r = with_svd(algo, generate_realization(gen, cfg, channel_kind, form,
+                                                res, snr))
         out = decode(algo, r, r.y, cfg, estimate_phi)
         return metrics.evaluate_sums(out.xmap, out.xmmse, r.msg, out.T, cfg)
 
@@ -167,10 +191,11 @@ def make_two_phase_fn(cfg: Config, algo: str, channel_kind: str, res: int,
     merged state is evaluated.  The trajectory of every trial is the
     single-phase one, so are the sums."""
     check_algo(algo, channel_kind)
-    form = resolve_operator_form(channel_kind, operator_form)
+    form = resolve_operator_form(channel_kind, operator_form, algo)
 
     def two_phase(gen, snr):
-        r = generate_realization(gen, cfg, channel_kind, form, res, snr)
+        r = with_svd(algo, generate_realization(gen, cfg, channel_kind, form,
+                                                res, snr))
         _, state = decode(algo, r, r.y, cfg, estimate_phi, iter_cap=k1,
                           return_state=True)
         idx = torch.nonzero(state.active).flatten()
@@ -205,16 +230,15 @@ class Simulator:
 
     Args:
         cfg: system config.
-        algo: 'bamp' or 'scamp' (VAMP and vamp2 are not ported yet and
-            raise ``NotImplementedError``).
+        algo: 'bamp', 'scamp', 'vamp' or 'vamp2'.
         channel_kind: 'sparc' (default), 'toeplitz' or 'iid'; SCAMP needs
             'sparc'.
         out_root: artifact root directory ('Simulations').
         algo_dir: artifact subdirectory; defaults by algo.
         seed: base seed; every (SNR point, realization) draws from its own
             generator seeded from ``(seed, snr_idx, realization)``.
-        operator_form: 'auto' (tap form wherever the channel has one),
-            'banded' or 'dense'.
+        operator_form: 'auto' (tap form wherever the channel has one;
+            dense for VAMP and vamp2), 'banded' or 'dense'.
         two_phase: None (single phase), an int ``k1``, or 'auto' (k1 just
             above the previous point's mean T).
         estimate_phi: SCAMP's empirical residual variance (estSCAMP).
@@ -229,7 +253,7 @@ class Simulator:
                  estimate_phi: bool = False,
                  progress: Callable[[str], None] = print):
         check_algo(algo, channel_kind)
-        resolve_operator_form(channel_kind, operator_form)
+        resolve_operator_form(channel_kind, operator_form, algo)
         if isinstance(two_phase, str) and two_phase != "auto":
             raise ValueError("two_phase must be an int, 'auto', or None")
         self.device = resolve_device(device)

@@ -1,0 +1,274 @@
+// Whole vamp2 (damped Rangan VAMP) decode on an NVIDIA Hopper GPU: one
+// thread block per tile of 64 trials, with the iteration loop inside the
+// block.
+//
+// Replaces the TPU kernel amp_sparc_spatialmodulation_tpu/ops/pallas/
+// fused_vamp2.py:39 _vamp2_decode_kernel (reached through
+// FusedVamp2Decode.decode_call).  Each iteration of a tile runs, with s^2
+// the squared singular values, eta = N / p and the damping rho,
+//
+//   1. per segment of M lanes the softmax posterior of r with effective
+//      noise gamma, WITHOUT the tau/2 halving, second-moment variance;
+//      xmmse = rho xmmse_new + (1 - rho) xmmse; the per-trial allclose of
+//      the variance; alpha = mean(var) gamma;
+//      r_tilde = (xmmse - alpha r) / (1 - alpha);
+//      gamma_tilde = clip(gamma (1 - alpha) / alpha, 1e-11, 1e11);
+//   2. d = s^2 / (s^2 + sigma2 gamma_tilde) and its mean over p;
+//      gamma = rho gamma_tilde d_mean / (eta - d_mean) + (1 - rho) gamma;
+//   3. w = (d / d_mean) (y_tilde - r_tilde Vh^T) (K = N);
+//   4. r = r_tilde + eta w conj(Vh) (K = p).
+//
+// Trials already converged at the start of an iteration keep their state;
+// the tile stops when its last trial has converged or the remaining budget
+// cap is spent.  y_tilde is the whitened data (y U^*) / s, formed outside
+// from the direct SVD.
+//
+// Bound on this card: FP32 operations, as for fused_vamp_decode.cu, whose
+// design this kernel shares (vamp_common.cuh): the same two products with
+// the factor per iteration (8 real products of 2 N p flop per trial and
+// iteration, 4-product complex form), the state in device memory, the
+// products streamed through shared memory with a 4 x 4 complex register
+// tile per thread and summed blocked over k, FP32 on the CUDA cores.
+// r_tilde needs the whole row's variance sum before the first product, so
+// step 1 writes it over r (the old r is not needed after it), and step 4
+// adds the second product to it.
+//
+// Layouts: r, xmmse (B, N) complex64, var (B, N), gamma (B, 1), y_tilde
+// (B, p) complex64; Vh (p, N) complex64, s^2 (p,); the scratch w (B, p)
+// complex64.  Built with -fmad=false: every FMA is explicit.
+
+#include "vamp_common.cuh"
+
+namespace {
+
+using namespace vamp;
+
+constexpr float kVarMin = 1e-11f;  // vamp2.py:48-49
+constexpr float kVarMax = 1e11f;
+
+struct Params {
+  float2* r;          // (B, N), in/out
+  float* gamma;       // (B,), in/out
+  float* var;         // (B, N), in/out
+  float2* xm;         // xmmse (B, N), in/out
+  int* act;           // (B,), in/out
+  int* T;             // (B,), in/out
+  const float2* yt;   // whitened y_tilde (B, p)
+  const float* s2;    // (p,)
+  const float2* Vh;   // (p, N)
+  float2* w;          // scratch (B, p)
+  const float* sym_re;
+  const float* sym_im;
+  int B, N, p, M, K, vec4_p, vec4_N;
+  float sigma2, eta, rho, omr, inv_p, inv_N;  // omr = 1 - rho from double
+  int cap;  // remaining iteration budget
+};
+
+__global__ void __launch_bounds__(kThreads, 2) vamp2_decode_kernel(Params P) {
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gm = tid / kGroup, gl = tid % kGroup;  // denoiser: trial, lane
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kBt;
+  const int nrows = min(kBt, P.B - static_cast<int>(row0));
+  const int N = P.N, p = P.p, M = P.M;
+  const float2* Vh = P.Vh;
+  const float* s2 = P.s2;
+  float2* r = P.r + row0 * N;
+  float* var = P.var + row0 * N;
+  float2* xm = P.xm + row0 * N;
+  const float2* yt = P.yt + row0 * p;
+  float2* w = P.w + row0 * p;
+
+  extern __shared__ float4 smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  __shared__ int s_act[kBt], s_T[kBt], s_bad[kBt];
+  __shared__ float s_gamma[kBt], s_alpha[kBt], s_gt[kBt], s_dmean[kBt],
+      s_gnext[kBt];
+
+  if (tid < kBt) {
+    const bool valid = tid < nrows;
+    s_act[tid] = valid ? P.act[row0 + tid] : 0;
+    s_T[tid] = valid ? P.T[row0 + tid] : 0;
+    s_gamma[tid] = valid ? P.gamma[row0 + tid] : 1.f;
+  }
+
+  for (int it = 0; it < P.cap; ++it) {
+    if (!__syncthreads_or(tid < kBt && s_act[tid])) break;
+
+    // ---- 1. denoiser with tau = gamma, damping, allclose: kGroup threads
+    // per trial ---------------------------------------------------------
+    {
+      const bool on = gm < nrows && s_act[gm];
+      const float gamma = s_gamma[gm];
+      const float rho = P.rho, omr = P.omr;
+      int bad = 0;
+      if (on) {
+        for (int sg = gl; sg * M < N; sg += kGroup) {
+          const size_t j0 = static_cast<size_t>(gm) * N +
+                            static_cast<size_t>(sg) * M;
+          float2* xo = xm + j0;
+          float* vo = var + j0;
+          bad |= segment_posterior<true>(
+              M, P.K, P.sym_re, P.sym_im, r + j0, gamma,
+              [=](int i, float mr, float mi, float v) {
+                const float2 old = xo[i];
+                xo[i] = make_float2(rho * mr + omr * old.x,
+                                    rho * mi + omr * old.y);
+                const int flag = not_close(v, vo[i]);
+                vo[i] = v;
+                return flag;
+              });
+        }
+      }
+      bad = group_or(bad);
+      if (on && gl == 0) s_bad[gm] = bad;
+    }
+    __syncthreads();
+
+    // ---- 2. alpha = mean(var) gamma, gamma_tilde, d_mean over p and the
+    // damped gamma: a warp per trial --------------------------------------
+    for (int m = warp; m < nrows; m += kWarps) {
+      if (!s_act[m]) continue;
+      const float* vm = var + static_cast<size_t>(m) * N;
+      const float gamma = s_gamma[m];
+      const float alpha =
+          warp_torch_mean(N, P.vec4_N, P.inv_N, [&](int j) { return vm[j]; }) *
+          gamma;
+      const float gt = clampf(gamma * (1.f - alpha) / alpha, kVarMin, kVarMax);
+      const float dm = warp_torch_mean(p, P.vec4_p, P.inv_p, [&](int k) {
+        const float sk = __ldg(s2 + k);
+        return sk / (sk + P.sigma2 * gt);
+      });
+      if (lane == 0) {
+        s_alpha[m] = alpha;
+        s_gt[m] = gt;
+        s_dmean[m] = dm;
+        s_gnext[m] = P.rho * (gt * dm / (P.eta - dm)) + P.omr * gamma;
+      }
+    }
+    __syncthreads();
+
+    // ---- 3. r_tilde = (xmmse - alpha r) / (1 - alpha), written over r ----
+    for (size_t e = tid; e < static_cast<size_t>(nrows) * N; e += kThreads) {
+      const int m = static_cast<int>(e / N);
+      if (!s_act[m]) continue;
+      const float alpha = s_alpha[m], oma = 1.f - alpha;
+      const float2 x = xm[e], v = r[e];
+      r[e] = make_float2((x.x - alpha * v.x) / oma, (x.y - alpha * v.y) / oma);
+    }
+    __syncthreads();
+
+    // ---- 4. w = (d / d_mean) (y_tilde - r_tilde Vh^T) ---------------------
+    for (int n0 = 0; n0 < p; n0 += kBN) {
+      float cr[4][4], ci[4][4];
+      product_tile<true>(r, N, nrows, Vh, N, p, N, n0, sm, cr, ci);
+      for (int i = 0; i < 4; ++i) {
+        const int m = 4 * ty + i;
+        if (m >= nrows || !s_act[m]) continue;
+        const float gt = s_gt[m], dm = s_dmean[m];
+        for (int j = 0; j < 4; ++j) {
+          const int k = n0 + 4 * tx + j;
+          if (k >= p) continue;
+          const float sk = __ldg(s2 + k);
+          const float sc = sk / (sk + P.sigma2 * gt) / dm;
+          const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
+          w[static_cast<size_t>(m) * p + k] =
+              make_float2(sc * (y.x - cr[i][j]), sc * (y.y - ci[i][j]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- 5. r = r_tilde + eta w conj(Vh) ----------------------------------
+    for (int n0 = 0; n0 < N; n0 += kBN) {
+      float cr[4][4], ci[4][4];
+      product_tile<false>(w, p, nrows, Vh, N, N, p, n0, sm, cr, ci);
+      for (int i = 0; i < 4; ++i) {
+        const int m = 4 * ty + i;
+        if (m >= nrows || !s_act[m]) continue;
+        for (int j = 0; j < 4; ++j) {
+          const int jc = n0 + 4 * tx + j;
+          if (jc >= N) continue;
+          const size_t e = static_cast<size_t>(m) * N + jc;
+          const float2 t = r[e];
+          r[e] = make_float2(t.x + P.eta * cr[i][j], t.y + P.eta * ci[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < nrows && s_act[tid]) {
+      s_T[tid] = s_T[tid] + 1;
+      s_gamma[tid] = s_gnext[tid];
+      s_act[tid] = s_bad[tid];
+    }
+  }
+
+  __syncthreads();
+  if (tid < nrows) {
+    P.act[row0 + tid] = s_act[tid];
+    P.T[row0 + tid] = s_T[tid];
+    P.gamma[row0 + tid] = s_gamma[tid];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the decode of B trials on `stream`.  The state buffers are
+// updated in place (the caller passes copies).  Returns a cudaError_t code
+// (0 on success): cudaErrorInvalidValue for a geometry the kernel does not
+// take, else cudaGetLastError() after the launch.  The kernel allocates
+// nothing; every buffer is the caller's.
+int fused_vamp2_decode(void* r, void* gamma, void* var, void* xm, void* act,
+                       void* T, const void* yt, const void* s2,
+                       const void* Vh, void* w, const void* sym_re,
+                       const void* sym_im, int B, int N, int p, int M, int K,
+                       int vec4_p, int vec4_N, float sigma2, float eta,
+                       float rho, float omr, float inv_p, float inv_N,
+                       int cap, void* stream) {
+  if (K < 1 || K > decode::kMaxK || M < 1 || N % M != 0 || B < 1 || p < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params P;
+  P.r = static_cast<float2*>(r);
+  P.gamma = static_cast<float*>(gamma);
+  P.var = static_cast<float*>(var);
+  P.xm = static_cast<float2*>(xm);
+  P.act = static_cast<int*>(act);
+  P.T = static_cast<int*>(T);
+  P.yt = static_cast<const float2*>(yt);
+  P.s2 = static_cast<const float*>(s2);
+  P.Vh = static_cast<const float2*>(Vh);
+  P.w = static_cast<float2*>(w);
+  P.sym_re = static_cast<const float*>(sym_re);
+  P.sym_im = static_cast<const float*>(sym_im);
+  P.B = B;
+  P.N = N;
+  P.p = p;
+  P.M = M;
+  P.K = K;
+  P.vec4_p = vec4_p;
+  P.vec4_N = vec4_N;
+  P.sigma2 = sigma2;
+  P.eta = eta;
+  P.rho = rho;
+  P.omr = omr;
+  P.inv_p = inv_p;
+  P.inv_N = inv_N;
+  P.cap = cap;
+  const dim3 grid((B + kBt - 1) / kBt);
+  const cudaError_t err = cudaFuncSetAttribute(
+      vamp2_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vamp2_decode_kernel<<<grid, kThreads, kSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* fused_vamp2_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

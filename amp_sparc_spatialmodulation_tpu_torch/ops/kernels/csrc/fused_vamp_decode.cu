@@ -1,0 +1,310 @@
+// Whole VAMP decode on an NVIDIA Hopper GPU: one thread block per tile of 64
+// trials, with the iteration loop inside the block.
+//
+// Replaces the TPU kernel amp_sparc_spatialmodulation_tpu/ops/pallas/
+// fused_vamp.py:73 _vamp_decode_kernel (reached through
+// FusedVampDecode.decode_call).  Each iteration of a tile runs, with s^2 the
+// squared singular values and eta = p / N,
+//
+//   1. q = r_tilde Vh^T (K = N); scale = 1 / (s^2 + sigma2 / sigma2_tilde);
+//      w = scale (y_tilde + (sigma2 / sigma2_tilde) q) - q; the sum of scale
+//      over p gives var_lmmse = mean(scale) sigma2, then
+//      x_var = eta var_lmmse + (1 - eta) sigma2_tilde,
+//      alpha = clip(x_var / sigma2_tilde, 1e-5, 1 - 1e-5) and
+//      tau = clip(alpha / (1 - alpha) sigma2_tilde, 1e-9, 1e5);
+//   2. x_tilde = w conj(Vh) + r_tilde (K = p);
+//      r = (x_tilde - alpha r_tilde) / (1 - alpha);
+//   3. per segment of M lanes (contiguous in the flat index l*Nt + antenna)
+//      the softmax posterior of r with effective noise tau, WITHOUT the
+//      tau/2 halving, decomposed variance; the per-trial allclose of the
+//      variance against the previous one; dxdr = clip(mean(var) / tau,
+//      1e-5, 1 - 1e-5); r_tilde = (xmmse - dxdr r) / (1 - dxdr) and
+//      sigma2_tilde = clip(tau dxdr / (1 - dxdr), 1e-9, 1e5).
+//
+// Trials that were already converged at the start of an iteration keep
+// their state; the tile stops when its last trial has converged or the
+// remaining budget cap is spent, so T per trial is the plain loop's.  Each
+// block reads its realization's factor: the launch takes C stacked factors
+// (C, p, N) and C * B_per trials, realization-major (the TPU kernel's
+// batched mode, fused_vamp.py:101-116); C = 1 is the single decode.
+//
+// Bound on this card: FP32 operations.  The two products are 8 real
+// products of 2 N p flop per trial and iteration (the 4-product complex
+// form): at the main path (N = 2560, p = 528, 65536 trials, cap 10) about
+// 1.42e13 flop, 212 ms at 67 TFLOP/s, against about 9.7 GB that the decode
+// must read and write (2.9 ms at 3.35 TB/s).  Neither operand fits a
+// block: Vh is 10.8 MB (it is served from the 50 MB L2 to every block) and
+// a trial's state is 7 x 2560 floats.  So the tile's state stays in device
+// memory, in the output buffers, and the products stream both operands
+// through shared memory in steps of 16, each thread holding a 4 x 4 complex
+// register tile of a 64 x 64 output tile (64 FMAs per four 16-byte shared
+// loads).  The tile height of 64 trials sets the traffic on Vh: every
+// block reads it twice per iteration.  All arithmetic is FP32 on the CUDA
+// cores: the stop test needs it (no TF32).  The complex products use the
+// 4-product form, not the TPU kernel's Gauss 3-multiply form: it keeps the
+// factor as it is (no combination planes) and has no cancellation in
+// k1 - k3; the Gauss form would save a quarter of the multiplies.  The sum
+// over k is blocked (vamp_common.cuh, product_tile), which costs about 9%
+// of the time against one FMA chain over k but keeps the mean T of
+// decodes that stop by the allclose test near the float64 decode's.  The
+// kernel does not match the plain version bit for bit (cuBLAS sums in
+// another order, which also changes with the batch size); r, which divides
+// by 1 - alpha (down to 1e-5), carries that order noise amplified.
+//
+// Layouts: every state plane is per-trial contiguous, complex values
+// interleaved (PyTorch complex64): r_tilde, r, xmmse (B, N), var (B, N),
+// sigma2_tilde (B, 1), y_tilde (B, p); Vh (C, p, N) complex64, s^2 (C, p);
+// the scratch w (B, p) complex64 holds the first product's epilogue.
+// Built with -fmad=false like the other kernels: every FMA is explicit.
+
+#include "vamp_common.cuh"
+
+namespace {
+
+using namespace vamp;
+
+constexpr float kVrMin = 1e-5f;          // vamp.py:51-52
+constexpr float kVrMax = 1.0f - 1e-5f;
+constexpr float kVarMin = 1e-9f;         // vamp.py:53-54
+constexpr float kVarMax = 1e5f;
+
+struct Params {
+  float2* rt;         // r_tilde (B, N), in/out
+  float* s2t;         // sigma2_tilde (B,), in/out
+  float2* r;          // (B, N), in/out
+  float* var;         // (B, N), in/out
+  float2* xm;         // xmmse (B, N), in/out
+  int* act;           // (B,), in/out
+  int* T;             // (B,), in/out
+  const float2* yt;   // y_tilde (B, p)
+  const float* s2;    // (C, p)
+  const float2* Vh;   // (C, p, N)
+  float2* w;          // scratch (B, p)
+  const float* sym_re;
+  const float* sym_im;
+  int B_per, N, p, M, K, vec4_p, vec4_N;
+  float sigma2, eta, ometa, inv_p, inv_N;  // ometa = 1 - eta from double
+  int cap;  // remaining iteration budget
+};
+
+__global__ void __launch_bounds__(kThreads, 2) vamp_decode_kernel(Params P) {
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gm = tid / kGroup, gl = tid % kGroup;  // denoiser: trial, lane
+  const int c = blockIdx.y;
+  const int first = blockIdx.x * kBt;
+  const int nrows = min(kBt, P.B_per - first);
+  const size_t row0 = static_cast<size_t>(c) * P.B_per + first;
+  const int N = P.N, p = P.p, M = P.M;
+  const float2* Vh = P.Vh + static_cast<size_t>(c) * p * N;
+  const float* s2 = P.s2 + static_cast<size_t>(c) * p;
+  float2* rt = P.rt + row0 * N;
+  float2* r = P.r + row0 * N;
+  float* var = P.var + row0 * N;
+  float2* xm = P.xm + row0 * N;
+  const float2* yt = P.yt + row0 * p;
+  float2* w = P.w + row0 * p;
+
+  extern __shared__ float4 smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  __shared__ int s_act[kBt], s_T[kBt], s_bad[kBt];
+  __shared__ float s_s2t[kBt], s_vr[kBt], s_alpha[kBt], s_tau[kBt],
+      s_dxdr[kBt];
+
+  if (tid < kBt) {
+    const bool valid = tid < nrows;
+    s_act[tid] = valid ? P.act[row0 + tid] : 0;
+    s_T[tid] = valid ? P.T[row0 + tid] : 0;
+    s_s2t[tid] = valid ? P.s2t[row0 + tid] : 1.f;
+  }
+
+  for (int it = 0; it < P.cap; ++it) {
+    if (!__syncthreads_or(tid < kBt && s_act[tid])) break;
+
+    // ---- per trial: sigma2 / sigma2_tilde, var_lmmse, alpha, tau ---------
+    // (scale depends on the trial only through vr, so its mean over p is
+    // taken before the product, a warp per trial)
+    for (int m = warp; m < nrows; m += kWarps) {
+      const float vr = (1.f / s_s2t[m]) * P.sigma2;
+      const float mean = warp_torch_mean(p, P.vec4_p, P.inv_p, [&](int k) {
+        return 1.f / (__ldg(s2 + k) + vr);
+      });
+      if (lane == 0) {
+        const float s2t = s_s2t[m];
+        const float xv = P.eta * (mean * P.sigma2) + P.ometa * s2t;
+        const float a = clampf(xv / s2t, kVrMin, kVrMax);
+        s_vr[m] = vr;
+        s_alpha[m] = a;
+        s_tau[m] = clampf(a / (1.f - a) * s2t, kVarMin, kVarMax);
+      }
+    }
+    __syncthreads();
+
+    // ---- 1. q = r_tilde Vh^T, w = scale (y_tilde + vr q) - q ------------
+    for (int n0 = 0; n0 < p; n0 += kBN) {
+      float cr[4][4], ci[4][4];
+      product_tile<true>(rt, N, nrows, Vh, N, p, N, n0, sm, cr, ci);
+      for (int i = 0; i < 4; ++i) {
+        const int m = 4 * ty + i;
+        if (m >= nrows || !s_act[m]) continue;
+        const float vr = s_vr[m];
+        for (int j = 0; j < 4; ++j) {
+          const int k = n0 + 4 * tx + j;
+          if (k >= p) continue;
+          const float sc = 1.f / (__ldg(s2 + k) + vr);
+          const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
+          const float xr = sc * (y.x + vr * cr[i][j]);
+          const float xi = sc * (y.y + vr * ci[i][j]);
+          w[static_cast<size_t>(m) * p + k] =
+              make_float2(xr - cr[i][j], xi - ci[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- 2. x_tilde = w conj(Vh) + r_tilde, r = (x_tilde - a r_tilde)/(1-a)
+    for (int n0 = 0; n0 < N; n0 += kBN) {
+      float cr[4][4], ci[4][4];
+      product_tile<false>(w, p, nrows, Vh, N, N, p, n0, sm, cr, ci);
+      for (int i = 0; i < 4; ++i) {
+        const int m = 4 * ty + i;
+        if (m >= nrows || !s_act[m]) continue;
+        const float a = s_alpha[m], oma = 1.f - a;
+        for (int j = 0; j < 4; ++j) {
+          const int jc = n0 + 4 * tx + j;
+          if (jc >= N) continue;
+          const size_t e = static_cast<size_t>(m) * N + jc;
+          const float2 t = rt[e];
+          const float xr = cr[i][j] + t.x, xi = ci[i][j] + t.y;
+          r[e] = make_float2((xr - a * t.x) / oma, (xi - a * t.y) / oma);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- 3. denoiser and allclose: kGroup threads per trial --------------
+    {
+      const bool on = gm < nrows && s_act[gm];
+      const float tau = s_tau[gm];
+      int bad = 0;
+      if (on) {
+        for (int sg = gl; sg * M < N; sg += kGroup) {
+          const size_t j0 = static_cast<size_t>(gm) * N +
+                            static_cast<size_t>(sg) * M;
+          float2* xo = xm + j0;
+          float* vo = var + j0;
+          bad |= segment_posterior<false>(
+              M, P.K, P.sym_re, P.sym_im, r + j0, tau,
+              [=](int i, float mr, float mi, float v) {
+                xo[i] = make_float2(mr, mi);
+                const int flag = not_close(v, vo[i]);
+                vo[i] = v;
+                return flag;
+              });
+        }
+      }
+      bad = group_or(bad);
+      if (on && gl == 0) s_bad[gm] = bad;
+    }
+    __syncthreads();
+
+    // ---- 4. dxdr = mean(var) / tau and sigma2_tilde: a warp per trial ----
+    for (int m = warp; m < nrows; m += kWarps) {
+      if (!s_act[m]) continue;
+      const float* vm = var + static_cast<size_t>(m) * N;
+      const float mean = warp_torch_mean(N, P.vec4_N, P.inv_N,
+                                         [&](int j) { return vm[j]; });
+      if (lane == 0) {
+        const float tau = s_tau[m];
+        const float dxdr = clampf(mean / tau, kVrMin, kVrMax);
+        s_dxdr[m] = dxdr;
+        s_s2t[m] = clampf(tau * dxdr * (1.f / (1.f - dxdr)), kVarMin,
+                          kVarMax);
+        s_T[m] = s_T[m] + 1;
+      }
+    }
+    __syncthreads();
+
+    // ---- 5. r_tilde = (xmmse - dxdr r) / (1 - dxdr) -----------------------
+    for (size_t e = tid; e < static_cast<size_t>(nrows) * N; e += kThreads) {
+      const int m = static_cast<int>(e / N);
+      if (!s_act[m]) continue;
+      const float dxdr = s_dxdr[m], norm = 1.f / (1.f - dxdr);
+      const float2 x = xm[e], v = r[e];
+      rt[e] = make_float2((x.x - dxdr * v.x) * norm,
+                          (x.y - dxdr * v.y) * norm);
+    }
+    __syncthreads();
+    if (tid < nrows && s_act[tid]) s_act[tid] = s_bad[tid];
+  }
+
+  __syncthreads();
+  if (tid < nrows) {
+    P.act[row0 + tid] = s_act[tid];
+    P.T[row0 + tid] = s_T[tid];
+    P.s2t[row0 + tid] = s_s2t[tid];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the decode of C * B_per trials on C stacked factors on `stream`.
+// The state buffers are updated in place (the caller passes copies).
+// Returns a cudaError_t code (0 on success): cudaErrorInvalidValue for a
+// geometry the kernel does not take, else cudaGetLastError() after the
+// launch.  The kernel allocates nothing; every buffer is the caller's.
+int fused_vamp_decode(void* rt, void* s2t, void* r, void* var, void* xm,
+                      void* act, void* T, const void* yt, const void* s2,
+                      const void* Vh, void* w, const void* sym_re,
+                      const void* sym_im, int C, int B_per, int N, int p,
+                      int M, int K, int vec4_p, int vec4_N, float sigma2,
+                      float eta, float ometa, float inv_p, float inv_N,
+                      int cap, void* stream) {
+  if (K < 1 || K > decode::kMaxK || M < 1 || N % M != 0 || C < 1 ||
+      C > 65535 || B_per < 1 || p < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params P;
+  P.rt = static_cast<float2*>(rt);
+  P.s2t = static_cast<float*>(s2t);
+  P.r = static_cast<float2*>(r);
+  P.var = static_cast<float*>(var);
+  P.xm = static_cast<float2*>(xm);
+  P.act = static_cast<int*>(act);
+  P.T = static_cast<int*>(T);
+  P.yt = static_cast<const float2*>(yt);
+  P.s2 = static_cast<const float*>(s2);
+  P.Vh = static_cast<const float2*>(Vh);
+  P.w = static_cast<float2*>(w);
+  P.sym_re = static_cast<const float*>(sym_re);
+  P.sym_im = static_cast<const float*>(sym_im);
+  P.B_per = B_per;
+  P.N = N;
+  P.p = p;
+  P.M = M;
+  P.K = K;
+  P.vec4_p = vec4_p;
+  P.vec4_N = vec4_N;
+  P.sigma2 = sigma2;
+  P.eta = eta;
+  P.ometa = ometa;
+  P.inv_p = inv_p;
+  P.inv_N = inv_N;
+  P.cap = cap;
+  const dim3 grid((B_per + kBt - 1) / kBt, C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      vamp_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vamp_decode_kernel<<<grid, kThreads, kSmemBytes,
+                    static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* fused_vamp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

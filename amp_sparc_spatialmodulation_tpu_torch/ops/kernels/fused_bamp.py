@@ -102,6 +102,16 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{name} is a lazily conjugated or negated view")
+
+
+def symbol_planes(cfg: Config, device):
+    """The symbol table as float32 real and imaginary planes on
+    ``device``, as every kernel takes it."""
+    syms = np.asarray(cfg.symbols)
+    return (torch.as_tensor(syms.real.astype(np.float32), device=device),
+            torch.as_tensor(syms.imag.astype(np.float32), device=device))
 
 
 def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
@@ -142,9 +152,7 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     a2 = op.abs_h2.contiguous()
     a2T = a2.transpose(1, 2).contiguous()
     gains2 = op.gains2.contiguous()
-    syms = np.asarray(cfg.symbols)
-    sym_re = torch.as_tensor(syms.real.astype(np.float32), device=dev)
-    sym_im = torch.as_tensor(syms.imag.astype(np.float32), device=dev)
+    sym_re, sym_im = symbol_planes(cfg, dev)
     cap_rem = max(int(cap) - int(s0.t), 0)
     lib = _library()
     rc = lib.fused_bamp_decode(

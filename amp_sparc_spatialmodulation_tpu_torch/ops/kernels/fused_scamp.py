@@ -30,7 +30,7 @@ import torch
 from ...config import Config
 from ...models import scamp
 from . import build
-from .fused_bamp import SMEM_LIMIT, _TRUNC, _check, real_x
+from .fused_bamp import SMEM_LIMIT, _TRUNC, _check, real_x, symbol_planes
 
 # Kernel launches made by whole_decode.
 launches = 0
@@ -81,6 +81,13 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def vec4(n: int) -> bool:
+    """Does PyTorch's CUDA sum over a contiguous last dimension of ``n``
+    elements vectorize its loads by four?  The kernels' per-trial sums
+    follow it (``warp_torch_sum`` in ``csrc/decode_common.cuh``)."""
+    return n >= VEC4_MIN and n % 4 == 0
+
+
 def _recip(v: int) -> float:
     """The float32 reciprocal PyTorch's CUDA division by a Python number
     multiplies with: ``1.0f / v``."""
@@ -124,11 +131,8 @@ def whole_decode(op, W: torch.Tensor, s0: scamp.SCAMPState, y: torch.Tensor,
         z=torch.empty_like(s0.z), active=torch.empty_like(act_in),
         T=torch.empty_like(T_in), t=s0.t)
     hT = op.h.transpose(1, 2).contiguous()
-    syms = np.asarray(cfg.symbols)
-    sym_re = torch.as_tensor(syms.real.astype(np.float32), device=dev)
-    sym_im = torch.as_tensor(syms.imag.astype(np.float32), device=dev)
+    sym_re, sym_im = symbol_planes(cfg, dev)
     cap_rem = max(int(cap) - int(s0.t), 0)
-    vec4 = cfg.Mc >= VEC4_MIN and cfg.Mc % 4 == 0
     lib = _library()
     rc = lib.fused_scamp_decode(
         y.data_ptr(), s0.xmap.data_ptr(), s0.xmmse.data_ptr(),
@@ -140,7 +144,7 @@ def whole_decode(op, W: torch.Tensor, s0: scamp.SCAMPState, y: torch.Tensor,
         op.h.data_ptr(), hT.data_ptr(), op.gains.data_ptr(), W.data_ptr(),
         sym_re.data_ptr(), sym_im.data_ptr(),
         B, cfg.Nt, cfg.Nr, Lin, Lout, cfg.Lh, _TRUNC[cfg.trunc], cfg.M,
-        cfg.K, int(real_x(cfg)), int(bool(estimate_phi)), int(vec4),
+        cfg.K, int(real_x(cfg)), int(bool(estimate_phi)), int(vec4(cfg.Mc)),
         float(np.float32(sigma2)), float(cfg.L), _recip(cfg.Lc),
         _recip(cfg.Mr), _recip(cfg.Na), cap_rem, smem_bytes(cfg),
         torch.cuda.current_stream(dev).cuda_stream)

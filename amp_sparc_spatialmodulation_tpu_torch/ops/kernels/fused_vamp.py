@@ -1,0 +1,158 @@
+"""Whole-decode VAMP kernel (CUDA) with its wrapper and plain version.
+
+Port of the JAX package's ``ops/pallas/fused_vamp.py::_vamp_decode_kernel``
+(through ``FusedVampDecode.decode_call``): the whole VAMP decode of a batch
+on one channel SVD — the two dense products with ``Vh`` per iteration, the
+SV-domain LMMSE stage, the extrinsic subtraction, the segmented softmax
+without ``tau/2``, the extrinsic update, per-trial allclose, freeze and
+``T`` — with the iteration loop inside the kernel.  The CUDA source is
+``csrc/fused_vamp_decode.cu``: one thread block per tile of 64 trials, its
+state in device memory, so each tile stops at its own slowest trial.  The
+kernel also takes a (C, p, N) stack of factors, C realizations' trials
+realization-major, each block reading its own realization's factor
+(`fused_vamp.py:101-116`); :func:`..models.vamp.decode_batched` uses it.
+
+* :func:`whole_decode` is the wrapper.  On a CUDA tensor it launches the
+  kernel (or raises); on a CPU tensor it runs :func:`decode_plain`.
+* :func:`decode_plain` is the same function in plain PyTorch: the
+  ``vamp.plain_loop`` of :mod:`..models.vamp`, once per realization.
+* ``launches`` counts kernel launches.
+
+Both take and return a :class:`..models.vamp.VAMPState` in the JAX layouts
+and are resumable: ``cap`` is the global iteration cap, and the result's
+``active``, ``T`` and ``t`` follow ``vamp.py:121-142``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ...config import Config
+from ...models import vamp
+from . import build
+from .fused_bamp import _check, symbol_planes
+from .fused_scamp import _recip, vec4
+
+# Kernel launches made by whole_decode.
+launches = 0
+
+
+def covers(cfg: Config) -> bool:
+    """Can the kernel decode ``cfg``?  Complex segmented/sparc alphabets,
+    the JAX ``FusedVampDecode.covers`` rule (`fused_vamp.py:245-250`).
+    Nothing else limits it: the state lives in device memory."""
+    return (cfg.mode in ("segmented", "sparc") and cfg.is_complex
+            and cfg.M > 0)
+
+
+def _factors(Vh: torch.Tensor):
+    """(C, p, N) of one factor (C = 0) or of a (C, p, N) stack."""
+    if Vh.dim() == 2:
+        return (0,) + tuple(Vh.shape)
+    return tuple(Vh.shape)
+
+
+def decode_plain(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
+                 s0: vamp.VAMPState, sigma2: float, cap: int,
+                 cfg: Config) -> vamp.VAMPState:
+    """The kernel's function in plain PyTorch (any device), with the
+    wrapper's signature: ``vamp.plain_loop`` on one factor, or on each
+    realization's rows of a (C, p, N) stack in turn."""
+    C, _, _ = _factors(Vh)
+    if C == 0:
+        return vamp.plain_loop(Vh, s2, y_tilde, s0, sigma2, cap, cfg)
+    B = y_tilde.shape[0] // C
+    parts = []
+    for c in range(C):
+        rows = slice(c * B, (c + 1) * B)
+        sub = s0._replace(**{f: getattr(s0, f)[rows]
+                             for f in s0._fields if f != "t"})
+        parts.append(vamp.plain_loop(Vh[c], s2[c], y_tilde[rows], sub,
+                                     sigma2, cap, cfg))
+    # the fields concatenated; t the largest (the global counter rule holds
+    # for the union)
+    return parts[0]._replace(t=max(int(p.t) for p in parts), **{
+        f: torch.cat([getattr(p, f) for p in parts])
+        for f in parts[0]._fields if f != "t"})
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("fused_vamp_decode")
+    if not getattr(lib, "_typed", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_vamp_decode.argtypes = (
+            [ptr] * 13 + [i32] * 8 + [f32] * 5 + [i32, ptr])
+        lib.fused_vamp_decode.restype = i32
+        lib.fused_vamp_error_string.argtypes = [i32]
+        lib.fused_vamp_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
+                 s0: vamp.VAMPState, sigma2: float, cap: int,
+                 cfg: Config) -> vamp.VAMPState:
+    """The whole decode of the trials of ``y_tilde`` from state ``s0`` up
+    to global iteration ``cap``: the CUDA kernel for a CUDA tensor,
+    :func:`decode_plain` for a CPU tensor.
+
+    ``Vh`` is the (p, N) factor and ``s2`` the (p,) squared singular
+    values, or (C, p, N) and (C, p) stacks whose realization c owns rows
+    ``c*B/C .. (c+1)*B/C - 1`` of the state and of ``y_tilde`` (B, p).  The
+    caller has checked :func:`covers` (``vamp.decode`` does)."""
+    if y_tilde.device.type == "cpu":
+        return decode_plain(Vh, s2, y_tilde, s0, sigma2, cap, cfg)
+    if y_tilde.device.type != "cuda":
+        raise ValueError(f"no kernel for device {y_tilde.device}")
+    global launches
+    C, p, N = _factors(Vh)
+    B = y_tilde.shape[0]
+    dev = y_tilde.device
+    c64, f32 = torch.complex64, torch.float32
+    if C and B % C:
+        raise ValueError(f"{B} trials do not split into {C} realizations")
+    _check("Vh", Vh, (C, p, N) if C else (p, N), c64, dev)
+    _check("s2", s2, (C, p) if C else (p,), f32, dev)
+    _check("y_tilde", y_tilde, (B, p), c64, dev)
+    _check("r_tilde", s0.r_tilde, (B, N), c64, dev)
+    _check("sigma2_tilde", s0.sigma2_tilde, (B, 1), f32, dev)
+    _check("r", s0.r, (B, N), c64, dev)
+    _check("var", s0.var, (B, N), f32, dev)
+    _check("xmmse", s0.xmmse, (B, N), c64, dev)
+    if N != cfg.N or N % cfg.M:
+        raise ValueError("factor width differs from the config")
+    if B == 0:
+        return s0
+    # The kernel updates the state in place: it gets copies.
+    out = vamp.VAMPState(
+        r_tilde=s0.r_tilde.clone(), sigma2_tilde=s0.sigma2_tilde.clone(),
+        r=s0.r.clone(), var=s0.var.clone(), xmmse=s0.xmmse.clone(),
+        active=s0.active.to(torch.int32),
+        T=s0.T.to(torch.int32, copy=True), t=s0.t)
+    scratch = torch.empty((B, p), dtype=c64, device=dev)
+    sym_re, sym_im = symbol_planes(cfg, dev)
+    cap_rem = max(int(cap) - int(s0.t), 0)
+    lib = _library()
+    rc = lib.fused_vamp_decode(
+        out.r_tilde.data_ptr(), out.sigma2_tilde.data_ptr(),
+        out.r.data_ptr(), out.var.data_ptr(), out.xmmse.data_ptr(),
+        out.active.data_ptr(), out.T.data_ptr(),
+        y_tilde.data_ptr(), s2.data_ptr(), Vh.data_ptr(), scratch.data_ptr(),
+        sym_re.data_ptr(), sym_im.data_ptr(),
+        max(C, 1), B // max(C, 1), N, p, cfg.M, cfg.K, int(vec4(p)),
+        int(vec4(N)), float(np.float32(sigma2)), float(np.float32(p / N)),
+        float(np.float32(1.0 - p / N)), _recip(p), _recip(N), cap_rem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("fused_vamp_decode launch failed: "
+                           + lib.fused_vamp_error_string(rc).decode())
+    launches += 1
+    active = out.active > 0
+    # Global counter semantics of the XLA loop (`vamp.py:137-138`): ran to
+    # cap if any trial is still active, else stopped when the slowest
+    # trial froze.
+    t = max(int(s0.t), int(cap) if bool(active.any())
+            else int(out.T.max()))
+    return out._replace(active=active, t=t)

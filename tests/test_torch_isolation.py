@@ -67,14 +67,17 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
-    with pytest.raises(RuntimeError):
-        Simulator(flagship_bamp_ook(), algo="bamp")
-    Simulator(flagship_bamp_ook(), algo="bamp", device="cpu")
+    for algo in ("bamp", "vamp", "vamp2"):
+        with pytest.raises(RuntimeError):
+            Simulator(flagship_bamp_ook(), algo=algo)
+        Simulator(flagship_bamp_ook(), algo=algo, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["operator_from_numpy", "message_from_numpy",
                                   "state_from_numpy",
-                                  "scamp_state_from_numpy"])
+                                  "scamp_state_from_numpy",
+                                  "svd_from_numpy", "vamp_state_from_numpy",
+                                  "vamp2_state_from_numpy"])
 def test_interop_constructors_take_no_default_device(name):
     """The NumPy-in constructors place nothing on a device by default."""
     import inspect

@@ -165,10 +165,16 @@ def test_simulate_writes_artifacts_stops_and_resumes(tmp_path):
         assert resumed[e]["fer"] == pytest.approx(out[e]["fer"])
 
 
-@pytest.mark.parametrize("algo,item", [("vamp", "9"), ("vamp2", "9")])
-def test_other_algorithms_raise(algo, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        mc.Simulator(Config(**BASE), algo=algo, device="cpu")
+@pytest.mark.parametrize("algo", ["vamp", "vamp2"])
+def test_other_algorithms_raise(algo):
+    """VAMP and vamp2 construct (dense form under 'auto'); the banded form
+    and an unknown algorithm raise."""
+    sim = mc.Simulator(Config(**BASE), algo=algo, device="cpu")
+    assert sim.path.split(os.sep)[-4] == mc.ALGO_DIRS[algo]
+    assert mc.resolve_operator_form("sparc", "auto", algo) == "dense"
+    with pytest.raises(ValueError, match="dense"):
+        mc.Simulator(Config(**BASE), algo=algo, device="cpu",
+                     operator_form="banded")
     with pytest.raises(ValueError):
         mc.Simulator(Config(**BASE), algo="nope", device="cpu")
 
