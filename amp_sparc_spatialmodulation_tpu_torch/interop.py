@@ -102,6 +102,28 @@ def vamp2_state_from_numpy(r, gamma, var, xmmse, active, T, t,
                       T=_t(T, torch.int32, device), t=int(t))
 
 
+def plane_from_jax(a, device) -> torch.Tensor:
+    """A JAX kernel plane, (blocks, B, width) float32 (``_to_x`` /
+    ``_to_y`` of the JAX package's ``fused_bamp.py:919-932``), in the port's
+    trial-major layout (B, blocks * width)."""
+    a = np.asarray(a, np.float32)
+    return _t(a.transpose(1, 0, 2).reshape(a.shape[1], -1), torch.float32,
+              device)
+
+
+def plane_to_jax(t: torch.Tensor, blocks: int) -> np.ndarray:
+    """A port plane (B, blocks * width) in the JAX kernels' layout
+    (blocks, B, width)."""
+    a = t.detach().cpu().numpy()
+    return a.reshape(a.shape[0], blocks, -1).transpose(1, 0, 2).copy()
+
+
+def notok_from_jax(notok) -> np.ndarray:
+    """The JAX kernels' per-(block, trial) ``notok`` (blocks, B, 1) as the
+    port's per-trial count (B,)."""
+    return np.asarray(notok).sum(axis=0)[:, 0].astype(np.int32)
+
+
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     """The fields of a decoder state (:class:`BAMPState`,
     :class:`SCAMPState`, :class:`VAMPState` or :class:`VAMP2State`) as

@@ -9,16 +9,20 @@ stopping on the posterior variance (`bamp.py:136-141`), and the reported
 iteration count ``t+1`` (`bamp.py:142`).
 
 Converged trials freeze while the rest of the batch iterates, so each
-trial's ``T`` is what a one-trial decode reports.  On a banded operator
-with a config the CUDA kernel covers, :func:`decode` runs the whole decode
-through :func:`..ops.kernels.fused_bamp.whole_decode` (the kernel on the
-card, its plain version on the CPU); everything else runs the plain
-PyTorch loop below.
+trial's ``T`` is what a one-trial decode reports.  :func:`decode` picks
+its route with :func:`route`, the JAX package's chain of
+``models/bamp.py:256-295``: the whole-decode kernel K1
+(:mod:`..ops.kernels.fused_bamp`), the per-iteration kernel K6
+(:mod:`..ops.kernels.fused_bamp_iteration`) or the frame-tiled iteration
+kernel K5 (:mod:`..ops.kernels.fused_bamp_tiled`), else the plain PyTorch
+loop.  The per-iteration kernels run inside :func:`plane_loop`.  On the CPU
+each kernel's wrapper runs its plain version.
 """
 from __future__ import annotations
 
+import os
 from functools import partial
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +56,44 @@ class DecodeResult(NamedTuple):
     T: torch.Tensor       # (B,) int32 per-trial iterations (reference `t+1`)
 
 
+class PlaneState(NamedTuple):
+    """BAMP state in the per-iteration kernels' layout: split-real float32
+    planes, trial-major — x-side (B, N) = (B, Lin, Nt), y-side (B, n) =
+    (B, Lout, Nr).  The JAX package's planes are the same blocks in
+    (Lin, B, Nt) / (Lout, B, Nr) order (:mod:`..interop` converts)."""
+
+    xmap_re: torch.Tensor
+    xmap_im: torch.Tensor
+    xm_re: torch.Tensor
+    xm_im: torch.Tensor
+    var: torch.Tensor
+    z_re: torch.Tensor
+    z_im: torch.Tensor
+    u: torch.Tensor
+    active: torch.Tensor
+    T: torch.Tensor
+    t: int
+
+
+class IterOut(NamedTuple):
+    """One iteration of the per-iteration kernels (the JAX ``plane_call``
+    outputs): the new planes, frozen for trials whose ``active`` is False
+    except ``xmap``, which :func:`plane_loop` freezes (the kernels leave it
+    unwritten for them), and ``notok``, each trial's count of posterior
+    variance entries outside the allclose tolerance (0 for a frozen trial;
+    0 for an active one means it converged)."""
+
+    xmap_re: torch.Tensor
+    xmap_im: torch.Tensor
+    xm_re: torch.Tensor
+    xm_im: torch.Tensor
+    var: torch.Tensor
+    z_re: torch.Tensor
+    z_im: torch.Tensor
+    u: torch.Tensor
+    notok: torch.Tensor   # (B,) int32
+
+
 def _allclose_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-trial ``torch.allclose(a, b)`` (`bamp.py:140`)."""
     return ((a - b).abs() <= _ATOL + _RTOL * b.abs()).all(dim=-1)
@@ -62,6 +104,13 @@ def _freeze(mask: torch.Tensor, new: torch.Tensor,
     """Keep ``old`` for trials that already converged (a selection, so a
     non-finite value in the discarded branch cannot leak)."""
     return torch.where(mask[:, None] if new.ndim == 2 else mask, new, old)
+
+
+def _notok_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-trial count of the entries where :func:`_allclose_rows` fails;
+    0 exactly where it holds."""
+    close = (a - b).abs() <= _ATOL + _RTOL * b.abs()
+    return (~close).sum(dim=-1, dtype=torch.int32)
 
 
 def make_denoiser(cfg: Config, device):
@@ -88,6 +137,15 @@ def make_denoiser(cfg: Config, device):
     return real_denoiser
 
 
+def make_k1_denoiser(cfg: Config, device):
+    """The per-iteration kernel K6's denoiser: the K=1 segmented posterior
+    with tau/2 and the closed-form variance ``|s0|^2 p (1 - p)``
+    (`fused_bamp.py:551-564` of the JAX package)."""
+    return partial(denoise.segmented_posterior,
+                   symbols=torch.as_tensor(cfg.symbols, device=device),
+                   L=cfg.L, M=cfg.M, halve_tau=True, variance="closed")
+
+
 def initial_state(y: torch.Tensor, N: int, sigma2: float) -> BAMPState:
     """The decode's starting state (`bamp.py:113-121`)."""
     B, n = y.shape
@@ -103,6 +161,41 @@ def initial_state(y: torch.Tensor, N: int, sigma2: float) -> BAMPState:
         t=0)
 
 
+def linear_step(op, xmmse, var, z, u, y, sigma2: float):
+    """The linear half of one AMP iteration (`bamp.py:59-63`): returns
+    ``(xmap, cov, z, u)``.  The plain version of kernel K7."""
+    v = op.apply_abs2(var)                                       # (B, n)
+    z = op.apply(xmmse) - denoise.div_real(v * (y - z), u).to(y.dtype)
+    u = v + sigma2
+    cov = 1.0 / op.apply_abs2T(1.0 / u)                          # (B, N)
+    resid = denoise.div_real(y - z, u).to(y.dtype)
+    xmap = xmmse + cov * op.apply_adj(resid)
+    return xmap, cov, z, u
+
+
+def step(op, s: BAMPState, y: torch.Tensor, sigma2: float, denoiser,
+         linear=linear_step) -> Tuple[BAMPState, torch.Tensor]:
+    """One AMP iteration from ``s`` (`bamp.py:59-64`, `:136-142`): the
+    new state, frozen for converged trials, and each trial's count of
+    variance entries outside the allclose tolerance (``notok``; 0 means
+    converged).  The plain version of kernel K5 with the config's
+    denoiser, of kernel K6 with :func:`make_k1_denoiser`.  ``linear`` runs
+    the linear half: :func:`linear_step`, or kernel K7's wrapper, as the
+    JAX loop body can take it (`bamp.py:335-336`)."""
+    xmap, cov, z, u = linear(op, s.xmmse, s.var, s.z, s.u, y, sigma2)
+    xmmse, var = denoiser(xmap, cov)
+    notok = _notok_rows(var, s.var)
+    return BAMPState(
+        xmap=_freeze(s.active, xmap, s.xmap),
+        xmmse=_freeze(s.active, xmmse, s.xmmse),
+        var=_freeze(s.active, var, s.var),
+        z=_freeze(s.active, z, s.z),
+        u=_freeze(s.active, u, s.u),
+        active=s.active & (notok > 0),
+        T=torch.where(s.active, torch.full_like(s.T, s.t + 1), s.T),
+        t=s.t + 1), notok
+
+
 def plain_loop(op, s: BAMPState, y: torch.Tensor, sigma2: float, cap: int,
                cfg: Config) -> BAMPState:
     """The plain PyTorch iteration loop from state ``s``: run until ``t``
@@ -112,28 +205,105 @@ def plain_loop(op, s: BAMPState, y: torch.Tensor, sigma2: float, cap: int,
     sigma2 = float(np.float32(sigma2))
     cap = int(cap)
     denoiser = make_denoiser(cfg, y.device)
-    cdtype = y.dtype
     while s.t < cap and bool(s.active.any()):
-        # One AMP iteration (`bamp.py:59-64`).
-        v = op.apply_abs2(s.var)                                 # (B, n)
-        z = op.apply(s.xmmse) - denoise.div_real(v * (y - s.z),
-                                                 s.u).to(cdtype)
-        u = v + sigma2
-        cov = 1.0 / op.apply_abs2T(1.0 / u)                      # (B, N)
-        resid = denoise.div_real(y - z, u).to(cdtype)
-        xmap = s.xmmse + cov * op.apply_adj(resid)
-        xmmse, var = denoiser(xmap, cov)
-        converged = _allclose_rows(var, s.var)
-        s = BAMPState(
-            xmap=_freeze(s.active, xmap, s.xmap),
-            xmmse=_freeze(s.active, xmmse, s.xmmse),
-            var=_freeze(s.active, var, s.var),
-            z=_freeze(s.active, z, s.z),
-            u=_freeze(s.active, u, s.u),
-            active=s.active & ~converged,
-            T=torch.where(s.active, torch.full_like(s.T, s.t + 1), s.T),
-            t=s.t + 1)
+        s, _ = step(op, s, y, sigma2, denoiser)
     return s
+
+
+def to_planes(s: BAMPState) -> PlaneState:
+    """``s`` in the per-iteration kernels' layout."""
+    part = lambda a: a.contiguous()
+    return PlaneState(
+        xmap_re=part(s.xmap.real), xmap_im=part(s.xmap.imag),
+        xm_re=part(s.xmmse.real), xm_im=part(s.xmmse.imag), var=s.var,
+        z_re=part(s.z.real), z_im=part(s.z.imag), u=s.u,
+        active=s.active, T=s.T, t=int(s.t))
+
+
+def from_planes(ps: PlaneState) -> BAMPState:
+    """The :class:`BAMPState` of ``ps``."""
+    return BAMPState(
+        xmap=torch.complex(ps.xmap_re, ps.xmap_im),
+        xmmse=torch.complex(ps.xm_re, ps.xm_im), var=ps.var,
+        z=torch.complex(ps.z_re, ps.z_im), u=ps.u, active=ps.active,
+        T=ps.T, t=ps.t)
+
+
+def step_planes(op, ps: PlaneState, y_re, y_im, sigma2: float,
+                denoiser) -> IterOut:
+    """:func:`step` on planes, with the per-iteration kernels' outputs:
+    the plain version that their wrappers run on the CPU."""
+    s, notok = step(op, from_planes(ps), torch.complex(y_re, y_im),
+                    float(np.float32(sigma2)), denoiser)
+    p = to_planes(s)
+    return IterOut(p.xmap_re, p.xmap_im, p.xm_re, p.xm_im, p.var, p.z_re,
+                   p.z_im, p.u, torch.where(ps.active, notok, 0))
+
+
+def plane_loop(iteration, op, s0: BAMPState, y: torch.Tensor, sigma2: float,
+               cap: int, cfg: Config) -> BAMPState:
+    """The decode from ``s0`` to global iteration ``cap`` through a
+    per-iteration kernel (the counterpart of ``_fused_plane_loop``,
+    `bamp.py:87-132`): the state goes to the kernels' planes once at entry
+    and back once at exit; each iteration calls
+    ``iteration(op, planes, y_re, y_im, sigma2, cfg)`` (an :class:`IterOut`),
+    freezes xmap, and counts ``active``, ``T = t + 1`` and ``t`` as the
+    plain loop does, so split-and-resume gives the same trajectory.  One
+    host check of ``active`` per iteration."""
+    sigma2 = float(np.float32(sigma2))
+    ps = to_planes(s0)
+    y_re, y_im = y.real.contiguous(), y.imag.contiguous()
+    while ps.t < int(cap) and bool(ps.active.any()):
+        out = iteration(op, ps, y_re, y_im, sigma2, cfg)
+        fz = partial(_freeze, ps.active)
+        ps = PlaneState(
+            xmap_re=fz(out.xmap_re, ps.xmap_re),
+            xmap_im=fz(out.xmap_im, ps.xmap_im),
+            xm_re=out.xm_re, xm_im=out.xm_im, var=out.var,
+            z_re=out.z_re, z_im=out.z_im, u=out.u,
+            active=ps.active & (out.notok > 0),
+            T=torch.where(ps.active, torch.full_like(ps.T, ps.t + 1), ps.T),
+            t=ps.t + 1)
+    return from_planes(ps)
+
+
+def route(cfg: Config, op, B: int, device) -> str:
+    """Which route :func:`decode` takes for ``B`` trials of ``cfg`` on
+    ``op``, decided without launching anything: the JAX chain of
+    ``bamp.py:256-295``.
+
+    * ``'whole'``: K1, when ``AMP_PALLAS_MODE`` is ``whole`` (the default)
+      and K1 covers the config and holds a trial in one block;
+    * ``'periter'``: K6, for K=1 segmented alphabets with M a power of two
+      whose trial fits one block;
+    * ``'tiled'``: K5, for real alphabets with tail truncation and
+      per-tap-constant gains, unless the mode is ``xla``;
+    * ``'plain'``: the plain PyTorch loop.
+
+    As in JAX, ``AMP_PALLAS_MODE=xla`` skips only K1 and K5 (it still takes
+    K6 for K=1 alphabets), and any other value than ``whole`` or ``xla``
+    skips K1.  Unlike JAX, neither the batch size nor a frame tile limits
+    K5: ``B`` is any count (the ragged trial tile is masked).  The chain is
+    the same on both devices; on the CPU each kernel's wrapper runs its
+    plain version."""
+    from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
+                               fused_bamp_tiled)
+
+    if torch.device(device).type not in ("cpu", "cuda"):
+        raise ValueError(f"no decode route for device {device}")
+    if B < 0:
+        raise ValueError(f"batch of {B} trials")
+    if not (isinstance(op, operators.BandedOperator)
+            and fused_bamp.covers(cfg)):
+        return "plain"
+    mode = os.environ.get("AMP_PALLAS_MODE", "whole")
+    if mode == "whole" and fused_bamp.fits(cfg):
+        return "whole"
+    if fused_bamp_iteration.covers(cfg) and fused_bamp_iteration.fits(cfg):
+        return "periter"
+    if mode != "xla" and fused_bamp_tiled.covers(cfg, op):
+        return "tiled"
+    return "plain"
 
 
 def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
@@ -152,18 +322,21 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
             (global count), and/or return the final state.  Splitting a
             decode at any cap and continuing yields the same trajectory.
 
-    A banded operator with a config the kernel covers (complex segmented,
-    sparc or random mode; whole trial in shared memory) goes through the
-    whole-decode CUDA kernel on a CUDA device and its plain version on the
-    CPU.  Other configs (dense operators, the real-channel mode, geometries
-    too large for one block) run the plain PyTorch loop on either device,
-    as the JAX package's ``use_pallas='auto'`` does.
+    The route is :func:`route`'s.  A banded operator with a complex
+    segmented, sparc or random-mode config whose trial fits one block's
+    shared memory takes the whole-decode kernel K1; the massive geometry
+    (``config.massive_mimo()``, OOK) takes the frame-tiled kernel K5.  The
+    plain loop runs dense operators, the real-channel mode, and the
+    geometries that fit no block with a complex alphabet or a truncation
+    other than tail (the massive geometry with QPSK or trunc, the SCAMP
+    8PSK sweep's dimensions under BAMP), as in the JAX package.
 
     Returns:
         :class:`DecodeResult` (and the final :class:`BAMPState` when
         ``return_state``).
     """
-    from ..ops.kernels import fused_bamp
+    from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
+                               fused_bamp_tiled)
 
     op = operators.as_operator(H)
     n, N = op.shape
@@ -171,9 +344,15 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
     if state0 is None:
         state0 = initial_state(y, N, sigma2)
     cap = cfg.N_Layers if iter_cap is None else int(iter_cap)
-    if isinstance(op, operators.BandedOperator) and fused_bamp.covers(cfg) \
-            and fused_bamp.fits(cfg):
+    way = route(cfg, op, y.shape[0], y.device)
+    if way == "whole":
         s = fused_bamp.whole_decode(op, state0, y, sigma2, cap, cfg)
+    elif way == "periter":
+        s = plane_loop(fused_bamp_iteration.iteration_fused, op, state0, y,
+                       sigma2, cap, cfg)
+    elif way == "tiled":
+        s = plane_loop(fused_bamp_tiled.iteration, op, state0, y, sigma2,
+                       cap, cfg)
     else:
         s = plain_loop(op, state0, y, sigma2, cap, cfg)
     result = DecodeResult(xmap=s.xmap, xmmse=s.xmmse, var=s.var, T=s.T)

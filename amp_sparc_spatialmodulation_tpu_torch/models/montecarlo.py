@@ -1,7 +1,8 @@
 """Monte-Carlo sweep engine.
 
-Port of the JAX package's ``models/montecarlo.py`` for ``algo='bamp'`` and
-``algo='scamp'`` (reference ``bamp_model.py``, ``scamp_model.py``): an
+Port of the JAX package's ``models/montecarlo.py`` for its four decoders,
+``algo='bamp'``, ``'scamp'``, ``'vamp'`` and ``'vamp2'`` (reference
+``bamp_model.py``, ``scamp_model.py``, ``vamp_model.py``): an
 Eb/N0 grid mapped to SNR via ``+10*log10(rate)`` (`bamp_model.py:49-50`),
 channel regeneration every ``res`` trials (`bamp_model.py:55-56`), per-SNR
 metric accumulation and JSON export, and the sweep's stop at

@@ -71,7 +71,10 @@ def segmented_posterior(r: torch.Tensor, tau, symbols: torch.Tensor,
         symbols: (K,) complex64 symbol table on ``r``'s device.
         L, M: segment count / segment size.
         halve_tau: apply the ``tau/2`` calibration of BAMP/SCAMP.
-        variance: None (mean only), "decomposed" or "second_moment".
+        variance: None (mean only), "decomposed", "second_moment", or
+            "closed" for K=1 only: ``|s0|^2 p (1 - p)``, the form of the
+            JAX per-iteration kernel's denoiser (`fused_bamp.py:551-564`),
+            equal to the decomposed variance up to rounding.
 
     Returns:
         (xmmse, var): (B, N) posterior mean in ``r``'s type and (B, N)
@@ -79,6 +82,8 @@ def segmented_posterior(r: torch.Tensor, tau, symbols: torch.Tensor,
     """
     B = r.shape[0]
     K = symbols.shape[0]
+    if variance == "closed" and K != 1:
+        raise ValueError("the closed-form variance needs a K=1 alphabet")
     if K == 1:
         return _segmented_posterior_k1(r, tau, symbols, L, M,
                                        halve_tau=halve_tau,
@@ -136,6 +141,8 @@ def _segmented_posterior_k1(r: torch.Tensor, tau, symbols: torch.Tensor,
         var = abs_x2 * (1.0 - post) + (xmmse - s0).abs() ** 2 * post
     elif variance == "second_moment":
         var = s0.abs() ** 2 * post - abs_x2
+    elif variance == "closed":
+        var = s0.abs() ** 2 * post * (1.0 - post)
     else:
         raise ValueError(f"unknown variance form {variance!r}")
     return out, var.to(torch.float32)

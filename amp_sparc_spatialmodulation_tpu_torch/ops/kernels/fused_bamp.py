@@ -19,11 +19,11 @@ Both take and return a :class:`..models.bamp.BAMPState` in the JAX
 layouts and are resumable: ``cap`` is the global iteration cap, and the
 result's ``active``, ``T`` and ``t`` follow ``bamp.py:153-165``.
 
-Dispatch (``models/bamp.py::decode``): a CUDA tensor takes the kernel
-whenever :func:`covers` and :func:`fits` hold for the config, decided
-before any launch; other configs run the plain loop on the card, as the
-JAX package's ``use_pallas='auto'`` does.  A failed build or launch raises;
-nothing falls back to the plain version after it.
+Dispatch (``models/bamp.py::route``): the kernel is the first link of the
+decode chain, taken whenever :func:`covers` and :func:`fits` hold for the
+config, decided before any launch; the per-iteration kernels K6 and K5 and
+the plain loop take the configs it declines.  A failed build or launch
+raises; nothing falls back to the plain version after it.
 """
 from __future__ import annotations
 

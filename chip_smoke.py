@@ -55,7 +55,29 @@ Phases, each printing one JSON line:
    (generate, SVD, y_tilde, decode, metrics) and the SVD's two methods;
    gates: VAMP FER in [5.9e-3, 1.67e-2] and mean T >= 9.9; vamp2 FER,
    BER and mean T against the JAX package's CPU run at that point;
-8. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+8. kernels_tiled — K5 (the frame-tiled iteration) against its plain
+   version, both through ``bamp.plane_loop``, under ``compare``'s rule: the
+   small geometries of tests/test_pallas_tiled.py (and BPSK) at 1024
+   trials and a ragged batch of 37, the massive geometry at 512 trials (cap
+   10) and split at 20 and resumed, the main path's phase 1 (2048 trials,
+   cap 40) and phase 2 (its still-active trials to cap 300, where the state
+   bound leaves out trials that ran to the cap without converging; the
+   same trials in a phase-1-sized batch are printed against the kernel);
+   one iteration at 2048 trials timed by CUDA events beside its bound, the
+   plain step and the plain step's four products as torch.matmul calls;
+9. kernels_periter — K6 (one iteration with the K=1 denoiser) and K7 (the
+   linear part only) against their plain versions: K6 through the plane
+   loop on the OOK small geometries (tail, trunc, cyclic) at 1024 trials
+   and the flagship geometry at 4096 (with the share of trials whose T
+   equals K1's), then on its path (``AMP_PALLAS_MODE=periter``); K7 for
+   one iteration on QPSK, 8PSK and the flagship geometry (within 1e-4) and
+   on its path (the 8PSK decode with K7 as the linear half); both timed at
+   the flagship main path's shape;
+10. main_massive — ``config.massive_mimo()`` at cap 300, Eb/N0 = 18 dB,
+   two-phase k1=40, over 8 realizations of 2048 trials, through K5 in both
+   phases with no plain decode; gates: mean T and FER against the JAX
+   package's CPU run at that point (tests/torch_massive_reference.py);
+11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -71,6 +93,7 @@ import subprocess
 import sys
 import time
 import traceback
+from functools import partial
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 PEAK_FP32_FLOPS = 67e12
@@ -128,6 +151,22 @@ VAMP2_REF = dict(trials=32768, realizations=16, fer=1.0,
                  ber=0.23183565139770507, ber_sd=0.001221572022346604,
                  T=10.0)
 VAMP2_T_TOL = 0.2
+
+# Massive-MIMO main path: config.massive_mimo() (Nt=1344, Na=84, Nr=73,
+# Lin=32, Lh=6, tail, OOK) at cap 300, Eb/N0 = 18 dB, two-phase k1=40, 2048
+# trials per realization (scripts/bench_massive.py:37-42), 8 realizations.
+# Its gate is the JAX package's XLA decode on the CPU at this point
+# (tests/torch_massive_reference.py --epochs 8192 --res 256): FER 2.075e-3,
+# BER 7.58e-4, mean T 33.060 with a realization standard deviation of 0.647
+# over 32 realizations of 256 trials.
+MASSIVE_EBN0_DB = 18.0
+MASSIVE_CAP = 300
+MASSIVE_K1 = 40
+MASSIVE_RES = 2048
+MASSIVE_REALIZATIONS = 8
+MASSIVE_REF = dict(trials=8192, realizations=32, fer=0.0020751953125,
+                   ber=0.0007584776197160992, T=33.0599365234375,
+                   T_sd=0.6470374580012561)
 
 
 def scamp_main_config():
@@ -197,15 +236,27 @@ def state_err(a, b, rows, fields=BAMP_FIELDS) -> float:
 
 
 def compare(phase: str, sk, sp, tol: float, fields=BAMP_FIELDS,
-            **info) -> float:
+            free_unconverged: bool = False, **info) -> float:
     """Hold a kernel result ``sk`` against the plain version's ``sp``: T
     identical on >= 99.5% of trials, |d mean T| <= 0.02, state planes
-    ``fields`` within ``tol`` where T agrees.  Emits one line; returns the
-    state error."""
+    ``fields`` within ``tol`` where T agrees.  With ``free_unconverged``
+    the state bound leaves out the trials that ran to the cap without
+    converging in either result (their count and largest error are
+    printed): AMP that does not decode has no fixed point, and 260
+    iterations of it amplify any difference of summation order.  Emits one
+    line; returns the state error."""
     agree = sk.T == sp.T
     frac = float(agree.float().mean())
     mean_k, mean_p = float(sk.T.float().mean()), float(sp.T.float().mean())
-    err = state_err(sk, sp, agree, fields)
+    if free_unconverged:
+        loose = sk.active | sp.active
+        info = dict(info, trials_unconverged=int(loose.sum()),
+                    max_abs_err_unconverged=state_err(sk, sp, agree & loose,
+                                                      fields))
+        agree_bounded = agree & ~loose
+    else:
+        agree_bounded = agree
+    err = state_err(sk, sp, agree_bounded, fields)
     same = agree.clone()
     for f in fields:
         a, b = getattr(sk, f), getattr(sp, f)
@@ -935,16 +986,446 @@ def phase_main_vamp(torch, dev, algo: str):
     return launches
 
 
-def kernel_entry(name, replaces, launches, max_err, timing):
+def massive_main_config():
+    """``config.massive_mimo()`` at the iteration cap of
+    scripts/bench_massive.py:37 (300)."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import massive_mimo
+    return dataclasses.replace(massive_mimo(), iterations=MASSIVE_CAP)
+
+
+def tiled_small_config(**kw):
+    """The small geometry of tests/test_pallas_tiled.py:17-20."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import Config
+    base = dict(Nt=16, Na=4, Nr=10, Lin=8, Lh=3, mode="segmented",
+                alphabet="OOK", profile="uniform", trunc="tail",
+                iterations=30)
+    return Config(**{**base, **kw})
+
+
+def iteration_work(cfg, B, products, planes):
+    """(flop, bytes) of one iteration of ``B`` active trials: ``products``
+    real banded products of 2 flop per tap element, and ``planes`` the
+    tensors read once or written once."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.channel import (
+        band_indices)
+    blocks = sum(len(band_indices(cfg.Lin, cfg.Lout, l, cfg.trunc)[0])
+                 for l in range(cfg.Lh))
+    flop = B * products * 2 * blocks * cfg.Nt * cfg.Nr
+    return flop, sum(t.numel() * t.element_size() for t in planes)
+
+
+def phase_kernels_tiled(torch, dev):
+    """K5 against its plain version (``compare``), both driven through
+    ``bamp.plane_loop``: the small geometries of tests/test_pallas_tiled.py
+    (Lin, Lh = 8, 3 and 12, 5; and BPSK) at 1024 trials and a ragged batch
+    of 37; the massive geometry at 512 trials, cap 10, and split at 20 and
+    resumed to 40; the main path's phase 1 (2048 trials, cap 40) and phase 2
+    (its still-active trials, gathered, to cap 300).  Then one iteration at
+    B = 2048 timed by CUDA events beside its bound, the plain step and the
+    products of the plain step as torch.matmul calls."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_tiled as kern)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    def realization(cfg, B, seed, snr):
+        r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
+                                            "sparc", "banded", B, snr)
+        return r, bamp.initial_state(r.y, cfg.N, r.sigma2)
+
+    def run(cfg, r, s0, cap, y=None, plain=False):
+        loop = kern.decode_plain if plain else partial(bamp.plane_loop,
+                                                       kern.iteration)
+        return loop(r.A, s0, r.y if y is None else y, r.sigma2, cap, cfg)
+
+    def check(phase, cfg, r, s0, limit, tol, y=None, **info):
+        sk = run(cfg, r, s0, limit, y)
+        sp = run(cfg, r, s0, limit, y, plain=True)
+        torch.cuda.synchronize()
+        return compare(phase, sk, sp, tol, **info), sk, sp
+
+    t0 = time.perf_counter()
+    max_err = 0.0
+    cases = [("ook_8_3", {}, SMALL_B), ("ook_12_5", dict(Lin=12, Lh=5),
+                                        SMALL_B),
+             ("bpsk_8_3", dict(alphabet="BPSK"), SMALL_B),
+             ("ook_ragged_37", {}, 37)]
+    for i, (name, kw, B) in enumerate(cases):
+        cfg = tiled_small_config(**kw)
+        r, s0 = realization(cfg, B, 400 + i, 10 ** 0.8)
+        err, *_ = check("kernel_small_tiled", cfg, r, s0, cfg.N_Layers, 1e-4,
+                        case=name)
+        max_err = max(max_err, err)
+
+    mcfg = massive_main_config()
+    snr = snr_of(mcfg, MASSIVE_EBN0_DB)
+    r, s0 = realization(mcfg, 512, 41, snr)
+    err, *_ = check("kernel_massive_tiled", mcfg, r, s0, 10, 1e-3, cap=10)
+    max_err = max(max_err, err)
+    full = run(mcfg, r, s0, 40)
+    resumed = run(mcfg, r, run(mcfg, r, s0, 20), 40)
+    split_ok = (bool(torch.equal(full.T, resumed.T))
+                and state_err(full, resumed, slice(None)) == 0.0)
+    emit("kernel_split_resume_tiled", identical=split_ok)
+    if not split_ok:
+        raise AssertionError("split-and-resume changed T (tiled)")
+    del full, resumed
+
+    # the main path's phase 1 and phase 2
+    r, s0 = realization(mcfg, MASSIVE_RES, 43, snr)
+    err, s1, _ = check("kernel_phase1_tiled", mcfg, r, s0, MASSIVE_K1, 1e-3,
+                       cap=MASSIVE_K1)
+    max_err = max(max_err, err)
+    idx = torch.nonzero(s1.active).flatten()
+    if not idx.numel():
+        raise AssertionError("no trial left for phase 2 (tiled)")
+    s2, y2 = montecarlo.state_take_trials(s1, idx), r.y[idx]
+    err, sk2, _ = check("kernel_phase2_tiled", mcfg, r, s2, MASSIVE_CAP,
+                        1e-3, y=y2, free_unconverged=True, cap=MASSIVE_CAP,
+                        phase2_B=int(idx.numel()))
+    max_err = max(max_err, err)
+    # The same phase-2 trials copied to a batch of the phase-1 size: the
+    # matrix library then sums as at phase 1, where K5 equals its plain
+    # version bit for bit (printed, not gated).
+    copies = -(-MASSIVE_RES // int(idx.numel()))
+    big = s2._replace(**{f: torch.cat([getattr(s2, f)] * copies)
+                         for f in s2._fields if f != "t"})
+    sp_big = kern.decode_plain(r.A, big, torch.cat([y2] * copies), r.sigma2,
+                               MASSIVE_CAP, mcfg)
+    n2 = int(idx.numel())
+    first = sp_big._replace(**{f: getattr(sp_big, f)[:n2]
+                               for f in sp_big._fields if f != "t"})
+    same = torch.equal(first.T, sk2.T) and all(
+        torch.equal(getattr(first, f), getattr(sk2, f)) for f in BAMP_FIELDS)
+    emit("kernel_phase2_tiled_large_batch", copies=copies, B=copies * n2,
+         T_identical=bool(torch.equal(first.T, sk2.T)), bit_exact=same,
+         max_abs_err=state_err(first, sk2, slice(None)))
+    del big, sp_big, first
+
+    # one iteration at B = 2048, all trials active
+    ps = bamp.to_planes(s0)
+    y_re, y_im = r.y.real.contiguous(), r.y.imag.contiguous()
+    out = {}
+    ms = cuda_ms(lambda: out.update(k=kern.iteration(
+        r.A, ps, y_re, y_im, r.sigma2, mcfg)), 2, 10)
+    plain_ms = cuda_ms(lambda: kern.iteration_plain(
+        r.A, ps, y_re, y_im, r.sigma2, mcfg), 1, 5)
+    # the plain step's four products as torch.matmul calls
+    A = r.A
+    B, Lin, W = MASSIVE_RES, mcfg.Lin, mcfg.Lh * mcfg.Nr
+    xc = s0.xmmse.reshape(B * Lin, mcfg.Nt)
+    vr = s0.var.reshape(B * Lin, mcfg.Nt)
+    zc = torch.complex(torch.rand(B * Lin, W, device=dev),
+                       torch.rand(B * Lin, W, device=dev))
+    zu = torch.rand(B * Lin, W, device=dev)
+    hs, a2s = A.h_stack, A.abs_h2_stack
+    library = {
+        "forward_complex": cuda_ms(lambda: xc @ hs, 2, 10),
+        "forward_abs2": cuda_ms(lambda: vr @ a2s, 2, 10),
+        "adjoint_complex": cuda_ms(lambda: zc @ hs.conj().T, 2, 10),
+        "adjoint_abs2": cuda_ms(lambda: zu @ a2s.T, 2, 10)}
+    library_ms = sum(library.values())
+    k = out["k"]
+    planes = [ps.xm_re, ps.var, ps.z_re, ps.z_im, ps.u, y_re, y_im,
+              ps.active, A.h, A.abs_h2, A.gains, k.xmap_re, k.xmap_im,
+              k.xm_re, k.var, k.z_re, k.z_im, k.u, k.notok]
+    # real products per iteration for a real x: |H|^2 var, H x (2),
+    # |H|^2^T (1/u), H^H r (4): 16 flop per tap element
+    flop, nbytes = iteration_work(mcfg, B, 8, planes)
+    bound_ms, bound_by = bound(flop, nbytes)
+    timing = dict(kernel="fused_bamp_tiled", B=B, ms=ms, plain_ms=plain_ms,
+                  library_ms=library_ms, library_ms_by_product=library,
+                  flop=flop, bytes=nbytes, bound_ms=bound_ms,
+                  bound_by=bound_by,
+                  achieved_tflops=flop / (ms * 1e-3) / 1e12,
+                  us_per_trial_iteration=1e3 * ms / B,
+                  seconds=time.perf_counter() - t0)
+    emit("kernel_timing_tiled", **timing)
+    return max_err, timing
+
+
+def linear_decode(op, s, y, sigma2, cap, cfg):
+    """The plain loop with its linear half run by K7's wrapper: the JAX
+    loop body with a linear-only per-iteration kernel (`bamp.py:333-355` of
+    the JAX package), K7's only path."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_iteration as fbi)
+    den = bamp.make_denoiser(cfg, y.device)
+    linear = partial(fbi.iteration_linear, cfg=cfg)
+    while s.t < cap and bool(s.active.any()):
+        s, _ = bamp.step(op, s, y, sigma2, den, linear)
+    return s
+
+
+def phase_kernels_periter(torch, dev):
+    """K6 and K7 against their plain versions.  K6 through the plane loop
+    on the OOK small geometries with tail, trunc and cyclic truncation at
+    1024 trials and on the flagship geometry at 4096 trials (with the share
+    of trials whose T equals K1's), then its path: ``bamp.decode`` with
+    ``AMP_PALLAS_MODE=periter``.  K7 for one iteration from a mid-decode
+    state on the QPSK and 8PSK small geometries and the flagship geometry
+    (outputs within 1e-4), then its path: the 8PSK decode with K7 running
+    the linear half, against the plain loop.  Both timed at the flagship
+    main path's shape (65536 trials)."""
+    import os
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        Config, flagship_bamp_ook)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_bamp_iteration as fbi)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    def realization(cfg, B, seed, snr):
+        r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
+                                            "sparc", "banded", B, snr)
+        return r, bamp.initial_state(r.y, cfg.N, r.sigma2)
+
+    def k6(cfg, r, s0, cap):
+        return bamp.plane_loop(fbi.iteration_fused, r.A, s0, r.y, r.sigma2,
+                               cap, cfg)
+
+    t0 = time.perf_counter()
+    small = dict(Nt=16, Na=4, Nr=8, Lin=8, Lh=3, mode="segmented",
+                 profile="uniform")
+    max6 = 0.0
+    for i, trunc in enumerate(("tail", "trunc", "cyclic")):
+        cfg = Config(**small, alphabet="OOK", trunc=trunc, iterations=12)
+        r, s0 = realization(cfg, SMALL_B, 500 + i, 10 ** 1.2)
+        sk = k6(cfg, r, s0, cfg.N_Layers)
+        sp = fbi.decode_plain(r.A, s0, r.y, r.sigma2, cfg.N_Layers, cfg)
+        torch.cuda.synchronize()
+        max6 = max(max6, compare("kernel_small_periter", sk, sp, 1e-4,
+                                 case=f"ook_{trunc}"))
+    fcfg = flagship_bamp_ook()
+    snr = snr_of(fcfg, EBN0_DB)
+    r, s0 = realization(fcfg, FLAGSHIP_B, 51, snr)
+    sk = k6(fcfg, r, s0, fcfg.N_Layers)
+    sp = fbi.decode_plain(r.A, s0, r.y, r.sigma2, fcfg.N_Layers, fcfg)
+    k1 = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, fcfg.N_Layers, fcfg)
+    max6 = max(max6, compare(
+        "kernel_flagship_periter", sk, sp, 1e-3,
+        T_same_as_k1_fraction=float((sk.T == k1.T).float().mean()),
+        mean_T_k1=float(k1.T.float().mean())))
+
+    # K6's path: the flagship decode routed to K6
+    mode = os.environ.get("AMP_PALLAS_MODE")
+    os.environ["AMP_PALLAS_MODE"] = "periter"
+    try:
+        if bamp.route(fcfg, r.A, FLAGSHIP_B, dev) != "periter":
+            raise AssertionError("periter mode did not route to K6")
+        torch.cuda.synchronize()
+        fbi.fused_launches = 0
+        path = bamp.decode(r.A, r.y, r.sigma2, fcfg)
+        torch.cuda.synchronize()
+        launches6 = fbi.fused_launches
+    finally:
+        if mode is None:
+            del os.environ["AMP_PALLAS_MODE"]
+        else:
+            os.environ["AMP_PALLAS_MODE"] = mode
+    if launches6 <= 0 or not torch.equal(path.T, sk.T):
+        raise AssertionError("the periter route did not run K6")
+
+    # K7: one iteration from the state after 2 plain iterations
+    max7 = 0.0
+    geoms = [("qpsk", Config(**small, alphabet="QPSK", trunc="tail",
+                             iterations=8), 10 ** 1.5, SMALL_B),
+             ("8psk", Config(**small, alphabet="8PSK", trunc="tail",
+                             iterations=10), 10 ** 1.6, SMALL_B),
+             ("flagship", fcfg, snr, FLAGSHIP_B)]
+    for i, (name, cfg, sn, B) in enumerate(geoms):
+        r, s0 = realization(cfg, B, 520 + i, sn)
+        st = bamp.plain_loop(r.A, s0, r.y, r.sigma2, 2, cfg)
+        got = fbi.iteration_linear(r.A, st.xmmse, st.var, st.z, st.u, r.y,
+                                   r.sigma2, cfg)
+        want = fbi.linear_plain(r.A, st.xmmse, st.var, st.z, st.u, r.y,
+                                r.sigma2, cfg)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        emit("kernel_step_linear", case=name, B=B, max_abs_err=err,
+             tolerance=1e-4, bit_exact=exact)
+        if not err < 1e-4:
+            raise AssertionError(f"K7 != plain on {name}: {err}")
+        max7 = max(max7, err)
+    # K7's path: the 8PSK decode with K7 as the linear half
+    cfg = geoms[1][1]
+    r, s0 = realization(cfg, SMALL_B, 530, 10 ** 1.6)
+    torch.cuda.synchronize()
+    fbi.linear_launches = 0
+    sk = linear_decode(r.A, s0, r.y, r.sigma2, cfg.N_Layers, cfg)
+    torch.cuda.synchronize()
+    launches7 = fbi.linear_launches
+    sp = bamp.plain_loop(r.A, s0, r.y, r.sigma2, cfg.N_Layers, cfg)
+    max7 = max(max7, compare("kernel_path_linear", sk, sp, 1e-4,
+                             case="8psk"))
+
+    # times at the flagship main path's shape
+    r, s0 = realization(fcfg, RES, 53, snr)
+    st = bamp.plain_loop(r.A, s0, r.y, r.sigma2, 2, fcfg)
+    ps = bamp.to_planes(st)
+    y_re, y_im = r.y.real.contiguous(), r.y.imag.contiguous()
+    out = {}
+    run6 = lambda: out.update(k=fbi.iteration_fused(
+        r.A, ps, y_re, y_im, r.sigma2, fcfg))
+    run7 = lambda: out.update(l=fbi.iteration_linear(
+        r.A, st.xmmse, st.var, st.z, st.u, r.y, r.sigma2, fcfg))
+    torch.cuda.empty_cache()
+    ms7 = cuda_ms(run7, 2, 10)
+    ms6 = cuda_ms(run6, 2, 10)
+    ms7b = cuda_ms(run7, 2, 10)
+    ms6b = cuda_ms(run6, 2, 10)
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    plain6 = cuda_ms(lambda: fbi.iteration_fused_plain(
+        r.A, ps, y_re, y_im, r.sigma2, fcfg), 1, 5)
+    plain7 = cuda_ms(lambda: fbi.linear_plain(
+        r.A, st.xmmse, st.var, st.z, st.u, r.y, r.sigma2, fcfg), 1, 5)
+    emit("kernel_timing_periter_turns", k7_ms=[ms7, ms7b], k6_ms=[ms6, ms6b],
+         reserved_gib=reserved)
+    A = r.A
+    lib = {"forward_complex": cuda_ms(
+               lambda: st.xmmse.reshape(-1, fcfg.Nt) @ A.h_stack, 2, 10),
+           "forward_abs2": cuda_ms(
+               lambda: st.var.reshape(-1, fcfg.Nt) @ A.abs_h2_stack, 2, 10)}
+    zc = torch.complex(torch.rand(RES * fcfg.Lin, fcfg.Lh * fcfg.Nr,
+                                  device=dev),
+                       torch.rand(RES * fcfg.Lin, fcfg.Lh * fcfg.Nr,
+                                  device=dev))
+    lib["adjoint_complex"] = cuda_ms(lambda: zc @ A.h_stack.conj().T, 2, 10)
+    lib["adjoint_abs2"] = cuda_ms(lambda: zc.real @ A.abs_h2_stack.T, 2, 10)
+    library_ms = sum(lib.values())
+    k, lo = out["k"], out["l"]
+    common = [ps.xm_re, ps.xm_im, ps.var, ps.z_re, ps.z_im, ps.u, y_re,
+              y_im, A.h, A.h, A.abs_h2, A.abs_h2, A.gains, A.gains2]
+    # real products per iteration for a complex x: |H|^2 var, H x (4),
+    # |H|^2^T (1/u), H^H r (4)
+    flop, nbytes6 = iteration_work(fcfg, RES, 10, common + [ps.active] + [
+        getattr(k, f) for f in k._fields])
+    _, nbytes7 = iteration_work(fcfg, RES, 10, common + list(lo))
+    b6, by6 = bound(flop, nbytes6)
+    b7, by7 = bound(flop, nbytes7)
+    timing6 = dict(kernel="fused_bamp_iteration_fused", B=RES, ms=ms6,
+                   plain_ms=plain6, library_ms=library_ms,
+                   library_ms_by_product=lib, flop=flop, bytes=nbytes6,
+                   bound_ms=b6, bound_by=by6,
+                   achieved_tflops=flop / (ms6 * 1e-3) / 1e12)
+    timing7 = dict(kernel="fused_bamp_iteration_linear", B=RES, ms=ms7,
+                   plain_ms=plain7, library_ms=library_ms, flop=flop,
+                   bytes=nbytes7, bound_ms=b7, bound_by=by7,
+                   achieved_tflops=flop / (ms7 * 1e-3) / 1e12)
+    emit("kernel_timing_periter", fused=timing6, linear=timing7,
+         seconds=time.perf_counter() - t0)
+    return (max6, timing6, launches6), (max7, timing7, launches7)
+
+
+def phase_main_massive(torch, dev):
+    """The massive-MIMO main path: ``Simulator(algo='bamp', two_phase=40)``
+    at ``massive_main_config()``, Eb/N0 = 18 dB, over 8 realizations of 2048
+    trials (scripts/bench_massive.py:37-42), one ``run_point`` per
+    realization so that the realization scatter is printed; both phases
+    must run K5 with no plain decode.  Then a per-layer breakdown of one
+    more realization.  Gates against the JAX package's XLA decode on the CPU
+    at this point (tests/torch_massive_reference.py): mean T within 3
+    standard errors of the two runs' realization scatter, FER under the
+    4 sigma + 8% + 2e-4 rule of tests/test_golden_artifacts.py:140-141."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_bamp_iteration as fbi, fused_bamp_tiled)
+    from amp_sparc_spatialmodulation_tpu_torch.utils import metrics
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    cfg = massive_main_config()
+    sim = montecarlo.Simulator(cfg, algo="bamp", two_phase=MASSIVE_K1,
+                               device=dev, progress=lambda s: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_bamp_tiled.launches = 0
+    fused_bamp.launches = 0
+    fbi.fused_launches = 0
+    bamp.plain_decodes = 0
+    t0 = time.perf_counter()
+    per = [sim.run_point(MASSIVE_EBN0_DB, epochs=MASSIVE_RES,
+                         res=MASSIVE_RES, snr_idx=i)
+           for i in range(MASSIVE_REALIZATIONS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = fused_bamp_tiled.launches, bamp.plain_decodes
+    others = fused_bamp.launches + fbi.fused_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trials = MASSIVE_REALIZATIONS * MASSIVE_RES
+    avg = {k: statistics.fmean(p[k] for p in per) for k in ("fer", "ber",
+                                                             "T")}
+    Ts = [p["T"] for p in per]
+
+    gen = make_generator(dev, 12345)
+    layers = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        layers[name] = time.perf_counter() - t
+        return res
+
+    r = timed("generate_s", lambda: montecarlo.generate_realization(
+        gen, cfg, "sparc", "banded", MASSIVE_RES,
+        snr_of(cfg, MASSIVE_EBN0_DB)))
+    _, st = timed("decode_phase1_s", lambda: bamp.decode(
+        r.A, r.y, r.sigma2, cfg, iter_cap=MASSIVE_K1, return_state=True))
+    idx = torch.nonzero(st.active).flatten()
+    _, sub = timed("decode_phase2_s", lambda: bamp.decode(
+        r.A, r.y[idx], r.sigma2, cfg,
+        state0=montecarlo.state_take_trials(st, idx), return_state=True))
+    st = montecarlo.state_merge_trials(st, sub, idx)
+    timed("metrics_s", lambda: metrics.fetch_sums(metrics.evaluate_sums(
+        st.xmap, st.xmmse, r.msg, st.T, cfg)))
+
+    ref = MASSIVE_REF
+    sd_T = statistics.stdev(Ts)
+    T_bound = 3 * math.sqrt(sd_T ** 2 / MASSIVE_REALIZATIONS
+                            + ref["T_sd"] ** 2 / ref["realizations"])
+    pf = min(max(ref["fer"], 1e-9), 1 - 1e-9)
+    fer_bound = (4 * math.sqrt(pf * (1 - pf) * (1 / ref["trials"]
+                                                + 1 / trials))
+                 + 0.08 * ref["fer"] + 2e-4)
+    emit("main_massive", config="massive_mimo", cap=MASSIVE_CAP,
+         ebn0_db=MASSIVE_EBN0_DB, res=MASSIVE_RES,
+         realizations=MASSIVE_REALIZATIONS, trials=trials,
+         two_phase_k1=MASSIVE_K1, seconds=seconds,
+         trials_per_s=trials / seconds, mean_T=avg["T"], fer=avg["fer"],
+         ber=avg["ber"], realization_mean_T=Ts, realization_mean_T_sd=sd_T,
+         mean_T_stderr=sd_T / math.sqrt(MASSIVE_REALIZATIONS),
+         realization_fer=[p["fer"] for p in per], k5_launches=launches,
+         other_kernel_launches=others, plain_decodes=plain,
+         phase2_bucket=int(idx.numel()), layers=layers, peak_mem_gib=peak,
+         ref=ref, T_bound=T_bound, fer_bound=fer_bound)
+    if launches <= 0 or plain != 0 or others != 0:
+        raise AssertionError("the massive main path did not run through K5")
+    if abs(avg["T"] - ref["T"]) > T_bound:
+        raise AssertionError(f"massive mean T {avg['T']} vs {ref['T']}")
+    if abs(avg["fer"] - ref["fer"]) > fer_bound:
+        raise AssertionError(f"massive FER {avg['fer']} vs {ref['fer']}")
+    return launches
+
+
+def kernel_entry(name, replaces, launches, max_err, timing, source=None):
     return {"name": name, "route": "cuda",
             "source": "amp_sparc_spatialmodulation_tpu_torch/ops/kernels/"
-                      f"csrc/{name}.cu",
+                      f"csrc/{source or name}.cu",
             "replaces": f"amp_sparc_spatialmodulation_tpu/ops/pallas/"
                         f"{replaces}",
             "launches": launches, "max_abs_err": max_err,
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-            "library_ms": None}
+            "library_ms": timing.get("library_ms")}
 
 
 def main() -> int:
@@ -985,6 +1466,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches3 = phase_main_vamp(torch, dev, "vamp")
     launches4 = phase_main_vamp(torch, dev, "vamp2")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    max_err5, timing5 = phase_kernels_tiled(torch, dev)
+    torch.cuda.empty_cache()
+    k6, k7 = phase_kernels_periter(torch, dev)
+    torch.cuda.empty_cache()
+    launches5 = phase_main_massive(torch, dev)
+    emit("new_phases", seconds=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_bamp_decode", "fused_bamp.py:617", launches,
@@ -994,7 +1483,14 @@ def main() -> int:
         kernel_entry("fused_vamp_decode", "fused_vamp.py:73", launches3,
                      max_err3, timing3),
         kernel_entry("fused_vamp2_decode", "fused_vamp2.py:39", launches4,
-                     max_err4, timing4)]}), flush=True)
+                     max_err4, timing4),
+        kernel_entry("fused_bamp_tiled", "fused_bamp_tiled.py:47",
+                     launches5, max_err5, timing5),
+        kernel_entry("fused_bamp_iteration_fused", "fused_bamp.py:567",
+                     k6[2], k6[0], k6[1], source="fused_bamp_iteration"),
+        kernel_entry("fused_bamp_iteration_linear", "fused_bamp.py:359",
+                     k7[2], k7[0], k7[1], source="fused_bamp_iteration")]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -73,11 +73,45 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
         Simulator(flagship_bamp_ook(), algo=algo, device="cpu")
 
 
+KERNEL_MODULES = ("fused_bamp", "fused_scamp", "fused_vamp", "fused_vamp2",
+                  "fused_bamp_tiled", "fused_bamp_iteration")
+
+
+def test_every_kernel_source_is_built_and_walked():
+    """Every CUDA source under csrc/ is in the build list, and every kernel
+    module (those of the massive-MIMO path included) is among the modules
+    the import checks above walk."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import build
+    sources = {p.stem for p in build.CSRC.glob("*.cu")}
+    assert sources == set(build.SOURCES)
+    names = {m for m, _ in _modules()}
+    for mod in KERNEL_MODULES:
+        assert f"amp_sparc_spatialmodulation_tpu_torch.ops.kernels.{mod}" \
+            in names
+
+
+@pytest.mark.parametrize("mod", KERNEL_MODULES)
+def test_kernel_modules_build_nothing_at_import(mod, tmp_path):
+    """Importing a kernel module (in a fresh process, with no CUDA toolkit
+    to be found) loads no library and runs no compiler."""
+    code = (f"from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import "
+            f"build, {mod}\n"
+            "assert not build._loaded\n"
+            "print(sorted(build.BUILD_DIR.glob('*.tmp')))\n")
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": str(tmp_path / "none"),
+           "HOME": str(tmp_path), "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("name", ["operator_from_numpy", "message_from_numpy",
                                   "state_from_numpy",
                                   "scamp_state_from_numpy",
                                   "svd_from_numpy", "vamp_state_from_numpy",
-                                  "vamp2_state_from_numpy"])
+                                  "vamp2_state_from_numpy",
+                                  "plane_from_jax"])
 def test_interop_constructors_take_no_default_device(name):
     """The NumPy-in constructors place nothing on a device by default."""
     import inspect

@@ -15,7 +15,12 @@ and the mean of the per-trial T differences is printed with its standard
 error.  ``--algo bamp`` (the default) takes the flagship BAMP point
 (``flagship_bamp_ook()``, Eb/N0 = 8 dB, kernel K1); ``--algo scamp`` the
 SCAMP main point (the OOK sparc config at the same dimensions, Eb/N0 =
-8 dB, kernel K2).  Two steps, since the machine with the card has no JAX:
+8 dB, kernel K2); ``--algo massive`` the massive-MIMO point
+(``massive_mimo()`` at cap 300, Eb/N0 = 18 dB, kernel K5), where JAX
+decodes in two phases (k1 = 40, as its ``Simulator`` does, so that a trial
+that runs to the cap does not hold the whole batch) and the port's CPU
+decode is skipped (only the kernel is compared with JAX).  Two steps, since
+the machine with the card has no JAX:
 
     env JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_parity_flagship.py \\
         dump --out build/parity --trials 512 --seeds 10:26
@@ -36,7 +41,8 @@ from pathlib import Path
 
 import numpy as np
 
-EBN0_DB = 8.0
+EBN0_DB = {"bamp": 8.0, "scamp": 8.0, "massive": 18.0}
+MASSIVE_CAP, MASSIVE_K1 = 300, 40
 
 
 def summary(a: np.ndarray, b: np.ndarray, cap: int) -> dict:
@@ -57,8 +63,12 @@ SCAMP_MAIN = dict(Nt=128, Na=8, Nr=24, Lin=20, Lh=3, mode="sparc",
 
 
 def port_config(algo: str):
+    import dataclasses
+
     from amp_sparc_spatialmodulation_tpu_torch.config import (
-        Config, flagship_bamp_ook)
+        Config, flagship_bamp_ook, massive_mimo)
+    if algo == "massive":
+        return dataclasses.replace(massive_mimo(), iterations=MASSIVE_CAP)
     return flagship_bamp_ook() if algo == "bamp" else Config(**SCAMP_MAIN)
 
 
@@ -78,22 +88,45 @@ def port_decode(algo: str, d, cfg, device):
     return bamp.decode(op, y, sigma2, cfg).T.cpu().numpy()
 
 
+def jax_two_phase(jbamp, jop, jy, sigma2, jcfg):
+    """T of the JAX XLA decode in two phases: every trial to k1, then
+    the still-active ones, gathered, to the cap (the trajectories of a
+    single-phase decode)."""
+    import numpy as np
+    _, st = jbamp.decode(jop, jy, sigma2, jcfg, iter_cap=MASSIVE_K1,
+                         return_state=True)
+    T = np.array(st.T)
+    idx = np.nonzero(np.asarray(st.active))[0]
+    if idx.size:
+        sub = jbamp.BAMPState(*[v[idx] if v.ndim else v for v in st])
+        _, fin = jbamp.decode(jop, jy[idx], sigma2, jcfg, state0=sub,
+                              return_state=True)
+        T[idx] = np.asarray(fin.T)
+    return T
+
+
 def dump(out: Path, trials: int, seeds: range, algo: str) -> None:
+    import dataclasses
+
     import jax
     jax.config.update("jax_platforms", "cpu")
 
     from amp_sparc_spatialmodulation_tpu.config import Config as JConfig
     from amp_sparc_spatialmodulation_tpu.config import (
         flagship_bamp_ook as jflagship)
+    from amp_sparc_spatialmodulation_tpu.config import (
+        massive_mimo as jmassive)
     from amp_sparc_spatialmodulation_tpu.models import bamp as jbamp
     from amp_sparc_spatialmodulation_tpu.models import scamp as jscamp
     from amp_sparc_spatialmodulation_tpu.ops import channel as jchannel
     from amp_sparc_spatialmodulation_tpu.ops import message as jmessage
     from amp_sparc_spatialmodulation_tpu.ops import operators as joperators
 
-    jcfg = jflagship() if algo == "bamp" else JConfig(**SCAMP_MAIN)
+    jcfg = {"bamp": jflagship, "scamp": lambda: JConfig(**SCAMP_MAIN),
+            "massive": lambda: dataclasses.replace(
+                jmassive(), iterations=MASSIVE_CAP)}[algo]()
     cfg = port_config(algo)
-    snr = 10 ** ((EBN0_DB + 10 * np.log10(cfg.code_rate)) / 10)
+    snr = 10 ** ((EBN0_DB[algo] + 10 * np.log10(cfg.code_rate)) / 10)
     out.mkdir(parents=True, exist_ok=True)
     jT_all, pT_all = [], []
     for seed in seeds:
@@ -104,24 +137,33 @@ def dump(out: Path, trials: int, seeds: range, algo: str) -> None:
         sigma2 = float(np.float32(jcfg.sigma2(snr)))
         if algo == "scamp":
             jT = np.asarray(jscamp.decode(jW, jop, jy, sigma2, jcfg).T)
+        elif algo == "massive":
+            jT = jax_two_phase(jbamp, jop, jy, sigma2, jcfg)
         else:
             jT = np.asarray(jbamp.decode(jop, jy, sigma2, jcfg).T)
         d = dict(h=np.asarray(jop.h), gains=np.asarray(jop.gains),
                  W=np.asarray(jW), y=np.array(jy), sigma2=sigma2)
-        pT = port_decode(algo, d, cfg, "cpu")
-        np.savez(out / f"seed{seed}.npz", **d, T_jax=jT, T_port_cpu=pT,
-                 algo=algo)
+        extra = {}
+        if algo != "massive":
+            extra["T_port_cpu"] = port_decode(algo, d, cfg, "cpu")
+            pT_all.append(extra["T_port_cpu"])
+        np.savez(out / f"seed{seed}.npz", **d, T_jax=jT, algo=algo, **extra)
         jT_all.append(jT)
-        pT_all.append(pT)
-    print(json.dumps({"jax_cpu_vs_port_cpu": summary(
-        np.concatenate(jT_all), np.concatenate(pT_all), cfg.N_Layers)}))
+    if pT_all:
+        print(json.dumps({"jax_cpu_vs_port_cpu": summary(
+            np.concatenate(jT_all), np.concatenate(pT_all), cfg.N_Layers)}))
+    else:
+        print(json.dumps({"jax_cpu": {
+            "trials": int(sum(t.size for t in jT_all)),
+            "mean_T": float(np.concatenate(jT_all).mean())}}))
 
 
 def check(directory: Path) -> None:
     import torch
 
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
     from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
-        fused_bamp, fused_scamp)
+        fused_bamp, fused_bamp_tiled, fused_scamp)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     files = sorted(directory.glob("seed*.npz"))
@@ -129,23 +171,29 @@ def check(directory: Path) -> None:
         raise SystemExit(f"no seed*.npz under {directory}")
     algo = str(np.load(files[0]).get("algo", "bamp"))
     cfg = port_config(algo)
-    kernel = fused_scamp if algo == "scamp" else fused_bamp
+    kernel = {"scamp": fused_scamp, "massive": fused_bamp_tiled}.get(
+        algo, fused_bamp)
     jT, cT, kT = [], [], []
-    before = kernel.launches
+    before, plain = kernel.launches, bamp.plain_decodes
     for f in files:
         d = np.load(f)
         kT.append(port_decode(algo, d, cfg, "cuda"))
         jT.append(d["T_jax"])
-        cT.append(d["T_port_cpu"])
-    if kernel.launches - before != len(files):
+        if "T_port_cpu" in d:
+            cT.append(d["T_port_cpu"])
+    ran = kernel.launches - before
+    if (ran < len(files) if algo == "massive" else ran != len(files)) \
+            or bamp.plain_decodes != plain:
         raise AssertionError("the card's decodes did not run the kernel")
-    jT, cT, kT = map(np.concatenate, (jT, cT, kT))
-    print(json.dumps({
-        "algo": algo, "device": torch.cuda.get_device_name(0),
-        "realizations": len(files),
-        "jax_cpu_vs_port_cpu": summary(jT, cT, cfg.N_Layers),
-        "jax_cpu_vs_port_kernel": summary(jT, kT, cfg.N_Layers),
-        "port_cpu_vs_port_kernel": summary(cT, kT, cfg.N_Layers)}))
+    jT, kT = np.concatenate(jT), np.concatenate(kT)
+    out = {"algo": algo, "device": torch.cuda.get_device_name(0),
+           "realizations": len(files),
+           "jax_cpu_vs_port_kernel": summary(jT, kT, cfg.N_Layers)}
+    if cT:
+        cT = np.concatenate(cT)
+        out["jax_cpu_vs_port_cpu"] = summary(jT, cT, cfg.N_Layers)
+        out["port_cpu_vs_port_kernel"] = summary(cT, kT, cfg.N_Layers)
+    print(json.dumps(out))
 
 
 def main() -> None:
@@ -155,7 +203,8 @@ def main() -> None:
     d.add_argument("--out", type=Path, required=True)
     d.add_argument("--trials", type=int, default=512)
     d.add_argument("--seeds", default="10:26", help="first:last+1")
-    d.add_argument("--algo", choices=["bamp", "scamp"], default="bamp")
+    d.add_argument("--algo", choices=["bamp", "scamp", "massive"],
+                   default="bamp")
     c = sub.add_parser("check")
     c.add_argument("--dir", type=Path, required=True)
     args = ap.parse_args()
