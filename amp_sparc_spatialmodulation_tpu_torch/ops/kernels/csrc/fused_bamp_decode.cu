@@ -22,10 +22,44 @@
 // real banded products of 2*Lin*Nt*Lh*Nr = 368,640 flop each, about 2.95
 // MFLOP, against ~62 KB of device-memory traffic per decoded trial: at 67
 // TFLOP/s FP32 and 3.35 TB/s that is ~44 ns per iteration per trial of
-// compute against ~19 ns per trial of memory.  The design keeps every
-// loop-carried plane of the trial in shared memory (no state returns to
-// device memory between iterations), reads the taps through the read-only
-// path, and runs all arithmetic in FP32 on the CUDA cores (no TF32).
+// compute against ~19 ns per trial of memory.  What keeps a kernel of this
+// shape from that bound is not the FMAs but the loads that feed them: a
+// thread that computes one output issues a tap load and an x load from L1
+// or shared memory for every one to three FMAs, and the load pipe (one
+// warp-wide access per clock per SM) saturates at a tenth of the FMA rate.
+//
+// Register tiles over the block-Toeplitz taps.  The channel is
+// block-Toeplitz: tap l couples source block c to row block c + l, the
+// same Nr x Nt matrix h[l] for every c, with a scalar gain per (l, c)
+// applied after the product.  So each pass is Lh small GEMMs that share
+// their right operand across the Lin blocks:
+//
+// * forward: P[c, l, m] = sum_k x[c, k] h[l, m, k] (and |h|^2 var) for
+//   every (c, l, m).  A thread owns one column (l, m) and kFR source blocks
+//   c: per k it loads the tap once and uses it for kFR rows, and it loads
+//   x[c, k..k+3] as one 16-byte word of shared memory (the same address
+//   across the warp, a broadcast);
+// * fold: the row sums y[r, m] = sum_l g[l, r-l] P[r-l, l, m], Onsager and
+//   u' per output; the same thread then writes the gain-weighted adjoint
+//   inputs Z[c, l, m] = g[l, c] (y - z') / u' into the slots of the P it
+//   has just read (every (c, l, m) belongs to exactly one output), so P
+//   and Z share one scratch area;
+// * adjoint: a thread owns one x element k of kAR column blocks c: per
+//   antenna m it loads the tap h[l, m, k] once for kAR rows and Z[c, l,
+//   m..m+3] as one broadcast word;
+// * denoiser: a segment of M lanes is posterior'd by a group of as many
+//   lanes as PyTorch's reduction uses for its segment sum (16 at M = 16),
+//   the sums joined by warp shuffles in PyTorch's order, with every
+//   per-lane array indexed statically so it stays in registers.
+//
+// The x-side pseudo-data's imaginary part goes straight to the output
+// (only the denoisers of complex alphabets and of random mode read it
+// back), which puts the flagship block at 68,800 B of shared memory:
+// three blocks per SM, which holds each thread to 80 registers.  The tile
+// sizes are the largest that stay near that limit: at Lin = 20, kFR = 7
+// gives three row groups (216 of 256 threads carry a forward tile) and kAR
+// = 5 four (two full rounds of adjoint tiles); 10 x 10 spilled more and
+// ran 12% slower (PERF.md, tests/torch_k1_passes.py --tiles).
 //
 // Rounding.  The stop test compares the posterior variance at rtol=1e-5,
 // and a converged variance of a decided lane is 1 - p with p = eta/eta2
@@ -33,17 +67,19 @@
 // segment sums.  The kernel therefore rounds where the plain PyTorch
 // version (decode_plain in fused_bamp.py) rounds: it is built with
 // -fmad=false, so every elementwise expression rounds after each operation
-// as PyTorch's separate elementwise kernels do; the banded products are
-// sequential FMA chains over the contraction index (real part before
+// as PyTorch's separate elementwise kernels do; each banded product is one
+// sequential FMA chain over the contraction index (real part before
 // imaginary part in a complex product), the order cuBLAS's FP32 GEMMs
-// take at the decode's batch sizes; the gain-weighted adjoint input is
-// formed before the product, as the plain adjoint does; and every sum over
-// a segment or the symbol table follows the order of PyTorch's CUDA
-// reduction over a contiguous innermost dimension (torch_sum in
-// decode_common.cuh, which holds the helpers this kernel shares with the
-// SCAMP kernel).  The
-// kernel's state then matches the plain version's bit for bit, which
-// chip_smoke.py checks on the card.
+// take at the decode's batch sizes.  The tiles change which thread
+// computes an output, never the order of its sum: the forward chain of
+// each (c, l, m) runs over k = 0..Nt-1 from zero and the taps are added to
+// a row in the order l = 0..Lh-1 after their gains; the adjoint chain of
+// each (c, k) runs over (l, m) in order, and a tap that places no block
+// (trunc) contributes exact zeros, as in the plain version's zero-filled
+// input.  Every sum over a segment or the symbol table follows the order
+// of PyTorch's CUDA reduction over a contiguous innermost dimension
+// (lane_sum in decode_common.cuh).  The kernel's state then matches the
+// plain version's bit for bit, which chip_smoke.py checks on the card.
 //
 // Layouts: every state vector is per-trial contiguous, complex values
 // interleaved (PyTorch complex64): x-side (B, Lin*Nt), y-side (B, Lout*Nr).
@@ -58,6 +94,8 @@ namespace {
 using namespace decode;
 
 constexpr int kThreads = 256;
+constexpr int kFR = 7;  // forward: source blocks per thread
+constexpr int kAR = 5;  // adjoint: column blocks per thread
 constexpr float kZeroTol = 1e-9f;
 
 enum Denoiser { kSegmented = 0, kMixture = 1 };
@@ -91,12 +129,348 @@ struct Params {
   int cap;  // remaining iteration budget
 };
 
-__global__ void __launch_bounds__(kThreads) bamp_decode_kernel(Params p) {
+// Four consecutive floats of shared memory: one 16-byte load when the
+// address is aligned (kVec), else four.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* p) {
+  if (kVec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// Forward products.
+
+// One step k of the chains of one (c, l, m): |h|^2 var and h x.
+template <bool kReal>
+__device__ __forceinline__ void fwd_step(float& pv, float& pr, float& pi,
+                                         float x, float xj, float v,
+                                         float2 hv, float a) {
+  pv = fmaf(v, a, pv);
+  pr = fmaf(x, hv.x, pr);
+  if (!kReal) pr = fmaf(-xj, hv.y, pr);
+  pi = fmaf(x, hv.y, pi);
+  if (!kReal) pi = fmaf(xj, hv.x, pi);
+}
+
+// The products of column (l, m) of the tap stack with source blocks c0 ..
+// c0+kFR-1, written to P[c, l, m] (the rows past Lin repeat the last one
+// and are dropped, as are the blocks tap l places nowhere).
+template <bool kVec, bool kReal>
+__device__ __forceinline__ void forward_tile(
+    const Params& p, int c0, int l, int m, const float* xm_re,
+    const float* xm_im, const float* var, float* Pv, float* Pr, float* Pi,
+    int NrP) {
+  const size_t tap = static_cast<size_t>(l) * p.Nt * p.Nr + m;
+  const float2* ht = p.hT + tap;
+  const float* at = p.a2T + tap;
+  int row[kFR];
+#pragma unroll
+  for (int i = 0; i < kFR; ++i) row[i] = min(c0 + i, p.Lin - 1) * p.Nt;
+  float pv[kFR], pr[kFR], pi[kFR];
+#pragma unroll
+  for (int i = 0; i < kFR; ++i) pv[i] = pr[i] = pi[i] = 0.f;
+  int k = 0;
+  for (; k + 4 <= p.Nt; k += 4) {
+    float2 hv[4];
+    float a[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      hv[q] = __ldg(ht + (k + q) * p.Nr);
+      a[q] = __ldg(at + (k + q) * p.Nr);
+    }
+#pragma unroll
+    for (int i = 0; i < kFR; ++i) {
+      const float4 x = load4<kVec>(xm_re + row[i] + k);
+      const float4 v = load4<kVec>(var + row[i] + k);
+      const float4 xj =
+          kReal ? make_float4(0.f, 0.f, 0.f, 0.f)
+                : load4<kVec>(xm_im + row[i] + k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        fwd_step<kReal>(pv[i], pr[i], pi[i], lane4(x, q), lane4(xj, q),
+                        lane4(v, q), hv[q], a[q]);
+    }
+  }
+  for (; k < p.Nt; ++k) {
+    const float2 hv = __ldg(ht + k * p.Nr);
+    const float a = __ldg(at + k * p.Nr);
+#pragma unroll
+    for (int i = 0; i < kFR; ++i)
+      fwd_step<kReal>(pv[i], pr[i], pi[i], xm_re[row[i] + k],
+                      kReal ? 0.f : xm_im[row[i] + k], var[row[i] + k], hv,
+                      a);
+  }
+#pragma unroll
+  for (int i = 0; i < kFR; ++i) {
+    const int c = c0 + i;
+    if (c < p.Lin && dst_block(c, l, p) >= 0) {
+      const int e = (c * p.Lh + l) * NrP + m;
+      Pv[e] = pv[i];
+      Pr[e] = pr[i];
+      Pi[e] = pi[i];
+    }
+  }
+}
+
+// Adjoint products.
+
+// One step (l, m) of the chains of one (c, k): |h|^2^T Zc and h^H (Zr + i
+// Zi).
+__device__ __forceinline__ void adj_step(float& cs, float& ar, float& ai,
+                                         float zc, float zr, float zi,
+                                         float2 hv, float a) {
+  cs = fmaf(zc, a, cs);
+  // (zr + i zi) * conj(h)
+  ar = fmaf(zr, hv.x, ar);
+  ar = fmaf(-zi, -hv.y, ar);
+  ai = fmaf(zr, -hv.y, ai);
+  ai = fmaf(zi, hv.x, ai);
+}
+
+// Antennas m0 .. m0+3 of tap l (those below Nr when kTail) for the kAR
+// column blocks whose Z rows start at zrow[i].
+template <bool kTail>
+__device__ __forceinline__ void adjoint_quad(
+    const Params& p, const float2* hl, const float* al, int m0,
+    const int (&zrow)[kAR], const float* Zc, const float* Zr,
+    const float* Zi, float (&cs)[kAR], float (&ar)[kAR], float (&ai)[kAR]) {
+  float2 hv[4];
+  float a[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int m = kTail ? min(m0 + q, p.Nr - 1) : m0 + q;
+    hv[q] = __ldg(hl + m * p.Nt);
+    a[q] = __ldg(al + m * p.Nt);
+  }
+#pragma unroll
+  for (int i = 0; i < kAR; ++i) {
+    const float4 zc = *reinterpret_cast<const float4*>(Zc + zrow[i] + m0);
+    const float4 zr = *reinterpret_cast<const float4*>(Zr + zrow[i] + m0);
+    const float4 zi = *reinterpret_cast<const float4*>(Zi + zrow[i] + m0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (!kTail || m0 + q < p.Nr)
+        adj_step(cs[i], ar[i], ai[i], lane4(zc, q), lane4(zr, q),
+                 lane4(zi, q), hv[q], a[q]);
+  }
+}
+
+// The adjoint of x element k of column blocks c0 .. c0+kAR-1: cov and the
+// pseudo-data xmap (its imaginary part to xmap_g, stride 2).
+__device__ __forceinline__ void adjoint_tile(
+    const Params& p, int c0, int k, const float* Zc, const float* Zr,
+    const float* Zi, int NrP, const float* xm_re, const float* xm_im,
+    float* xmap_re, float* xmap_g, float* cov, bool real_x) {
+  int zrow[kAR];
+#pragma unroll
+  for (int i = 0; i < kAR; ++i)
+    zrow[i] = min(c0 + i, p.Lin - 1) * p.Lh * NrP;
+  float cs[kAR], ar[kAR], ai[kAR];
+#pragma unroll
+  for (int i = 0; i < kAR; ++i) cs[i] = ar[i] = ai[i] = 0.f;
+  const size_t tap_stride = static_cast<size_t>(p.Nt) * p.Nr;
+  for (int l = 0; l < p.Lh; ++l) {
+    const float2* hl = p.h + l * tap_stride + k;
+    const float* al = p.a2 + l * tap_stride + k;
+    const float* zc = Zc + l * NrP;
+    const float* zr = Zr + l * NrP;
+    const float* zi = Zi + l * NrP;
+    int m0 = 0;
+    for (; m0 + 4 <= p.Nr; m0 += 4)
+      adjoint_quad<false>(p, hl, al, m0, zrow, zc, zr, zi, cs, ar, ai);
+    if (m0 < p.Nr)
+      adjoint_quad<true>(p, hl, al, m0, zrow, zc, zr, zi, cs, ar, ai);
+  }
+#pragma unroll
+  for (int i = 0; i < kAR; ++i) {
+    const int c = c0 + i;
+    if (c < p.Lin) {
+      const int j = c * p.Nt + k;
+      const float cv = 1.f / cs[i];
+      cov[j] = cv;
+      xmap_re[j] = xm_re[j] + cv * ar[i];
+      xmap_g[2 * j + 1] = real_x ? cv * ai[i] : xm_im[j] + cv * ai[i];
+    }
+  }
+}
+
+// Denoisers.
+
+// decode::torch_sum of get(0..n-1) for n <= kMaxK (W = last_pow2(n)
+// lanes, each holding elements t and t + W).  get is called with static
+// indices only, so an array it reads stays in registers.
+template <int W, class Get>
+__device__ __forceinline__ float small_sum_w(int n, Get get) {
+  float lane[W];
+#pragma unroll
+  for (int t = 0; t < W; ++t) {
+    const float a1 =
+        t + W < n ? 0.f + get(t + W < kMaxK ? t + W : kMaxK - 1) : 0.f;
+    lane[t] = (((0.f + get(t)) + a1) + 0.f) + 0.f;
+  }
+#pragma unroll
+  for (int off = W / 2; off >= 1; off >>= 1)
+#pragma unroll
+    for (int t = 0; t < off; ++t) lane[t] = lane[t] + lane[t + off];
+  return lane[0];
+}
+
+template <class Get>
+__device__ __forceinline__ float small_sum(int n, Get get) {
+  switch (last_pow2(n)) {
+    case 1: return small_sum_w<1>(n, get);
+    case 2: return small_sum_w<2>(n, get);
+    case 4: return small_sum_w<4>(n, get);
+    case 8: return small_sum_w<8>(n, get);
+    default: return small_sum_w<16>(n, get);
+  }
+}
+
+// The segmented posterior (decode::segment_posterior<true> with tau =
+// cov / 2) of segment j0 .. j0+M-1, computed by the G lanes of one group
+// (G = the lane count of PyTorch's reduction over M elements; lane t of
+// the group, mask its lanes): the max and the segment sum through
+// shuffles, each lane's share of the sum in lane_sum's order, then the
+// mean and decomposed variance of elements t, t+G, ..., written to the
+// state.  A lane keeps the scaled pseudo-data and eta of its first element
+// (its only one when M is a power of two up to 32) from pass to pass.
+// Returns the OR of the lanes' allclose failures.
+__device__ __forceinline__ int group_posterior(
+    int j0, int M, int K, int G, int t, unsigned mask, const float* sr,
+    const float* si, bool real_x, const float* x_re, const float* xmap_g,
+    const float* cov, float* xm_re, float* xm_im, float* var) {
+  // pseudo-data over tau of element i
+  auto scaled = [&](int i, float& a, float& b) {
+    const int j = j0 + i;
+    const float tau = cov[j] / 2.f;
+    a = x_re[j] / tau;
+    b = real_x ? 0.f : xmap_g[2 * j + 1] / tau;
+  };
+  auto t_of = [&](float a, float b, int q) {
+    return real_x ? a * sr[q] : re_conj_mul(a, b, sr[q], si[q]);
+  };
+  float a0, b0;
+  scaled(t, a0, b0);
+  float mx = -INFINITY;
+  for (int q = 0; q < K; ++q) mx = fmaxf(mx, t_of(a0, b0, q));
+  for (int i = t + G; i < M; i += G) {
+    float a, b;
+    scaled(i, a, b);
+    for (int q = 0; q < K; ++q) mx = fmaxf(mx, t_of(a, b, q));
+  }
+  for (int off = G / 2; off >= 1; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(mask, mx, off, G));
+  auto eta = [&](float a, float b, int q) {
+    return expf(fminf(t_of(a, b, q) - mx, kExpMax));
+  };
+  // eta of one element for every symbol (K > 1)
+  auto etas = [&](float a, float b, float (&e)[kMaxK]) {
+#pragma unroll
+    for (int q = 0; q < kMaxK; ++q) e[q] = q < K ? eta(a, b, q) : 0.f;
+  };
+  // eta summed over the symbols
+  auto eta_m = [&](float a, float b) {
+    if (K == 1) return eta(a, b, 0);
+    float e[kMaxK];
+    etas(a, b, e);
+    return small_sum(K, [&](int q) { return e[q]; });
+  };
+  // ... then over the segment: element s of this lane goes to accumulator
+  // s % 4 (lane_sum), the lanes join in a tree
+  const float em0 = eta_m(a0, b0);
+  float acc0 = 0.f + em0, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
+  int s = 1;
+  for (int i = t + G; i < M; i += G, ++s) {
+    float a, b;
+    scaled(i, a, b);
+    const float em = eta_m(a, b);
+    switch (s & 3) {
+      case 0: acc0 = acc0 + em; break;
+      case 1: acc1 = acc1 + em; break;
+      case 2: acc2 = acc2 + em; break;
+      default: acc3 = acc3 + em; break;
+    }
+  }
+  float sum = ((acc0 + acc1) + acc2) + acc3;
+  for (int off = G / 2; off >= 1; off >>= 1)
+    sum = sum + __shfl_down_sync(mask, sum, off, G);
+  const float eta2 = __shfl_sync(mask, sum, 0, G);
+  int flag = 0;
+  for (int i = t; i < M; i += G) {
+    float a = a0, b = b0;
+    if (i != t) scaled(i, a, b);
+    float mr, mi, vn;
+    if (K == 1) {
+      const float post = (i == t ? em0 : eta(a, b, 0)) / eta2;
+      mr = sr[0] * post;
+      mi = si[0] * post;
+      vn = abs2(mr, mi) * (1.f - post) + abs2(mr - sr[0], mi - si[0]) * post;
+    } else {
+      float e[kMaxK];
+      etas(a, b, e);
+      mr = small_sum(K, [&](int q) { return sr[q] * e[q]; }) / eta2;
+      mi = small_sum(K, [&](int q) { return si[q] * e[q]; }) / eta2;
+      const float var0 =
+          abs2(mr, mi) *
+          (1.f - small_sum(K, [&](int q) { return e[q]; }) / eta2);
+      const float vs = small_sum(K, [&](int q) {
+        return abs2(mr - sr[q], mi - si[q]) * e[q];
+      });
+      vn = var0 + vs / eta2;
+    }
+    const int j = j0 + i;
+    const float old = var[j];
+    xm_re[j] = mr;
+    if (!real_x) xm_im[j] = mi;
+    var[j] = vn;
+    flag |= int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
+  }
+  return flag;
+}
+
+// The Bernoulli-symbol mixture posterior of element j, with the exponent
+// clamps and the zero-norm guard of the plain version.
+__device__ __forceinline__ int mixture_posterior(
+    const Params& p, int j, bool real_x, const float* x_re,
+    const float* xmap_g, const float* cov, float* xm_re, float* xm_im,
+    float* var) {
+  const float* sr = p.sym_re;
+  const float* si = p.sym_im;
+  const int K = p.K;
+  const float cv = cov[j];
+  const float xr = x_re[j], xi = xmap_g[2 * j + 1];
+  const float g0 = expf(-fminf(abs2(xr, xi) / cv, kExpMax));
+  float g[kMaxK];
+#pragma unroll
+  for (int q = 0; q < kMaxK; ++q)
+    g[q] = q < K ? expf(-fminf(abs2(xr - sr[q], xi - si[q]) / cv, kExpMax))
+                 : 0.f;
+  float norm = p.P0 * g0 + p.Ps * small_sum(K, [&](int q) { return g[q]; });
+  if (norm == 0.f) norm = kZeroTol;
+  const float mr =
+      (p.Ps * small_sum(K, [&](int q) { return sr[q] * g[q]; })) / norm;
+  const float mi =
+      (p.Ps * small_sum(K, [&](int q) { return si[q] * g[q]; })) / norm;
+  const float second = (p.Ps * small_sum(K, [&](int q) {
+                          return abs2(sr[q], si[q]) * g[q];
+                        })) / norm;
+  const float vn = second - abs2(mr, mi);
+  const float old = var[j];
+  xm_re[j] = mr;
+  if (!real_x) xm_im[j] = mi;
+  var[j] = vn;
+  return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
+}
+
+__global__ void __launch_bounds__(kThreads, 3) bamp_decode_kernel(Params p) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = p.Lin * p.Nt;
   const int n = p.Lout * p.Nr;
-  const int W = p.Lh * p.Nr;
+  const int NrP = (p.Nr + 3) & ~3;
   const size_t xo = static_cast<size_t>(b) * N;
   const size_t yo = static_cast<size_t>(b) * n;
   const bool real_x = p.real_x != 0;
@@ -122,25 +496,30 @@ __global__ void __launch_bounds__(kThreads) bamp_decode_kernel(Params p) {
   }
 
   // Shared-memory planes of this trial, in the order whose size
-  // smem_bytes() in fused_bamp.py computes.
-  extern __shared__ float sm[];
-  float* xm_re = sm;
+  // smem_bytes() in fused_bamp.py computes.  The scratch planes come first
+  // (16-byte rows of NrP floats): the forward products P[c, l, m], then in
+  // the same slots the adjoint inputs Z[c, l, m].
+  extern __shared__ __align__(16) float sm[];
+  const int S = p.Lin * p.Lh * NrP;
+  float* Zc = sm;
+  float* Zr = Zc + S;
+  float* Zi = Zr + S;
+  float* xm_re = Zi + S;
   float* xm_im = xm_re + N;                 // absent for real alphabets
   float* var = xm_im + (real_x ? 0 : N);
   float* xmap_re = var + N;
-  float* xmap_im = xmap_re + N;
-  float* cov = xmap_im + N;
+  float* cov = xmap_re + N;
   float* y_re = cov + N;
   float* y_im = y_re + n;
   float* z_re = y_im + n;
   float* z_im = z_re + n;
   float* u = z_im + n;
-  // Gain-weighted adjoint inputs per (column block c, tap l, antenna m):
-  // gains2[l,c] / u', gains[l,c] (y - z') / u' at row block c + l.
-  float* Zc = u + n;
-  float* Zr = Zc + p.Lin * W;
-  float* Zi = Zr + p.Lin * W;
+  // The pseudo-data's imaginary part lives in the output (stride 2).
+  float* xmap_g = reinterpret_cast<float*>(p.xmap_out + xo);
 
+  // Slots of (c, l) pairs that place no block, and the row padding, stay
+  // zero: the adjoint reads them as exact zeros.
+  for (int e = tid; e < 3 * S; e += blockDim.x) sm[e] = 0.f;
   for (int j = tid; j < N; j += blockDim.x) {
     const float2 m = p.xmmse_in[xo + j];
     xm_re[j] = m.x;
@@ -158,9 +537,32 @@ __global__ void __launch_bounds__(kThreads) bamp_decode_kernel(Params p) {
   }
   __syncthreads();
 
-  const size_t tap_stride = static_cast<size_t>(p.Nt) * p.Nr;
+  const int cols = p.Lh * p.Nr;
+  const int fwd_tiles = (p.Lin + kFR - 1) / kFR * cols;
+  const int adj_tiles = (p.Lin + kAR - 1) / kAR * p.Nt;
+  const bool vec = p.Nt % 4 == 0;
   for (int it = 0; it < p.cap; ++it) {
-    // ---- forward maps + Onsager residual: thread per output (r, m) ----
+    // ---- forward products: thread per (kFR source blocks, tap column) ---
+    for (int f = tid; f < fwd_tiles; f += blockDim.x) {
+      const int g = f / cols;
+      const int l = (f - g * cols) / p.Nr;
+      const int m = f - g * cols - l * p.Nr;
+      if (vec && real_x)
+        forward_tile<true, true>(p, g * kFR, l, m, xm_re, xm_im, var, Zc, Zr,
+                                 Zi, NrP);
+      else if (vec)
+        forward_tile<true, false>(p, g * kFR, l, m, xm_re, xm_im, var, Zc,
+                                  Zr, Zi, NrP);
+      else if (real_x)
+        forward_tile<false, true>(p, g * kFR, l, m, xm_re, xm_im, var, Zc,
+                                  Zr, Zi, NrP);
+      else
+        forward_tile<false, false>(p, g * kFR, l, m, xm_re, xm_im, var, Zc,
+                                   Zr, Zi, NrP);
+    }
+    __syncthreads();
+
+    // ---- fold, Onsager residual and adjoint inputs: thread per (r, m) ---
     for (int o = tid; o < n; o += blockDim.x) {
       const int r = o / p.Nr;
       const int m = o - r * p.Nr;
@@ -168,136 +570,58 @@ __global__ void __launch_bounds__(kThreads) bamp_decode_kernel(Params p) {
       for (int l = 0; l < p.Lh; ++l) {
         const int c = src_block(r, l, p);
         if (c < 0) continue;
-        const float2* ht = p.hT + l * tap_stride + m;
-        const float* at = p.a2T + l * tap_stride + m;
-        const float* xr = xm_re + c * p.Nt;
-        const float* vr = var + c * p.Nt;
-        float pv = 0.f, pr = 0.f, pi = 0.f;
-        if (real_x) {
-          for (int k = 0; k < p.Nt; ++k) {
-            const float2 hv = __ldg(ht + k * p.Nr);
-            const float x = xr[k];
-            pv = fmaf(vr[k], __ldg(at + k * p.Nr), pv);
-            pr = fmaf(x, hv.x, pr);
-            pi = fmaf(x, hv.y, pi);
-          }
-        } else {
-          const float* xi = xm_im + c * p.Nt;
-          for (int k = 0; k < p.Nt; ++k) {
-            const float2 hv = __ldg(ht + k * p.Nr);
-            const float x = xr[k], xj = xi[k];
-            pv = fmaf(vr[k], __ldg(at + k * p.Nr), pv);
-            pr = fmaf(x, hv.x, pr);
-            pr = fmaf(-xj, hv.y, pr);
-            pi = fmaf(x, hv.y, pi);
-            pi = fmaf(xj, hv.x, pi);
-          }
-        }
+        const int e = (c * p.Lh + l) * NrP + m;
         const float g = p.gains[l * p.Lin + c];
-        v = v + p.gains2[l * p.Lin + c] * pv;
-        hx_re = hx_re + g * pr;
-        hx_im = hx_im + g * pi;
+        v = v + p.gains2[l * p.Lin + c] * Zc[e];
+        hx_re = hx_re + g * Zr[e];
+        hx_im = hx_im + g * Zi[e];
       }
       const float uo = u[o];
       const float zr = hx_re - (v * (y_re[o] - z_re[o])) / uo;
       const float zi = hx_im - (v * (y_im[o] - z_im[o])) / uo;
+      const float un = v + p.sigma2;
       z_re[o] = zr;
       z_im[o] = zi;
-      u[o] = v + p.sigma2;
-    }
-    __syncthreads();
-
-    // ---- adjoint inputs, weighted by the gains of their (tap, column) ---
-    for (int e = tid; e < p.Lin * W; e += blockDim.x) {
-      const int c = e / W;
-      const int l = (e - c * W) / p.Nr;
-      const int m = e - c * W - l * p.Nr;
-      const int r = dst_block(c, l, p);
-      if (r < 0) continue;  // never read: the adjoint skips this tap
-      const int o = r * p.Nr + m;
-      const float un = u[o];
-      Zc[e] = p.gains2[l * p.Lin + c] * (1.f / un);
-      Zr[e] = p.gains[l * p.Lin + c] * ((y_re[o] - z_re[o]) / un);
-      Zi[e] = p.gains[l * p.Lin + c] * ((y_im[o] - z_im[o]) / un);
-    }
-    __syncthreads();
-
-    // ---- adjoint maps: thread per x-side element (c, k) -----------------
-    for (int j = tid; j < N; j += blockDim.x) {
-      const int c = j / p.Nt;
-      const int k = j - c * p.Nt;
-      float cs = 0.f, ar = 0.f, ai = 0.f;
+      u[o] = un;
+      // gain-weighted adjoint inputs of every (c, l) feeding this row
+      const float wc = 1.f / un;
+      const float wr = (y_re[o] - zr) / un;
+      const float wi = (y_im[o] - zi) / un;
       for (int l = 0; l < p.Lh; ++l) {
-        if (dst_block(c, l, p) < 0) continue;
-        const float2* hl = p.h + l * tap_stride + k;
-        const float* al = p.a2 + l * tap_stride + k;
-        const float* zc = Zc + c * W + l * p.Nr;
-        const float* zr = Zr + c * W + l * p.Nr;
-        const float* zi = Zi + c * W + l * p.Nr;
-        for (int m = 0; m < p.Nr; ++m) {
-          const float2 hv = __ldg(hl + m * p.Nt);
-          cs = fmaf(zc[m], __ldg(al + m * p.Nt), cs);
-          // (zr + i zi) * conj(h)
-          ar = fmaf(zr[m], hv.x, ar);
-          ar = fmaf(-zi[m], -hv.y, ar);
-          ai = fmaf(zr[m], -hv.y, ai);
-          ai = fmaf(zi[m], hv.x, ai);
-        }
+        const int c = src_block(r, l, p);
+        if (c < 0) continue;
+        const int e = (c * p.Lh + l) * NrP + m;
+        Zc[e] = p.gains2[l * p.Lin + c] * wc;
+        Zr[e] = p.gains[l * p.Lin + c] * wr;
+        Zi[e] = p.gains[l * p.Lin + c] * wi;
       }
-      const float cv = 1.f / cs;
-      cov[j] = cv;
-      xmap_re[j] = xm_re[j] + cv * ar;
-      xmap_im[j] = real_x ? cv * ai : xm_im[j] + cv * ai;
     }
     __syncthreads();
 
-    // ---- denoiser, allclose test and state update -----------------------
+    // ---- adjoint products: thread per (kAR column blocks, x element) ---
+    for (int f = tid; f < adj_tiles; f += blockDim.x) {
+      const int g = f / p.Nt;
+      adjoint_tile(p, g * kAR, f - g * p.Nt, Zc, Zr, Zi, NrP, xm_re, xm_im,
+                   xmap_re, xmap_g, cov, real_x);
+    }
+    __syncthreads();
+
     int bad = 0;
-    const float* sr = p.sym_re;
-    const float* si = p.sym_im;
+    // ---- denoiser, allclose test and state update -----------------------
     if (p.den == kSegmented) {
-      // Thread per segment: the plain version's segmented posterior with
-      // tau = cov / 2 and the decomposed variance.
-      for (int s = tid; s < N / p.M; s += blockDim.x) {
-        bad |= segment_posterior<true>(
-            s * p.M, p.M, p.K, sr, si, real_x, xmap_re, xmap_im,
-            [=](int j) { return cov[j]; },
-            [=](int j, float mr, float mi, float vn) {
-              const float old = var[j];
-              xm_re[j] = mr;
-              if (!real_x) xm_im[j] = mi;
-              var[j] = vn;
-              return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
-            });
-      }
+      // A group of G lanes per segment, tau = cov / 2, decomposed variance.
+      const int G = p.M >= 32 ? 32 : last_pow2(p.M);
+      const int t = tid & (G - 1);
+      const unsigned mask =
+          G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((tid & 31) & ~(G - 1));
+      for (int s = tid / G; s < N / p.M; s += blockDim.x / G)
+        bad |= group_posterior(s * p.M, p.M, p.K, G, t, mask, p.sym_re,
+                               p.sym_im, real_x, xmap_re, xmap_g, cov, xm_re,
+                               xm_im, var);
     } else {
-      // Bernoulli-symbol mixture: lane-local, with the exponent clamps and
-      // the zero-norm guard of the plain version.
-      const int K = p.K;
-      for (int j = tid; j < N; j += blockDim.x) {
-        const float cv = cov[j];
-        const float xr = xmap_re[j], xi = xmap_im[j];
-        const float g0 = expf(-fminf(abs2(xr, xi) / cv, kExpMax));
-        float g[kMaxK];
-        for (int q = 0; q < K; ++q)
-          g[q] = expf(-fminf(abs2(xr - sr[q], xi - si[q]) / cv, kExpMax));
-        float norm = p.P0 * g0 + p.Ps * torch_sum(K, [&](int q) { return g[q]; });
-        if (norm == 0.f) norm = kZeroTol;
-        const float mr =
-            (p.Ps * torch_sum(K, [&](int q) { return sr[q] * g[q]; })) / norm;
-        const float mi =
-            (p.Ps * torch_sum(K, [&](int q) { return si[q] * g[q]; })) / norm;
-        const float second =
-            (p.Ps * torch_sum(K, [&](int q) {
-              return abs2(sr[q], si[q]) * g[q];
-            })) / norm;
-        const float vn = second - abs2(mr, mi);
-        const float old = var[j];
-        bad |= fabsf(vn - old) > kAtol + kRtol * fabsf(old);
-        xm_re[j] = mr;
-        if (!real_x) xm_im[j] = mi;
-        var[j] = vn;
-      }
+      for (int j = tid; j < N; j += blockDim.x)
+        bad |= mixture_posterior(p, j, real_x, xmap_re, xmap_g, cov, xm_re,
+                                 xm_im, var);
     }
     ++T;
     if (!__syncthreads_or(bad)) {
@@ -307,7 +631,7 @@ __global__ void __launch_bounds__(kThreads) bamp_decode_kernel(Params p) {
   }
 
   for (int j = tid; j < N; j += blockDim.x) {
-    p.xmap_out[xo + j] = make_float2(xmap_re[j], xmap_im[j]);
+    xmap_g[2 * j] = xmap_re[j];
     p.xmmse_out[xo + j] = make_float2(xm_re[j], real_x ? 0.f : xm_im[j]);
     p.var_out[xo + j] = var[j];
   }

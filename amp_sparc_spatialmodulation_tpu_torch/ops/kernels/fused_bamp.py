@@ -6,7 +6,9 @@ batch on one banded operator — the four banded maps, Onsager, the
 segmented softmax or Bernoulli-mixture denoiser, per-trial allclose,
 freeze and ``T`` — with the iteration loop inside the kernel.  The CUDA
 source is ``csrc/fused_bamp_decode.cu``: one thread block per trial, its
-state in shared memory, so each trial stops at its own convergence.
+state in shared memory, so each trial stops at its own convergence; the
+banded products run as register tiles that reuse each tap for several
+column blocks.
 
 * :func:`whole_decode` is the wrapper.  On a CUDA tensor it launches the
   kernel (or raises); on a CPU tensor it runs :func:`decode_plain`.
@@ -61,12 +63,19 @@ def real_x(cfg: Config) -> bool:
     return bool(np.all(np.asarray(cfg.symbols).imag == 0))
 
 
+def scratch_row(cfg: Config) -> int:
+    """Floats per (column block, tap) row of the kernel's scratch planes:
+    Nr rounded up to a multiple of 4, so each row starts on 16 bytes."""
+    return -(-cfg.Nr // 4) * 4
+
+
 def smem_bytes(cfg: Config) -> int:
-    """Dynamic shared memory of one block, passed to the launch: 5 x-side
-    planes (6 for complex alphabets), 5 y-side planes and 3 adjoint-input
-    planes of float32, carved in that order by the kernel."""
-    return 4 * ((5 if real_x(cfg) else 6) * cfg.N + 5 * cfg.n
-                + 3 * cfg.Lin * cfg.Lh * cfg.Nr)
+    """Dynamic shared memory of one block, passed to the launch: 3 scratch
+    planes of (Lin, Lh, scratch_row) floats (the forward products, then
+    the adjoint inputs), 4 x-side planes (5 for complex alphabets) and 5
+    y-side planes of float32, carved in that order by the kernel."""
+    return 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
+                + (4 if real_x(cfg) else 5) * cfg.N + 5 * cfg.n)
 
 
 def fits(cfg: Config) -> bool:

@@ -24,7 +24,9 @@ Phases, each printing one JSON line:
    each kernel its main path's phase 1 (65536 trials, cap k1) and phase 2
    (the still-active trials of that phase 1, gathered, to the cap);
    split-and-resume must give identical T.  CUDA event timings of kernel
-   and plain version at both phase shapes;
+   and plain version at both phase shapes; K1's line adds its share of the
+   bound, its phase-2 time per iteration and trial, its shared memory per
+   block, and the registers and spills ptxas reported for it;
 4. main    — the flagship BAMP OOK point (``config.flagship_bamp_ook()``,
    SPARC channel in tap form, Eb/N0 = 8 dB, two-phase k1=12) through
    ``Simulator.run_point`` over 128 realizations of 65536 trials, with the
@@ -294,7 +296,7 @@ def bound(flop, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels(torch, dev):
+def phase_kernels(torch, dev, k1_ptxas):
     from amp_sparc_spatialmodulation_tpu_torch.config import (
         Config, flagship_bamp_ook)
     from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
@@ -397,18 +399,23 @@ def phase_kernels(torch, dev):
                s1.xmap, s1.xmmse, s1.var, s1.z, s1.u, s1.active, s1.T]
     # real banded products per iteration: |H|^2 var, H xmmse (2 real, 4
     # complex), |H|^2^T (1/u), H^H r (4)
-    flop, nbytes, iters = decode_work(
-        fcfg, s0, s1, tensors, 8 if fused_bamp.real_x(fcfg) else 10)
+    products = 8 if fused_bamp.real_x(fcfg) else 10
+    flop, nbytes, iters = decode_work(fcfg, s0, s1, tensors, products)
     bound_ms, bound_by = bound(flop, nbytes)
+    iters2 = decode_work(fcfg, s2, out["k2"], [], products)[2]
     timing = dict(kernel="fused_bamp_decode", B=RES, cap=K1, ms=ms,
                   plain_ms=plain_ms,
                   ns_per_iter_trial=1e6 * ms / iters,
                   plain_ns_per_iter_trial=1e6 * plain_ms / iters,
                   iterations=iters, flop=flop, bytes=nbytes,
                   bound_ms=bound_ms, bound_by=bound_by,
+                  pct_of_bound=100 * bound_ms / ms,
                   achieved_tflops=flop / (ms * 1e-3) / 1e12,
+                  smem_bytes=fused_bamp.smem_bytes(fcfg),
+                  ptxas=list(k1_ptxas),
                   phase2_B=int(idx.numel()), phase2_ms=ms2,
-                  phase2_plain_ms=plain_ms2)
+                  phase2_plain_ms=plain_ms2, phase2_iterations=iters2,
+                  phase2_ns_per_iter_trial=1e6 * ms2 / max(iters2, 1))
     emit("kernel_timing", **timing)
     return max_err, timing
 
@@ -1455,7 +1462,10 @@ def main() -> int:
                                 if "registers" in ln or "spill" in ln]}
                   for k, v in report.items()})
 
-    max_err, timing = phase_kernels(torch, dev)
+    max_err, timing = phase_kernels(
+        torch, dev, [ln.strip() for ln in
+                     report["fused_bamp_decode"]["ptxas"].splitlines()
+                     if "registers" in ln or "spill" in ln])
     launches = phase_main(torch, dev)
     max_err2, timing2 = phase_kernels_scamp(torch, dev)
     launches2 = phase_main_scamp(torch, dev)

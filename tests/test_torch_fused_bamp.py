@@ -160,7 +160,7 @@ def test_coverage_rule():
             == FusedBandedDecode.covers(JConfig(**base)), kw
     flag = tconfig.flagship_bamp_ook()
     assert fused_bamp.fits(flag)
-    assert fused_bamp.smem_bytes(flag) == 4 * (5 * 2560 + 5 * 528 + 3 * 1440)
+    assert fused_bamp.smem_bytes(flag) == 4 * (3 * 1440 + 4 * 2560 + 5 * 528)
     assert not fused_bamp.fits(tconfig.massive_mimo())
 
 

@@ -2,24 +2,28 @@
 checkout, in turns on one card.
 
 Two versions are compared only inside one process on one card: each kernel
-is built from both source trees, run once to warm up, then timed by CUDA
-events at its main path's phase-1 shape (BAMP: ``flagship_bamp_ook()``,
-65536 trials to k1=12; SCAMP: the OOK sparc point at the same dimensions,
-65536 trials to k1=8, both at Eb/N0 = 8 dB), in the order parent, change,
-change, parent (and so on for more rounds).  Every timed result must equal
-the first bit for bit.  A kernel whose source the other checkout lacks is
+is built from both source trees and launched through that tree's own
+wrapper module (so each gets its own shared-memory carve-out), run once to
+warm up, then timed by CUDA events in the order parent, change, change,
+parent (and so on for more rounds).  Every timed result must equal the
+first bit for bit.  The shapes are the main paths': BAMP
+(``flagship_bamp_ook()``, Eb/N0 = 8 dB) phase 1, 65536 trials to k1=12,
+and phase 2, the trials still active after that phase 1, gathered, to the
+cap of 100; SCAMP (the OOK sparc point at the same dimensions) phase 1,
+65536 trials to k1=8.  A kernel whose source the other checkout lacks is
 timed on its own.
 
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
         (mkdir -p build/parent && tar -x -C build/parent)
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent
 
-Prints one JSON line per timing, then one summary line per kernel.  Needs
+Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import statistics
@@ -32,26 +36,47 @@ from amp_sparc_spatialmodulation_tpu_torch.config import (Config,
                                                           flagship_bamp_ook)
 from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
 from amp_sparc_spatialmodulation_tpu_torch.models import scamp
-from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (build,
-                                                               fused_bamp,
-                                                               fused_scamp)
+from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import build
 from amp_sparc_spatialmodulation_tpu_torch.utils.device import make_generator
 
 RES = 65536
 REPS = 4
+PACKAGE = "amp_sparc_spatialmodulation_tpu_torch.ops.kernels"
+
+
+def wrapper_module(root: Path, module: str, label: str):
+    """The wrapper module ``module`` of the checkout at ``root``, loaded
+    inside this checkout's package, so that its relative imports (config,
+    models, build) resolve to this checkout's."""
+    path = (root / "amp_sparc_spatialmodulation_tpu_torch" / "ops"
+            / "kernels" / f"{module}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"{PACKAGE}._{label}_{module}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _cases(dev):
-    """(kernel name, wrapper module, launch) per kernel; ``launch()`` runs
-    the wrapper once on a fixed realization and returns its state."""
+    """(case name, kernel name, wrapper module, launch) per case;
+    ``launch(mod)`` runs wrapper module ``mod`` once on a fixed input and
+    returns its state."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
     out = []
     cfg = flagship_bamp_ook()
     snr = 10 ** ((8.0 + 10 * math.log10(cfg.code_rate)) / 10)
     r = montecarlo.generate_realization(make_generator(dev, 11), cfg,
                                         "sparc", "banded", RES, snr)
     s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
-    out.append(("fused_bamp_decode", fused_bamp, lambda: fused_bamp
-                .whole_decode(r.A, s0, r.y, r.sigma2, 12, cfg)))
+    out.append(("bamp_phase1", "fused_bamp_decode", "fused_bamp",
+                lambda mod: mod.whole_decode(r.A, s0, r.y, r.sigma2, 12,
+                                             cfg)))
+    s1 = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, 12, cfg)
+    idx = torch.nonzero(s1.active).flatten()
+    y2, s2 = r.y[idx], montecarlo.state_take_trials(s1, idx)
+    out.append(("bamp_phase2", "fused_bamp_decode", "fused_bamp",
+                lambda mod: mod.whole_decode(r.A, s2, y2, r.sigma2,
+                                             cfg.N_Layers, cfg)))
     scfg = Config(Nt=128, Na=8, Nr=24, Lin=20, Lh=3, mode="sparc",
                   alphabet="OOK", profile="uniform", trunc="tail",
                   iterations=100)
@@ -59,12 +84,13 @@ def _cases(dev):
     rs = montecarlo.generate_realization(make_generator(dev, 21), scfg,
                                          "sparc", "banded", RES, snr)
     ss0 = scamp.initial_state(rs.y, scfg)
-    out.append(("fused_scamp_decode", fused_scamp, lambda: fused_scamp
-                .whole_decode(rs.A, rs.W, ss0, rs.y, rs.sigma2, 8, scfg)))
+    out.append(("scamp_phase1", "fused_scamp_decode", "fused_scamp",
+                lambda mod: mod.whole_decode(rs.A, rs.W, ss0, rs.y,
+                                             rs.sigma2, 8, scfg)))
     return out
 
 
-def _libraries(name, module, trees):
+def _libraries(name, mods, trees):
     """The loaded library of kernel ``name`` built from each source tree
     that has it, keyed by the tree's label."""
     libs = {}
@@ -75,9 +101,10 @@ def _libraries(name, module, trees):
                 continue
             build.CSRC = csrc
             build._loaded.pop(name, None)
-            libs[label] = module._library()
+            libs[label] = mods[label]._library()
     finally:
         build.CSRC = here
+        build._loaded.pop(name, None)
     return libs
 
 
@@ -98,37 +125,43 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    trees = {"parent": (args.parent / "amp_sparc_spatialmodulation_tpu_torch"
-                        / "ops" / "kernels" / "csrc").resolve(),
-             "change": build.CSRC}
-    for name, module, launch in _cases(dev):
-        libs = _libraries(name, module, trees)
+    roots = {"parent": args.parent.resolve(),
+             "change": Path(__file__).resolve().parents[1]}
+    trees = {k: root / "amp_sparc_spatialmodulation_tpu_torch" / "ops"
+             / "kernels" / "csrc" for k, root in roots.items()}
+    for case, name, module, launch in _cases(dev):
+        mods = {k: wrapper_module(root, module, k)
+                for k, root in roots.items()}
+        libs = _libraries(name, mods, trees)
         order = [k for k in ("parent", "change", "change", "parent")
                  if k in libs] * args.rounds
         times = {k: [] for k in libs}
         first = None
         for label in order:
             build._loaded[name] = libs[label]
-            out = launch()
+            out = launch(mods[label])
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(REPS):
-                out = launch()
+                out = launch(mods[label])
             stop.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(stop) / REPS
             first = out if first is None else first
             if not _same(first, out):
-                raise AssertionError(f"{name}: {label} differs")
+                raise AssertionError(f"{case}: {label} differs")
             times[label].append(ms)
-            print(json.dumps({"kernel": name, "source": label, "ms": ms}),
-                  flush=True)
+            print(json.dumps({"case": case, "kernel": name, "source": label,
+                              "ms": ms}), flush=True)
         build._loaded.pop(name, None)
-        print(json.dumps({"kernel": name, "device": smi, "identical": True,
-                          **{f"{k}_median_ms": statistics.median(v)
-                             for k, v in times.items()},
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(json.dumps({"case": case, "kernel": name, "device": smi,
+                          "B": int(first.T.numel()), "identical": True,
+                          **{f"{k}_median_ms": v for k, v in med.items()},
+                          **({"change_over_parent": med["change"]
+                              / med["parent"]} if len(med) == 2 else {}),
                           **{f"{k}_ms": v for k, v in times.items()}}),
               flush=True)
     return 0
