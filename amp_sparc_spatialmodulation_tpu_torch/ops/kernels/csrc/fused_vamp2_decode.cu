@@ -27,8 +27,10 @@
 // design this kernel shares (vamp_common.cuh): the same two products with
 // the factor per iteration (8 real products of 2 N p flop per trial and
 // iteration, 4-product complex form), the state in device memory, the
-// products streamed through shared memory with a 4 x 4 complex register
-// tile per thread and summed blocked over k, FP32 on the CUDA cores.
+// products streamed through a cp.async ring in shared memory into a
+// 4-trial x 3- or 2-column complex register tile per thread, summed in
+// chains of 16 over k with the running sums in registers, FP32 on the CUDA
+// cores, two blocks of 256 threads per SM.
 // r_tilde needs the whole row's variance sum before the first product, so
 // step 1 writes it over r (the old r is not needed after it), and step 4
 // adds the second product to it.
@@ -64,11 +66,11 @@ struct Params {
   int cap;  // remaining iteration budget
 };
 
-__global__ void __launch_bounds__(kThreads, 2) vamp2_decode_kernel(Params P) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    vamp2_decode_kernel(Params P) {
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+  const int ty = tid / kTx, tx = tid % kTx;  // product tiles (vamp_common)
   const int warp = tid >> 5, lane = tid & 31;
-  const int gm = tid / kGroup, gl = tid % kGroup;  // denoiser: trial, lane
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kBt;
   const int nrows = min(kBt, P.B - static_cast<int>(row0));
   const int N = P.N, p = P.p, M = P.M;
@@ -91,38 +93,34 @@ __global__ void __launch_bounds__(kThreads, 2) vamp2_decode_kernel(Params P) {
     s_act[tid] = valid ? P.act[row0 + tid] : 0;
     s_T[tid] = valid ? P.T[row0 + tid] : 0;
     s_gamma[tid] = valid ? P.gamma[row0 + tid] : 1.f;
+    s_bad[tid] = 0;
   }
 
   for (int it = 0; it < P.cap; ++it) {
     if (!__syncthreads_or(tid < kBt && s_act[tid])) break;
 
-    // ---- 1. denoiser with tau = gamma, damping, allclose: kGroup threads
-    // per trial ---------------------------------------------------------
+    // ---- 1. denoiser with tau = gamma, damping, allclose: a thread per
+    // (trial, segment) -----------------------------------------------------
     {
-      const bool on = gm < nrows && s_act[gm];
-      const float gamma = s_gamma[gm];
       const float rho = P.rho, omr = P.omr;
-      int bad = 0;
-      if (on) {
-        for (int sg = gl; sg * M < N; sg += kGroup) {
-          const size_t j0 = static_cast<size_t>(gm) * N +
-                            static_cast<size_t>(sg) * M;
-          float2* xo = xm + j0;
-          float* vo = var + j0;
-          bad |= segment_posterior<true>(
-              M, P.K, P.sym_re, P.sym_im, r + j0, gamma,
-              [=](int i, float mr, float mi, float v) {
-                const float2 old = xo[i];
-                xo[i] = make_float2(rho * mr + omr * old.x,
-                                    rho * mi + omr * old.y);
-                const int flag = not_close(v, vo[i]);
-                vo[i] = v;
-                return flag;
-              });
-        }
-      }
-      bad = group_or(bad);
-      if (on && gl == 0) s_bad[gm] = bad;
+      for_each_segment(nrows, N, M, s_act, s_bad, [&](int m, size_t j0) {
+        float2* xo = xm + j0;
+        float* vo = var + j0;
+        return segment_posterior<true>(
+            M, P.K, P.sym_re, P.sym_im, r + j0, s_gamma[m],
+            [=](int i, float mr, float mi, float v) {
+              const float2 old = xo[i];
+              xo[i] = make_float2(rho * mr + omr * old.x,
+                                  rho * mi + omr * old.y);
+              const int flag = not_close(v, vo[i]);
+              vo[i] = v;
+              return flag;
+            });
+      }, [&](size_t j0) {
+        prefetch_l1(r + j0, M);
+        prefetch_l1(var + j0, M);
+        prefetch_l1(xm + j0, M);
+      });
     }
     __syncthreads();
 
@@ -150,25 +148,31 @@ __global__ void __launch_bounds__(kThreads, 2) vamp2_decode_kernel(Params P) {
     __syncthreads();
 
     // ---- 3. r_tilde = (xmmse - alpha r) / (1 - alpha), written over r ----
-    for (size_t e = tid; e < static_cast<size_t>(nrows) * N; e += kThreads) {
-      const int m = static_cast<int>(e / N);
-      if (!s_act[m]) continue;
-      const float alpha = s_alpha[m], oma = 1.f - alpha;
-      const float2 x = xm[e], v = r[e];
-      r[e] = make_float2((x.x - alpha * v.x) / oma, (x.y - alpha * v.y) / oma);
-    }
+    for_each_row_element<4>(
+        nrows, N, s_act,
+        [&](int, size_t e) {
+          const float2 x = xm[e], v = r[e];
+          return make_float4(x.x, x.y, v.x, v.y);
+        },
+        [&](int m, size_t e, float4 v) {
+          const float alpha = s_alpha[m], oma = 1.f - alpha;
+          r[e] = make_float2((v.x - alpha * v.z) / oma,
+                             (v.y - alpha * v.w) / oma);
+        });
     __syncthreads();
 
     // ---- 4. w = (d / d_mean) (y_tilde - r_tilde Vh^T) ---------------------
-    for (int n0 = 0; n0 < p; n0 += kBN) {
-      float cr[4][4], ci[4][4];
+    for (int n0 = 0; n0 < p; n0 += kBN1) {
+      float cr[kNI][kNJ1], ci[kNI][kNJ1];
       product_tile<true>(r, N, nrows, Vh, N, p, N, n0, sm, cr, ci);
-      for (int i = 0; i < 4; ++i) {
-        const int m = 4 * ty + i;
+#pragma unroll
+      for (int i = 0; i < kNI; ++i) {
+        const int m = kNI * ty + i;
         if (m >= nrows || !s_act[m]) continue;
         const float gt = s_gt[m], dm = s_dmean[m];
-        for (int j = 0; j < 4; ++j) {
-          const int k = n0 + 4 * tx + j;
+#pragma unroll
+        for (int j = 0; j < kNJ1; ++j) {
+          const int k = n0 + tx + kTx * j;
           if (k >= p) continue;
           const float sk = __ldg(s2 + k);
           const float sc = sk / (sk + P.sigma2 * gt) / dm;
@@ -181,14 +185,16 @@ __global__ void __launch_bounds__(kThreads, 2) vamp2_decode_kernel(Params P) {
     __syncthreads();
 
     // ---- 5. r = r_tilde + eta w conj(Vh) ----------------------------------
-    for (int n0 = 0; n0 < N; n0 += kBN) {
-      float cr[4][4], ci[4][4];
+    for (int n0 = 0; n0 < N; n0 += kBN2) {
+      float cr[kNI][kNJ2], ci[kNI][kNJ2];
       product_tile<false>(w, p, nrows, Vh, N, N, p, n0, sm, cr, ci);
-      for (int i = 0; i < 4; ++i) {
-        const int m = 4 * ty + i;
+#pragma unroll
+      for (int i = 0; i < kNI; ++i) {
+        const int m = kNI * ty + i;
         if (m >= nrows || !s_act[m]) continue;
-        for (int j = 0; j < 4; ++j) {
-          const int jc = n0 + 4 * tx + j;
+#pragma unroll
+        for (int j = 0; j < kNJ2; ++j) {
+          const int jc = n0 + tx + kTx * j;
           if (jc >= N) continue;
           const size_t e = static_cast<size_t>(m) * N + jc;
           const float2 t = r[e];
@@ -202,6 +208,7 @@ __global__ void __launch_bounds__(kThreads, 2) vamp2_decode_kernel(Params P) {
       s_gamma[tid] = s_gnext[tid];
       s_act[tid] = s_bad[tid];
     }
+    if (tid < kBt) s_bad[tid] = 0;
   }
 
   __syncthreads();

@@ -36,20 +36,24 @@
 // block: Vh is 10.8 MB (it is served from the 50 MB L2 to every block) and
 // a trial's state is 7 x 2560 floats.  So the tile's state stays in device
 // memory, in the output buffers, and the products stream both operands
-// through shared memory in steps of 16, each thread holding a 4 x 4 complex
-// register tile of a 64 x 64 output tile (64 FMAs per four 16-byte shared
-// loads).  The tile height of 64 trials sets the traffic on Vh: every
-// block reads it twice per iteration.  All arithmetic is FP32 on the CUDA
-// cores: the stop test needs it (no TF32).  The complex products use the
-// 4-product form, not the TPU kernel's Gauss 3-multiply form: it keeps the
-// factor as it is (no combination planes) and has no cancellation in
-// k1 - k3; the Gauss form would save a quarter of the multiplies.  The sum
-// over k is blocked (vamp_common.cuh, product_tile), which costs about 9%
-// of the time against one FMA chain over k but keeps the mean T of
-// decodes that stop by the allclose test near the float64 decode's.  The
-// kernel does not match the plain version bit for bit (cuBLAS sums in
-// another order, which also changes with the batch size); r, which divides
-// by 1 - alpha (down to 1e-5), carries that order noise amplified.
+// through a cp.async ring in shared memory (vamp_common.cuh, product_tile):
+// each thread holds a 4-trial x 3- or 2-column complex register tile of a
+// 64-trial output tile, with the running sums in registers too, at 128
+// registers so that two blocks share an SM (the passes between the
+// products wait on memory and need the second block's warps; an 8-trial
+// tile at one block per SM runs the products faster and the whole decode
+// slower, PERF.md).  Every block reads Vh twice per iteration.  The column
+// tiles divide the main geometry (48 columns for p = 528, 32 for N =
+// 2560).  All arithmetic is FP32 on the CUDA cores: the stop test needs
+// it (no TF32).  The complex products use the 4-product form, not the TPU
+// kernel's Gauss 3-multiply form: it keeps the factor as it is (no
+// combination planes) and has no cancellation in k1 - k3; the Gauss form
+// would save a quarter of the multiplies.  The sum over k is blocked
+// (chains of 16 added in k order), which keeps the mean T of decodes that
+// stop by the allclose test near the float64 decode's.  The kernel does not
+// match the plain version bit for bit (cuBLAS sums in another order, which
+// also changes with the batch size); r, which divides by 1 - alpha (down to
+// 1e-5), carries that order noise amplified.
 //
 // Layouts: every state plane is per-trial contiguous, complex values
 // interleaved (PyTorch complex64): r_tilde, r, xmmse (B, N), var (B, N),
@@ -87,11 +91,11 @@ struct Params {
   int cap;  // remaining iteration budget
 };
 
-__global__ void __launch_bounds__(kThreads, 2) vamp_decode_kernel(Params P) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    vamp_decode_kernel(Params P) {
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+  const int ty = tid / kTx, tx = tid % kTx;  // product tiles (vamp_common)
   const int warp = tid >> 5, lane = tid & 31;
-  const int gm = tid / kGroup, gl = tid % kGroup;  // denoiser: trial, lane
   const int c = blockIdx.y;
   const int first = blockIdx.x * kBt;
   const int nrows = min(kBt, P.B_per - first);
@@ -121,6 +125,7 @@ __global__ void __launch_bounds__(kThreads, 2) vamp_decode_kernel(Params P) {
 
   for (int it = 0; it < P.cap; ++it) {
     if (!__syncthreads_or(tid < kBt && s_act[tid])) break;
+    if (tid < kBt) s_bad[tid] = 0;
 
     // ---- per trial: sigma2 / sigma2_tilde, var_lmmse, alpha, tau ---------
     // (scale depends on the trial only through vr, so its mean over p is
@@ -142,15 +147,17 @@ __global__ void __launch_bounds__(kThreads, 2) vamp_decode_kernel(Params P) {
     __syncthreads();
 
     // ---- 1. q = r_tilde Vh^T, w = scale (y_tilde + vr q) - q ------------
-    for (int n0 = 0; n0 < p; n0 += kBN) {
-      float cr[4][4], ci[4][4];
+    for (int n0 = 0; n0 < p; n0 += kBN1) {
+      float cr[kNI][kNJ1], ci[kNI][kNJ1];
       product_tile<true>(rt, N, nrows, Vh, N, p, N, n0, sm, cr, ci);
-      for (int i = 0; i < 4; ++i) {
-        const int m = 4 * ty + i;
+#pragma unroll
+      for (int i = 0; i < kNI; ++i) {
+        const int m = kNI * ty + i;
         if (m >= nrows || !s_act[m]) continue;
         const float vr = s_vr[m];
-        for (int j = 0; j < 4; ++j) {
-          const int k = n0 + 4 * tx + j;
+#pragma unroll
+        for (int j = 0; j < kNJ1; ++j) {
+          const int k = n0 + tx + kTx * j;
           if (k >= p) continue;
           const float sc = 1.f / (__ldg(s2 + k) + vr);
           const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
@@ -164,15 +171,17 @@ __global__ void __launch_bounds__(kThreads, 2) vamp_decode_kernel(Params P) {
     __syncthreads();
 
     // ---- 2. x_tilde = w conj(Vh) + r_tilde, r = (x_tilde - a r_tilde)/(1-a)
-    for (int n0 = 0; n0 < N; n0 += kBN) {
-      float cr[4][4], ci[4][4];
+    for (int n0 = 0; n0 < N; n0 += kBN2) {
+      float cr[kNI][kNJ2], ci[kNI][kNJ2];
       product_tile<false>(w, p, nrows, Vh, N, N, p, n0, sm, cr, ci);
-      for (int i = 0; i < 4; ++i) {
-        const int m = 4 * ty + i;
+#pragma unroll
+      for (int i = 0; i < kNI; ++i) {
+        const int m = kNI * ty + i;
         if (m >= nrows || !s_act[m]) continue;
         const float a = s_alpha[m], oma = 1.f - a;
-        for (int j = 0; j < 4; ++j) {
-          const int jc = n0 + 4 * tx + j;
+#pragma unroll
+        for (int j = 0; j < kNJ2; ++j) {
+          const int jc = n0 + tx + kTx * j;
           if (jc >= N) continue;
           const size_t e = static_cast<size_t>(m) * N + jc;
           const float2 t = rt[e];
@@ -183,30 +192,22 @@ __global__ void __launch_bounds__(kThreads, 2) vamp_decode_kernel(Params P) {
     }
     __syncthreads();
 
-    // ---- 3. denoiser and allclose: kGroup threads per trial --------------
-    {
-      const bool on = gm < nrows && s_act[gm];
-      const float tau = s_tau[gm];
-      int bad = 0;
-      if (on) {
-        for (int sg = gl; sg * M < N; sg += kGroup) {
-          const size_t j0 = static_cast<size_t>(gm) * N +
-                            static_cast<size_t>(sg) * M;
-          float2* xo = xm + j0;
-          float* vo = var + j0;
-          bad |= segment_posterior<false>(
-              M, P.K, P.sym_re, P.sym_im, r + j0, tau,
-              [=](int i, float mr, float mi, float v) {
-                xo[i] = make_float2(mr, mi);
-                const int flag = not_close(v, vo[i]);
-                vo[i] = v;
-                return flag;
-              });
-        }
-      }
-      bad = group_or(bad);
-      if (on && gl == 0) s_bad[gm] = bad;
-    }
+    // ---- 3. denoiser and allclose: a thread per (trial, segment) ---------
+    for_each_segment(nrows, N, M, s_act, s_bad, [&](int m, size_t j0) {
+      float2* xo = xm + j0;
+      float* vo = var + j0;
+      return segment_posterior<false>(
+          M, P.K, P.sym_re, P.sym_im, r + j0, s_tau[m],
+          [=](int i, float mr, float mi, float v) {
+            xo[i] = make_float2(mr, mi);
+            const int flag = not_close(v, vo[i]);
+            vo[i] = v;
+            return flag;
+          });
+    }, [&](size_t j0) {
+      prefetch_l1(r + j0, M);
+      prefetch_l1(var + j0, M);
+    });
     __syncthreads();
 
     // ---- 4. dxdr = mean(var) / tau and sigma2_tilde: a warp per trial ----
@@ -227,14 +228,17 @@ __global__ void __launch_bounds__(kThreads, 2) vamp_decode_kernel(Params P) {
     __syncthreads();
 
     // ---- 5. r_tilde = (xmmse - dxdr r) / (1 - dxdr) -----------------------
-    for (size_t e = tid; e < static_cast<size_t>(nrows) * N; e += kThreads) {
-      const int m = static_cast<int>(e / N);
-      if (!s_act[m]) continue;
-      const float dxdr = s_dxdr[m], norm = 1.f / (1.f - dxdr);
-      const float2 x = xm[e], v = r[e];
-      rt[e] = make_float2((x.x - dxdr * v.x) * norm,
-                          (x.y - dxdr * v.y) * norm);
-    }
+    for_each_row_element<4>(
+        nrows, N, s_act,
+        [&](int, size_t e) {
+          const float2 x = xm[e], v = r[e];
+          return make_float4(x.x, x.y, v.x, v.y);
+        },
+        [&](int m, size_t e, float4 v) {
+          const float dxdr = s_dxdr[m], norm = 1.f / (1.f - dxdr);
+          rt[e] = make_float2((v.x - dxdr * v.z) * norm,
+                              (v.y - dxdr * v.w) * norm);
+        });
     __syncthreads();
     if (tid < nrows && s_act[tid]) s_act[tid] = s_bad[tid];
   }

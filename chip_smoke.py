@@ -881,7 +881,8 @@ def phase_kernels_vamp(torch, dev, algo: str):
                   bound_ms=bound_ms, bound_by=bound_by,
                   achieved_tflops=flop / (ms * 1e-3) / 1e12,
                   matmul_products_ms=matmul_ms,
-                  matmul_products_ms_per_iteration=matmul_iter_ms)
+                  matmul_products_ms_per_iteration=matmul_iter_ms,
+                  library_ms=matmul_ms)
     emit(f"kernel_timing_{algo}", **timing)
     if failed:
         raise AssertionError(f"kernel != plain ({algo}): {failed}")

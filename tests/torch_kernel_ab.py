@@ -5,17 +5,24 @@ Two versions are compared only inside one process on one card: each kernel
 is built from both source trees and launched through that tree's own
 wrapper module (so each gets its own shared-memory carve-out), run once to
 warm up, then timed by CUDA events in the order parent, change, change,
-parent (and so on for more rounds).  Every timed result must equal the
-first bit for bit.  The shapes are the main paths': BAMP
+parent (and so on for more rounds).  Every timed result must equal its
+tree's first bit for bit.  The shapes are the main paths': BAMP
 (``flagship_bamp_ook()``, Eb/N0 = 8 dB) phase 1, 65536 trials to k1=12,
 and phase 2, the trials still active after that phase 1, gathered, to the
 cap of 100; SCAMP (the OOK sparc point at the same dimensions) phase 1,
-65536 trials to k1=8.  A kernel whose source the other checkout lacks is
-timed on its own.
+65536 trials to k1=8; VAMP and vamp2 (K3, K4) at the VAMP OOK point
+(``chip_smoke.vamp_main_config()``, Eb/N0 = 8 dB, dense SPARC channel),
+65536 trials to the cap of 10.  The two trees' results must be
+bit-identical for K1 and K2; for K3 and K4, whose product engine may sum
+in another order from one tree to the other, they are held to
+``chip_smoke.compare_vamp``'s ``trial_share`` rule instead, and the
+bit-identical share is printed.  A kernel whose source the other checkout
+lacks is timed on its own.  ``--cases`` picks cases by name.
 
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
         (mkdir -p build/parent && tar -x -C build/parent)
-    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
+        [--cases vamp_cap10,vamp2_cap10]
 
 Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
@@ -57,37 +64,63 @@ def wrapper_module(root: Path, module: str, label: str):
     return mod
 
 
-def _cases(dev):
-    """(case name, kernel name, wrapper module, launch) per case;
+def _cases(dev, wanted=frozenset()):
+    """(case name, kernel name, wrapper module, launch) per case named in
+    ``wanted`` (every case when it is empty), made as they are reached;
     ``launch(mod)`` runs wrapper module ``mod`` once on a fixed input and
     returns its state."""
     from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
-    out = []
-    cfg = flagship_bamp_ook()
-    snr = 10 ** ((8.0 + 10 * math.log10(cfg.code_rate)) / 10)
-    r = montecarlo.generate_realization(make_generator(dev, 11), cfg,
-                                        "sparc", "banded", RES, snr)
-    s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
-    out.append(("bamp_phase1", "fused_bamp_decode", "fused_bamp",
-                lambda mod: mod.whole_decode(r.A, s0, r.y, r.sigma2, 12,
-                                             cfg)))
-    s1 = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, 12, cfg)
-    idx = torch.nonzero(s1.active).flatten()
-    y2, s2 = r.y[idx], montecarlo.state_take_trials(s1, idx)
-    out.append(("bamp_phase2", "fused_bamp_decode", "fused_bamp",
-                lambda mod: mod.whole_decode(r.A, s2, y2, r.sigma2,
-                                             cfg.N_Layers, cfg)))
-    scfg = Config(Nt=128, Na=8, Nr=24, Lin=20, Lh=3, mode="sparc",
-                  alphabet="OOK", profile="uniform", trunc="tail",
-                  iterations=100)
-    snr = 10 ** ((8.0 + 10 * math.log10(scfg.code_rate)) / 10)
-    rs = montecarlo.generate_realization(make_generator(dev, 21), scfg,
-                                         "sparc", "banded", RES, snr)
-    ss0 = scamp.initial_state(rs.y, scfg)
-    out.append(("scamp_phase1", "fused_scamp_decode", "fused_scamp",
-                lambda mod: mod.whole_decode(rs.A, rs.W, ss0, rs.y,
-                                             rs.sigma2, 8, scfg)))
-    return out
+
+    def want(*names):
+        return not wanted or bool(wanted.intersection(names))
+
+    if want("bamp_phase1", "bamp_phase2"):
+        cfg = flagship_bamp_ook()
+        snr = 10 ** ((8.0 + 10 * math.log10(cfg.code_rate)) / 10)
+        r = montecarlo.generate_realization(make_generator(dev, 11), cfg,
+                                            "sparc", "banded", RES, snr)
+        s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+        yield ("bamp_phase1", "fused_bamp_decode", "fused_bamp",
+               lambda mod: mod.whole_decode(r.A, s0, r.y, r.sigma2, 12,
+                                            cfg))
+        s1 = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, 12, cfg)
+        idx = torch.nonzero(s1.active).flatten()
+        y2, s2 = r.y[idx], montecarlo.state_take_trials(s1, idx)
+        yield ("bamp_phase2", "fused_bamp_decode", "fused_bamp",
+               lambda mod: mod.whole_decode(r.A, s2, y2, r.sigma2,
+                                            cfg.N_Layers, cfg))
+    if want("scamp_phase1"):
+        scfg = Config(Nt=128, Na=8, Nr=24, Lin=20, Lh=3, mode="sparc",
+                      alphabet="OOK", profile="uniform", trunc="tail",
+                      iterations=100)
+        snr = 10 ** ((8.0 + 10 * math.log10(scfg.code_rate)) / 10)
+        rs = montecarlo.generate_realization(make_generator(dev, 21), scfg,
+                                             "sparc", "banded", RES, snr)
+        ss0 = scamp.initial_state(rs.y, scfg)
+        yield ("scamp_phase1", "fused_scamp_decode", "fused_scamp",
+               lambda mod: mod.whole_decode(rs.A, rs.W, ss0, rs.y,
+                                            rs.sigma2, 8, scfg))
+    for algo in ("vamp", "vamp2"):
+        if want(f"{algo}_cap10"):
+            yield _vamp_case(dev, algo)
+
+
+def _vamp_case(dev, algo):
+    """K3 or K4 at the VAMP main point: 65536 trials to the cap of 10."""
+    import chip_smoke
+    from amp_sparc_spatialmodulation_tpu_torch.models import vamp, vamp2
+    mod_, data = ((vamp, vamp.project) if algo == "vamp"
+                  else (vamp2, vamp2.whiten))
+    cfg = chip_smoke.vamp_main_config()
+    r = montecarlo.with_svd(algo, montecarlo.generate_realization(
+        make_generator(dev, 29), cfg, "sparc", "dense", RES,
+        chip_smoke.snr_of(cfg, 8.0)))
+    yt, s2 = data(r.dec, r.y), (r.dec.s ** 2).contiguous()
+    s0 = mod_.initial_state(r.y, cfg)
+    tag = "" if algo == "vamp" else "2"
+    return (f"{algo}_cap10", f"fused_vamp{tag}_decode", f"fused_vamp{tag}",
+            lambda mod: mod.whole_decode(r.dec.Vh, s2, yt, s0, r.sigma2, 10,
+                                         cfg))
 
 
 def _libraries(name, mods, trees):
@@ -113,12 +146,36 @@ def _same(a, b) -> bool:
                for f in a._fields if f != "t")
 
 
+def _across(case, first) -> dict:
+    """The two trees' results against each other: bit identity, or for K3
+    and K4 ``compare_vamp``'s ``trial_share`` rule (tolerance 1e-3)."""
+    if len(first) < 2:
+        return {}
+    a, b = first["change"], first["parent"]
+    identical = _same(a, b)
+    if not case.startswith("vamp"):
+        if not identical:
+            raise AssertionError(f"{case}: the trees differ")
+        return {"identical": True}
+    import chip_smoke
+    failed = []
+    err = chip_smoke.compare_vamp(f"ab_{case}", a, b, 1e-3, failed, cap=10)
+    if failed:
+        raise AssertionError(f"{case}: the trees differ beyond the "
+                             f"trial_share rule: {failed}")
+    return {"identical": identical, "rule": "trial_share",
+            "max_abs_err_T_agree": err}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", type=Path, required=True,
                    help="root of the other checkout")
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--cases", default="",
+                   help="comma-separated case names (default: all)")
     args = p.parse_args(argv)
+    wanted = set(filter(None, args.cases.split(",")))
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
     dev = torch.device("cuda")
@@ -129,14 +186,14 @@ def main(argv=None) -> int:
              "change": Path(__file__).resolve().parents[1]}
     trees = {k: root / "amp_sparc_spatialmodulation_tpu_torch" / "ops"
              / "kernels" / "csrc" for k, root in roots.items()}
-    for case, name, module, launch in _cases(dev):
+    for case, name, module, launch in _cases(dev, wanted):
         mods = {k: wrapper_module(root, module, k)
                 for k, root in roots.items()}
         libs = _libraries(name, mods, trees)
         order = [k for k in ("parent", "change", "change", "parent")
                  if k in libs] * args.rounds
         times = {k: [] for k in libs}
-        first = None
+        first = {}
         for label in order:
             build._loaded[name] = libs[label]
             out = launch(mods[label])
@@ -149,16 +206,20 @@ def main(argv=None) -> int:
             stop.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(stop) / REPS
-            first = out if first is None else first
-            if not _same(first, out):
-                raise AssertionError(f"{case}: {label} differs")
+            first.setdefault(label, out)
+            if not _same(first[label], out):
+                raise AssertionError(f"{case}: {label} differs from its "
+                                     "first run")
             times[label].append(ms)
             print(json.dumps({"case": case, "kernel": name, "source": label,
                               "ms": ms}), flush=True)
+            del out
         build._loaded.pop(name, None)
+        across = _across(case, first)
         med = {k: statistics.median(v) for k, v in times.items()}
         print(json.dumps({"case": case, "kernel": name, "device": smi,
-                          "B": int(first.T.numel()), "identical": True,
+                          "B": int(next(iter(first.values())).T.numel()),
+                          **across,
                           **{f"{k}_median_ms": v for k, v in med.items()},
                           **({"change_over_parent": med["change"]
                               / med["parent"]} if len(med) == 2 else {}),
