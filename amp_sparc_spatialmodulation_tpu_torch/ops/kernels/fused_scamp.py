@@ -8,7 +8,8 @@ Onsager, the mean-only segmented softmax denoiser, the per-trial allclose
 on ``psi``, freeze and ``T`` — with the iteration loop inside the kernel.
 The CUDA source is ``csrc/fused_scamp_decode.cu``: one thread block per
 trial, its state in shared memory, so each trial stops at its own
-convergence.
+convergence; the banded products run as register tiles that reuse each
+tap for several column blocks.
 
 * :func:`whole_decode` is the wrapper.  On a CUDA tensor it launches the
   kernel (or raises); on a CPU tensor it runs :func:`decode_plain`.
@@ -49,13 +50,21 @@ def covers(cfg: Config) -> bool:
             and cfg.M > 0)
 
 
+def scratch_plane(cfg: Config) -> int:
+    """Floats in each of the kernel's two scratch planes: the forward
+    products of every (column block, tap, antenna), then in the same slots
+    the adjoint inputs, rounded up to a multiple of 4 so that the planes
+    after them start on 16 bytes."""
+    return -(-cfg.Lin * cfg.Lh * cfg.Nr // 4) * 4
+
+
 def smem_bytes(cfg: Config) -> int:
-    """Dynamic shared memory of one block, passed to the launch: 3 x-side
-    planes (4 for complex alphabets), 4 y-side planes, 2 adjoint-input
-    planes and the psi, tau, phi and Onsager vectors, of float32, carved
-    in that order by the kernel."""
-    return 4 * ((3 if real_x(cfg) else 4) * cfg.N + 4 * cfg.n
-                + 2 * cfg.Lin * cfg.Lh * cfg.Nr + 2 * (cfg.Lin + cfg.Lout))
+    """Dynamic shared memory of one block, passed to the launch: 2 scratch
+    planes of :func:`scratch_plane` floats, 2 x-side planes (3 for complex
+    alphabets), 4 y-side planes and the psi, tau, phi and Onsager
+    vectors, of float32, carved in that order by the kernel."""
+    return 4 * (2 * scratch_plane(cfg) + (2 if real_x(cfg) else 3) * cfg.N
+                + 4 * cfg.n + 2 * (cfg.Lin + cfg.Lout))
 
 
 def fits(cfg: Config) -> bool:

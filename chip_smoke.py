@@ -24,9 +24,11 @@ Phases, each printing one JSON line:
    each kernel its main path's phase 1 (65536 trials, cap k1) and phase 2
    (the still-active trials of that phase 1, gathered, to the cap);
    split-and-resume must give identical T.  CUDA event timings of kernel
-   and plain version at both phase shapes; K1's line adds its share of the
-   bound, its phase-2 time per iteration and trial, its shared memory per
-   block, and the registers and spills ptxas reported for it;
+   and plain version at both phase shapes; K1's and K2's lines add their
+   share of the bound, their shared memory per block and the registers
+   and spills ptxas reported for them; K1's its phase-2 time per
+   iteration and trial; K2's its phase-2 bound and its products as
+   torch.matmul calls at the main shape;
 4. main    — the flagship BAMP OOK point (``config.flagship_bamp_ook()``,
    SPARC channel in tap form, Eb/N0 = 8 dB, two-phase k1=12) through
    ``Simulator.run_point`` over 128 realizations of 65536 trials, with the
@@ -489,9 +491,11 @@ def phase_main(torch, dev):
     return launches
 
 
-def phase_kernels_scamp(torch, dev):
+def phase_kernels_scamp(torch, dev, ptxas):
     """K2 against its plain version (the ``kernels`` phase for SCAMP),
-    then timed at its main path's phase-1 and phase-2 shapes."""
+    then timed at its main path's phase-1 and phase-2 shapes, beside its
+    products as ``torch.matmul`` calls; ``ptxas`` is its build's register
+    and spill report."""
     from amp_sparc_spatialmodulation_tpu_torch.config import (
         Config, flagship_scamp)
     from amp_sparc_spatialmodulation_tpu_torch.models import montecarlo, scamp
@@ -580,22 +584,52 @@ def phase_kernels_scamp(torch, dev):
     max_err = max(max_err, compare("kernel_phase2_scamp", out["k2"],
                                    out["p2"], 1e-3, SCAMP_FIELDS,
                                    cap=mcfg.N_Layers))
-    tensors = [r.y, s0.xmap, s0.xmmse, s0.psi, s0.phi, s0.z, s0.active,
-               s0.T, r.A.h, r.A.h, r.A.gains, r.W, s1.xmap, s1.xmmse, s1.psi,
-               s1.phi, s1.z, s1.active, s1.T]
+    def planes(s):
+        return [getattr(s, f) for f in s._fields if f != "t"]
+
     # real banded products per iteration: A xmmse (2 real, 4 complex) and
     # A^H (z / phi) (4)
+    products = 6 if fused_scamp.real_x(mcfg) else 8
+    taps = [r.A.h, r.A.h, r.A.gains, r.W]
     flop, nbytes, iters = decode_work(
-        mcfg, s0, s1, tensors, 6 if fused_scamp.real_x(mcfg) else 8)
+        mcfg, s0, s1, [r.y] + planes(s0) + taps + planes(s1), products)
     bound_ms, bound_by = bound(flop, nbytes)
+    flop2, nbytes2, iters2 = decode_work(
+        mcfg, s2, out["k2"], [y2] + planes(s2) + taps + planes(out["k2"]),
+        products)
+    bound_ms2 = bound(flop2, nbytes2)[0]
+    # the same products as torch.matmul calls at the main shape, one
+    # iteration of every trial (the stacked taps of A xmmse, and A^H Z),
+    # scaled to the iterations phase 1 ran
+    rows, cols = RES * mcfg.Lin, mcfg.Lh * mcfg.Nr
+    hs = r.A.h_stack
+    if fused_scamp.real_x(mcfg):
+        xs = s1.xmmse.real.reshape(rows, mcfg.Nt).contiguous()
+        hf = torch.view_as_real(hs).reshape(mcfg.Nt, 2 * cols)
+    else:
+        xs, hf = s1.xmmse.reshape(rows, mcfg.Nt), hs
+    zs = torch.complex(torch.rand(rows, cols, device=dev),
+                       torch.rand(rows, cols, device=dev))
+    ha = hs.conj().T.contiguous()
+    library = {"forward": cuda_ms(lambda: xs @ hf, 1, 5),
+               "adjoint": cuda_ms(lambda: zs @ ha, 1, 5)}
+    del xs, zs
+    library_iter_ms = sum(library.values())
     timing = dict(kernel="fused_scamp_decode", B=RES, cap=SCAMP_K1, ms=ms,
                   plain_ms=plain_ms, ns_per_iter_trial=1e6 * ms / iters,
                   plain_ns_per_iter_trial=1e6 * plain_ms / iters,
                   iterations=iters, flop=flop, bytes=nbytes,
                   bound_ms=bound_ms, bound_by=bound_by,
+                  pct_of_bound=100 * bound_ms / ms,
                   achieved_tflops=flop / (ms * 1e-3) / 1e12,
+                  library_ms=library_iter_ms * iters / RES,
+                  library_ms_per_iteration=library_iter_ms,
+                  library_ms_by_product=library,
+                  smem_bytes=fused_scamp.smem_bytes(mcfg), ptxas=list(ptxas),
                   phase2_B=int(idx.numel()), phase2_ms=ms2,
-                  phase2_plain_ms=plain_ms2)
+                  phase2_plain_ms=plain_ms2, phase2_iterations=iters2,
+                  phase2_bound_ms=bound_ms2,
+                  phase2_pct_of_bound=100 * bound_ms2 / ms2)
     emit("kernel_timing_scamp", **timing)
     return max_err, timing
 
@@ -1463,12 +1497,14 @@ def main() -> int:
                                 if "registers" in ln or "spill" in ln]}
                   for k, v in report.items()})
 
-    max_err, timing = phase_kernels(
-        torch, dev, [ln.strip() for ln in
-                     report["fused_bamp_decode"]["ptxas"].splitlines()
-                     if "registers" in ln or "spill" in ln])
+    def ptxas(name):
+        return [ln.strip() for ln in report[name]["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln]
+
+    max_err, timing = phase_kernels(torch, dev, ptxas("fused_bamp_decode"))
     launches = phase_main(torch, dev)
-    max_err2, timing2 = phase_kernels_scamp(torch, dev)
+    max_err2, timing2 = phase_kernels_scamp(torch, dev,
+                                            ptxas("fused_scamp_decode"))
     launches2 = phase_main_scamp(torch, dev)
     torch.cuda.empty_cache()
     max_err3, timing3 = phase_kernels_vamp(torch, dev, "vamp")

@@ -251,8 +251,8 @@ def test_coverage_rule_and_shared_memory():
             == FusedScampDecode.covers(JConfig(**base)), kw
     main = Config(Nt=128, Na=8, Nr=24, Lin=20, Lh=3, mode="sparc",
                   alphabet="OOK", trunc="tail")
-    assert fused_scamp.smem_bytes(main) == 4 * (3 * 2560 + 4 * 528
-                                                + 2 * 1440 + 2 * 42)
+    assert fused_scamp.smem_bytes(main) == 4 * (2 * 1440 + 2 * 2560
+                                                + 4 * 528 + 2 * 42)
     assert fused_scamp.fits(main) and fused_scamp.fits(flagship_scamp())
     psk8 = Config(Nt=480, Na=30, Nr=57, Lin=32, Lh=6, mode="sparc",
                   alphabet="8PSK")

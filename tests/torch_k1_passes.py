@@ -1,9 +1,10 @@
 """Share of each pass of a whole-decode kernel in its time, for this
 checkout and another one, with the compiler's register and spill report:
 the BAMP kernel K1 (``ops/kernels/csrc/fused_bamp_decode.cu``, the
-default) or, with ``--kernel vamp``, the VAMP and vamp2 kernels K3 and K4
-(``fused_vamp_decode.cu``, ``fused_vamp2_decode.cu``, both on the product
-engine of ``vamp_common.cuh``).
+default), with ``--kernel scamp`` the SCAMP kernel K2
+(``fused_scamp_decode.cu``) or, with ``--kernel vamp``, the VAMP and vamp2
+kernels K3 and K4 (``fused_vamp_decode.cu``, ``fused_vamp2_decode.cu``,
+both on the product engine of ``vamp_common.cuh``).
 
 No profiler traces the card where this runs, so the shares come from probe
 builds: for each source tree, copies of the kernel's source are compiled
@@ -12,9 +13,13 @@ runs to the cap (the convergence break, or K3/K4's freeze of converged
 trials, is taken out) and, in each copy but the first, one pass of the
 iteration loop is cut out: the code after one ``// ---- <pass>`` header
 inside the loop, up to the pass's closing ``__syncthreads();`` (or
-``++T;`` for K1's denoiser).  The share of a pass is (full - without it) /
+``++T;`` for the pass that holds the stop test); a pass whose cut would
+leave its braces unbalanced (one inside a condition the main path does
+not take, such as K2's ``estimate_phi`` pass) is not cut.  The share of a pass is (full - without it) /
 full, timed by CUDA events at the main path's shape: K1 at phase 1
-(``flagship_bamp_ook()``, Eb/N0 = 8 dB, 65536 trials, cap 12), K3 and K4
+(``flagship_bamp_ook()``, Eb/N0 = 8 dB, 65536 trials, cap 12), K2 at
+phase 1 of the SCAMP main point (``chip_smoke.scamp_main_config()``,
+Eb/N0 = 8 dB, 65536 trials, cap 8), K3 and K4
 at the VAMP OOK point (``chip_smoke.vamp_main_config()``, Eb/N0 = 8 dB,
 65536 trials, cap 10); ``rest`` is the copy with every pass cut (loads,
 stores and barriers).  Each tree's copies launch through that tree's own
@@ -24,7 +29,10 @@ carve-out raised to one that leaves 2 blocks per SM.  With ``--tiles``
 this checkout's kernel is also built with other tile sizes and timed as it
 ships, and each result must equal the shipped build's bit for bit: for K1
 ``10x10,7x5,...`` (source blocks per thread of the forward ``kFR`` x of
-the adjoint ``kAR``); for K3/K4 ``4x3x4x16x2x2,...`` (``vamp_common.cuh``'s
+the adjoint ``kAR``); for K2 ``7x5x2x4x3,...`` (source blocks per forward
+thread ``kFR`` x column blocks ``kAR`` x x elements ``kAK`` per adjoint
+thread x blocks per SM ``kMinBlocks`` x outputs per fold thread ``kFO``;
+a shorter spec sets the first constants only); for K3/K4 ``4x3x4x16x2x2,...`` (``vamp_common.cuh``'s
 trials per thread ``kNI`` x columns per thread of product 1 ``kNJ1`` and
 of product 2 ``kNJ2`` x k per ring slot ``kBK`` x ring slots ``kStages`` x
 blocks per SM ``kMinBlocks``).
@@ -32,6 +40,8 @@ blocks per SM ``kMinBlocks``).
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
         (mkdir -p build/parent && tar -x -C build/parent)
     env PYTHONPATH=. python3 tests/torch_k1_passes.py --parent build/parent
+    env PYTHONPATH=. python3 tests/torch_k1_passes.py --parent build/parent \\
+        --kernel scamp --tiles 7x5x1x4x1,7x5x2x3x3
     env PYTHONPATH=. python3 tests/torch_k1_passes.py --parent build/parent \\
         --kernel vamp --tiles 4x3x4x16x2x2,8x3x4x16x2x1
 
@@ -53,7 +63,8 @@ from pathlib import Path
 import torch
 
 from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
-from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+from amp_sparc_spatialmodulation_tpu_torch.models import (bamp, montecarlo,
+                                                          scamp)
 from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import build
 from amp_sparc_spatialmodulation_tpu_torch.utils.device import make_generator
 
@@ -74,25 +85,40 @@ KERNELS = {
         to_cap=("s_act[tid] = s_bad[tid];", ";"),
         tile_file="vamp_common.cuh",
         tile_names=("kNI", "kNJ1", "kNJ2", "kBK", "kStages", "kMinBlocks")),
+    "fused_scamp_decode": dict(
+        module="fused_scamp", loop="for (int it = 0; it < p.cap; ++it)",
+        to_cap=(BREAK, BREAK[:-3] + " && false) {"),
+        tile_file="fused_scamp_decode.cu",
+        tile_names=("kFR", "kAR", "kAK", "kMinBlocks", "kFO")),
 }
 KERNELS["fused_vamp2_decode"] = dict(KERNELS["fused_vamp_decode"],
                                      module="fused_vamp2")
-GROUPS = {"bamp": ("fused_bamp_decode",),
+GROUPS = {"bamp": ("fused_bamp_decode",), "scamp": ("fused_scamp_decode",),
           "vamp": ("fused_vamp_decode", "fused_vamp2_decode")}
 PASS_ENDS = ("__syncthreads();", "++T;")
 KEEP = ("int bad = 0;",)
 TWO_BLOCKS_SMEM = 100000  # 2 x (100,000 + 1 KB) fit an SM, 3 do not
 
 
+def pass_end(lines, h: int) -> int:
+    """Index of the line that ends the pass whose header is line ``h``."""
+    return next(j for j in range(h + 1, len(lines))
+                if lines[j].strip() in PASS_ENDS)
+
+
 def pass_names(src: str, loop_line: str):
     """The passes of the iteration loop that starts at ``loop_line``, by
-    their ``// ---- `` headers: [(name, header line index)]."""
+    their ``// ---- `` headers: [(name, header line index)].  A pass whose
+    cut lines do not balance their braces is left out."""
     lines = src.splitlines()
     loop = next(i for i, ln in enumerate(lines) if loop_line in ln)
     out = []
     for i in range(loop, len(lines)):
         s = lines[i].strip()
         if s.startswith("// ---- "):
+            body = "".join(lines[i + 1:pass_end(lines, i)])
+            if body.count("{") != body.count("}"):
+                continue
             words = re.split(r"[:,]", s[len("// ---- "):])[0]
             out.append((re.sub(r"[^a-z0-9]+", "_", words.lower()).strip("_"),
                         i))
@@ -108,9 +134,7 @@ def variant(src: str, to_cap, cut=()):
     lines = src.replace(*to_cap).splitlines()
     drop = set()
     for h in cut:
-        end = next(j for j in range(h + 1, len(lines))
-                   if lines[j].strip() in PASS_ENDS)
-        drop |= {j for j in range(h + 1, end)
+        drop |= {j for j in range(h + 1, pass_end(lines, h))
                  if not lines[j].strip().startswith(KEEP)}
     return "\n".join(ln for j, ln in enumerate(lines) if j not in drop) + "\n"
 
@@ -189,6 +213,14 @@ def setup(dev, name, res):
         return (lambda mod, cap: mod.whole_decode(r.A, s0, r.y, r.sigma2,
                                                   cap, cfg)), s0
     import chip_smoke
+    if name == "fused_scamp_decode":
+        cfg = chip_smoke.scamp_main_config()
+        r = montecarlo.generate_realization(
+            make_generator(dev, 21), cfg, "sparc", "banded", res,
+            chip_smoke.snr_of(cfg, 8.0))
+        s0 = scamp.initial_state(r.y, cfg)
+        return (lambda mod, cap: mod.whole_decode(
+            r.A, r.W, s0, r.y, r.sigma2, cap, cfg)), s0
     from amp_sparc_spatialmodulation_tpu_torch.models import vamp, vamp2
     algo = "vamp" if name == "fused_vamp_decode" else "vamp2"
     mod_, data = ((vamp, vamp.project) if algo == "vamp"
@@ -211,14 +243,15 @@ def main(argv=None) -> int:
     p.add_argument("--out", type=Path, default=Path("build/k1_passes"))
     p.add_argument("--res", type=int, default=65536)
     p.add_argument("--cap", type=int, default=None,
-                   help="iteration cap (default 12 for bamp, 10 for vamp)")
+                   help="iteration cap (default 12 for bamp, 8 for scamp, "
+                   "10 for vamp)")
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--tiles", default="",
                    help="comma-separated tile sizes to build and time")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_passes: no CUDA device")
-    cap = args.cap or (12 if args.kernel == "bamp" else 10)
+    cap = args.cap or {"bamp": 12, "scamp": 8, "vamp": 10}[args.kernel]
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

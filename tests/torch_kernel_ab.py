@@ -10,7 +10,8 @@ tree's first bit for bit.  The shapes are the main paths': BAMP
 (``flagship_bamp_ook()``, Eb/N0 = 8 dB) phase 1, 65536 trials to k1=12,
 and phase 2, the trials still active after that phase 1, gathered, to the
 cap of 100; SCAMP (the OOK sparc point at the same dimensions) phase 1,
-65536 trials to k1=8; VAMP and vamp2 (K3, K4) at the VAMP OOK point
+65536 trials to k1=8, and phase 2, its still-active trials, gathered, to
+the cap of 100; VAMP and vamp2 (K3, K4) at the VAMP OOK point
 (``chip_smoke.vamp_main_config()``, Eb/N0 = 8 dB, dense SPARC channel),
 65536 trials to the cap of 10.  The two trees' results must be
 bit-identical for K1 and K2; for K3 and K4, whose product engine may sum
@@ -22,7 +23,7 @@ lacks is timed on its own.  ``--cases`` picks cases by name.
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
         (mkdir -p build/parent && tar -x -C build/parent)
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
-        [--cases vamp_cap10,vamp2_cap10]
+        [--cases scamp_phase1,scamp_phase2]
 
 Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
@@ -89,7 +90,9 @@ def _cases(dev, wanted=frozenset()):
         yield ("bamp_phase2", "fused_bamp_decode", "fused_bamp",
                lambda mod: mod.whole_decode(r.A, s2, y2, r.sigma2,
                                             cfg.N_Layers, cfg))
-    if want("scamp_phase1"):
+    if want("scamp_phase1", "scamp_phase2"):
+        from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+            fused_scamp)
         scfg = Config(Nt=128, Na=8, Nr=24, Lin=20, Lh=3, mode="sparc",
                       alphabet="OOK", profile="uniform", trunc="tail",
                       iterations=100)
@@ -97,9 +100,19 @@ def _cases(dev, wanted=frozenset()):
         rs = montecarlo.generate_realization(make_generator(dev, 21), scfg,
                                              "sparc", "banded", RES, snr)
         ss0 = scamp.initial_state(rs.y, scfg)
-        yield ("scamp_phase1", "fused_scamp_decode", "fused_scamp",
-               lambda mod: mod.whole_decode(rs.A, rs.W, ss0, rs.y,
-                                            rs.sigma2, 8, scfg))
+        if want("scamp_phase1"):
+            yield ("scamp_phase1", "fused_scamp_decode", "fused_scamp",
+                   lambda mod: mod.whole_decode(rs.A, rs.W, ss0, rs.y,
+                                                rs.sigma2, 8, scfg))
+        if want("scamp_phase2"):
+            ss1 = fused_scamp.whole_decode(rs.A, rs.W, ss0, rs.y, rs.sigma2,
+                                           8, scfg)
+            idx = torch.nonzero(ss1.active).flatten()
+            ys2, ss2 = rs.y[idx], montecarlo.state_take_trials(ss1, idx)
+            yield ("scamp_phase2", "fused_scamp_decode", "fused_scamp",
+                   lambda mod: mod.whole_decode(rs.A, rs.W, ss2, ys2,
+                                                rs.sigma2, scfg.N_Layers,
+                                                scfg))
     for algo in ("vamp", "vamp2"):
         if want(f"{algo}_cap10"):
             yield _vamp_case(dev, algo)
