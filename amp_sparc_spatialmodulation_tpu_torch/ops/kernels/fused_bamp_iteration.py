@@ -17,8 +17,13 @@ kernels, both reached through ``FusedBandedIteration`` and ``_call``:
 The CUDA source is ``csrc/fused_bamp_iteration.cu``, one kernel with a
 switch at launch between the two (compiled as two template instances,
 K7's ran at more than twice K6's time): one thread block per trial, its
-frame in shared memory, any truncation and gains that vary by column, the
-loops of the whole-decode kernel K1 run once.
+frame in shared memory, any truncation and gains that vary by column.  It
+runs the iteration body of the whole-decode kernel K1 once, in a copy of
+its own: register tiles over the block-Toeplitz taps for the forward and
+adjoint products, the fold writing the adjoint inputs into the forward
+products' slots, xmap written over x in place, and for K6 a lane-group
+form of K1's denoiser with the closed-form variance.  Three blocks share
+an SM at the flagship geometry (:func:`smem_bytes`).
 
 * :func:`iteration_fused` (K6, planes in and out like ``plane_call``) and
   :func:`iteration_linear` (K7, the decoder's layout like ``__call__``) are
@@ -37,7 +42,7 @@ import torch
 from ...config import Config
 from ...models import bamp
 from . import build
-from .fused_bamp import _TRUNC, SMEM_LIMIT, _check
+from .fused_bamp import _TRUNC, SMEM_LIMIT, _check, scratch_row
 
 # Kernel launches made by iteration_fused (K6) and iteration_linear (K7).
 fused_launches = 0
@@ -54,10 +59,13 @@ def covers(cfg: Config) -> bool:
 
 
 def smem_bytes(cfg: Config) -> int:
-    """Dynamic shared memory of one block: 6 x-side planes, 5 y-side planes
-    and 3 adjoint-input planes of float32, carved in that order by the
+    """Dynamic shared memory of one block, passed to the launch: 3 scratch
+    planes of (Lin, Lh, scratch_row) floats (the forward products, then
+    the adjoint inputs), 4 x-side planes (x, then xmap in its place; var;
+    cov) and 5 y-side planes of float32, carved in that order by the
     kernel."""
-    return 4 * (6 * cfg.N + 5 * cfg.n + 3 * cfg.Lin * cfg.Lh * cfg.Nr)
+    return 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg) + 4 * cfg.N
+                + 5 * cfg.n)
 
 
 def fits(cfg: Config) -> bool:

@@ -76,7 +76,10 @@ Phases, each printing one JSON line:
    equals K1's), then on its path (``AMP_PALLAS_MODE=periter``); K7 for
    one iteration on QPSK, 8PSK and the flagship geometry (within 1e-4) and
    on its path (the 8PSK decode with K7 as the linear half); both timed at
-   the flagship main path's shape;
+   the flagship main path's shape, with their share of the bound, shared
+   memory per block and the registers and spills ptxas reported; K6 also
+   at the periter path's tail shape (65536 trials, 1% active, the rest
+   frozen), held against its plain version there;
 10. main_massive — ``config.massive_mimo()`` at cap 300, Eb/N0 = 18 dB,
    two-phase k1=40, over 8 realizations of 2048 trials, through K5 in both
    phases with no plain decode; gates: mean T and FER against the JAX
@@ -1203,7 +1206,7 @@ def linear_decode(op, s, y, sigma2, cap, cfg):
     return s
 
 
-def phase_kernels_periter(torch, dev):
+def phase_kernels_periter(torch, dev, ptxas):
     """K6 and K7 against their plain versions.  K6 through the plane loop
     on the OOK small geometries with tail, trunc and cyclic truncation at
     1024 trials and on the flagship geometry at 4096 trials (with the share
@@ -1212,7 +1215,9 @@ def phase_kernels_periter(torch, dev):
     state on the QPSK and 8PSK small geometries and the flagship geometry
     (outputs within 1e-4), then its path: the 8PSK decode with K7 running
     the linear half, against the plain loop.  Both timed at the flagship
-    main path's shape (65536 trials)."""
+    main path's shape (65536 trials), K6 also at the periter path's tail
+    shape (65536 trials, 1% active); ``ptxas`` is the build's register and
+    spill report."""
     import os
 
     from amp_sparc_spatialmodulation_tpu_torch.config import (
@@ -1355,15 +1360,61 @@ def phase_kernels_periter(torch, dev):
     timing6 = dict(kernel="fused_bamp_iteration_fused", B=RES, ms=ms6,
                    plain_ms=plain6, library_ms=library_ms,
                    library_ms_by_product=lib, flop=flop, bytes=nbytes6,
-                   bound_ms=b6, bound_by=by6,
-                   achieved_tflops=flop / (ms6 * 1e-3) / 1e12)
+                   bound_ms=b6, bound_by=by6, pct_of_bound=100 * b6 / ms6,
+                   achieved_tflops=flop / (ms6 * 1e-3) / 1e12,
+                   **periter_tail(torch, fcfg, r, ps, y_re, y_im))
     timing7 = dict(kernel="fused_bamp_iteration_linear", B=RES, ms=ms7,
                    plain_ms=plain7, library_ms=library_ms, flop=flop,
                    bytes=nbytes7, bound_ms=b7, bound_by=by7,
+                   pct_of_bound=100 * b7 / ms7,
                    achieved_tflops=flop / (ms7 * 1e-3) / 1e12)
     emit("kernel_timing_periter", fused=timing6, linear=timing7,
+         smem_bytes=fbi.smem_bytes(fcfg), ptxas=list(ptxas),
          seconds=time.perf_counter() - t0)
     return (max6, timing6, launches6), (max7, timing7, launches7)
+
+
+def periter_tail(torch, cfg, r, ps, y_re, y_im):
+    """K6 at the periter path's tail shape: the trials of ``ps`` with one in
+    100 active and the rest frozen, timed by CUDA events beside its bound
+    and its plain version's time, and held against that version (every
+    plane within 1e-3, xmap on the active trials: K6 writes no frozen
+    trial's xmap).  Returns the ``tail_*`` fields of K6's timing line."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_iteration as fbi)
+    act = torch.zeros_like(ps.active)
+    act[::100] = True
+    ps = ps._replace(active=act & ps.active)
+    out = {}
+    ms = cuda_ms(lambda: out.update(k=fbi.iteration_fused(
+        r.A, ps, y_re, y_im, r.sigma2, cfg)), 2, 10)
+    plain_ms = cuda_ms(lambda: out.update(p=fbi.iteration_fused_plain(
+        r.A, ps, y_re, y_im, r.sigma2, cfg)), 1, 3)
+    k, p = out["k"], out["p"]
+    rows = ps.active
+    err, exact = 0.0, True
+    for f in k._fields:
+        a, b = getattr(k, f), getattr(p, f)
+        if f.startswith("xmap"):
+            a, b = a[rows], b[rows]
+        err = max(err, float((a - b).abs().max()))
+        exact = exact and bool(torch.equal(a, b))
+    active = int(rows.sum())
+    frozen = ps.active.numel() - active
+    # an active trial reads 3 x-side and 5 y-side planes and writes 5 and
+    # 3; a frozen one reads and writes 3 of each; act and notok; the taps
+    x_b, y_b = 4 * cfg.N, 4 * cfg.n
+    taps = [r.A.h, r.A.h, r.A.abs_h2, r.A.abs_h2, r.A.gains, r.A.gains2]
+    nbytes = (active * (8 * x_b + 8 * y_b) + frozen * (6 * x_b + 6 * y_b)
+              + 8 * ps.active.numel()
+              + sum(t.numel() * t.element_size() for t in taps))
+    flop = iteration_work(cfg, active, 10, [])[0]
+    bound_ms, bound_by = bound(flop, nbytes)
+    if not err < 1e-3:
+        raise AssertionError(f"K6 != plain at the tail shape: {err}")
+    return dict(tail_active=active, tail_ms=ms, tail_plain_ms=plain_ms,
+                tail_bound_ms=bound_ms, tail_bound_by=bound_by,
+                tail_max_abs_err=err, tail_bit_exact=exact)
 
 
 def phase_main_massive(torch, dev):
@@ -1517,7 +1568,8 @@ def main() -> int:
     t0 = time.perf_counter()
     max_err5, timing5 = phase_kernels_tiled(torch, dev)
     torch.cuda.empty_cache()
-    k6, k7 = phase_kernels_periter(torch, dev)
+    k6, k7 = phase_kernels_periter(torch, dev,
+                                   ptxas("fused_bamp_iteration"))
     torch.cuda.empty_cache()
     launches5 = phase_main_massive(torch, dev)
     emit("new_phases", seconds=time.perf_counter() - t0)

@@ -158,7 +158,9 @@ def test_covers_matches_jax_fuse_rule(alphabet):
 def test_fit_rule():
     flag = tconfig.flagship_bamp_ook()
     assert fbi.fits(flag)
-    assert fbi.smem_bytes(flag) == 4 * (6 * 2560 + 5 * 528 + 3 * 1440)
+    # 3 scratch planes of (Lin, Lh, 24) floats, 4 x-side, 5 y-side planes
+    assert fbi.smem_bytes(flag) == 4 * (3 * 20 * 3 * 24 + 4 * 2560
+                                        + 5 * 528)
     assert not fbi.fits(tconfig.massive_mimo())
 
 

@@ -13,9 +13,15 @@ cap of 100; SCAMP (the OOK sparc point at the same dimensions) phase 1,
 65536 trials to k1=8, and phase 2, its still-active trials, gathered, to
 the cap of 100; VAMP and vamp2 (K3, K4) at the VAMP OOK point
 (``chip_smoke.vamp_main_config()``, Eb/N0 = 8 dB, dense SPARC channel),
-65536 trials to the cap of 10.  The two trees' results must be
-bit-identical for K1 and K2; for K3 and K4, whose product engine may sum
-in another order from one tree to the other, they are held to
+65536 trials to the cap of 10; K6 and K7 (``periter_fused``,
+``periter_linear``) for one iteration at chip_smoke's timing shape
+(``flagship_bamp_ook()``, 65536 trials, the state after 2 plain
+iterations), and K6 at the periter path's tail shape (``periter_tail``:
+the same trials with one in 100 active, the rest frozen).  The two
+trees' results must be bit-identical for K1, K2, K6 (every plane and
+``notok``; xmap on the active trials, the only ones K6 writes it for) and
+K7; for K3 and K4, whose product engine may sum in another order from one
+tree to the other, they are held to
 ``chip_smoke.compare_vamp``'s ``trial_share`` rule instead, and the
 bit-identical share is printed.  A kernel whose source the other checkout
 lacks is timed on its own.  ``--cases`` picks cases by name.
@@ -24,6 +30,8 @@ lacks is timed on its own.  ``--cases`` picks cases by name.
         (mkdir -p build/parent && tar -x -C build/parent)
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
         [--cases scamp_phase1,scamp_phase2]
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
+        --cases periter_fused,periter_linear,periter_tail
 
 Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
@@ -37,6 +45,7 @@ import math
 import statistics
 import subprocess
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,6 +59,14 @@ from amp_sparc_spatialmodulation_tpu_torch.utils.device import make_generator
 RES = 65536
 REPS = 4
 PACKAGE = "amp_sparc_spatialmodulation_tpu_torch.ops.kernels"
+
+
+class Step(NamedTuple):
+    """One iteration of K6 or K7: the wrapper's outputs, and the trials
+    whose xmap the kernel writes (K6 leaves a frozen trial's unwritten;
+    None for K7)."""
+    out: tuple
+    rows: Optional[torch.Tensor]
 
 
 def wrapper_module(root: Path, module: str, label: str):
@@ -116,6 +133,43 @@ def _cases(dev, wanted=frozenset()):
     for algo in ("vamp", "vamp2"):
         if want(f"{algo}_cap10"):
             yield _vamp_case(dev, algo)
+    if want("periter_fused", "periter_linear", "periter_tail"):
+        yield from _periter_cases(dev, want)
+
+
+def _periter_cases(dev, want):
+    """K6 and K7 for one iteration at chip_smoke's timing shape: the
+    flagship, 65536 trials, the state after 2 plain iterations; K6 also
+    with one trial in 100 of them active."""
+    cfg = flagship_bamp_ook()
+    snr = 10 ** ((8.0 + 10 * math.log10(cfg.code_rate)) / 10)
+    r = montecarlo.generate_realization(make_generator(dev, 53), cfg,
+                                        "sparc", "banded", RES, snr)
+    st = bamp.plain_loop(r.A, bamp.initial_state(r.y, cfg.N, r.sigma2),
+                         r.y, r.sigma2, 2, cfg)
+    ps = bamp.to_planes(st)
+    y_re, y_im = r.y.real.contiguous(), r.y.imag.contiguous()
+    if want("periter_fused"):
+        yield ("periter_fused", "fused_bamp_iteration",
+               "fused_bamp_iteration",
+               lambda mod: Step(mod.iteration_fused(r.A, ps, y_re, y_im,
+                                                    r.sigma2, cfg),
+                                ps.active))
+    if want("periter_tail"):
+        act = torch.zeros_like(ps.active)
+        act[::100] = True
+        tail = ps._replace(active=act & ps.active)
+        yield ("periter_tail", "fused_bamp_iteration",
+               "fused_bamp_iteration",
+               lambda mod: Step(mod.iteration_fused(r.A, tail, y_re, y_im,
+                                                    r.sigma2, cfg),
+                                tail.active))
+    if want("periter_linear"):
+        yield ("periter_linear", "fused_bamp_iteration",
+               "fused_bamp_iteration",
+               lambda mod: Step(mod.iteration_linear(
+                   r.A, st.xmmse, st.var, st.z, st.u, r.y, r.sigma2, cfg),
+                   None))
 
 
 def _vamp_case(dev, algo):
@@ -155,8 +209,18 @@ def _libraries(name, mods, trees):
 
 
 def _same(a, b) -> bool:
+    if isinstance(a, Step):
+        names = getattr(a.out, "_fields", ("",) * len(a.out))
+        return all(torch.equal(x[a.rows], y[a.rows]) if n.startswith("xmap")
+                   else torch.equal(x, y)
+                   for n, x, y in zip(names, a.out, b.out))
     return all(torch.equal(getattr(a, f), getattr(b, f))
                for f in a._fields if f != "t")
+
+
+def _trials(result) -> int:
+    return (int(result.out[0].shape[0]) if isinstance(result, Step)
+            else int(result.T.numel()))
 
 
 def _across(case, first) -> dict:
@@ -231,7 +295,7 @@ def main(argv=None) -> int:
         across = _across(case, first)
         med = {k: statistics.median(v) for k, v in times.items()}
         print(json.dumps({"case": case, "kernel": name, "device": smi,
-                          "B": int(next(iter(first.values())).T.numel()),
+                          "B": _trials(next(iter(first.values()))),
                           **across,
                           **{f"{k}_median_ms": v for k, v in med.items()},
                           **({"change_over_parent": med["change"]
