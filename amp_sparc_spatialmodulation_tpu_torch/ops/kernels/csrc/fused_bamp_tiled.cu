@@ -15,54 +15,96 @@
 //   xmap = x + cov H^H ((y - z') / u')          (banded adjoint)
 //
 // then the general-K segmented softmax posterior with tau = cov / 2 and the
-// decomposed variance (decode_common.cuh::segment_posterior, which kernel K1
-// runs), the freeze of x, var, z and u for trials whose act is 0 (their
-// xmap is left unwritten: the caller's loop keeps the old one, as the TPU
-// kernel's does), and notok: each trial's count of variance entries outside
+// decomposed variance (decode_common.cuh::segment_posterior's arithmetic),
+// the freeze of x, var, z and u for trials whose act is 0 (their xmap is
+// left unwritten: the caller's loop keeps the old one, as the TPU kernel's
+// does), and notok: each trial's count of variance entries outside
 // allclose(rtol=1e-5, atol=1e-8) of the old ones (0 for a frozen trial).
 //
-// Design.  The banded operator is Lh taps h_l (Nr x Nt) with gains; block
-// (c + l, c) of H is gains[l, c] h_l.  So the forward is one product of the
-// (B Lin, Nt) x-side rows with the (Nt, Lh Nr) tap stack followed by the
-// band fold out[r] = sum_l g_l P[r - l, tap l], and the adjoint is the
-// gather of the y-side planes into (B Lin, Lh Nr) rows followed by one
-// product with the (Lh Nr, Nt) taps.  A trial's state does not fit a block,
-// so it lives in device memory and one call is four launches:
+// Structure.  The banded operator is Lh taps h_l (Nr x Nt) with gains;
+// block (c + l, c) of H is gains[l, c] h_l.  So the forward is one product
+// of the (B Lin, Nt) x-side rows with the (Nt, W = Lh Nr) tap stack
+// followed by the band fold out[r] = sum_l g_l P[r - l, tap l], and the
+// adjoint is the gather of the y-side planes into (B Lin, W) rows followed
+// by one product with the (W, Nt) taps.  A trial's state does not fit a
+// block, so it lives in device memory and one call is four launches (the
+// stage mask of the entry point selects them, for timing):
 //
 //   1. forward products: P_re, P_im (x with Re h, Im h) and P_v (var with
-//      |h|^2), (B Lin, Lh Nr) each;
+//      |h|^2), (B Lin, Wp) each, Wp = W rounded up to a multiple of 4;
 //   2. fold, Onsager and freeze of z and u, one thread per y-side element;
-//      it also writes the adjoint inputs, gain-weighted, (B Lin, Lh Nr);
+//      it also writes the adjoint inputs, gain-weighted, (B Lin, Wp);
 //   3. adjoint products: cov and xmap, (B Lin, Nt);
-//   4. denoiser, freeze of x and var, and notok: one thread per segment.
+//   4. denoiser, freeze of x and var, and notok: a group of G lanes per
+//      segment, lane t taking elements t, t + G, ...
+//
+// Bound on this card: FP32 operations.  At the massive geometry one
+// trial-iteration does 16 flop per tap element (forward x with Re h and
+// Im h, var with |h|^2; adjoint 1/u' with |h|^2 and the complex residual
+// with conj h, four real products) over Lin Lh Nr Nt = 18,837,504 tap
+// elements: 0.30 GFLOP, so 0.62 TFLOP for the phase-1 batch of 2048 trials
+// (9.2 ms at 67 TFLOP/s) against about 5.4 GB moved by the four launches
+// (1.6 ms at 3.35 TB/s; 2.3 GB of it the call's own inputs and outputs).  Phase 2 runs the same iteration on a handful of
+// gathered trials (about 6 of 2048): 1.8 GFLOP, 27 us at the FP32 peak,
+// so there the card is bound by how many blocks the products can spread
+// over, and by the host between launches.
+//
+// The product engine, one for both products.  What holds it back on this
+// card is the shared-memory pipe (the loads and copies that feed the FMAs)
+// and the registers, more than the FMAs themselves (PERF.md, PR 10):
+//
+// * a thread keeps a kTM x kTN = 4 x 4 register tile of each of the three
+//   outputs (48 accumulators): per four contraction steps it reads its 4 A
+//   rows of each A plane (x, var; or the three adjoint inputs) as 16-byte
+//   loads, then per step 3 tap fragments of 4 columns, 5 (forward) or 6
+//   (adjoint) 16-byte loads per step for 48 or 80 FMAs; blocks of 256
+//   threads (64 x 64 outputs), two per SM at 128 registers.  Larger
+//   register tiles spill at that cap and ran slower, as did three blocks
+//   per SM at 80 registers;
+// * a warp is 4 x 8 threads of the tile, so that the rows it reads at
+//   once are 4 and the tap fragments 128 contiguous bytes: one shared-
+//   memory wavefront per load;
+// * operands come through a ring of kStages slots of kDepth steps in shared
+//   memory, filled by 16-byte cp.async (a partial chunk zero-fills) and
+//   drained with one barrier per slot.  The A tiles lie as in device
+//   memory with rows padded to kDepth + 4 floats, so that the 8 rows a
+//   quarter-warp copies, and the 4 a warp reads, fall in different bank
+//   groups; the taps lie along the output columns: the adjoint reads the
+//   (W, Nt) taps as they are, the forward a (Nt, Wp) transposed copy that
+//   the wrapper builds once per operator.  No tile is transposed on the
+//   card, so no copy is 4 bytes wide (with 4-byte transposing copies the
+//   forward ran 21% and the adjoint 17% slower);
+// * the blocks of one row tile have adjacent indices (the column tile
+//   varies fastest), so the resident blocks share their A rows in L2 and
+//   each A row comes from device memory about once;
+// * where a product's large form would launch fewer than two blocks per
+//   SM, the wrapper picks its small form (tile_forms in
+//   fused_bamp_tiled.py): 32 rows, one trial at Lin = 32, by 16 columns,
+//   2 x 4 outputs per thread, so that a frozen trial's rows are skipped
+//   exactly and phase 2's few trials still spread over the card;
+// * tiles whose rows hold no active trial return at once.
 //
 // The TPU kernel recomputes an Lh - 1 row halo of the forward in every
-// program (31% more forward work at F = 16, Lh = 6) because its grid
-// programs cannot wait on each other; separate launches need no halo, and
-// a launch costs microseconds against an iteration of milliseconds.  The
-// products are 64 x 64 output tiles per block of 256 threads, each thread a
-// 4 x 4 register tile, operands staged through shared memory in steps of 16
-// of the contraction; tiles whose rows hold no active trial return at once.
-//
-// Bound on this card: FP32 operations.  One trial-iteration does 16 flop
-// per tap element (forward A x 4, |A|^2 var 2, adjoint 8, |A|^2^T 2) over
-// Lin Lh Nr Nt = 18,837,504 tap elements at the massive geometry, about
-// 0.30 GFLOP (4.5 us at 67 TFLOP/s), against about 1 MB of state read and
-// written (0.3 us at 3.35 TB/s).  All arithmetic is FP32 on the CUDA cores
-// (the stop test needs full FP32: no TF32).
+// program because its grid programs cannot wait on each other; separate
+// launches need no halo, and a launch costs microseconds.
 //
 // Rounding.  The kernel rounds where the plain version (fused_bamp_tiled.py,
 // one step of the plain loop: complex64 products through the matrix
-// library) rounds: built with -fmad=false; every product is one FMA chain
-// over the contraction index in order, in a complex product the real part
-// before the imaginary part, as a library FP32 GEMM takes it at large
-// batch; gains multiply the products' results and the taps are summed in
-// order; the gain-weighted adjoint inputs are formed before the product;
-// the segment sums follow PyTorch's reduction order (decode_common.cuh).
+// library) rounds: built with -fmad=false; every product output is one FMA
+// chain from 0 over the contraction index in order (padded steps add exact
+// zero products, as before the register tiles), in a complex product the
+// real part before the imaginary part, as a library FP32 GEMM takes it at
+// large batch; no split of the contraction and no atomics on a product;
+// gains multiply the products' results and the taps are summed in order;
+// the gain-weighted adjoint inputs are formed before the product; the
+// segment sums follow PyTorch's reduction order (decode_common.cuh).  The
+// tiles change which thread computes an output, never the order of its
+// sum, so every tile size gives the same bits.
 //
 // Layouts: float32 planes, trial-major: x-side (B, Lin, Nt), y-side
-// (B, Lout, Nr); the taps as (Lh Nr, Nt) planes (h[l, m, k] at row l Nr + m)
-// of Re h, Im h and |h|^2; gains (Lh, Lin).
+// (B, Lout, Nr); the taps as (W, Nt) planes (h[l, m, k] at row l Nr + m)
+// of Re h, Im h and |h|^2, and the same transposed, (Nt, Wp) with zero
+// pad columns; gains (Lh, Lin); scratch (B Lin, Wp).
 
 #include "decode_common.cuh"
 
@@ -70,9 +112,29 @@ namespace {
 
 using namespace decode;
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;   // rows and columns of a product tile
-constexpr int kDepth = 16;  // contraction steps staged in shared memory
+constexpr int kThreads = 256;  // fold and denoiser blocks
+// Large form, both products: a 16 x 16 thread grid, each thread kTM rows
+// x kTN columns, kMinBlocks blocks per SM, a ring of kStages slots of
+// kDepth contraction steps.
+constexpr int kTM = 4;
+constexpr int kTN = 4;
+constexpr int kMinBlocks = 2;
+constexpr int kDepth = 16;
+constexpr int kStages = 3;
+// Small form, both products: kSBM rows x kSBN columns, each thread kSTM x
+// kSTN, a ring of kSStages slots of kSDepth steps.
+constexpr int kSBM = 32;
+constexpr int kSBN = 16;
+constexpr int kSTM = 2;
+constexpr int kSTN = 4;
+constexpr int kSDepth = 16;
+constexpr int kSStages = 3;
+constexpr int kSegRounds = 4;  // denoiser: segments per lane group
+
+// Stage mask bits and product forms of the entry point.
+constexpr int kStageForward = 1, kStageFold = 2, kStageAdjoint = 4,
+              kStageDenoise = 8;
+constexpr int kSmallForward = 1, kSmallAdjoint = 2;
 
 struct Params {
   const float* xm;          // posterior mean (real), (B, Lin, Nt)
@@ -91,117 +153,325 @@ struct Params {
   float* zn_im;
   float* un;
   int* notok;               // (B,)
-  float* P_re;              // scratch (B Lin, Lh Nr)
+  float* P_re;              // scratch (B Lin, Wp)
   float* P_im;
   float* P_v;
-  float* Z_c;               // scratch (B Lin, Lh Nr): adjoint inputs
+  float* Z_c;               // scratch (B Lin, Wp): adjoint inputs
   float* Z_re;
   float* Z_im;
   float* cov;               // scratch (B, Lin, Nt)
-  const float* h_re;        // taps (Lh Nr, Nt)
+  const float* h_re;        // taps (W, Nt)
   const float* h_im;
   const float* h_a2;
+  const float* hT_re;       // the taps transposed, (Nt, Wp), zero columns
+  const float* hT_im;       //   from W on
+  const float* hT_a2;
   const float* gains;       // (Lh, Lin)
   const float* gains2;
   const float* sym_re;      // (K,)
   const float* sym_im;
-  int B, Nt, Nr, Lin, Lout, Lh, M, K;
+  int B, Nt, Nr, Lin, Lout, Lh, M, K, W, Wp;
+  int vec;                  // Nt % 4 == 0: 16-byte tap rows and x-side rows
   float sigma2;
 };
 
-// True when a row R0 .. R0 + 63 of the (B Lin)-row operand belongs to an
-// active trial.  Called by the whole block.
-__device__ __forceinline__ bool tile_live(const Params& p, int R0, int rows) {
-  const int tid = threadIdx.x;
-  int live = 0;
-  if (tid < kTile && R0 + tid < rows) live = p.act[(R0 + tid) / p.Lin];
-  return __syncthreads_or(live) != 0;
+// Lanes of the group that takes a segment of M elements: torch_sum's lane
+// count, min(32, last_pow2(M)).
+__host__ __device__ inline int group_width(int M) {
+  int w = 1;
+  while (2 * w <= M && w < 32) w *= 2;
+  return w;
 }
 
-// ---- 1. forward products ---------------------------------------------------
-// P_re[R][n] = sum_k x[R][k] Re h[n][k], P_im likewise with Im h, P_v[R][n]
-// = sum_k var[R][k] |h[n][k]|^2: rows R < B Lin, columns n < Lh Nr,
-// contraction k < Nt.
-__global__ void __launch_bounds__(kThreads) forward_kernel(Params p) {
-  __shared__ __align__(16) float sx[kDepth][kTile];
-  __shared__ __align__(16) float sv[kDepth][kTile];
-  __shared__ __align__(16) float sr[kDepth][kTile];
-  __shared__ __align__(16) float si[kDepth][kTile];
-  __shared__ __align__(16) float sa[kDepth][kTile];
-  const int rows = p.B * p.Lin, W = p.Lh * p.Nr, K = p.Nt;
-  const int R0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  if (!tile_live(p, R0, rows)) return;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  // loader: row (and tap row) lr of the tile, four consecutive k from lk
-  const int lr = tid >> 2, lk = (tid & 3) * 4;
-  const bool a_ok = R0 + lr < rows, b_ok = n0 + lr < W;
-  const size_t arow = static_cast<size_t>(a_ok ? R0 + lr : 0) * K;
-  const size_t brow = static_cast<size_t>(b_ok ? n0 + lr : 0) * K;
-  float fx[4], fv[4], fr[4], fi[4], fa[4];
-  auto fetch = [&](int k0) {
+// ---- product engine ----------------------------------------------------
+
+// A 16-byte copy from global to shared memory: the first `bytes` come
+// from src, the rest are zero.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// s[r][c] = g[r ld + c] for the ROWS x COLS block of a row-major matrix g
+// (row stride ld, offset to the block's first element), zero where r >=
+// rlimit or c >= climit; s has row stride LDS.  In 16-byte copies when vec
+// (ld a multiple of 4, g 16-byte aligned), else 4-byte copies.  kRows8:
+// the 8 lanes of a quarter-warp copy one 16-byte chunk of 8 rows (a warp
+// 8 rows x 4 chunks), so that with a padded stride (LDS = COLS + 4, see
+// Engine) they store to 8 different bank groups while every 64 bytes of a
+// row still come from one instruction; else the lanes run along a row.
+template <int ROWS, int COLS, int LDS, int NT, bool kRows8>
+__device__ __forceinline__ void load_rows(float* s, const float* g, int ld,
+                                          int rlimit, int climit, bool vec) {
+  constexpr int C4 = COLS / 4, UNITS = ROWS * C4;
+  static_assert(COLS % 4 == 0 && (!kRows8 || ROWS % 8 == 0), "copy shape");
+  const int tid = threadIdx.x;
+  if (vec) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = k0 + lk + c;
-      const bool ka = a_ok && k < K, kb = b_ok && k < K;
-      fx[c] = ka ? p.xm[arow + k] : 0.f;
-      fv[c] = ka ? p.var[arow + k] : 0.f;
-      fr[c] = kb ? __ldg(p.h_re + brow + k) : 0.f;
-      fi[c] = kb ? __ldg(p.h_im + brow + k) : 0.f;
-      fa[c] = kb ? __ldg(p.h_a2 + brow + k) : 0.f;
+    for (int i = 0; i < (UNITS + NT - 1) / NT; ++i) {
+      const int u = tid + i * NT;
+      if (UNITS % NT != 0 && u >= UNITS) break;
+      const int r = kRows8 ? u / (8 * C4) * 8 + u % 8 : u / C4;
+      const int c = (kRows8 ? (u / 8) % C4 : u % C4) * 4;
+      const int n = r < rlimit ? min(max(climit - c, 0), 4) : 0;
+      cp_async16(s + r * LDS + c, n ? g + (r * ld + c) : g, 4 * n);
     }
-  };
-  float accr[4][4], acci[4][4], accv[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) accr[i][j] = acci[i][j] = accv[i][j] = 0.f;
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-    __syncthreads();  // the previous step's reads are done
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      sx[lk + c][lr] = fx[c];
-      sv[lk + c][lr] = fv[c];
-      sr[lk + c][lr] = fr[c];
-      si[lk + c][lr] = fi[c];
-      sa[lk + c][lr] = fa[c];
+  } else {
+#pragma unroll 4
+    for (int u = tid; u < ROWS * COLS; u += NT) {
+      const int r = u / COLS, c = u % COLS;
+      const bool ok = r < rlimit && c < climit;
+      cp_async4(s + r * LDS + c, ok ? g + (r * ld + c) : g, ok);
     }
-    __syncthreads();
-    if (k0 + kDepth < K) fetch(k0 + kDepth);
+  }
+}
+
+// N consecutive floats of shared memory (16- or 8-byte aligned reads).
+template <int N>
+__device__ __forceinline__ void frag(float (&v)[N], const float* s) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 x4 = *reinterpret_cast<const float4*>(&sx[kk][4 * ty]);
-      const float4 v4 = *reinterpret_cast<const float4*>(&sv[kk][4 * ty]);
-      const float4 r4 = *reinterpret_cast<const float4*>(&sr[kk][4 * tx]);
-      const float4 i4 = *reinterpret_cast<const float4*>(&si[kk][4 * tx]);
-      const float4 a4 = *reinterpret_cast<const float4*>(&sa[kk][4 * tx]);
-      const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float vs[4] = {v4.x, v4.y, v4.z, v4.w};
-      const float rs[4] = {r4.x, r4.y, r4.z, r4.w};
-      const float is[4] = {i4.x, i4.y, i4.z, i4.w};
-      const float as[4] = {a4.x, a4.y, a4.z, a4.w};
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(s)[q];
+      v[4 * q] = t.x;
+      v[4 * q + 1] = t.y;
+      v[4 * q + 2] = t.z;
+      v[4 * q + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(s);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < N; ++q) v[q] = s[q];
+  }
+}
+
+// v[0 .. N) to row[n .. n+N), the entries below limit; 16-byte stores when
+// vec (limit a multiple of 4 and n of 4).
+template <int N>
+__device__ __forceinline__ void put(float* row, int n, int limit,
+                                    const float (&v)[N], bool vec) {
+  if constexpr (N % 4 == 0) {
+    if (vec) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          accr[i][j] = fmaf(xs[i], rs[j], accr[i][j]);
-          acci[i][j] = fmaf(xs[i], is[j], acci[i][j]);
-          accv[i][j] = fmaf(vs[i], as[j], accv[i][j]);
-        }
+      for (int q = 0; q < N; q += 4)
+        if (n + q < limit)
+          *reinterpret_cast<float4*>(row + n + q) =
+              make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+      return;
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int R = R0 + 4 * ty + i;
-    if (R >= rows) continue;
+  for (int q = 0; q < N; ++q)
+    if (n + q < limit) row[n + q] = v[q];
+}
+
+// True when a row R0 .. R0 + BM - 1 of the (B Lin)-row operand belongs to
+// an active trial.  Called by the whole block.
+template <int BM>
+__device__ __forceinline__ bool tile_live(const Params& p, int R0, int rows) {
+  int live = 0;
+  for (int r = threadIdx.x; r < BM; r += blockDim.x)
+    if (R0 + r < rows) live |= p.act[(R0 + r) / p.Lin];
+  return __syncthreads_or(live) != 0;
+}
+
+// One product form: a BM x BN block tile, a TM x TN thread tile, a ring of
+// S slots of D contraction steps, MIN blocks per SM.
+template <int BM_, int BN_, int TM_, int TN_, int D_, int S_, int MIN_>
+struct Form {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, D = D_,
+                       S = S_, MIN = MIN_;
+  static constexpr int kTY = BM / TM, kTX = BN / TN, kNT = kTY * kTX;
+  // a warp is WY x WX threads of the kTY x kTX grid
+  static constexpr int WX = kTX < 8 ? kTX : 8, WY = 32 / WX;
+};
+using LargeForm =
+    Form<16 * kTM, 16 * kTN, kTM, kTN, kDepth, kStages, kMinBlocks>;
+using SmallForm = Form<kSBM, kSBN, kSTM, kSTN, kSDepth, kSStages, 1>;
+
+// The shared-memory layout of form F for a product: a ring slot holds the
+// kA A planes as they lie, BM rows x D steps with row stride kLA = D + 4
+// (rows 16-byte aligned; with D a multiple of 8 a row spans an odd number
+// of the 8 16-byte bank groups, so any 8 consecutive rows start in 8
+// different groups: the WY rows a warp reads at once and the 8 rows a
+// quarter-warp copies do not conflict), then the three tap planes as they
+// lie, D steps x BN columns.  Forward (kFwd): A = x, var (rows of Nt), B = the
+// transposed taps (Nt, Wp); adjoint: A = Z_c, Z_re, Z_im (rows of Wp),
+// B = the taps (W, Nt).
+template <bool kFwd, class F>
+struct Engine {
+  static constexpr int kA = kFwd ? 2 : 3;
+  static constexpr int kLA = F::D + 4;
+  static constexpr int kSlot = kA * F::BM * kLA + 3 * F::D * F::BN;
+  static constexpr int kSmem = F::S * kSlot * 4;  // bytes
+  static_assert(F::kNT % 32 == 0 && F::BM % 8 == 0 && F::BN % 4 == 0 &&
+                    F::D % 8 == 0 && F::kTY % F::WY == 0 &&
+                    F::kTX % F::WX == 0 && F::S >= 2 && F::WY <= 8,
+                "tile shape");
+};
+
+// ---- 1. forward products / 3. adjoint products --------------------------
+// Forward: P_re[R][n] = sum_k x[R][k] Re h[n][k], P_im likewise with Im h,
+// P_v[R][n] = sum_k var[R][k] |h[n][k]|^2: rows R < B Lin, columns n < Wp
+// (the transposed taps' columns n >= W are zero), contraction k < Nt.
+// Adjoint: cs[R][k] = sum_w Z_c[R][w] |h[w][k]|^2 and (ar + i ai)[R][k] =
+// sum_w (Z_re + i Z_im)[R][w] conj(h[w][k]): columns k < Nt, contraction
+// w < W; then, for rows of active trials, cov = 1 / cs and xmap = x +
+// cov (ar + i ai).
+// Block i of the 1-D grid takes row tile i / col_tiles and column tile
+// i % col_tiles; thread (ty, tx) takes rows ty + i kTY and columns
+// tx TN + j of the tile.
+template <bool kFwd, class F>
+__global__ void __launch_bounds__(F::kNT, F::MIN) product_kernel(Params p) {
+  using E = Engine<kFwd, F>;
+  constexpr int BM = F::BM, BN = F::BN, TM = F::TM, TN = F::TN, D = F::D,
+                S = F::S, kTY = F::kTY, LA = E::kLA;
+  extern __shared__ __align__(16) float smem[];
+  const int rows = p.B * p.Lin;
+  const int cols = kFwd ? p.Wp : p.Nt;
+  const int depth = kFwd ? p.Nt : p.W;
+  const int col_tiles = (cols + BN - 1) / BN;
+  const int R0 = static_cast<int>(blockIdx.x / col_tiles) * BM;
+  const int n0 = static_cast<int>(blockIdx.x % col_tiles) * BN;
+  if (!tile_live<BM>(p, R0, rows)) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp / (F::kTX / F::WX), wc = warp % (F::kTX / F::WX);
+  const int ty = wr * F::WY + lane / F::WX, tx = wc * F::WX + lane % F::WX;
+  const int lda = kFwd ? p.Nt : p.Wp;
+  const size_t a0 = static_cast<size_t>(R0) * lda;
+  const float* A[3] = {(kFwd ? p.xm : p.Z_c) + a0,
+                       (kFwd ? p.var : p.Z_re) + a0,
+                       kFwd ? nullptr : p.Z_im + a0};
+  const int ldb = kFwd ? p.Wp : p.Nt;
+  const float* Bt[3] = {(kFwd ? p.hT_re : p.h_re) + n0,
+                        (kFwd ? p.hT_im : p.h_im) + n0,
+                        (kFwd ? p.hT_a2 : p.h_a2) + n0};
+  const bool vec_a = kFwd ? p.vec != 0 : true;
+  const bool vec_b = kFwd ? true : p.vec != 0;
+
+  auto load = [&](int slot, int k0) {
+    float* s = smem + slot * E::kSlot;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n >= W) continue;
-      const size_t o = static_cast<size_t>(R) * W + n;
-      p.P_re[o] = accr[i][j];
-      p.P_im[o] = acci[i][j];
-      p.P_v[o] = accv[i][j];
+    for (int a = 0; a < E::kA; ++a)
+      load_rows<BM, D, LA, F::kNT, true>(s + a * BM * LA, A[a] + k0, lda,
+                                         rows - R0, depth - k0, vec_a);
+    float* sb = s + E::kA * BM * LA;
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      load_rows<D, BN, BN, F::kNT, false>(
+          sb + b * D * BN, Bt[b] + static_cast<size_t>(k0) * ldb, ldb,
+          depth - k0, cols - n0, vec_b);
+  };
+
+  float acc[3][TM][TN];
+#pragma unroll
+  for (int o = 0; o < 3; ++o)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[o][i][j] = 0.f;
+
+  const int nk = (depth + D - 1) / D;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) load(s, s * D);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // slot kt has landed, and every thread is done with slot kt - 1
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    const int next = kt + S - 1;
+    if (next < nk) load(next % S, next * D);
+    cp_async_commit();
+    const float* s = smem + (kt % S) * E::kSlot;
+    const float* sa = s + ty * LA;
+    const float* sb = s + E::kA * BM * LA + tx * TN;
+#pragma unroll
+    for (int k4 = 0; k4 < D; k4 += 4) {
+      // four steps of the thread's A rows, then step by step the taps
+      float a[E::kA][TM][4];
+#pragma unroll
+      for (int pl = 0; pl < E::kA; ++pl)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          frag(a[pl][i], sa + (pl * BM + i * kTY) * LA + k4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float hr[TN], hi[TN], a2[TN];
+        frag(hr, sb + (k4 + q) * BN);
+        frag(hi, sb + (D + k4 + q) * BN);
+        frag(a2, sb + (2 * D + k4 + q) * BN);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            if constexpr (kFwd) {
+              const float x = a[0][i][q], v = a[1][i][q];
+              acc[0][i][j] = fmaf(x, hr[j], acc[0][i][j]);
+              acc[1][i][j] = fmaf(x, hi[j], acc[1][i][j]);
+              acc[2][i][j] = fmaf(v, a2[j], acc[2][i][j]);
+            } else {
+              const float zc = a[0][i][q], zr = a[1][i][q],
+                          zi = a[2][i][q];
+              acc[0][i][j] = fmaf(zc, a2[j], acc[0][i][j]);
+              // (zr + i zi) * conj(h)
+              acc[1][i][j] = fmaf(zr, hr[j], acc[1][i][j]);
+              acc[1][i][j] = fmaf(-zi, -hi[j], acc[1][i][j]);
+              acc[2][i][j] = fmaf(zr, -hi[j], acc[2][i][j]);
+              acc[2][i][j] = fmaf(zi, hr[j], acc[2][i][j]);
+            }
+          }
+      }
+    }
+  }
+
+  const int n = n0 + tx * TN;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int R = R0 + ty + i * kTY;
+    if (R >= rows) continue;
+    if constexpr (kFwd) {
+      const size_t o = static_cast<size_t>(R) * p.Wp;
+      put(p.P_re + o, n, p.Wp, acc[0][i], true);
+      put(p.P_im + o, n, p.Wp, acc[1][i], true);
+      put(p.P_v + o, n, p.Wp, acc[2][i], true);
+    } else {
+      if (!p.act[R / p.Lin]) continue;
+      const size_t o = static_cast<size_t>(R) * p.Nt;
+      const bool vec = p.vec != 0;
+      float cv[TN], xr[TN], xi[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int k = n + j;
+        cv[j] = 1.f / acc[0][i][j];
+        xr[j] = k < p.Nt ? p.xm[o + k] + cv[j] * acc[1][i][j] : 0.f;
+        xi[j] = cv[j] * acc[2][i][j];  // the real posterior mean adds 0
+      }
+      put(p.cov + o, n, p.Nt, cv, vec);
+      put(p.xmap_re + o, n, p.Nt, xr, vec);
+      put(p.xmap_im + o, n, p.Nt, xi, vec);
     }
   }
 }
@@ -211,7 +481,7 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(Params p) {
 // column block c = r - l (tail truncation: 0 <= c < Lin); the adjoint input
 // of (b, c, l Nr + m) comes from row r = c + l, so each is written once.
 __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
-  const int n = p.Lout * p.Nr, W = p.Lh * p.Nr;
+  const int n = p.Lout * p.Nr, Wp = p.Wp;
   const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= static_cast<size_t>(p.B) * n) return;
   const int b = static_cast<int>(e / n);
@@ -227,7 +497,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
     for (int l = 0; l < p.Lh; ++l) {
       const int c = r - l;
       if (c < 0 || c >= p.Lin) continue;
-      const size_t q = (zrow + c) * W + l * p.Nr + m;
+      const size_t q = (zrow + c) * Wp + l * p.Nr + m;
       p.Z_c[q] = p.Z_re[q] = p.Z_im[q] = 0.f;
     }
     return;
@@ -236,7 +506,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   for (int l = 0; l < p.Lh; ++l) {
     const int c = r - l;
     if (c < 0 || c >= p.Lin) continue;
-    const size_t q = (zrow + c) * W + l * p.Nr + m;
+    const size_t q = (zrow + c) * Wp + l * p.Nr + m;
     const float g = p.gains[l * p.Lin + c];
     v = v + p.gains2[l * p.Lin + c] * p.P_v[q];
     hr = hr + g * p.P_re[q];
@@ -253,7 +523,7 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   for (int l = 0; l < p.Lh; ++l) {
     const int c = r - l;
     if (c < 0 || c >= p.Lin) continue;
-    const size_t q = (zrow + c) * W + l * p.Nr + m;
+    const size_t q = (zrow + c) * Wp + l * p.Nr + m;
     const float g = p.gains[l * p.Lin + c];
     p.Z_c[q] = p.gains2[l * p.Lin + c] * ui;
     p.Z_re[q] = g * rr;
@@ -261,172 +531,157 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   }
 }
 
-// ---- 3. adjoint products and xmap ------------------------------------------
-// cs[R][k] = sum_w Z_c[R][w] |h[w][k]|^2 and (ar + i ai)[R][k] = sum_w
-// (Z_re + i Z_im)[R][w] conj(h[w][k]): rows R < B Lin, columns k < Nt,
-// contraction w < Lh Nr; then cov = 1 / cs and xmap = x + cov (ar + i ai).
-__global__ void __launch_bounds__(kThreads) adjoint_kernel(Params p) {
-  __shared__ __align__(16) float zc[kDepth][kTile];
-  __shared__ __align__(16) float zr[kDepth][kTile];
-  __shared__ __align__(16) float zi[kDepth][kTile];
-  __shared__ __align__(16) float sa[kDepth][kTile];
-  __shared__ __align__(16) float sr[kDepth][kTile];
-  __shared__ __align__(16) float si[kDepth][kTile];
-  const int rows = p.B * p.Lin, W = p.Lh * p.Nr, Nt = p.Nt;
-  const int R0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  if (!tile_live(p, R0, rows)) return;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  // loaders: A by row lr and four consecutive w from lk; the taps by w row
-  // bw and four consecutive columns from bn
-  const int lr = tid >> 2, lk = (tid & 3) * 4;
-  const int bw = tid >> 4, bn = (tid & 15) * 4;
-  const bool a_ok = R0 + lr < rows;
-  const size_t arow = static_cast<size_t>(a_ok ? R0 + lr : 0) * W;
-  float fc[4], fr[4], fi[4], ga[4], gr[4], gi[4];
-  auto fetch = [&](int w0) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int w = w0 + lk + c;
-      const bool ka = a_ok && w < W;
-      fc[c] = ka ? p.Z_c[arow + w] : 0.f;
-      fr[c] = ka ? p.Z_re[arow + w] : 0.f;
-      fi[c] = ka ? p.Z_im[arow + w] : 0.f;
-      const int wb = w0 + bw, k = n0 + bn + c;
-      const bool kb = wb < W && k < Nt;
-      const size_t q = static_cast<size_t>(wb) * Nt + k;
-      ga[c] = kb ? __ldg(p.h_a2 + q) : 0.f;
-      gr[c] = kb ? __ldg(p.h_re + q) : 0.f;
-      gi[c] = kb ? __ldg(p.h_im + q) : 0.f;
-    }
+// ---- 4. denoiser, freeze of x and var, notok --------------------------------
+
+// The posterior of segment j0 .. j0+M-1 computed by the G lanes of one
+// group (lane t, mask the group's lanes), in segment_posterior's
+// arithmetic for a real posterior mean (halve_tau, decomposed variance):
+// the segment max and the sum of eta over the segment joined through
+// shuffles, lane t folding its elements t, t+G, ... into accumulator s % 4
+// for its s-th element (lane_sum's order; G is torch_sum's lane count), the
+// lanes joined in torch_sum's tree; then the mean and variance of the
+// lane's elements, stored to xo and vn.  Returns the lane's count of
+// variance entries outside the allclose tolerance of var.
+__device__ __forceinline__ int group_posterior(
+    int j0, int M, int G, int t, unsigned mask, int K, const float* sr,
+    const float* si, const float* cov, const float* x, const float* var,
+    float* xo, float* vn) {
+  auto t_of = [&](int i, int q) {
+    const int j = j0 + i;
+    const float tau = cov[j] / 2.f;
+    const float a = x[j] / tau;
+    return a * sr[q];
   };
-  float cs[4][4], ar[4][4], ai[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) cs[i][j] = ar[i][j] = ai[i][j] = 0.f;
-  fetch(0);
-  for (int w0 = 0; w0 < W; w0 += kDepth) {
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      zc[lk + c][lr] = fc[c];
-      zr[lk + c][lr] = fr[c];
-      zi[lk + c][lr] = fi[c];
-      sa[bw][bn + c] = ga[c];
-      sr[bw][bn + c] = gr[c];
-      si[bw][bn + c] = gi[c];
-    }
-    __syncthreads();
-    if (w0 + kDepth < W) fetch(w0 + kDepth);
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 c4 = *reinterpret_cast<const float4*>(&zc[kk][4 * ty]);
-      const float4 r4 = *reinterpret_cast<const float4*>(&zr[kk][4 * ty]);
-      const float4 i4 = *reinterpret_cast<const float4*>(&zi[kk][4 * ty]);
-      const float4 a4 = *reinterpret_cast<const float4*>(&sa[kk][4 * tx]);
-      const float4 hr4 = *reinterpret_cast<const float4*>(&sr[kk][4 * tx]);
-      const float4 hi4 = *reinterpret_cast<const float4*>(&si[kk][4 * tx]);
-      const float zcs[4] = {c4.x, c4.y, c4.z, c4.w};
-      const float zrs[4] = {r4.x, r4.y, r4.z, r4.w};
-      const float zis[4] = {i4.x, i4.y, i4.z, i4.w};
-      const float as[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float hrs[4] = {hr4.x, hr4.y, hr4.z, hr4.w};
-      const float his[4] = {hi4.x, hi4.y, hi4.z, hi4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          cs[i][j] = fmaf(zcs[i], as[j], cs[i][j]);
-          // (zr + i zi) * conj(h)
-          ar[i][j] = fmaf(zrs[i], hrs[j], ar[i][j]);
-          ar[i][j] = fmaf(-zis[i], -his[j], ar[i][j]);
-          ai[i][j] = fmaf(zrs[i], -his[j], ai[i][j]);
-          ai[i][j] = fmaf(zis[i], hrs[j], ai[i][j]);
-        }
+  float mx = -INFINITY;
+  for (int i = t; i < M; i += G)
+    for (int q = 0; q < K; ++q) mx = fmaxf(mx, t_of(i, q));
+  for (int off = G / 2; off >= 1; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(mask, mx, off, G));
+  auto eta = [&](int i, int q) {
+    return expf(fminf(t_of(i, q) - mx, kExpMax));
+  };
+  auto eta_m = [&](int i) {
+    return K == 1 ? eta(i, 0)
+                  : torch_sum(K, [&](int q) { return eta(i, q); });
+  };
+  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
+  int s = 0;
+  for (int i = t; i < M; i += G, ++s) {
+    const float e = eta_m(i);
+    switch (s & 3) {
+      case 0: acc0 = acc0 + e; break;
+      case 1: acc1 = acc1 + e; break;
+      case 2: acc2 = acc2 + e; break;
+      default: acc3 = acc3 + e; break;
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int R = R0 + 4 * ty + i;
-    if (R >= rows || !p.act[R / p.Lin]) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = n0 + 4 * tx + j;
-      if (k >= Nt) continue;
-      const size_t o = static_cast<size_t>(R) * Nt + k;
-      const float cv = 1.f / cs[i][j];
-      p.cov[o] = cv;
-      p.xmap_re[o] = p.xm[o] + cv * ar[i][j];
-      p.xmap_im[o] = cv * ai[i][j];  // the real posterior mean adds 0
+  float sum = ((acc0 + acc1) + acc2) + acc3;
+  for (int off = G / 2; off >= 1; off >>= 1)
+    sum = sum + __shfl_down_sync(mask, sum, off, G);
+  const float eta2 = __shfl_sync(mask, sum, 0, G);
+  int bad = 0;
+  for (int i = t; i < M; i += G) {
+    float mr, mi, v;
+    if (K == 1) {
+      const float post = eta(i, 0) / eta2;
+      mr = sr[0] * post;
+      mi = si[0] * post;
+      v = abs2(mr, mi) * (1.f - post) + abs2(mr - sr[0], mi - si[0]) * post;
+    } else {
+      mr = torch_sum(K, [&](int q) { return sr[q] * eta(i, q); }) / eta2;
+      mi = torch_sum(K, [&](int q) { return si[q] * eta(i, q); }) / eta2;
+      const float var0 = abs2(mr, mi) * (1.f - eta_m(i) / eta2);
+      const float vs = torch_sum(K, [&](int q) {
+        return abs2(mr - sr[q], mi - si[q]) * eta(i, q);
+      });
+      v = var0 + vs / eta2;
     }
+    const int j = j0 + i;
+    const float old = var[j];
+    bad += !(fabsf(v - old) <= kAtol + kRtol * fabsf(old));
+    xo[j] = mr;
+    vn[j] = v;
   }
+  return bad;
 }
 
-// ---- 4. denoiser, freeze of x and var, notok --------------------------------
-// Block (b, y) takes segments 256 y .. 256 y + 255 of trial b, a thread each.
+// Block (b, y) takes kSegRounds lane groups' worth of segments of trial b
+// from segment y (kThreads / G) kSegRounds on; a frozen trial's elements
+// pass through.
 __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
-  __shared__ int s_bad;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int N = p.Lin * p.Nt, M = p.M;
-  const int s = blockIdx.y * kThreads + tid;
+  const int G = group_width(M);
+  const int per = kThreads / G * kSegRounds;
+  const int s0 = blockIdx.y * per, s1 = min(s0 + per, N / M);
   const size_t base = static_cast<size_t>(b) * N;
-  if (tid == 0) s_bad = 0;
-  __syncthreads();
-  int bad = 0;
-  if (s < N / M) {
-    const float* vo = p.var + base;
-    float* xo = p.xm_out + base;
-    float* vn = p.var_out + base;
-    const int j0 = s * M;
-    if (p.act[b]) {
-      const float* cv = p.cov + base;
-      const float* xr = p.xmap_re + base;
-      segment_posterior<true>(
-          j0, M, p.K, p.sym_re, p.sym_im, true, xr, xr,
-          [=](int j) { return cv[j]; },
-          [=](int j, float mr, float, float v) {
-            xo[j] = mr;
-            vn[j] = v;
-            return 0;
-          });
-      for (int j = j0; j < j0 + M; ++j)
-        bad += !(fabsf(vn[j] - vo[j]) <= kAtol + kRtol * fabsf(vo[j]));
-    } else {
-      const float* xi = p.xm + base;
-      for (int j = j0; j < j0 + M; ++j) {
-        xo[j] = xi[j];
-        vn[j] = vo[j];
-      }
+  const float* vo = p.var + base;
+  float* xo = p.xm_out + base;
+  float* vn = p.var_out + base;
+  if (!p.act[b]) {
+    const float* xi = p.xm + base;
+    for (int j = s0 * M + tid; j < s1 * M; j += kThreads) {
+      xo[j] = xi[j];
+      vn[j] = vo[j];
     }
+    return;
   }
-  for (int off = 16; off >= 1; off >>= 1)
-    bad += __shfl_down_sync(0xffffffffu, bad, off);
-  if ((tid & 31) == 0 && bad) atomicAdd(&s_bad, bad);
-  __syncthreads();
-  if (tid == 0 && s_bad) atomicAdd(p.notok + b, s_bad);
+  const int t = tid & (G - 1);
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((tid & 31) & ~(G - 1));
+  int bad = 0;
+  for (int s = s0 + tid / G; s < s1; s += kThreads / G)
+    bad += group_posterior(s * M, M, G, t, mask, p.K, p.sym_re, p.sym_im,
+                           p.cov + base, p.xmap_re + base, vo, xo, vn);
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if ((tid & 31) == 0 && bad) atomicAdd(p.notok + b, bad);
+}
+
+template <bool kFwd, class F>
+cudaError_t launch_form(const Params& p, cudaStream_t s) {
+  using E = Engine<kFwd, F>;
+  auto kernel = product_kernel<kFwd, F>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, E::kSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(p.B) * p.Lin;
+  const int cols = kFwd ? p.Wp : p.Nt;
+  const long long tiles =
+      (rows + F::BM - 1) / F::BM * ((cols + F::BN - 1) / F::BN);
+  kernel<<<static_cast<unsigned>(tiles), F::kNT, E::kSmem, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueue one iteration of B trials on `stream`: the four launches above, in
-// order.  Returns a cudaError_t code (0 on success): cudaErrorInvalidValue
-// for a geometry the kernel does not take, else the first error that
-// cudaGetLastError() reports after a launch.  The kernel allocates nothing;
-// every buffer, the scratch included, is the caller's.
+// Enqueue one iteration of B trials on `stream`: the launches of the stages
+// in `stages` (bits 1 forward, 2 fold, 4 adjoint, 8 denoiser; 15 for an
+// iteration), in order, each product in its large form or, where its bit
+// of `forms` is set (1 forward, 2 adjoint), its small form.  Wp is the row
+// stride of the six scratch planes (B Lin, Wp): at least Lh Nr and a
+// multiple of 4.  Returns a cudaError_t code (0 on success):
+// cudaErrorInvalidValue for a geometry the kernel does not take, else the
+// first error that a launch reports.  The kernel allocates nothing; every
+// buffer, the scratch included, is the caller's.
 int fused_bamp_tiled_iteration(
     const void* xm, const void* var, const void* z_re, const void* z_im,
     const void* u, const void* y_re, const void* y_im, const void* act,
     void* xmap_re, void* xmap_im, void* xm_out, void* var_out, void* zn_re,
     void* zn_im, void* un, void* notok, void* P_re, void* P_im, void* P_v,
     void* Z_c, void* Z_re, void* Z_im, void* cov, const void* h_re,
-    const void* h_im, const void* h_a2, const void* gains,
+    const void* h_im, const void* h_a2, const void* hT_re,
+    const void* hT_im, const void* hT_a2, const void* gains,
     const void* gains2, const void* sym_re, const void* sym_im, int B,
-    int Nt, int Nr, int Lin, int Lh, int M, int K, float sigma2,
-    void* stream) {
+    int Nt, int Nr, int Lin, int Lh, int M, int K, int Wp, int forms,
+    int stages, float sigma2, void* stream) {
   if (B < 1 || Nt < 1 || Nr < 1 || Lin < 1 || Lh < 1 || M < 1 ||
-      Nt % M != 0 || K < 1 || K > kMaxK ||
+      Nt % M != 0 || K < 1 || K > kMaxK || Wp < Lh * Nr || Wp % 4 != 0 ||
       static_cast<long long>(B) * Lin >= (1ll << 31) ||
       static_cast<long long>(B) * (Lin + Lh - 1) * Nr >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -457,6 +712,9 @@ int fused_bamp_tiled_iteration(
   p.h_re = static_cast<const float*>(h_re);
   p.h_im = static_cast<const float*>(h_im);
   p.h_a2 = static_cast<const float*>(h_a2);
+  p.hT_re = static_cast<const float*>(hT_re);
+  p.hT_im = static_cast<const float*>(hT_im);
+  p.hT_a2 = static_cast<const float*>(hT_a2);
   p.gains = static_cast<const float*>(gains);
   p.gains2 = static_cast<const float*>(gains2);
   p.sym_re = static_cast<const float*>(sym_re);
@@ -469,26 +727,46 @@ int fused_bamp_tiled_iteration(
   p.Lh = Lh;
   p.M = M;
   p.K = K;
+  p.W = Lh * Nr;
+  p.Wp = Wp;
+  p.vec = Nt % 4 == 0;
   p.sigma2 = sigma2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = B * Lin, W = Lh * Nr;
-  const int row_tiles = (rows + kTile - 1) / kTile;
-  forward_kernel<<<dim3(row_tiles, (W + kTile - 1) / kTile), kThreads, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long ny = static_cast<long long>(B) * p.Lout * Nr;
-  fold_kernel<<<static_cast<unsigned>((ny + kThreads - 1) / kThreads),
-                kThreads, 0, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  adjoint_kernel<<<dim3(row_tiles, (Nt + kTile - 1) / kTile), kThreads, 0,
-                   s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int segs = Lin * Nt / M;
-  denoise_kernel<<<dim3(B, (segs + kThreads - 1) / kThreads), kThreads, 0,
-                   s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  if (stages & kStageForward) {
+    err = forms & kSmallForward ? launch_form<true, SmallForm>(p, s)
+                                : launch_form<true, LargeForm>(p, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (stages & kStageFold) {
+    const long long ny = static_cast<long long>(B) * p.Lout * Nr;
+    fold_kernel<<<static_cast<unsigned>((ny + kThreads - 1) / kThreads),
+                  kThreads, 0, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (stages & kStageAdjoint) {
+    err = forms & kSmallAdjoint ? launch_form<false, SmallForm>(p, s)
+                                : launch_form<false, LargeForm>(p, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (stages & kStageDenoise) {
+    const int per = kThreads / group_width(M) * kSegRounds;
+    denoise_kernel<<<dim3(B, (Lin * Nt / M + per - 1) / per), kThreads, 0,
+                     s>>>(p);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
+// Shared memory of one block of a product (forward when `forward`, else
+// the adjoint) in its small or large form, in bytes.
+int fused_bamp_tiled_smem(int forward, int small) {
+  if (forward)
+    return small ? Engine<true, SmallForm>::kSmem
+                 : Engine<true, LargeForm>::kSmem;
+  return small ? Engine<false, SmallForm>::kSmem
+               : Engine<false, LargeForm>::kSmem;
 }
 
 const char* fused_bamp_tiled_error_string(int code) {

@@ -8,8 +8,12 @@ denoiser, the freeze and the per-trial allclose count — for geometries
 whose trial does not fit one block's shared memory (the massive-MIMO
 config).  The CUDA source is ``csrc/fused_bamp_tiled.cu``: the state stays
 in device memory, and one call is four launches (forward products; band
-fold and Onsager; adjoint products; denoiser), with the products in 64 x 64
-tiles over the batch's (trial, column block) rows.
+fold and Onsager; adjoint products; denoiser).  The products run on one
+register-tiled engine in two forms: large tiles (64 of the batch's (trial,
+column block) rows x 64 columns) where they fill the card, small ones (32
+rows x 16 columns) where few trials are left (:func:`tile_forms`).  The
+wrapper keeps each operator's tap planes, and a transposed copy for the
+forward product, for as long as the operator lives.
 
 * :func:`iteration` is the wrapper, driven by ``models/bamp.py::
   plane_loop``: :class:`..models.bamp.PlaneState` in, an
@@ -20,6 +24,8 @@ tiles over the batch's (trial, column block) rows.
   the plane loop over it, which equals ``bamp.plain_loop``.
 * ``launches`` counts wrapper calls that launched the kernel (one per
   iteration, each of four kernel launches).
+* :func:`stage_ms` times the four launches of one call apart (the entry
+  point's stage mask), for chip_smoke.py and the probe scripts.
 
 Coverage (:func:`covers`): complex segmented/sparc configs with a real
 alphabet (the posterior mean stays real, so the x-side imaginary state is
@@ -31,6 +37,7 @@ tile is masked.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from functools import partial
 
 import numpy as np
@@ -44,6 +51,15 @@ from .fused_bamp import _check, real_x, symbol_planes
 
 # Wrapper calls that launched the kernel (one per iteration).
 launches = 0
+
+# The kernel's two product forms (fused_bamp_tiled.cu), each taken by both
+# products: block rows, block columns, contraction steps per ring slot and
+# ring slots; and the SM count of the H100, which the form rule fills.
+FORMS = {"large": (64, 64, 16, 3), "small": (32, 16, 16, 3)}
+SMS = 132
+# Stage mask bits of the entry point, and the mask of a whole iteration.
+STAGES = {"forward": 1, "fold": 2, "adjoint": 4, "denoise": 8}
+ALL_STAGES = sum(STAGES.values())
 
 
 def covers(cfg: Config, op=None) -> bool:
@@ -77,13 +93,44 @@ def iteration_plain(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
 decode_plain = partial(bamp.plane_loop, iteration_plain)
 
 
+def scratch_stride(cfg: Config) -> int:
+    """Row stride of the six (B*Lin, Lh*Nr) scratch planes: Lh*Nr rounded
+    up to a multiple of 4, so every row starts on 16 bytes (440 floats at
+    the massive geometry).  The pad columns are never read into a sum."""
+    return -(-cfg.Lh * cfg.Nr // 4) * 4
+
+
+def tile_forms(B: int, Lin: int, W: int, Nt: int) -> int:
+    """The entry point's ``forms`` for ``B`` trials: bit 1 (forward, W
+    output columns) and bit 2 (adjoint, Nt columns) are set where that
+    product's large form would launch fewer than two blocks per SM of the
+    H100; it then runs in the small form."""
+    BM, BN = FORMS["large"][:2]
+    forms = 0
+    for bit, cols in ((1, W), (2, Nt)):
+        if -(-B * Lin // BM) * -(-cols // BN) < 2 * SMS:
+            forms |= bit
+    return forms
+
+
+def smem_bytes(forward: bool, small: bool) -> int:
+    """Dynamic shared memory of one product block: the ring's slots, each
+    holding its contraction steps of the A planes (x, var; or the three
+    adjoint inputs) as they lie, rows padded by 4 floats, and of the three
+    tap planes (transposed for the forward)."""
+    BM, BN, D, S = FORMS["small" if small else "large"]
+    return 4 * S * ((2 if forward else 3) * BM * (D + 4) + 3 * D * BN)
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("fused_bamp_tiled")
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_tiled_iteration.argtypes = (
-            [ptr] * 30 + [i32] * 7 + [f32, ptr])
+            [ptr] * 33 + [i32] * 10 + [f32, ptr])
         lib.fused_bamp_tiled_iteration.restype = i32
+        lib.fused_bamp_tiled_smem.argtypes = [i32, i32]
+        lib.fused_bamp_tiled_smem.restype = i32
         lib.fused_bamp_tiled_error_string.argtypes = [i32]
         lib.fused_bamp_tiled_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -99,21 +146,93 @@ def tap_planes(op):
             op.abs_h2.reshape(W, op.Nt).contiguous())
 
 
-def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
-              y_im: torch.Tensor, sigma2: float,
-              cfg: Config) -> bamp.IterOut:
-    """One iteration of the trials of ``ps``: the CUDA kernel for CUDA
-    tensors, :func:`iteration_plain` for CPU tensors.  The caller has
-    checked :func:`covers` for ``cfg`` and ``op`` (``bamp.route`` does)."""
-    if y_re.device.type == "cpu":
-        return iteration_plain(op, ps, y_re, y_im, sigma2, cfg)
-    if y_re.device.type != "cuda":
-        raise ValueError(f"no kernel for device {y_re.device}")
-    global launches
+# Each live operator's tap planes and squared gains, and the symbol planes
+# per (alphabet, device): built once, not on every call.  An operator's
+# entry goes with the operator.
+_operator_cache = weakref.WeakKeyDictionary()
+_symbol_cache = {}
+
+
+def transposed_tap_planes(op):
+    """The taps for the forward product: Re h, Im h and |h|^2 as (Nt, Wp)
+    float32 planes, column l*Nr + m holding h[l, m, :], the pad columns
+    from Lh*Nr on zero."""
+    W = op.Lh * op.Nr
+    Wp = -(-W // 4) * 4
+    out = []
+    for t in tap_planes(op):
+        tT = torch.zeros((op.Nt, Wp), dtype=t.dtype, device=t.device)
+        tT[:, :W] = t.T
+        out.append(tT)
+    return out
+
+
+def _operator_planes(op):
+    """(h_re, h_im, h_a2, hT_re, hT_im, hT_a2, gains2) of ``op``, built at
+    its first call."""
+    if op not in _operator_cache:
+        _operator_cache[op] = (*tap_planes(op), *transposed_tap_planes(op),
+                               op.gains2.contiguous())
+    return _operator_cache[op]
+
+
+def _symbols(cfg: Config, dev):
+    key = (tuple(np.asarray(cfg.symbols).tolist()), str(dev))
+    if key not in _symbol_cache:
+        _symbol_cache[key] = symbol_planes(cfg, dev)
+    return _symbol_cache[key]
+
+
+def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
+            cfg: Config, out: bamp.IterOut, scratch, cov,
+            stages: int) -> None:
+    """Enqueue the stages ``stages`` of one iteration into ``out``."""
+    B = ps.var.shape[0]
+    act = ps.active.to(torch.int32).contiguous()
+    *taps, gains2 = _operator_planes(op)
+    sym_re, sym_im = _symbols(cfg, y_re.device)
+    W = cfg.Lh * cfg.Nr
+    lib = _library()
+    rc = lib.fused_bamp_tiled_iteration(
+        ps.xm_re.data_ptr(), ps.var.data_ptr(), ps.z_re.data_ptr(),
+        ps.z_im.data_ptr(), ps.u.data_ptr(), y_re.data_ptr(),
+        y_im.data_ptr(), act.data_ptr(),
+        out.xmap_re.data_ptr(), out.xmap_im.data_ptr(),
+        out.xm_re.data_ptr(), out.var.data_ptr(), out.z_re.data_ptr(),
+        out.z_im.data_ptr(), out.u.data_ptr(), out.notok.data_ptr(),
+        *[t.data_ptr() for t in scratch], cov.data_ptr(),
+        *[t.data_ptr() for t in taps],
+        op.gains.data_ptr(), gains2.data_ptr(), sym_re.data_ptr(),
+        sym_im.data_ptr(), B, cfg.Nt, cfg.Nr, cfg.Lin, cfg.Lh, cfg.M, cfg.K,
+        scratch_stride(cfg), tile_forms(B, cfg.Lin, W, cfg.Nt), stages,
+        float(np.float32(sigma2)), torch.cuda.current_stream(
+            y_re.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("fused_bamp_tiled_iteration launch failed: "
+                           + lib.fused_bamp_tiled_error_string(rc).decode())
+
+
+def _buffers(ps: bamp.PlaneState, cfg: Config):
+    """The outputs, the six scratch planes (B*Lin, scratch_stride) and cov
+    of one call."""
+    B, dev = ps.var.shape[0], ps.var.device
+    out = bamp.IterOut(
+        xmap_re=torch.empty_like(ps.var), xmap_im=torch.empty_like(ps.var),
+        xm_re=torch.empty_like(ps.var), xm_im=ps.xm_im,
+        var=torch.empty_like(ps.var), z_re=torch.empty_like(ps.u),
+        z_im=torch.empty_like(ps.u), u=torch.empty_like(ps.u),
+        notok=torch.empty((B,), dtype=torch.int32, device=dev))
+    scratch = [torch.empty((B * cfg.Lin, scratch_stride(cfg)),
+                           dtype=torch.float32, device=dev)
+               for _ in range(6)]
+    return out, scratch, torch.empty_like(ps.var)
+
+
+def _check_call(op, ps: bamp.PlaneState, y_re, y_im, cfg: Config) -> None:
     B = ps.var.shape[0]
     N, n = cfg.N, cfg.n
     dev = y_re.device
-    f32, i32 = torch.float32, torch.int32
+    f32 = torch.float32
     for name in ("xm_re", "var"):
         _check(name, getattr(ps, name), (B, N), f32, dev)
     for name in ("z_re", "z_im", "u"):
@@ -127,39 +246,51 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
     if not covers(cfg):
         raise ValueError("the tiled kernel covers complex segmented/sparc "
                          "configs with a real alphabet and tail truncation")
-    if B == 0:
+
+
+def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
+              y_im: torch.Tensor, sigma2: float,
+              cfg: Config) -> bamp.IterOut:
+    """One iteration of the trials of ``ps``: the CUDA kernel for CUDA
+    tensors, :func:`iteration_plain` for CPU tensors.  The caller has
+    checked :func:`covers` for ``cfg`` and ``op`` (``bamp.route`` does)."""
+    if y_re.device.type == "cpu":
+        return iteration_plain(op, ps, y_re, y_im, sigma2, cfg)
+    if y_re.device.type != "cuda":
+        raise ValueError(f"no kernel for device {y_re.device}")
+    global launches
+    _check_call(op, ps, y_re, y_im, cfg)
+    if ps.var.shape[0] == 0:
         return bamp.IterOut(ps.xmap_re, ps.xmap_im, ps.xm_re, ps.xm_im,
                             ps.var, ps.z_re, ps.z_im, ps.u,
-                            torch.zeros((0,), dtype=i32, device=dev))
-    act = ps.active.to(i32).contiguous()
-    W = cfg.Lh * cfg.Nr
-    out = bamp.IterOut(
-        xmap_re=torch.empty_like(ps.var), xmap_im=torch.empty_like(ps.var),
-        xm_re=torch.empty_like(ps.var), xm_im=ps.xm_im,
-        var=torch.empty_like(ps.var), z_re=torch.empty_like(ps.u),
-        z_im=torch.empty_like(ps.u), u=torch.empty_like(ps.u),
-        notok=torch.empty((B,), dtype=i32, device=dev))
-    scratch = [torch.empty((B * cfg.Lin, W), dtype=f32, device=dev)
-               for _ in range(6)]
-    cov = torch.empty_like(ps.var)
-    h_re, h_im, h_a2 = tap_planes(op)
-    gains2 = op.gains2.contiguous()
-    sym_re, sym_im = symbol_planes(cfg, dev)
-    lib = _library()
-    rc = lib.fused_bamp_tiled_iteration(
-        ps.xm_re.data_ptr(), ps.var.data_ptr(), ps.z_re.data_ptr(),
-        ps.z_im.data_ptr(), ps.u.data_ptr(), y_re.data_ptr(),
-        y_im.data_ptr(), act.data_ptr(),
-        out.xmap_re.data_ptr(), out.xmap_im.data_ptr(),
-        out.xm_re.data_ptr(), out.var.data_ptr(), out.z_re.data_ptr(),
-        out.z_im.data_ptr(), out.u.data_ptr(), out.notok.data_ptr(),
-        *[t.data_ptr() for t in scratch], cov.data_ptr(),
-        h_re.data_ptr(), h_im.data_ptr(), h_a2.data_ptr(),
-        op.gains.data_ptr(), gains2.data_ptr(), sym_re.data_ptr(),
-        sym_im.data_ptr(), B, cfg.Nt, cfg.Nr, cfg.Lin, cfg.Lh, cfg.M, cfg.K,
-        float(np.float32(sigma2)), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("fused_bamp_tiled_iteration launch failed: "
-                           + lib.fused_bamp_tiled_error_string(rc).decode())
+                            torch.zeros((0,), dtype=torch.int32,
+                                        device=y_re.device))
+    out, scratch, cov = _buffers(ps, cfg)
+    _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, ALL_STAGES)
     launches += 1
     return out
+
+
+def stage_ms(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
+             cfg: Config, reps: int = 10) -> dict:
+    """Milliseconds of each of the four launches of one call on the
+    trials of ``ps`` (CUDA tensors), by CUDA events around ``reps``
+    launches of that stage alone, after one whole call that fills the
+    scratch; and ``call``, the four together.  Not counted in
+    ``launches``."""
+    _check_call(op, ps, y_re, y_im, cfg)
+    out, scratch, cov = _buffers(ps, cfg)
+    times = {}
+    for name, mask in [*STAGES.items(), ("call", ALL_STAGES)]:
+        _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov,
+                ALL_STAGES)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, mask)
+        stop.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(stop) / reps
+    return times

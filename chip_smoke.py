@@ -66,9 +66,13 @@ Phases, each printing one JSON line:
    10) and split at 20 and resumed, the main path's phase 1 (2048 trials,
    cap 40) and phase 2 (its still-active trials to cap 300, where the state
    bound leaves out trials that ran to the cap without converging; the
-   same trials in a phase-1-sized batch are printed against the kernel);
-   one iteration at 2048 trials timed by CUDA events beside its bound, the
-   plain step and the plain step's four products as torch.matmul calls;
+   same trials in a phase-1-sized batch are printed against the kernel;
+   phase 2's wall seconds per iteration beside its device seconds inside
+   the kernel's calls); one iteration at 2048 trials timed by CUDA events
+   beside its bound, the plain step and the plain step's four products as
+   torch.matmul calls, with its four launches timed apart; the same at the
+   phase-2 shape (the gathered trials) beside that shape's bound; the
+   product blocks' shared memory and the build's ptxas lines;
 9. kernels_periter — K6 (one iteration with the K=1 denoiser) and K7 (the
    linear part only) against their plain versions: K6 through the plane
    loop on the OOK small geometries (tail, trunc, cyclic) at 1024 trials
@@ -1061,15 +1065,21 @@ def iteration_work(cfg, B, products, planes):
     return flop, sum(t.numel() * t.element_size() for t in planes)
 
 
-def phase_kernels_tiled(torch, dev):
+def phase_kernels_tiled(torch, dev, ptxas):
     """K5 against its plain version (``compare``), both driven through
     ``bamp.plane_loop``: the small geometries of tests/test_pallas_tiled.py
     (Lin, Lh = 8, 3 and 12, 5; and BPSK) at 1024 trials and a ragged batch
     of 37; the massive geometry at 512 trials, cap 10, and split at 20 and
     resumed to 40; the main path's phase 1 (2048 trials, cap 40) and phase 2
-    (its still-active trials, gathered, to cap 300).  Then one iteration at
-    B = 2048 timed by CUDA events beside its bound, the plain step and the
-    products of the plain step as torch.matmul calls."""
+    (its still-active trials, gathered, to cap 300; its wall seconds per
+    iteration beside the device time inside the wrapper's calls).  Then one
+    iteration at B = 2048 timed by CUDA events beside its bound, the plain
+    step and the products of the plain step as torch.matmul calls; the
+    four launches of one call timed apart (the stage mask) at B = 2048 and
+    at the phase-2 shape, where one iteration is timed beside its own
+    bound (``tail_*``); the kernel's shared memory per product block
+    against the wrapper's mirror, and ``ptxas``'s register and spill
+    lines."""
     from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
     from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
         fused_bamp_tiled as kern)
@@ -1132,6 +1142,7 @@ def phase_kernels_tiled(torch, dev):
                         1e-3, y=y2, free_unconverged=True, cap=MASSIVE_CAP,
                         phase2_B=int(idx.numel()))
     max_err = max(max_err, err)
+    phase2 = phase2_timing(torch, kern, mcfg, r, s2, y2, sk2)
     # The same phase-2 trials copied to a batch of the phase-1 size: the
     # matrix library then sums as at phase 1, where K5 equals its plain
     # version bit for bit (printed, not gated).
@@ -1181,15 +1192,109 @@ def phase_kernels_tiled(torch, dev):
     # |H|^2^T (1/u), H^H r (4): 16 flop per tap element
     flop, nbytes = iteration_work(mcfg, B, 8, planes)
     bound_ms, bound_by = bound(flop, nbytes)
+    stage_ms = kern.stage_ms(r.A, ps, y_re, y_im, r.sigma2, mcfg)
+    # the phase-2 shape: the gathered trials, all active at its start
+    ps2 = bamp.to_planes(s2)
+    y2_re, y2_im = y2.real.contiguous(), y2.imag.contiguous()
+    tail_ms = cuda_ms(lambda: out.update(t=kern.iteration(
+        r.A, ps2, y2_re, y2_im, r.sigma2, mcfg)), 2, 20)
+    kt = out["t"]
+    tail_flop, tail_bytes = iteration_work(
+        mcfg, n2, 8, [ps2.xm_re, ps2.var, ps2.z_re, ps2.z_im, ps2.u, y2_re,
+                      y2_im, ps2.active, A.h, A.abs_h2, A.gains,
+                      *[getattr(kt, f) for f in kt._fields]])
+    tail_bound_ms, tail_bound_by = bound(tail_flop, tail_bytes)
+    lib = kern._library()
+    smem = {f"{name}_{form}": (lib.fused_bamp_tiled_smem(fwd, small),
+                               kern.smem_bytes(bool(fwd), bool(small)))
+            for name, fwd in (("forward", 1), ("adjoint", 0))
+            for form, small in (("large", 0), ("small", 1))}
     timing = dict(kernel="fused_bamp_tiled", B=B, ms=ms, plain_ms=plain_ms,
                   library_ms=library_ms, library_ms_by_product=library,
                   flop=flop, bytes=nbytes, bound_ms=bound_ms,
-                  bound_by=bound_by,
+                  bound_by=bound_by, pct_of_bound=100 * bound_ms / ms,
                   achieved_tflops=flop / (ms * 1e-3) / 1e12,
                   us_per_trial_iteration=1e3 * ms / B,
+                  stage_ms=stage_ms,
+                  tail_B=n2, tail_ms=tail_ms, tail_bound_ms=tail_bound_ms,
+                  tail_bound_by=tail_bound_by,
+                  tail_pct_of_bound=100 * tail_bound_ms / tail_ms,
+                  tail_stage_ms=kern.stage_ms(r.A, ps2, y2_re, y2_im,
+                                              r.sigma2, mcfg),
+                  tail_kernel_us=kernel_us(torch, lambda: kern.iteration(
+                      r.A, ps2, y2_re, y2_im, r.sigma2, mcfg)),
+                  tail_forms=kern.tile_forms(n2, mcfg.Lin,
+                                             mcfg.Lh * mcfg.Nr, mcfg.Nt),
+                  **phase2, smem_bytes=smem, ptxas=list(ptxas),
                   seconds=time.perf_counter() - t0)
     emit("kernel_timing_tiled", **timing)
+    if any(c != p for c, p in smem.values()):
+        raise AssertionError(f"K5 shared memory differs from the wrapper's "
+                             f"mirror: {smem}")
     return max_err, timing
+
+
+def kernel_us(torch, fn, reps: int = 10) -> dict:
+    """Device microseconds per call of K5's four kernels and of the other
+    device work ``fn`` launches (the wrapper's small PyTorch kernels and
+    copies), from a ``torch.profiler`` trace of ``reps`` calls after one
+    untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            name = next((n for k, n in (("product_kernel<true", "forward"),
+                                        ("fold_kernel", "fold"),
+                                        ("product_kernel<false", "adjoint"),
+                                        ("denoise_kernel", "denoise"))
+                         if k in e.key), "other")
+            out[name] = out.get(name, 0.0) + us / reps
+    return out
+
+
+def phase2_timing(torch, kern, cfg, r, s2, y2, sk2):
+    """The main path's phase 2 once more through ``bamp.plane_loop`` on
+    K5, from the gathered state ``s2``: its wall seconds per iteration
+    (host clock, synchronized at the end) beside the device seconds per
+    iteration spent inside the wrapper's calls (CUDA events around each
+    call); the result must equal ``sk2``, the checked run's, bit for
+    bit."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
+    events = []
+
+    def timed_iteration(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = kern.iteration(*args)
+        stop.record()
+        events.append((start, stop))
+        return res
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st = bamp.plane_loop(timed_iteration, r.A, s2, y2, r.sigma2, MASSIVE_CAP,
+                         cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    iters = len(events)
+    same = torch.equal(st.T, sk2.T) and all(
+        torch.equal(getattr(st, f), getattr(sk2, f)) for f in BAMP_FIELDS)
+    if not same:
+        raise AssertionError("phase 2 on K5 is not repeatable")
+    kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    return dict(phase2_iterations=iters,
+                phase2_wall_s_per_iteration=wall / max(iters, 1),
+                phase2_kernel_s_per_iteration=kernel_s / max(iters, 1))
 
 
 def linear_decode(op, s, y, sigma2, cap, cfg):
@@ -1548,9 +1653,11 @@ def main() -> int:
                                 if "registers" in ln or "spill" in ln]}
                   for k, v in report.items()})
 
-    def ptxas(name):
+    def ptxas(name, entries=False):
+        words = ("registers", "spill") + (("Compiling entry",) if entries
+                                          else ())
         return [ln.strip() for ln in report[name]["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
+                if any(w in ln for w in words)]
 
     max_err, timing = phase_kernels(torch, dev, ptxas("fused_bamp_decode"))
     launches = phase_main(torch, dev)
@@ -1566,7 +1673,8 @@ def main() -> int:
     launches4 = phase_main_vamp(torch, dev, "vamp2")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    max_err5, timing5 = phase_kernels_tiled(torch, dev)
+    max_err5, timing5 = phase_kernels_tiled(
+        torch, dev, ptxas("fused_bamp_tiled", entries=True))
     torch.cuda.empty_cache()
     k6, k7 = phase_kernels_periter(torch, dev,
                                    ptxas("fused_bamp_iteration"))

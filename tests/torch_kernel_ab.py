@@ -17,10 +17,15 @@ the cap of 100; VAMP and vamp2 (K3, K4) at the VAMP OOK point
 ``periter_linear``) for one iteration at chip_smoke's timing shape
 (``flagship_bamp_ook()``, 65536 trials, the state after 2 plain
 iterations), and K6 at the periter path's tail shape (``periter_tail``:
-the same trials with one in 100 active, the rest frozen).  The two
-trees' results must be bit-identical for K1, K2, K6 (every plane and
-``notok``; xmap on the active trials, the only ones K6 writes it for) and
-K7; for K3 and K4, whose product engine may sum in another order from one
+the same trials with one in 100 active, the rest frozen); K5 for one
+iteration at the massive main path's two shapes
+(``chip_smoke.massive_main_config()``, Eb/N0 = 18 dB): ``tiled``, 2048
+trials, all active, from the initial state, and ``tiled_tail``, the
+trials still active after a 40-iteration phase 1 of those, gathered (as
+chip_smoke's ``kernel_phase2_tiled`` builds them).  The two trees' results
+must be bit-identical for K1, K2, K5 and K6 (every plane and ``notok``;
+xmap on the active trials, the only ones K5 and K6 write it for) and K7;
+for K3 and K4, whose product engine may sum in another order from one
 tree to the other, they are held to
 ``chip_smoke.compare_vamp``'s ``trial_share`` rule instead, and the
 bit-identical share is printed.  A kernel whose source the other checkout
@@ -32,6 +37,8 @@ lacks is timed on its own.  ``--cases`` picks cases by name.
         [--cases scamp_phase1,scamp_phase2]
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
         --cases periter_fused,periter_linear,periter_tail
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
+        --cases tiled,tiled_tail --rounds 3
 
 Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
@@ -135,6 +142,8 @@ def _cases(dev, wanted=frozenset()):
             yield _vamp_case(dev, algo)
     if want("periter_fused", "periter_linear", "periter_tail"):
         yield from _periter_cases(dev, want)
+    if want("tiled", "tiled_tail"):
+        yield from _tiled_cases(dev, want)
 
 
 def _periter_cases(dev, want):
@@ -170,6 +179,44 @@ def _periter_cases(dev, want):
                lambda mod: Step(mod.iteration_linear(
                    r.A, st.xmmse, st.var, st.z, st.u, r.y, r.sigma2, cfg),
                    None))
+
+
+def tiled_shapes(dev, tail=True):
+    """K5's two main-path shapes at the massive point: (cfg, op, sigma2,
+    shapes) with shapes {"tiled": (planes, y_re, y_im)} for 2048 trials,
+    all active, in the initial state and, with ``tail``, "tiled_tail" for
+    the trials still active after a 40-iteration phase 1 of those (run by
+    this checkout's K5), gathered."""
+    import chip_smoke
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_tiled)
+    cfg = chip_smoke.massive_main_config()
+    r = montecarlo.generate_realization(
+        make_generator(dev, 43), cfg, "sparc", "banded",
+        chip_smoke.MASSIVE_RES,
+        chip_smoke.snr_of(cfg, chip_smoke.MASSIVE_EBN0_DB))
+    s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+    planes = lambda s, y: (bamp.to_planes(s), y.real.contiguous(),
+                           y.imag.contiguous())
+    shapes = {"tiled": planes(s0, r.y)}
+    if tail:
+        s1 = bamp.plane_loop(fused_bamp_tiled.iteration, r.A, s0, r.y,
+                             r.sigma2, chip_smoke.MASSIVE_K1, cfg)
+        idx = torch.nonzero(s1.active).flatten()
+        shapes["tiled_tail"] = planes(montecarlo.state_take_trials(s1, idx),
+                                      r.y[idx])
+    return cfg, r.A, r.sigma2, shapes
+
+
+def _tiled_cases(dev, want):
+    """K5 for one iteration at the massive main path's two shapes."""
+    cfg, op, sigma2, shapes = tiled_shapes(dev, want("tiled_tail"))
+    for case, (ps, y_re, y_im) in shapes.items():
+        if want(case):
+            yield (case, "fused_bamp_tiled", "fused_bamp_tiled",
+                   lambda mod, ps=ps, y_re=y_re, y_im=y_im: Step(
+                       mod.iteration(op, ps, y_re, y_im, sigma2, cfg),
+                       ps.active))
 
 
 def _vamp_case(dev, algo):
@@ -249,6 +296,8 @@ def main(argv=None) -> int:
     p.add_argument("--parent", type=Path, required=True,
                    help="root of the other checkout")
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--reps", type=int, default=REPS,
+                   help="timed launches per turn")
     p.add_argument("--cases", default="",
                    help="comma-separated case names (default: all)")
     args = p.parse_args(argv)
@@ -278,11 +327,11 @@ def main(argv=None) -> int:
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(REPS):
+            for _ in range(args.reps):
                 out = launch(mods[label])
             stop.record()
             torch.cuda.synchronize()
-            ms = start.elapsed_time(stop) / REPS
+            ms = start.elapsed_time(stop) / args.reps
             first.setdefault(label, out)
             if not _same(first[label], out):
                 raise AssertionError(f"{case}: {label} differs from its "
