@@ -22,9 +22,9 @@ VAMP and vamp2 (``--algo vamp2``) decode on the dense channel's SVD;
 cores' form of kernels K3 and K4), ``--precision auto`` only where the
 previous point's mean T pinned at the cap, and ``--chans C`` rounds the
 realizations per point up to a multiple of C, as the JAX package does.  On
-the H100 the HIGH form is no real gain over HIGHEST (about even for VAMP,
-slower for vamp2; ``PERF.md`` §6).  Runs on the CUDA card unless ``--device
-cpu`` is given.  Only the ``sweep`` subcommand is ported; ``plot``,
+the H100 the HIGH form decodes in about two thirds of HIGHEST's time, so
+points whose trials run to the cap go faster at HIGH (``PERF.md`` §5,
+§6).  Runs on the CUDA card unless ``--device cpu`` is given.  Only the ``sweep`` subcommand is ported; ``plot``,
 ``capacity``, ``bench`` and ``sparc-trial`` wait for ROADMAP.md Queue 1
 item 5.
 """
@@ -105,8 +105,8 @@ def main(argv=None) -> int:
                             "trajectories) | 'high' (three-pass bf16 on "
                             "the tensor cores; where trials stop early its "
                             "error sits at the 1e-5 allclose tolerance and "
-                            "inflates T; on the H100 it is no faster than "
-                            "'highest' for VAMP and slower for vamp2) | "
+                            "inflates T; on the H100 its decode takes "
+                            "about two thirds of the time of 'highest') | "
                             "'auto' "
                             "(per point: 'high' when "
                             "the previous point's mean T pinned at the "

@@ -38,11 +38,13 @@
 // The HIGH form (template kHigh; precision='high', the JAX kernel's
 // make_dot(Precision.HIGH) = dot3): both products as the Gauss form's
 // three real products in bf16 x 3 passes on the tensor cores
-// (vamp_common.cuh, product_tile_x3) on the wrapper's split tap planes
+// (vamp_common.cuh, product_x3) on the wrapper's split tap planes
 // (fused_vamp2.py:89-91, :102-104 of the JAX package), and alpha and
 // d_mean, which JAX writes as products with ones (:72, :82), as sum(hi) +
-// sum(lo).  The HIGHEST instance (kHigh false) is the code above,
-// unchanged.
+// sum(lo).  Each product's trial side is split into bf16 once, where it is
+// written: step 3 splits r_tilde, the first product's epilogue writes w
+// split (no FP32 w), into the wrapper's scratch xs, one region per block.
+// The HIGHEST instance (kHigh false) is the code above, unchanged.
 //
 // Layouts: r, xmmse (B, N) complex64, var (B, N), gamma (B, 1), y_tilde
 // (B, p) complex64; Vh (p, N) complex64, s^2 (p,); the scratch w (B, p)
@@ -73,11 +75,15 @@ struct Params {
   int B, N, p, M, K, vec4_p, vec4_N;
   float sigma2, eta, rho, omr, inv_p, inv_N;  // omr = 1 - rho from double
   int cap;  // remaining iteration budget
-  // HIGH form only: the split Gauss tap planes (the forward's six (p, ldf)
-  // planes, then the adjoint's six (N, ldb)); ldf, ldb: N, p rounded up
-  // to 16
+  // HIGH form only: the split Gauss tap tiles (vamp_common.cuh,
+  // product_x3: the forward's, then the adjoint's); ldf, ldb: N, p rounded
+  // up to 16
   const __nv_bfloat16* taps;
   int ldf, ldb;
+  // HIGH form only: the blocks' split operands (vamp_common.cuh,
+  // split_at), per block the forward's r_tilde (ldf / 16 steps), then the
+  // adjoint's w (ldb / 16 steps)
+  __nv_bfloat16* xs;
 };
 
 template <bool kHigh>
@@ -100,10 +106,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   extern __shared__ float4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   SmemX3& smx = *reinterpret_cast<SmemX3*>(smem_raw);
-  const size_t plane_f = static_cast<size_t>(p) * P.ldf;
-  const size_t plane_b = static_cast<size_t>(N) * P.ldb;
+  const int kf = P.ldf / kBK, kb = P.ldb / kBK;  // k16 steps of each
   const __nv_bfloat16* tf = P.taps;
-  const __nv_bfloat16* tb = tf + kTapPlanes * plane_f;
+  const __nv_bfloat16* tb = tf + tap_tiles_size(p, kf);
+  __nv_bfloat16* xsf = P.xs + static_cast<size_t>(blockIdx.x) * 3 *
+                                  (kf + kb) * kSplitStep;
+  __nv_bfloat16* xsb = xsf + 3 * kf * kSplitStep;
   __shared__ int s_act[kBt], s_T[kBt], s_bad[kBt];
   __shared__ float s_gamma[kBt], s_alpha[kBt], s_gt[kBt], s_dmean[kBt],
       s_gnext[kBt];
@@ -114,6 +122,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     s_T[tid] = valid ? P.T[row0 + tid] : 0;
     s_gamma[tid] = valid ? P.gamma[row0 + tid] : 1.f;
     s_bad[tid] = 0;
+  }
+  int ring;  // HIGH: the steps the product ring has served
+  if constexpr (kHigh) {
+    init_ring(smx, ring);
+    // the split operands' pad columns
+    split_rows(nullptr, 0, 0, (N + 1) & ~1, nrows, kf, xsf);
+    split_rows(nullptr, 0, 0, (p + 1) & ~1, nrows, kb, xsb);
   }
 
   for (int it = 0; it < P.cap; ++it) {
@@ -172,6 +187,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();
 
     // ---- 3. r_tilde = (xmmse - alpha r) / (1 - alpha), written over r ----
+    // (HIGH: split for the first product as it is written)
+    if constexpr (kHigh)
+      for_each_split_pair<2>(
+          nrows, N, kf, s_act, xsf,
+          [&](int, size_t e, bool last) {
+            const bool al = (N & 1) == 0;
+            return last ? Pair2{{xm[e], {}}, {r[e], {}}}
+                        : Pair2{load_pair(xm, e, al), load_pair(r, e, al)};
+          },
+          [&](int m, size_t e, Pair2 v, bool last) {
+            const float alpha = s_alpha[m], oma = 1.f - alpha;
+            auto rt_of = [&](float2 x, float2 u) {
+              return make_float2((x.x - alpha * u.x) / oma,
+                                 (x.y - alpha * u.y) / oma);
+            };
+            const Pair t = {rt_of(v.a.u0, v.b.u0), rt_of(v.a.u1, v.b.u1)};
+            if (last)
+              r[e] = t.u0;
+            else
+              store_pair(r, e, t, (N & 1) == 0);
+            return t;
+          });
+    else
     for_each_row_element<4>(
         nrows, N, s_act,
         [&](int, size_t e) {
@@ -187,24 +225,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 4. w = (d / d_mean) (y_tilde - r_tilde Vh^T) ---------------------
     if constexpr (kHigh) {
-      for (int n0 = 0; n0 < p; n0 += kBN3) {
-        float cr[2][4], ci[2][4];
-        product_tile_x3(r, N, nrows, N, tf, plane_f, P.ldf, p, n0, smx, cr,
-                        ci);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = x3_row(e), k = x3_col(n0, j, e);
-            if (m >= nrows || !s_act[m] || k >= p) continue;
-            const float gt = s_gt[m], dm = s_dmean[m];
-            const float sk = __ldg(s2 + k);
-            const float sc = sk / (sk + P.sigma2 * gt) / dm;
-            const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
-            w[static_cast<size_t>(m) * p + k] =
-                make_float2(sc * (y.x - cr[j][e]), sc * (y.y - ci[j][e]));
-          }
-      }
+      product_x3(xsf, kf, tf, p, smx, ring,
+                 [&](int m, int k, float cr0, float ci0, float cr1,
+                     float ci1) {
+        if (m >= nrows || !s_act[m]) return;
+        const float gt = s_gt[m], dm = s_dmean[m];
+        auto w_at = [&](int k, float cr, float ci) {
+          const float sk = __ldg(s2 + k);
+          const float sc = sk / (sk + P.sigma2 * gt) / dm;
+          const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
+          return make_float2(sc * (y.x - cr), sc * (y.y - ci));
+        };
+        store_split(xsb, kb, m, k, w_at(k, cr0, ci0),
+                    k + 1 < p ? w_at(k + 1, cr1, ci1)
+                              : make_float2(0.f, 0.f));
+      });
     } else
     for (int n0 = 0; n0 < p; n0 += kBN1) {
       float cr[kNI][kNJ1], ci[kNI][kNJ1];
@@ -230,22 +265,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 5. r = r_tilde + eta w conj(Vh) ----------------------------------
     if constexpr (kHigh) {
-      for (int n0 = 0; n0 < N; n0 += kBN3) {
-        float cr[2][4], ci[2][4];
-        product_tile_x3(w, p, nrows, p, tb, plane_b, P.ldb, N, n0, smx, cr,
-                        ci);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = x3_row(e), jc = x3_col(n0, j, e);
-            if (m >= nrows || !s_act[m] || jc >= N) continue;
-            const size_t el = static_cast<size_t>(m) * N + jc;
-            const float2 t = r[el];
-            r[el] = make_float2(t.x + P.eta * cr[j][e],
-                                t.y + P.eta * ci[j][e]);
-          }
-      }
+      product_x3(xsb, kb, tb, N, smx, ring,
+                 [&](int m, int jc, float cr0, float ci0, float cr1,
+                     float ci1) {
+        if (m >= nrows || !s_act[m]) return;
+        auto put = [&](int jc, float cr, float ci) {
+          const size_t el = static_cast<size_t>(m) * N + jc;
+          const float2 t = r[el];
+          r[el] = make_float2(t.x + P.eta * cr, t.y + P.eta * ci);
+        };
+        put(jc, cr0, ci0);
+        if (jc + 1 < N) put(jc + 1, cr1, ci1);
+      });
     } else
     for (int n0 = 0; n0 < N; n0 += kBN2) {
       float cr[kNI][kNJ2], ci[kNI][kNJ2];
@@ -287,8 +318,9 @@ extern "C" {
 
 // Launch the decode of B trials on `stream`, in the HIGHEST form (high ==
 // 0: FP32 on the CUDA cores, Vh read) or the HIGH form (high == 1: bf16 x
-// 3 on the tensor cores, the split tap planes `taps` read, ldf and ldb the
-// forward's and the adjoint's padded k).  The state buffers are updated in
+// 3 on the tensor cores, the split tap tiles `taps` read, ldf and ldb the
+// forward's and the adjoint's padded k, xs the scratch of the blocks' split
+// operands: 6 kBt (ldf + ldb) bf16 for each of the ceil(B / kBt) blocks).  The state buffers are updated in
 // place (the caller passes copies).  Returns a cudaError_t code (0 on
 // success): cudaErrorInvalidValue for a geometry or form the kernel does
 // not take, else cudaGetLastError() after the launch.  The kernel
@@ -300,12 +332,12 @@ int fused_vamp2_decode(void* r, void* gamma, void* var, void* xm, void* act,
                        int vec4_p, int vec4_N, float sigma2, float eta,
                        float rho, float omr, float inv_p, float inv_N,
                        int cap, int high, const void* taps, int ldf, int ldb,
-                       void* stream) {
+                       void* xs, void* stream) {
   if (K < 1 || K > decode::kMaxK || M < 1 || N % M != 0 || B < 1 || p < 1 ||
       (high != 0 && high != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (high && (taps == nullptr || ldf < N || ldf % 16 || ldb < p ||
-               ldb % 16))
+  if (high && (taps == nullptr || xs == nullptr || ldf < N || ldf % 16 ||
+               ldb < p || ldb % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   Params P;
   P.r = static_cast<float2*>(r);
@@ -337,6 +369,7 @@ int fused_vamp2_decode(void* r, void* gamma, void* var, void* xm, void* act,
   P.taps = static_cast<const __nv_bfloat16*>(taps);
   P.ldf = ldf;
   P.ldb = ldb;
+  P.xs = static_cast<__nv_bfloat16*>(xs);
   const dim3 grid((B + kBt - 1) / kBt);
   const auto kernel = high ? vamp2_decode_kernel<true>
                            : vamp2_decode_kernel<false>;

@@ -58,9 +58,13 @@
 // The HIGH form (template kHigh; precision='high', the JAX kernel's
 // make_dot(Precision.HIGH) = dot3) runs both products as the Gauss form's
 // three real products in bf16 x 3 passes on the tensor cores
-// (vamp_common.cuh, product_tile_x3) on the wrapper's split tap planes, and
+// (vamp_common.cuh, product_x3) on the wrapper's split tap planes, and
 // the two row sums JAX writes as products with ones (var_lmmse,
-// fused_vamp.py:145-146, and dxdr, :173) as sum(hi) + sum(lo).  Its bound
+// fused_vamp.py:145-146, and dxdr, :173) as sum(hi) + sum(lo).  The trial
+// side of each product is split into bf16 once, where it is written: the
+// launch splits the incoming r_tilde, step 5 splits each new r_tilde, and
+// the first product's epilogue writes w split (no FP32 w); the split
+// operands are the wrapper's scratch xs, one region per block.  Its bound
 // is the tensor cores': 36 N p flop per trial and iteration (3 products x
 // 3 passes x 2 N p) at 989 TFLOP/s, about 32 ms at the main path, against
 // the same 9.7 GB of state traffic (2.9 ms); the elementwise passes and the
@@ -101,12 +105,16 @@ struct Params {
   int B_per, N, p, M, K, vec4_p, vec4_N;
   float sigma2, eta, ometa, inv_p, inv_N;  // ometa = 1 - eta from double
   int cap;  // remaining iteration budget
-  // HIGH form only: the split Gauss tap planes of each factor (the
-  // forward's six (p, ldf) planes, then the adjoint's six (N, ldb)), tap_c
+  // HIGH form only: the split Gauss tap tiles of each factor
+  // (vamp_common.cuh, product_x3: the forward's, then the adjoint's), tap_c
   // bf16 values apart from one realization to the next
   const __nv_bfloat16* taps;
   size_t tap_c;
   int ldf, ldb;  // N and p rounded up to 16
+  // HIGH form only: the blocks' split operands (vamp_common.cuh,
+  // split_at), per block (c, blockIdx.x) the forward's r_tilde (ldf / 16
+  // steps), then the adjoint's w (ldb / 16 steps)
+  __nv_bfloat16* xs;
 };
 
 template <bool kHigh>
@@ -132,10 +140,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   extern __shared__ float4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   SmemX3& smx = *reinterpret_cast<SmemX3*>(smem_raw);
-  const size_t plane_f = static_cast<size_t>(p) * P.ldf;
-  const size_t plane_b = static_cast<size_t>(N) * P.ldb;
+  const int kf = P.ldf / kBK, kb = P.ldb / kBK;  // k16 steps of each
   const __nv_bfloat16* tf = P.taps + c * P.tap_c;
-  const __nv_bfloat16* tb = tf + kTapPlanes * plane_f;
+  const __nv_bfloat16* tb = tf + tap_tiles_size(p, kf);
+  __nv_bfloat16* xsf =
+      P.xs + (static_cast<size_t>(c) * gridDim.x + blockIdx.x) * 3 *
+                 (kf + kb) * kSplitStep;
+  __nv_bfloat16* xsb = xsf + 3 * kf * kSplitStep;
   __shared__ int s_act[kBt], s_T[kBt], s_bad[kBt];
   __shared__ float s_s2t[kBt], s_vr[kBt], s_alpha[kBt], s_tau[kBt],
       s_dxdr[kBt];
@@ -145,6 +156,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     s_act[tid] = valid ? P.act[row0 + tid] : 0;
     s_T[tid] = valid ? P.T[row0 + tid] : 0;
     s_s2t[tid] = valid ? P.s2t[row0 + tid] : 1.f;
+  }
+  int ring;  // HIGH: the steps the product ring has served
+  if constexpr (kHigh) {
+    init_ring(smx, ring);
+    // the incoming r_tilde split for the first product; w's pad columns
+    split_rows(rt, N, N, 0, nrows, kf, xsf);
+    split_rows(nullptr, 0, 0, (p + 1) & ~1, nrows, kb, xsb);
   }
 
   for (int it = 0; it < P.cap; ++it) {
@@ -175,25 +193,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 1. q = r_tilde Vh^T, w = scale (y_tilde + vr q) - q ------------
     if constexpr (kHigh) {
-      for (int n0 = 0; n0 < p; n0 += kBN3) {
-        float cr[2][4], ci[2][4];
-        product_tile_x3(rt, N, nrows, N, tf, plane_f, P.ldf, p, n0, smx, cr,
-                        ci);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = x3_row(e), k = x3_col(n0, j, e);
-            if (m >= nrows || !s_act[m] || k >= p) continue;
-            const float vr = s_vr[m];
-            const float sc = 1.f / (__ldg(s2 + k) + vr);
-            const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
-            const float xr = sc * (y.x + vr * cr[j][e]);
-            const float xi = sc * (y.y + vr * ci[j][e]);
-            w[static_cast<size_t>(m) * p + k] =
-                make_float2(xr - cr[j][e], xi - ci[j][e]);
-          }
-      }
+      product_x3(xsf, kf, tf, p, smx, ring,
+                 [&](int m, int k, float cr0, float ci0, float cr1,
+                     float ci1) {
+        if (m >= nrows || !s_act[m]) return;
+        const float vr = s_vr[m];
+        auto w_at = [&](int k, float cr, float ci) {
+          const float sc = 1.f / (__ldg(s2 + k) + vr);
+          const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
+          const float xr = sc * (y.x + vr * cr);
+          const float xi = sc * (y.y + vr * ci);
+          return make_float2(xr - cr, xi - ci);
+        };
+        store_split(xsb, kb, m, k, w_at(k, cr0, ci0),
+                    k + 1 < p ? w_at(k + 1, cr1, ci1)
+                              : make_float2(0.f, 0.f));
+      });
     } else
     for (int n0 = 0; n0 < p; n0 += kBN1) {
       float cr[kNI][kNJ1], ci[kNI][kNJ1];
@@ -220,23 +235,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 2. x_tilde = w conj(Vh) + r_tilde, r = (x_tilde - a r_tilde)/(1-a)
     if constexpr (kHigh) {
-      for (int n0 = 0; n0 < N; n0 += kBN3) {
-        float cr[2][4], ci[2][4];
-        product_tile_x3(w, p, nrows, p, tb, plane_b, P.ldb, N, n0, smx, cr,
-                        ci);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = x3_row(e), jc = x3_col(n0, j, e);
-            if (m >= nrows || !s_act[m] || jc >= N) continue;
-            const float a = s_alpha[m], oma = 1.f - a;
-            const size_t el = static_cast<size_t>(m) * N + jc;
-            const float2 t = rt[el];
-            const float xr = cr[j][e] + t.x, xi = ci[j][e] + t.y;
-            r[el] = make_float2((xr - a * t.x) / oma, (xi - a * t.y) / oma);
-          }
-      }
+      product_x3(xsb, kb, tb, N, smx, ring,
+                 [&](int m, int jc, float cr0, float ci0, float cr1,
+                     float ci1) {
+        if (m >= nrows || !s_act[m]) return;
+        const float a = s_alpha[m], oma = 1.f - a;
+        auto put = [&](int jc, float cr, float ci) {
+          const size_t el = static_cast<size_t>(m) * N + jc;
+          const float2 t = rt[el];
+          const float xr = cr + t.x, xi = ci + t.y;
+          r[el] = make_float2((xr - a * t.x) / oma, (xi - a * t.y) / oma);
+        };
+        put(jc, cr0, ci0);
+        if (jc + 1 < N) put(jc + 1, cr1, ci1);
+      });
     } else
     for (int n0 = 0; n0 < N; n0 += kBN2) {
       float cr[kNI][kNJ2], ci[kNI][kNJ2];
@@ -299,6 +311,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();
 
     // ---- 5. r_tilde = (xmmse - dxdr r) / (1 - dxdr) -----------------------
+    // (HIGH: split for the next first product as it is written)
+    if constexpr (kHigh)
+      for_each_split_pair<2>(
+          nrows, N, kf, s_act, xsf,
+          [&](int, size_t e, bool last) {
+            const bool al = (N & 1) == 0;
+            return last ? Pair2{{xm[e], {}}, {r[e], {}}}
+                        : Pair2{load_pair(xm, e, al), load_pair(r, e, al)};
+          },
+          [&](int m, size_t e, Pair2 v, bool last) {
+            const float dxdr = s_dxdr[m], norm = 1.f / (1.f - dxdr);
+            auto rt_of = [&](float2 x, float2 u) {
+              return make_float2((x.x - dxdr * u.x) * norm,
+                                 (x.y - dxdr * u.y) * norm);
+            };
+            const Pair t = {rt_of(v.a.u0, v.b.u0), rt_of(v.a.u1, v.b.u1)};
+            if (last)
+              rt[e] = t.u0;
+            else
+              store_pair(rt, e, t, (N & 1) == 0);
+            return t;
+          });
+    else
     for_each_row_element<4>(
         nrows, N, s_act,
         [&](int, size_t e) {
@@ -328,9 +363,10 @@ extern "C" {
 
 // Launch the decode of C * B_per trials on C stacked factors on `stream`,
 // in the HIGHEST form (high == 0: FP32 on the CUDA cores, Vh read) or the
-// HIGH form (high == 1: bf16 x 3 on the tensor cores, the split tap planes
+// HIGH form (high == 1: bf16 x 3 on the tensor cores, the split tap tiles
 // `taps` read, tap_c values per factor, ldf and ldb the forward's and the
-// adjoint's padded k).  The state buffers are updated in place (the caller
+// adjoint's padded k, xs the scratch of the blocks' split operands: 6 kBt
+// (ldf + ldb) bf16 for each of the C ceil(B_per / kBt) blocks).  The state buffers are updated in place (the caller
 // passes copies).  Returns a cudaError_t code (0 on success):
 // cudaErrorInvalidValue for a geometry or form the kernel does not take,
 // else cudaGetLastError() after the launch.  The kernel allocates nothing;
@@ -342,13 +378,14 @@ int fused_vamp_decode(void* rt, void* s2t, void* r, void* var, void* xm,
                       int M, int K, int vec4_p, int vec4_N, float sigma2,
                       float eta, float ometa, float inv_p, float inv_N,
                       int cap, int high, const void* taps, long long tap_c,
-                      int ldf, int ldb, void* stream) {
+                      int ldf, int ldb, void* xs, void* stream) {
   if (K < 1 || K > decode::kMaxK || M < 1 || N % M != 0 || C < 1 ||
       C > 65535 || B_per < 1 || p < 1 || (high != 0 && high != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (high && (taps == nullptr || ldf < N || ldf % 16 || ldb < p ||
-               ldb % 16 || tap_c < kTapPlanes * (static_cast<long long>(p) * ldf +
-                                     static_cast<long long>(N) * ldb)))
+  if (high && (taps == nullptr || xs == nullptr || ldf < N || ldf % 16 ||
+               ldb < p || ldb % 16 ||
+               tap_c < tap_tiles_size(p, ldf / 16) +
+                           tap_tiles_size(N, ldb / 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params P;
   P.rt = static_cast<float2*>(rt);
@@ -381,6 +418,7 @@ int fused_vamp_decode(void* rt, void* s2t, void* r, void* var, void* xm,
   P.tap_c = static_cast<size_t>(tap_c);
   P.ldf = ldf;
   P.ldb = ldb;
+  P.xs = static_cast<__nv_bfloat16*>(xs);
   const dim3 grid((B_per + kBt - 1) / kBt, C);
   const auto kernel = high ? vamp_decode_kernel<true>
                            : vamp_decode_kernel<false>;

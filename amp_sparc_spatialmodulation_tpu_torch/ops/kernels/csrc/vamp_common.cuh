@@ -2,7 +2,7 @@
 // fused_vamp2_decode.cu): the tile of trials a block owns, the complex
 // products of that tile's rows with the SVD factor Vh (register tiles over
 // a cp.async ring in shared memory; for precision='high' the bf16 x 3
-// tensor-core engine product_tile_x3), and the segmented softmax posterior
+// tensor-core engine product_x3), and the segmented softmax posterior
 // without the tau/2 halving in both variance forms.  It takes the sums,
 // |x|^2 and the complex product of decode_common.cuh (shared with the BAMP
 // and SCAMP kernels) and changes nothing there, so those kernels compile as
@@ -244,52 +244,160 @@ __device__ __forceinline__ void product_tile(
 // Bound on this card: the tensor cores' bf16 rate, 989 TFLOP/s dense, for
 // 3 products x 3 passes of 2 K flop per complex output.  The passes run as
 // mma.sync m16n8k16 (bf16 in, FP32 accumulate) on fragments read by
-// ldmatrix; a simple form, not wgmma (a later change).
+// ldmatrix; a simple form, not wgmma.
 //
-// Tile: the block's 64 trials x kBN3 = 32 columns; warp (wm, wn) = (warp %
-// 4, warp / 4) owns 16 trials x 16 columns, i.e. two n8 blocks of each of
-// the three products, each with two FP32 accumulators: hi.hi, and hi.lo +
-// lo.hi, added at the end as dot3 groups them (48 accumulators a thread).
-// Ring: two slots of kBK = 16 k.  The trial side is read from the FP32
-// state (a thread a row and 4 consecutive k, the loads of the next step in
-// flight during this step's passes), its three operands (a + b summed in
-// FP32, a, b) split into bf16 hi and lo as they are stored; the tap planes
-// arrive split (bf16 hi and lo planes, cached by the wrapper per factor,
-// rows = output columns, k contiguous, K padded with zeros to a multiple
-// of 16) by 16-byte cp.async from L2.  Shared rows hold 16 k in 24 bf16
-// (48 bytes), so the eight rows an ldmatrix phase reads fall on distinct
-// banks.
+// Operands: both arrive split into bf16 hi and lo, each k16 step of each
+// as one contiguous block that a single bulk copy (cp.async.bulk, the
+// Hopper copy engine, completing on an mbarrier) brings into the ring:
+// rows of 16 hi then 16 lo bf16 (64 bytes), their four 16-byte chunks
+// swizzled (chunk c of row n at c ^ ((n / 2) % 4)) so that the eight rows
+// an ldmatrix phase reads fall on distinct banks.  The tap tiles are the
+// wrapper's (fused_vamp.high_taps: per Gauss plane, tile of kBN3 output
+// columns, k16 step, the last tile padded with zero columns, K with
+// zeros).  The trial side is split once, by the pass that writes it
+// (store_split), into the block's split operand (split_at: per Gauss
+// operand o = a + b summed in FP32, a, b, per k16 step, the block's 64
+// trials): the forward product's operand by the pass that forms r_tilde,
+// the adjoint's by the forward product's epilogue (the FP32 w is not
+// formed).
 //
-// What bounds it on the card is the operand stream, not the tensor cores
-// (probe builds, tests/torch_vamp_probes.py --precision high, PERF.md):
-// each column tile reads the block's rows of the trial side again (17
-// tiles of 32 columns cover p = 528 in the forward, 80 cover N = 2560 in
-// the adjoint, about 45 GB per iteration at the main path), and cutting
-// the mma passes saves little.  A wider tile needs more than the 48
-// accumulators that two blocks per SM leave room for; that, or a cluster
-// that shares the trial side, is the next step.
-constexpr int kBN3 = 32;   // columns of a HIGH product tile
-constexpr int kRowH = 24;  // bf16 per shared row: 16 k + 8 pad (48 bytes)
-constexpr int kTapPlanes = 6;  // hi and lo of three tap planes
-struct __align__(16) StageX3 {
-  __nv_bfloat16 a[6][kBt][kRowH];   // operand o (a + b, a, b), part h: 2o + h
-  __nv_bfloat16 b[kTapPlanes][kBN3][kRowH];  // tap plane g, part h: 2g + h
+// Tile: the block's 64 trials x kBN3 = 96 columns, in three passes over k,
+// one per real product (k1, then k2, then k3), so that only one product's
+// accumulators are live: warp (wm, wn) = (warp % 4, warp / 4) owns 16
+// trials x 48 columns, six n8 blocks, each with two FP32 accumulators,
+// hi.hi and hi.lo + lo.hi, added at the end of the pass as dot3 groups them
+// (48 accumulators a thread, as many as the 64 x 32 tile of all three
+// products at once took before).  k1 is parked in shared memory, and k1 +
+// k2 beside it, each thread in its own column of the park (no barriers);
+// after k3 the epilogue gets re = k1 - k3 and im = k1 + k2.  Each output
+// sees the same mma instructions on the same fragments in the same order as
+// in the all-at-once tile, so the results are those of that tile bit for
+// bit.  Six tiles cover p = 528 and 27 cover N = 2560, where 32-column
+// tiles took 17 and 80: each trial-side element is read as 4 bytes once
+// per pass of a tile, about 23 GB per iteration at the main path (45 GB
+// before, FP32 and once per tile).
+//
+// Ring: kStagesX3 slots of one k16 step (the pass's operand and tap tile),
+// one pipeline over every (tile, pass, step) of the product, so that the
+// next tile's copies are in flight during a tile's epilogue; thread 0
+// issues the copies of the step kStagesX3 - 1 ahead after the step's
+// barrier.
+//
+// What bounds it on this card (NVIDIA H100 80GB HBM3 at 700 W, the main
+// path: 65536 trials, cap 10; probe builds of tests/torch_vamp_probes.py
+// --precision high, PERF.md): the copy streams, not the tensor cores.  K3
+// takes about 310 ms, its products about 105 ms of that (about 267 ms in
+// the 32-column engine this one replaces); without the trial side's
+// copies it runs about 45 ms faster, without the tap tiles' about 20 ms,
+// without the mma passes a few ms.  Per-thread 16-byte cp.async copies of
+// the same operands moved them at about 2.6 TB/s and left the products
+// near 210 ms; the bulk copies and the evict-first hint on the trial side
+// took them to 105.  A wider tile would read the trial side less often but
+// needs more accumulators than two blocks per SM leave (or, with hi.hi and
+// the corrections in one accumulator, a park twice this size); the same
+// passes as wgmma from shared memory gave the same bits and ran slower
+// (PERF.md).
+constexpr int kBN3 = 96;             // columns of a HIGH product tile
+constexpr int kNB3 = kBN3 / 16;      // n8 blocks of a warp's 16 x 48 tile
+constexpr int kOut3 = 4 * kNB3;      // a thread's outputs of one product
+constexpr int kStagesX3 = 4;         // slots of the HIGH ring
+constexpr int kSplitStep = kBt * 2 * kBK;   // bf16 of a split operand step
+constexpr int kTapStep = kBN3 * 2 * kBK;    // bf16 of a tap tile step
+struct __align__(128) StageX3 {
+  __nv_bfloat16 a[kSplitStep];  // the pass's trial-side operand
+  __nv_bfloat16 b[kTapStep];    // the pass's tap tile
 };
-struct __align__(16) SmemX3 {
-  StageX3 st[2];
+struct __align__(128) SmemX3 {
+  StageX3 st[kStagesX3];
+  float park[2][kOut3][kThreads];   // a thread's k1, then k1 + k2
+  unsigned long long full[kStagesX3];  // mbarriers: slot s has landed
 };
 constexpr int kSmemBytesX3 = static_cast<int>(sizeof(SmemX3));
-static_assert(kBt == 64 && kThreads == 256 && kBN3 == 32 && kBK == 16,
-              "the HIGH engine's warp map: 4 x 2 warps of 16 x 16");
+static_assert(kBt == 64 && kThreads == 256 && kBK == 16 && kBN3 % 32 == 0,
+              "the HIGH engine's warp map: 4 x 2 warps of 16 x kBN3 / 2");
+static_assert(kStagesX3 >= 2, "the HIGH ring needs two slots");
 
-// Copy 16 bytes from device to shared memory, caching in L2 only; !valid
-// writes zeros (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
+// Tap tiles of a product with ncols output columns and ksteps k16 steps:
+// the bf16 of its three Gauss planes.
+__device__ __host__ __forceinline__ long long tap_tiles_size(int ncols,
+                                                             int ksteps) {
+  return 3LL * ((ncols + kBN3 - 1) / kBN3) * ksteps * kTapStep;
+}
+
+// The 16-byte chunk of a 64-byte operand row n where its chunk c lies.
+__device__ __forceinline__ int x3_chunk(int c, int n) {
+  return c ^ ((n >> 1) & 3);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
                : "memory");
+}
+// One arrival that also expects `bytes` of copies to complete on bar.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of bar with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from device
+// to shared memory by the copy engine, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// The same with an L2 evict-first hint, for data read once per use (the
+// trial side: each pass of a tile streams it, and it should not displace
+// the tap tiles that every block reads).
+__device__ __forceinline__ void bulk_copy_once(void* dst, const void* src,
+                                               int bytes,
+                                               unsigned long long* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], pol;\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Order this thread's earlier memory accesses before later ones of the
+// copy engine (the async proxy) that a barrier orders after them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// The HIGH ring's mbarriers, by thread 0 at the start of a launch (before
+// a barrier).  ring (every thread's) counts the steps the ring has served.
+__device__ __forceinline__ void init_ring(SmemX3& sm, int& ring) {
+  ring = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesX3; ++s) mbar_init(&sm.full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 }
 
 // bf16 hi and lo parts of (x0, x1), each packed as a pair (x0 in the low
@@ -306,13 +414,116 @@ __device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi,
        (static_cast<unsigned>(__bfloat16_as_ushort(l1)) << 16);
 }
 
+// Where part h (0 hi, 1 lo) of (operand o, trial m of the block, k) lies in
+// a block's split operand of ksteps k16 steps (3 ksteps kSplitStep bf16).
+__device__ __forceinline__ size_t split_at(int ksteps, int o, int m, int k,
+                                           int h) {
+  return static_cast<size_t>(o * ksteps + (k >> 4)) * kSplitStep +
+         m * (2 * kBK) + x3_chunk(2 * h + ((k & 15) >> 3), m) * 8 + (k & 7);
+}
+
+// Writes the complex values u0 at k and u1 at k + 1 (k even) of trial m
+// into the split operand xs: the bf16 hi and lo of a + b (summed in FP32),
+// of a and of b, as the all-at-once tile split them.
+__device__ __forceinline__ void store_split(__nv_bfloat16* xs, int ksteps,
+                                            int m, int k, float2 u0,
+                                            float2 u1) {
+  unsigned hi[3], lo[3];
+  split_pair(u0.x + u0.y, u1.x + u1.y, hi[0], lo[0]);
+  split_pair(u0.x, u1.x, hi[1], lo[1]);
+  split_pair(u0.y, u1.y, hi[2], lo[2]);
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    *reinterpret_cast<unsigned*>(xs + split_at(ksteps, o, m, k, 0)) = hi[o];
+    *reinterpret_cast<unsigned*>(xs + split_at(ksteps, o, m, k, 1)) = lo[o];
+  }
+}
+
+// Writes the columns k0 <= k < 16 ksteps (k0 even) of the trials m < nrows
+// into the split operand xs: X[m ld + k] (complex) for k < K, zeros beyond
+// (the pad, which the zero tap pad multiplies).
+__device__ __forceinline__ void split_rows(const float2* X, int ld, int K,
+                                           int k0, int nrows, int ksteps,
+                                           __nv_bfloat16* xs) {
+  const int pairs = (ksteps * kBK - k0) / 2;
+  const float2 z = make_float2(0.f, 0.f);
+  for (int item = threadIdx.x; item < nrows * pairs; item += kThreads) {
+    const int m = item / pairs, k = k0 + 2 * (item % pairs);
+    const float2* x = X + static_cast<size_t>(m) * ld;
+    store_split(xs, ksteps, m, k, k < K ? x[k] : z, k + 1 < K ? x[k + 1] : z);
+  }
+}
+
+// Two neighbouring complex elements of a plane, and such pairs of two
+// planes.
+struct Pair {
+  float2 u0, u1;
+};
+struct Pair2 {
+  Pair a, b;
+};
+// The pair at element e of a plane whose pairs are 16-byte aligned when
+// aligned is true (rows of even length).
+__device__ __forceinline__ Pair load_pair(const float2* x, size_t e,
+                                          bool aligned) {
+  if (aligned) {
+    const float4 v = *reinterpret_cast<const float4*>(x + e);
+    return {make_float2(v.x, v.y), make_float2(v.z, v.w)};
+  }
+  return {x[e], x[e + 1]};
+}
+__device__ __forceinline__ void store_pair(float2* x, size_t e, Pair v,
+                                           bool aligned) {
+  if (aligned) {
+    *reinterpret_cast<float4*>(x + e) =
+        make_float4(v.u0.x, v.u0.y, v.u1.x, v.u1.y);
+  } else {
+    x[e] = v.u0;
+    x[e + 1] = v.u1;
+  }
+}
+
+// An elementwise pass over the N elements of each active trial of the
+// block, as for_each_row_element, by pairs (k, k + 1), k even, consecutive
+// threads on consecutive pairs, that also splits the new values into the
+// split operand xs of ksteps k16 steps: v = load(m, e, last) for kUnroll
+// pairs, then store(m, e, v, last), which stores the new pair and returns
+// it; last marks the lone element at the end of an odd row (its partner
+// splits as zero and is neither loaded nor stored).
+template <int kUnroll, class Load, class Store>
+__device__ __forceinline__ void for_each_split_pair(int nrows, int N,
+                                                    int ksteps, const int* act,
+                                                    __nv_bfloat16* xs,
+                                                    Load load, Store store) {
+  const int pairs = (N + 1) / 2;
+  for (int m = 0; m < nrows; ++m) {
+    if (!act[m]) continue;
+    const size_t e0 = static_cast<size_t>(m) * N;
+    for (int q0 = threadIdx.x; q0 < pairs; q0 += kUnroll * kThreads) {
+      decltype(load(m, e0, false)) v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = 2 * (q0 + u * kThreads);
+        if (k < N) v[u] = load(m, e0 + k, k + 1 == N);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = 2 * (q0 + u * kThreads);
+        if (k >= N) continue;
+        const Pair x = store(m, e0 + k, v[u], k + 1 == N);
+        store_split(xs, ksteps, m, k, x.u0,
+                    k + 1 < N ? x.u1 : make_float2(0.f, 0.f));
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
                                             const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
+      : "r"(smem_u32(p))
       : "memory");
 }
 
@@ -328,131 +539,143 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 }
 
 // Where output (j, e) of a thread's HIGH tile lies: trial x3_row(e) of the
-// block and column x3_col(n0, j, e) (the mma accumulator layout: rows g and
-// g + 8, columns 2t and 2t + 1 of each n8 block, g = lane / 4, t = lane %
-// 4).
+// block and column x3_col(n0, j, e), j < kNB3 (the mma accumulator layout:
+// rows g and g + 8, columns 2t and 2t + 1 of each n8 block, g = lane / 4,
+// t = lane % 4).
 __device__ __forceinline__ int x3_row(int e) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   return 16 * (warp & 3) + (lane >> 2) + 8 * (e >> 1);
 }
 __device__ __forceinline__ int x3_col(int n0, int j, int e) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return n0 + 16 * (warp >> 2) + 8 * j + 2 * (lane & 3) + (e & 1);
+  return n0 + kBN3 / 2 * (warp >> 2) + 8 * j + 2 * (lane & 3) + (e & 1);
 }
 
-// One 64-trial x kBN3-column tile of a complex product in the HIGH form,
-// computed by the whole block:
+// A complex product of the block's trials in the HIGH form, every column
+// tile, computed by the whole block:
 //
-//   (cr + i ci)[m][n] = sum_k A[m][k] * T[k][n0 + n]
+//   (cr + i ci)[m][n] = sum_k A[m][k] * T[k][n],  n < ncols
 //
-// for the rows m < nrows of A (complex, row-major, leading dimension lda,
-// k < K contiguous) and the columns n0 + n < ncols, through the Gauss form
-// on the tap planes `taps` (plane 2g + h at taps + (2g + h) plane, row n at
-// n ldk, k contiguous; ldk = K rounded up to 16, the pad zero).  Thread
-// output (j, e) is at x3_row(e), x3_col(n0, j, e).  Out-of-range elements
-// load as 0.  A may have been written earlier in this launch by this block
-// (before a barrier); the taps are read-only.
-__device__ __forceinline__ void product_tile_x3(
-    const float2* A, int lda, int nrows, int K,
-    const __nv_bfloat16* __restrict__ taps, size_t plane, int ldk, int ncols,
-    int n0, SmemX3& sm, float (&cr)[2][4], float (&ci)[2][4]) {
+// with A the block's split operand xs (ksteps k16 steps) and T the tap
+// tiles `taps` (tap_tiles_size(ncols, ksteps) bf16).  For each thread's
+// pair of outputs (m, n) and (m, n + 1), n even, n < ncols, m < kBt, calls
+// epi(m, n, cr0, ci0, cr1, ci1); n + 1 may be ncols.  The trials of xs the
+// launch did not write give outputs the caller drops.  xs may have been
+// written earlier in this launch by this block; the taps are read-only.
+// ring counts the steps served (init_ring).
+template <class Epi>
+__device__ __forceinline__ void product_x3(
+    const __nv_bfloat16* xs, int ksteps,
+    const __nv_bfloat16* __restrict__ taps, int ncols, SmemX3& sm, int& ring,
+    Epi epi) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
-  // trial-side loader: row arow, k = akq .. akq + 3 of each step
-  const int arow = tid >> 2, akq = (tid & 3) * 4;
-  const bool arow_ok = arow < nrows;
-  const float2* Arow = A + static_cast<size_t>(arow_ok ? arow : 0) * lda;
-  float2 av[4];
-  auto fetch = [&](int step) {
-    const int k = step * kBK + akq;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = (arow_ok && k + i < K) ? Arow[k + i] : make_float2(0.f, 0.f);
+  const int steps = ksteps;  // k16 steps of a pass
+  const int tiles = (ncols + kBN3 - 1) / kBN3;
+  const int total = tiles * 3 * steps;
+  // thread 0: the copies of step f (tile t, pass g, k step s) into its slot
+  auto load = [&](int t, int g, int s, int f) {
+    const int slot = (ring + f) % kStagesX3;
+    StageX3& st = sm.st[slot];
+    mbar_expect(&sm.full[slot], 2 * (kSplitStep + kTapStep));
+    bulk_copy_once(st.a,
+                   xs + static_cast<size_t>(g * ksteps + s) * kSplitStep,
+                   2 * kSplitStep, &sm.full[slot]);
+    bulk_copy(st.b,
+              taps + (static_cast<size_t>(g * tiles + t) * ksteps + s) *
+                         kTapStep,
+              2 * kTapStep, &sm.full[slot]);
   };
-  auto stage_a = [&](StageX3& st) {
-    unsigned h[3][2], l[3][2];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const float2 u = av[2 * q], v = av[2 * q + 1];
-      split_pair(u.x + u.y, v.x + v.y, h[0][q], l[0][q]);
-      split_pair(u.x, v.x, h[1][q], l[1][q]);
-      split_pair(u.y, v.y, h[2][q], l[2][q]);
-    }
-#pragma unroll
-    for (int o = 0; o < 3; ++o) {
-      *reinterpret_cast<uint2*>(&st.a[2 * o][arow][akq]) =
-          make_uint2(h[o][0], h[o][1]);
-      *reinterpret_cast<uint2*>(&st.a[2 * o + 1][arow][akq]) =
-          make_uint2(l[o][0], l[o][1]);
-    }
-  };
-  // tap loader: 16-byte chunks (row, half) of the six planes
-  auto load_b = [&](int step, StageX3& st) {
-    const int k0 = step * kBK;
-    for (int c = tid; c < kTapPlanes * kBN3 * 2; c += kThreads) {
-      const int pl = c / (kBN3 * 2), rem = c % (kBN3 * 2);
-      const int row = rem >> 1, half = rem & 1;
-      const bool ok = n0 + row < ncols;
-      const __nv_bfloat16* src =
-          taps + pl * plane +
-          static_cast<size_t>(ok ? n0 + row : 0) * ldk + k0 + half * 8;
-      cp_async16(&st.b[pl][row][half * 8], src, ok);
-    }
-  };
-  float hh[3][2][4], cx[3][2][4];
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hh[g][j][e] = cx[g][j][e] = 0.f;
-  // ldmatrix rows: A rows 16 wm + lane % 16 at k (lane / 16) 8; taps rows
-  // 16 wn + lane % 8 + 8 (lane / 16) at k 8 ((lane / 8) % 2)
-  const int ar = 16 * wm + (lane & 15), ak = (lane >> 4) * 8;
-  const int br = 16 * wn + (lane & 7) + ((lane >> 4) << 3);
-  const int bk = ((lane >> 3) & 1) * 8;
-  const int steps = (K + kBK - 1) / kBK;
-  __syncthreads();  // the previous tile's reads of the ring are done
-  fetch(0);
-  stage_a(sm.st[0]);
-  load_b(0, sm.st[0]);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // step s is in its slot; the other slot is free
-    const bool more = s + 1 < steps;
-    if (more) {
-      fetch(s + 1);
-      load_b(s + 1, sm.st[(s + 1) & 1]);
-    }
-    cp_async_commit();
-    const StageX3& st = sm.st[s & 1];
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      unsigned ah[4], al[4], bh[4], bl[4];
-      ldmatrix_x4(ah, &st.a[2 * g][ar][ak]);
-      ldmatrix_x4(al, &st.a[2 * g + 1][ar][ak]);
-      ldmatrix_x4(bh, &st.b[2 * g][br][bk]);
-      ldmatrix_x4(bl, &st.b[2 * g + 1][br][bk]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        mma_bf16(hh[g][j], ah, bh[2 * j], bh[2 * j + 1]);
-        mma_bf16(cx[g][j], ah, bl[2 * j], bl[2 * j + 1]);
-        mma_bf16(cx[g][j], al, bh[2 * j], bh[2 * j + 1]);
+  auto next = [&](int& t, int& g, int& s) {
+    if (++s == steps) {
+      s = 0;
+      if (++g == 3) {
+        g = 0;
+        ++t;
       }
     }
-    if (more) stage_a(sm.st[(s + 1) & 1]);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float k1 = hh[0][j][e] + cx[0][j][e];
-      const float k2 = hh[1][j][e] + cx[1][j][e];
-      const float k3 = hh[2][j][e] + cx[2][j][e];
-      cr[j][e] = k1 - k3;
-      ci[j][e] = k1 + k2;
+  };
+  int lt = 0, lg = 0, ls = 0;  // thread 0: the next (tile, pass, step)
+  fence_proxy_async();  // this thread's writes of xs before the copies
+  __syncthreads();  // everyone's, and the previous product's ring reads
+  if (tid == 0) {
+    for (int f = 0; f < kStagesX3 - 1 && f < total; ++f) {
+      load(lt, lg, ls, f);
+      next(lt, lg, ls);
     }
+  }
+  // ldmatrix rows: A rows 16 wm + lane % 16, chunk lane / 16 (hi; lo 2
+  // further); taps rows 48 wn + 16 q + lane % 8 + 8 (lane / 16), chunk
+  // (lane / 8) % 2 (the row's swizzle does not change with q)
+  const int ar = 16 * wm + (lane & 15), ac = lane >> 4;
+  const int br = kBN3 / 2 * wn + (lane & 7) + ((lane >> 4) << 3);
+  const int bc = (lane >> 3) & 1;
+  const int a_hi = ar * 2 * kBK + x3_chunk(ac, ar) * 8;
+  const int a_lo = ar * 2 * kBK + x3_chunk(ac + 2, ar) * 8;
+  const int b_hi = br * 2 * kBK + x3_chunk(bc, br) * 8;
+  const int b_lo = br * 2 * kBK + x3_chunk(bc + 2, br) * 8;
+  float hh[kNB3][4], cx[kNB3][4];
+  int f = 0;  // the step being computed, over every tile and pass
+  for (int t = 0; t < tiles; ++t) {
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int j = 0; j < kNB3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hh[j][e] = cx[j][e] = 0.f;
+      for (int s = 0; s < steps; ++s, ++f) {
+        const int slot = (ring + f) % kStagesX3;
+        mbar_wait(&sm.full[slot], ((ring + f) / kStagesX3) & 1);
+        __syncthreads();  // every warp is done with step f - 1's slot
+        if (tid == 0 && f + kStagesX3 - 1 < total) {
+          load(lt, lg, ls, f + kStagesX3 - 1);
+          next(lt, lg, ls);
+        }
+        const StageX3& st = sm.st[slot];
+        unsigned ah[4], al[4];
+        ldmatrix_x4(ah, st.a + a_hi);
+        ldmatrix_x4(al, st.a + a_lo);
+#pragma unroll
+        for (int q = 0; q < kNB3 / 2; ++q) {
+          unsigned bh[4], bl[4];
+          ldmatrix_x4(bh, st.b + b_hi + q * 16 * 2 * kBK);
+          ldmatrix_x4(bl, st.b + b_lo + q * 16 * 2 * kBK);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 2 * q + h;
+            mma_bf16(hh[j], ah, bh[2 * h], bh[2 * h + 1]);
+            mma_bf16(cx[j], ah, bl[2 * h], bl[2 * h + 1]);
+            mma_bf16(cx[j], al, bh[2 * h], bh[2 * h + 1]);
+          }
+        }
+      }
+      // the end of pass g: k_g = hi.hi + (hi.lo + lo.hi), as dot3 groups it
+#pragma unroll
+      for (int j = 0; j < kNB3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float k = hh[j][e] + cx[j][e];
+          if (g == 0) {
+            sm.park[0][i][tid] = k;
+          } else if (g == 1) {
+            sm.park[1][i][tid] = sm.park[0][i][tid] + k;
+          } else {
+            hh[j][e] = sm.park[0][i][tid] - k;
+            cx[j][e] = sm.park[1][i][tid];
+          }
+        }
+    }
+    // re in hh, im in cx; e = 0, 1 and e = 2, 3 are column pairs
+#pragma unroll
+    for (int j = 0; j < kNB3; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int n = x3_col(t * kBN3, j, e);
+        if (n < ncols)
+          epi(x3_row(e), n, hh[j][e], cx[j][e], hh[j][e + 1], cx[j][e + 1]);
+      }
+  }
+  ring += total;
 }
 
 // The row sum the HIGH kernels write as a product with ones (JAX's

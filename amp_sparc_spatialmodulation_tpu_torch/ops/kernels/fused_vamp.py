@@ -25,7 +25,9 @@ the Gauss form's three real products per complex product, each in three
 bf16 passes (``ops/precision.py::dot3``), on the tensor cores in the
 kernel and as ``vamp.plain_loop_high`` in the plain version.  The HIGH
 kernel reads the six Gauss tap planes split into bf16 hi and lo
-(:func:`high_taps`), built by each HIGH call.
+(:func:`high_taps`), built by each HIGH call, and splits each product's
+trial side once into a scratch the wrapper allocates
+(:func:`split_scratch`).
 
 Both take and return a :class:`..models.vamp.VAMPState` in the JAX layouts
 and are resumable: ``cap`` is the global iteration cap, and the result's
@@ -48,6 +50,10 @@ from .fused_scamp import _recip, vec4
 # Kernel launches made by whole_decode: the HIGHEST form, the HIGH form.
 launches = 0
 launches_high = 0
+# Trials of one thread block and output columns of one HIGH product tile
+# (kBt and kBN3 of csrc/vamp_common.cuh).
+BLOCK_TRIALS = 64
+TILE_COLS = 96
 
 
 def covers(cfg: Config) -> bool:
@@ -94,38 +100,72 @@ def decode_plain(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
 
 def padded_k(k: int) -> int:
     """A contraction length rounded up to the mma depth of 16 (the HIGH
-    tap planes' row length; the pad holds zeros, which add exact zero
+    operands' row length; the pad holds zeros, which add exact zero
     products)."""
     return -(-int(k) // 16) * 16
 
 
-def _split_planes(planes, ld: int):
-    """bf16 hi and lo of each float32 plane (..., rows, K), padded with
-    zeros to (..., rows, ld) and flattened per factor."""
-    out = []
-    for t in planes:
-        for part in prec.split_bf16(t.contiguous()):
-            part = torch.nn.functional.pad(part, (0, ld - part.shape[-1]))
-            out.append(part.reshape(part.shape[:-2] + (-1,)))
-    return out
+def chunk_order(rows: int) -> torch.Tensor:
+    """(rows, 4): the 16-byte chunk of each HIGH operand row that holds
+    chunk 0..3 (hi k 0-7, hi k 8-15, lo k 0-7, lo k 8-15 of a k16 step):
+    chunk c of row n lies at ``c ^ ((n // 2) % 4)`` (``vamp_common.cuh::
+    x3_chunk``), so that the eight rows an ldmatrix phase reads fall on
+    distinct shared-memory banks.  The map is its own inverse."""
+    n = torch.arange(rows)[:, None]
+    return torch.arange(4)[None, :] ^ ((n >> 1) & 3)
+
+
+def tap_tiles(hi: torch.Tensor, lo: torch.Tensor, ld: int) -> torch.Tensor:
+    """The HIGH engine's tap tiles of one Gauss plane split into ``hi`` and
+    ``lo`` (..., rows, K) (rows = the product's output columns, k the
+    contraction): per tile of ``TILE_COLS`` rows (the last padded with zero
+    rows) and k16 step (K padded with zeros to ``ld``), the tile's rows of
+    16 hi then 16 lo bf16, chunks in :func:`chunk_order`, flattened per
+    factor: one contiguous 6 KB block per step."""
+    rows, K = hi.shape[-2:]
+    tiles, lead = -(-rows // TILE_COLS), hi.shape[:-2]
+    pad = (0, ld - K, 0, tiles * TILE_COLS - rows)
+    x = torch.stack([torch.nn.functional.pad(hi, pad),
+                     torch.nn.functional.pad(lo, pad)], dim=-2)
+    # (.., tile, row, part, step, half, 8) -> (.., tile, step, row, chunk, 8)
+    x = x.reshape(lead + (tiles, TILE_COLS, 2, ld // 16, 2, 8))
+    d = len(lead)
+    x = x.permute(*range(d), d, d + 3, d + 1, d + 2, d + 4, d + 5)
+    x = x.reshape(lead + (tiles, ld // 16, TILE_COLS, 4, 8))
+    where = chunk_order(TILE_COLS).to(x.device)
+    x = x.gather(-2, where[..., None].expand(x.shape))
+    return x.reshape(lead + (-1,))
+
+
+def split_scratch(blocks: int, ldf: int, ldb: int,
+                  device: torch.device) -> torch.Tensor:
+    """The HIGH kernels' scratch for the split operands of ``blocks``
+    blocks of ``BLOCK_TRIALS`` trials (``vamp_common.cuh::split_at``): per
+    block the bf16 hi and lo of the three Gauss operands of the first
+    product's trial side (k padded to ``ldf``) and of the second's (k padded
+    to ``ldb``), written and read inside the launch, so left
+    uninitialised."""
+    return torch.empty(blocks * 6 * BLOCK_TRIALS * (ldf + ldb),
+                       dtype=torch.bfloat16, device=device)
 
 
 def high_taps(Vh: torch.Tensor):
-    """The HIGH kernels' tap planes of the factor ``Vh`` ((p, N) or a
-    (C, p, N) stack): the six Gauss planes of ``vamp.gauss_taps`` with the
-    output column along the rows (the forward's three (p, N), the
-    adjoint's three (N, p)), each split into bf16 hi and lo
-    (``precision.split_bf16``, round to nearest even) and padded in k with
-    zeros to a multiple of 16; one contiguous bf16 buffer per factor, shape
-    (C, 6 p ldf + 6 N ldb) or (6 p ldf + 6 N ldb,).  Returns ``(taps, ldf,
-    ldb)``."""
+    """The HIGH kernels' taps of the factor ``Vh`` ((p, N) or a (C, p, N)
+    stack): the six Gauss planes of ``vamp.gauss_taps`` with the output
+    column along the rows (the forward's three (p, N), the adjoint's three
+    (N, p)), each split into bf16 hi and lo (``precision.split_bf16``, round
+    to nearest even) and laid out as :func:`tap_tiles` (k padded to
+    ``ldf`` = N and ``ldb`` = p rounded up to 16); one contiguous bf16
+    buffer per factor, the forward's three planes, then the adjoint's,
+    shape (C, size) or (size,).  Returns ``(taps, ldf, ldb)``."""
     _, p, N = _factors(Vh)
     ldf, ldb = padded_k(N), padded_k(p)
     t = vamp.gauss_taps(Vh)
     fwd = [x.mT for x in t[:3]]          # (.., p, N): row n, k contiguous
     bwd = [x.mT for x in t[3:]]          # (.., N, p)
-    taps = torch.cat(_split_planes(fwd, ldf) + _split_planes(bwd, ldb),
-                     dim=-1).contiguous()
+    taps = torch.cat([tap_tiles(*prec.split_bf16(x.contiguous()), ld)
+                      for planes, ld in ((fwd, ldf), (bwd, ldb))
+                      for x in planes], dim=-1).contiguous()
     return taps, ldf, ldb
 
 
@@ -135,7 +175,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_vamp_decode.argtypes = (
             [ptr] * 13 + [i32] * 8 + [f32] * 5
-            + [i32, i32, ptr, ctypes.c_longlong, i32, i32, ptr])
+            + [i32, i32, ptr, ctypes.c_longlong, i32, i32, ptr, ptr])
         lib.fused_vamp_decode.restype = i32
         lib.fused_vamp_error_string.argtypes = [i32]
         lib.fused_vamp_error_string.restype = ctypes.c_char_p
@@ -191,6 +231,8 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     cap_rem = max(int(cap) - int(s0.t), 0)
     high = precision == prec.HIGH
     taps, ldf, ldb = high_taps(Vh) if high else (None, 0, 0)
+    xs = (split_scratch(max(C, 1) * -(-(B // max(C, 1)) // BLOCK_TRIALS),
+                        ldf, ldb, dev) if high else None)
     lib = _library()
     rc = lib.fused_vamp_decode(
         out.r_tilde.data_ptr(), out.sigma2_tilde.data_ptr(),
@@ -203,6 +245,7 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
         float(np.float32(1.0 - p / N)), _recip(p), _recip(N), cap_rem,
         int(high), taps.data_ptr() if high else None,
         taps.shape[-1] if high else 0, ldf, ldb,
+        xs.data_ptr() if high else None,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_vamp_decode launch failed: "

@@ -21,7 +21,9 @@ formed outside, from the direct SVD.
 Both take ``precision``, ``'highest'`` (default) or ``'high'``, as K3's
 wrapper does (:mod:`.fused_vamp`): the HIGH kernel runs the Gauss form's
 products in bf16 x 3 on the tensor cores on the split tap planes of
-``fused_vamp.high_taps``, its plain version is ``vamp2.plain_loop_high``.
+``fused_vamp.high_taps`` and the split operands of
+``fused_vamp.split_scratch``, its plain version is
+``vamp2.plain_loop_high``.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from .. import precision as prec
 from . import build
 from .fused_bamp import _check, symbol_planes
 from .fused_scamp import _recip, vec4
-from .fused_vamp import high_taps
+from .fused_vamp import BLOCK_TRIALS, high_taps, split_scratch
 
 # Kernel launches made by whole_decode: the HIGHEST form, the HIGH form.
 launches = 0
@@ -67,7 +69,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_vamp2_decode.argtypes = (
             [ptr] * 12 + [i32] * 7 + [f32] * 6 + [i32, i32, ptr, i32, i32,
-                                                   ptr])
+                                                   ptr, ptr])
         lib.fused_vamp2_decode.restype = i32
         lib.fused_vamp2_error_string.argtypes = [i32]
         lib.fused_vamp2_error_string.restype = ctypes.c_char_p
@@ -116,6 +118,8 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     cap_rem = max(int(cap) - int(s0.t), 0)
     high = precision == prec.HIGH
     taps, ldf, ldb = high_taps(Vh) if high else (None, 0, 0)
+    xs = (split_scratch(-(-B // BLOCK_TRIALS), ldf, ldb, dev) if high
+          else None)
     lib = _library()
     rc = lib.fused_vamp2_decode(
         out.r.data_ptr(), out.gamma.data_ptr(), out.var.data_ptr(),
@@ -128,6 +132,7 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
         float(np.float32(1.0 - vamp2.DAMPING)),
         _recip(p), _recip(N), cap_rem, int(high),
         taps.data_ptr() if high else None, ldf, ldb,
+        xs.data_ptr() if high else None,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_vamp2_decode launch failed: "

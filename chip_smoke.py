@@ -1235,6 +1235,8 @@ def phase_kernels_vamp_high(torch, dev, algo: str, ptxas_lines):
                   ns_per_iter_trial=1e6 * ms / iters,
                   iterations=iters, flop=flop, bytes=nbytes,
                   bound_ms=bound_ms, bound_by=bound_by,
+                  pct_of_bound=100 * bound_ms / ms,
+                  high_over_highest=ms / highest_ms,
                   achieved_tflops=flop / (ms * 1e-3) / 1e12,
                   matmul_products_ms=matmul_ms,
                   matmul_products_ms_per_iteration=matmul_iter_ms,
@@ -1322,6 +1324,8 @@ def phase_main_vamp_high(torch, dev, algo: str):
                          ("launches", run["launches"]),
                          ("launches_high", run["launches_high"]),
                          ("plain_decodes", run["plain"]))},
+         high_over_highest_trials_per_s=(hi["trials_per_s"]
+                                         / hs["trials_per_s"]),
          fer_sigma=sigma, layers_high=layers,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     if hi["launches_high"] <= 0 or hi["launches"] or hi["plain"]:

@@ -183,16 +183,27 @@ def test_plain_high_steps_are_the_kernels():
     for port_t, jax_t in zip(vamp.gauss_taps(dec.Vh), fused.taps):
         np.testing.assert_array_equal(port_t.numpy(), np.asarray(jax_t))
     # and each kernel tap plane is the split of its Gauss plane, padded
+    # (the engine's tiles of TILE_COLS output columns and 16 k, 16-byte
+    # chunks in chunk_order, read back into (part, row, k) planes here)
     taps, ldf, ldb = fused_vamp.high_taps(dec.Vh)
     p, N = dec.Vh.shape
     assert (ldf, ldb) == (fused_vamp.padded_k(N), fused_vamp.padded_k(p))
     assert taps.dtype == torch.bfloat16
-    assert taps.shape == (6 * p * ldf + 6 * N * ldb,)
-    planes = taps[:6 * p * ldf].reshape(6, p, ldf)
+    cols = fused_vamp.TILE_COLS
+    rows_f, rows_b = -(-p // cols) * cols, -(-N // cols) * cols
+    assert taps.shape == (6 * rows_f * ldf + 6 * rows_b * ldb,)
+    tiles = taps[:6 * rows_f * ldf].reshape(3, rows_f // cols, ldf // 16,
+                                            cols, 4, 8)
+    where = fused_vamp.chunk_order(cols)
+    tiles = tiles.gather(-2, where[..., None].expand(tiles.shape))
+    planes = tiles.reshape(3, rows_f // cols, ldf // 16, cols, 2, 16
+                           ).permute(0, 4, 1, 3, 2, 5).reshape(3, 2, rows_f,
+                                                               ldf)
     hi, lo = prec.split_bf16(vamp.gauss_taps(dec.Vh)[1].T.contiguous())
-    assert torch.equal(planes[2, :, :N], hi) and torch.equal(
-        planes[3, :, :N], lo)
-    assert not bool(planes[:, :, N:].float().any())
+    assert torch.equal(planes[1, 0, :p, :N], hi) and torch.equal(
+        planes[1, 1, :p, :N], lo)
+    assert not bool(planes[:, :, :, N:].float().any())
+    assert not bool(planes[:, :, p:].float().any())
     assert torch.equal(fused_vamp.high_taps(dec.Vh)[0], taps)
     stack = torch.stack([dec.Vh, dec.Vh])
     assert torch.equal(fused_vamp.high_taps(stack)[0][1], taps)

@@ -54,6 +54,7 @@ import argparse
 import importlib.util
 import json
 import math
+import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -84,13 +85,23 @@ class Step(NamedTuple):
 def wrapper_module(root: Path, module: str, label: str):
     """The wrapper module ``module`` of the checkout at ``root``, loaded
     inside this checkout's package, so that its relative imports (config,
-    models, build) resolve to this checkout's."""
-    path = (root / "amp_sparc_spatialmodulation_tpu_torch" / "ops"
-            / "kernels" / f"{module}.py")
+    models, build) resolve to this checkout's; the names it imports from
+    another wrapper module (``from .fused_vamp import high_taps``) are
+    rebound to that checkout's own, which lays out what its kernel
+    reads."""
+    kernels = root / "amp_sparc_spatialmodulation_tpu_torch" / "ops" / "kernels"
+    path = kernels / f"{module}.py"
     spec = importlib.util.spec_from_file_location(
         f"{PACKAGE}._{label}_{module}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    for sibling, names in re.findall(r"^from \.(\w+) import ([\w, ]+)$",
+                                     path.read_text(), flags=re.M):
+        if sibling.startswith("fused_") and (kernels
+                                             / f"{sibling}.py").is_file():
+            own = wrapper_module(root, sibling, label)
+            for name in names.replace(" ", "").split(","):
+                setattr(mod, name, getattr(own, name))
     return mod
 
 

@@ -16,18 +16,27 @@ Each probe is a copy of this checkout's sources compiled into ``--out``
 * ``noprefetch``: the denoiser does not ask for its next segment's lines;
 * ``noproducts``: no products at all (the epilogues get zeros);
 
-and, for the HIGH form's engine (``product_tile_x3``; run with
+and, for the HIGH form's engine (``product_x3``; run with
 ``--precision high``):
 
-* ``x3_nomma``: no mma passes; ``x3_nosplit``: the trial side is not
-  split into bf16 tiles (the passes read whatever those hold);
-* ``x3_noload_a``: no loads of the trial side (zeros are split);
-  ``x3_noload_b``: no copies of the tap planes into the ring;
-* ``x3_noproducts``: no products at all (the epilogues get zeros): the
-  time of everything else.
+* ``x3_nomma``: no mma passes;
+* ``x3_noload_a``: no bulk copies of the split trial side into the ring;
+  ``x3_noload_b``: no bulk copies of the tap tiles into the ring (each
+  with the bytes the ring's barrier expects cut to match);
+* ``x3_nopark``: k1 and k1 + k2 are not parked in shared memory (the
+  epilogue gets -k3 and k3);
+* ``x3_nosplit``: the passes that write the trial side write no split
+  operands (the products read whatever those hold);
+* ``x3_noproducts``: one k16 step per pass instead of all of K (loads,
+  mma passes and parks about 1% of the shipped ones, every tile's
+  epilogue kept): the time of everything else;
+* ``x3_nohint``: the trial side's bulk copies without their L2
+  evict-first hint (a variant: the results stay as they are);
+* ``x3_stages2``, ``x3_stages3``, ``x3_stages6``: a ring of 2, 3 or 6
+  slots instead of 4 (variants, not cuts: the results stay as they are).
 
-Only ``noprefetch`` leaves the results as they are; the others time
-wrong arithmetic.  The probes run at the VAMP main point
+Only ``noprefetch`` and the ``x3_nohint`` and ``x3_stages*`` variants
+leave the results as they are; the others time wrong arithmetic.  The probes run at the VAMP main point
 (``chip_smoke.vamp_main_config()``, Eb/N0 = 8 dB, 65536 trials, cap 10),
 in turns: the list given, then reversed.
 
@@ -77,15 +86,25 @@ EDITS = {
                     r"of the ring are done\n#pragma unroll\n  for \(int s = "
                     r"0; s < kStages - 1)", r"const int steps = 0;\n\1")],
     "x3_nomma": [(r"(?<!void )mma_bf16\((hh|cx)", r"if (0) mma_bf16(\1")],
-    "x3_nosplit": [(r"if \(more\) stage_a\(", "if (0) stage_a(")],
-    "x3_noload_a": [(r"av\[i\] = \(arow_ok && k \+ i < K\) \? Arow\[k \+ i\] "
-                     r": make_float2\(0\.f, 0\.f\);",
-                     "av[i] = make_float2(0.f, 0.f);")],
-    "x3_noload_b": [(r"cp_async16\(&st\.b\[", "if (0) cp_async16(&st.b[")],
-    "x3_noproducts": [(r"const int steps = \(K \+ kBK - 1\) / kBK;\n"
-                       r"(  __syncthreads\(\);  // the previous tile's reads "
-                       r"of the ring are done\n  fetch\(0\);)",
-                       r"const int steps = 0;\n\1")],
+    "x3_noload_a": [(r"bulk_copy_once\(st\.a,", "if (0) bulk_copy_once(st.a,"),
+                    (r"2 \* \(kSplitStep \+ kTapStep\)", "2 * kTapStep")],
+    "x3_noload_b": [(r"bulk_copy\(st\.b,", "if (0) bulk_copy(st.b,"),
+                    (r"2 \* \(kSplitStep \+ kTapStep\)", "2 * kSplitStep")],
+    "x3_nopark": [(r"sm\.park\[0\]\[i\]\[tid\] = k;", ";"),
+                  (r"sm\.park\[1\]\[i\]\[tid\] = sm\.park\[0\]\[i\]\[tid\]"
+                   r" \+ k;", ";"),
+                  (r"= sm\.park\[0\]\[i\]\[tid\] - k;", "= -k;"),
+                  (r"= sm\.park\[1\]\[i\]\[tid\];", "= k;")],
+    "x3_nosplit": [(r"\*reinterpret_cast<(unsigned|uint4)\*>\(xs \+ split_at\("
+                    r"ksteps, o, m, k0?, \d\)\) =[^;]*;", ";")],
+    "x3_noproducts": [(r"const int steps = ksteps;", "const int steps = 1;")],
+    "x3_nohint": [(r"bulk_copy_once\(st\.a,", "bulk_copy(st.a,")],
+    "x3_stages2": [(r"constexpr int kStagesX3 = 4;",
+                    "constexpr int kStagesX3 = 2;")],
+    "x3_stages3": [(r"constexpr int kStagesX3 = 4;",
+                    "constexpr int kStagesX3 = 3;")],
+    "x3_stages6": [(r"constexpr int kStagesX3 = 4;",
+                    "constexpr int kStagesX3 = 6;")],
 }
 
 
