@@ -17,6 +17,15 @@ its route with :func:`route`, the JAX package's chain of
 kernel K5 (:mod:`..ops.kernels.fused_bamp_tiled`), else the plain PyTorch
 loop.  The per-iteration kernels run inside :func:`plane_loop`.  On the CPU
 each kernel's wrapper runs its plain version.
+
+``decode(precision='high')`` is the JAX decoder's ``precision=HIGH``
+(`bamp.py:195` there) on the routes that have it: K1 runs its HIGH form,
+whose plain version is :func:`plain_loop_high` (the JAX kernel's
+``_linear_iteration`` at HIGH step by step: per-tap gains folded into the
+Gauss tap planes of :func:`gauss_taps`, three-pass bf16 products); K6 runs
+at HIGHEST, as in JAX, whose per-iteration kernel has no precision knob
+(`fused_bamp.py:409` there).  The K5 route and the plain loop raise at
+HIGH (:func:`check_high`).
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch
 
 from ..config import Config
 from ..ops import denoise, operators
+from ..ops import precision as prec
 
 # torch.allclose defaults (`bamp.py:140`)
 _RTOL = 1e-5
@@ -210,6 +220,153 @@ def plain_loop(op, s: BAMPState, y: torch.Tensor, sigma2: float, cap: int,
     return s
 
 
+class GaussTaps(NamedTuple):
+    """The eight float32 tap planes of the JAX whole-decode kernel's Gauss
+    complex products (``FusedBandedDecode._fold_taps``, `fused_bamp.py:
+    885-933` there), ``W = Lh*Nr`` columns in tap-stack order ``l*Nr + m``.
+    With ``folded`` each tap's gain is folded in (``S = h_stack * g``,
+    ``S_a2 = |h_stack|^2 * g^2``); without, the gains are 1 here and
+    multiply after the products."""
+
+    s_a2: torch.Tensor    # (Nt, W) |S|^2: the variance product
+    s_re: torch.Tensor    # (Nt, W) Re S: k1's
+    dmc: torch.Tensor     # (Nt, W) Im S - Re S: k2's
+    cpd: torch.Tensor     # (Nt, W) Re S + Im S: k3's (complex x)
+    st_a2: torch.Tensor   # (W, Nt) |S|^2 transposed: cov's
+    st_re: torch.Tensor   # (W, Nt) Re S^T: the adjoint's k1
+    amc: torch.Tensor     # (W, Nt) -Im S^T - Re S^T: its k2
+    adm: torch.Tensor     # (W, Nt) Re S^T - Im S^T: its k3
+    folded: bool
+
+
+def gains_per_tap(op) -> bool:
+    """True when every column block shares each tap's gain
+    (``_gains_per_tap``, `fused_bamp.py:865-883` of the JAX package): every
+    tail or cyclic SPARC operator and the unit-gain Toeplitz channel."""
+    g = op.gains
+    return bool(g.numel() and torch.equal(g, g[:, :1].expand_as(g)))
+
+
+def gauss_taps(op) -> GaussTaps:
+    """The :class:`GaussTaps` of banded operator ``op``, the JAX kernel's
+    rule: gains folded where :func:`gains_per_tap` holds."""
+    folded = gains_per_tap(op)
+    if folded:
+        lane = op.gains[:, 0].repeat_interleave(op.Nr)[None, :]
+        s_re = op.h_stack.real * lane
+        s_im = op.h_stack.imag * lane
+        s_a2 = op.abs_h2_stack * (lane * lane)
+    else:
+        s_re, s_im, s_a2 = op.h_stack.real, op.h_stack.imag, op.abs_h2_stack
+    st_re, st_im = s_re.T, s_im.T
+    planes = (s_a2, s_re, s_im - s_re, s_re + s_im, s_a2.T, st_re,
+              -st_im - st_re, st_re - st_im)
+    return GaussTaps(*(t.contiguous() for t in planes), folded=folded)
+
+
+def linear_step_high(op, xmmse, var, z, u, y, sigma2: float, *,
+                     taps: GaussTaps, real_x: bool, dot=prec.dot3):
+    """The linear half of one iteration at ``precision='high'``, the JAX
+    kernel's ``_linear_iteration`` (`fused_bamp.py:144-352`) with
+    ``make_dot(HIGH)`` and ``cmul='gauss'`` step by step: the forward's
+    Gauss products ``k1 = dot3(a + b, S_re)``, ``k2 = dot3(a, Im S - Re S)``,
+    ``k3 = dot3(b, Re S + Im S)`` of ``x = a + ib`` (a real x skips ``b``:
+    ``k1 = dot3(a, S_re)``), the variance product ``dot3(var, S_a2)``, the
+    gains after the products unless folded, the taps summed per output row
+    in tap order, ``w = v / u``, ``z' = hx - w (y - z)``, ``u' = v +
+    sigma2``, the adjoint inputs ``1/u'``, ``(y - z') / u'`` gathered per
+    (column block, tap), ``cov = 1 / dot3(Zc, S_a2^T)`` and the adjoint's
+    Gauss products on ``A + B``, ``A``, ``B``.  ``dot`` is the real
+    product (``precision.dot3``; a study passes another to see how far the
+    decode moves with its rounding).  Returns ``(xmap, cov, z, u)`` like
+    :func:`linear_step`."""
+    B = y.shape[0]
+    Lin, Lout, Lh, Nt, Nr = op.Lin, op.Lout, op.Lh, op.Nt, op.Nr
+    W = Lh * Nr
+    d = dot
+    xr = xmmse.real.reshape(B * Lin, Nt)
+    Pv = d(var.reshape(B * Lin, Nt), taps.s_a2)
+    if real_x:
+        k1 = d(xr, taps.s_re)
+        Pr, Pi = k1, k1 + d(xr, taps.dmc)
+    else:
+        xi = xmmse.imag.reshape(B * Lin, Nt)
+        k1 = d(xr + xi, taps.s_re)
+        k2, k3 = d(xr, taps.dmc), d(xi, taps.cpd)
+        Pr, Pi = k1 - k3, k1 + k2
+    if not taps.folded:
+        # (B*Lin, W) gain planes: row block c, column group l holds
+        # gains[l, c] (`fused_bamp.py:856-863`)
+        Gf = op.gains.T.repeat_interleave(Nr, dim=1).repeat(B, 1)
+        G2f = Gf * Gf
+        Pv, Pr, Pi = G2f * Pv, Gf * Pr, Gf * Pi
+
+    dev = y.device
+    bands = [(l, torch.as_tensor(rows, device=dev),
+              torch.as_tensor(cols, device=dev))
+             for l, rows, cols in op._taps]
+
+    def fold(P):
+        P = P.reshape(B, Lin, Lh, Nr)
+        acc = torch.zeros((B, Lout, Nr), dtype=P.dtype, device=P.device)
+        for l, rows, cols in bands:
+            acc[:, rows] = acc[:, rows] + P[:, cols, l]
+        return acc
+
+    v, hx_re, hx_im = fold(Pv), fold(Pr), fold(Pi)
+    shape = (B, Lout, Nr)
+    u, y_re, y_im = u.reshape(shape), y.real.reshape(shape), y.imag.reshape(
+        shape)
+    w = v / u
+    zn_re = hx_re - w * (y_re - z.real.reshape(shape))
+    zn_im = hx_im - w * (y_im - z.imag.reshape(shape))
+    un = v + sigma2
+    uinv = 1.0 / un
+    rr = (y_re - zn_re) * uinv
+    ri = (y_im - zn_im) * uinv
+
+    def gather(plane):
+        Z = torch.zeros((B, Lin, Lh, Nr), dtype=plane.dtype,
+                        device=plane.device)
+        for l, rows, cols in bands:
+            Z[:, cols, l] = plane[:, rows]
+        return Z.reshape(B * Lin, W)
+
+    Zc, A, Bp = gather(uinv), gather(rr), gather(ri)
+    if not taps.folded:
+        Zc, A, Bp = G2f * Zc, Gf * A, Gf * Bp
+    cov = 1.0 / d(Zc, taps.st_a2)
+    k1 = d(A + Bp, taps.st_re)
+    k2, k3 = d(A, taps.amc), d(Bp, taps.adm)
+    adj_re, adj_im = k1 - k3, k1 + k2
+    xmap_re = xr + cov * adj_re
+    xmap_im = cov * adj_im if real_x else xi + cov * adj_im
+    xmap = torch.complex(xmap_re, xmap_im).reshape(B, Lin * Nt)
+    z = torch.complex(zn_re, zn_im).reshape(B, Lout * Nr)
+    return xmap, cov.reshape(B, Lin * Nt), z, un.reshape(B, Lout * Nr)
+
+
+def plain_loop_high(op, s: BAMPState, y: torch.Tensor, sigma2: float,
+                    cap: int, cfg: Config, dot=prec.dot3) -> BAMPState:
+    """The plain loop at ``precision='high'``, the plain version of K1's
+    HIGH form: :func:`linear_step_high` on :func:`gauss_taps`, then the
+    denoiser, the allclose test and the freeze of :func:`plain_loop` (JAX
+    gives its denoisers and the stop test no precision knob,
+    `fused_bamp.py:409-510`); ``dot`` as in :func:`linear_step_high`."""
+    from ..ops.kernels.fused_bamp import real_x
+
+    global plain_decodes
+    plain_decodes += 1
+    sigma2 = float(np.float32(sigma2))
+    cap = int(cap)
+    linear = partial(linear_step_high, taps=gauss_taps(op),
+                     real_x=real_x(cfg), dot=dot)
+    denoiser = make_denoiser(cfg, y.device)
+    while s.t < cap and bool(s.active.any()):
+        s, _ = step(op, s, y, sigma2, denoiser, linear)
+    return s
+
+
 def to_planes(s: BAMPState) -> PlaneState:
     """``s`` in the per-iteration kernels' layout."""
     part = lambda a: a.contiguous()
@@ -286,15 +443,20 @@ def route(cfg: Config, op, B: int, device) -> str:
     K5: ``B`` is any count (the ragged trial tile is masked).  The chain is
     the same on both devices; on the CPU each kernel's wrapper runs its
     plain version."""
-    from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
-                               fused_bamp_tiled)
-
     if torch.device(device).type not in ("cpu", "cuda"):
         raise ValueError(f"no decode route for device {device}")
     if B < 0:
         raise ValueError(f"batch of {B} trials")
-    if not (isinstance(op, operators.BandedOperator)
-            and fused_bamp.covers(cfg)):
+    return route_of(cfg, isinstance(op, operators.BandedOperator), op)
+
+
+def route_of(cfg: Config, banded: bool, op=None) -> str:
+    """:func:`route`'s chain for ``cfg`` on a banded operator (``banded``)
+    or a dense one; without ``op``, K5 is judged by the config alone."""
+    from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
+                               fused_bamp_tiled)
+
+    if not (banded and fused_bamp.covers(cfg)):
         return "plain"
     mode = os.environ.get("AMP_PALLAS_MODE", "whole")
     if mode == "whole" and fused_bamp.fits(cfg):
@@ -306,9 +468,35 @@ def route(cfg: Config, op, B: int, device) -> str:
     return "plain"
 
 
+def check_high(cfg: Config, way: str) -> None:
+    """Raise for ``precision='high'`` where route ``way`` has no HIGH form:
+    K5 (its HIGH form is not ported yet), the plain loop, and K1 on a
+    geometry whose HIGH form holds no trial in one block.  K6 runs at
+    HIGHEST, as in JAX."""
+    from ..ops.kernels import fused_bamp
+
+    if way == "tiled":
+        raise ValueError(
+            "precision='high' has no form on the frame-tiled route: the HIGH "
+            "form of kernel K5 (the massive-MIMO iteration) is not ported "
+            "yet; use 'highest'")
+    if way == "plain":
+        raise ValueError(
+            "precision='high' has no form on the plain BAMP loop (a dense "
+            "operator, the real-channel mode, or a geometry no kernel "
+            f"fits; mode={cfg.mode!r} is_complex={cfg.is_complex}); use "
+            "'highest'")
+    if way == "whole" and not fused_bamp.fits(cfg, prec.HIGH):
+        need = fused_bamp.smem_bytes(cfg, prec.HIGH)
+        raise ValueError(
+            "precision='high': the HIGH form of kernel K1 holds no trial of "
+            f"this geometry in one block ({need} bytes of shared memory); "
+            "use 'highest'")
+
+
 def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
            state0: BAMPState | None = None, iter_cap: int | None = None,
-           return_state: bool = False):
+           return_state: bool = False, precision: str = "highest"):
     """Run BAMP on a batch of trials sharing one channel operator.
 
     Args:
@@ -321,6 +509,9 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
             previous :class:`BAMPState`, stop at ``iter_cap`` iterations
             (global count), and/or return the final state.  Splitting a
             decode at any cap and continuing yields the same trajectory.
+        precision: 'highest' (default) or 'high' (module docstring): K1 in
+            its HIGH form, K6 at HIGHEST; raises on the K5 route and the
+            plain loop.
 
     The route is :func:`route`'s.  A banded operator with a complex
     segmented, sparc or random-mode config whose trial fits one block's
@@ -338,6 +529,7 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
     from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
                                fused_bamp_tiled)
 
+    precision = prec.canonical(precision)
     op = operators.as_operator(H)
     n, N = op.shape
     sigma2 = float(np.float32(sigma2))
@@ -345,8 +537,11 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
         state0 = initial_state(y, N, sigma2)
     cap = cfg.N_Layers if iter_cap is None else int(iter_cap)
     way = route(cfg, op, y.shape[0], y.device)
+    if precision == prec.HIGH:
+        check_high(cfg, way)
     if way == "whole":
-        s = fused_bamp.whole_decode(op, state0, y, sigma2, cap, cfg)
+        s = fused_bamp.whole_decode(op, state0, y, sigma2, cap, cfg,
+                                    precision)
     elif way == "periter":
         s = plane_loop(fused_bamp_iteration.iteration_fused, op, state0, y,
                        sigma2, cap, cfg)

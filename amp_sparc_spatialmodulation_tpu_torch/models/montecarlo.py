@@ -30,12 +30,16 @@ matrix's SVD, computed once per realization and shared by both phases
 
 ``Simulator(precision=...)`` is the JAX package's matrix-product precision
 (``montecarlo.py:877-931`` there): ``'highest'`` (default), ``'high'``
-(``ops/precision.py``: ``y = x A^T``, the projection and the VAMP and
-vamp2 decodes in three-pass bf16 products, on the card through the HIGH
-form of kernels K3 and K4) or ``'auto'`` (HIGH for a point exactly when
-the previous point's mean T pinned at the iteration cap).  BAMP and SCAMP
-have no HIGH form yet (their kernels K1 and K5 lack it) and raise on
-``'high'`` and ``'auto'``.  ``chans_per_batch=C`` rounds the
+(``ops/precision.py``: ``y = x A^T`` in either operator form, the
+projection and the VAMP and vamp2 decodes in three-pass bf16 products, on
+the card through the HIGH form of kernels K3 and K4; the BAMP decode
+through K1's HIGH form; SCAMP through K2, which keeps HIGHEST inside, as
+JAX's has no precision) or ``'auto'`` (HIGH for a point exactly when the
+previous point's mean T pinned at the iteration cap).  BAMP raises on
+``'high'`` and ``'auto'`` where its route is K5 (the massive geometry:
+K5's HIGH form is not ported yet) or the plain loop (a dense operator,
+the real-channel mode, a geometry no kernel fits), SCAMP where it is the
+plain loop.  ``chans_per_batch=C`` rounds the
 realizations of a single-phase point up to a multiple of C, as the JAX
 package does; every realization then runs through the one sequential
 path (the JAX package decodes C of them per launch, which on the card
@@ -65,22 +69,26 @@ ALGO_DIRS = {"bamp": "BAMP", "vamp": "VAMP", "vamp2": "VAMP2",
 SVD_ALGOS = ("vamp", "vamp2")
 
 
-def check_precision(algo: str, cfg: Config, precision: str) -> str:
+def check_precision(algo: str, cfg: Config, precision: str,
+                    operator_form: str) -> str:
     """The canonical form of a sweep's ``precision`` (``'highest'``,
     ``'high'`` or ``'auto'``); raises where ``algo`` has no HIGH form on
-    ``cfg``: BAMP and SCAMP (kernels K1 and K5 have none yet), and VAMP or
-    vamp2 on a config their kernels do not cover (random mode, real
-    channel).  ``'default'`` raises everywhere (``ops/precision.py``)."""
+    ``cfg`` in ``operator_form`` (resolved, 'banded' or 'dense'): BAMP on
+    the K5 route or the plain loop (``bamp.check_high``), SCAMP on the plain
+    loop, and VAMP or vamp2 on a config their kernels do not cover (random
+    mode, real channel).  ``'default'`` raises everywhere
+    (``ops/precision.py``)."""
     precision = prec.canonical(precision, allow_auto=True)
     if precision == prec.HIGHEST:
         return precision
-    if algo not in SVD_ALGOS:
-        raise ValueError(
-            f"precision={precision!r} has no form for algo={algo!r}: the "
-            "HIGH forms of kernels K1 and K5 (the BAMP decode and the "
-            "frame-tiled iteration) are not ported yet; use 'highest'")
-    from ..ops.kernels import fused_vamp
-    vamp.check_high(cfg, fused_vamp.covers(cfg))
+    banded = operator_form == "banded"
+    if algo == "bamp":
+        bamp.check_high(cfg, bamp.route_of(cfg, banded))
+    elif algo == "scamp":
+        scamp.check_high(cfg, banded)
+    else:
+        from ..ops.kernels import fused_vamp
+        vamp.check_high(cfg, fused_vamp.covers(cfg))
     return precision
 
 
@@ -131,8 +139,8 @@ def generate_realization(gen: torch.Generator, cfg: Config,
                          snr: float,
                          precision: str = "highest") -> Realization:
     """Channel, message and noise drawn in that order from ``gen``
-    (`bamp_model.py:54-58`), on the generator's device; a dense ``x A^T``
-    is formed at ``precision``."""
+    (`bamp_model.py:54-58`), on the generator's device; ``x A^T`` is formed
+    at ``precision`` (JAX `montecarlo.py:117-125`)."""
     W = None
     if operator_form == "banded":
         if channel_kind == "sparc":
@@ -147,9 +155,7 @@ def generate_realization(gen: torch.Generator, cfg: Config,
         A = channel_ops.generate_as_random(gen, cfg)
     msg = message_ops.generate_message(gen, cfg, res)
     if operator_form == "banded":
-        if precision != prec.HIGHEST:
-            raise ValueError("the tap-form operator has no HIGH product")
-        Ax = A.apply(msg.x)
+        Ax = A.apply(msg.x, precision)
     else:
         Ax = prec.matmul(msg.x, A.T, precision)
     y = Ax + channel_ops.awgn(gen, cfg, snr, res)
@@ -171,21 +177,20 @@ def decode(algo: str, r: Realization, y: torch.Tensor, cfg: Config,
            estimate_phi: bool = False, precision: str = "highest", **kw):
     """Decode ``y`` (all of ``r.y`` or a gathered subset) on realization
     ``r`` (for VAMP and vamp2, one that went through :func:`with_svd`) with
-    ``algo`` at ``precision`` (``'highest'`` or, for VAMP and vamp2,
-    ``'high'``); ``kw`` are the decoders' resume arguments (``state0``,
-    ``iter_cap``, ``return_state``)."""
+    ``algo`` at ``precision`` (``'highest'`` or ``'high'``); ``kw`` are the
+    decoders' resume arguments (``state0``, ``iter_cap``,
+    ``return_state``)."""
     if algo == "vamp":
         return vamp.decode(r.dec, y, r.sigma2, cfg, precision=precision,
                            **kw)
     if algo == "vamp2":
         return vamp2.decode(r.dec, y, r.sigma2, cfg, precision=precision,
                             **kw)
-    if prec.canonical(precision) != prec.HIGHEST:
-        raise ValueError(f"algo={algo!r} has no precision={precision!r}")
     if algo == "scamp":
         return scamp.decode(r.W, r.A, y, r.sigma2, cfg,
-                            estimate_phi=estimate_phi, **kw)
-    return bamp.decode(r.A, y, r.sigma2, cfg, **kw)
+                            estimate_phi=estimate_phi, precision=precision,
+                            **kw)
+    return bamp.decode(r.A, y, r.sigma2, cfg, precision=precision, **kw)
 
 
 def make_realization_fn(cfg: Config, algo: str, channel_kind: str, res: int,
@@ -196,7 +201,7 @@ def make_realization_fn(cfg: Config, algo: str, channel_kind: str, res: int,
     (`bamp_model.py:54-59`), its products at ``precision``."""
     check_algo(algo, channel_kind)
     form = resolve_operator_form(channel_kind, operator_form, algo)
-    precision = check_precision(algo, cfg, precision)
+    precision = check_precision(algo, cfg, precision, form)
 
     def one_realization(gen, snr):
         r = with_svd(algo, generate_realization(gen, cfg, channel_kind, form,
@@ -238,7 +243,7 @@ def make_two_phase_fn(cfg: Config, algo: str, channel_kind: str, res: int,
     single-phase one, so are the sums.  Products at ``precision``."""
     check_algo(algo, channel_kind)
     form = resolve_operator_form(channel_kind, operator_form, algo)
-    precision = check_precision(algo, cfg, precision)
+    precision = check_precision(algo, cfg, precision, form)
 
     def two_phase(gen, snr):
         r = with_svd(algo, generate_realization(gen, cfg, channel_kind, form,
@@ -292,8 +297,8 @@ class Simulator:
         device: where the sweep runs; None means the CUDA card, and raises
             when there is none.  Pass 'cpu' to run on the CPU.
         precision: 'highest' (default), 'high' or 'auto' (module
-            docstring); 'high' and 'auto' only for VAMP and vamp2 on a
-            config their kernels cover.
+            docstring); 'high' and 'auto' only where the decode's route
+            has a HIGH form (``check_precision``).
         chans_per_batch: realizations per single-phase point round up to
             a multiple of it (the JAX package's C realizations per
             launch); they run one after another.
@@ -307,10 +312,10 @@ class Simulator:
                  chans_per_batch: int = 1,
                  progress: Callable[[str], None] = print):
         check_algo(algo, channel_kind)
-        resolve_operator_form(channel_kind, operator_form, algo)
+        form = resolve_operator_form(channel_kind, operator_form, algo)
         if isinstance(two_phase, str) and two_phase != "auto":
             raise ValueError("two_phase must be an int, 'auto', or None")
-        precision = check_precision(algo, cfg, precision)
+        precision = check_precision(algo, cfg, precision, form)
         if int(chans_per_batch) < 1:
             raise ValueError("chans_per_batch must be >= 1")
         # 'auto' (montecarlo.py:885-897 of the JAX package): the three-pass

@@ -17,6 +17,11 @@ On a banded operator with a config the CUDA kernel covers, :func:`decode`
 runs the whole decode through
 :func:`..ops.kernels.fused_scamp.whole_decode` (the kernel on the card, its
 plain version on the CPU); everything else runs the plain PyTorch loop.
+
+``decode(precision='high')`` runs the kernel at HIGHEST, as the JAX
+package builds its SCAMP kernel without a precision (`scamp.py:125-130`
+there), so at HIGH only the realization's generation changes; the plain
+loop has no HIGH form and raises (:func:`check_high`).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from ..config import Config
 from ..ops import denoise, operators
+from ..ops import precision as prec
 from .bamp import DecodeResult, _allclose_rows, _freeze
 
 # Decodes that ran the plain PyTorch loop (any device).
@@ -115,9 +121,28 @@ def plain_loop(op, W: torch.Tensor, s: SCAMPState, y: torch.Tensor,
     return s
 
 
+def kernel_route(cfg: Config, banded: bool) -> bool:
+    """True when :func:`decode` runs the kernel: a banded operator and a
+    config the kernel covers and fits."""
+    from ..ops.kernels import fused_scamp
+    return banded and fused_scamp.covers(cfg) and fused_scamp.fits(cfg)
+
+
+def check_high(cfg: Config, banded: bool) -> None:
+    """Raise for ``precision='high'`` where :func:`decode` would run the
+    plain loop, which has no HIGH form."""
+    if not kernel_route(cfg, banded):
+        raise ValueError(
+            "precision='high' has no form on the plain SCAMP loop (a dense "
+            "operator, the real-channel mode, or a geometry kernel K2 does "
+            f"not fit; mode={cfg.mode!r} is_complex={cfg.is_complex}); use "
+            "'highest'")
+
+
 def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
            estimate_phi: bool = False, state0: SCAMPState | None = None,
-           iter_cap: int | None = None, return_state: bool = False):
+           iter_cap: int | None = None, return_state: bool = False,
+           precision: str = "highest"):
     """Run SCAMP on a batch of trials sharing one ``(W, A)`` realization.
 
     Args:
@@ -130,6 +155,8 @@ def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
         estimate_phi: empirical residual variance (estSCAMP).
         state0 / iter_cap / return_state: resumable decoding, as in
             :func:`.bamp.decode`.
+        precision: 'highest' (default) or 'high' (module docstring): the
+            kernel at HIGHEST either way; the plain loop raises at 'high'.
 
     A banded operator with a config the kernel covers (complex
     segmented/sparc alphabets; whole trial in shared memory) goes through
@@ -145,7 +172,11 @@ def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
     """
     from ..ops.kernels import fused_scamp
 
+    precision = prec.canonical(precision)
     op = operators.as_operator(A)
+    banded = isinstance(op, operators.BandedOperator)
+    if precision == prec.HIGH:
+        check_high(cfg, banded)
     if not torch.is_tensor(W):
         W = torch.from_numpy(np.array(W, dtype=np.float32))
     W = W.to(device=y.device, dtype=torch.float32).contiguous()
@@ -153,8 +184,7 @@ def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
     if state0 is None:
         state0 = initial_state(y, cfg)
     cap = cfg.N_Layers if iter_cap is None else int(iter_cap)
-    if isinstance(op, operators.BandedOperator) and fused_scamp.covers(cfg) \
-            and fused_scamp.fits(cfg):
+    if kernel_route(cfg, banded):
         s = fused_scamp.whole_decode(op, W, state0, y, sigma2, cap, cfg,
                                      estimate_phi)
     else:

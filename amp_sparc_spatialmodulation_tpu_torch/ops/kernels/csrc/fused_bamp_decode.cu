@@ -86,6 +86,43 @@
 // Taps come as h (Lh, Nr, Nt) for the adjoint and hT (Lh, Nt, Nr) for the
 // forward, so neighbouring threads read neighbouring addresses in both;
 // gains are (Lh, Lin) per (tap, column block), taken as they come.
+//
+// The HIGH form (template kHigh; precision='high', the JAX kernel's
+// _linear_iteration with make_dot(Precision.HIGH) = dot3, fused_bamp.py:
+// 144-352) computes another function, that of bamp.plain_loop_high: the
+// per-tap gains folded into the tap planes where every column block shares
+// them (else applied after the products, as above), the Gauss complex
+// products k1 = (a + b) S_re, k2 = a (Im S - Re S), k3 = b (Re S + Im S)
+// (k1 = a S_re for a real x) and the adjoint's on A + B, A, B, the
+// Onsager step as w = v / u, z' = hx - w (y - z), cov = 1 / dot3(Zc,
+// S_a2^T).  Each of its 7 real products per iteration (8 for a complex x)
+// is three bf16 passes on the tensor cores (mma.sync m16n8k16, FP32
+// accumulation: hi hi, then hi lo + lo hi in a second accumulator, joined
+// once).  Per trial the products are small: forward M = Lin = 20-25, K =
+// Nt = 128, N = Lh*Nr = 72-192.  They run transposed, the taps as the A
+// operand (M = Lh*Nr, resp. Nt for the adjoint, in 16-row tiles; 72 pads to
+// 80, a tenth wasted) and the trial's Lin column blocks as the N side
+// (n8 tiles, 20 pads to 24), so that no m16 tile idles a third of its rows
+// as M = Lin would.  A warp owns one 16-row tile and every n8 tile of it
+// and runs the products one after another (k1 kept in registers for the
+// Gauss combinations); the taps come pre-split from the wrapper, laid out
+// as the lanes' fragments (two 16-byte loads per lane and k16 step, from
+// L2); the trial side is split into bf16 hi and lo once, in shared memory,
+// by the pass that writes it: the denoiser writes var, xm_re (and xm_re +
+// xm_im, xm_im) split beside its FP32 state, the fold writes the adjoint's
+// four inputs only split.  The forward's split operands and the adjoint's
+// share one region (each is dead while the other lives), with row strides
+// of 4 mod 8 words so that a fragment's eight rows hit distinct banks; the
+// pad columns are rewritten as zeros by the pass that writes the region.
+// At the QPSK flagship that region is 80,000 B and the block 220,800 B
+// (one block per SM), at the OOK flagship 28,160 B and 96,960 B (two).
+// Its bound is the tensor cores' (3 passes x 2 Lin Nt Lh Nr flop per real
+// product at 989 TFLOP/s, about 0.1 us per OOK trial-iteration), far below
+// the tap fragments' L2 stream (about 0.29 MB per trial-iteration at the
+// OOK flagship) and the passes the precision does not change.  The HIGHEST
+// instance (kHigh false) is the code above, unchanged.
+
+#include <cuda_bf16.h>
 
 #include "decode_common.cuh"
 
@@ -97,6 +134,7 @@ constexpr int kThreads = 256;
 constexpr int kFR = 7;  // forward: source blocks per thread
 constexpr int kAR = 5;  // adjoint: column blocks per thread
 constexpr float kZeroTol = 1e-9f;
+constexpr int kMaxNT = 4;  // HIGH form: n8 tiles over the column blocks
 
 enum Denoiser { kSegmented = 0, kMixture = 1 };
 
@@ -127,6 +165,10 @@ struct Params {
   int Nt, Nr, Lin, Lout, Lh, trunc, M, K, den, real_x;
   float Ps, P0, sigma2;
   int cap;  // remaining iteration budget
+  // HIGH form only: the eight Gauss tap planes as mma A fragments
+  // (fused_bamp.py::high_taps), and whether the gains are folded in
+  const uint4* taps;
+  int folded;
 };
 
 // Four consecutive floats of shared memory: one 16-byte load when the
@@ -297,6 +339,288 @@ __device__ __forceinline__ void adjoint_tile(
   }
 }
 
+// The HIGH form's pieces.
+
+// bf16 hi and lo of x (x ~ hi + lo, both rounded to nearest even), as
+// precision.split_bf16 computes them.
+__device__ __forceinline__ void split_store(__nv_bfloat16* hi,
+                                            __nv_bfloat16* lo, float x) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  *hi = h;
+  *lo = __float2bfloat16_rn(x - __bfloat162float(h));
+}
+
+// The HIGH form's split operands in shared memory: plane 2 o + part (part
+// 0 hi, 1 lo) of operand o is (Lin, ld) bf16 at base + (2 o + part) Lin ld.
+// The forward's x side: o = 0 var, 1 xm_re, and for a complex alphabet 2
+// xm_re + xm_im, 3 xm_im (ld = ldx); the adjoint's inputs, in the same
+// place: o = 0 Zc, 1 A + B, 2 A, 3 B (ld = ldz).
+struct Split {
+  __nv_bfloat16* base;
+  int Nt, ld, plane;  // plane = Lin * ld
+  __device__ __forceinline__ __nv_bfloat16* at(int o, int part) const {
+    return base + (2 * o + part) * plane;
+  }
+  // The x side of element j = c Nt + k, as the denoiser writes it.
+  __device__ __forceinline__ void store_x(int j, float mr, float mi,
+                                          float vn, bool real_x) const {
+    const int c = j / Nt;
+    const int off = c * ld + (j - c * Nt);
+    split_store(at(0, 0) + off, at(0, 1) + off, vn);
+    split_store(at(1, 0) + off, at(1, 1) + off, mr);
+    if (!real_x) {
+      split_store(at(2, 0) + off, at(2, 1) + off, mr + mi);
+      split_store(at(3, 0) + off, at(3, 1) + off, mi);
+    }
+  }
+};
+
+// d += a b for one m16n8k16 tile: a the 16 x 16 row-major fragment, (b0,
+// b1) the 16 x 8 column fragment, d FP32 (a copy of vamp_common.cuh's).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One real product under dot3, computed by one warp: rows mt*16 ..
+// mt*16+15 of plane A (the tap fragments at `a`, ksteps k16 steps) times
+// the split operand (hi, lo; row c of the N side at c * ld, rows past
+// nrows - 1 read row nrows - 1 and are dropped), every n8 tile nt < NT:
+// out[nt][e] = (A_hi B_hi) + (A_hi B_lo + A_lo B_hi), lane (g, t) holding
+// rows g, g + 8 (e / 2) and columns 2t, 2t + 1 (e % 2) of each tile.
+__device__ __forceinline__ void product_x3(const uint4* a, int mt, int ksteps,
+                                           const __nv_bfloat16* hi,
+                                           const __nv_bfloat16* lo, int ld,
+                                           int nrows, int NT,
+                                           float (&out)[kMaxNT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float hh[kMaxNT][4], cx[kMaxNT][4];
+  int row[kMaxNT];
+#pragma unroll
+  for (int nt = 0; nt < kMaxNT; ++nt) {
+    row[nt] = min(nt * 8 + g, nrows - 1) * ld + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hh[nt][e] = cx[nt][e] = 0.f;
+  }
+  const uint4* ap = a + (static_cast<size_t>(mt) * ksteps * 32 + lane) * 2;
+  for (int ks = 0; ks < ksteps; ++ks, ap += 64) {
+    const uint4 ah = __ldg(ap), al = __ldg(ap + 1);
+    const unsigned a_hi[4] = {ah.x, ah.y, ah.z, ah.w};
+    const unsigned a_lo[4] = {al.x, al.y, al.z, al.w};
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt) {
+      if (nt < NT) {
+        const int k = row[nt] + ks * 16;
+        const unsigned bh0 = *reinterpret_cast<const unsigned*>(hi + k);
+        const unsigned bh1 = *reinterpret_cast<const unsigned*>(hi + k + 8);
+        const unsigned bl0 = *reinterpret_cast<const unsigned*>(lo + k);
+        const unsigned bl1 = *reinterpret_cast<const unsigned*>(lo + k + 8);
+        mma_bf16(hh[nt], a_hi, bh0, bh1);
+        mma_bf16(cx[nt], a_hi, bl0, bl1);
+        mma_bf16(cx[nt], a_lo, bh0, bh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[nt][e] = hh[nt][e] + cx[nt][e];
+}
+
+// The forward products of the HIGH form, one warp per 16-row tile of the
+// tap stack (column j = l Nr + m): P[c, l, m] for every column block c
+// whose tap l places a block: Pv = dot3(var, S_a2), Pr = k1 (- k3), Pi =
+// k1 + k2.  The gains, where not folded, multiply in the fold.
+__device__ __forceinline__ void forward_high(
+    const Params& p, const Split& xs, int kx, int kz, bool real_x, float* Pv,
+    float* Pr, float* Pi, int NrP) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int W = p.Lh * p.Nr;
+  const int mtiles = kz / 16, ksteps = kx / 16, NT = (p.Lin + 7) / 8;
+  const size_t plane = static_cast<size_t>(mtiles) * ksteps * 64;
+  for (int mt = threadIdx.x >> 5; mt < mtiles; mt += blockDim.x >> 5) {
+    // P[slot] = v[nt][e] for output (nt, e): row j of the tap stack, column
+    // block c, where tap l = j / Nr places a block
+    auto store = [&](float* P, const float (&v)[kMaxNT][4]) {
+#pragma unroll
+      for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = mt * 16 + g + 8 * (e >> 1);
+          const int c = nt * 8 + 2 * t + (e & 1);
+          if (j >= W || c >= p.Lin) continue;
+          const int l = j / p.Nr;
+          if (dst_block(c, l, p) >= 0)
+            P[(c * p.Lh + l) * NrP + (j - l * p.Nr)] = v[nt][e];
+        }
+    };
+    float acc[kMaxNT][4], k1[kMaxNT][4];
+    product_x3(p.taps, mt, ksteps, xs.at(0, 0), xs.at(0, 1), xs.ld, p.Lin,
+               NT, acc);
+    store(Pv, acc);
+    const int o1 = real_x ? 1 : 2;  // k1's operand: xm_re, or xm_re + xm_im
+    product_x3(p.taps + plane, mt, ksteps, xs.at(o1, 0), xs.at(o1, 1), xs.ld,
+               p.Lin, NT, k1);
+    if (real_x) store(Pr, k1);
+    product_x3(p.taps + 2 * plane, mt, ksteps, xs.at(1, 0), xs.at(1, 1),
+               xs.ld, p.Lin, NT, acc);
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = k1[nt][e] + acc[nt][e];
+    store(Pi, acc);
+    if (!real_x) {
+      product_x3(p.taps + 3 * plane, mt, ksteps, xs.at(3, 0), xs.at(3, 1),
+                 xs.ld, p.Lin, NT, acc);
+#pragma unroll
+      for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = k1[nt][e] - acc[nt][e];
+      store(Pr, acc);
+    }
+  }
+}
+
+// The fold of the HIGH form, output (r, m) per thread: the taps summed in
+// order (after their gains unless folded), w = v / u, z' = hx - w (y - z),
+// u' = v + sigma2, then the adjoint's inputs Zc = 1/u', A = (y - z'_re) /
+// u', B = (y - z'_im) / u' (gains^2 and gains applied unless folded) of
+// every (c, l) feeding the row, written split with A + B.  The slots no
+// output writes (the pad columns, the (c, l) that place no block) are
+// written zero by every thread in turn.
+__device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
+                                          int kz, const float* Pv,
+                                          const float* Pr, const float* Pi,
+                                          int NrP, const float* y_re,
+                                          const float* y_im, float* z_re,
+                                          float* z_im, float* u) {
+  const int n = p.Lout * p.Nr;
+  const bool folded = p.folded != 0;
+  for (int o = threadIdx.x; o < n; o += blockDim.x) {
+    const int r = o / p.Nr;
+    const int m = o - r * p.Nr;
+    float v = 0.f, hx_re = 0.f, hx_im = 0.f;
+    for (int l = 0; l < p.Lh; ++l) {
+      const int c = src_block(r, l, p);
+      if (c < 0) continue;
+      const int e = (c * p.Lh + l) * NrP + m;
+      if (folded) {
+        v = v + Pv[e];
+        hx_re = hx_re + Pr[e];
+        hx_im = hx_im + Pi[e];
+      } else {
+        const float gn = p.gains[l * p.Lin + c];
+        v = v + (gn * gn) * Pv[e];
+        hx_re = hx_re + gn * Pr[e];
+        hx_im = hx_im + gn * Pi[e];
+      }
+    }
+    const float w = v / u[o];
+    const float zr = hx_re - w * (y_re[o] - z_re[o]);
+    const float zi = hx_im - w * (y_im[o] - z_im[o]);
+    const float un = v + p.sigma2;
+    const float uinv = 1.f / un;
+    const float rr = (y_re[o] - zr) * uinv;
+    const float ri = (y_im[o] - zi) * uinv;
+    z_re[o] = zr;
+    z_im[o] = zi;
+    u[o] = un;
+    for (int l = 0; l < p.Lh; ++l) {
+      const int c = src_block(r, l, p);
+      if (c < 0) continue;
+      const float gn = folded ? 1.f : p.gains[l * p.Lin + c];
+      const float zc = folded ? uinv : (gn * gn) * uinv;
+      const float za = folded ? rr : gn * rr;
+      const float zb = folded ? ri : gn * ri;
+      const int off = c * zs.ld + l * p.Nr + m;
+      split_store(zs.at(0, 0) + off, zs.at(0, 1) + off, zc);
+      split_store(zs.at(1, 0) + off, zs.at(1, 1) + off, za + zb);
+      split_store(zs.at(2, 0) + off, zs.at(2, 1) + off, za);
+      split_store(zs.at(3, 0) + off, zs.at(3, 1) + off, zb);
+    }
+  }
+  const int W = p.Lh * p.Nr;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int i = threadIdx.x; i < p.Lin * kz; i += blockDim.x) {
+    const int c = i / kz;
+    const int j = i - c * kz;
+    if (j < W && dst_block(c, j / p.Nr, p) >= 0) continue;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) zs.base[q * zs.plane + c * zs.ld + j] = zero;
+  }
+}
+
+// The adjoint products of the HIGH form, one warp per 16 x elements k:
+// cov = 1 / dot3(Zc, S_a2^T), adj = (k1 - k3) + i (k1 + k2) on A + B, A,
+// B, xmap = xmmse + cov adj (its imaginary part to xmap_g, stride 2).
+__device__ __forceinline__ void adjoint_high(
+    const Params& p, const Split& zs, int kx, int kz, bool real_x,
+    const float* xm_re, const float* xm_im, float* xmap_re, float* xmap_g,
+    float* cov) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mtiles = kx / 16, ksteps = kz / 16, NT = (p.Lin + 7) / 8;
+  const size_t plane = static_cast<size_t>(mtiles) * ksteps * 64;
+  const uint4* taps = p.taps + 4 * plane;
+  for (int mt = threadIdx.x >> 5; mt < mtiles; mt += blockDim.x >> 5) {
+    // the x-side index c Nt + k of output (nt, e), or -1
+    auto jx = [&](int nt, int e) {
+      const int k = mt * 16 + g + 8 * (e >> 1);
+      const int c = nt * 8 + 2 * t + (e & 1);
+      return (k < p.Nt && c < p.Lin) ? c * p.Nt + k : -1;
+    };
+    float acc[kMaxNT][4], k1[kMaxNT][4], cv[kMaxNT][4];
+    product_x3(taps, mt, ksteps, zs.at(0, 0), zs.at(0, 1), zs.ld, p.Lin, NT,
+               acc);
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        cv[nt][e] = 1.f / acc[nt][e];
+        const int j = jx(nt, e);
+        if (j >= 0) cov[j] = cv[nt][e];
+      }
+    product_x3(taps + plane, mt, ksteps, zs.at(1, 0), zs.at(1, 1), zs.ld,
+               p.Lin, NT, k1);
+    product_x3(taps + 2 * plane, mt, ksteps, zs.at(2, 0), zs.at(2, 1), zs.ld,
+               p.Lin, NT, acc);
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = jx(nt, e);
+        if (j < 0) continue;
+        const float im = cv[nt][e] * (k1[nt][e] + acc[nt][e]);
+        xmap_g[2 * j + 1] = real_x ? im : xm_im[j] + im;
+      }
+    product_x3(taps + 3 * plane, mt, ksteps, zs.at(3, 0), zs.at(3, 1), zs.ld,
+               p.Lin, NT, acc);
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = jx(nt, e);
+        if (j >= 0)
+          xmap_re[j] = xm_re[j] + cv[nt][e] * (k1[nt][e] - acc[nt][e]);
+      }
+  }
+}
+
+// Zeros in the pad columns Nt .. kx-1 of the forward's split operands.
+__device__ __forceinline__ void zero_x_pad(const Split& xs, int Lin, int kx,
+                                           int nx) {
+  const int pad = kx - xs.Nt;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int i = threadIdx.x; i < Lin * pad; i += blockDim.x) {
+    const int c = i / pad;
+    const int off = c * xs.ld + xs.Nt + (i - c * pad);
+    for (int q = 0; q < 2 * nx; ++q) xs.base[q * xs.plane + off] = zero;
+  }
+}
+
 // Denoisers.
 
 // decode::torch_sum of get(0..n-1) for n <= kMaxK (W = last_pow2(n)
@@ -337,11 +661,14 @@ __device__ __forceinline__ float small_sum(int n, Get get) {
 // mean and decomposed variance of elements t, t+G, ..., written to the
 // state.  A lane keeps the scaled pseudo-data and eta of its first element
 // (its only one when M is a power of two up to 32) from pass to pass.
-// Returns the OR of the lanes' allclose failures.
+// Returns the OR of the lanes' allclose failures.  kHigh: also writes the
+// new state split into xs (Split::store_x).
+template <bool kHigh>
 __device__ __forceinline__ int group_posterior(
     int j0, int M, int K, int G, int t, unsigned mask, const float* sr,
     const float* si, bool real_x, const float* x_re, const float* xmap_g,
-    const float* cov, float* xm_re, float* xm_im, float* var) {
+    const float* cov, float* xm_re, float* xm_im, float* var,
+    const Split& xs) {
   // pseudo-data over tau of element i
   auto scaled = [&](int i, float& a, float& b) {
     const int j = j0 + i;
@@ -426,17 +753,20 @@ __device__ __forceinline__ int group_posterior(
     xm_re[j] = mr;
     if (!real_x) xm_im[j] = mi;
     var[j] = vn;
+    if (kHigh) xs.store_x(j, mr, mi, vn, real_x);
     flag |= int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
   }
   return flag;
 }
 
 // The Bernoulli-symbol mixture posterior of element j, with the exponent
-// clamps and the zero-norm guard of the plain version.
+// clamps and the zero-norm guard of the plain version (kHigh: also split
+// into xs).
+template <bool kHigh>
 __device__ __forceinline__ int mixture_posterior(
     const Params& p, int j, bool real_x, const float* x_re,
     const float* xmap_g, const float* cov, float* xm_re, float* xm_im,
-    float* var) {
+    float* var, const Split& xs) {
   const float* sr = p.sym_re;
   const float* si = p.sym_im;
   const int K = p.K;
@@ -462,10 +792,13 @@ __device__ __forceinline__ int mixture_posterior(
   xm_re[j] = mr;
   if (!real_x) xm_im[j] = mi;
   var[j] = vn;
+  if (kHigh) xs.store_x(j, mr, mi, vn, real_x);
   return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
 }
 
-__global__ void __launch_bounds__(kThreads, 3) bamp_decode_kernel(Params p) {
+template <bool kHigh>
+__global__ void __launch_bounds__(kThreads, kHigh ? 2 : 3)
+    bamp_decode_kernel(Params p) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = p.Lin * p.Nt;
@@ -516,16 +849,28 @@ __global__ void __launch_bounds__(kThreads, 3) bamp_decode_kernel(Params p) {
   float* u = z_im + n;
   // The pseudo-data's imaginary part lives in the output (stride 2).
   float* xmap_g = reinterpret_cast<float*>(p.xmap_out + xo);
+  // HIGH form: the split operands after the FP32 planes, the forward's x
+  // side (xs) and the adjoint's inputs (zs) in one region; contractions
+  // padded to 16 (kx, kz), rows kx + 8 and kz + 8 bf16 apart.
+  const int kx = (p.Nt + 15) & ~15;
+  const int kz = (p.Lh * p.Nr + 15) & ~15;
+  __nv_bfloat16* split = reinterpret_cast<__nv_bfloat16*>(u + n);
+  const Split xs{split, p.Nt, kx + 8, p.Lin * (kx + 8)};
+  const Split zs{split, p.Nt, kz + 8, p.Lin * (kz + 8)};
+  const int nx = real_x ? 2 : 4;
 
   // Slots of (c, l) pairs that place no block, and the row padding, stay
   // zero: the adjoint reads them as exact zeros.
-  for (int e = tid; e < 3 * S; e += blockDim.x) sm[e] = 0.f;
+  if (!kHigh)
+    for (int e = tid; e < 3 * S; e += blockDim.x) sm[e] = 0.f;
   for (int j = tid; j < N; j += blockDim.x) {
     const float2 m = p.xmmse_in[xo + j];
     xm_re[j] = m.x;
     if (!real_x) xm_im[j] = m.y;
     var[j] = p.var_in[xo + j];
+    if (kHigh) xs.store_x(j, m.x, m.y, var[j], real_x);
   }
+  if (kHigh) zero_x_pad(xs, p.Lin, kx, nx);
   for (int o = tid; o < n; o += blockDim.x) {
     const float2 yy = p.y[yo + o];
     const float2 zz = p.z_in[yo + o];
@@ -542,6 +887,16 @@ __global__ void __launch_bounds__(kThreads, 3) bamp_decode_kernel(Params p) {
   const int adj_tiles = (p.Lin + kAR - 1) / kAR * p.Nt;
   const bool vec = p.Nt % 4 == 0;
   for (int it = 0; it < p.cap; ++it) {
+    if (kHigh) {
+      // ---- the HIGH form's linear half: products on the tensor cores ---
+      forward_high(p, xs, kx, kz, real_x, Zc, Zr, Zi, NrP);
+      __syncthreads();
+      fold_high(p, zs, kz, Zc, Zr, Zi, NrP, y_re, y_im, z_re, z_im, u);
+      __syncthreads();
+      adjoint_high(p, zs, kx, kz, real_x, xm_re, xm_im, xmap_re, xmap_g,
+                   cov);
+      __syncthreads();
+    } else {
     // ---- forward products: thread per (kFR source blocks, tap column) ---
     for (int f = tid; f < fwd_tiles; f += blockDim.x) {
       const int g = f / cols;
@@ -605,6 +960,7 @@ __global__ void __launch_bounds__(kThreads, 3) bamp_decode_kernel(Params p) {
                    xmap_re, xmap_g, cov, real_x);
     }
     __syncthreads();
+    }
 
     int bad = 0;
     // ---- denoiser, allclose test and state update -----------------------
@@ -615,14 +971,15 @@ __global__ void __launch_bounds__(kThreads, 3) bamp_decode_kernel(Params p) {
       const unsigned mask =
           G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((tid & 31) & ~(G - 1));
       for (int s = tid / G; s < N / p.M; s += blockDim.x / G)
-        bad |= group_posterior(s * p.M, p.M, p.K, G, t, mask, p.sym_re,
-                               p.sym_im, real_x, xmap_re, xmap_g, cov, xm_re,
-                               xm_im, var);
+        bad |= group_posterior<kHigh>(s * p.M, p.M, p.K, G, t, mask,
+                                      p.sym_re, p.sym_im, real_x, xmap_re,
+                                      xmap_g, cov, xm_re, xm_im, var, xs);
     } else {
       for (int j = tid; j < N; j += blockDim.x)
-        bad |= mixture_posterior(p, j, real_x, xmap_re, xmap_g, cov, xm_re,
-                                 xm_im, var);
+        bad |= mixture_posterior<kHigh>(p, j, real_x, xmap_re, xmap_g, cov,
+                                        xm_re, xm_im, var, xs);
     }
+    if (kHigh) zero_x_pad(xs, p.Lin, kx, nx);
     ++T;
     if (!__syncthreads_or(bad)) {
       act = 0;
@@ -650,7 +1007,8 @@ __global__ void __launch_bounds__(kThreads, 3) bamp_decode_kernel(Params p) {
 extern "C" {
 
 // Launch the decode of B trials on `stream` with `smem` bytes of dynamic
-// shared memory per block.  Returns a cudaError_t code (0 on success): the
+// shared memory per block; high: the HIGH form, on the tap fragments
+// `taps` (folded: the gains are in them).  Returns a cudaError_t code (0 on success): the
 // attribute call's, or cudaGetLastError() after the launch.  The kernel
 // allocates nothing; every buffer is the caller's.
 int fused_bamp_decode(
@@ -664,7 +1022,7 @@ int fused_bamp_decode(
     const void* sym_re, const void* sym_im,
     int B, int Nt, int Nr, int Lin, int Lout, int Lh, int trunc, int M,
     int K, int den, int real_x, float Ps, float P0, float sigma2, int cap,
-    int smem, void* stream) {
+    int smem, int high, const void* taps, int folded, void* stream) {
   if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.y = static_cast<const float2*>(y);
@@ -704,10 +1062,15 @@ int fused_bamp_decode(
   p.P0 = P0;
   p.sigma2 = sigma2;
   p.cap = cap;
+  p.taps = static_cast<const uint4*>(taps);
+  p.folded = folded;
+  if (high && (taps == nullptr || Lin > 8 * kMaxNT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = high ? bamp_decode_kernel<true> : bamp_decode_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bamp_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bamp_decode_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

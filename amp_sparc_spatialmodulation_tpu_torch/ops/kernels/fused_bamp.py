@@ -15,7 +15,20 @@ column blocks.
 * :func:`decode_plain` is the same function in plain PyTorch, built on
   the ported ``BandedOperator``, ``segmented_posterior`` and the
   ``bamp.decode`` loop.
-* ``launches`` counts kernel launches.
+* ``launches`` counts kernel launches of the HIGHEST form,
+  ``launches_high`` those of the HIGH form.
+
+Both take ``precision``: ``'highest'`` (the default; FP32 products on the
+CUDA cores, bit for bit the plain version's) or ``'high'``, the JAX
+kernel's ``make_dot(Precision.HIGH)`` (`fused_bamp.py:184-185` there):
+per-tap gains folded into the Gauss tap planes where every column block
+shares them, each real product in three bf16 passes, on the tensor cores
+in the kernel (the ``kHigh`` instance of the same source) and as
+``bamp.plain_loop_high`` in the plain version (:func:`decode_plain_high`).
+The HIGH kernel reads the eight Gauss tap planes split into bf16 hi and lo
+and laid out as mma fragments (:func:`high_taps`, cached per operator),
+and splits its x-side operands once, in shared memory, by the passes that
+write them.
 
 Both take and return a :class:`..models.bamp.BAMPState` in the JAX
 layouts and are resumable: ``cap`` is the global iteration cap, and the
@@ -30,16 +43,22 @@ raises; nothing falls back to the plain version after it.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
 
 from ...config import Config
 from ...models import bamp
+from .. import precision as prec
 from . import build
 
-# Kernel launches made by whole_decode.
+# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form.
 launches = 0
+launches_high = 0
+
+# Column blocks the HIGH form's products take (four n8 mma tiles).
+HIGH_MAX_LIN = 32
 
 # Dynamic shared memory one Hopper block may use (227 KB).
 SMEM_LIMIT = 232448
@@ -69,23 +88,98 @@ def scratch_row(cfg: Config) -> int:
     return -(-cfg.Nr // 4) * 4
 
 
-def smem_bytes(cfg: Config) -> int:
+def padded16(k: int) -> int:
+    """A contraction length rounded up to the mma depth of 16."""
+    return -(-int(k) // 16) * 16
+
+
+def split_ld(k: int) -> int:
+    """Row stride, in bf16, of a split operand whose rows hold ``k`` values
+    of a contraction: ``k`` padded to 16 (the pad holds zeros), plus 8, so
+    that the 32-bit words the eight rows of an mma fragment read fall on
+    distinct shared-memory banks (the stride in words is 4 mod 8)."""
+    return padded16(k) + 8
+
+
+def high_split_elems(cfg: Config) -> int:
+    """bf16 of the HIGH form's split operands, in one region: the forward's
+    x side (hi and lo of var and xm_re, and for a complex alphabet of xm_re
+    + xm_im and xm_im: (Lin, split_ld(Nt)) each), and in the same place,
+    once the forward has read it, the adjoint's inputs (hi and lo of the
+    four Gauss operands: (Lin, split_ld(Lh*Nr)) each)."""
+    nx = 2 if real_x(cfg) else 4
+    return max(2 * nx * cfg.Lin * split_ld(cfg.Nt),
+               8 * cfg.Lin * split_ld(cfg.Lh * cfg.Nr))
+
+
+def smem_bytes(cfg: Config, precision: str = "highest") -> int:
     """Dynamic shared memory of one block, passed to the launch: 3 scratch
     planes of (Lin, Lh, scratch_row) floats (the forward products, then
     the adjoint inputs), 4 x-side planes (5 for complex alphabets) and 5
-    y-side planes of float32, carved in that order by the kernel."""
-    return 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
+    y-side planes of float32, carved in that order by the kernel; at
+    ``'high'`` then the split operands (:func:`high_split_elems`)."""
+    fp32 = 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
                 + (4 if real_x(cfg) else 5) * cfg.N + 5 * cfg.n)
+    if prec.canonical(precision) == prec.HIGH:
+        return fp32 + 2 * high_split_elems(cfg)
+    return fp32
 
 
-def fits(cfg: Config) -> bool:
-    """True when one trial's planes fit a block's shared memory."""
-    return smem_bytes(cfg) <= SMEM_LIMIT
+def fits(cfg: Config, precision: str = "highest") -> bool:
+    """True when one trial's planes fit a block's shared memory (and, at
+    ``'high'``, its column blocks the HIGH products' tiles)."""
+    ok = smem_bytes(cfg, precision) <= SMEM_LIMIT
+    if prec.canonical(precision) == prec.HIGH:
+        ok = ok and cfg.Lin <= HIGH_MAX_LIN
+    return ok
 
 
 # The kernel's function in plain PyTorch (any device), with the wrapper's
-# signature.
+# signature: the HIGHEST form, the HIGH form.
 decode_plain = bamp.plain_loop
+decode_plain_high = bamp.plain_loop_high
+
+
+def mma_tiles(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The m16n8k16 A fragments of a (rows, K) plane split into ``hi`` and
+    ``lo`` (rows and K padded with zeros to multiples of 16): per 16-row
+    tile and k16 step, per lane (g = lane / 4, t = lane % 4) the 8 hi then
+    the 8 lo bf16 of its fragment registers a0..a3 — rows g and g + 8,
+    columns 2t, 2t + 1, then 2t + 8, 2t + 9 — so that a lane loads its
+    fragment as two 16-byte words.  Shape (tiles, steps, 32, 2, 8)."""
+    R, K = hi.shape
+    Mt, Kt = -(-R // 16), -(-K // 16)
+    pad = (0, Kt * 16 - K, 0, Mt * 16 - R)
+    x = torch.stack([torch.nn.functional.pad(hi, pad),
+                     torch.nn.functional.pad(lo, pad)])
+    # (part, tile, row half, g, step, k half, t, pair)
+    x = x.reshape(2, Mt, 2, 8, Kt, 2, 4, 2)
+    # -> (tile, step, g, t, part, k half, row half, pair)
+    return x.permute(1, 4, 3, 6, 0, 5, 2, 7).reshape(Mt, Kt, 32, 2, 8)
+
+
+# Each live operator's HIGH tap fragments: built once, not on every call.
+# An operator's entry goes with the operator.
+_high_cache = weakref.WeakKeyDictionary()
+
+
+def high_taps(op):
+    """The HIGH kernel's taps of banded operator ``op``: the eight Gauss
+    planes of ``bamp.gauss_taps`` as the A operands of the transposed
+    products — the forward's ``S_a2, S_re, Im S - Re S, Re S + Im S``
+    transposed to (Lh*Nr, Nt), the adjoint's ``S_a2^T, Re S^T, -Im S^T -
+    Re S^T, Re S^T - Im S^T`` transposed to (Nt, Lh*Nr), the output along
+    the rows — each split into bf16 hi and lo
+    (``precision.split_bf16``) and laid out by :func:`mma_tiles`, one
+    contiguous bf16 buffer in that order.  Returns ``(taps, folded)``."""
+    if op not in _high_cache:
+        t = bamp.gauss_taps(op)
+        planes = (t.s_a2, t.s_re, t.dmc, t.cpd, t.st_a2, t.st_re, t.amc,
+                  t.adm)
+        tiles = [mma_tiles(*prec.split_bf16(x.T.contiguous())).reshape(-1)
+                 for x in planes]
+        _high_cache[op] = (torch.cat(tiles).contiguous(), t.folded)
+    return _high_cache[op]
 
 
 def _library() -> ctypes.CDLL:
@@ -93,7 +187,8 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_decode.argtypes = (
-            [ptr] * 23 + [i32] * 11 + [f32] * 3 + [i32, i32, ptr])
+            [ptr] * 23 + [i32] * 11 + [f32] * 3 + [i32, i32, i32, ptr, i32,
+                                                    ptr])
         lib.fused_bamp_decode.restype = i32
         lib.fused_bamp_error_string.argtypes = [i32]
         lib.fused_bamp_error_string.restype = ctypes.c_char_p
@@ -124,16 +219,22 @@ def symbol_planes(cfg: Config, device):
 
 
 def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
-                 cap: int, cfg: Config) -> bamp.BAMPState:
+                 cap: int, cfg: Config,
+                 precision: str = "highest") -> bamp.BAMPState:
     """The whole decode of ``y`` from state ``s0`` up to global iteration
-    ``cap``: the CUDA kernel for a CUDA tensor, :func:`decode_plain` for a
-    CPU tensor.  The caller has checked :func:`covers` and :func:`fits`
-    for ``cfg`` (``bamp.decode`` does)."""
+    ``cap``: the CUDA kernel for a CUDA tensor, :func:`decode_plain` (at
+    ``'high'`` :func:`decode_plain_high`) for a CPU tensor.  The caller
+    has checked :func:`covers` and :func:`fits` at ``precision`` for
+    ``cfg`` (``bamp.decode`` does); on the card the form asked for is the
+    form that runs, or the call raises."""
+    precision = prec.canonical(precision)
+    high = precision == prec.HIGH
     if y.device.type == "cpu":
-        return decode_plain(op, s0, y, sigma2, cap, cfg)
+        return (decode_plain_high if high else decode_plain)(
+            op, s0, y, sigma2, cap, cfg)
     if y.device.type != "cuda":
         raise ValueError(f"no kernel for device {y.device}")
-    global launches
+    global launches, launches_high
     B = y.shape[0]
     N, n = cfg.N, cfg.n
     dev = y.device
@@ -148,6 +249,9 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     _check("gains", op.gains, (cfg.Lh, cfg.Lin), f32, dev)
     if (op.Lin, op.Lout, op.trunc) != (cfg.Lin, cfg.Lout, cfg.trunc):
         raise ValueError("operator geometry differs from the config")
+    if not fits(cfg, precision):
+        raise ValueError(f"no block holds a trial of this geometry at "
+                         f"precision={precision!r}")
     if B == 0:
         return s0
     act_in = s0.active.to(i32).contiguous()
@@ -162,6 +266,7 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     a2T = a2.transpose(1, 2).contiguous()
     gains2 = op.gains2.contiguous()
     sym_re, sym_im = symbol_planes(cfg, dev)
+    taps, folded = high_taps(op) if high else (None, False)
     cap_rem = max(int(cap) - int(s0.t), 0)
     lib = _library()
     rc = lib.fused_bamp_decode(
@@ -177,12 +282,16 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
         B, cfg.Nt, cfg.Nr, cfg.Lin, cfg.Lout, cfg.Lh, _TRUNC[cfg.trunc],
         cfg.M, cfg.K, 0 if cfg.mode in ("segmented", "sparc") else 1,
         int(real_x(cfg)), float(cfg.Ps), float(cfg.P0),
-        float(np.float32(sigma2)), cap_rem, smem_bytes(cfg),
+        float(np.float32(sigma2)), cap_rem, smem_bytes(cfg, precision),
+        int(high), taps.data_ptr() if high else None, int(folded),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_bamp_decode launch failed: "
                            + lib.fused_bamp_error_string(rc).decode())
-    launches += 1
+    if high:
+        launches_high += 1
+    else:
+        launches += 1
     active = out.active > 0
     # Global counter semantics of the XLA loop (`bamp.py:156-159`): ran to
     # cap if any trial is still active, else stopped when the slowest

@@ -15,6 +15,13 @@ product plus a shifted accumulation over the ``Lh`` taps.
 
 Unlike the JAX ``_fwd``/``_bwd``, taps that place no block (``trunc`` with
 ``Lh > Lin``) are skipped rather than indexed.
+
+``BandedOperator``'s maps take the precision of their tap-stack products
+(JAX ``ops/operators.py:77-84``, there an attribute of the operator):
+``'highest'`` (the default) is exactly ``x @ taps``; ``'high'`` is
+``ops/precision.py::matmul``, four three-pass bf16 products per complex
+product, the form the port takes for XLA's products at HIGH.  The gains
+are applied after the products either way.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 
 from ..config import Config
 from . import channel as channel_ops
+from . import precision as prec
 
 
 class DenseOperator:
@@ -60,6 +68,9 @@ class BandedOperator:
         gains: (Lh, Lin) per-(tap, column-block) gains (NumPy or tensor);
             block (c+l, c) of the dense operator equals ``gains[l, c] * h[l]``.
         Lin, Lout, trunc: block geometry (`channel.py:60-72`).
+
+    Each map takes ``precision``, that of its tap-stack products (module
+    docstring).
     """
 
     def __init__(self, h: torch.Tensor, gains, Lin: int, Lout: int,
@@ -85,11 +96,11 @@ class BandedOperator:
     def shape(self):
         return (self.Nr * self.Lout, self.Nt * self.Lin)
 
-    def _fwd(self, x, taps_stack, gains):
+    def _fwd(self, x, taps_stack, gains, precision):
         """``y[r] = sum_l gains[l, r-l] * taps[l] @ x[r-l]``."""
         B = x.shape[0]
-        P = (x.reshape(B * self.Lin, self.Nt) @ taps_stack).reshape(
-            B, self.Lin, self.Lh, self.Nr)
+        P = prec.matmul(x.reshape(B * self.Lin, self.Nt), taps_stack,
+                        precision).reshape(B, self.Lin, self.Lh, self.Nr)
         y = torch.zeros((B, self.Lout, self.Nr), dtype=P.dtype,
                         device=P.device)
         for l, rows, cols in self._taps:
@@ -105,7 +116,7 @@ class BandedOperator:
                 y[:, r0:r0 + k] += contrib
         return y.reshape(B, self.Lout * self.Nr)
 
-    def _bwd(self, z, taps_stack, gains):
+    def _bwd(self, z, taps_stack, gains, precision):
         """Adjoint of :meth:`_fwd` (conjugate taps)."""
         B = z.shape[0]
         zb = z.reshape(B, self.Lout, self.Nr)
@@ -118,20 +129,21 @@ class BandedOperator:
             else:
                 src = zb[:, int(rows[0]):int(rows[0]) + k]
             Zl[:, c0:c0 + k, l] = gains[l, c0:c0 + k][None, :, None] * src
-        r = Zl.reshape(B * self.Lin, self.Lh * self.Nr) @ taps_stack.conj().T
+        r = prec.matmul(Zl.reshape(B * self.Lin, self.Lh * self.Nr),
+                        taps_stack.conj().T, precision)
         return r.reshape(B, self.Lin * self.Nt)
 
-    def apply(self, x):
-        return self._fwd(x, self.h_stack, self.gains)
+    def apply(self, x, precision="highest"):
+        return self._fwd(x, self.h_stack, self.gains, precision)
 
-    def apply_adj(self, r):
-        return self._bwd(r, self.h_stack, self.gains)
+    def apply_adj(self, r, precision="highest"):
+        return self._bwd(r, self.h_stack, self.gains, precision)
 
-    def apply_abs2(self, v):
-        return self._fwd(v, self.abs_h2_stack, self.gains2).real
+    def apply_abs2(self, v, precision="highest"):
+        return self._fwd(v, self.abs_h2_stack, self.gains2, precision).real
 
-    def apply_abs2T(self, u):
-        return self._bwd(u, self.abs_h2_stack, self.gains2).real
+    def apply_abs2T(self, u, precision="highest"):
+        return self._bwd(u, self.abs_h2_stack, self.gains2, precision).real
 
     def densify(self) -> torch.Tensor:
         """Materialize the dense matrix (tests / SVD path)."""

@@ -25,10 +25,10 @@ Phases, each printing one JSON line:
    (the still-active trials of that phase 1, gathered, to the cap);
    split-and-resume must give identical T.  CUDA event timings of kernel
    and plain version at both phase shapes; K1's and K2's lines add their
-   share of the bound, their shared memory per block and the registers
-   and spills ptxas reported for them; K1's its phase-2 time per
-   iteration and trial; K2's its phase-2 bound and its products as
-   torch.matmul calls at the main shape;
+   share of the bound, their shared memory per block, the registers
+   and spills ptxas reported for them and their products as
+   torch.matmul calls at the main shape; K1's its phase-2 time per
+   iteration and trial; K2's its phase-2 bound;
 4. main    — the flagship BAMP OOK point (``config.flagship_bamp_ook()``,
    SPARC channel in tap form, Eb/N0 = 8 dB, two-phase k1=12) through
    ``Simulator.run_point`` over 128 realizations of 65536 trials, with the
@@ -104,7 +104,27 @@ Phases, each printing one JSON line:
    two-phase k1=40, over 8 realizations of 2048 trials, through K5 in both
    phases with no plain decode; gates: mean T and FER against the JAX
    package's CPU run at that point (tests/torch_massive_reference.py);
-11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+11. kernels_bamp_high — the HIGH form of K1 (precision='high', bf16 x 3
+   on the tensor cores) against its plain HIGH version under
+   ``compare`` with each shape's HIGH rule (T agreement and |d mean T|
+   between the readings of two correct HIGH decodes and of wrong products,
+   tests/torch_bamp_high_rule.py; the state within 1e-4 (small) or 1e-3
+   (full width) on the converged trials whose T agrees), each shape with
+   the control after one iteration (the median |d xmap| of the HIGH
+   instance under 7e-7, that of the HIGHEST instance over it): the small
+   geometries of ``kernels`` at 1024 trials, split-and-resume at the first
+   of them (identical T), the QPSK flagship at 5 dB, cap 100 (4096 trials,
+   the main path's shape) and at 8 dB, cap 100 (where about half the
+   trials converge), the OOK flagship at its phase-1 shape (65536 trials,
+   cap 12); at the last two the HIGHEST instance must fail the rule; the
+   QPSK 5 dB and OOK shapes timed beside the HIGHEST instance, the HIGH
+   bound at 989 TFLOP/s and the same bf16 products as torch.matmul calls,
+   with both instances' ptxas lines; then main_bamp_high, ``Simulator(
+   flagship_bamp_qpsk(), algo='bamp', precision='high')`` at 5 dB, cap 100,
+   beside precision='highest' on the same seeds, 2 realizations of 65536
+   each (the HIGH instance alone, FER and BER within 3 sigma and mean T
+   within 1.0 of HIGHEST's, both runs' trials/s);
+12. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -164,6 +184,39 @@ VAMP_R_TOL = 5e-2
 # between the HIGHEST and HIGH products.
 HIGH_CONTROL_STAT = "r_p50"
 HIGH_CONTROL_TOL = 7e-7
+
+# K1's HIGH form against its plain HIGH version.  Two correct HIGH decodes
+# part on T where trials stop by the allclose test: the three-pass
+# product's error sits near its 1e-5 tolerance, so the FP32 order of the
+# sums decides the stop of some trials.  Each shape's limits (T agreement,
+# |d mean T|) lie between the readings of tests/torch_bamp_high_rule.py on
+# an NVIDIA H100 (PERF.md, section 6): below, the plain HIGH version held
+# to itself with exactly summed products (two correct decodes) and the
+# kernel; above, K1's HIGHEST instance and the plain HIGH version without
+# its hi x lo pass (wrong products).
+# - the OOK flagship at its phase-1 shape (65536 trials, cap 12, 8 dB):
+#   T agreement 97.8% exact / 97.7% kernel against HIGHEST's 95.0% and
+#   one pass's 78.1%; |d mean T| 0.0008 / 0.0009 against 0.032 and 0.23;
+# - the QPSK flagship at 8 dB, cap 100 (4096 trials, 47% converge):
+#   T agreement 68.8% / 68.1% against 39.1% and 51.5%; |d mean T| 0.23 /
+#   0.50 against 22.1 and 16.1;
+# - at the small geometries and the QPSK flagship at 5 dB (every trial at
+#   the cap) nothing above parts from below on T: the limits there are
+#   PR 3's parity rule (2% of the cap) and compare's, and the control
+#   separates.
+# The control: the median |d xmap| after one iteration, 6e-8 to 1.2e-7 for
+# the kernel and the exact sums at the main shapes, 2.9e-6 to 3.7e-6 for
+# HIGHEST, 1.6e-3 to 2.0e-3 for one pass; limit HIGH_CONTROL_TOL.
+BAMP_HIGH_SMALL_RULE = dict(min_agree=0.95, dmean_T_of_cap=0.02)
+BAMP_HIGH_CONTROL_STAT = "xmap_p50"
+# main_bamp_high: the BAMPfinal QPSK point whose mean T pins at the cap
+# (Simulations/BAMPfinal/QPSK,.../5.0.json: T 99.996, FER 1.0), 2
+# realizations of 65536 per form; BER's sigma from the scatter of 32
+# groups of one realization's trials.
+BAMP_HIGH_EBN0_DB = 5.0
+BAMP_HIGH_CONVERGING_DB = 8.0
+BAMP_HIGH_REALIZATIONS = 2
+BAMP_HIGH_BER_GROUPS = 32
 
 # VAMP main path: the VAMP OOK family of BASELINE.md:50-58 at its published
 # cap of 10, single phase, 32 realizations.  Its gate is the published
@@ -270,15 +323,16 @@ def state_err(a, b, rows, fields=BAMP_FIELDS) -> float:
 
 
 def compare(phase: str, sk, sp, tol: float, fields=BAMP_FIELDS,
-            free_unconverged: bool = False, **info) -> float:
+            free_unconverged: bool = False, min_agree: float = 0.995,
+            max_dmean_T: float = 0.02, **info) -> float:
     """Hold a kernel result ``sk`` against the plain version's ``sp``: T
-    identical on >= 99.5% of trials, |d mean T| <= 0.02, state planes
-    ``fields`` within ``tol`` where T agrees.  With ``free_unconverged``
-    the state bound leaves out the trials that ran to the cap without
-    converging in either result (their count and largest error are
-    printed): AMP that does not decode has no fixed point, and 260
-    iterations of it amplify any difference of summation order.  Emits one
-    line; returns the state error."""
+    identical on >= ``min_agree`` (99.5%) of trials, |d mean T| <=
+    ``max_dmean_T`` (0.02), state planes ``fields`` within ``tol`` where T
+    agrees.  With ``free_unconverged`` the state bound leaves out the
+    trials that ran to the cap without converging in either result (their
+    count and largest error are printed): AMP that does not decode has no
+    fixed point, and 260 iterations of it amplify any difference of
+    summation order.  Emits one line; returns the state error."""
     agree = sk.T == sp.T
     frac = float(agree.float().mean())
     mean_k, mean_p = float(sk.T.float().mean()), float(sp.T.float().mean())
@@ -300,7 +354,8 @@ def compare(phase: str, sk, sp, tol: float, fields=BAMP_FIELDS,
          mean_T_kernel=mean_k, mean_T_plain=mean_p,
          abs_dmean_T=abs(mean_k - mean_p), max_abs_err_T_agree=err,
          tolerance=tol, bit_exact_fraction=exact)
-    if frac < 0.995 or abs(mean_k - mean_p) > 0.02 or not err < tol:
+    if (frac < min_agree or abs(mean_k - mean_p) > max_dmean_T
+            or not err < tol):
         raise AssertionError(f"kernel != plain in {phase} {info}")
     return err
 
@@ -326,6 +381,26 @@ def bound(flop, nbytes, peak=PEAK_FP32_FLOPS):
     t_ops, t_bytes = flop / peak, nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def banded_library(torch, cfg, A, s, dev) -> dict:
+    """Milliseconds of K1's eight real banded products of one iteration of
+    every trial of ``s`` as torch.matmul calls, by product: |H|^2 var, H
+    xmmse (a real x: one product on the stacked Re and Im taps), |H|^2^T
+    (1/u) and H^H r (complex) on the stacked taps."""
+    rows, cols = s.var.shape[0] * cfg.Lin, cfg.Lh * cfg.Nr
+    xs = s.xmmse.real.reshape(rows, cfg.Nt).contiguous()
+    vs = s.var.reshape(rows, cfg.Nt)
+    hf = torch.view_as_real(A.h_stack).reshape(cfg.Nt, 2 * cols)
+    zc = torch.complex(torch.rand(rows, cols, device=dev),
+                       torch.rand(rows, cols, device=dev))
+    ha, a2t = A.h_stack.conj().T.contiguous(), A.abs_h2_stack.T.contiguous()
+    out = {"forward_abs2": cuda_ms(lambda: vs @ A.abs_h2_stack, 1, 5),
+           "forward_complex": cuda_ms(lambda: xs @ hf, 1, 5),
+           "adjoint_abs2": cuda_ms(lambda: zc.real @ a2t, 1, 5),
+           "adjoint_complex": cuda_ms(lambda: zc @ ha, 1, 5)}
+    del xs, zc
+    return out
 
 
 def phase_kernels(torch, dev, k1_ptxas):
@@ -435,8 +510,13 @@ def phase_kernels(torch, dev, k1_ptxas):
     flop, nbytes, iters = decode_work(fcfg, s0, s1, tensors, products)
     bound_ms, bound_by = bound(flop, nbytes)
     iters2 = decode_work(fcfg, s2, out["k2"], [], products)[2]
+    library = banded_library(torch, fcfg, r.A, s1, dev)
+    library_iter_ms = sum(library.values())
     timing = dict(kernel="fused_bamp_decode", B=RES, cap=K1, ms=ms,
                   plain_ms=plain_ms,
+                  library_ms=library_iter_ms * iters / RES,
+                  library_ms_per_iteration=library_iter_ms,
+                  library_ms_by_product=library,
                   ns_per_iter_trial=1e6 * ms / iters,
                   plain_ns_per_iter_trial=1e6 * plain_ms / iters,
                   iterations=iters, flop=flop, bytes=nbytes,
@@ -1340,6 +1420,307 @@ def phase_main_vamp_high(torch, dev, algo: str):
     return hi["launches_high"]
 
 
+def rule_passes(sk, sp, min_agree: float, max_dmean_T: float):
+    """(T agreement, |d mean T|, whether both are inside the limits) of
+    ``sk`` against ``sp``."""
+    frac = float((sk.T == sp.T).float().mean())
+    dmean = abs(float(sk.T.float().mean() - sp.T.float().mean()))
+    return frac, dmean, frac >= min_agree and dmean <= max_dmean_T
+
+
+def phase_kernels_bamp_high(torch, dev, ptxas_lines):
+    """The HIGH form of K1 (precision='high', bf16 x 3 on the tensor cores)
+    against its plain HIGH version (``fused_bamp.decode_plain_high``) on
+    the card, under :func:`compare` with each shape's HIGH rule (T
+    agreement, |d mean T|, the state within the tolerance on the trials
+    whose T agrees and that converged; the limits and their readings are
+    at ``BAMP_HIGH_SMALL_RULE``), each shape with the control after one
+    iteration (the median xmap error of the HIGH instance against the
+    plain HIGH version under ``HIGH_CONTROL_TOL``, that of the HIGHEST
+    instance over it).  The small geometries of ``phase_kernels`` at 1024
+    trials; split-and-resume at the first of them (identical T); the OOK
+    flagship at its phase-1 shape (65536 trials, cap 12, 8 dB), the QPSK
+    flagship at 5 dB, cap 100 (4096 trials, the main path's shape, where
+    every trial runs to the cap) and at 8 dB, cap 100 (where about half of
+    them converge).  Where the rule separates (the OOK phase-1 shape and
+    QPSK at 8 dB), the HIGHEST instance held to the same rule must fail it.
+    The OOK phase-1 and QPSK 5 dB shapes are timed by CUDA events beside
+    the HIGHEST instance, the plain HIGH version, the HIGH bound (3 bf16
+    passes of the 7 Gauss products per trial-iteration of a real x, 8 of a
+    complex one, at 989 TFLOP/s) and the same bf16 products as
+    torch.matmul calls.  Returns the largest state error and the timings,
+    the main path's shape (QPSK, 5 dB) first."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        Config, flagship_bamp_ook, flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops import precision as prec
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    high = "high"
+    failed = []
+
+    def realization(cfg, B, seed, snr, kind="sparc"):
+        r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
+                                            kind, "banded", B, snr, high)
+        return r, bamp.initial_state(r.y, cfg.N, r.sigma2)
+
+    def control(phase, cfg, data, **info):
+        """One iteration of the HIGH instance and, as the control, of the
+        HIGHEST instance, held to the plain HIGH version; the limit lies
+        between the two, so a HIGH launch that computed in FP32 fails."""
+        r, s0 = data
+        one = fused_bamp.decode_plain_high(r.A, s0, r.y, r.sigma2, 1, cfg)
+        sound = vamp_gap(fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, 1,
+                                                 cfg, high), one)
+        wrong = vamp_gap(fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, 1,
+                                                 cfg), one)
+        emit(phase, **info, cap=1, statistic=BAMP_HIGH_CONTROL_STAT,
+             limit=HIGH_CONTROL_TOL, high=sound, highest=wrong)
+        if not (sound[BAMP_HIGH_CONTROL_STAT] < HIGH_CONTROL_TOL
+                <= wrong[BAMP_HIGH_CONTROL_STAT]):
+            failed.append(f"control {info}")
+
+    small = dict(Nt=16, Na=4, Nr=8, Lin=8, Lh=3, mode="segmented",
+                 profile="uniform")
+    cases = [
+        ("ook_tail", dict(alphabet="OOK", trunc="tail", iterations=12), 1.2),
+        ("ook_trunc", dict(alphabet="OOK", trunc="trunc", iterations=12),
+         1.2),
+        ("ook_cyclic", dict(alphabet="OOK", trunc="cyclic", iterations=12),
+         1.2),
+        ("qpsk_tail", dict(alphabet="QPSK", trunc="tail", iterations=8), 1.5),
+        ("8psk_tail", dict(alphabet="8PSK", trunc="tail", iterations=10),
+         1.6),
+        ("ook_m6", dict(alphabet="OOK", trunc="tail", iterations=10, Nt=24),
+         1.3),
+        ("random_qpsk", dict(alphabet="QPSK", trunc="tail", iterations=10,
+                             mode="random"), 1.4),
+    ]
+    max_err = 0.0
+    for i, (name, kw, snr_exp) in enumerate(cases):
+        cfg = Config(**{**small, **kw})
+        kind = "toeplitz" if cfg.mode == "random" else "sparc"
+        (r, s0) = case = realization(cfg, SMALL_B, 100 + i, 10 ** snr_exp,
+                                     kind)
+        cap = cfg.N_Layers
+        sk = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, cap, cfg, high)
+        sp = fused_bamp.decode_plain_high(r.A, s0, r.y, r.sigma2, cap, cfg)
+        max_err = max(max_err, compare(
+            "kernel_small_bamp_high", sk, sp, 1e-4, free_unconverged=True,
+            min_agree=BAMP_HIGH_SMALL_RULE["min_agree"],
+            max_dmean_T=BAMP_HIGH_SMALL_RULE["dmean_T_of_cap"] * cap,
+            cap=cap, case=name))
+        control("kernel_small_bamp_high_control", cfg, case, case=name)
+
+    # split at 5 iterations and resumed (the trials frozen by then pass
+    # through): the trajectory of the unsplit decode
+    cfg = Config(**{**small, **cases[0][1]})
+    r, s0 = realization(cfg, SMALL_B, 100, 10 ** cases[0][2])
+    full = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, 12, cfg, high)
+    part = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, 5, cfg, high)
+    resumed = fused_bamp.whole_decode(r.A, part, r.y, r.sigma2, 12, cfg,
+                                      high)
+    split_err = state_err(full, resumed, slice(None))
+    split_ok = bool(torch.equal(full.T, resumed.T)) and split_err < 1e-5
+    emit("kernel_split_resume_bamp_high", identical=split_ok,
+         max_abs_err=split_err, frozen_at_split=int((~part.active).sum()))
+    if not split_ok:
+        failed.append("split-and-resume")
+
+    # the main shapes: (name, config, trials, cap, Eb/N0, seed, T
+    # agreement, |d mean T|, timed, the rule separates HIGHEST)
+    timings = []
+    for (name, cfg, B, cap, ebn0, seed, min_agree, max_dmean, timed,
+         separates) in (
+            ("qpsk_cap100", flagship_bamp_qpsk(), FLAGSHIP_B, 100,
+             BAMP_HIGH_EBN0_DB, 42, 0.995, 0.02, True, False),
+            ("qpsk_cap100_converging", flagship_bamp_qpsk(), FLAGSHIP_B,
+             100, BAMP_HIGH_CONVERGING_DB, 42, 0.60, 2.0, False, True),
+            ("ook_phase1", flagship_bamp_ook(), RES, K1, EBN0_DB, 41, 0.965,
+             0.02, True, True)):
+        (r, s0) = case = realization(cfg, B, seed, snr_of(cfg, ebn0))
+        op = r.A
+        s1 = fused_bamp.whole_decode(op, s0, r.y, r.sigma2, cap, cfg, high)
+        sp = fused_bamp.decode_plain_high(op, s0, r.y, r.sigma2, cap, cfg)
+        converged = int((~(s1.active | sp.active)).sum())
+        max_err = max(max_err, compare(
+            "kernel_main_bamp_high", s1, sp, 1e-3, free_unconverged=True,
+            min_agree=min_agree, max_dmean_T=max_dmean, case=name, cap=cap,
+            ebn0_db=ebn0, converged_both=converged))
+        if separates and converged < B // 4:
+            failed.append(f"{name}: {converged} of {B} trials converged")
+        sh = fused_bamp.whole_decode(op, s0, r.y, r.sigma2, cap, cfg)
+        frac, dmean, inside = rule_passes(sh, sp, min_agree, max_dmean)
+        emit("kernel_main_bamp_high_highest", case=name, T_agree_fraction=frac,
+             abs_dmean_T=dmean, inside_rule=inside, must_fail=separates)
+        if separates and inside:
+            failed.append(f"{name}: the HIGHEST instance passes the rule")
+        del sh, sp
+        control("kernel_main_bamp_high_control", cfg, case, case=name)
+        if not timed:
+            del case, r, op, s0, s1
+            torch.cuda.empty_cache()
+            continue
+        ms = cuda_ms(lambda: fused_bamp.whole_decode(
+            op, s0, r.y, r.sigma2, cap, cfg, high), 1, 3)
+        highest_ms = cuda_ms(lambda: fused_bamp.whole_decode(
+            op, s0, r.y, r.sigma2, cap, cfg), 1, 3)
+        plain_ms = cuda_ms(lambda: fused_bamp.decode_plain_high(
+            op, s0, r.y, r.sigma2, cap, cfg), 0, 1)
+        # 3 bf16 passes of the Gauss products (7 for a real x, 8 complex)
+        products = 3 * (7 if fused_bamp.real_x(cfg) else 8)
+        taps = fused_bamp.high_taps(op)[0]
+        state = [getattr(s0, f) for f in s0._fields if f != "t"]
+        state += [getattr(s1, f) for f in s1._fields if f != "t"]
+        flop, nbytes, iters = decode_work(cfg, s0, s1,
+                                          state + [r.y, taps], products)
+        bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
+        # the library's yardstick: the same bf16 products of one iteration
+        # of every trial as torch.matmul calls, scaled to the run's
+        # trial-iterations
+        t = bamp.gauss_taps(op)
+        rows, W = B * cfg.Lin, cfg.Lh * cfg.Nr
+        fwd = [prec.split_bf16(x) for x in
+               (t.s_a2, t.s_re, t.dmc) + (() if fused_bamp.real_x(cfg)
+                                          else (t.cpd,))]
+        adj = [prec.split_bf16(x) for x in (t.st_a2, t.st_re, t.amc, t.adm)]
+        xs = prec.split_bf16(s1.var.reshape(rows, cfg.Nt))
+        zs = prec.split_bf16(torch.rand(rows, W, device=dev))
+
+        def gauss_bf16():
+            for (xh, xl), planes in ((xs, fwd), (zs, adj)):
+                for th, tl in planes:
+                    torch.matmul(xh, th)
+                    torch.matmul(xh, tl)
+                    torch.matmul(xl, th)
+
+        library_iter_ms = cuda_ms(gauss_bf16, 1, 3)
+        del xs, zs
+        timing = dict(kernel="fused_bamp_decode_high", case=name, B=B,
+                      cap=cap, ms=ms, highest_ms=highest_ms,
+                      plain_ms=plain_ms, high_over_highest=ms / highest_ms,
+                      ns_per_iter_trial=1e6 * ms / iters, iterations=iters,
+                      flop=flop, bytes=nbytes, bound_ms=bound_ms,
+                      bound_by=bound_by, pct_of_bound=100 * bound_ms / ms,
+                      achieved_tflops=flop / (ms * 1e-3) / 1e12,
+                      library_ms=library_iter_ms * iters / B,
+                      library_ms_per_iteration=library_iter_ms,
+                      smem_bytes=fused_bamp.smem_bytes(cfg, high),
+                      ptxas=ptxas_lines)
+        emit("kernel_timing_bamp_high", **timing)
+        timings.append(timing)
+        del case, r, op, s0, s1, taps, state
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K1 HIGH kernel != plain: {failed}")
+    return max_err, timings
+
+
+def phase_main_bamp_high(torch, dev):
+    """``Simulator(config.flagship_bamp_qpsk(), algo='bamp',
+    precision='high')`` beside ``precision='highest'`` on the same seeds at
+    Eb/N0 = 5 dB, cap 100, single phase (the BAMPfinal QPSK point whose
+    mean T pins at the cap, where 'auto' picks HIGH), 2 realizations of
+    65536 each.  Gates: the HIGH run through K1's HIGH instance alone (no
+    plain decode, no HIGHEST launch), FER(high) within 3 sigma of
+    FER(highest) (sigma binomial from the highest run's count, at least
+    one error), BER(high) within 3 sigma of BER(highest) (sigma of the
+    difference of two runs' means, from the BER scatter of
+    ``BAMP_HIGH_BER_GROUPS`` groups of one HIGH realization's trials), mean
+    T within 1.0.  Prints both runs' trials/s, FER, BER and mean T and a
+    per-layer breakdown of one HIGH realization."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils import metrics
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    cfg = flagship_bamp_qpsk()
+    n_real, epochs = BAMP_HIGH_REALIZATIONS, BAMP_HIGH_REALIZATIONS * RES
+    runs = {}
+    for precision in ("highest", "high"):
+        sim = montecarlo.Simulator(cfg, algo="bamp", device=dev,
+                                   precision=precision,
+                                   progress=lambda s: None)
+        torch.cuda.synchronize()
+        fused_bamp.launches = fused_bamp.launches_high = 0
+        bamp.plain_decodes = 0
+        t0 = time.perf_counter()
+        avg = sim.run_point(BAMP_HIGH_EBN0_DB, epochs=epochs, res=RES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[precision] = dict(
+            avg=avg, seconds=seconds, trials_per_s=epochs / seconds,
+            launches=fused_bamp.launches,
+            launches_high=fused_bamp.launches_high,
+            plain=bamp.plain_decodes)
+    hi, hs = runs["high"], runs["highest"]
+
+    gen = make_generator(dev, 12345)
+    layers = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        layers[name] = time.perf_counter() - t
+        return res
+
+    r = timed("generate_s", lambda: montecarlo.generate_realization(
+        gen, cfg, "sparc", "banded", RES, snr_of(cfg, BAMP_HIGH_EBN0_DB),
+        "high"))
+    out = timed("decode_s", lambda: bamp.decode(r.A, r.y, r.sigma2, cfg,
+                                                precision="high"))
+    timed("metrics_s", lambda: metrics.fetch_sums(metrics.evaluate_sums(
+        out.xmap, out.xmmse, r.msg, out.T, cfg)))
+    group = torch.arange(RES, device=dev) % BAMP_HIGH_BER_GROUPS
+    bers = [metrics.finalize(metrics.evaluate_sums(
+        out.xmap, out.xmmse, r.msg, out.T, cfg,
+        weight=(group == g).float()), cfg)["ber"]
+        for g in range(BAMP_HIGH_BER_GROUPS)]
+    ber_sigma = statistics.stdev(bers) * math.sqrt(
+        2 * (RES // BAMP_HIGH_BER_GROUPS) / epochs)
+    del r, out, group
+
+    k = round(hs["avg"]["fer"] * epochs)
+    pf = min(max(k, 1), epochs - 1) / epochs
+    sigma = math.sqrt(pf * (1 - pf) / epochs)
+    emit("main_bamp_high", config="flagship_bamp_qpsk",
+         ebn0_db=BAMP_HIGH_EBN0_DB, res=RES, realizations=n_real,
+         trials=epochs, cap=cfg.N_Layers,
+         **{f"{p}_{k}": v for p, run in runs.items()
+            for k, v in (("seconds", run["seconds"]),
+                         ("trials_per_s", run["trials_per_s"]),
+                         ("mean_T", run["avg"]["T"]),
+                         ("fer", run["avg"]["fer"]),
+                         ("ber", run["avg"]["ber"]),
+                         ("launches", run["launches"]),
+                         ("launches_high", run["launches_high"]),
+                         ("plain_decodes", run["plain"]))},
+         high_over_highest_trials_per_s=(hi["trials_per_s"]
+                                         / hs["trials_per_s"]),
+         fer_sigma=sigma, ber_sigma=ber_sigma, layers_high=layers,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if hi["launches_high"] <= 0 or hi["launches"] or hi["plain"]:
+        raise AssertionError("the BAMP HIGH path did not run through K1's "
+                             "HIGH instance alone")
+    if abs(hi["avg"]["fer"] - hs["avg"]["fer"]) > 3 * sigma:
+        raise AssertionError(f"BAMP HIGH FER {hi['avg']['fer']} vs "
+                             f"HIGHEST {hs['avg']['fer']}")
+    if abs(hi["avg"]["ber"] - hs["avg"]["ber"]) > 3 * ber_sigma:
+        raise AssertionError(f"BAMP HIGH BER {hi['avg']['ber']} vs "
+                             f"HIGHEST {hs['avg']['ber']}")
+    if abs(hi["avg"]["T"] - hs["avg"]["T"]) > 1.0:
+        raise AssertionError(f"BAMP HIGH mean T {hi['avg']['T']} vs "
+                             f"HIGHEST {hs['avg']['T']}")
+    return hi["launches_high"]
+
+
 def massive_main_config():
     """``config.massive_mimo()`` at the iteration cap of
     scripts/bench_massive.py:37 (300)."""
@@ -1989,6 +2370,13 @@ def main() -> int:
     launches4h = phase_main_vamp_high(torch, dev, "vamp2")
     torch.cuda.empty_cache()
     emit("high_phases", seconds=time.perf_counter() - t_high)
+    t_high = time.perf_counter()
+    max_err1h, (timing1h, _) = phase_kernels_bamp_high(
+        torch, dev, ptxas("fused_bamp_decode", entries=True))
+    torch.cuda.empty_cache()
+    launches1h = phase_main_bamp_high(torch, dev)
+    torch.cuda.empty_cache()
+    emit("bamp_high_phases", seconds=time.perf_counter() - t_high)
     t0 = time.perf_counter()
     max_err5, timing5 = phase_kernels_tiled(
         torch, dev, ptxas("fused_bamp_tiled", entries=True))
@@ -2002,6 +2390,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry("fused_bamp_decode", "fused_bamp.py:617", launches,
                      max_err, timing),
+        kernel_entry("fused_bamp_decode_high", "fused_bamp.py:617",
+                     launches1h, max_err1h, timing1h,
+                     source="fused_bamp_decode"),
         kernel_entry("fused_scamp_decode", "fused_scamp.py:112", launches2,
                      max_err2, timing2),
         kernel_entry("fused_vamp_decode", "fused_vamp.py:73", launches3,

@@ -15,9 +15,10 @@ of the VAMP and vamp2 decodes and the sweep engine's ``precision`` and
   5e-2 (it divides by ``1 - alpha``, which amplifies float32
   summation-order noise up to 1e5).
 * ``Simulator(precision='auto')`` picks the precision of JAX's policy
-  (``tests/test_two_phase.py:158-176``) number for number; BAMP and SCAMP
-  raise on 'high' and 'auto', every entry point on 'default', the random
-  mode on 'high'.
+  (``tests/test_two_phase.py:158-176``) number for number; BAMP raises on
+  'high' and 'auto' where its route is K5 or the plain loop, SCAMP where
+  it is the plain loop, every entry point on 'default', the random mode of
+  VAMP on 'high'.
 * ``chans_per_batch=2`` gives the sums of 1 and rounds
   ``trials_per_point`` as JAX does.
 
@@ -309,15 +310,34 @@ def test_precision_auto_runs_high_point(tmp_path):
     assert np.isfinite(a["fer"]) and 0 < a["T"] <= cfg.N_Layers
 
 
-@pytest.mark.parametrize("algo", ["bamp", "scamp"])
+# (algo, config, operator form, the message naming the missing form):
+# BAMP on the massive geometry (route K5, whose HIGH form is not ported)
+# and on the dense operator (the plain loop), SCAMP on a geometry K2 does
+# not fit (the plain loop)
+NO_HIGH = [
+    ("bamp", dict(Nt=1344, Na=84, Nr=73, Lin=32, Lh=6, mode="segmented",
+                  alphabet="OOK", trunc="tail"), "auto", "kernel K5"),
+    ("bamp", dict(POLICY_CFG, mode="sparc"), "dense", "plain BAMP loop"),
+    ("scamp", dict(Nt=1344, Na=84, Nr=73, Lin=32, Lh=6, mode="sparc",
+                   alphabet="OOK", trunc="tail"), "auto",
+     "K2 does not fit"),
+]
+
+
 @pytest.mark.parametrize("precision", ["high", "auto"])
-def test_bamp_scamp_raise_without_high_kernels(tmp_path, algo, precision):
-    cfg = Config(**dict(POLICY_CFG, mode="sparc"))
-    with pytest.raises(ValueError, match="K1 and K5"):
+@pytest.mark.parametrize("algo,kw,form,match", NO_HIGH,
+                         ids=["bamp-tiled", "bamp-dense", "scamp-nofit"])
+def test_bamp_scamp_raise_without_high_kernels(tmp_path, algo, kw, form,
+                                               match, precision):
+    cfg = Config(**kw)
+    with pytest.raises(ValueError, match=match):
         mc.Simulator(cfg, algo=algo, precision=precision, device="cpu",
-                     out_root=str(tmp_path))
-    with pytest.raises(ValueError):
-        mc.make_realization_fn(cfg, algo, "sparc", 8, precision=precision)
+                     operator_form=form, out_root=str(tmp_path))
+    with pytest.raises(ValueError, match=match):
+        mc.make_realization_fn(cfg, algo, "sparc", 8, operator_form=form,
+                               precision=precision)
+    mc.Simulator(cfg, algo=algo, device="cpu", operator_form=form,
+                 out_root=str(tmp_path))
 
 
 @pytest.mark.parametrize("algo", ["bamp", "scamp", "vamp", "vamp2"])

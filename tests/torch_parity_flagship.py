@@ -13,7 +13,12 @@ NumPy, are decoded by
 
 and the mean of the per-trial T differences is printed with its standard
 error.  ``--algo bamp`` (the default) takes the flagship BAMP point
-(``flagship_bamp_ook()``, Eb/N0 = 8 dB, kernel K1); ``--algo scamp`` the
+(``flagship_bamp_ook()``, Eb/N0 = 8 dB, kernel K1), ``--algo bamp_qpsk``
+the BAMPfinal QPSK point (``flagship_bamp_qpsk()``, Eb/N0 = 5 dB, cap 100,
+kernel K1), each with ``--precision high`` also decoded by JAX's Pallas
+kernel at ``Precision.HIGH`` in interpret mode, which ``check`` holds the
+port's kernel in its HIGH form to (the port's CPU decode skipped, PR 3's
+rule: |d mean T| within 2% of the cap); ``--algo scamp`` the
 SCAMP main point (the OOK sparc config at the same dimensions, Eb/N0 =
 8 dB, kernel K2); ``--algo massive`` the massive-MIMO point
 (``massive_mimo()`` at cap 300, Eb/N0 = 18 dB, kernel K5), where JAX
@@ -51,8 +56,9 @@ from pathlib import Path
 
 import numpy as np
 
-EBN0_DB = {"bamp": 8.0, "scamp": 8.0, "massive": 18.0, "vamp": 8.0,
-           "vamp2": 8.0}
+EBN0_DB = {"bamp": 8.0, "bamp_qpsk": 5.0, "scamp": 8.0, "massive": 18.0,
+           "vamp": 8.0, "vamp2": 8.0}
+BAMP_ALGOS = ("bamp", "bamp_qpsk")
 SVD_ALGOS = ("vamp", "vamp2")
 MASSIVE_CAP, MASSIVE_K1 = 300, 40
 
@@ -84,7 +90,9 @@ def port_config(algo: str):
     import dataclasses
 
     from amp_sparc_spatialmodulation_tpu_torch.config import (
-        Config, flagship_bamp_ook, massive_mimo)
+        Config, flagship_bamp_ook, flagship_bamp_qpsk, massive_mimo)
+    if algo == "bamp_qpsk":
+        return flagship_bamp_qpsk()
     if algo == "massive":
         return dataclasses.replace(massive_mimo(), iterations=MASSIVE_CAP)
     if algo in SVD_ALGOS:
@@ -125,7 +133,8 @@ def port_decode(algo: str, d, cfg, device, precision="highest",
     if algo == "scamp":
         W = torch.as_tensor(d["W"], device=device)
         return scamp.decode(W, op, y, sigma2, cfg).T.cpu().numpy()
-    return bamp.decode(op, y, sigma2, cfg).T.cpu().numpy()
+    return bamp.decode(op, y, sigma2, cfg,
+                       precision=precision).T.cpu().numpy()
 
 
 def jax_two_phase(jbamp, jop, jy, sigma2, jcfg):
@@ -197,7 +206,11 @@ def dump_svd(out: Path, trials: int, seeds: range, algo: str,
                       for k, v in summary_T.items() if v}))
 
 
-def dump(out: Path, trials: int, seeds: range, algo: str) -> None:
+def dump(out: Path, trials: int, seeds: range, algo: str,
+         precision: str = "highest") -> None:
+    """``dump`` for the banded decoders; for BAMP at ``precision='high'``
+    also JAX's Pallas kernel K1 at Precision.HIGH in interpret mode
+    (``T_jax_high``), and no port CPU decode."""
     import dataclasses
 
     import jax
@@ -207,6 +220,8 @@ def dump(out: Path, trials: int, seeds: range, algo: str) -> None:
     from amp_sparc_spatialmodulation_tpu.config import (
         flagship_bamp_ook as jflagship)
     from amp_sparc_spatialmodulation_tpu.config import (
+        flagship_bamp_qpsk as jflagship_qpsk)
+    from amp_sparc_spatialmodulation_tpu.config import (
         massive_mimo as jmassive)
     from amp_sparc_spatialmodulation_tpu.models import bamp as jbamp
     from amp_sparc_spatialmodulation_tpu.models import scamp as jscamp
@@ -214,13 +229,14 @@ def dump(out: Path, trials: int, seeds: range, algo: str) -> None:
     from amp_sparc_spatialmodulation_tpu.ops import message as jmessage
     from amp_sparc_spatialmodulation_tpu.ops import operators as joperators
 
-    jcfg = {"bamp": jflagship, "scamp": lambda: JConfig(**SCAMP_MAIN),
+    jcfg = {"bamp": jflagship, "bamp_qpsk": jflagship_qpsk,
+            "scamp": lambda: JConfig(**SCAMP_MAIN),
             "massive": lambda: dataclasses.replace(
                 jmassive(), iterations=MASSIVE_CAP)}[algo]()
     cfg = port_config(algo)
     snr = 10 ** ((EBN0_DB[algo] + 10 * np.log10(cfg.code_rate)) / 10)
     out.mkdir(parents=True, exist_ok=True)
-    jT_all, pT_all = [], []
+    jT_all, pT_all, hT_all = [], [], []
     for seed in seeds:
         k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
         jW, jop = joperators.banded_sparc(k1, jcfg)
@@ -236,7 +252,12 @@ def dump(out: Path, trials: int, seeds: range, algo: str) -> None:
         d = dict(h=np.asarray(jop.h), gains=np.asarray(jop.gains),
                  W=np.asarray(jW), y=np.array(jy), sigma2=sigma2)
         extra = {}
-        if algo != "massive":
+        if precision == "high":
+            extra["T_jax_high"] = np.asarray(jbamp.decode(
+                jop, jy, sigma2, jcfg, use_pallas=True,
+                precision=jax.lax.Precision.HIGH).T)
+            hT_all.append(extra["T_jax_high"])
+        elif algo != "massive":
             extra["T_port_cpu"] = port_decode(algo, d, cfg, "cpu")
             pT_all.append(extra["T_port_cpu"])
         np.savez(out / f"seed{seed}.npz", **d, T_jax=jT, algo=algo, **extra)
@@ -244,6 +265,9 @@ def dump(out: Path, trials: int, seeds: range, algo: str) -> None:
     if pT_all:
         print(json.dumps({"jax_cpu_vs_port_cpu": summary(
             np.concatenate(jT_all), np.concatenate(pT_all), cfg.N_Layers)}))
+    elif hT_all:
+        print(json.dumps({"jax_cpu_vs_jax_kernel_high": summary(
+            np.concatenate(jT_all), np.concatenate(hT_all), cfg.N_Layers)}))
     else:
         print(json.dumps({"jax_cpu": {
             "trials": int(sum(t.size for t in jT_all)),
@@ -288,6 +312,23 @@ def check(directory: Path) -> None:
         cT = np.concatenate(cT)
         out["jax_cpu_vs_port_cpu"] = summary(jT, cT, cfg.N_Layers)
         out["port_cpu_vs_port_kernel"] = summary(cT, kT, cfg.N_Layers)
+    if algo in BAMP_ALGOS and "T_jax_high" in np.load(files[0]):
+        # K1's HIGH form against JAX's kernel at HIGH, PR 3's rule
+        jH, kH = [], []
+        before = (fused_bamp.launches, fused_bamp.launches_high)
+        for f in files:
+            d = np.load(f)
+            kH.append(port_decode(algo, d, cfg, "cuda", "high"))
+            jH.append(d["T_jax_high"])
+        if (fused_bamp.launches_high - before[1] != len(files)
+                or fused_bamp.launches != before[0]
+                or bamp.plain_decodes != plain):
+            raise AssertionError("the card's decodes did not run the HIGH "
+                                 "kernel")
+        res = summary(np.concatenate(jH), np.concatenate(kH), cfg.N_Layers)
+        res["dmean_T_max"] = 0.02 * cfg.N_Layers
+        res["within_rule"] = abs(res["dmean_T"]) <= res["dmean_T_max"]
+        out["jax_kernel_high_vs_port_kernel_high"] = res
     print(json.dumps(out))
 
 
@@ -348,12 +389,14 @@ def main() -> None:
     d.add_argument("--out", type=Path, required=True)
     d.add_argument("--trials", type=int, default=512)
     d.add_argument("--seeds", default="10:26", help="first:last+1")
-    d.add_argument("--algo", choices=["bamp", "scamp", "massive", "vamp",
-                                      "vamp2"], default="bamp")
+    d.add_argument("--algo", choices=["bamp", "bamp_qpsk", "scamp",
+                                      "massive", "vamp", "vamp2"],
+                   default="bamp")
     d.add_argument("--precision", choices=["highest", "high"],
                    default="highest",
-                   help="vamp, vamp2: also decode with JAX's kernel at "
-                        "Precision.HIGH (interpret mode) for the HIGH form")
+                   help="bamp, bamp_qpsk, vamp, vamp2: also decode with "
+                        "JAX's kernel at Precision.HIGH (interpret mode) "
+                        "for the HIGH form")
     c = sub.add_parser("check")
     c.add_argument("--dir", type=Path, required=True)
     args = ap.parse_args()
@@ -363,7 +406,8 @@ def main() -> None:
             dump_svd(args.out, args.trials, range(lo, hi), args.algo,
                      args.precision)
         else:
-            dump(args.out, args.trials, range(lo, hi), args.algo)
+            dump(args.out, args.trials, range(lo, hi), args.algo,
+                 args.precision)
     else:
         check(args.dir)
 
