@@ -25,12 +25,13 @@ realizations per point up to a multiple of C, as the JAX package does.  On
 the H100 the HIGH form decodes in about two thirds of HIGHEST's time, so
 points whose trials run to the cap go faster at HIGH (``PERF.md`` §5,
 §6).  ``--precision high|auto`` also covers BAMP, whose whole-decode
-kernel K1 has a HIGH form, and SCAMP, whose kernel K2 keeps HIGHEST
-inside (JAX's has no precision; at HIGH only ``y = x A^T`` changes).  It
-raises for BAMP where the decode would take the frame-tiled kernel K5 (the
-massive geometry; K5's HIGH form is not ported yet) or the plain loop (a
-dense ``--operator``, the real-channel mode, a geometry no kernel fits),
-and for SCAMP where it would take the plain loop.  Runs on the CUDA card
+kernel K1 and frame-tiled kernel K5 (the massive geometry, e.g. ``--Nt
+1344 --Na 84 --Nr 73 --Lin 32 --Lh 6``) have HIGH forms, and SCAMP, whose
+kernel K2 keeps HIGHEST inside (JAX's has no precision; at HIGH only ``y =
+x A^T`` changes).  It raises for BAMP where the decode would take the
+plain loop (a dense ``--operator``, the real-channel mode, a geometry no
+kernel fits), and for SCAMP where it would take the plain loop.  Runs on
+the CUDA card
 unless ``--device cpu`` is given.  Only the ``sweep`` subcommand is
 ported; ``plot``, ``capacity``, ``bench`` and ``sparc-trial`` wait for
 ROADMAP.md Queue 1 item 5.
@@ -115,8 +116,8 @@ def main(argv=None) -> int:
                             "point: 'high' when the previous point's mean T "
                             "pinned at the iteration cap, else 'highest'); "
                             "'high' and 'auto' raise where the decode has "
-                            "no HIGH form (BAMP on the massive geometry or "
-                            "a dense operator, SCAMP off its kernel)")
+                            "no HIGH form (BAMP on a dense operator, SCAMP "
+                            "off its kernel)")
     sweep.add_argument("--device", default=None,
                        help="torch device (default: the CUDA card)")
 

@@ -22,10 +22,13 @@ each kernel's wrapper runs its plain version.
 (`bamp.py:195` there) on the routes that have it: K1 runs its HIGH form,
 whose plain version is :func:`plain_loop_high` (the JAX kernel's
 ``_linear_iteration`` at HIGH step by step: per-tap gains folded into the
-Gauss tap planes of :func:`gauss_taps`, three-pass bf16 products); K6 runs
-at HIGHEST, as in JAX, whose per-iteration kernel has no precision knob
-(`fused_bamp.py:409` there).  The K5 route and the plain loop raise at
-HIGH (:func:`check_high`).
+Gauss tap planes of :func:`gauss_taps`, three-pass bf16 products); K5 runs
+its HIGH form inside :func:`plane_loop`, whose plain version is one
+:func:`step` with :func:`linear_step_high` for a real x (the JAX kernel
+``fused_bamp_tiled.py:47`` with ``make_dot(HIGH)``); K6 runs at HIGHEST,
+as in JAX, whose per-iteration kernel has no precision knob
+(`fused_bamp.py:409` there).  The plain loop raises at HIGH
+(:func:`check_high`).
 """
 from __future__ import annotations
 
@@ -387,11 +390,12 @@ def from_planes(ps: PlaneState) -> BAMPState:
 
 
 def step_planes(op, ps: PlaneState, y_re, y_im, sigma2: float,
-                denoiser) -> IterOut:
+                denoiser, linear=linear_step) -> IterOut:
     """:func:`step` on planes, with the per-iteration kernels' outputs:
-    the plain version that their wrappers run on the CPU."""
+    the plain version that their wrappers run on the CPU; ``linear`` as in
+    :func:`step` (:func:`linear_step_high` for K5's HIGH form)."""
     s, notok = step(op, from_planes(ps), torch.complex(y_re, y_im),
-                    float(np.float32(sigma2)), denoiser)
+                    float(np.float32(sigma2)), denoiser, linear)
     p = to_planes(s)
     return IterOut(p.xmap_re, p.xmap_im, p.xm_re, p.xm_im, p.var, p.z_re,
                    p.z_im, p.u, torch.where(ps.active, notok, 0))
@@ -470,16 +474,11 @@ def route_of(cfg: Config, banded: bool, op=None) -> str:
 
 def check_high(cfg: Config, way: str) -> None:
     """Raise for ``precision='high'`` where route ``way`` has no HIGH form:
-    K5 (its HIGH form is not ported yet), the plain loop, and K1 on a
-    geometry whose HIGH form holds no trial in one block.  K6 runs at
-    HIGHEST, as in JAX."""
+    the plain loop, and K1 on a geometry whose HIGH form holds no trial in
+    one block.  K1 and K5 (the frame-tiled route of the massive geometry)
+    run their HIGH forms; K6 runs at HIGHEST, as in JAX."""
     from ..ops.kernels import fused_bamp
 
-    if way == "tiled":
-        raise ValueError(
-            "precision='high' has no form on the frame-tiled route: the HIGH "
-            "form of kernel K5 (the massive-MIMO iteration) is not ported "
-            "yet; use 'highest'")
     if way == "plain":
         raise ValueError(
             "precision='high' has no form on the plain BAMP loop (a dense "
@@ -509,9 +508,9 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
             previous :class:`BAMPState`, stop at ``iter_cap`` iterations
             (global count), and/or return the final state.  Splitting a
             decode at any cap and continuing yields the same trajectory.
-        precision: 'highest' (default) or 'high' (module docstring): K1 in
-            its HIGH form, K6 at HIGHEST; raises on the K5 route and the
-            plain loop.
+        precision: 'highest' (default) or 'high' (module docstring): K1
+            and K5 in their HIGH forms, K6 at HIGHEST; raises on the plain
+            loop.
 
     The route is :func:`route`'s.  A banded operator with a complex
     segmented, sparc or random-mode config whose trial fits one block's
@@ -546,8 +545,10 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
         s = plane_loop(fused_bamp_iteration.iteration_fused, op, state0, y,
                        sigma2, cap, cfg)
     elif way == "tiled":
-        s = plane_loop(fused_bamp_tiled.iteration, op, state0, y, sigma2,
-                       cap, cfg)
+        iteration = fused_bamp_tiled.iteration
+        if precision == prec.HIGH:
+            iteration = partial(iteration, precision=precision)
+        s = plane_loop(iteration, op, state0, y, sigma2, cap, cfg)
     else:
         s = plain_loop(op, state0, y, sigma2, cap, cfg)
     result = DecodeResult(xmap=s.xmap, xmmse=s.xmmse, var=s.var, T=s.T)

@@ -35,11 +35,11 @@ projection and the VAMP and vamp2 decodes in three-pass bf16 products, on
 the card through the HIGH form of kernels K3 and K4; the BAMP decode
 through K1's HIGH form; SCAMP through K2, which keeps HIGHEST inside, as
 JAX's has no precision) or ``'auto'`` (HIGH for a point exactly when the
-previous point's mean T pinned at the iteration cap).  BAMP raises on
-``'high'`` and ``'auto'`` where its route is K5 (the massive geometry:
-K5's HIGH form is not ported yet) or the plain loop (a dense operator,
-the real-channel mode, a geometry no kernel fits), SCAMP where it is the
-plain loop.  ``chans_per_batch=C`` rounds the
+previous point's mean T pinned at the iteration cap).  The BAMP decode
+at HIGH runs K1's HIGH form, or K5's on the massive geometry.  BAMP
+raises on ``'high'`` and ``'auto'`` where its route is the plain loop (a
+dense operator, the real-channel mode, a geometry no kernel fits), SCAMP
+where it is the plain loop.  ``chans_per_batch=C`` rounds the
 realizations of a single-phase point up to a multiple of C, as the JAX
 package does; every realization then runs through the one sequential
 path (the JAX package decodes C of them per launch, which on the card
@@ -74,9 +74,9 @@ def check_precision(algo: str, cfg: Config, precision: str,
     """The canonical form of a sweep's ``precision`` (``'highest'``,
     ``'high'`` or ``'auto'``); raises where ``algo`` has no HIGH form on
     ``cfg`` in ``operator_form`` (resolved, 'banded' or 'dense'): BAMP on
-    the K5 route or the plain loop (``bamp.check_high``), SCAMP on the plain
-    loop, and VAMP or vamp2 on a config their kernels do not cover (random
-    mode, real channel).  ``'default'`` raises everywhere
+    the plain loop (``bamp.check_high``; K1 and K5 have HIGH forms), SCAMP
+    on the plain loop, and VAMP or vamp2 on a config their kernels do not
+    cover (random mode, real channel).  ``'default'`` raises everywhere
     (``ops/precision.py``)."""
     precision = prec.canonical(precision, allow_auto=True)
     if precision == prec.HIGHEST:

@@ -105,6 +105,49 @@
 // (B, Lout, Nr); the taps as (W, Nt) planes (h[l, m, k] at row l Nr + m)
 // of Re h, Im h and |h|^2, and the same transposed, (Nt, Wp) with zero
 // pad columns; gains (Lh, Lin); scratch (B Lin, Wp).
+//
+// The HIGH form (precision='high', the TPU kernel with make_dot(HIGH) =
+// dot3, fused_bamp_tiled.py:72) computes another function, that of one
+// bamp.step with bamp.linear_step_high on bamp.gauss_taps: the per-tap gains
+// folded into the seven Gauss tap planes of a real x (forward S_a2, Re S,
+// Im S - Re S; adjoint S_a2^T, Re S^T, -Im S^T - Re S^T, Re S^T - Im S^T),
+// the forward P_v = dot3(var, S_a2), P_re = k1 = dot3(x, Re S), P_im = k1 +
+// dot3(x, Im S - Re S), the fold without gains and with the TPU kernel's
+// Onsager arithmetic (w = v / u, z' = hx - w (y - z), the adjoint inputs
+// 1/u', (y - z') / u' and their sum, the Gauss operand of k1), and the
+// adjoint cov = 1 / dot3(Z_c, S_a2^T), k1 = dot3(Z_re + Z_im, Re S^T), k2 =
+// dot3(Z_re, -Im S^T - Re S^T), k3 = dot3(Z_im, Re S^T - Im S^T), xmap = x +
+// cov (k1 - k3) + i cov (k1 + k2).  Each of the 7 real products is three
+// bf16 passes on the tensor cores (mma.sync m16n8k16), grouped as
+// precision.dot3 groups them: hi hi in one FP32 sum, hi lo + lo hi in
+// another, joined once.  The hi hi sum is kept by FP32 adds of each k16
+// step's mma, started from zero, because the tensor cores truncate as they
+// add into an accumulator (the variance product, a sum of 84 steps of
+// positive terms, drifted by about 4e-6 where the accumulator carried it;
+// tests/torch_k5_high_variants.py); the corrections, 2^-8 of it,
+// accumulate in the tensor cores.  The product kernels (high_product_kernel)
+// run a stage's products one after another in one launch: a block owns a
+// BM x BN output tile of every product of its stage and streams the
+// contraction of each in turn through one cp.async ring, so the ring stays
+// full across products; each product's epilogue writes its outputs (the
+// adjoint only for active trials), and a later product's epilogue reads
+// back the earlier ones it joins (P_re; cov and k1, kept in xmap_re) from
+// the block's own writes.  The trial side comes as the FP32 planes (the
+// state and the fold's outputs) and is split into bf16 hi and lo as each
+// warp loads its mma fragments; the taps come split and laid out by the
+// wrapper (fused_bamp_tiled.py::high_taps), rows along the output columns
+// and the contraction contiguous, padded with zeros to a multiple of 8, so
+// each ring slot takes them as 16-byte copies and ldmatrix reads them.
+// Pads: the copies zero-fill every A column past the contraction length and
+// every tap row past the output columns, and the tap planes hold zeros in
+// their pad columns, so a pad term is 0 x 0.  Bound on this card: the tensor
+// cores, 7 products x 3 passes x 2 B Lin Nt Lh Nr flop per iteration (about
+// 1.6 TFLOP at B = 2048, 1.6 ms at 989 TFLOP/s).  The HIGHEST instance (the
+// product_kernel above and the fold's kHigh false instance) is unchanged.
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "decode_common.cuh"
 
@@ -170,8 +213,14 @@ struct Params {
   const float* gains2;
   const float* sym_re;      // (K,)
   const float* sym_im;
+  // HIGH form only: the seven Gauss tap planes split into bf16 hi and lo,
+  // per plane hi then lo; forward (W, kf) each (S_a2, Re S, Im S - Re S
+  // transposed), then adjoint (Nt, ka) each (S_a2^T, Re S^T, -Im S^T -
+  // Re S^T, Re S^T - Im S^T transposed); kf = Nt and ka = W rounded up to 8
+  const __nv_bfloat16* taps_high;
   int B, Nt, Nr, Lin, Lout, Lh, M, K, W, Wp;
   int vec;                  // Nt % 4 == 0: 16-byte tap rows and x-side rows
+  int kf, ka;
   float sigma2;
 };
 
@@ -476,10 +525,268 @@ __global__ void __launch_bounds__(F::kNT, F::MIN) product_kernel(Params p) {
   }
 }
 
+// ---- 1. and 3. at HIGH: the bf16 x 3 products ------------------------------
+
+// Contraction steps per ring slot (two k16 steps) and ring slots.
+constexpr int kHK = 32;
+constexpr int kHStages = 3;
+
+// One HIGH product form: WM x WN warps, each MT m16 tiles of rows by NT n8
+// tiles of columns, MIN blocks per SM.  A ring slot holds the A tile as
+// FP32, BM rows x kHK steps with row stride kLA = kHK + 8 floats (a row is 8
+// mod 32 words, so the 64-bit fragment reads of a half-warp, rows g = 0..3
+// by words 2t, fall on 32 distinct banks), then the tap tile, hi then lo,
+// BN rows x kHK steps of bf16 with row stride kLB = kHK + 8 (80 bytes: the
+// 8 rows of an ldmatrix phase on 8 distinct 16-byte bank groups).
+template <int WM_, int WN_, int MT_, int NT_, int MIN_>
+struct HighForm {
+  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_, MIN = MIN_;
+  static constexpr int BM = 16 * WM * MT, BN = 8 * WN * NT;
+  static constexpr int kNT = 32 * WM * WN;
+  static constexpr int kLA = kHK + 8, kLB = kHK + 8;
+  static constexpr int kSlotA = BM * kLA * 4;      // bytes
+  static constexpr int kSlot = kSlotA + 2 * BN * kLB * 2;
+  static constexpr int kSmem = kHStages * kSlot;
+  static_assert(kSlotA % 16 == 0 && kSlot % 16 == 0, "tile shape");
+};
+// Large: 128 rows (four trials at Lin = 32) x 64 columns, 8 warps of 32 x 32,
+// two blocks per SM at 128 registers.  Small, where the large form would
+// launch fewer than two blocks per SM (tile_forms): 32 x 32, 2 warps.
+using HighLarge = HighForm<4, 2, 2, 4, 2>;
+using HighSmall = HighForm<1, 2, 2, 2, 1>;
+
+__device__ __forceinline__ void cp_async16_bf16(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+// s[r][c] = g[r ld + c] for the ROWS x kHK block of a bf16 matrix whose row
+// stride ld is a multiple of 8 (its pad columns zero), zero where r >=
+// rlimit or c >= climit (climit a multiple of 8); s has row stride kHK + 8.
+// A quarter-warp copies one row (64 bytes).
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_tap_rows(__nv_bfloat16* s,
+                                              const __nv_bfloat16* g, int ld,
+                                              int rlimit, int climit) {
+  constexpr int C8 = kHK / 8, UNITS = ROWS * C8;
+#pragma unroll
+  for (int i = 0; i < (UNITS + NT - 1) / NT; ++i) {
+    const int u = threadIdx.x + i * NT;
+    if (UNITS % NT != 0 && u >= UNITS) break;
+    const int r = u / C8, c = (u % C8) * 8;
+    const bool ok = r < rlimit && c < climit;
+    cp_async16_bf16(s + r * (kHK + 8) + c, ok ? g + (r * ld + c) : g,
+                    ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// d += a b for one m16n8k16 tile: a the 16 x 16 row-major fragment, (b0,
+// b1) the 16 x 8 column fragment, d FP32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The bf16 hi and lo pairs of two FP32 values (x ~ hi + lo, both rounded to
+// nearest even, as precision.split_bf16), the lower k in the low half.
+__device__ __forceinline__ void split_pair(float2 v, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// The products of one stage at HIGH.  Forward (kFwd), rows R < B Lin,
+// columns n < Wp, contraction k < Nt, three products in turn: 0. P_v =
+// dot3(var, S_a2); 1. P_re = dot3(x, Re S); 2. P_im = P_re + dot3(x, Im S -
+// Re S).  Adjoint, columns k < Nt, contraction w < W, four products in turn
+// on the fold's planes: 0. cov = 1 / dot3(Z_c, S_a2^T); 1. k1 = dot3(Z_re +
+// Z_im, Re S^T) (the fold's sum, in P_v), parked in xmap_re; 2. xmap_im =
+// cov (k1 + dot3(Z_re, -Im S^T - Re S^T)); 3. xmap_re = x + cov (k1 -
+// dot3(Z_im, Re S^T - Im S^T)); written for rows of active trials only.
+// Block i of the 1-D grid takes row tile i / col_tiles and column tile
+// i % col_tiles; warp (wm, wn) the rows 16 MT wm .. and columns 8 NT wn ..
+// of the tile; lane (g, t) of an m16n8 output tile rows g, g + 8 and
+// columns 2t, 2t + 1.
+template <bool kFwd, class F>
+__global__ void __launch_bounds__(F::kNT, F::MIN)
+    high_product_kernel(Params p) {
+  constexpr int BM = F::BM, BN = F::BN, MT = F::MT, NT = F::NT,
+                LA = F::kLA, LB = F::kLB, S = kHStages;
+  constexpr int kPasses = kFwd ? 3 : 4;
+  extern __shared__ __align__(16) unsigned char smem_high[];
+  const int rows = p.B * p.Lin;
+  const int cols = kFwd ? p.Wp : p.Nt;
+  const int depth = kFwd ? p.Nt : p.W;
+  const int col_tiles = (cols + BN - 1) / BN;
+  const int R0 = static_cast<int>(blockIdx.x / col_tiles) * BM;
+  const int n0 = static_cast<int>(blockIdx.x % col_tiles) * BN;
+  if (!tile_live<BM>(p, R0, rows)) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / F::WN, wn = warp % F::WN;
+  const int g = lane >> 2, t = lane & 3;
+  const int lda = kFwd ? p.Nt : p.Wp;
+  const size_t a0 = static_cast<size_t>(R0) * lda;
+  // product q's A plane
+  auto a_plane = [&](int q) -> const float* {
+    if (kFwd) return (q == 0 ? p.var : p.xm) + a0;
+    return (q == 0 ? p.Z_c : q == 1 ? p.P_v : q == 2 ? p.Z_re : p.Z_im) + a0;
+  };
+  // product q's taps: hi at taps + q plane, lo one half-plane further
+  const int ldb = kFwd ? p.kf : p.ka;
+  const int brows = kFwd ? p.W : p.Nt;
+  const size_t bplane = static_cast<size_t>(brows) * ldb;
+  const __nv_bfloat16* taps =
+      p.taps_high + (kFwd ? 0 : 6 * static_cast<size_t>(p.W) * p.kf) +
+      static_cast<size_t>(n0) * ldb;
+  const bool vec_a = kFwd ? p.vec != 0 : true;
+  const int nk = (depth + kHK - 1) / kHK;
+  const int total = kPasses * nk;
+
+  auto load = [&](int slot, int step) {
+    unsigned char* s = smem_high + slot * F::kSlot;
+    const int q = step / nk, k0 = (step - q * nk) * kHK;
+    load_rows<BM, kHK, LA, F::kNT, false>(reinterpret_cast<float*>(s),
+                                          a_plane(q) + k0, lda, rows - R0,
+                                          depth - k0, vec_a);
+    __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(s + F::kSlotA);
+    const __nv_bfloat16* b = taps + 2 * q * bplane + k0;
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+      load_tap_rows<BN, F::kNT>(sb + part * BN * LB, b + part * bplane, ldb,
+                                brows - n0, ldb - k0);
+  };
+
+  float hh[MT][NT][4], cx[MT][NT][4];
+  auto clear = [&]() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hh[i][j][e] = cx[i][j][e] = 0.f;
+  };
+  clear();
+
+  // the block's outputs of product q, in FP32 (hh + cx), joined with the
+  // earlier products' and written
+  auto epilogue = [&](int q) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int R = R0 + 16 * (MT * wm + i) + g + 8 * h;
+        if (R >= rows) continue;
+        if (!kFwd && !p.act[R / p.Lin]) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int n = n0 + 8 * (NT * wn + j) + 2 * t + c;
+            if (n >= cols) continue;
+            const float v = hh[i][j][2 * h + c] + cx[i][j][2 * h + c];
+            if constexpr (kFwd) {
+              const size_t o = static_cast<size_t>(R) * p.Wp + n;
+              if (q == 0) p.P_v[o] = v;
+              else if (q == 1) p.P_re[o] = v;
+              else p.P_im[o] = p.P_re[o] + v;
+            } else {
+              const size_t o = static_cast<size_t>(R) * p.Nt + n;
+              if (q == 0) p.cov[o] = 1.f / v;
+              else if (q == 1) p.xmap_re[o] = v;
+              else if (q == 2) p.xmap_im[o] = p.cov[o] * (p.xmap_re[o] + v);
+              else p.xmap_re[o] = p.xm[o] + p.cov[o] * (p.xmap_re[o] - v);
+            }
+          }
+      }
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < total) load(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < total; ++it) {
+    // slot it has landed, and every thread is done with slot it - 1
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    const int next = it + S - 1;
+    if (next < total) load(next % S, next);
+    cp_async_commit();
+    const unsigned char* s = smem_high + (it % S) * F::kSlot;
+    const float* sa = reinterpret_cast<const float*>(s) +
+                      (16 * MT * wm + g) * LA + 2 * t;
+    // ldmatrix rows: lane l gives row l % 8 of matrix l / 8: hi k 0-7, hi
+    // k 8-15, lo k 0-7, lo k 8-15 of the tile's rows 8 (NT wn + j) ..
+    const __nv_bfloat16* sb =
+        reinterpret_cast<const __nv_bfloat16*>(s + F::kSlotA) +
+        ((lane >> 4) * BN + 8 * NT * wn + (lane & 7)) * LB +
+        ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int ks = 0; ks < kHK; ks += 16) {
+      unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* a = sa + 16 * i * LA + ks;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // a0: row g, k 2t; a1: row g + 8; a2: k 2t + 8; a3: both
+          const float2 v = *reinterpret_cast<const float2*>(
+              a + (r & 1) * 8 * LA + (r >> 1) * 8);
+          split_pair(v, ah[i][r], al[i][r]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        unsigned b[4];
+        ldmatrix_x4(b, sb + 8 * j * LB + ks);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          // the hi hi products of this k16 step from zero, then an FP32
+          // add (see the header: the accumulator truncates)
+          float th[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(th, ah[i], b[0], b[1]);
+          mma_bf16(cx[i][j], ah[i], b[2], b[3]);
+          mma_bf16(cx[i][j], al[i], b[0], b[1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hh[i][j][e] = hh[i][j][e] + th[e];
+        }
+      }
+    }
+    if ((it + 1) % nk == 0) {
+      epilogue(it / nk);
+      clear();
+    }
+  }
+}
+
 // ---- 2. band fold, Onsager, freeze of z and u, adjoint inputs -------------
 // One thread per y-side element (b, r, m).  Tap l of output row r reads
 // column block c = r - l (tail truncation: 0 <= c < Lin); the adjoint input
 // of (b, c, l Nr + m) comes from row r = c + l, so each is written once.
+// kHigh: the HIGH form's fold (the gains are in the taps; the Onsager
+// arithmetic of bamp.linear_step_high), which also writes Z_re + Z_im, the
+// operand of the adjoint's k1, over P_v.
+template <bool kHigh>
 __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   const int n = p.Lout * p.Nr, Wp = p.Wp;
   const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -499,6 +806,37 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
       if (c < 0 || c >= p.Lin) continue;
       const size_t q = (zrow + c) * Wp + l * p.Nr + m;
       p.Z_c[q] = p.Z_re[q] = p.Z_im[q] = 0.f;
+      if (kHigh) p.P_v[q] = 0.f;
+    }
+    return;
+  }
+  if constexpr (kHigh) {
+    float v = 0.f, hr = 0.f, hi = 0.f;
+    for (int l = 0; l < p.Lh; ++l) {
+      const int c = r - l;
+      if (c < 0 || c >= p.Lin) continue;
+      const size_t q = (zrow + c) * Wp + l * p.Nr + m;
+      v = v + p.P_v[q];
+      hr = hr + p.P_re[q];
+      hi = hi + p.P_im[q];
+    }
+    const float uo = p.u[e], yr = p.y_re[e], yi = p.y_im[e];
+    const float w = v / uo;
+    const float zr = hr - w * (yr - p.z_re[e]);
+    const float zi = hi - w * (yi - p.z_im[e]);
+    const float uu = v + p.sigma2;
+    p.zn_re[e] = zr;
+    p.zn_im[e] = zi;
+    p.un[e] = uu;
+    const float ui = 1.f / uu, rr = (yr - zr) * ui, ri = (yi - zi) * ui;
+    for (int l = 0; l < p.Lh; ++l) {
+      const int c = r - l;
+      if (c < 0 || c >= p.Lin) continue;
+      const size_t q = (zrow + c) * Wp + l * p.Nr + m;
+      p.Z_c[q] = ui;
+      p.Z_re[q] = rr;
+      p.Z_im[q] = ri;
+      p.P_v[q] = rr + ri;
     }
     return;
   }
@@ -637,12 +975,13 @@ __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
   if ((tid & 31) == 0 && bad) atomicAdd(p.notok + b, bad);
 }
 
-template <bool kFwd, class F>
-cudaError_t launch_form(const Params& p, cudaStream_t s) {
-  using E = Engine<kFwd, F>;
-  auto kernel = product_kernel<kFwd, F>;
+// Launch a product kernel of block tile BM x BN, NT threads and smem bytes
+// of dynamic shared memory on the 1-D grid of its tiles.
+template <bool kFwd, int BM, int BN, int NT, int smem>
+cudaError_t launch_tiles(void (*kernel)(Params), const Params& p,
+                         cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, E::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -650,10 +989,21 @@ cudaError_t launch_form(const Params& p, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(p.B) * p.Lin;
   const int cols = kFwd ? p.Wp : p.Nt;
-  const long long tiles =
-      (rows + F::BM - 1) / F::BM * ((cols + F::BN - 1) / F::BN);
-  kernel<<<static_cast<unsigned>(tiles), F::kNT, E::kSmem, s>>>(p);
+  const long long tiles = (rows + BM - 1) / BM * ((cols + BN - 1) / BN);
+  kernel<<<static_cast<unsigned>(tiles), NT, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kFwd, class F>
+cudaError_t launch_form(const Params& p, cudaStream_t s) {
+  return launch_tiles<kFwd, F::BM, F::BN, F::kNT, Engine<kFwd, F>::kSmem>(
+      product_kernel<kFwd, F>, p, s);
+}
+
+template <bool kFwd, class F>
+cudaError_t launch_high(const Params& p, cudaStream_t s) {
+  return launch_tiles<kFwd, F::BM, F::BN, F::kNT, F::kSmem>(
+      high_product_kernel<kFwd, F>, p, s);
 }
 
 }  // namespace
@@ -665,10 +1015,12 @@ extern "C" {
 // iteration), in order, each product in its large form or, where its bit
 // of `forms` is set (1 forward, 2 adjoint), its small form.  Wp is the row
 // stride of the six scratch planes (B Lin, Wp): at least Lh Nr and a
-// multiple of 4.  Returns a cudaError_t code (0 on success):
-// cudaErrorInvalidValue for a geometry the kernel does not take, else the
-// first error that a launch reports.  The kernel allocates nothing; every
-// buffer, the scratch included, is the caller's.
+// multiple of 4.  With `high` the HIGH form runs (products and fold) on
+// the split Gauss taps `taps_high` (Params::taps_high; 16-byte aligned),
+// and h_re .. gains2 are not read.  Returns a cudaError_t code (0 on
+// success): cudaErrorInvalidValue for a geometry the kernel does not take,
+// else the first error that a launch reports.  The kernel allocates
+// nothing; every buffer, the scratch included, is the caller's.
 int fused_bamp_tiled_iteration(
     const void* xm, const void* var, const void* z_re, const void* z_im,
     const void* u, const void* y_re, const void* y_im, const void* act,
@@ -679,11 +1031,14 @@ int fused_bamp_tiled_iteration(
     const void* hT_im, const void* hT_a2, const void* gains,
     const void* gains2, const void* sym_re, const void* sym_im, int B,
     int Nt, int Nr, int Lin, int Lh, int M, int K, int Wp, int forms,
-    int stages, float sigma2, void* stream) {
+    int stages, float sigma2, int high, const void* taps_high,
+    void* stream) {
   if (B < 1 || Nt < 1 || Nr < 1 || Lin < 1 || Lh < 1 || M < 1 ||
       Nt % M != 0 || K < 1 || K > kMaxK || Wp < Lh * Nr || Wp % 4 != 0 ||
       static_cast<long long>(B) * Lin >= (1ll << 31) ||
-      static_cast<long long>(B) * (Lin + Lh - 1) * Nr >= (1ll << 31))
+      static_cast<long long>(B) * (Lin + Lh - 1) * Nr >= (1ll << 31) ||
+      (high && (taps_high == nullptr ||
+                reinterpret_cast<uintptr_t>(taps_high) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.xm = static_cast<const float*>(xm);
@@ -730,24 +1085,39 @@ int fused_bamp_tiled_iteration(
   p.W = Lh * Nr;
   p.Wp = Wp;
   p.vec = Nt % 4 == 0;
+  p.taps_high = static_cast<const __nv_bfloat16*>(taps_high);
+  p.kf = (Nt + 7) / 8 * 8;
+  p.ka = (p.W + 7) / 8 * 8;
   p.sigma2 = sigma2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (stages & kStageForward) {
-    err = forms & kSmallForward ? launch_form<true, SmallForm>(p, s)
-                                : launch_form<true, LargeForm>(p, s);
+    if (high)
+      err = forms & kSmallForward ? launch_high<true, HighSmall>(p, s)
+                                  : launch_high<true, HighLarge>(p, s);
+    else
+      err = forms & kSmallForward ? launch_form<true, SmallForm>(p, s)
+                                  : launch_form<true, LargeForm>(p, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (stages & kStageFold) {
     const long long ny = static_cast<long long>(B) * p.Lout * Nr;
-    fold_kernel<<<static_cast<unsigned>((ny + kThreads - 1) / kThreads),
-                  kThreads, 0, s>>>(p);
+    const unsigned blocks =
+        static_cast<unsigned>((ny + kThreads - 1) / kThreads);
+    if (high)
+      fold_kernel<true><<<blocks, kThreads, 0, s>>>(p);
+    else
+      fold_kernel<false><<<blocks, kThreads, 0, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (stages & kStageAdjoint) {
-    err = forms & kSmallAdjoint ? launch_form<false, SmallForm>(p, s)
-                                : launch_form<false, LargeForm>(p, s);
+    if (high)
+      err = forms & kSmallAdjoint ? launch_high<false, HighSmall>(p, s)
+                                  : launch_high<false, HighLarge>(p, s);
+    else
+      err = forms & kSmallAdjoint ? launch_form<false, SmallForm>(p, s)
+                                  : launch_form<false, LargeForm>(p, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (stages & kStageDenoise) {
@@ -760,8 +1130,10 @@ int fused_bamp_tiled_iteration(
 }
 
 // Shared memory of one block of a product (forward when `forward`, else
-// the adjoint) in its small or large form, in bytes.
-int fused_bamp_tiled_smem(int forward, int small) {
+// the adjoint) in its small or large form, of the HIGH form when `high`,
+// in bytes.
+int fused_bamp_tiled_smem(int forward, int small, int high) {
+  if (high) return small ? HighSmall::kSmem : HighLarge::kSmem;
   if (forward)
     return small ? Engine<true, SmallForm>::kSmem
                  : Engine<true, LargeForm>::kSmem;

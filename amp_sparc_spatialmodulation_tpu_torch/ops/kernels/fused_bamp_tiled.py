@@ -22,10 +22,20 @@ forward product, for as long as the operator lives.
 * :func:`iteration_plain` is the same function in plain PyTorch: one
   ``bamp.step`` of the plain loop on the planes.  :func:`decode_plain` is
   the plane loop over it, which equals ``bamp.plain_loop``.
-* ``launches`` counts wrapper calls that launched the kernel (one per
-  iteration, each of four kernel launches).
+* ``launches`` counts wrapper calls that launched the HIGHEST form (one
+  per iteration, each of four kernel launches), ``launches_high`` those
+  that launched the HIGH form.
 * :func:`stage_ms` times the four launches of one call apart (the entry
   point's stage mask), for chip_smoke.py and the probe scripts.
+
+Each takes ``precision``: ``'highest'`` (the default; FP32 products on the
+CUDA cores, bit for bit one step of the plain loop) or ``'high'``, the JAX
+kernel's ``make_dot(Precision.HIGH)`` (`fused_bamp_tiled.py:72` there):
+the gains folded into the seven Gauss tap planes of a real x, each real
+product in three bf16 passes, on the tensor cores in the kernel (its HIGH
+form, on the split tap planes of :func:`high_taps`, cached per operator)
+and as one ``bamp.step`` with ``bamp.linear_step_high`` in the plain
+version.
 
 Coverage (:func:`covers`): complex segmented/sparc configs with a real
 alphabet (the posterior mean stays real, so the x-side imaginary state is
@@ -46,16 +56,21 @@ import torch
 from ...config import Config
 from ...models import bamp
 from ...ops import operators
+from .. import precision as prec
 from . import build
 from .fused_bamp import _check, real_x, symbol_planes
 
-# Wrapper calls that launched the kernel (one per iteration).
+# Wrapper calls that launched the kernel (one per iteration): the HIGHEST
+# form, the HIGH form.
 launches = 0
+launches_high = 0
 
 # The kernel's two product forms (fused_bamp_tiled.cu), each taken by both
 # products: block rows, block columns, contraction steps per ring slot and
-# ring slots; and the SM count of the H100, which the form rule fills.
+# ring slots; those of the HIGH form (HighLarge, HighSmall); and the SM
+# count of the H100, which the form rule fills.
 FORMS = {"large": (64, 64, 16, 3), "small": (32, 16, 16, 3)}
+FORMS_HIGH = {"large": (128, 64, 32, 3), "small": (32, 32, 32, 3)}
 SMS = 132
 # Stage mask bits of the entry point, and the mask of a whole iteration.
 STAGES = {"forward": 1, "fold": 2, "adjoint": 4, "denoise": 8}
@@ -82,15 +97,25 @@ def gains_per_tap(op) -> bool:
 
 
 def iteration_plain(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
-                    cfg: Config) -> bamp.IterOut:
-    """The kernel's function in plain PyTorch (any device)."""
+                    cfg: Config, precision: str = "highest") -> bamp.IterOut:
+    """The kernel's function in plain PyTorch (any device): one
+    ``bamp.step``, at ``'high'`` with ``bamp.linear_step_high`` on
+    ``bamp.gauss_taps`` for a real x."""
+    linear = bamp.linear_step
+    if prec.canonical(precision) == prec.HIGH:
+        linear = partial(bamp.linear_step_high, taps=bamp.gauss_taps(op),
+                         real_x=True)
     return bamp.step_planes(op, ps, y_re, y_im, sigma2,
-                            bamp.make_denoiser(cfg, y_re.device))
+                            bamp.make_denoiser(cfg, y_re.device), linear)
 
 
-# The plane-loop decode on the plain version (equal to bamp.plain_loop),
-# with the signature of the other kernels' decode_plain.
-decode_plain = partial(bamp.plane_loop, iteration_plain)
+def decode_plain(op, s0: bamp.BAMPState, y, sigma2: float, cap: int,
+                 cfg: Config, precision: str = "highest") -> bamp.BAMPState:
+    """The plane-loop decode on the plain version (at ``'highest'`` equal
+    to ``bamp.plain_loop``), with the signature of the other kernels'
+    decode_plain."""
+    return bamp.plane_loop(partial(iteration_plain, precision=precision),
+                           op, s0, y, sigma2, cap, cfg)
 
 
 def scratch_stride(cfg: Config) -> int:
@@ -100,12 +125,15 @@ def scratch_stride(cfg: Config) -> int:
     return -(-cfg.Lh * cfg.Nr // 4) * 4
 
 
-def tile_forms(B: int, Lin: int, W: int, Nt: int) -> int:
+def tile_forms(B: int, Lin: int, W: int, Nt: int,
+               precision: str = "highest") -> int:
     """The entry point's ``forms`` for ``B`` trials: bit 1 (forward, W
     output columns) and bit 2 (adjoint, Nt columns) are set where that
-    product's large form would launch fewer than two blocks per SM of the
-    H100; it then runs in the small form."""
-    BM, BN = FORMS["large"][:2]
+    product's large form (of the HIGH form at ``'high'``) would launch
+    fewer than two blocks per SM of the H100; it then runs in the small
+    form."""
+    table = FORMS_HIGH if prec.canonical(precision) == prec.HIGH else FORMS
+    BM, BN = table["large"][:2]
     forms = 0
     for bit, cols in ((1, W), (2, Nt)):
         if -(-B * Lin // BM) * -(-cols // BN) < 2 * SMS:
@@ -113,12 +141,18 @@ def tile_forms(B: int, Lin: int, W: int, Nt: int) -> int:
     return forms
 
 
-def smem_bytes(forward: bool, small: bool) -> int:
+def smem_bytes(forward: bool, small: bool, precision: str = "highest") -> int:
     """Dynamic shared memory of one product block: the ring's slots, each
     holding its contraction steps of the A planes (x, var; or the three
     adjoint inputs) as they lie, rows padded by 4 floats, and of the three
-    tap planes (transposed for the forward)."""
-    BM, BN, D, S = FORMS["small" if small else "large"]
+    tap planes (transposed for the forward).  At ``'high'`` a slot holds
+    one product's A plane, rows padded by 8 floats, and its tap plane's hi
+    and lo parts, bf16 rows padded by 8, for either product."""
+    form = "small" if small else "large"
+    if prec.canonical(precision) == prec.HIGH:
+        BM, BN, D, S = FORMS_HIGH[form]
+        return S * (4 * BM * (D + 8) + 2 * 2 * BN * (D + 8))
+    BM, BN, D, S = FORMS[form]
     return 4 * S * ((2 if forward else 3) * BM * (D + 4) + 3 * D * BN)
 
 
@@ -127,9 +161,9 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_tiled_iteration.argtypes = (
-            [ptr] * 33 + [i32] * 10 + [f32, ptr])
+            [ptr] * 33 + [i32] * 10 + [f32, i32, ptr, ptr])
         lib.fused_bamp_tiled_iteration.restype = i32
-        lib.fused_bamp_tiled_smem.argtypes = [i32, i32]
+        lib.fused_bamp_tiled_smem.argtypes = [i32, i32, i32]
         lib.fused_bamp_tiled_smem.restype = i32
         lib.fused_bamp_tiled_error_string.argtypes = [i32]
         lib.fused_bamp_tiled_error_string.restype = ctypes.c_char_p
@@ -146,11 +180,44 @@ def tap_planes(op):
             op.abs_h2.reshape(W, op.Nt).contiguous())
 
 
-# Each live operator's tap planes and squared gains, and the symbol planes
-# per (alphabet, device): built once, not on every call.  An operator's
-# entry goes with the operator.
+# Each live operator's tap planes and squared gains, its HIGH form's split
+# taps, and the symbol planes per (alphabet, device): built once, not on
+# every call.  An operator's entry goes with the operator.
 _operator_cache = weakref.WeakKeyDictionary()
+_high_cache = weakref.WeakKeyDictionary()
 _symbol_cache = {}
+
+
+def pad8(k: int) -> int:
+    """A row length rounded up to 8 bf16 (16 bytes)."""
+    return -(-int(k) // 8) * 8
+
+
+def high_taps(op) -> torch.Tensor:
+    """The HIGH form's taps of banded operator ``op`` (gains constant per
+    tap): the seven Gauss planes of ``bamp.gauss_taps`` that a real x needs,
+    the output columns along the rows and the contraction contiguous — the
+    forward's ``S_a2, Re S, Im S - Re S`` as (Lh*Nr, Nt), the adjoint's
+    ``S_a2^T, Re S^T, -Im S^T - Re S^T, Re S^T - Im S^T`` as (Nt, Lh*Nr)
+    — each split into bf16 hi and lo (``precision.split_bf16``), rows padded
+    with zeros to :func:`pad8`, one contiguous bf16 buffer: per plane hi
+    then lo, the forward's then the adjoint's."""
+    if op not in _high_cache:
+        t = bamp.gauss_taps(op)
+        if not t.folded:
+            raise ValueError("the HIGH form of K5 needs gains constant per "
+                             "tap")
+        parts = []
+        for plane in (t.s_a2.T, t.s_re.T, t.dmc.T, t.st_a2.T, t.st_re.T,
+                      t.amc.T, t.adm.T):
+            rows, K = plane.shape
+            for half in prec.split_bf16(plane.contiguous()):
+                buf = torch.zeros((rows, pad8(K)), dtype=torch.bfloat16,
+                                  device=plane.device)
+                buf[:, :K] = half
+                parts.append(buf.reshape(-1))
+        _high_cache[op] = torch.cat(parts)
+    return _high_cache[op]
 
 
 def transposed_tap_planes(op):
@@ -185,11 +252,14 @@ def _symbols(cfg: Config, dev):
 
 def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
             cfg: Config, out: bamp.IterOut, scratch, cov,
-            stages: int) -> None:
-    """Enqueue the stages ``stages`` of one iteration into ``out``."""
+            stages: int, precision: str = "highest") -> None:
+    """Enqueue the stages ``stages`` of one iteration into ``out``, in the
+    form of ``precision``."""
     B = ps.var.shape[0]
+    high = precision == prec.HIGH
     act = ps.active.to(torch.int32).contiguous()
     *taps, gains2 = _operator_planes(op)
+    split = high_taps(op) if high else None
     sym_re, sym_im = _symbols(cfg, y_re.device)
     W = cfg.Lh * cfg.Nr
     lib = _library()
@@ -204,9 +274,10 @@ def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
         *[t.data_ptr() for t in taps],
         op.gains.data_ptr(), gains2.data_ptr(), sym_re.data_ptr(),
         sym_im.data_ptr(), B, cfg.Nt, cfg.Nr, cfg.Lin, cfg.Lh, cfg.M, cfg.K,
-        scratch_stride(cfg), tile_forms(B, cfg.Lin, W, cfg.Nt), stages,
-        float(np.float32(sigma2)), torch.cuda.current_stream(
-            y_re.device).cuda_stream)
+        scratch_stride(cfg), tile_forms(B, cfg.Lin, W, cfg.Nt, precision),
+        stages, float(np.float32(sigma2)), int(high),
+        split.data_ptr() if high else None,
+        torch.cuda.current_stream(y_re.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_bamp_tiled_iteration launch failed: "
                            + lib.fused_bamp_tiled_error_string(rc).decode())
@@ -214,7 +285,7 @@ def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
 
 def _buffers(ps: bamp.PlaneState, cfg: Config):
     """The outputs, the six scratch planes (B*Lin, scratch_stride) and cov
-    of one call."""
+    of one call (allocated per call, from PyTorch's caching allocator)."""
     B, dev = ps.var.shape[0], ps.var.device
     out = bamp.IterOut(
         xmap_re=torch.empty_like(ps.var), xmap_im=torch.empty_like(ps.var),
@@ -249,16 +320,19 @@ def _check_call(op, ps: bamp.PlaneState, y_re, y_im, cfg: Config) -> None:
 
 
 def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
-              y_im: torch.Tensor, sigma2: float,
-              cfg: Config) -> bamp.IterOut:
-    """One iteration of the trials of ``ps``: the CUDA kernel for CUDA
-    tensors, :func:`iteration_plain` for CPU tensors.  The caller has
-    checked :func:`covers` for ``cfg`` and ``op`` (``bamp.route`` does)."""
+              y_im: torch.Tensor, sigma2: float, cfg: Config,
+              precision: str = "highest") -> bamp.IterOut:
+    """One iteration of the trials of ``ps`` at ``precision``: the CUDA
+    kernel for CUDA tensors, :func:`iteration_plain` for CPU tensors.  The
+    caller has checked :func:`covers` for ``cfg`` and ``op``
+    (``bamp.route`` does); on the card the form asked for is the form that
+    runs, or the call raises."""
+    precision = prec.canonical(precision)
     if y_re.device.type == "cpu":
-        return iteration_plain(op, ps, y_re, y_im, sigma2, cfg)
+        return iteration_plain(op, ps, y_re, y_im, sigma2, cfg, precision)
     if y_re.device.type != "cuda":
         raise ValueError(f"no kernel for device {y_re.device}")
-    global launches
+    global launches, launches_high
     _check_call(op, ps, y_re, y_im, cfg)
     if ps.var.shape[0] == 0:
         return bamp.IterOut(ps.xmap_re, ps.xmap_im, ps.xm_re, ps.xm_im,
@@ -266,30 +340,37 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
                             torch.zeros((0,), dtype=torch.int32,
                                         device=y_re.device))
     out, scratch, cov = _buffers(ps, cfg)
-    _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, ALL_STAGES)
-    launches += 1
+    _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, ALL_STAGES,
+            precision)
+    if precision == prec.HIGH:
+        launches_high += 1
+    else:
+        launches += 1
     return out
 
 
 def stage_ms(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
-             cfg: Config, reps: int = 10) -> dict:
+             cfg: Config, reps: int = 10,
+             precision: str = "highest") -> dict:
     """Milliseconds of each of the four launches of one call on the
-    trials of ``ps`` (CUDA tensors), by CUDA events around ``reps``
-    launches of that stage alone, after one whole call that fills the
-    scratch; and ``call``, the four together.  Not counted in
-    ``launches``."""
+    trials of ``ps`` (CUDA tensors) in the form of ``precision``, by CUDA
+    events around ``reps`` launches of that stage alone, after one whole
+    call that fills the scratch; and ``call``, the four together.  Not
+    counted in ``launches`` or ``launches_high``."""
+    precision = prec.canonical(precision)
     _check_call(op, ps, y_re, y_im, cfg)
     out, scratch, cov = _buffers(ps, cfg)
     times = {}
     for name, mask in [*STAGES.items(), ("call", ALL_STAGES)]:
         _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov,
-                ALL_STAGES)
+                ALL_STAGES, precision)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, mask)
+            _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, mask,
+                    precision)
         stop.record()
         torch.cuda.synchronize()
         times[name] = start.elapsed_time(stop) / reps

@@ -124,7 +124,25 @@ Phases, each printing one JSON line:
    beside precision='highest' on the same seeds, 2 realizations of 65536
    each (the HIGH instance alone, FER and BER within 3 sigma and mean T
    within 1.0 of HIGHEST's, both runs' trials/s);
-12. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+12. kernels_tiled_high — the HIGH form of K5 (precision='high', bf16 x 3
+   on the tensor cores) against its plain HIGH version through
+   ``bamp.plane_loop``, under ``compare`` with each shape's HIGH rule
+   (``K5_HIGH_RULES``, limits from tests/torch_bamp_high_rule.py --route
+   tiled) and at every shape the control after one iteration (the median
+   |d z_re| of the HIGH instance under 3e-7, that of the HIGHEST instance
+   over it): the small geometries of ``kernels_tiled`` at 1024 trials and
+   a ragged batch of 37, the massive geometry at 512 trials (cap 10, split
+   at 5 and resumed), the main path's 8 dB state at 2048 trials, the
+   converging 10 dB shape at 2048 trials, cap 100, and the phase-2 shape;
+   one iteration at 2048 trials and at the phase-2 shape timed beside the
+   HIGHEST instance, the HIGH bound at 989 TFLOP/s and the 21 bf16
+   products as torch.matmul calls; then main_massive_high,
+   ``Simulator(massive_mimo(), algo='bamp', precision='high')`` at 8 dB,
+   cap 100 (every trial at the cap) beside precision='highest' on the same
+   seeds, 2 realizations of 2048 each (K5's HIGH instance alone, FER and
+   BER within 3 sigma, mean T within 1.0, both runs' trials/s), and
+   ``precision='auto'``, HIGHEST on a first point and K5-high after it;
+13. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -1721,6 +1739,51 @@ def phase_main_bamp_high(torch, dev):
     return hi["launches_high"]
 
 
+# K5's HIGH form against its plain HIGH version (kernels_tiled_high).  As
+# for K1's HIGH form, two correct HIGH decodes part on T where trials stop by
+# the allclose test, so each shape has its own T rule, whose limits lie
+# between the readings of tests/torch_bamp_high_rule.py --route tiled on an
+# NVIDIA H100 (PERF.md, section 6): below, the kernel and the plain HIGH
+# version with exactly summed products (two correct decodes); above, the
+# plain HIGH version without its hi x lo pass and, where it separates,
+# K5's HIGHEST instance.  Per shape (cap, T agreement, |d mean T|, the
+# HIGHEST instance must fail): T agreement (kernel / exact sums against
+# HIGHEST / one pass)
+# - ook_8_3, 1024 trials: 98.3% / 98.1% against 95.2% / 89.8%;
+# - ook_12_5: 99.0% / 99.6% against 98.1% / 92.0%;
+# - bpsk_8_3: 93.4% / 94.7% against 86.7% / 78.7%;
+# - ook_ragged_37: 36, 36 of 37 against 34 and 32;
+# - the massive geometry at 10 dB, 2048 trials, cap 100: 95.7% / 96.4%
+#   against 95.1% / 46.6%, |d mean T| 0.008 / 0.013 against 0.007 / 0.15:
+#   at this width HIGH does not move T (JAX's K5 at HIGH and its XLA decode
+#   agree there too, tests/torch_parity_flagship.py), so HIGHEST passes
+#   the T rule and the control alone holds it apart;
+# - the phase-2 shape (a handful of trials, most at the cap): the parity
+#   rule, |d mean T| within 2% of the cap.
+K5_HIGH_RULES = {"ook_8_3": (30, 0.965, 0.6, True),
+                 "ook_12_5": (30, 0.975, 0.6, False),
+                 "bpsk_8_3": (30, 0.90, 0.6, True),
+                 "ook_ragged_37": (30, 0.94, 0.6, False),
+                 "massive_10db": (100, 0.90, 0.08, False)}
+# The control: one iteration from the state after K5_HIGH_PRESTEPS plain
+# HIGH iterations (from the initial state z' = 0 exactly in every form),
+# the median |d z_re| against the plain HIGH step; the forward's inputs
+# are the same in every form, so this reading is the products' own:
+# 7.5e-9 to 1.5e-7 for the kernel and the exact sums, 7.4e-7 to 1.2e-6 for
+# HIGHEST, 4.5e-4 to 8.2e-4 for one pass.
+K5_HIGH_PRESTEPS = 2
+K5_HIGH_CONTROL_STAT = "z_re_p50"
+K5_HIGH_CONTROL_TOL = 3e-7
+# main_massive_high: massive_mimo() at its own cap of 100 and Eb/N0 = 8 dB,
+# where every trial runs to the cap (the regime 'auto' picks HIGH for), and
+# the converging point of kernels_tiled_high; 2 realizations of 2048 per
+# form, single phase.
+MASSIVE_HIGH_DB = 8.0
+MASSIVE_CONVERGING_DB = 10.0
+MASSIVE_HIGH_CAP = 100
+MASSIVE_HIGH_REALIZATIONS = 2
+
+
 def massive_main_config():
     """``config.massive_mimo()`` at the iteration cap of
     scripts/bench_massive.py:37 (300)."""
@@ -1891,7 +1954,7 @@ def phase_kernels_tiled(torch, dev, ptxas):
                       *[getattr(kt, f) for f in kt._fields]])
     tail_bound_ms, tail_bound_by = bound(tail_flop, tail_bytes)
     lib = kern._library()
-    smem = {f"{name}_{form}": (lib.fused_bamp_tiled_smem(fwd, small),
+    smem = {f"{name}_{form}": (lib.fused_bamp_tiled_smem(fwd, small, 0),
                                kern.smem_bytes(bool(fwd), bool(small)))
             for name, fwd in (("forward", 1), ("adjoint", 0))
             for form, small in (("large", 0), ("small", 1))}
@@ -1981,6 +2044,400 @@ def phase2_timing(torch, kern, cfg, r, s2, y2, sk2):
     return dict(phase2_iterations=iters,
                 phase2_wall_s_per_iteration=wall / max(iters, 1),
                 phase2_kernel_s_per_iteration=kernel_s / max(iters, 1))
+
+
+def iter_gap(k, p, active) -> dict:
+    """The median and the largest |k - p| of each float plane of two
+    :class:`IterOut` results (xmap on the trials in ``active`` only)."""
+    out = {}
+    for f in ("xmap_re", "xmap_im", "xm_re", "var", "z_re", "z_im", "u"):
+        a, b = getattr(k, f), getattr(p, f)
+        if f.startswith("xmap"):
+            a, b = a[active], b[active]
+        d = (a - b).abs().flatten().double()
+        out[f"{f}_p50"] = float(d.median()) if d.numel() else 0.0
+        out[f"{f}_max"] = float(d.max()) if d.numel() else 0.0
+    return out
+
+
+def k5_high_control(kern, op, cfg, s0, y, sigma2):
+    """One iteration of K5's HIGH instance and, as the control, of its
+    HIGHEST instance, against the plain HIGH step, from the state after
+    ``K5_HIGH_PRESTEPS`` plain HIGH iterations from ``s0``.  Returns (the
+    planes' gaps of both, the state stepped from)."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
+    ps = bamp.to_planes(kern.decode_plain(op, s0, y, sigma2,
+                                          s0.t + K5_HIGH_PRESTEPS, cfg,
+                                          "high"))
+    y_re, y_im = y.real.contiguous(), y.imag.contiguous()
+    one = kern.iteration_plain(op, ps, y_re, y_im, sigma2, cfg, "high")
+    high = kern.iteration(op, ps, y_re, y_im, sigma2, cfg, "high")
+    highest = kern.iteration(op, ps, y_re, y_im, sigma2, cfg)
+    return (iter_gap(high, one, ps.active), iter_gap(highest, one, ps.active),
+            ps)
+
+
+def phase_kernels_tiled_high(torch, dev, ptxas):
+    """The HIGH form of K5 (precision='high', bf16 x 3 on the tensor cores)
+    against its plain HIGH version (``fused_bamp_tiled.decode_plain(...,
+    'high')``), both through ``bamp.plane_loop``, under :func:`compare` with
+    each shape's HIGH rule (``K5_HIGH_RULES``: T agreement, |d mean T|,
+    the state within the tolerance on the converged trials whose T agrees),
+    each shape with the control (``k5_high_control``: the median |d z_re|
+    of the HIGH instance under ``K5_HIGH_CONTROL_TOL``, that of the HIGHEST
+    instance over it).  The small geometries of ``kernels_tiled`` at 1024
+    trials and a ragged batch of 37 (cap 30); the massive geometry at 512
+    trials, 18 dB, cap 10, split at 5 and resumed (identical); the main
+    path's 8 dB state at 2048 trials (every trial at the cap; to cap 10);
+    the converging shape, 10 dB, 2048 trials, cap 100; the phase-2 shape
+    (the trials still active after 40 HIGH iterations at 18 dB, gathered,
+    to cap 300, |d mean T| within 2% of the cap).  Where a T rule holds,
+    the HIGHEST instance is held to it too and printed; where the rule
+    separates it (the fourth element of ``K5_HIGH_RULES``), it must fail.
+    One iteration at the 8 dB state and at the phase-2 shape timed by
+    CUDA events beside the HIGHEST instance, the plain HIGH
+    step, the bound (21 bf16 products at 989 TFLOP/s) and those products as
+    torch.matmul calls; the four launches timed apart; shared memory per
+    block against the wrapper's mirror; ptxas's lines."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops import precision as prec
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_tiled as kern)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    high = "high"
+    failed = []
+    t0 = time.perf_counter()
+
+    def realization(cfg, B, seed, snr):
+        r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
+                                            "sparc", "banded", B, snr, high)
+        return r, bamp.initial_state(r.y, cfg.N, r.sigma2)
+
+    def run(cfg, r, s0, cap, y=None, form="kernel"):
+        y = r.y if y is None else y
+        if form == "plain":
+            return kern.decode_plain(r.A, s0, y, r.sigma2, cap, cfg, high)
+        it = (partial(kern.iteration, precision=high) if form == "kernel"
+              else kern.iteration)
+        return bamp.plane_loop(it, r.A, s0, y, r.sigma2, cap, cfg)
+
+    def control(phase, cfg, r, s0, y=None, **info):
+        sound, wrong, ps = k5_high_control(kern, r.A, cfg, s0,
+                                           r.y if y is None else y, r.sigma2)
+        emit(phase, **info, statistic=K5_HIGH_CONTROL_STAT,
+             limit=K5_HIGH_CONTROL_TOL, presteps=K5_HIGH_PRESTEPS,
+             high=sound, highest=wrong)
+        if not (sound[K5_HIGH_CONTROL_STAT] < K5_HIGH_CONTROL_TOL
+                <= wrong[K5_HIGH_CONTROL_STAT]):
+            failed.append(f"control {info}")
+        return ps
+
+    def check(phase, cfg, r, s0, cap, tol, rule=None, y=None,
+              separates=False, free=True, **info):
+        sk = run(cfg, r, s0, cap, y)
+        sp = run(cfg, r, s0, cap, y, "plain")
+        min_agree, max_dmean = rule or (0.995, 0.02)
+        err = compare(phase, sk, sp, tol, free_unconverged=free,
+                      min_agree=min_agree, max_dmean_T=max_dmean, cap=cap,
+                      **info)
+        if rule:
+            sh = run(cfg, r, s0, cap, y, "highest")
+            frac, dmean, inside = rule_passes(sh, sp, min_agree, max_dmean)
+            emit(phase + "_highest", **info, T_agree_fraction=frac,
+                 abs_dmean_T=dmean, inside_rule=inside, must_fail=separates)
+            if separates and inside:
+                failed.append(f"{info}: the HIGHEST instance passes the rule")
+        return err, sk
+
+    max_err = 0.0
+    cases = [("ook_8_3", {}, SMALL_B), ("ook_12_5", dict(Lin=12, Lh=5),
+                                        SMALL_B),
+             ("bpsk_8_3", dict(alphabet="BPSK"), SMALL_B),
+             ("ook_ragged_37", {}, 37)]
+    for i, (name, kw, B) in enumerate(cases):
+        cfg = tiled_small_config(**kw)
+        r, s0 = realization(cfg, B, 400 + i, 10 ** 0.8)
+        cap, *rule, separates = K5_HIGH_RULES[name]
+        err, _ = check("kernel_small_tiled_high", cfg, r, s0, cap, 1e-4,
+                       rule, separates=separates, case=name)
+        max_err = max(max_err, err)
+        control("kernel_small_tiled_high_control", cfg, r, s0, case=name)
+
+    # the massive geometry at 512 trials, cap 10; split at 5 and resumed
+    mcfg = dataclasses.replace(massive_main_config(),
+                               iterations=MASSIVE_HIGH_CAP)
+    r, s0 = realization(mcfg, 512, 41, snr_of(mcfg, MASSIVE_EBN0_DB))
+    err, full = check("kernel_massive_tiled_high", mcfg, r, s0, 10, 1e-3,
+                      free=False, ebn0_db=MASSIVE_EBN0_DB)
+    max_err = max(max_err, err)
+    resumed = run(mcfg, r, run(mcfg, r, s0, 5), 10)
+    split_ok = (bool(torch.equal(full.T, resumed.T))
+                and state_err(full, resumed, slice(None)) == 0.0)
+    emit("kernel_split_resume_tiled_high", identical=split_ok)
+    if not split_ok:
+        failed.append("split-and-resume")
+    control("kernel_massive_tiled_high_control", mcfg, r, s0,
+            ebn0_db=MASSIVE_EBN0_DB)
+    del r, s0, full, resumed
+
+    # the converging shape: 10 dB, 2048 trials, cap 100
+    r, s0 = realization(mcfg, MASSIVE_RES, 44,
+                        snr_of(mcfg, MASSIVE_CONVERGING_DB))
+    cap, *rule, separates = K5_HIGH_RULES["massive_10db"]
+    err, _ = check("kernel_converging_tiled_high", mcfg, r, s0, cap, 1e-3,
+                   rule, separates=separates, ebn0_db=MASSIVE_CONVERGING_DB)
+    max_err = max(max_err, err)
+    control("kernel_converging_tiled_high_control", mcfg, r, s0,
+            ebn0_db=MASSIVE_CONVERGING_DB)
+    del r, s0
+    torch.cuda.empty_cache()
+
+    # the phase-2 shape: the trials still active after 40 HIGH iterations
+    # at 18 dB, gathered, to cap 300
+    pcfg = massive_main_config()
+    r, s0 = realization(pcfg, MASSIVE_RES, 43, snr_of(pcfg, MASSIVE_EBN0_DB))
+    s1 = run(pcfg, r, s0, MASSIVE_K1)
+    idx = torch.nonzero(s1.active).flatten()
+    if not idx.numel():
+        raise AssertionError("no trial left for phase 2 (tiled, HIGH)")
+    s2, y2 = montecarlo.state_take_trials(s1, idx), r.y[idx]
+    n2 = int(idx.numel())
+    err, _ = check("kernel_phase2_tiled_high", pcfg, r, s2, MASSIVE_CAP,
+                   1e-3, (0.0, 0.02 * MASSIVE_CAP), y=y2, phase2_B=n2)
+    max_err = max(max_err, err)
+    ps2 = control("kernel_phase2_tiled_high_control", pcfg, r, s2, y=y2,
+                  phase2_B=n2)
+    del s0, s1
+
+    # the main path's shape: the 8 dB state at 2048 trials
+    r, s0 = realization(mcfg, MASSIVE_RES, 45, snr_of(mcfg, MASSIVE_HIGH_DB))
+    err, _ = check("kernel_main_tiled_high", mcfg, r, s0, 10, 1e-3,
+                   free=False, ebn0_db=MASSIVE_HIGH_DB)
+    max_err = max(max_err, err)
+    ps = control("kernel_main_tiled_high_control", mcfg, r, s0,
+                 ebn0_db=MASSIVE_HIGH_DB)
+
+    # one iteration at B = 2048 (the 8 dB state) and at the phase-2 shape
+    A, B, W = r.A, MASSIVE_RES, mcfg.Lh * mcfg.Nr
+    y_re, y_im = r.y.real.contiguous(), r.y.imag.contiguous()
+    out = {}
+    one = lambda p: out.update(k=kern.iteration(A, ps, y_re, y_im, r.sigma2,
+                                                mcfg, p))
+    ms = cuda_ms(lambda: one(high), 2, 10)
+    highest_ms = cuda_ms(lambda: one("highest"), 2, 10)
+    ms_again = cuda_ms(lambda: one(high), 2, 10)
+    plain_ms = cuda_ms(lambda: kern.iteration_plain(
+        A, ps, y_re, y_im, r.sigma2, mcfg, high), 1, 3)
+    # the library's yardstick: the 21 bf16 products of one iteration (7
+    # Gauss products x 3 passes) as torch.matmul calls
+    t = bamp.gauss_taps(A)
+    fwd = [prec.split_bf16(x) for x in (t.s_a2, t.s_re, t.dmc)]
+    adj = [prec.split_bf16(x) for x in (t.st_a2, t.st_re, t.amc, t.adm)]
+    xs = prec.split_bf16(ps.var.reshape(B * mcfg.Lin, mcfg.Nt))
+    zs = prec.split_bf16(torch.rand(B * mcfg.Lin, W, device=dev))
+
+    def gauss_bf16():
+        for (xh, xl), planes in ((xs, fwd), (zs, adj)):
+            for th, tl in planes:
+                torch.matmul(xh, th)
+                torch.matmul(xh, tl)
+                torch.matmul(xl, th)
+
+    library_ms = cuda_ms(gauss_bf16, 1, 5)
+    del xs, zs
+    k = out["k"]
+    taps = kern.high_taps(A)
+    planes = [ps.xm_re, ps.var, ps.z_re, ps.z_im, ps.u, y_re, y_im,
+              ps.active, taps, k.xmap_re, k.xmap_im, k.xm_re, k.var, k.z_re,
+              k.z_im, k.u, k.notok]
+    flop, nbytes = iteration_work(mcfg, B, 21, planes)
+    bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
+    stage = kern.stage_ms(A, ps, y_re, y_im, r.sigma2, mcfg, precision=high)
+    y2_re, y2_im = y2.real.contiguous(), y2.imag.contiguous()
+    tail = lambda p: out.update(t=kern.iteration(A, ps2, y2_re, y2_im,
+                                                 r.sigma2, pcfg, p))
+    tail_ms = cuda_ms(lambda: tail(high), 2, 20)
+    tail_highest_ms = cuda_ms(lambda: tail("highest"), 2, 20)
+    kt = out["t"]
+    tail_flop, tail_bytes = iteration_work(
+        pcfg, n2, 21, [ps2.xm_re, ps2.var, ps2.z_re, ps2.z_im, ps2.u, y2_re,
+                       y2_im, ps2.active, taps,
+                       *[getattr(kt, f) for f in kt._fields]])
+    tail_bound_ms, tail_bound_by = bound(tail_flop, tail_bytes,
+                                         PEAK_BF16_FLOPS)
+    lib = kern._library()
+    smem = {f"{name}_{form}": (lib.fused_bamp_tiled_smem(fwd_, small, 1),
+                               kern.smem_bytes(bool(fwd_), bool(small), high))
+            for name, fwd_ in (("forward", 1), ("adjoint", 0))
+            for form, small in (("large", 0), ("small", 1))}
+    timing = dict(kernel="fused_bamp_tiled_high", B=B,
+                  ebn0_db=MASSIVE_HIGH_DB, ms=ms, ms_again=ms_again,
+                  highest_ms=highest_ms, high_over_highest=ms / highest_ms,
+                  plain_ms=plain_ms, library_ms=library_ms, flop=flop,
+                  bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                  pct_of_bound=100 * bound_ms / ms,
+                  achieved_tflops=flop / (ms * 1e-3) / 1e12,
+                  us_per_trial_iteration=1e3 * ms / B, stage_ms=stage,
+                  tail_B=n2, tail_ms=tail_ms,
+                  tail_highest_ms=tail_highest_ms,
+                  tail_bound_ms=tail_bound_ms, tail_bound_by=tail_bound_by,
+                  tail_pct_of_bound=100 * tail_bound_ms / tail_ms,
+                  tail_stage_ms=kern.stage_ms(A, ps2, y2_re, y2_im, r.sigma2,
+                                              pcfg, precision=high),
+                  tail_forms=kern.tile_forms(n2, pcfg.Lin, W, pcfg.Nt, high),
+                  smem_bytes=smem, ptxas=list(ptxas),
+                  seconds=time.perf_counter() - t0)
+    emit("kernel_timing_tiled_high", **timing)
+    if any(c != p for c, p in smem.values()):
+        failed.append(f"shared memory differs from the wrapper's: {smem}")
+    if failed:
+        raise AssertionError(f"K5 HIGH kernel != plain: {failed}")
+    return max_err, timing
+
+
+def phase_main_massive_high(torch, dev):
+    """``Simulator(massive_mimo(), algo='bamp', precision='high')`` beside
+    ``precision='highest'`` on the same seeds at Eb/N0 = 8 dB, cap 100,
+    single phase (every trial runs to the cap: the regime 'auto' picks HIGH
+    for), 2 realizations of 2048 each.  Gates: the HIGH run through K5's
+    HIGH instance alone (``launches_high`` = the iterations the plane loop
+    ran, no HIGHEST launch of K5, no other kernel, no plain decode), FER
+    within 3 sigma (binomial, HIGHEST's count, at least one error), BER
+    within 3 sigma (sigma of the difference of two runs' means, from the BER
+    scatter of ``BAMP_HIGH_BER_GROUPS`` groups of one HIGH realization's
+    trials), mean T within 1.0; then ``Simulator(precision='auto')``, whose
+    first point runs HIGHEST and, its mean T pinned at the cap, whose next
+    point runs K5's HIGH instance alone.  Prints both runs' trials/s and a
+    per-layer breakdown of one HIGH realization."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_bamp_iteration as fbi, fused_bamp_tiled)
+    from amp_sparc_spatialmodulation_tpu_torch.utils import metrics
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    cfg = dataclasses.replace(massive_main_config(),
+                              iterations=MASSIVE_HIGH_CAP)
+    n_real, res = MASSIVE_HIGH_REALIZATIONS, MASSIVE_RES
+    epochs = n_real * res
+
+    def counts():
+        return dict(launches=fused_bamp_tiled.launches,
+                    launches_high=fused_bamp_tiled.launches_high,
+                    others=(fused_bamp.launches + fused_bamp.launches_high
+                            + fbi.fused_launches),
+                    plain=bamp.plain_decodes)
+
+    def zero():
+        fused_bamp_tiled.launches = fused_bamp_tiled.launches_high = 0
+        fused_bamp.launches = fused_bamp.launches_high = 0
+        fbi.fused_launches = 0
+        bamp.plain_decodes = 0
+
+    runs = {}
+    for precision in ("highest", "high"):
+        sim = montecarlo.Simulator(cfg, algo="bamp", device=dev,
+                                   precision=precision,
+                                   progress=lambda s: None)
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        avg = sim.run_point(MASSIVE_HIGH_DB, epochs=epochs, res=res)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[precision] = dict(avg=avg, seconds=seconds,
+                               trials_per_s=epochs / seconds, **counts())
+    hi, hs = runs["high"], runs["highest"]
+
+    # 'auto': HIGHEST on the first point, HIGH after its pinned mean T
+    auto = montecarlo.Simulator(cfg, algo="bamp", device=dev,
+                                precision="auto", progress=lambda s: None)
+    zero()
+    first = auto.run_point(MASSIVE_HIGH_DB, epochs=res, res=res)
+    auto_first = counts()
+    zero()
+    second = auto.run_point(MASSIVE_HIGH_DB, epochs=res, res=res)
+    auto_second = counts()
+
+    gen = make_generator(dev, 12345)
+    layers = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        layers[name] = time.perf_counter() - t
+        return out
+
+    r = timed("generate_s", lambda: montecarlo.generate_realization(
+        gen, cfg, "sparc", "banded", res, snr_of(cfg, MASSIVE_HIGH_DB),
+        "high"))
+    out = timed("decode_s", lambda: bamp.decode(r.A, r.y, r.sigma2, cfg,
+                                                precision="high"))
+    timed("metrics_s", lambda: metrics.fetch_sums(metrics.evaluate_sums(
+        out.xmap, out.xmmse, r.msg, out.T, cfg)))
+    group = torch.arange(res, device=dev) % BAMP_HIGH_BER_GROUPS
+    bers = [metrics.finalize(metrics.evaluate_sums(
+        out.xmap, out.xmmse, r.msg, out.T, cfg,
+        weight=(group == g).float()), cfg)["ber"]
+        for g in range(BAMP_HIGH_BER_GROUPS)]
+    ber_sigma = statistics.stdev(bers) * math.sqrt(
+        2 * (res // BAMP_HIGH_BER_GROUPS) / epochs)
+    del r, out, group
+
+    k = round(hs["avg"]["fer"] * epochs)
+    pf = min(max(k, 1), epochs - 1) / epochs
+    sigma = math.sqrt(pf * (1 - pf) / epochs)
+    # the plane loop runs to the slowest trial: the cap when mean T is
+    iters = (n_real * cfg.N_Layers if hi["avg"]["T"] == cfg.N_Layers
+             else None)
+    emit("main_massive_high", config="massive_mimo", ebn0_db=MASSIVE_HIGH_DB,
+         res=res, realizations=n_real, trials=epochs, cap=cfg.N_Layers,
+         **{f"{p}_{k}": v for p, run in runs.items()
+            for k, v in (("seconds", run["seconds"]),
+                         ("trials_per_s", run["trials_per_s"]),
+                         ("mean_T", run["avg"]["T"]),
+                         ("fer", run["avg"]["fer"]),
+                         ("ber", run["avg"]["ber"]),
+                         ("launches", run["launches"]),
+                         ("launches_high", run["launches_high"]),
+                         ("other_kernel_launches", run["others"]),
+                         ("plain_decodes", run["plain"]))},
+         high_over_highest_trials_per_s=(hi["trials_per_s"]
+                                         / hs["trials_per_s"]),
+         iterations_run=iters, fer_sigma=sigma, ber_sigma=ber_sigma,
+         auto_first_mean_T=first["T"], auto_first=auto_first,
+         auto_second_mean_T=second["T"], auto_second=auto_second,
+         layers_high=layers,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if (hi["launches_high"] <= 0 or hi["launches"] or hi["others"]
+            or hi["plain"]
+            or (iters is not None and hi["launches_high"] != iters)
+            or hi["launches_high"] < n_real * hi["avg"]["T"]):
+        raise AssertionError("the massive HIGH path did not run through "
+                             "K5's HIGH instance alone")
+    if abs(hi["avg"]["fer"] - hs["avg"]["fer"]) > 3 * sigma:
+        raise AssertionError(f"massive HIGH FER {hi['avg']['fer']} vs "
+                             f"HIGHEST {hs['avg']['fer']}")
+    if abs(hi["avg"]["ber"] - hs["avg"]["ber"]) > 3 * ber_sigma:
+        raise AssertionError(f"massive HIGH BER {hi['avg']['ber']} vs "
+                             f"HIGHEST {hs['avg']['ber']}")
+    if abs(hi["avg"]["T"] - hs["avg"]["T"]) > 1.0:
+        raise AssertionError(f"massive HIGH mean T {hi['avg']['T']} vs "
+                             f"HIGHEST {hs['avg']['T']}")
+    if (first["T"] != cfg.N_Layers or auto_first["launches_high"]
+            or auto_first["launches"] <= 0 or auto_second["launches"]
+            or auto_second["launches_high"] <= 0 or auto_second["plain"]):
+        raise AssertionError("'auto' did not take K5's HIGH instance after "
+                             "a pinned point")
+    return hi["launches_high"]
 
 
 def linear_decode(op, s, y, sigma2, cap, cfg):
@@ -2386,6 +2843,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches5 = phase_main_massive(torch, dev)
     emit("new_phases", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    max_err5h, timing5h = phase_kernels_tiled_high(
+        torch, dev, ptxas("fused_bamp_tiled", entries=True))
+    torch.cuda.empty_cache()
+    launches5h = phase_main_massive_high(torch, dev)
+    emit("tiled_high_phases", seconds=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_bamp_decode", "fused_bamp.py:617", launches,
@@ -2406,6 +2870,9 @@ def main() -> int:
                      source="fused_vamp2_decode"),
         kernel_entry("fused_bamp_tiled", "fused_bamp_tiled.py:47",
                      launches5, max_err5, timing5),
+        kernel_entry("fused_bamp_tiled_high", "fused_bamp_tiled.py:47",
+                     launches5h, max_err5h, timing5h,
+                     source="fused_bamp_tiled"),
         kernel_entry("fused_bamp_iteration_fused", "fused_bamp.py:567",
                      k6[2], k6[0], k6[1], source="fused_bamp_iteration"),
         kernel_entry("fused_bamp_iteration_linear", "fused_bamp.py:359",

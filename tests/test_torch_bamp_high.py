@@ -498,7 +498,7 @@ def test_simulator_high_and_auto(tmp_path, algo):
     assert auto.run_point(ebn0, epochs=res, res=res) == high
 
 
-def test_cli_sweep_bamp_scamp_high(tmp_path):
+def test_cli_sweep_bamp_scamp_high(tmp_path, monkeypatch):
     for algo, mode in (("bamp", "segmented"), ("scamp", "sparc")):
         rc = cli.main(["sweep", "--algo", algo, "--mode", mode, "--Nt",
                        "16", "--Na", "4", "--Nr", "8", "--Lin", "8", "--Lh",
@@ -511,10 +511,19 @@ def test_cli_sweep_bamp_scamp_high(tmp_path):
                                "7.0.json")) as f:
             point = json.load(f)
         assert point["EbN0dB"] == 7.0 and 1.0 <= point["T"] <= 10.0
-    with pytest.raises(ValueError, match="frame-tiled"):
-        cli.main(["sweep", "--algo", "bamp", "--Nt", "1344", "--Na", "84",
-                  "--Nr", "73", "--Lin", "32", "--Lh", "6", "--precision",
-                  "auto", "--device", "cpu", "--out", str(tmp_path)])
+    # the massive geometry (the frame-tiled route, K5's HIGH form): the
+    # sweep is built at 'auto' (its sweep is not run at this width here)
+    built = []
+    monkeypatch.setattr(montecarlo.Simulator, "simulate",
+                        lambda self, **kw: built.append(self) or {})
+    assert cli.main(["sweep", "--algo", "bamp", "--Nt", "1344", "--Na",
+                     "84", "--Nr", "73", "--Lin", "32", "--Lh", "6",
+                     "--precision", "auto", "--device", "cpu", "--out",
+                     str(tmp_path)]) == 0
+    (sim,) = built
+    assert sim._precision_auto and sim.cfg.Nt == 1344
+    sim._last_meanT = float(sim.cfg.N_Layers)
+    assert sim._effective_precision() == "high"
 
 
 def test_high_decode_raises_on_scamp_plain_loop():

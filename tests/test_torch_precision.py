@@ -43,7 +43,7 @@ from amp_sparc_spatialmodulation_tpu.ops.pallas import fused_bamp as jfb
 from amp_sparc_spatialmodulation_tpu_torch import cli
 from amp_sparc_spatialmodulation_tpu_torch.config import Config
 from amp_sparc_spatialmodulation_tpu_torch.models import montecarlo as mc
-from amp_sparc_spatialmodulation_tpu_torch.models import vamp, vamp2
+from amp_sparc_spatialmodulation_tpu_torch.models import bamp, vamp, vamp2
 from amp_sparc_spatialmodulation_tpu_torch.ops import precision as prec
 from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (fused_vamp,
                                                                fused_vamp2)
@@ -311,22 +311,39 @@ def test_precision_auto_runs_high_point(tmp_path):
 
 
 # (algo, config, operator form, the message naming the missing form):
-# BAMP on the massive geometry (route K5, whose HIGH form is not ported)
-# and on the dense operator (the plain loop), SCAMP on a geometry K2 does
+# BAMP on the dense operator (the plain loop), SCAMP on a geometry K2 does
 # not fit (the plain loop)
 NO_HIGH = [
-    ("bamp", dict(Nt=1344, Na=84, Nr=73, Lin=32, Lh=6, mode="segmented",
-                  alphabet="OOK", trunc="tail"), "auto", "kernel K5"),
     ("bamp", dict(POLICY_CFG, mode="sparc"), "dense", "plain BAMP loop"),
     ("scamp", dict(Nt=1344, Na=84, Nr=73, Lin=32, Lh=6, mode="sparc",
                    alphabet="OOK", trunc="tail"), "auto",
      "K2 does not fit"),
 ]
+MASSIVE = dict(Nt=1344, Na=84, Nr=73, Lin=32, Lh=6, mode="segmented",
+               alphabet="OOK", trunc="tail")
+
+
+@pytest.mark.parametrize("precision", ["high", "auto"])
+def test_bamp_massive_takes_high(tmp_path, precision):
+    """BAMP on the massive geometry (the frame-tiled route, K5, whose HIGH
+    form runs there) accepts 'high' and 'auto': the sweep engine builds
+    without raising (built only; nothing is decoded at this width here)."""
+    cfg = Config(**MASSIVE)
+    assert bamp.route_of(cfg, True) == "tiled"
+    assert mc.check_precision("bamp", cfg, precision, "banded") == precision
+    sim = mc.Simulator(cfg, algo="bamp", precision=precision, device="cpu",
+                       out_root=str(tmp_path))
+    assert sim._effective_precision() == ("high" if precision == "high"
+                                          else "highest")
+    sim._last_meanT = float(cfg.N_Layers)
+    assert sim._effective_precision() == "high"
+    assert callable(mc.make_realization_fn(cfg, "bamp", "sparc", 8,
+                                           precision=precision))
 
 
 @pytest.mark.parametrize("precision", ["high", "auto"])
 @pytest.mark.parametrize("algo,kw,form,match", NO_HIGH,
-                         ids=["bamp-tiled", "bamp-dense", "scamp-nofit"])
+                         ids=["bamp-dense", "scamp-nofit"])
 def test_bamp_scamp_raise_without_high_kernels(tmp_path, algo, kw, form,
                                                match, precision):
     cfg = Config(**kw)

@@ -23,7 +23,20 @@ the OOK flagship at its phase-1 shape (65536 trials, cap 12, 8 dB) and the
 QPSK flagship at cap 100 (4096 trials) at 5 dB and at the given converging
 points.
 
+With ``--route tiled`` the same four decodes of the frame-tiled iteration
+K5 (its HIGH and HIGHEST instances, the plain HIGH step with exact sums or
+one pass, each driven through ``bamp.plane_loop``) against K5's plain HIGH
+version (``fused_bamp_tiled.decode_plain(..., 'high')``) at the shapes of
+``kernels_tiled_high`` (same seeds): the small geometries (cap 30), the
+massive geometry at the given converging points (2048 trials, cap 100) and
+the phase-2 shape (the trials still active after 40 HIGH iterations at
+18 dB, gathered, to cap 300); the control there is ``chip_smoke.
+k5_high_control``'s: one iteration from the state after two plain HIGH
+iterations, its median |d z_re|, |d xmap_re| and |d u|.
+
     env PYTHONPATH=. python tests/torch_bamp_high_rule.py [--qpsk-db 7 9]
+    env PYTHONPATH=. python tests/torch_bamp_high_rule.py --route tiled \
+        [--massive-db 10]
 
 Prints one JSON line per shape and decode: T agreement, mean T of both,
 |d mean T|, the trials that converged in both, the largest state error on
@@ -105,16 +118,109 @@ def shape(tag, cfg, B, cap, ebn0_db, seed, dev):
     torch.cuda.empty_cache()
 
 
+def tiled_shape(tag, cfg, r, s0, cap, dev, y=None):
+    """The four K5 decodes of ``tiled`` (module docstring) from ``s0`` to
+    ``cap`` against the plain HIGH version, and each one's control."""
+    from functools import partial
+
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_tiled as kern)
+
+    op, s2 = r.A, r.sigma2
+    y = r.y if y is None else y
+    taps = bamp.gauss_taps(op)
+    den = bamp.make_denoiser(cfg, dev)
+
+    def plain(dot):
+        linear = partial(bamp.linear_step_high, taps=taps, real_x=True,
+                         dot=dot)
+        return lambda o, ps, yr, yi, sig, c: bamp.step_planes(
+            o, ps, yr, yi, sig, den, linear)
+
+    steps = {"kernel_high": partial(kern.iteration, precision="high"),
+             "plain_exact": plain(dot3_exact),
+             "kernel_highest": kern.iteration,
+             "plain_one_pass": plain(dot_one_pass)}
+    sp = kern.decode_plain(op, s0, y, s2, cap, cfg, "high")
+    ps = bamp.to_planes(kern.decode_plain(
+        op, s0, y, s2, s0.t + chip_smoke.K5_HIGH_PRESTEPS, cfg, "high"))
+    y_re, y_im = y.real.contiguous(), y.imag.contiguous()
+    one = kern.iteration_plain(op, ps, y_re, y_im, s2, cfg, "high")
+    for name, step in steps.items():
+        sk = bamp.plane_loop(step, op, s0, y, s2, cap, cfg)
+        gap = chip_smoke.iter_gap(step(op, ps, y_re, y_im, s2, cfg), one,
+                                  ps.active)
+        print(json.dumps({"shape": tag, "decode": name,
+                          "B": int(y.shape[0]), "cap": cap,
+                          **reading(sk, sp),
+                          **{f"control_{k}": gap[k] for k in (
+                              "z_re_p50", "xmap_re_p50", "u_p50")}}),
+              flush=True)
+        del sk
+    del sp, ps, one
+    torch.cuda.empty_cache()
+
+
+def tiled(dev, massive_db) -> None:
+    """The readings of ``--route tiled`` (module docstring)."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_tiled as kern)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    def realization(cfg, B, seed, snr):
+        r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
+                                            "sparc", "banded", B, snr, "high")
+        return r, bamp.initial_state(r.y, cfg.N, r.sigma2)
+
+    cases = [("ook_8_3", {}, chip_smoke.SMALL_B),
+             ("ook_12_5", dict(Lin=12, Lh=5), chip_smoke.SMALL_B),
+             ("bpsk_8_3", dict(alphabet="BPSK"), chip_smoke.SMALL_B),
+             ("ook_ragged_37", {}, 37)]
+    for i, (name, kw, B) in enumerate(cases):
+        cfg = chip_smoke.tiled_small_config(**kw)
+        r, s0 = realization(cfg, B, 400 + i, 10 ** 0.8)
+        tiled_shape(name, cfg, r, s0, cfg.N_Layers, dev)
+    mcfg = dataclasses.replace(chip_smoke.massive_main_config(),
+                               iterations=chip_smoke.MASSIVE_HIGH_CAP)
+    for db in massive_db:
+        r, s0 = realization(mcfg, chip_smoke.MASSIVE_RES, 44,
+                            chip_smoke.snr_of(mcfg, db))
+        tiled_shape(f"massive_{db:g}db", mcfg, r, s0, mcfg.N_Layers, dev)
+        del r, s0
+    pcfg = chip_smoke.massive_main_config()
+    r, s0 = realization(pcfg, chip_smoke.MASSIVE_RES, 43,
+                        chip_smoke.snr_of(pcfg, chip_smoke.MASSIVE_EBN0_DB))
+    s1 = bamp.plane_loop(lambda *a: kern.iteration(*a, precision="high"),
+                         r.A, s0, r.y, r.sigma2, chip_smoke.MASSIVE_K1, pcfg)
+    idx = torch.nonzero(s1.active).flatten()
+    tiled_shape(f"phase2_{int(idx.numel())}", pcfg, r,
+                montecarlo.state_take_trials(s1, idx),
+                chip_smoke.MASSIVE_CAP, dev, y=r.y[idx])
+
+
 def main() -> None:
     from amp_sparc_spatialmodulation_tpu_torch.config import (
         flagship_bamp_ook, flagship_bamp_qpsk)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--route", choices=["whole", "tiled"], default="whole",
+                    help="K1 (whole) or K5 (tiled)")
     ap.add_argument("--qpsk-db", type=float, nargs="*", default=[7.0],
                     help="converging QPSK points at cap 100 (dB)")
+    ap.add_argument("--massive-db", type=float, nargs="*",
+                    default=[chip_smoke.MASSIVE_CONVERGING_DB],
+                    help="--route tiled: massive points at cap 100 (dB)")
     args = ap.parse_args()
     dev = torch.device("cuda")
     print(chip_smoke.nvidia_smi(), flush=True)
+    if args.route == "tiled":
+        tiled(dev, args.massive_db)
+        return
     shape("ook_phase1", flagship_bamp_ook(), chip_smoke.RES, chip_smoke.K1,
           chip_smoke.EBN0_DB, 41, dev)
     for db in [chip_smoke.BAMP_HIGH_EBN0_DB] + list(args.qpsk_db):
