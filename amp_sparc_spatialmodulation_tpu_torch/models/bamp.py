@@ -415,17 +415,24 @@ def plane_loop(iteration, op, s0: BAMPState, y: torch.Tensor, sigma2: float,
     ps = to_planes(s0)
     y_re, y_im = y.real.contiguous(), y.imag.contiguous()
     while ps.t < int(cap) and bool(ps.active.any()):
-        out = iteration(op, ps, y_re, y_im, sigma2, cfg)
-        fz = partial(_freeze, ps.active)
-        ps = PlaneState(
-            xmap_re=fz(out.xmap_re, ps.xmap_re),
-            xmap_im=fz(out.xmap_im, ps.xmap_im),
-            xm_re=out.xm_re, xm_im=out.xm_im, var=out.var,
-            z_re=out.z_re, z_im=out.z_im, u=out.u,
-            active=ps.active & (out.notok > 0),
-            T=torch.where(ps.active, torch.full_like(ps.T, ps.t + 1), ps.T),
-            t=ps.t + 1)
+        ps = advance(ps, iteration(op, ps, y_re, y_im, sigma2, cfg))
     return from_planes(ps)
+
+
+def advance(ps: PlaneState, out: IterOut) -> PlaneState:
+    """:func:`plane_loop`'s next state from ``ps`` and its iteration's
+    ``out``: xmap frozen where a trial is not active, the new x, var, z and
+    u taken as they are (the same tensors), ``active``, ``T`` and ``t``
+    counted."""
+    fz = partial(_freeze, ps.active)
+    return PlaneState(
+        xmap_re=fz(out.xmap_re, ps.xmap_re),
+        xmap_im=fz(out.xmap_im, ps.xmap_im),
+        xm_re=out.xm_re, xm_im=out.xm_im, var=out.var,
+        z_re=out.z_re, z_im=out.z_im, u=out.u,
+        active=ps.active & (out.notok > 0),
+        T=torch.where(ps.active, torch.full_like(ps.T, ps.t + 1), ps.T),
+        t=ps.t + 1)
 
 
 def route(cfg: Config, op, B: int, device) -> str:
@@ -456,9 +463,18 @@ def route(cfg: Config, op, B: int, device) -> str:
 
 def route_of(cfg: Config, banded: bool, op=None) -> str:
     """:func:`route`'s chain for ``cfg`` on a banded operator (``banded``)
-    or a dense one; without ``op``, K5 is judged by the config alone."""
+    or a dense one; without ``op``, K5 is judged by the config alone.
+    Raises where ``AMP_KERNEL_XMAP_PRECISION`` is set: the JAX package's K1
+    then runs its xmap products at that precision (`fused_bamp.py:990-991`
+    there), a function the port has no form of."""
     from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
                                fused_bamp_tiled)
+
+    if os.environ.get("AMP_KERNEL_XMAP_PRECISION", ""):
+        raise ValueError(
+            "AMP_KERNEL_XMAP_PRECISION is set: the JAX package's BAMP kernel "
+            "then runs its xmap products at another precision, which the "
+            "port does not; unset it")
 
     if not (banded and fused_bamp.covers(cfg)):
         return "plain"

@@ -118,32 +118,48 @@
 // adjoint cov = 1 / dot3(Z_c, S_a2^T), k1 = dot3(Z_re + Z_im, Re S^T), k2 =
 // dot3(Z_re, -Im S^T - Re S^T), k3 = dot3(Z_im, Re S^T - Im S^T), xmap = x +
 // cov (k1 - k3) + i cov (k1 + k2).  Each of the 7 real products is three
-// bf16 passes on the tensor cores (mma.sync m16n8k16), grouped as
-// precision.dot3 groups them: hi hi in one FP32 sum, hi lo + lo hi in
-// another, joined once.  The hi hi sum is kept by FP32 adds of each k16
-// step's mma, started from zero, because the tensor cores truncate as they
-// add into an accumulator (the variance product, a sum of 84 steps of
-// positive terms, drifted by about 4e-6 where the accumulator carried it;
-// tests/torch_k5_high_variants.py); the corrections, 2^-8 of it,
-// accumulate in the tensor cores.  The product kernels (high_product_kernel)
-// run a stage's products one after another in one launch: a block owns a
-// BM x BN output tile of every product of its stage and streams the
-// contraction of each in turn through one cp.async ring, so the ring stays
-// full across products; each product's epilogue writes its outputs (the
-// adjoint only for active trials), and a later product's epilogue reads
-// back the earlier ones it joins (P_re; cov and k1, kept in xmap_re) from
-// the block's own writes.  The trial side comes as the FP32 planes (the
-// state and the fold's outputs) and is split into bf16 hi and lo as each
-// warp loads its mma fragments; the taps come split and laid out by the
-// wrapper (fused_bamp_tiled.py::high_taps), rows along the output columns
-// and the contraction contiguous, padded with zeros to a multiple of 8, so
-// each ring slot takes them as 16-byte copies and ldmatrix reads them.
-// Pads: the copies zero-fill every A column past the contraction length and
-// every tap row past the output columns, and the tap planes hold zeros in
-// their pad columns, so a pad term is 0 x 0.  Bound on this card: the tensor
-// cores, 7 products x 3 passes x 2 B Lin Nt Lh Nr flop per iteration (about
-// 1.6 TFLOP at B = 2048, 1.6 ms at 989 TFLOP/s).  The HIGHEST instance (the
-// product_kernel above and the fold's kHigh false instance) is unchanged.
+// bf16 passes on the tensor cores (mma.sync m16n8k16 on ldmatrix
+// fragments), hi hi + hi lo + lo hi: each k16 step's three passes run from
+// zero in the tensor cores and join the output's FP32 sum by one FP32 add,
+// because the tensor cores truncate as they add into an accumulator (the
+// variance product, a sum of 84 steps of positive terms, drifted by about
+// 4e-6 where the accumulator carried the whole sum; PERF.md).  One
+// FP32 sum instead of dot3's two (hi hi apart from the corrections) halves
+// the accumulators; it changes the order of FP32 additions, not what is
+// summed.
+//
+// Bound on this card: the tensor cores, 7 products x 3 passes x 2 B Lin Nt
+// Lh Nr flop per iteration (about 1.6 TFLOP at B = 2048, 1.6 ms at 989
+// TFLOP/s).  What held the first HIGH form back (PERF.md): the
+// instructions around the mma (each warp split its FP32 A fragments into
+// hi and lo, both column warps the same elements), 32 x 32 warp tiles, and
+// epilogues that read back the block's own global writes.  This form:
+//
+// * the trial side comes split, once: the denoiser writes the new x and
+//   var split as well (xs_next) for the next call, a small launch
+//   (split_kernel) splits them where a call gets a state no call wrote (a
+//   decode's first iteration, a gathered state), and the fold writes the
+//   adjoint's four inputs split; the taps come split from the wrapper
+//   (fused_bamp_tiled.py::high_taps, cached per operator).  All in one
+//   tiled, swizzled layout (split_at), so that a ring slot takes one bulk
+//   copy per operand tile (cp.async.bulk on an mbarrier) and both operands
+//   are read by ldmatrix with no conversion in the inner loop;
+// * a block owns a 128 x 112 output tile (8 warps of 32 x 56: per k16
+//   step 4 A and 7 tap ldmatrix for 42 mma), one block per SM, and runs its
+//   stage's products one after another through one ring, so the next
+//   product's copies are in flight during an epilogue;
+// * what later products join (P_re; k1, k1 + k2, k1 - k3) is parked in
+//   shared memory, each thread in its own column, and every output leaves
+//   at the last product: staged as a tile in the (then idle) ring and
+//   written out a row a bulk copy, the adjoint's x brought in the same way
+//   (the adjoint therefore takes cov last: 1 / v is wanted by every
+//   output);
+// * where the large form would launch fewer blocks than the card has SMs
+//   (phase 2's handful of trials), a 32 x 16 form of 2 warps
+//   (fused_bamp_tiled.py::tile_forms).
+//
+// The HIGHEST instance (the product_kernel above and the fold's kHigh
+// false instance) is unchanged.
 
 #include <cuda_bf16.h>
 
@@ -213,14 +229,22 @@ struct Params {
   const float* gains2;
   const float* sym_re;      // (K,)
   const float* sym_im;
-  // HIGH form only: the seven Gauss tap planes split into bf16 hi and lo,
-  // per plane hi then lo; forward (W, kf) each (S_a2, Re S, Im S - Re S
-  // transposed), then adjoint (Nt, ka) each (S_a2^T, Re S^T, -Im S^T -
-  // Re S^T, Re S^T - Im S^T transposed); kf = Nt and ka = W rounded up to 8
+  // HIGH form only, all in the split layout (high section below): the
+  // seven Gauss tap planes, the output columns along the rows in tiles of
+  // kHCols, the forward's (Re S, Im S - Re S, S_a2; ctf tiles of kxs k16
+  // steps) then the adjoint's (Re S^T, -Im S^T - Re S^T, Re S^T - Im S^T,
+  // S_a2^T; cta tiles of kas steps); the forward's trial-side operands (x,
+  // var), written by the split launch; the adjoint's (Z_re + Z_im, Z_re,
+  // Z_im, Z_c), written by the fold; both in rtiles tiles of kHRows rows;
+  // where xs_next is given, the denoiser writes the new x and var split
+  // into it as the split launch lays them out, for the next call
   const __nv_bfloat16* taps_high;
+  __nv_bfloat16* xs_high;
+  __nv_bfloat16* zs_high;
+  __nv_bfloat16* xs_next;   // the denoiser's split x and var (or null)
   int B, Nt, Nr, Lin, Lout, Lh, M, K, W, Wp;
   int vec;                  // Nt % 4 == 0: 16-byte tap rows and x-side rows
-  int kf, ka;
+  int kxs, kas, rtiles, ctf, cta;
   float sigma2;
 };
 
@@ -527,253 +551,495 @@ __global__ void __launch_bounds__(F::kNT, F::MIN) product_kernel(Params p) {
 
 // ---- 1. and 3. at HIGH: the bf16 x 3 products ------------------------------
 
-// Contraction steps per ring slot (two k16 steps) and ring slots.
-constexpr int kHK = 32;
-constexpr int kHStages = 3;
+// The split layout of a trial-side plane (x, var; the adjoint inputs) and of
+// a tap plane: tiles of kHRows rows (trial side; kHCols output columns for
+// the taps) by one k16 step, each tile contiguous (tile (t, s) of a plane
+// of ks steps at (t ks + s) rows_per_tile rows), a row 64 bytes: the bf16
+// hi of its 16 steps in chunks 0 and 1 (8 each), their lo in chunks 2 and
+// 3, chunk c of row r stored at 16-byte position c ^ ((r / 2) % 4), so the
+// eight rows an ldmatrix phase reads lie on eight different bank groups.
+// The contraction is padded to an even number of steps (kSlotSteps).  A
+// ring slot is two consecutive tiles (or a slice of their rows) of each
+// operand, brought by one bulk copy per tile.  Pads (rows past the last,
+// steps past the contraction) hold zeros in the tap planes and in the
+// contraction pad of the trial side (rows past the last are left as they
+// are: a row's outputs read only that row).
+constexpr int kHRows = 128;
+constexpr int kHCols = 112;
+constexpr int kSlotSteps = 2;    // k16 steps of a ring slot
+constexpr int kStageSplit = 16;  // stage bit: the split of x and var (HIGH)
 
-// One HIGH product form: WM x WN warps, each MT m16 tiles of rows by NT n8
-// tiles of columns, MIN blocks per SM.  A ring slot holds the A tile as
-// FP32, BM rows x kHK steps with row stride kLA = kHK + 8 floats (a row is 8
-// mod 32 words, so the 64-bit fragment reads of a half-warp, rows g = 0..3
-// by words 2t, fall on 32 distinct banks), then the tap tile, hi then lo,
-// BN rows x kHK steps of bf16 with row stride kLB = kHK + 8 (80 bytes: the
-// 8 rows of an ldmatrix phase on 8 distinct 16-byte bank groups).
-template <int WM_, int WN_, int MT_, int NT_, int MIN_>
-struct HighForm {
-  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_, MIN = MIN_;
-  static constexpr int BM = 16 * WM * MT, BN = 8 * WN * NT;
-  static constexpr int kNT = 32 * WM * WN;
-  static constexpr int kLA = kHK + 8, kLB = kHK + 8;
-  static constexpr int kSlotA = BM * kLA * 4;      // bytes
-  static constexpr int kSlot = kSlotA + 2 * BN * kLB * 2;
-  static constexpr int kSmem = kHStages * kSlot;
-  static_assert(kSlotA % 16 == 0 && kSlot % 16 == 0, "tile shape");
-};
-// Large: 128 rows (four trials at Lin = 32) x 64 columns, 8 warps of 32 x 32,
-// two blocks per SM at 128 registers.  Small, where the large form would
-// launch fewer than two blocks per SM (tile_forms): 32 x 32, 2 warps.
-using HighLarge = HighForm<4, 2, 2, 4, 2>;
-using HighSmall = HighForm<1, 2, 2, 2, 1>;
-
-__device__ __forceinline__ void cp_async16_bf16(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
+__host__ __device__ __forceinline__ int split_chunk(int c, int r) {
+  return c ^ ((r >> 1) & 3);
+}
+// Where part h (0 hi, 1 lo) of element (row R, step k) of a split plane of
+// ks k16 steps and tiles of `tile` rows lies, in bf16.
+__host__ __device__ __forceinline__ size_t split_at(int ks, int tile, int R,
+                                                    int k, int h) {
+  const int r = R % tile;
+  return (static_cast<size_t>(R / tile * ks + (k >> 4)) * tile + r) * 32 +
+         split_chunk(2 * h + ((k & 15) >> 3), r) * 8 + (k & 7);
 }
 
-// s[r][c] = g[r ld + c] for the ROWS x kHK block of a bf16 matrix whose row
-// stride ld is a multiple of 8 (its pad columns zero), zero where r >=
-// rlimit or c >= climit (climit a multiple of 8); s has row stride kHK + 8.
-// A quarter-warp copies one row (64 bytes).
-template <int ROWS, int NT>
-__device__ __forceinline__ void load_tap_rows(__nv_bfloat16* s,
-                                              const __nv_bfloat16* g, int ld,
-                                              int rlimit, int climit) {
-  constexpr int C8 = kHK / 8, UNITS = ROWS * C8;
-#pragma unroll
-  for (int i = 0; i < (UNITS + NT - 1) / NT; ++i) {
-    const int u = threadIdx.x + i * NT;
-    if (UNITS % NT != 0 && u >= UNITS) break;
-    const int r = u / C8, c = (u % C8) * 8;
-    const bool ok = r < rlimit && c < climit;
-    cp_async16_bf16(s + r * (kHK + 8) + c, ok ? g + (r * ld + c) : g,
-                    ok ? 16 : 0);
+// One HIGH product form: WM x WN warps, each MT m16 tiles of rows by NT n8
+// tiles of columns, a ring of S slots of kSlotSteps k16 steps, MIN blocks
+// per SM.
+// Shared memory: the ring, then two parks (a thread's outputs of earlier
+// products, in its own column), then the ring's mbarriers and, for the
+// adjoint, that of its last epilogue's copies.
+template <int WM_, int WN_, int MT_, int NT_, int S_, int MIN_>
+struct HighForm {
+  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_, S = S_,
+                       MIN = MIN_;
+  static constexpr int BM = 16 * WM * MT, BN = 8 * WN * NT;
+  static constexpr int kNT = 32 * WM * WN;
+  static constexpr int kOut = 4 * MT * NT;      // a thread's outputs
+  static constexpr int kTileA = BM * 64, kTileB = BN * 64;  // bytes
+  static constexpr int kSlotA = kSlotSteps * kTileA;
+  static constexpr int kSlotB = kSlotSteps * kTileB;
+  static constexpr int kSlot = kSlotA + kSlotB;
+  static constexpr int kPark = kOut * kNT * 4;
+  static constexpr int smem(bool fwd) {
+    return S * kSlot + 2 * kPark + 8 * (fwd ? S : S + 1);
   }
+  static_assert(kHRows % BM == 0 && kHCols % BN == 0 && kSlot % 128 == 0 &&
+                    S >= 2,
+                "tile shape");
+};
+// Large: 128 rows (four trials at Lin = 32) x 112 columns (Wp = 440 in 4
+// tiles, Nt = 1344 in 12), 8 warps of 32 x 56, one block per SM.  Small,
+// where the large form would launch fewer blocks than the card has SMs
+// (tile_forms): 32 x 16, 2 warps.
+using HighLarge = HighForm<4, 2, 2, 7, 3, 1>;
+using HighSmall = HighForm<2, 1, 1, 2, 3, 4>;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// One arrival that also expects `bytes` of copies to complete on bar.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of bar with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// Order this thread's earlier accesses of shared memory before later ones
+// of the copy engine (the async proxy) that a barrier orders after them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from shared
+// to device memory by the copy engine, in this thread's bulk group; then
+// close the group, and wait until the engine has read every group's
+// shared memory (its writes to device memory go on).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_stores_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from device
+// to shared memory by the copy engine, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
                                             const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
+      : "r"(smem_u32(p))
       : "memory");
 }
 
-// d += a b for one m16n8k16 tile: a the 16 x 16 row-major fragment, (b0,
-// b1) the 16 x 8 column fragment, d FP32.
+// d = a b (from zero) and d += a b for one m16n8k16 tile: a the 16 x 16
+// row-major fragment, (b0, b1) the 16 x 8 column fragment, d FP32.
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The bf16 hi and lo pairs of two FP32 values (x ~ hi + lo, both rounded to
-// nearest even, as precision.split_bf16), the lower k in the low half.
-__device__ __forceinline__ void split_pair(float2 v, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = *reinterpret_cast<const unsigned*>(&l);
+// The bf16 hi and lo of x (x ~ hi + lo, both rounded to nearest even, as
+// precision.split_bf16).
+__device__ __forceinline__ void split1(float x, __nv_bfloat16& hi,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+}
+__device__ __forceinline__ unsigned pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(a)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// ---- 0. at HIGH: x and var split into the forward's operand planes -------
+// One thread per (plane, row tile, k16 step, row): 16 FP32 of the row in,
+// its 64-byte split row out (consecutive threads on consecutive rows, so a
+// warp writes 2 KB in one piece); x is plane 0, var plane 1; zeros past
+// the contraction and past the last row.
+__global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
+  const size_t per_plane = static_cast<size_t>(p.rtiles) * p.kxs * kHRows;
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= 2 * per_plane) return;
+  const int plane = static_cast<int>(e / per_plane);
+  const size_t i = e - plane * per_plane;  // (tile, step, row) of the plane
+  const int r = static_cast<int>(i % kHRows);
+  const int ks = static_cast<int>(i / kHRows % p.kxs);
+  const int R = static_cast<int>(i / (static_cast<size_t>(kHRows) * p.kxs)) *
+                    kHRows + r;
+  const int k0 = 16 * ks;
+  float v[16];
+  const float* src =
+      (plane == 0 ? p.xm : p.var) + static_cast<size_t>(R) * p.Nt + k0;
+  const bool in = R < p.B * p.Lin;
+  if (in && p.vec && k0 + 16 <= p.Nt) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(src)[q];
+      v[4 * q] = t.x;
+      v[4 * q + 1] = t.y;
+      v[4 * q + 2] = t.z;
+      v[4 * q + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = in && k0 + q < p.Nt ? src[q] : 0.f;
+  }
+  unsigned w[4][4];  // chunk c: hi (c < 2) or lo of steps 8 (c % 2) ..
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    __nv_bfloat16 h0, l0, h1, l1;
+    split1(v[2 * q], h0, l0);
+    split1(v[2 * q + 1], h1, l1);
+    w[q >> 2][q & 3] = pack2(h0, h1);
+    w[2 + (q >> 2)][q & 3] = pack2(l0, l1);
+  }
+  uint4* dst = reinterpret_cast<uint4*>(p.xs_high + plane * per_plane * 32 +
+                                        i * 32);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    dst[split_chunk(c, r)] = make_uint4(w[c][0], w[c][1], w[c][2], w[c][3]);
 }
 
 // The products of one stage at HIGH.  Forward (kFwd), rows R < B Lin,
-// columns n < Wp, contraction k < Nt, three products in turn: 0. P_v =
-// dot3(var, S_a2); 1. P_re = dot3(x, Re S); 2. P_im = P_re + dot3(x, Im S -
-// Re S).  Adjoint, columns k < Nt, contraction w < W, four products in turn
-// on the fold's planes: 0. cov = 1 / dot3(Z_c, S_a2^T); 1. k1 = dot3(Z_re +
-// Z_im, Re S^T) (the fold's sum, in P_v), parked in xmap_re; 2. xmap_im =
-// cov (k1 + dot3(Z_re, -Im S^T - Re S^T)); 3. xmap_re = x + cov (k1 -
-// dot3(Z_im, Re S^T - Im S^T)); written for rows of active trials only.
-// Block i of the 1-D grid takes row tile i / col_tiles and column tile
-// i % col_tiles; warp (wm, wn) the rows 16 MT wm .. and columns 8 NT wn ..
-// of the tile; lane (g, t) of an m16n8 output tile rows g, g + 8 and
-// columns 2t, 2t + 1.
+// columns n < Wp, contraction k < Nt, three products in turn on the split
+// x and var: 0. P_re = dot3(x, Re S); 1. P_im = P_re + dot3(x, Im S -
+// Re S); 2. P_v = dot3(var, S_a2).  Adjoint, columns k < Nt, contraction
+// w < W, four products in turn on the fold's split planes: 0. k1 =
+// dot3(Z_re + Z_im, Re S^T); 1. k2 = dot3(Z_re, -Im S^T - Re S^T); 2. k3 =
+// dot3(Z_im, Re S^T - Im S^T); 3. cov = 1 / dot3(Z_c, S_a2^T), xmap_re = x
+// + cov (k1 - k3), xmap_im = cov (k1 + k2), written for rows of active
+// trials only.  What a later product joins is parked in shared memory;
+// every output leaves at the last product (last_epilogue).  Block i of the
+// 1-D grid takes row tile i / col_tiles and column tile i % col_tiles; warp
+// (wm, wn) the rows 16 MT wm .. and columns 8 NT wn .. of the tile; lane
+// (g, t) of an m16n8 output tile rows g, g + 8 and columns 2t, 2t + 1.
+// Thread 0 issues the copies of the slot S - 1 ahead after each slot's
+// barrier; one pipeline runs over every (product, slot) of the block, so
+// the next product's copies are in flight during an epilogue.
 template <bool kFwd, class F>
 __global__ void __launch_bounds__(F::kNT, F::MIN)
     high_product_kernel(Params p) {
-  constexpr int BM = F::BM, BN = F::BN, MT = F::MT, NT = F::NT,
-                LA = F::kLA, LB = F::kLB, S = kHStages;
+  constexpr int BM = F::BM, BN = F::BN, MT = F::MT, NT = F::NT, S = F::S;
   constexpr int kPasses = kFwd ? 3 : 4;
-  extern __shared__ __align__(16) unsigned char smem_high[];
+  extern __shared__ __align__(128) unsigned char smem_high[];
   const int rows = p.B * p.Lin;
   const int cols = kFwd ? p.Wp : p.Nt;
-  const int depth = kFwd ? p.Nt : p.W;
   const int col_tiles = (cols + BN - 1) / BN;
   const int R0 = static_cast<int>(blockIdx.x / col_tiles) * BM;
   const int n0 = static_cast<int>(blockIdx.x % col_tiles) * BN;
   if (!tile_live<BM>(p, R0, rows)) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / F::WN, wn = warp % F::WN;
   const int g = lane >> 2, t = lane & 3;
-  const int lda = kFwd ? p.Nt : p.Wp;
-  const size_t a0 = static_cast<size_t>(R0) * lda;
-  // product q's A plane
-  auto a_plane = [&](int q) -> const float* {
-    if (kFwd) return (q == 0 ? p.var : p.xm) + a0;
-    return (q == 0 ? p.Z_c : q == 1 ? p.P_v : q == 2 ? p.Z_re : p.Z_im) + a0;
-  };
-  // product q's taps: hi at taps + q plane, lo one half-plane further
-  const int ldb = kFwd ? p.kf : p.ka;
-  const int brows = kFwd ? p.W : p.Nt;
-  const size_t bplane = static_cast<size_t>(brows) * ldb;
-  const __nv_bfloat16* taps =
-      p.taps_high + (kFwd ? 0 : 6 * static_cast<size_t>(p.W) * p.kf) +
-      static_cast<size_t>(n0) * ldb;
-  const bool vec_a = kFwd ? p.vec != 0 : true;
-  const int nk = (depth + kHK - 1) / kHK;
-  const int total = kPasses * nk;
+  const int nks = kFwd ? p.kxs : p.kas;  // even (kSlotSteps)
+  const int slots = nks / kSlotSteps;     // ring slots of a product
+  const int total = kPasses * slots;
+  float* park = reinterpret_cast<float*>(smem_high + S * F::kSlot);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(
+      smem_high + S * F::kSlot + 2 * F::kPark);
 
-  auto load = [&](int slot, int step) {
+  // the block's rows of trial-side plane a, and columns of tap plane b
+  const size_t aplane = static_cast<size_t>(p.rtiles) * nks * kHRows * 32;
+  const __nv_bfloat16* arows =
+      (kFwd ? p.xs_high : p.zs_high) +
+      (static_cast<size_t>(R0 / kHRows) * nks * kHRows + R0 % kHRows) * 32;
+  const int ctiles = kFwd ? p.ctf : p.cta;
+  const size_t bplane = static_cast<size_t>(ctiles) * nks * kHCols * 32;
+  const __nv_bfloat16* bcols =
+      p.taps_high +
+      (kFwd ? 0 : 3 * static_cast<size_t>(p.ctf) * p.kxs * kHCols * 32) +
+      (static_cast<size_t>(n0 / kHCols) * nks * kHCols + n0 % kHCols) * 32;
+  // thread 0: the copies of slot f (product q, k16 steps ks, ks + 1) into
+  // ring slot f % S
+  auto load = [&](int f) {
+    const int q = f / slots, ks = (f - q * slots) * kSlotSteps, slot = f % S;
     unsigned char* s = smem_high + slot * F::kSlot;
-    const int q = step / nk, k0 = (step - q * nk) * kHK;
-    load_rows<BM, kHK, LA, F::kNT, false>(reinterpret_cast<float*>(s),
-                                          a_plane(q) + k0, lda, rows - R0,
-                                          depth - k0, vec_a);
-    __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(s + F::kSlotA);
-    const __nv_bfloat16* b = taps + 2 * q * bplane + k0;
+    const int a = kFwd ? (q == 2 ? 1 : 0) : q;
+    mbar_expect(&bar[slot], F::kSlot);
 #pragma unroll
-    for (int part = 0; part < 2; ++part)
-      load_tap_rows<BN, F::kNT>(sb + part * BN * LB, b + part * bplane, ldb,
-                                brows - n0, ldb - k0);
+    for (int k = 0; k < kSlotSteps; ++k) {
+      bulk_copy(s + k * F::kTileA,
+                arows + a * aplane +
+                    static_cast<size_t>(ks + k) * kHRows * 32,
+                F::kTileA, &bar[slot]);
+      bulk_copy(s + F::kSlotA + k * F::kTileB,
+                bcols + q * bplane +
+                    static_cast<size_t>(ks + k) * kHCols * 32,
+                F::kTileB, &bar[slot]);
+    }
   };
 
-  float hh[MT][NT][4], cx[MT][NT][4];
+  // ldmatrix rows: A rows 16 (MT wm + i) + lane % 16, hi chunk lane / 16
+  // (lo 2 further); taps rows 8 (NT wn + j) + lane % 8, chunk lane / 8 (hi
+  // k 0-7, hi k 8-15, lo k 0-7, lo k 8-15): the fragments b[0..3]
+  int a_hi[MT], a_lo[MT], b_at[NT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r = 16 * (MT * wm + i) + (lane & 15);
+    a_hi[i] = r * 32 + split_chunk(lane >> 4, r) * 8;
+    a_lo[i] = r * 32 + split_chunk(2 + (lane >> 4), r) * 8;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int n = 8 * (NT * wn + j) + (lane & 7);
+    b_at[j] = n * 32 + split_chunk(lane >> 3, n) * 8;
+  }
+
+  float acc[MT][NT][4];
   auto clear = [&]() {
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) hh[i][j][e] = cx[i][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   };
   clear();
 
-  // the block's outputs of product q, in FP32 (hh + cx), joined with the
-  // earlier products' and written
+  // A thread's output e of its tile (i, j) is park entry ((i NT + j) 4 +
+  // e) of its column; park 1 lies a park further.
+  auto park_at = [&](int i, int j, int e) {
+    return park + ((i * NT + j) * 4 + e) * F::kNT + tid;
+  };
+  // the epilogue of every product but the last: the parks (forward: 0.
+  // P_re, 1. P_im = P_re + the product; adjoint: 0. k1, 1. k1 + k2, 2.
+  // k1 - k3 over k1)
   auto epilogue = [&](int q) {
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int R = R0 + 16 * (MT * wm + i) + g + 8 * h;
-        if (R >= rows) continue;
-        if (!kFwd && !p.act[R / p.Lin]) continue;
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* p0 = park_at(i, j, e);
+          float* p1 = p0 + F::kPark / 4;
+          const float v = acc[i][j][e];
+          if (q == 0) *p0 = v;
+          else if (q == 1) *p1 = *p0 + v;
+          else *p0 = *p0 - v;
+        }
+  };
+
+  // The last epilogue, in the ring (free once the last slot is consumed):
+  // each output is staged there as a BM x BN tile and leaves it a row a
+  // bulk copy (with 16-byte rows; else by the threads), whose writes to
+  // device memory go on as the next output is staged and after the block
+  // ends (the forward's P_v, P_re, P_im; the adjoint's
+  // xmap_re = x + cov (k1 - k3), cov = 1 / v, xmap_im = cov (k1 + k2), for
+  // the rows of active trials).  The adjoint's x comes in first, one bulk
+  // copy a row (with 16-byte rows; else by the threads).
+  constexpr int XLD = BN + 8;  // row stride: the 4 rows of a half-warp's
+                               // 8-byte accesses on 32 banks
+  static_assert(BM * XLD * 4 <= S * F::kSlot, "staged tile in the ring");
+  float* xt = reinterpret_cast<float*>(smem_high);
+  const int nrows = min(BM, rows - R0), ncols = min(BN, cols - n0);
+  const int ld = kFwd ? p.Wp : p.Nt;
+  const bool vec4 = ld % 4 == 0;
+  // the thread's two outputs at (i, h, j) in the staged tile
+  auto staged = [&](int i, int h, int j) {
+    return reinterpret_cast<float2*>(
+        xt + (16 * (MT * wm + i) + g + 8 * h) * XLD + 8 * (NT * wn + j) +
+        2 * t);
+  };
+  auto store_tile = [&](float* out) {
+    if (vec4) {
+      // a row a bulk copy, issued by the lanes of warp 0
+      fence_proxy_async();  // the staged writes before the engine's reads
+      __syncthreads();
+      if (warp == 0) {
+        for (int r = lane; r < nrows; r += 32)
+          if (kFwd || p.act[(R0 + r) / p.Lin])
+            bulk_store(out + static_cast<size_t>(R0 + r) * ld + n0,
+                       xt + r * XLD, ncols * 4);
+        bulk_stores_read();
+      }
+      __syncthreads();  // read out: the tile may be staged again
+      return;
+    }
+    __syncthreads();  // the tile is complete
+    for (int u = tid; u < nrows * BN; u += F::kNT) {
+      const int r = u / BN, c = u % BN;
+      if (c < ncols && (kFwd || p.act[(R0 + r) / p.Lin]))
+        out[static_cast<size_t>(R0 + r) * ld + n0 + c] = xt[r * XLD + c];
+    }
+    __syncthreads();  // before the tile is staged again
+  };
+  // stage the outputs value(i, j, e) of every thread, then store them
+  auto put_tile = [&](float* out, auto value) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          *staged(i, h, j) =
+              make_float2(value(i, j, 2 * h), value(i, j, 2 * h + 1));
+    store_tile(out);
+  };
+  auto last_epilogue = [&]() {
+    if constexpr (kFwd) {
+      __syncthreads();  // every warp is done with the ring
+      put_tile(p.P_v, [&](int i, int j, int e) { return acc[i][j][e]; });
+      put_tile(p.P_re, [&](int i, int j, int e) { return *park_at(i, j, e); });
+      put_tile(p.P_im, [&](int i, int j, int e) {
+        return park_at(i, j, e)[F::kPark / 4];
+      });
+    } else {
+      fence_proxy_async();  // the ring's reads before the copies' writes
+      __syncthreads();
+      if (vec4) {
+        if (tid == 0) {
+          mbar_expect(&bar[S], nrows * ncols * 4);
+          for (int r = 0; r < nrows; ++r)
+            bulk_copy(xt + r * XLD,
+                      p.xm + static_cast<size_t>(R0 + r) * p.Nt + n0,
+                      ncols * 4, &bar[S]);
+        }
+        mbar_wait(&bar[S], 0);
+      } else {
+        for (int u = tid; u < nrows * BN; u += F::kNT) {
+          const int r = u / BN, c = u % BN;
+          xt[r * XLD + c] =
+              c < ncols ? p.xm[static_cast<size_t>(R0 + r) * p.Nt + n0 + c]
+                        : 0.f;
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int n = n0 + 8 * (NT * wn + j) + 2 * t + c;
-            if (n >= cols) continue;
-            const float v = hh[i][j][2 * h + c] + cx[i][j][2 * h + c];
-            if constexpr (kFwd) {
-              const size_t o = static_cast<size_t>(R) * p.Wp + n;
-              if (q == 0) p.P_v[o] = v;
-              else if (q == 1) p.P_re[o] = v;
-              else p.P_im[o] = p.P_re[o] + v;
-            } else {
-              const size_t o = static_cast<size_t>(R) * p.Nt + n;
-              if (q == 0) p.cov[o] = 1.f / v;
-              else if (q == 1) p.xmap_re[o] = v;
-              else if (q == 2) p.xmap_im[o] = p.cov[o] * (p.xmap_re[o] + v);
-              else p.xmap_re[o] = p.xm[o] + p.cov[o] * (p.xmap_re[o] - v);
-            }
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 1.f / acc[i][j][e];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            float2* x = staged(i, h, j);
+            const float2 xo = *x;
+            *x = make_float2(
+                xo.x + acc[i][j][2 * h] * *park_at(i, j, 2 * h),
+                xo.y + acc[i][j][2 * h + 1] * *park_at(i, j, 2 * h + 1));
           }
-      }
+      store_tile(p.xmap_re);
+      put_tile(p.cov, [&](int i, int j, int e) { return acc[i][j][e]; });
+      put_tile(p.xmap_im, [&](int i, int j, int e) {
+        return acc[i][j][e] * park_at(i, j, e)[F::kPark / 4];
+      });
+    }
   };
 
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < total) load(s, s);
-    cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < S + (kFwd ? 0 : 1); ++s) mbar_init(&bar[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int it = 0; it < total; ++it) {
-    // slot it has landed, and every thread is done with slot it - 1
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    const int next = it + S - 1;
-    if (next < total) load(next % S, next);
-    cp_async_commit();
-    const unsigned char* s = smem_high + (it % S) * F::kSlot;
-    const float* sa = reinterpret_cast<const float*>(s) +
-                      (16 * MT * wm + g) * LA + 2 * t;
-    // ldmatrix rows: lane l gives row l % 8 of matrix l / 8: hi k 0-7, hi
-    // k 8-15, lo k 0-7, lo k 8-15 of the tile's rows 8 (NT wn + j) ..
-    const __nv_bfloat16* sb =
-        reinterpret_cast<const __nv_bfloat16*>(s + F::kSlotA) +
-        ((lane >> 4) * BN + 8 * NT * wn + (lane & 7)) * LB +
-        ((lane >> 3) & 1) * 8;
+  __syncthreads();
+  if (tid == 0)
+    for (int f = 0; f < S - 1 && f < total; ++f) load(f);
+  for (int f = 0; f < total; ++f) {
+    const int slot = f % S;
+    mbar_wait(&bar[slot], (f / S) & 1);
+    __syncthreads();  // every warp is done with slot f - 1
+    if (tid == 0 && f + S - 1 < total) load(f + S - 1);
+    // the slot's k16 steps: every fragment of a step first, then per tile
+    // its three passes
 #pragma unroll
-    for (int ks = 0; ks < kHK; ks += 16) {
-      unsigned ah[MT][4], al[MT][4];
+    for (int k = 0; k < kSlotSteps; ++k) {
+      const __nv_bfloat16* sa = reinterpret_cast<const __nv_bfloat16*>(
+          smem_high + slot * F::kSlot + k * F::kTileA);
+      const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(
+          smem_high + slot * F::kSlot + F::kSlotA + k * F::kTileB);
+      unsigned ah[MT][4], al[MT][4], b[NT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float* a = sa + 16 * i * LA + ks;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          // a0: row g, k 2t; a1: row g + 8; a2: k 2t + 8; a3: both
-          const float2 v = *reinterpret_cast<const float2*>(
-              a + (r & 1) * 8 * LA + (r >> 1) * 8);
-          split_pair(v, ah[i][r], al[i][r]);
-        }
+        ldmatrix_x4(ah[i], sa + a_hi[i]);
+        ldmatrix_x4(al[i], sa + a_lo[i]);
       }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        unsigned b[4];
-        ldmatrix_x4(b, sb + 8 * j * LB + ks);
+      for (int j = 0; j < NT; ++j) ldmatrix_x4(b[j], sb + b_at[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          // the hi hi products of this k16 step from zero, then an FP32
-          // add (see the header: the accumulator truncates)
-          float th[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(th, ah[i], b[0], b[1]);
-          mma_bf16(cx[i][j], ah[i], b[2], b[3]);
-          mma_bf16(cx[i][j], al[i], b[0], b[1]);
+          // this k16 step's three passes from zero, then an FP32 add (see
+          // the header: the tensor cores truncate as they accumulate)
+          float th[4];
+          mma_bf16_zero(th, ah[i], b[j][0], b[j][1]);
+          mma_bf16(th, ah[i], b[j][2], b[j][3]);
+          mma_bf16(th, al[i], b[j][0], b[j][1]);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) hh[i][j][e] = hh[i][j][e] + th[e];
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = acc[i][j][e] + th[e];
         }
-      }
     }
-    if ((it + 1) % nk == 0) {
-      epilogue(it / nk);
+    if (f + 1 == total) {
+      last_epilogue();
+    } else if ((f + 1) % slots == 0) {
+      epilogue(f / slots);
       clear();
     }
   }
@@ -784,8 +1050,11 @@ __global__ void __launch_bounds__(F::kNT, F::MIN)
 // column block c = r - l (tail truncation: 0 <= c < Lin); the adjoint input
 // of (b, c, l Nr + m) comes from row r = c + l, so each is written once.
 // kHigh: the HIGH form's fold (the gains are in the taps; the Onsager
-// arithmetic of bamp.linear_step_high), which also writes Z_re + Z_im, the
-// operand of the adjoint's k1, over P_v.
+// arithmetic of bamp.linear_step_high), which writes the adjoint inputs
+// Z_re + Z_im (the Gauss operand of k1, summed in FP32), Z_re, Z_im and Z_c
+// split into the adjoint's operand planes (zs_high, the split layout above,
+// in the adjoint's product order), and zeros in their contraction pad (W <=
+// w < 16 kas) of each row.
 template <bool kHigh>
 __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   const int n = p.Lout * p.Nr, Wp = p.Wp;
@@ -797,6 +1066,18 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   if (o == 0) p.notok[b] = 0;  // the denoiser launch counts into it
   const bool on = p.act[b] != 0;
   const size_t zrow = static_cast<size_t>(b) * p.Lin;
+  // HIGH: adjoint input q of (row R, column w), split
+  const size_t zplane = static_cast<size_t>(p.rtiles) * p.kas * kHRows * 32;
+  auto put = [&](int q, int R, int w, float v) {
+    __nv_bfloat16 hi, lo;
+    split1(v, hi, lo);
+    __nv_bfloat16* z = p.zs_high + q * zplane;
+    z[split_at(p.kas, kHRows, R, w, 0)] = hi;
+    z[split_at(p.kas, kHRows, R, w, 1)] = lo;
+  };
+  if (kHigh && r < p.Lin)
+    for (int w = p.W + m; w < 16 * p.kas; w += p.Nr)
+      for (int q = 0; q < 4; ++q) put(q, static_cast<int>(zrow) + r, w, 0.f);
   if (!on) {
     p.zn_re[e] = p.z_re[e];
     p.zn_im[e] = p.z_im[e];
@@ -804,9 +1085,13 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
     for (int l = 0; l < p.Lh; ++l) {
       const int c = r - l;
       if (c < 0 || c >= p.Lin) continue;
+      if (kHigh) {
+        for (int q = 0; q < 4; ++q)
+          put(q, static_cast<int>(zrow) + c, l * p.Nr + m, 0.f);
+        continue;
+      }
       const size_t q = (zrow + c) * Wp + l * p.Nr + m;
       p.Z_c[q] = p.Z_re[q] = p.Z_im[q] = 0.f;
-      if (kHigh) p.P_v[q] = 0.f;
     }
     return;
   }
@@ -832,11 +1117,11 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
     for (int l = 0; l < p.Lh; ++l) {
       const int c = r - l;
       if (c < 0 || c >= p.Lin) continue;
-      const size_t q = (zrow + c) * Wp + l * p.Nr + m;
-      p.Z_c[q] = ui;
-      p.Z_re[q] = rr;
-      p.Z_im[q] = ri;
-      p.P_v[q] = rr + ri;
+      const int R = static_cast<int>(zrow) + c, w = l * p.Nr + m;
+      put(0, R, w, rr + ri);
+      put(1, R, w, rr);
+      put(2, R, w, ri);
+      put(3, R, w, ui);
     }
     return;
   }
@@ -878,12 +1163,14 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
 // shuffles, lane t folding its elements t, t+G, ... into accumulator s % 4
 // for its s-th element (lane_sum's order; G is torch_sum's lane count), the
 // lanes joined in torch_sum's tree; then the mean and variance of the
-// lane's elements, stored to xo and vn.  Returns the lane's count of
-// variance entries outside the allclose tolerance of var.
+// lane's elements, stored to xo and vn and, where given, split by put(j,
+// mean, variance).  Returns the lane's count of variance entries outside
+// the allclose tolerance of var.
+template <class Put>
 __device__ __forceinline__ int group_posterior(
     int j0, int M, int G, int t, unsigned mask, int K, const float* sr,
     const float* si, const float* cov, const float* x, const float* var,
-    float* xo, float* vn) {
+    float* xo, float* vn, Put put) {
   auto t_of = [&](int i, int q) {
     const int j = j0 + i;
     const float tau = cov[j] / 2.f;
@@ -939,6 +1226,7 @@ __device__ __forceinline__ int group_posterior(
     bad += !(fabsf(v - old) <= kAtol + kRtol * fabsf(old));
     xo[j] = mr;
     vn[j] = v;
+    put(j, mr, v);
   }
   return bad;
 }
@@ -956,11 +1244,39 @@ __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
   const float* vo = p.var + base;
   float* xo = p.xm_out + base;
   float* vn = p.var_out + base;
+  // HIGH: element j of the trial's new x and var, split into the next
+  // call's forward operand planes (xs_next: the split launch's layout)
+  const size_t xplane = static_cast<size_t>(p.rtiles) * p.kxs * kHRows * 32;
+  const int R0 = b * p.Lin;
+  auto put = [&](int j, float xv, float vv) {
+    if (p.xs_next == nullptr) return;
+    const int R = R0 + j / p.Nt, k = j % p.Nt;
+    const size_t hi_at = split_at(p.kxs, kHRows, R, k, 0);
+    const size_t lo_at = split_at(p.kxs, kHRows, R, k, 1);
+    __nv_bfloat16 h, l;
+    split1(xv, h, l);
+    p.xs_next[hi_at] = h;
+    p.xs_next[lo_at] = l;
+    split1(vv, h, l);
+    p.xs_next[xplane + hi_at] = h;
+    p.xs_next[xplane + lo_at] = l;
+  };
+  if (p.xs_next != nullptr && blockIdx.y == 0) {
+    // the contraction pad of the trial's rows, zero in both planes
+    const int pad = 16 * p.kxs - p.Nt;
+    for (int e = tid; e < p.Lin * pad; e += kThreads)
+      for (int h = 0; h < 2; ++h) {
+        const size_t at = split_at(p.kxs, kHRows, R0 + e / pad,
+                                   p.Nt + e % pad, h);
+        p.xs_next[at] = p.xs_next[xplane + at] = __float2bfloat16_rn(0.f);
+      }
+  }
   if (!p.act[b]) {
     const float* xi = p.xm + base;
     for (int j = s0 * M + tid; j < s1 * M; j += kThreads) {
       xo[j] = xi[j];
       vn[j] = vo[j];
+      put(j, xi[j], vo[j]);
     }
     return;
   }
@@ -970,7 +1286,7 @@ __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
   int bad = 0;
   for (int s = s0 + tid / G; s < s1; s += kThreads / G)
     bad += group_posterior(s * M, M, G, t, mask, p.K, p.sym_re, p.sym_im,
-                           p.cov + base, p.xmap_re + base, vo, xo, vn);
+                           p.cov + base, p.xmap_re + base, vo, xo, vn, put);
   bad = __reduce_add_sync(0xffffffffu, bad);
   if ((tid & 31) == 0 && bad) atomicAdd(p.notok + b, bad);
 }
@@ -1002,7 +1318,7 @@ cudaError_t launch_form(const Params& p, cudaStream_t s) {
 
 template <bool kFwd, class F>
 cudaError_t launch_high(const Params& p, cudaStream_t s) {
-  return launch_tiles<kFwd, F::BM, F::BN, F::kNT, F::kSmem>(
+  return launch_tiles<kFwd, F::BM, F::BN, F::kNT, F::smem(kFwd)>(
       high_product_kernel<kFwd, F>, p, s);
 }
 
@@ -1011,13 +1327,19 @@ cudaError_t launch_high(const Params& p, cudaStream_t s) {
 extern "C" {
 
 // Enqueue one iteration of B trials on `stream`: the launches of the stages
-// in `stages` (bits 1 forward, 2 fold, 4 adjoint, 8 denoiser; 15 for an
-// iteration), in order, each product in its large form or, where its bit
-// of `forms` is set (1 forward, 2 adjoint), its small form.  Wp is the row
-// stride of the six scratch planes (B Lin, Wp): at least Lh Nr and a
-// multiple of 4.  With `high` the HIGH form runs (products and fold) on
-// the split Gauss taps `taps_high` (Params::taps_high; 16-byte aligned),
-// and h_re .. gains2 are not read.  Returns a cudaError_t code (0 on
+// in `stages` (bits 16 split (HIGH only), 1 forward, 2 fold, 4 adjoint, 8
+// denoiser; 15 for an iteration, with 16 at HIGH unless the denoiser of the
+// previous call split x and var), in order, each product in its large form
+// or, where its bit of `forms` is set (1 forward, 2 adjoint), its small
+// form.  Wp is the row stride of the six scratch planes (B Lin, Wp): at
+// least Lh Nr and a multiple of 4.  With `high` the HIGH form runs (split,
+// products and fold) on the split Gauss taps `taps_high` and the split
+// operand planes `xs_high` (2 rtiles 2 ceil(Nt / 32) kHRows 32 bf16) and
+// `zs_high` (4 rtiles 2 ceil(Lh Nr / 32) kHRows 32 bf16), all 16-byte
+// aligned (Params), and h_re .. gains2 and the scratch planes Z_c .. Z_im
+// are not read; where `xs_next` (the size of xs_high) is not null, the
+// denoiser also writes the new x and var split into it, so that the next
+// call on them may leave out its split (stage bit 16).  Returns a cudaError_t code (0 on
 // success): cudaErrorInvalidValue for a geometry the kernel does not take,
 // else the first error that a launch reports.  The kernel allocates
 // nothing; every buffer, the scratch included, is the caller's.
@@ -1032,13 +1354,16 @@ int fused_bamp_tiled_iteration(
     const void* gains2, const void* sym_re, const void* sym_im, int B,
     int Nt, int Nr, int Lin, int Lh, int M, int K, int Wp, int forms,
     int stages, float sigma2, int high, const void* taps_high,
-    void* stream) {
+    void* xs_high, void* zs_high, void* xs_next, void* stream) {
   if (B < 1 || Nt < 1 || Nr < 1 || Lin < 1 || Lh < 1 || M < 1 ||
       Nt % M != 0 || K < 1 || K > kMaxK || Wp < Lh * Nr || Wp % 4 != 0 ||
       static_cast<long long>(B) * Lin >= (1ll << 31) ||
       static_cast<long long>(B) * (Lin + Lh - 1) * Nr >= (1ll << 31) ||
-      (high && (taps_high == nullptr ||
-                reinterpret_cast<uintptr_t>(taps_high) % 16 != 0)))
+      (high && (taps_high == nullptr || xs_high == nullptr ||
+                zs_high == nullptr ||
+                (reinterpret_cast<uintptr_t>(taps_high) |
+                 reinterpret_cast<uintptr_t>(xs_high) |
+                 reinterpret_cast<uintptr_t>(zs_high)) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.xm = static_cast<const float*>(xm);
@@ -1086,11 +1411,25 @@ int fused_bamp_tiled_iteration(
   p.Wp = Wp;
   p.vec = Nt % 4 == 0;
   p.taps_high = static_cast<const __nv_bfloat16*>(taps_high);
-  p.kf = (Nt + 7) / 8 * 8;
-  p.ka = (p.W + 7) / 8 * 8;
+  p.xs_high = static_cast<__nv_bfloat16*>(xs_high);
+  p.zs_high = static_cast<__nv_bfloat16*>(zs_high);
+  p.xs_next = high ? static_cast<__nv_bfloat16*>(xs_next) : nullptr;
+  p.kxs = (Nt + 16 * kSlotSteps - 1) / (16 * kSlotSteps) * kSlotSteps;
+  p.kas = (p.W + 16 * kSlotSteps - 1) / (16 * kSlotSteps) * kSlotSteps;
+  p.rtiles = static_cast<int>((static_cast<long long>(B) * Lin + kHRows - 1) /
+                              kHRows);
+  p.ctf = (p.W + kHCols - 1) / kHCols;
+  p.cta = (Nt + kHCols - 1) / kHCols;
   p.sigma2 = sigma2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
+  if (high && (stages & kStageSplit)) {
+    const long long n = 2LL * p.rtiles * p.kxs * kHRows;
+    split_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                   kThreads, 0, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (stages & kStageForward) {
     if (high)
       err = forms & kSmallForward ? launch_high<true, HighSmall>(p, s)
@@ -1110,6 +1449,7 @@ int fused_bamp_tiled_iteration(
       fold_kernel<false><<<blocks, kThreads, 0, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+
   }
   if (stages & kStageAdjoint) {
     if (high)
@@ -1133,7 +1473,9 @@ int fused_bamp_tiled_iteration(
 // the adjoint) in its small or large form, of the HIGH form when `high`,
 // in bytes.
 int fused_bamp_tiled_smem(int forward, int small, int high) {
-  if (high) return small ? HighSmall::kSmem : HighLarge::kSmem;
+  if (high)
+    return small ? HighSmall::smem(forward != 0)
+                 : HighLarge::smem(forward != 0);
   if (forward)
     return small ? Engine<true, SmallForm>::kSmem
                  : Engine<true, LargeForm>::kSmem;

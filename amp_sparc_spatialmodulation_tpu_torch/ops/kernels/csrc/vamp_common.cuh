@@ -267,15 +267,19 @@ __device__ __forceinline__ void product_tile(
 // trials x 48 columns, six n8 blocks, each with two FP32 accumulators,
 // hi.hi and hi.lo + lo.hi, added at the end of the pass as dot3 groups them
 // (48 accumulators a thread, as many as the 64 x 32 tile of all three
-// products at once took before).  k1 is parked in shared memory, and k1 +
-// k2 beside it, each thread in its own column of the park (no barriers);
-// after k3 the epilogue gets re = k1 - k3 and im = k1 + k2.  Each output
-// sees the same mma instructions on the same fragments in the same order as
-// in the all-at-once tile, so the results are those of that tile bit for
-// bit.  Six tiles cover p = 528 and 27 cover N = 2560, where 32-column
-// tiles took 17 and 80: each trial-side element is read as 4 bytes once
-// per pass of a tile, about 23 GB per iteration at the main path (45 GB
-// before, FP32 and once per tile).
+// products at once took before).  The hi.hi sum is kept by FP32 adds of
+// each k16 step's mma, started from zero: the tensor cores truncate as they
+// add into an accumulator, and over the 160 steps of N = 2560 the sum
+// carried in the mma doubled the HIGH form's gap to dot3 after one
+// iteration (median |d r| 3.4e-7 against 1.8e-7 for VAMP, 6.3e-7 against
+// 3.1e-7 for vamp2, HIGHEST 2.9e-6: chip_smoke.py's main-geometry control,
+// PERF.md); the corrections, 2^-8 of it, accumulate in the tensor cores.
+// k1 is parked in shared memory, and k1 + k2 beside it, each thread in its
+// own column of the park (no barriers); after k3 the epilogue gets re = k1
+// - k3 and im = k1 + k2.  Six tiles cover p = 528 and 27 cover N = 2560,
+// where 32-column tiles took 17 and 80: each trial-side element is read as
+// 4 bytes once per pass of a tile, about 23 GB per iteration at the main
+// path (45 GB before, FP32 and once per tile).
 //
 // Ring: kStagesX3 slots of one k16 step (the pass's operand and tap tile),
 // one pipeline over every (tile, pass, step) of the product, so that the
@@ -642,9 +646,14 @@ __device__ __forceinline__ void product_x3(
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int j = 2 * q + h;
-            mma_bf16(hh[j], ah, bh[2 * h], bh[2 * h + 1]);
+            // this k16 step's hi.hi from zero, then an FP32 add: the
+            // tensor cores truncate as they add into an accumulator
+            float th[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(th, ah, bh[2 * h], bh[2 * h + 1]);
             mma_bf16(cx[j], ah, bl[2 * h], bl[2 * h + 1]);
             mma_bf16(cx[j], al, bh[2 * h], bh[2 * h + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hh[j][e] = hh[j][e] + th[e];
           }
         }
       }

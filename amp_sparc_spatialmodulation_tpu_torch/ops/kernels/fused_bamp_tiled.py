@@ -26,16 +26,21 @@ forward product, for as long as the operator lives.
   per iteration, each of four kernel launches), ``launches_high`` those
   that launched the HIGH form.
 * :func:`stage_ms` times the four launches of one call apart (the entry
-  point's stage mask), for chip_smoke.py and the probe scripts.
+  point's stage mask; at ``'high'`` also the split launch), for
+  chip_smoke.py and the probe scripts.
 
 Each takes ``precision``: ``'highest'`` (the default; FP32 products on the
 CUDA cores, bit for bit one step of the plain loop) or ``'high'``, the JAX
 kernel's ``make_dot(Precision.HIGH)`` (`fused_bamp_tiled.py:72` there):
 the gains folded into the seven Gauss tap planes of a real x, each real
-product in three bf16 passes, on the tensor cores in the kernel (its HIGH
-form, on the split tap planes of :func:`high_taps`, cached per operator)
-and as one ``bamp.step`` with ``bamp.linear_step_high`` in the plain
-version.
+product in three bf16 passes, on the tensor cores in the kernel and as one
+``bamp.step`` with ``bamp.linear_step_high`` in the plain version.  The
+HIGH form takes both operands of its products split into bf16 hi and lo
+in one tiled layout (:func:`split_at`, :func:`split_tiles`): the taps from
+:func:`high_taps` (cached per operator), x and var from a split launch
+(``SPLIT_STAGE``) or, where a call gets the x and var that the previous
+call wrote (the plane loop's next iteration), from that call's denoiser,
+which splits them as it writes them (:func:`kept_split`).
 
 Coverage (:func:`covers`): complex segmented/sparc configs with a real
 alphabet (the posterior mean stays real, so the x-side imaginary state is
@@ -67,14 +72,23 @@ launches_high = 0
 
 # The kernel's two product forms (fused_bamp_tiled.cu), each taken by both
 # products: block rows, block columns, contraction steps per ring slot and
-# ring slots; those of the HIGH form (HighLarge, HighSmall); and the SM
-# count of the H100, which the form rule fills.
+# ring slots; those of the HIGH form (HighLarge, HighSmall): block rows,
+# block columns, ring slots of two k16 steps; the blocks per SM of each
+# form's large one, which the form rule fills; and the SM count of the H100.
 FORMS = {"large": (64, 64, 16, 3), "small": (32, 16, 16, 3)}
-FORMS_HIGH = {"large": (128, 64, 32, 3), "small": (32, 32, 32, 3)}
+FORMS_HIGH = {"large": (128, 112, 3), "small": (32, 16, 3)}
+PER_SM = {prec.HIGHEST: 2, prec.HIGH: 1}
 SMS = 132
-# Stage mask bits of the entry point, and the mask of a whole iteration.
+# The HIGH form's split layout (split_at): rows of a trial-side tile, output
+# columns of a tap tile, contraction steps of a tile, and the multiple of
+# steps a plane's contraction is padded to (a ring slot's steps).
+HIGH_ROWS, HIGH_COLS, HIGH_STEP, HIGH_SLOT_STEPS = 128, 112, 16, 2
+# Stage mask bits of the entry point, the mask of a whole iteration, and the
+# HIGH form's split of x and var (its first launch, left out where the
+# previous call's denoiser wrote the split planes).
 STAGES = {"forward": 1, "fold": 2, "adjoint": 4, "denoise": 8}
 ALL_STAGES = sum(STAGES.values())
+SPLIT_STAGE = 16
 
 
 def covers(cfg: Config, op=None) -> bool:
@@ -129,14 +143,15 @@ def tile_forms(B: int, Lin: int, W: int, Nt: int,
                precision: str = "highest") -> int:
     """The entry point's ``forms`` for ``B`` trials: bit 1 (forward, W
     output columns) and bit 2 (adjoint, Nt columns) are set where that
-    product's large form (of the HIGH form at ``'high'``) would launch
-    fewer than two blocks per SM of the H100; it then runs in the small
-    form."""
-    table = FORMS_HIGH if prec.canonical(precision) == prec.HIGH else FORMS
+    product's large form would launch fewer blocks than it keeps on the
+    H100 at once (two per SM; one per SM for the HIGH form at ``'high'``);
+    it then runs in the small form."""
+    precision = prec.canonical(precision)
+    table = FORMS_HIGH if precision == prec.HIGH else FORMS
     BM, BN = table["large"][:2]
     forms = 0
     for bit, cols in ((1, W), (2, Nt)):
-        if -(-B * Lin // BM) * -(-cols // BN) < 2 * SMS:
+        if -(-B * Lin // BM) * -(-cols // BN) < PER_SM[precision] * SMS:
             forms |= bit
     return forms
 
@@ -146,22 +161,30 @@ def smem_bytes(forward: bool, small: bool, precision: str = "highest") -> int:
     holding its contraction steps of the A planes (x, var; or the three
     adjoint inputs) as they lie, rows padded by 4 floats, and of the three
     tap planes (transposed for the forward).  At ``'high'`` a slot holds
-    one product's A plane, rows padded by 8 floats, and its tap plane's hi
-    and lo parts, bf16 rows padded by 8, for either product."""
+    two k16 steps of one product's split operand tiles, 64 bytes a row (BM
+    trial-side rows, BN tap rows); then two parks, a float per output of
+    the block tile; then an 8-byte mbarrier per slot and, for the adjoint,
+    one for its last epilogue's copies."""
     form = "small" if small else "large"
     if prec.canonical(precision) == prec.HIGH:
-        BM, BN, D, S = FORMS_HIGH[form]
-        return S * (4 * BM * (D + 8) + 2 * 2 * BN * (D + 8))
+        BM, BN, S = FORMS_HIGH[form]
+        ring = S * HIGH_SLOT_STEPS * 64 * (BM + BN)
+        return ring + 2 * 4 * BM * BN + 8 * (S if forward else S + 1)
     BM, BN, D, S = FORMS[form]
     return 4 * S * ((2 if forward else 3) * BM * (D + 4) + 3 * D * BN)
 
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("fused_bamp_tiled")
+    return typed(build.load("fused_bamp_tiled"))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``fused_bamp_tiled.cu``) with its entry points'
+    argument and result types set."""
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_tiled_iteration.argtypes = (
-            [ptr] * 33 + [i32] * 10 + [f32, i32, ptr, ptr])
+            [ptr] * 33 + [i32] * 10 + [f32, i32] + [ptr] * 5)
         lib.fused_bamp_tiled_iteration.restype = i32
         lib.fused_bamp_tiled_smem.argtypes = [i32, i32, i32]
         lib.fused_bamp_tiled_smem.restype = i32
@@ -188,36 +211,71 @@ _high_cache = weakref.WeakKeyDictionary()
 _symbol_cache = {}
 
 
-def pad8(k: int) -> int:
-    """A row length rounded up to 8 bf16 (16 bytes)."""
-    return -(-int(k) // 8) * 8
+def split_at(steps: int, tile: int, R: int, k: int, h: int) -> int:
+    """Where part ``h`` (0 hi, 1 lo) of element (row ``R``, contraction
+    ``k``) of a split plane of ``steps`` k16 steps in tiles of ``tile`` rows
+    lies, in bf16 (``fused_bamp_tiled.cu::split_at``): tile (R // tile,
+    k // 16), 32 bf16 a row, chunk 2 h + (k % 16) // 8 of row r stored at
+    16-byte position chunk ^ ((r // 2) % 4)."""
+    r = R % tile
+    chunk = (2 * h + (k % 16) // 8) ^ ((r >> 1) & 3)
+    return ((R // tile * steps + k // 16) * tile + r) * 32 + chunk * 8 + k % 8
+
+
+def split_steps(K: int) -> int:
+    """The k16 steps of a split plane of contraction ``K``: a multiple of
+    a ring slot's steps."""
+    per = HIGH_STEP * HIGH_SLOT_STEPS
+    return -(-int(K) // per) * HIGH_SLOT_STEPS
+
+
+def split_tiles(m: torch.Tensor, tile: int) -> torch.Tensor:
+    """A float32 matrix ``m`` (rows, K) in the HIGH form's split layout
+    (:func:`split_at`): split into bf16 hi and lo
+    (``precision.split_bf16``), rows padded to a multiple of ``tile`` and
+    the contraction to :func:`split_steps` k16 steps with zeros, flat."""
+    rows, K = m.shape
+    rt, ks = -(-rows // tile), split_steps(K)
+    full = torch.zeros((rt * tile, ks * HIGH_STEP), dtype=torch.float32,
+                       device=m.device)
+    full[:rows, :K] = m
+    halves = [h.reshape(rt, tile, ks, 2, 8) for h in prec.split_bf16(full)]
+    chunks = torch.stack(halves, dim=3).reshape(rt, tile, ks, 4, 8)
+    chunks = chunks.permute(0, 2, 1, 3, 4)            # (rt, ks, tile, 4, 8)
+    r = torch.arange(tile, device=m.device)[:, None]
+    stored = torch.arange(4, device=m.device)[None, :] ^ ((r >> 1) & 3)
+    return chunks[:, :, r, stored, :].reshape(-1).contiguous()
 
 
 def high_taps(op) -> torch.Tensor:
     """The HIGH form's taps of banded operator ``op`` (gains constant per
     tap): the seven Gauss planes of ``bamp.gauss_taps`` that a real x needs,
-    the output columns along the rows and the contraction contiguous — the
-    forward's ``S_a2, Re S, Im S - Re S`` as (Lh*Nr, Nt), the adjoint's
-    ``S_a2^T, Re S^T, -Im S^T - Re S^T, Re S^T - Im S^T`` as (Nt, Lh*Nr)
-    — each split into bf16 hi and lo (``precision.split_bf16``), rows padded
-    with zeros to :func:`pad8`, one contiguous bf16 buffer: per plane hi
-    then lo, the forward's then the adjoint's."""
+    the output columns along the rows and the contraction along the row —
+    the forward's ``Re S, Im S - Re S, S_a2`` as (Lh*Nr, Nt), the adjoint's
+    ``Re S^T, -Im S^T - Re S^T, Re S^T - Im S^T, S_a2^T`` as (Nt, Lh*Nr),
+    each in its products' order —
+    each in the split layout (:func:`split_tiles`, tiles of ``HIGH_COLS``
+    output columns), one contiguous bf16 buffer."""
     if op not in _high_cache:
         t = bamp.gauss_taps(op)
         if not t.folded:
             raise ValueError("the HIGH form of K5 needs gains constant per "
                              "tap")
-        parts = []
-        for plane in (t.s_a2.T, t.s_re.T, t.dmc.T, t.st_a2.T, t.st_re.T,
-                      t.amc.T, t.adm.T):
-            rows, K = plane.shape
-            for half in prec.split_bf16(plane.contiguous()):
-                buf = torch.zeros((rows, pad8(K)), dtype=torch.bfloat16,
-                                  device=plane.device)
-                buf[:, :K] = half
-                parts.append(buf.reshape(-1))
-        _high_cache[op] = torch.cat(parts)
+        _high_cache[op] = torch.cat([
+            split_tiles(plane.T.contiguous(), HIGH_COLS)
+            for plane in (t.s_re, t.dmc, t.s_a2, t.st_re, t.amc, t.adm,
+                          t.st_a2)])
     return _high_cache[op]
+
+
+def split_sizes(B: int, cfg: Config):
+    """The bf16 counts of the two split operand buffers of a HIGH call of
+    ``B`` trials: the forward's (x, var) and the adjoint's four inputs, in
+    tiles of ``HIGH_ROWS`` rows."""
+    rt = -(-B * cfg.Lin // HIGH_ROWS)
+    per_step = rt * HIGH_ROWS * 2 * HIGH_STEP
+    return (2 * per_step * split_steps(cfg.Nt),
+            4 * per_step * split_steps(cfg.Lh * cfg.Nr))
 
 
 def transposed_tap_planes(op):
@@ -252,14 +310,17 @@ def _symbols(cfg: Config, dev):
 
 def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
             cfg: Config, out: bamp.IterOut, scratch, cov,
-            stages: int, precision: str = "highest") -> None:
+            stages: int, precision: str = "highest", split=None,
+            split_next=None) -> None:
     """Enqueue the stages ``stages`` of one iteration into ``out``, in the
-    form of ``precision``."""
+    form of ``precision`` (at ``'high'`` on the split operand buffers
+    ``split``; the denoiser also splits the new x and var into
+    ``split_next`` where it is given)."""
     B = ps.var.shape[0]
     high = precision == prec.HIGH
     act = ps.active.to(torch.int32).contiguous()
     *taps, gains2 = _operator_planes(op)
-    split = high_taps(op) if high else None
+    taps_high = high_taps(op) if high else None
     sym_re, sym_im = _symbols(cfg, y_re.device)
     W = cfg.Lh * cfg.Nr
     lib = _library()
@@ -276,7 +337,9 @@ def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
         sym_im.data_ptr(), B, cfg.Nt, cfg.Nr, cfg.Lin, cfg.Lh, cfg.M, cfg.K,
         scratch_stride(cfg), tile_forms(B, cfg.Lin, W, cfg.Nt, precision),
         stages, float(np.float32(sigma2)), int(high),
-        split.data_ptr() if high else None,
+        *([t.data_ptr() for t in (taps_high, *split)] if high
+          else [None] * 3),
+        split_next.data_ptr() if high and split_next is not None else None,
         torch.cuda.current_stream(y_re.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_bamp_tiled_iteration launch failed: "
@@ -297,6 +360,16 @@ def _buffers(ps: bamp.PlaneState, cfg: Config):
                            dtype=torch.float32, device=dev)
                for _ in range(6)]
     return out, scratch, torch.empty_like(ps.var)
+
+
+def _split_buffers(ps: bamp.PlaneState, cfg: Config, x_var=None):
+    """The HIGH form's two split operand buffers of one call
+    (:func:`split_sizes`): ``x_var`` (the split planes a denoiser wrote)
+    or a new one for the split launch, and the fold's."""
+    sizes = split_sizes(ps.var.shape[0], cfg)
+    new = lambda n: torch.empty((n,), dtype=torch.bfloat16,
+                                device=ps.var.device)
+    return [new(sizes[0]) if x_var is None else x_var, new(sizes[1])]
 
 
 def _check_call(op, ps: bamp.PlaneState, y_re, y_im, cfg: Config) -> None:
@@ -340,37 +413,70 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
                             torch.zeros((0,), dtype=torch.int32,
                                         device=y_re.device))
     out, scratch, cov = _buffers(ps, cfg)
-    _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, ALL_STAGES,
-            precision)
+    stages, split, split_next = ALL_STAGES, None, None
     if precision == prec.HIGH:
+        # the forward's split operands: those the previous call's denoiser
+        # wrote where this call gets its x and var unchanged (the plane
+        # loop's next iteration), else the split launch's
+        kept = kept_split(ps)
+        split = _split_buffers(ps, cfg, kept)
+        if kept is None:
+            stages |= SPLIT_STAGE
+        split_next = torch.empty_like(split[0])
+    _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, stages,
+            precision, split, split_next)
+    if precision == prec.HIGH:
+        out.xm_re._k5_high_split = (split_next, out.var, out.xm_re._version,
+                                    out.var._version)
         launches_high += 1
     else:
         launches += 1
     return out
 
 
+def kept_split(ps: bamp.PlaneState):
+    """The split x and var planes that the call which wrote ``ps.xm_re``
+    and ``ps.var`` left on ``ps.xm_re``, where both are still those
+    tensors, unmodified; else None (a new or gathered state: the call
+    splits them itself)."""
+    kept = getattr(ps.xm_re, "_k5_high_split", None)
+    if kept is None:
+        return None
+    buf, var, v_x, v_var = kept
+    if var is ps.var and (v_x, v_var) == (ps.xm_re._version,
+                                          ps.var._version):
+        return buf
+    return None
+
+
 def stage_ms(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
              cfg: Config, reps: int = 10,
              precision: str = "highest") -> dict:
-    """Milliseconds of each of the four launches of one call on the
-    trials of ``ps`` (CUDA tensors) in the form of ``precision``, by CUDA
-    events around ``reps`` launches of that stage alone, after one whole
-    call that fills the scratch; and ``call``, the four together.  Not
-    counted in ``launches`` or ``launches_high``."""
+    """Milliseconds of each launch of one call on the trials of ``ps`` (CUDA
+    tensors) in the form of ``precision`` (at ``'high'`` also the split
+    launch), by CUDA events around ``reps`` launches of that stage alone,
+    after one whole call that fills the scratch; and ``call``, all of them
+    together (with the split).  Not counted in ``launches`` or
+    ``launches_high``."""
     precision = prec.canonical(precision)
     _check_call(op, ps, y_re, y_im, cfg)
     out, scratch, cov = _buffers(ps, cfg)
+    whole, stages, split = ALL_STAGES, list(STAGES.items()), None
+    if precision == prec.HIGH:
+        split = _split_buffers(ps, cfg)
+        whole |= SPLIT_STAGE
+        stages.insert(0, ("split", SPLIT_STAGE))
     times = {}
-    for name, mask in [*STAGES.items(), ("call", ALL_STAGES)]:
-        _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov,
-                ALL_STAGES, precision)
+    for name, mask in [*stages, ("call", whole)]:
+        _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, whole,
+                precision, split)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
             _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, mask,
-                    precision)
+                    precision, split)
         stop.record()
         torch.cuda.synchronize()
         times[name] = start.elapsed_time(stop) / reps

@@ -202,6 +202,12 @@ VAMP_R_TOL = 5e-2
 # between the HIGHEST and HIGH products.
 HIGH_CONTROL_STAT = "r_p50"
 HIGH_CONTROL_TOL = 7e-7
+# The same control at the main geometry (4096 trials of vamp_main_config()),
+# where a pass contracts over 160 k16 steps (tests/torch_vamp_high_control.py
+# on an NVIDIA H100, PERF.md): r_p50 1.8e-7 (VAMP) and 3.1e-7 (vamp2) for
+# the HIGH instance that adds each k16 step's hi x hi in FP32, 3.4e-7 and
+# 6.3e-7 where the tensor cores carried the whole sum, 2.9e-6 for HIGHEST.
+HIGH_MAIN_CONTROL_TOL = 4.5e-7
 
 # K1's HIGH form against its plain HIGH version.  Two correct HIGH decodes
 # part on T where trials stop by the allclose test: the three-pass
@@ -854,6 +860,17 @@ def vamp_gap(sk, sp) -> dict:
     return out
 
 
+def vamp_high_control(kern, cfg, case, kernel):
+    """The HIGH form's control after one iteration: (the gaps of the HIGH
+    instance, the gaps of the HIGHEST instance) to the plain HIGH version
+    (:func:`vamp_gap`) on ``case`` = (realization, y_tilde, s^2, state);
+    ``kernel(cfg, case, s0, cap, precision)`` runs wrapper ``kern``."""
+    r, yt, s2, s0 = case
+    one = kern.decode_plain(r.dec.Vh, s2, yt, s0, r.sigma2, 1, cfg, "high")
+    return (vamp_gap(kernel(cfg, case, s0, 1, "high"), one),
+            vamp_gap(kernel(cfg, case, s0, 1, "highest"), one))
+
+
 def compare_vamp(phase: str, sk, sp, tol: float, failed: list,
                  rule: str = "trial_share", r_tol=None, **info) -> float:
     """Hold a VAMP or vamp2 kernel result ``sk`` against the plain
@@ -1239,10 +1256,7 @@ def phase_kernels_vamp_high(torch, dev, algo: str, ptxas_lines):
         # version), the HIGH instance and, as the control, the HIGHEST
         # instance held to the plain HIGH version.  The limit lies between
         # the two readings, so a HIGH launch that computed in FP32 fails.
-        one = kern.decode_plain(case[0].dec.Vh, case[2], case[1], case[3],
-                                case[0].sigma2, 1, cfg, high)
-        sound = vamp_gap(kernel(cfg, case, case[3], 1), one)
-        control = vamp_gap(kernel(cfg, case, case[3], 1, "highest"), one)
+        sound, control = vamp_high_control(kern, cfg, case, kernel)
         emit(f"kernel_small_{algo}_high_control", case=name, cap=1,
              statistic=HIGH_CONTROL_STAT, limit=HIGH_CONTROL_TOL,
              high=sound, highest=control)
@@ -1276,6 +1290,15 @@ def phase_kernels_vamp_high(torch, dev, algo: str, ptxas_lines):
     max_err = max(max_err, compare_vamp(
         f"kernel_main_{algo}_high", *both(mcfg, case, 10), 1e-3, failed,
         cap=10))
+    # the control at the main geometry, where a pass contracts over 160
+    # k16 steps (N = 2560) against the small geometries' 8
+    sound, control = vamp_high_control(kern, mcfg, case, kernel)
+    emit(f"kernel_main_{algo}_high_control", B=FLAGSHIP_B, cap=1,
+         statistic=HIGH_CONTROL_STAT, limit=HIGH_MAIN_CONTROL_TOL,
+         high=sound, highest=control)
+    if not (sound[HIGH_CONTROL_STAT] < HIGH_MAIN_CONTROL_TOL
+            <= control[HIGH_CONTROL_STAT]):
+        failed.append("control main")
     cfg100 = vamp_main_config(iterations=100)
     max_err = max(max_err, compare_vamp(
         f"kernel_main_{algo}_high", *both(cfg100, case, 100), 1e-3, failed,
@@ -2001,7 +2024,8 @@ def kernel_us(torch, fn, reps: int = 10) -> dict:
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
         if us > 0:
-            name = next((n for k, n in (("product_kernel<true", "forward"),
+            name = next((n for k, n in (("split_kernel", "split"),
+                                        ("product_kernel<true", "forward"),
                                         ("fold_kernel", "fold"),
                                         ("product_kernel<false", "adjoint"),
                                         ("denoise_kernel", "denoise"))
@@ -2077,6 +2101,52 @@ def k5_high_control(kern, op, cfg, s0, y, sigma2):
             ps)
 
 
+def k5_high_split_check(kern, op, ps, y_re, y_im, sigma2, cfg,
+                        x_var=None) -> dict:
+    """The split operand planes of K5's HIGH form against their layout in
+    plain PyTorch (``fused_bamp_tiled.split_tiles``), bit for bit: the split
+    launch's x and var (or the given ``x_var``, the planes a denoiser
+    wrote), and the fold's four adjoint inputs (Z_re + Z_im, Z_re, Z_im
+    and Z_c = 1/u', with Z = (y - z') / u', gathered to the rows of the
+    column blocks they act on; zero for a frozen trial) from the fold's own
+    z' and u'."""
+    import torch
+    B, Lin, Nr, Lh = ps.var.shape[0], cfg.Lin, cfg.Nr, cfg.Lh
+    tile = kern.HIGH_ROWS
+    out, scratch, cov = kern._buffers(ps, cfg)
+    split = kern._split_buffers(ps, cfg, x_var)
+    st = kern.STAGES
+    kern._launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov,
+                 (0 if x_var is not None else kern.SPLIT_STAGE)
+                 | st["forward"] | st["fold"], "high", split)
+    torch.cuda.synchronize()
+    want_x = torch.cat([kern.split_tiles(t.reshape(B * Lin, cfg.Nt), tile)
+                        for t in (ps.xm_re, ps.var)])
+    u = out.u.reshape(B, cfg.Lout, Nr)
+    ui = 1.0 / u
+    rr = (y_re.reshape(u.shape) - out.z_re.reshape(u.shape)) * ui
+    ri = (y_im.reshape(u.shape) - out.z_im.reshape(u.shape)) * ui
+    on = ps.active[:, None, None, None]
+    planes = []
+    for v in (rr + ri, rr, ri, ui):
+        z = torch.stack([v[:, l:l + Lin] for l in range(Lh)], dim=2)
+        z = torch.where(on, z, torch.zeros_like(z))
+        planes.append(kern.split_tiles(z.reshape(B * Lin, Lh * Nr), tile))
+    rows = B * Lin
+    rt = -(-rows // tile)
+
+    def real_rows(buf, n):
+        # the bits of the rows < B Lin of n planes (the fold leaves the pad
+        # rows of the last tile as they are: no output reads them)
+        steps = buf.numel() // (n * rt * tile * 32)
+        v = buf.view(torch.int16).view(n, rt, steps, tile, 32)
+        return v.transpose(2, 3).reshape(n, rt * tile, -1)[:, :rows]
+
+    same = lambda a, b, n: bool(torch.equal(real_rows(a, n), real_rows(b, n)))
+    return {"x_var": same(split[0], want_x, 2),
+            "adjoint_inputs": same(split[1], torch.cat(planes), 4)}
+
+
 def phase_kernels_tiled_high(torch, dev, ptxas):
     """The HIGH form of K5 (precision='high', bf16 x 3 on the tensor cores)
     against its plain HIGH version (``fused_bamp_tiled.decode_plain(...,
@@ -2094,11 +2164,16 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
     to cap 300, |d mean T| within 2% of the cap).  Where a T rule holds,
     the HIGHEST instance is held to it too and printed; where the rule
     separates it (the fourth element of ``K5_HIGH_RULES``), it must fail.
-    One iteration at the 8 dB state and at the phase-2 shape timed by
-    CUDA events beside the HIGHEST instance, the plain HIGH
-    step, the bound (21 bf16 products at 989 TFLOP/s) and those products as
-    torch.matmul calls; the four launches timed apart; shared memory per
-    block against the wrapper's mirror; ptxas's lines."""
+    The split operand planes against their layout (the split launch's,
+    the fold's, the denoiser's for the next call:
+    ``k5_high_split_check``).  One iteration at the 8 dB state and at the
+    phase-2 shape timed by CUDA events, as the plane loop runs it after
+    its first iteration (on the split planes the previous call's denoiser
+    wrote) and as a first iteration (with its own split), beside the
+    HIGHEST instance, the plain HIGH step, the bound (21 bf16 products at
+    989 TFLOP/s) and those products as torch.matmul calls; the five
+    launches timed apart; shared memory per block against the wrapper's
+    mirror; ptxas's lines."""
     import dataclasses
 
     from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
@@ -2224,9 +2299,22 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
     # one iteration at B = 2048 (the 8 dB state) and at the phase-2 shape
     A, B, W = r.A, MASSIVE_RES, mcfg.Lh * mcfg.Nr
     y_re, y_im = r.y.real.contiguous(), r.y.imag.contiguous()
+    split = k5_high_split_check(kern, A, ps, y_re, y_im, r.sigma2, mcfg)
+    # the call that splits x and var itself (a decode's first iteration, or
+    # the first after a gather), then the plane loop's next state, whose
+    # call takes the split planes its predecessor's denoiser wrote
     out = {}
     one = lambda p: out.update(k=kern.iteration(A, ps, y_re, y_im, r.sigma2,
                                                 mcfg, p))
+    ms_split = cuda_ms(lambda: one(high), 2, 10)
+    ps = bamp.advance(ps, out["k"])
+    one(high)
+    kept = kern.kept_split(ps)
+    split["kept_x_var"] = kept is not None and k5_high_split_check(
+        kern, A, ps, y_re, y_im, r.sigma2, mcfg, kept)["x_var"]
+    emit("kernel_split_tiled_high", **split)
+    if not all(split.values()):
+        failed.append(f"split operand planes: {split}")
     ms = cuda_ms(lambda: one(high), 2, 10)
     highest_ms = cuda_ms(lambda: one("highest"), 2, 10)
     ms_again = cuda_ms(lambda: one(high), 2, 10)
@@ -2260,6 +2348,9 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
     y2_re, y2_im = y2.real.contiguous(), y2.imag.contiguous()
     tail = lambda p: out.update(t=kern.iteration(A, ps2, y2_re, y2_im,
                                                  r.sigma2, pcfg, p))
+    tail_ms_split = cuda_ms(lambda: tail(high), 2, 20)
+    ps2 = bamp.advance(ps2, out["t"])
+    tail(high)
     tail_ms = cuda_ms(lambda: tail(high), 2, 20)
     tail_highest_ms = cuda_ms(lambda: tail("highest"), 2, 20)
     kt = out["t"]
@@ -2276,6 +2367,7 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
             for form, small in (("large", 0), ("small", 1))}
     timing = dict(kernel="fused_bamp_tiled_high", B=B,
                   ebn0_db=MASSIVE_HIGH_DB, ms=ms, ms_again=ms_again,
+                  ms_with_split=ms_split,
                   highest_ms=highest_ms, high_over_highest=ms / highest_ms,
                   plain_ms=plain_ms, library_ms=library_ms, flop=flop,
                   bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
@@ -2283,6 +2375,7 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
                   achieved_tflops=flop / (ms * 1e-3) / 1e12,
                   us_per_trial_iteration=1e3 * ms / B, stage_ms=stage,
                   tail_B=n2, tail_ms=tail_ms,
+                  tail_ms_with_split=tail_ms_split,
                   tail_highest_ms=tail_highest_ms,
                   tail_bound_ms=tail_bound_ms, tail_bound_by=tail_bound_by,
                   tail_pct_of_bound=100 * tail_bound_ms / tail_ms,

@@ -154,51 +154,66 @@ def test_plane_loop_high_bpsk_within_the_parity_rule():
 
 
 def test_high_taps_are_the_split_gauss_planes():
-    """The wrapper's split taps: the seven Gauss planes of a real x,
-    transposed so that the output columns lie along the rows, split into
-    bf16 hi and lo, rows padded with zeros to a multiple of 8; cached per
+    """The wrapper's split taps: the seven Gauss planes of a real x in
+    their products' order (the forward's Re S, Im S - Re S, S_a2; the
+    adjoint's Re S^T, -Im S^T - Re S^T, Re S^T - Im S^T, S_a2^T), transposed so
+    that the output columns lie along the rows, split into bf16 hi and lo
+    in the split layout (``split_at``: tiles of 112 columns by 16
+    contraction steps, an even number of steps, zero pads); cached per
     operator."""
     cfg, op, *_ = shared(Lin=12, Lh=5)
     buf = fused_bamp_tiled.high_taps(op)
     assert buf.dtype == torch.bfloat16 and buf is fused_bamp_tiled.high_taps(op)
     t = bamp.gauss_taps(op)
     W, Nt = cfg.Lh * cfg.Nr, cfg.Nt
-    kf, ka = fused_bamp_tiled.pad8(Nt), fused_bamp_tiled.pad8(W)
-    assert (kf, ka) == (16, 56)
-    planes = [(t.s_a2, kf), (t.s_re, kf), (t.dmc, kf), (t.st_a2, ka),
-              (t.st_re, ka), (t.amc, ka), (t.adm, ka)]
-    assert buf.numel() == sum(2 * p.shape[1] * k for p, k in planes)
+    cols = fused_bamp_tiled.HIGH_COLS
+    planes = [t.s_re, t.dmc, t.s_a2, t.st_re, t.amc, t.adm, t.st_a2]
+    sizes = [-(-p.shape[1] // cols) * cols
+             * fused_bamp_tiled.split_steps(p.shape[0]) * 32 for p in planes]
+    assert sizes[:3] == [112 * 2 * 32] * 3 and sizes[3:] == [112 * 4 * 32] * 4
+    assert buf.numel() == sum(sizes)
     at = 0
-    for plane, k in planes:
-        rows, K = plane.T.shape
-        for half in prec.split_bf16(plane.T.contiguous()):
-            got = buf[at:at + rows * k].reshape(rows, k)
-            assert torch.equal(got[:, :K], half)
-            assert not got[:, K:].float().any()
-            at += rows * k
+    for plane, size in zip(planes, sizes):
+        m = plane.T.contiguous()            # (output columns, contraction)
+        rows, K = m.shape
+        got = buf[at:at + size].float()
+        steps = fused_bamp_tiled.split_steps(K)
+        seen = torch.zeros(size, dtype=torch.bool)
+        for h, half in enumerate(prec.split_bf16(m)):
+            idx = torch.tensor([[fused_bamp_tiled.split_at(steps, cols, R, k, h)
+                                 for k in range(K)] for R in range(rows)])
+            assert torch.equal(got[idx], half.float())
+            seen[idx.flatten()] = True
+        assert not got[~seen].any()         # the pads are zero
+        at += size
     assert at == buf.numel()
 
 
 def test_high_forms_and_shared_memory():
-    """The HIGH form's product blocks (128 x 64 large, 32 x 32 small, a
-    3-slot ring of 32 contraction steps: one FP32 A tile and the taps' hi
-    and lo, rows padded by 8) and its form rule at the massive geometry:
-    phase 1's 2048 trials take the large form, phase 2's handful the small
-    one; the HIGHEST forms are unchanged."""
+    """The HIGH form's product blocks (128 x 112 large, one per SM: a
+    3-slot ring of two k16 steps of both split operands, 64 bytes a row,
+    two parks of a float per output, an mbarrier per slot and one more
+    for the adjoint's last epilogue; 32 x 16 small) and its form rule at
+    the massive
+    geometry: phase 1's 2048 trials take the large form, phase 2's handful
+    the small one; the HIGHEST forms are unchanged."""
     m = tconfig.massive_mimo()
     W = m.Lh * m.Nr
-    for fwd in (True, False):
-        assert fused_bamp_tiled.smem_bytes(fwd, False, "high") == 3 * (
-            4 * 128 * 40 + 2 * 2 * 64 * 40) == 92160
-        assert fused_bamp_tiled.smem_bytes(fwd, True, "high") == 3 * (
-            4 * 32 * 40 + 2 * 2 * 32 * 40) == 30720
+    ring = 3 * 2 * 64 * (128 + 112)
+    assert fused_bamp_tiled.smem_bytes(True, False, "high") == (
+        ring + 2 * 4 * 128 * 112 + 24) == 206872
+    assert fused_bamp_tiled.smem_bytes(False, False, "high") == (
+        ring + 2 * 4 * 128 * 112 + 32) == 206880
+    assert fused_bamp_tiled.smem_bytes(True, True, "high") == (
+        3 * 2 * 64 * (32 + 16) + 2 * 4 * 32 * 16 + 24) == 22552
+    assert fused_bamp_tiled.smem_bytes(False, True, "high") == 22560
     assert fused_bamp_tiled.smem_bytes(True, False) == 4 * 3 * (
         2 * 64 * 20 + 3 * 16 * 64)
-    assert 2 * fused_bamp_tiled.smem_bytes(True, False, "high") <= 232448
+    assert fused_bamp_tiled.smem_bytes(False, False, "high") <= 232448
     tf = fused_bamp_tiled.tile_forms
     assert tf(2048, m.Lin, W, m.Nt, "high") == 0
     assert tf(6, m.Lin, W, m.Nt, "high") == 3
-    # 32 trials: 8 row tiles of 128 x 21 adjoint column tiles = 168 < 264
+    # 32 trials: 8 row tiles of 128 x 12 adjoint column tiles = 96 < 132
     assert tf(32, m.Lin, W, m.Nt, "high") == 3
     assert tf(64, m.Lin, W, m.Nt, "high") == 1
     assert tf(64, m.Lin, W, m.Nt) == 1

@@ -9,19 +9,21 @@ swapped).  For each: the gap of one iteration to the plain HIGH step
 (median and largest |d| of xmap_re, xm_re, var, z_re and u, from the state
 after two plain HIGH iterations of 2048 trials at 8 dB, the state of
 ``chip_smoke.py``'s ``kernel_main_tiled_high_control``), the call's time by
-CUDA events at 2048 trials and at 6 of them, the four launches timed apart,
+CUDA events at 2048 trials and at 6 of them, the launches timed apart,
 and ptxas's register and spill lines; the HIGHEST form's time in the same
 call.  Two rounds, in turns.  Variants:
 
-* ``shipped``: the source as it is;
-* ``nopromote``: the hi x hi products accumulated in the tensor cores
-  across the whole contraction instead of per k16 step and joined by FP32
-  adds (the sums of positive terms then drift by the accumulator's
-  truncation);
-* ``promote_both``: the corrections promoted per k16 step as well;
-* ``promote32_min1``: the promotion per ring slot (two k16 steps), one
-  block per SM;
-* ``tile64x128``: 64 x 128 block tiles (2 x 4 warps) instead of 128 x 64.
+* ``shipped``: the source as it is (per output tile and k16 step, its
+  three passes from zero in the tensor cores, joined by one FP32 add;
+  ring slots of two k16 steps);
+* ``interleaved``: the first pass of every tile of the warp before the
+  second, and so on (more independent mma between dependent ones);
+* ``k16``: ring slots of one k16 step, 5 of them;
+* ``no_store``: the products without their device-memory stores (wrong
+  results: a probe of their cost);
+* ``nopromote``: the whole contraction accumulated in the tensor cores
+  (the sums of positive terms then drift by the accumulator's
+  truncation).
 
     env PYTHONPATH=. python3 tests/torch_k5_high_variants.py \\
         [shipped nopromote ...]
@@ -51,81 +53,56 @@ from amp_sparc_spatialmodulation_tpu_torch.utils.device import (  # noqa: E402
     make_generator)
 
 SRC = (build.CSRC / "fused_bamp_tiled.cu").read_text()
-LARGE = "using HighLarge = HighForm<4, 2, 2, 4, 2>;"
-PROMOTED = """          float th[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(th, ah[i], b[0], b[1]);
-          mma_bf16(cx[i][j], ah[i], b[2], b[3]);
-          mma_bf16(cx[i][j], al[i], b[0], b[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) hh[i][j][e] = hh[i][j][e] + th[e];"""
-IN_PLACE = """          mma_bf16(hh[i][j], ah[i], b[0], b[1]);
-          mma_bf16(cx[i][j], ah[i], b[2], b[3]);
-          mma_bf16(cx[i][j], al[i], b[0], b[1]);"""
-BOTH = """          float th[4] = {0.f, 0.f, 0.f, 0.f}, tc[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(th, ah[i], b[0], b[1]);
-          mma_bf16(tc, ah[i], b[2], b[3]);
-          mma_bf16(tc, al[i], b[0], b[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            hh[i][j][e] = hh[i][j][e] + th[e];
-            cx[i][j][e] = cx[i][j][e] + tc[e];
-          }"""
-STEP_LOOP = SRC[SRC.index("#pragma unroll\n    for (int ks = 0; ks < kHK; "
-                          "ks += 16) {"):
-                SRC.index("    if ((it + 1) % nk == 0) {")]
-SLOT_LOOP = """    unsigned ah[2][MT][4], al[2][MT][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float* a = sa + 16 * i * LA + 16 * ks;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              a + (r & 1) * 8 * LA + (r >> 1) * 8);
-          split_pair(v, ah[ks][i][r], al[ks][i][r]);
-        }
-      }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      unsigned b[2][4];
-      ldmatrix_x4(b[0], sb + 8 * j * LB);
-      ldmatrix_x4(b[1], sb + 8 * j * LB + 16);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        float th[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          mma_bf16(th, ah[ks][i], b[ks][0], b[ks][1]);
-          mma_bf16(cx[i][j], ah[ks][i], b[ks][2], b[ks][3]);
-          mma_bf16(cx[i][j], al[ks][i], b[ks][0], b[ks][1]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hh[i][j][e] = hh[i][j][e] + th[e];
-      }
-    }
-"""
+STEP = SRC[SRC.index("#pragma unroll\n      for (int j = 0; j < NT; ++j)\n"
+                     "#pragma unroll\n        for (int i = 0; i < MT; ++i) {"):
+           SRC.index("    if (f + 1 == total) {")]
 VARIANTS = {
     "shipped": [],
-    "nopromote": [(PROMOTED, IN_PLACE)],
-    "promote_both": [(PROMOTED, BOTH)],
-    "promote32_min1": [(STEP_LOOP, SLOT_LOOP),
-                       (LARGE, LARGE.replace("4, 2>", "4, 1>"))],
-    "tile64x128": [(LARGE, "using HighLarge = HighForm<2, 4, 2, 4, 2>;")],
+    "interleaved": [(STEP, """#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          mma_bf16_zero(th[i][j], ah[i], b[j][0], b[j][1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          mma_bf16(th[i][j], ah[i], b[j][2], b[j][3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(th[i][j], al[i], b[j][0], b[j][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j][e] = acc[i][j][e] + th[i][j][e];
+        }
+    }
+"""), ("      unsigned ah[MT][4], al[MT][4], b[NT][4];\n",
+       "      unsigned ah[MT][4], al[MT][4], b[NT][4];\n"
+       "      float th[MT][NT][4];\n")],
+    "k16": [("constexpr int kSlotSteps = 2;", "constexpr int kSlotSteps = 1;"),
+            ("using HighLarge = HighForm<4, 2, 2, 7, 3, 1>;",
+             "using HighLarge = HighForm<4, 2, 2, 7, 5, 1>;")],
+    "no_store": [("          if (kFwd || p.act[(R0 + r) / p.Lin])\n",
+                  "          if (false)\n")],
+    "nopromote": [("""          float th[4];
+          mma_bf16_zero(th, ah[i], b[j][0], b[j][1]);
+          mma_bf16(th, ah[i], b[j][2], b[j][3]);
+          mma_bf16(th, al[i], b[j][0], b[j][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = acc[i][j][e] + th[e];""",
+                   """          mma_bf16(acc[i][j], ah[i], b[j][0], b[j][1]);
+          mma_bf16(acc[i][j], ah[i], b[j][2], b[j][3]);
+          mma_bf16(acc[i][j], al[i], b[j][0], b[j][1]);""")],
 }
 
 
 def library(name: str, report) -> ctypes.CDLL:
     key = "fused_bamp_tiled" if name == "shipped" else f"k5high_{name}"
-    lib = ctypes.CDLL(str(build.library_path(key)))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_bamp_tiled_iteration.argtypes = (
-        [ptr] * 33 + [i32] * 10 + [f32, i32, ptr, ptr])
-    lib.fused_bamp_tiled_iteration.restype = i32
-    lib.fused_bamp_tiled_error_string.argtypes = [i32]
-    lib.fused_bamp_tiled_error_string.restype = ctypes.c_char_p
+    lib = kern.typed(ctypes.CDLL(str(build.library_path(key))))
     lines = [ln.strip() for ln in report[key]["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln or "high_product" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     print(json.dumps({"variant": name, "ptxas": lines}), flush=True)
     return lib
 

@@ -24,16 +24,24 @@ trials, all active, from the initial state, and ``tiled_tail``, the
 trials still active after a 40-iteration phase 1 of those, gathered (as
 chip_smoke's ``kernel_phase2_tiled`` builds them); ``vamp_high_cap10`` and
 ``vamp2_high_cap10``, the HIGH form of K3 and K4 (``precision='high'``,
-bf16 x 3 on the tensor cores) at the VAMP shape above, timed only for a
-tree whose wrapper takes ``precision`` (turns of that tree alone, the
-median printed; a tree without the HIGH form is left out of the case).
-The two trees' results
+bf16 x 3 on the tensor cores) at the VAMP shape above, and
+``tiled_high`` and ``tiled_high_tail``, the HIGH form of K5 for one
+iteration at the massive point's HIGH shapes (``tiled_high``: 2048 trials
+of ``massive_mimo()`` at Eb/N0 = 8 dB after two plain HIGH iterations and
+one of this checkout's K5 at HIGH, the state of chip_smoke's
+``kernel_timing_tiled_high``; ``tiled_high_tail``: the trials still active
+after 40 HIGH iterations of 2048 at 18 dB, run by this checkout's K5,
+gathered, and one iteration more, chip_smoke's phase-2 shape), each timed only
+for a tree whose wrapper takes ``precision`` (a tree without the HIGH form
+is left out of the case).  The two trees' results
 must be bit-identical for K1, K2, K5 and K6 (every plane and ``notok``;
 xmap on the active trials, the only ones K5 and K6 write it for) and K7;
 for K3 and K4, whose product engine may sum in another order from one
 tree to the other, they are held to
 ``chip_smoke.compare_vamp``'s ``trial_share`` rule instead, and the
-bit-identical share is printed.  A kernel whose source the other checkout
+bit-identical share is printed; K5's HIGH results are not compared (its
+bits may change from tree to tree, the rules of chip_smoke hold it), only
+the share of bit-identical elements is printed.  A kernel whose source the other checkout
 lacks is timed on its own.  ``--cases`` picks cases by name.
 
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
@@ -44,6 +52,8 @@ lacks is timed on its own.  ``--cases`` picks cases by name.
         --cases periter_fused,periter_linear,periter_tail
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
         --cases tiled,tiled_tail --rounds 3
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
+        --cases tiled_high,tiled_high_tail --rounds 4
 
 Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
@@ -162,6 +172,8 @@ def _cases(dev, wanted=frozenset()):
         yield from _periter_cases(dev, want)
     if want("tiled", "tiled_tail"):
         yield from _tiled_cases(dev, want)
+    if want("tiled_high", "tiled_high_tail"):
+        yield from _tiled_high_cases(dev, want)
 
 
 def _periter_cases(dev, want):
@@ -237,6 +249,52 @@ def _tiled_cases(dev, want):
                        ps.active))
 
 
+def _tiled_high_cases(dev, want):
+    """K5's HIGH form for one iteration at the massive point's HIGH
+    shapes."""
+    import chip_smoke
+    from amp_sparc_spatialmodulation_tpu_torch.config import massive_mimo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_tiled)
+    planes = lambda s, y: (bamp.to_planes(s), y.real.contiguous(),
+                           y.imag.contiguous())
+    shapes = {}
+    if want("tiled_high"):
+        m = massive_mimo()
+        r = montecarlo.generate_realization(
+            make_generator(dev, 45), m, "sparc", "banded",
+            chip_smoke.MASSIVE_RES, chip_smoke.snr_of(m, 8.0), "high")
+        s0 = bamp.initial_state(r.y, m.N, r.sigma2)
+        s2 = fused_bamp_tiled.decode_plain(r.A, s0, r.y, r.sigma2,
+                                           chip_smoke.K5_HIGH_PRESTEPS, m,
+                                           "high")
+        shapes["tiled_high"] = (m, r.A, r.sigma2, planes(s2, r.y))
+    if want("tiled_high_tail"):
+        cfg = chip_smoke.massive_main_config()
+        r = montecarlo.generate_realization(
+            make_generator(dev, 43), cfg, "sparc", "banded",
+            chip_smoke.MASSIVE_RES,
+            chip_smoke.snr_of(cfg, chip_smoke.MASSIVE_EBN0_DB), "high")
+        s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+        it = lambda *a: fused_bamp_tiled.iteration(*a, precision="high")
+        s1 = bamp.plane_loop(it, r.A, s0, r.y, r.sigma2,
+                             chip_smoke.MASSIVE_K1, cfg)
+        idx = torch.nonzero(s1.active).flatten()
+        shapes["tiled_high_tail"] = (
+            cfg, r.A, r.sigma2,
+            planes(montecarlo.state_take_trials(s1, idx), r.y[idx]))
+    for case, (cfg, op, sigma2, (ps, y_re, y_im)) in shapes.items():
+        # one iteration more by this checkout's K5 at HIGH, as the plane
+        # loop runs it: the next call takes the split x and var planes its
+        # denoiser wrote (a tree without them splits them itself)
+        ps = bamp.advance(ps, fused_bamp_tiled.iteration(
+            op, ps, y_re, y_im, sigma2, cfg, "high"))
+        yield (case, "fused_bamp_tiled", "fused_bamp_tiled",
+               lambda mod, cfg=cfg, op=op, sigma2=sigma2, ps=ps, y_re=y_re,
+               y_im=y_im: Step(mod.iteration(op, ps, y_re, y_im, sigma2,
+                                             cfg, "high"), ps.active))
+
+
 def _vamp_case(dev, algo, precision=None):
     """K3 or K4 at the VAMP main point: 65536 trials to the cap of 10, in
     the HIGHEST form or, with ``precision='high'``, the HIGH form (whose
@@ -268,7 +326,8 @@ def _vamp_case(dev, algo, precision=None):
 def _takes_precision(mod) -> bool:
     """Whether a tree's wrapper module has the HIGH form."""
     import inspect
-    return "precision" in inspect.signature(mod.whole_decode).parameters
+    entry = getattr(mod, "whole_decode", None) or mod.iteration
+    return "precision" in inspect.signature(entry).parameters
 
 
 def _libraries(name, mods, trees):
@@ -299,6 +358,19 @@ def _same(a, b) -> bool:
                for f in a._fields if f != "t")
 
 
+def _same_share(a: Step, b: Step) -> float:
+    """The share of the elements of two K5 results that are bit-identical
+    (xmap on the active trials only)."""
+    names = a.out._fields
+    same = total = 0
+    for n, x, y in zip(names, a.out, b.out):
+        if n.startswith("xmap"):
+            x, y = x[a.rows], y[a.rows]
+        same += int((x == y).sum())
+        total += x.numel()
+    return same / total
+
+
 def _trials(result) -> int:
     return (int(result.out[0].shape[0]) if isinstance(result, Step)
             else int(result.T.numel()))
@@ -310,6 +382,8 @@ def _across(case, first) -> dict:
     if len(first) < 2:
         return {}
     a, b = first["change"], first["parent"]
+    if case.startswith("tiled_high"):
+        return {"bit_identical_share": _same_share(a, b)}
     identical = _same(a, b)
     if not case.startswith("vamp"):
         if not identical:
@@ -349,7 +423,7 @@ def main(argv=None) -> int:
     for case, name, module, launch in _cases(dev, wanted):
         mods = {k: wrapper_module(root, module, k)
                 for k, root in roots.items()}
-        if "_high_" in case:
+        if "_high" in case:
             mods = {k: m for k, m in mods.items() if _takes_precision(m)}
         libs = _libraries(name, mods, {k: trees[k] for k in mods})
         order = [k for k in ("parent", "change", "change", "parent")
