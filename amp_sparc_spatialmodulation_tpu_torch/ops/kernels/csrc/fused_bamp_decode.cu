@@ -103,26 +103,44 @@
 // operand (M = Lh*Nr, resp. Nt for the adjoint, in 16-row tiles; 72 pads to
 // 80, a tenth wasted) and the trial's Lin column blocks as the N side
 // (n8 tiles, 20 pads to 24), so that no m16 tile idles a third of its rows
-// as M = Lin would.  A warp owns one 16-row tile and every n8 tile of it
-// and runs the products one after another (k1 kept in registers for the
-// Gauss combinations); the taps come pre-split from the wrapper, laid out
-// as the lanes' fragments (two 16-byte loads per lane and k16 step, from
-// L2); the trial side is split into bf16 hi and lo once, in shared memory,
-// by the pass that writes it: the denoiser writes var, xm_re (and xm_re +
-// xm_im, xm_im) split beside its FP32 state, the fold writes the adjoint's
-// four inputs only split.  The forward's split operands and the adjoint's
-// share one region (each is dead while the other lives), with row strides
-// of 4 mod 8 words so that a fragment's eight rows hit distinct banks; the
-// pad columns are rewritten as zeros by the pass that writes the region.
-// At the QPSK flagship that region is 80,000 B and the block 220,800 B
-// (one block per SM), at the OOK flagship 28,160 B and 96,960 B (two).
-// Its bound is the tensor cores' (3 passes x 2 Lin Nt Lh Nr flop per real
-// product at 989 TFLOP/s, about 0.1 us per OOK trial-iteration), far below
-// the tap fragments' L2 stream (about 0.29 MB per trial-iteration at the
-// OOK flagship) and the passes the precision does not change.  The HIGHEST
+// as M = Lin would.  A warp runs units of a pass: a 16-row tile, cut into
+// ranges of its n8 tiles where the block has more warps than tiles (the
+// QPSK flagship's adjoint: 8 tiles, 16 warps, two units a tile), each
+// unit's Gauss products one after another (k1 parked in the slot of the
+// output it combines into).  A k16 step loads the lanes' tap fragments
+// (pre-split by the wrapper and laid out as the fragments: two 16-byte
+// loads per lane, from L2) and their B words, then issues the hi hi mma of
+// every n8 tile before the hi lo and the lo hi ones, so that four
+// independent accumulations lie between two dependent mma; its addresses
+// are set up once per unit and product.  The trial side is split into bf16
+// hi and lo once, in shared memory, by the pass that writes it: the
+// denoiser writes var, xm_re (and xm_re + xm_im, xm_im) split beside its
+// FP32 state, the fold writes the adjoint's four inputs only split.  The
+// forward's split operands and the adjoint's share one region (each is
+// dead while the other lives), with row strides of 4 mod 8 words so that a
+// fragment's eight rows hit distinct banks; the pad columns are rewritten
+// as zeros by the pass that writes the region.  At the QPSK flagship that
+// region is 80,000 B and the block 220,800 B, the one block an SM holds,
+// so the block runs 16 warps; at the OOK flagship 28,160 B and 96,960 B,
+// two blocks of 8 warps per SM (128 registers a thread either way;
+// fused_bamp.py::high_threads).  The HIGH instances' denoiser is the
+// HIGHEST one's arithmetic with the alphabet's size fixed at compile time
+// for OOK and QPSK (the flagships').  Its bound is the tensor cores' (3
+// passes x 2 Lin Nt Lh Nr flop per real product at 989 TFLOP/s, about 0.1
+// us per OOK trial-iteration), far below the tap fragments' L2 stream
+// (about 0.29 MB per trial-iteration at the OOK flagship) and the passes
+// the precision does not change.  What holds it back was measured on an
+// H100 (PERF.md, tests/torch_k1_passes.py --precision high): latency, with
+// 8 warps to hide it at the QPSK flagship (the denoiser 45% of the time,
+// the forward products 29%, the adjoint's 16%, the fold 9%, the tap
+// fragments' loads 7%), then, with 16 warps, the mma's own rate (about
+// 35% of the time at either flagship), the products' other instructions,
+// and the denoiser (about 30%).  The HIGHEST
 // instance (kHigh false) is the code above, unchanged.
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "decode_common.cuh"
 
@@ -135,6 +153,11 @@ constexpr int kFR = 7;  // forward: source blocks per thread
 constexpr int kAR = 5;  // adjoint: column blocks per thread
 constexpr float kZeroTol = 1e-9f;
 constexpr int kMaxNT = 4;  // HIGH form: n8 tiles over the column blocks
+// HIGH form's blocks (fused_bamp.py::high_threads picks one): 16 warps
+// where one block fills an SM's shared memory, else 8 warps, two blocks per
+// SM; 128 registers a thread either way.
+constexpr int kHighThreads1 = 512;
+constexpr int kHighThreads2 = 256;
 
 enum Denoiser { kSegmented = 0, kMixture = 1 };
 
@@ -379,110 +402,146 @@ struct Split {
 // b1) the 16 x 8 column fragment, d FP32 (a copy of vamp_common.cuh's).
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One real product under dot3, computed by one warp: rows mt*16 ..
-// mt*16+15 of plane A (the tap fragments at `a`, ksteps k16 steps) times
-// the split operand (hi, lo; row c of the N side at c * ld, rows past
-// nrows - 1 read row nrows - 1 and are dropped), every n8 tile nt < NT:
-// out[nt][e] = (A_hi B_hi) + (A_hi B_lo + A_lo B_hi), lane (g, t) holding
-// rows g, g + 8 (e / 2) and columns 2t, 2t + 1 (e % 2) of each tile.
-__device__ __forceinline__ void product_x3(const uint4* a, int mt, int ksteps,
-                                           const __nv_bfloat16* hi,
-                                           const __nv_bfloat16* lo, int ld,
-                                           int nrows, int NT,
-                                           float (&out)[kMaxNT][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float hh[kMaxNT][4], cx[kMaxNT][4];
-  int row[kMaxNT];
-#pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt) {
-    row[nt] = min(nt * 8 + g, nrows - 1) * ld + 2 * t;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) hh[nt][e] = cx[nt][e] = 0.f;
-  }
-  const uint4* ap = a + (static_cast<size_t>(mt) * ksteps * 32 + lane) * 2;
-  for (int ks = 0; ks < ksteps; ++ks, ap += 64) {
-    const uint4 ah = __ldg(ap), al = __ldg(ap + 1);
-    const unsigned a_hi[4] = {ah.x, ah.y, ah.z, ah.w};
-    const unsigned a_lo[4] = {al.x, al.y, al.z, al.w};
-#pragma unroll
-    for (int nt = 0; nt < kMaxNT; ++nt) {
-      if (nt < NT) {
-        const int k = row[nt] + ks * 16;
-        const unsigned bh0 = *reinterpret_cast<const unsigned*>(hi + k);
-        const unsigned bh1 = *reinterpret_cast<const unsigned*>(hi + k + 8);
-        const unsigned bl0 = *reinterpret_cast<const unsigned*>(lo + k);
-        const unsigned bl1 = *reinterpret_cast<const unsigned*>(lo + k + 8);
-        mma_bf16(hh[nt], a_hi, bh0, bh1);
-        mma_bf16(cx[nt], a_hi, bl0, bl1);
-        mma_bf16(cx[nt], a_lo, bh0, bh1);
-      }
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[nt][e] = hh[nt][e] + cx[nt][e];
+// A lane's tap fragment of one k16 step of a 16-row tile: its 8 hi then 8
+// lo bf16 (fused_bamp.py::mma_tiles), from L2.
+__device__ __forceinline__ void tap_load(uint4 (&f)[2], const uint4* p) {
+  f[0] = __ldg(p);
+  f[1] = __ldg(p + 1);
 }
 
-// The forward products of the HIGH form, one warp per 16-row tile of the
-// tap stack (column j = l Nr + m): P[c, l, m] for every column block c
-// whose tap l places a block: Pv = dot3(var, S_a2), Pr = k1 (- k3), Pi =
-// k1 + k2.  The gains, where not folded, multiply in the fold.
+// Units of a pass of the HIGH products: each 16-row tile of the tap stack
+// cut into `parts` ranges of its NT n8 tiles, as many as the block has
+// warps per tile (tests/test_torch_k1_high_tiles.py mirrors it).
+__device__ __forceinline__ int high_parts(int mtiles, int warps, int NT) {
+  const int s = warps / mtiles;
+  return s < 1 ? 1 : (s > NT ? NT : s);
+}
+
+// One pass of the HIGH form's products under dot3: nq Gauss products of
+// the 16-row tiles of one stack of tap planes (plane q at taps + q plane,
+// ks k16 steps), product q on the split operand whose hi plane is
+// operand(q) (its lo plane lo bf16 further; row c of the N side at c ld,
+// rows past nrows - 1 read row nrows - 1 and are dropped).  Warp w runs
+// units w, w + warps, ... (tile mt, n8 tiles n0 .. n1-1), each unit's
+// products one after another: out[nt][e] = (A_hi B_hi) + (A_hi B_lo +
+// A_lo B_hi), lane (g, t) holding rows g, g + 8 (e / 2) and columns 2t, 2t
+// + 1 (e % 2) of tile nt, handed to epi(mt, q, n0, n1, out).  Per k16 step
+// each n8 tile's B fragments come by four 32-bit loads (row g, columns 2t
+// and 2t + 8, hi and lo), then the hi hi mma of every tile is issued, the
+// hi lo, the lo hi: each accumulator's sums run in the order of one tile
+// at a time.  The step does nothing else: every address is set up once
+// per unit and product.
+template <class Operand, class Epi>
+__device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
+                                          int mtiles, int ks, int nq,
+                                          Operand operand, int lo, int ld,
+                                          int nrows, int NT, Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int parts = high_parts(mtiles, warps, NT);
+  const int units = mtiles * parts;
+  // this lane's B fragment words in n8 tile nt: row g, column 2t
+  int boff[kMaxNT];
+#pragma unroll
+  for (int nt = 0; nt < kMaxNT; ++nt)
+    boff[nt] = min(nt * 8 + (lane >> 2), nrows - 1) * ld + 2 * (lane & 3);
+  for (int u = warp; u < units; u += warps) {
+    const int mt = u / parts, part = u - mt * parts;
+    const int n0 = part * NT / parts, n1 = (part + 1) * NT / parts;
+    const uint4* tile = taps + (static_cast<size_t>(mt) * ks * 32 + lane) * 2;
+    for (int q = 0; q < nq; ++q) {
+      const uint4* ap = tile + q * plane;
+      const __nv_bfloat16* b = operand(q);
+      float hh[kMaxNT][4], cx[kMaxNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hh[nt][e] = cx[nt][e] = 0.f;
+      for (int k = 0; k < ks; ++k, ap += 64, b += 16) {
+        uint4 f[2];
+        tap_load(f, ap);
+        const unsigned ah[4] = {f[0].x, f[0].y, f[0].z, f[0].w};
+        const unsigned al[4] = {f[1].x, f[1].y, f[1].z, f[1].w};
+        unsigned bf[kMaxNT][4];
+#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) {
+            const __nv_bfloat16* r = b + boff[nt];
+            bf[nt][0] = *reinterpret_cast<const unsigned*>(r);
+            bf[nt][1] = *reinterpret_cast<const unsigned*>(r + 8);
+            bf[nt][2] = *reinterpret_cast<const unsigned*>(r + lo);
+            bf[nt][3] = *reinterpret_cast<const unsigned*>(r + lo + 8);
+          }
+#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) mma_bf16(hh[nt], ah, bf[nt][0], bf[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
+#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hh[nt][e] = hh[nt][e] + cx[nt][e];
+      epi(mt, q, n0, n1, hh);
+    }
+  }
+}
+
+// The forward products of the HIGH form (column j = l Nr + m of the tap
+// stack along the rows): P[c, l, m] for every column block c whose tap l
+// places a block: Pv = dot3(var, S_a2), Pr = k1 (- k3), Pi = k1 + k2, k1
+// parked in Pr's slot until the last product.  The gains, where not
+// folded, multiply in the fold.
 __device__ __forceinline__ void forward_high(
     const Params& p, const Split& xs, int kx, int kz, bool real_x, float* Pv,
     float* Pr, float* Pi, int NrP) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int W = p.Lh * p.Nr;
-  const int mtiles = kz / 16, ksteps = kx / 16, NT = (p.Lin + 7) / 8;
-  const size_t plane = static_cast<size_t>(mtiles) * ksteps * 64;
-  for (int mt = threadIdx.x >> 5; mt < mtiles; mt += blockDim.x >> 5) {
-    // P[slot] = v[nt][e] for output (nt, e): row j of the tap stack, column
-    // block c, where tap l = j / Nr places a block
-    auto store = [&](float* P, const float (&v)[kMaxNT][4]) {
+  const int mtiles = kz / 16, ks = kx / 16, NT = (p.Lin + 7) / 8;
+  const size_t plane = static_cast<size_t>(mtiles) * ks * 64;
+  // the products' operands: var, k1's (xm_re, or xm_re + xm_im), xm_re,
+  // xm_im
+  const int o1 = real_x ? 1 : 2;
+  auto operand = [&](int q) {
+    return xs.at(q == 0 ? 0 : q == 1 ? o1 : q == 2 ? 1 : 3, 0);
+  };
+  high_pass(
+      p.taps, plane, mtiles, ks, real_x ? 3 : 4, operand, xs.plane, xs.ld,
+      p.Lin, NT,
+      [&](int mt, int q, int n0, int n1, const float (&v)[kMaxNT][4]) {
 #pragma unroll
-      for (int nt = 0; nt < kMaxNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = mt * 16 + g + 8 * (e >> 1);
-          const int c = nt * 8 + 2 * t + (e & 1);
-          if (j >= W || c >= p.Lin) continue;
+        for (int h = 0; h < 2; ++h) {
+          const int j = mt * 16 + g + 8 * h;
+          if (j >= W) continue;
           const int l = j / p.Nr;
-          if (dst_block(c, l, p) >= 0)
-            P[(c * p.Lh + l) * NrP + (j - l * p.Nr)] = v[nt][e];
+          const int row = l * NrP + (j - l * p.Nr);
+#pragma unroll
+          for (int nt = 0; nt < kMaxNT; ++nt) {
+            if (nt < n0 || nt >= n1) continue;
+#pragma unroll
+            for (int w = 0; w < 2; ++w) {
+              const int c = nt * 8 + 2 * t + w;
+              if (c >= p.Lin || dst_block(c, l, p) < 0) continue;
+              const int slot = c * p.Lh * NrP + row;
+              const float val = v[nt][2 * h + w];
+              if (q == 0) Pv[slot] = val;
+              else if (q == 1) Pr[slot] = val;  // k1
+              else if (q == 2) Pi[slot] = Pr[slot] + val;
+              else Pr[slot] = Pr[slot] - val;
+            }
+          }
         }
-    };
-    float acc[kMaxNT][4], k1[kMaxNT][4];
-    product_x3(p.taps, mt, ksteps, xs.at(0, 0), xs.at(0, 1), xs.ld, p.Lin,
-               NT, acc);
-    store(Pv, acc);
-    const int o1 = real_x ? 1 : 2;  // k1's operand: xm_re, or xm_re + xm_im
-    product_x3(p.taps + plane, mt, ksteps, xs.at(o1, 0), xs.at(o1, 1), xs.ld,
-               p.Lin, NT, k1);
-    if (real_x) store(Pr, k1);
-    product_x3(p.taps + 2 * plane, mt, ksteps, xs.at(1, 0), xs.at(1, 1),
-               xs.ld, p.Lin, NT, acc);
-#pragma unroll
-    for (int nt = 0; nt < kMaxNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = k1[nt][e] + acc[nt][e];
-    store(Pi, acc);
-    if (!real_x) {
-      product_x3(p.taps + 3 * plane, mt, ksteps, xs.at(3, 0), xs.at(3, 1),
-                 xs.ld, p.Lin, NT, acc);
-#pragma unroll
-      for (int nt = 0; nt < kMaxNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = k1[nt][e] - acc[nt][e];
-      store(Pr, acc);
-    }
-  }
+      });
 }
 
 // The fold of the HIGH form, output (r, m) per thread: the taps summed in
@@ -491,7 +550,7 @@ __device__ __forceinline__ void forward_high(
 // u', B = (y - z'_im) / u' (gains^2 and gains applied unless folded) of
 // every (c, l) feeding the row, written split with A + B.  The slots no
 // output writes (the pad columns, the (c, l) that place no block) are
-// written zero by every thread in turn.
+// written zero, a pad column or a (c, l) at a time.
 __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
                                           int kz, const float* Pv,
                                           const float* Pr, const float* Pi,
@@ -545,68 +604,68 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
   }
   const int W = p.Lh * p.Nr;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int i = threadIdx.x; i < p.Lin * kz; i += blockDim.x) {
-    const int c = i / kz;
-    const int j = i - c * kz;
-    if (j < W && dst_block(c, j / p.Nr, p) >= 0) continue;
+  auto zero_slot = [&](int c, int j) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) zs.base[q * zs.plane + c * zs.ld + j] = zero;
+  };
+  // the pad columns W .. kz-1 of every column block
+  const int pad = kz - W;
+  for (int i = threadIdx.x; i < p.Lin * pad; i += blockDim.x) {
+    const int c = i / pad;
+    zero_slot(c, W + (i - c * pad));
+  }
+  // the Nr slots of every (c, l) that places no block
+  for (int i = threadIdx.x; i < p.Lin * p.Lh; i += blockDim.x) {
+    const int c = i / p.Lh;
+    const int l = i - c * p.Lh;
+    if (dst_block(c, l, p) >= 0) continue;
+    for (int m = 0; m < p.Nr; ++m) zero_slot(c, l * p.Nr + m);
   }
 }
 
-// The adjoint products of the HIGH form, one warp per 16 x elements k:
-// cov = 1 / dot3(Zc, S_a2^T), adj = (k1 - k3) + i (k1 + k2) on A + B, A,
-// B, xmap = xmmse + cov adj (its imaginary part to xmap_g, stride 2).
+// The adjoint products of the HIGH form (x element k along the rows): cov
+// = 1 / dot3(Zc, S_a2^T), adj = (k1 - k3) + i (k1 + k2) on A + B, A, B,
+// xmap = xmmse + cov adj (its imaginary part to xmap_g, stride 2); k1
+// parked in xmap_re until the last product.
 __device__ __forceinline__ void adjoint_high(
     const Params& p, const Split& zs, int kx, int kz, bool real_x,
     const float* xm_re, const float* xm_im, float* xmap_re, float* xmap_g,
     float* cov) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mtiles = kx / 16, ksteps = kz / 16, NT = (p.Lin + 7) / 8;
-  const size_t plane = static_cast<size_t>(mtiles) * ksteps * 64;
-  const uint4* taps = p.taps + 4 * plane;
-  for (int mt = threadIdx.x >> 5; mt < mtiles; mt += blockDim.x >> 5) {
-    // the x-side index c Nt + k of output (nt, e), or -1
-    auto jx = [&](int nt, int e) {
-      const int k = mt * 16 + g + 8 * (e >> 1);
-      const int c = nt * 8 + 2 * t + (e & 1);
-      return (k < p.Nt && c < p.Lin) ? c * p.Nt + k : -1;
-    };
-    float acc[kMaxNT][4], k1[kMaxNT][4], cv[kMaxNT][4];
-    product_x3(taps, mt, ksteps, zs.at(0, 0), zs.at(0, 1), zs.ld, p.Lin, NT,
-               acc);
+  const int mtiles = kx / 16, ks = kz / 16, NT = (p.Lin + 7) / 8;
+  const size_t plane = static_cast<size_t>(mtiles) * ks * 64;
+  auto operand = [&](int q) { return zs.at(q, 0); };
+  high_pass(
+      p.taps + 4 * plane, plane, mtiles, ks, 4, operand, zs.plane, zs.ld,
+      p.Lin, NT,
+      [&](int mt, int q, int n0, int n1, const float (&v)[kMaxNT][4]) {
 #pragma unroll
-    for (int nt = 0; nt < kMaxNT; ++nt)
+        for (int h = 0; h < 2; ++h) {
+          const int k = mt * 16 + g + 8 * h;
+          if (k >= p.Nt) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        cv[nt][e] = 1.f / acc[nt][e];
-        const int j = jx(nt, e);
-        if (j >= 0) cov[j] = cv[nt][e];
-      }
-    product_x3(taps + plane, mt, ksteps, zs.at(1, 0), zs.at(1, 1), zs.ld,
-               p.Lin, NT, k1);
-    product_x3(taps + 2 * plane, mt, ksteps, zs.at(2, 0), zs.at(2, 1), zs.ld,
-               p.Lin, NT, acc);
+          for (int nt = 0; nt < kMaxNT; ++nt) {
+            if (nt < n0 || nt >= n1) continue;
 #pragma unroll
-    for (int nt = 0; nt < kMaxNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = jx(nt, e);
-        if (j < 0) continue;
-        const float im = cv[nt][e] * (k1[nt][e] + acc[nt][e]);
-        xmap_g[2 * j + 1] = real_x ? im : xm_im[j] + im;
-      }
-    product_x3(taps + 3 * plane, mt, ksteps, zs.at(3, 0), zs.at(3, 1), zs.ld,
-               p.Lin, NT, acc);
-#pragma unroll
-    for (int nt = 0; nt < kMaxNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = jx(nt, e);
-        if (j >= 0)
-          xmap_re[j] = xm_re[j] + cv[nt][e] * (k1[nt][e] - acc[nt][e]);
-      }
-  }
+            for (int w = 0; w < 2; ++w) {
+              const int c = nt * 8 + 2 * t + w;
+              if (c >= p.Lin) continue;
+              const int j = c * p.Nt + k;
+              const float val = v[nt][2 * h + w];
+              if (q == 0) {
+                cov[j] = 1.f / val;
+              } else if (q == 1) {
+                xmap_re[j] = val;  // k1
+              } else if (q == 2) {
+                const float im = cov[j] * (xmap_re[j] + val);
+                xmap_g[2 * j + 1] = real_x ? im : xm_im[j] + im;
+              } else {
+                xmap_re[j] = xm_re[j] + cov[j] * (xmap_re[j] - val);
+              }
+            }
+          }
+        }
+      });
 }
 
 // Zeros in the pad columns Nt .. kx-1 of the forward's split operands.
@@ -662,13 +721,16 @@ __device__ __forceinline__ float small_sum(int n, Get get) {
 // state.  A lane keeps the scaled pseudo-data and eta of its first element
 // (its only one when M is a power of two up to 32) from pass to pass.
 // Returns the OR of the lanes' allclose failures.  kHigh: also writes the
-// new state split into xs (Split::store_x).
-template <bool kHigh>
+// new state split into xs (Split::store_x).  KS > 0: the alphabet's size
+// K, known to the compiler (the same arithmetic, no loop over kMaxK
+// symbols); 0: K as it comes.
+template <bool kHigh, int KS = 0>
 __device__ __forceinline__ int group_posterior(
-    int j0, int M, int K, int G, int t, unsigned mask, const float* sr,
+    int j0, int M, int K_in, int G, int t, unsigned mask, const float* sr,
     const float* si, bool real_x, const float* x_re, const float* xmap_g,
     const float* cov, float* xm_re, float* xm_im, float* var,
     const Split& xs) {
+  const int K = KS > 0 ? KS : K_in;
   // pseudo-data over tau of element i
   auto scaled = [&](int i, float& a, float& b) {
     const int j = j0 + i;
@@ -796,8 +858,8 @@ __device__ __forceinline__ int mixture_posterior(
   return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
 }
 
-template <bool kHigh>
-__global__ void __launch_bounds__(kThreads, kHigh ? 2 : 3)
+template <bool kHigh, int kBlock, int kMinBlocks>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     bamp_decode_kernel(Params p) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -970,10 +1032,27 @@ __global__ void __launch_bounds__(kThreads, kHigh ? 2 : 3)
       const int t = tid & (G - 1);
       const unsigned mask =
           G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((tid & 31) & ~(G - 1));
-      for (int s = tid / G; s < N / p.M; s += blockDim.x / G)
-        bad |= group_posterior<kHigh>(s * p.M, p.M, p.K, G, t, mask,
-                                      p.sym_re, p.sym_im, real_x, xmap_re,
-                                      xmap_g, cov, xm_re, xm_im, var, xs);
+      // every segment of the trial, K known to the compiler where KS > 0
+      auto segments = [&](auto ks) {
+        constexpr int KS = decltype(ks)::value;
+        for (int s = tid / G; s < N / p.M; s += blockDim.x / G)
+          bad |= group_posterior<kHigh, KS>(
+              s * p.M, p.M, p.K, G, t, mask, p.sym_re, p.sym_im, real_x,
+              xmap_re, xmap_g, cov, xm_re, xm_im, var, xs);
+      };
+      // HIGH form: OOK and QPSK (the flagships' alphabets) with their K
+      // fixed (kStaticK)
+      constexpr bool kStaticK = kHigh;
+      if constexpr (kStaticK) {
+        if (p.K == 1)
+          segments(std::integral_constant<int, 1>());
+        else if (p.K == 4)
+          segments(std::integral_constant<int, 4>());
+        else
+          segments(std::integral_constant<int, 0>());
+      } else {
+        segments(std::integral_constant<int, 0>());
+      }
     } else {
       for (int j = tid; j < N; j += blockDim.x)
         bad |= mixture_posterior<kHigh>(p, j, real_x, xmap_re, xmap_g, cov,
@@ -1022,7 +1101,8 @@ int fused_bamp_decode(
     const void* sym_re, const void* sym_im,
     int B, int Nt, int Nr, int Lin, int Lout, int Lh, int trunc, int M,
     int K, int den, int real_x, float Ps, float P0, float sigma2, int cap,
-    int smem, int high, const void* taps, int folded, void* stream) {
+    int smem, int high, const void* taps, int folded, int threads,
+    void* stream) {
   if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.y = static_cast<const float2*>(y);
@@ -1066,11 +1146,19 @@ int fused_bamp_decode(
   p.folded = folded;
   if (high && (taps == nullptr || Lin > 8 * kMaxNT))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = high ? bamp_decode_kernel<true> : bamp_decode_kernel<false>;
+  auto kernel = bamp_decode_kernel<false, kThreads, 3>;
+  if (!high)
+    threads = kThreads;
+  else if (threads == kHighThreads1)
+    kernel = bamp_decode_kernel<true, kHighThreads1, 1>;
+  else if (threads == kHighThreads2)
+    kernel = bamp_decode_kernel<true, kHighThreads2, 2>;
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

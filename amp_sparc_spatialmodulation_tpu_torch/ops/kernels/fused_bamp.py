@@ -62,6 +62,14 @@ HIGH_MAX_LIN = 32
 
 # Dynamic shared memory one Hopper block may use (227 KB).
 SMEM_LIMIT = 232448
+# Shared memory of one Hopper SM (228 KB), of which each resident block
+# also holds 1 KB.
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+# The HIGH form's two blocks (csrc: kHighThreads1, kHighThreads2): 16
+# warps where one block fills an SM, 8 warps where two fit.
+HIGH_THREADS_ONE_BLOCK = 512
+HIGH_THREADS_TWO_BLOCKS = 256
 
 _TRUNC = {"trunc": 0, "tail": 1, "cyclic": 2}
 
@@ -123,6 +131,16 @@ def smem_bytes(cfg: Config, precision: str = "highest") -> int:
     if prec.canonical(precision) == prec.HIGH:
         return fp32 + 2 * high_split_elems(cfg)
     return fp32
+
+
+def high_threads(cfg: Config) -> int:
+    """Threads of the HIGH form's block for ``cfg``: 8 warps where two
+    blocks share an SM's shared memory (each still runs 128 registers a
+    thread), else 16 warps in the one block an SM holds (the same
+    registers, twice the warps to hide the latency of the products, the
+    fold and the denoiser)."""
+    two = 2 * (smem_bytes(cfg, "high") + BLOCK_RESERVED) <= SM_SMEM
+    return HIGH_THREADS_TWO_BLOCKS if two else HIGH_THREADS_ONE_BLOCK
 
 
 def fits(cfg: Config, precision: str = "highest") -> bool:
@@ -188,7 +206,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_decode.argtypes = (
             [ptr] * 23 + [i32] * 11 + [f32] * 3 + [i32, i32, i32, ptr, i32,
-                                                    ptr])
+                                                    i32, ptr])
         lib.fused_bamp_decode.restype = i32
         lib.fused_bamp_error_string.argtypes = [i32]
         lib.fused_bamp_error_string.restype = ctypes.c_char_p
@@ -284,6 +302,7 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
         int(real_x(cfg)), float(cfg.Ps), float(cfg.P0),
         float(np.float32(sigma2)), cap_rem, smem_bytes(cfg, precision),
         int(high), taps.data_ptr() if high else None, int(folded),
+        high_threads(cfg) if high else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_bamp_decode launch failed: "

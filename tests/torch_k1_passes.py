@@ -44,6 +44,20 @@ a shorter spec sets the first constants only); for K6/K7 ``7x5,4x4,...``
 product 1 ``kNJ1`` and of product 2 ``kNJ2`` x k per ring slot ``kBK`` x
 ring slots ``kStages`` x blocks per SM ``kMinBlocks``).
 
+With ``--precision high`` (K1 only) the same is done for K1's HIGH
+instances at K1-high's two timed shapes (as chip_smoke's kernels_bamp_high
+builds them: the QPSK flagship, 4096 trials at 5 dB to the cap of 100,
+the main path's shape; the OOK flagship's phase 1, 65536 trials at 8 dB
+to k1=12), ``--parent`` optional: the probes (``HIGH_PROBES``) are the
+source run to the cap (``full``) with the tap fragments held in registers
+(the share of their L2 stream), with the mma's instruction text emptied
+(operands still loaded), without the fold, without the denoiser, and with
+the forward or the adjoint products alone; the variants
+(``HIGH_VARIANTS``, this checkout only) change one design choice of the
+redesigned engine or denoiser and must equal the shipped build bit for
+bit; ``--threads 256,512`` times the shipped build at each block size
+where the tree's wrapper picks one (``high_threads``).
+
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
         (mkdir -p build/parent && tar -x -C build/parent)
     env PYTHONPATH=. python3 tests/torch_k1_passes.py --parent build/parent
@@ -53,6 +67,8 @@ ring slots ``kStages`` x blocks per SM ``kMinBlocks``).
         --kernel vamp --tiles 4x3x4x16x2x2,8x3x4x16x2x1
     env PYTHONPATH=. python3 tests/torch_k1_passes.py --parent build/parent \\
         --kernel periter --tiles 4x4,4x5,7x4
+    env PYTHONPATH=. python3 tests/torch_k1_passes.py --precision high \\
+        --parent build/parent --threads 256,512
 
 Prints one JSON line per timing and one summary line per tree and kernel.
 Needs the card and ``nvcc``; imports no JAX.
@@ -287,10 +303,292 @@ def periter_setup(dev, name, res):
         r.A, ps, y_re, y_im, r.sigma2, cfg), ps.active)), st
 
 
+# K1's HIGH instance (``precision='high'``): probe builds, each the shipped
+# source run to the cap with the edits named; an edit is a function of the
+# source text that raises where its text is not there.
+DENOISER = "// ---- denoiser"
+
+
+def cut_call(name: str):
+    """Remove the statement that calls ``name`` (the one line of the source
+    that starts with ``name(``, up to its closing ``);``)."""
+    def edit(src: str) -> str:
+        found = list(re.finditer(rf"^[ \t]*{name}\(", src, flags=re.M))
+        if len(found) != 1:
+            raise ValueError(f"call of {name} found {len(found)} times")
+        i, depth = found[0].end() - 1, 0
+        while True:
+            depth += {"(": 1, ")": -1}.get(src[i], 0)
+            i += 1
+            if depth == 0:
+                break
+        end = src.index(";", i) + 1
+        return src[:found[0].start()] + src[end:].lstrip(" ").lstrip("\n")
+    return edit
+
+
+def cut_pass(header: str):
+    """Remove the pass of the iteration loop whose header line holds
+    ``header`` (as ``variant`` cuts a pass)."""
+    def edit(src: str) -> str:
+        lines = src.splitlines()
+        h = [i for i, ln in enumerate(lines) if header in ln]
+        if len(h) != 1:
+            raise ValueError(f"{header!r} found {len(h)} times")
+        return variant(src, None, h)
+    return edit
+
+
+def replace_first(*alternatives):
+    """Replace the first ``(old, new)`` of ``alternatives`` whose ``old``
+    occurs once (the sources of two trees may differ)."""
+    def edit(src: str) -> str:
+        for old, new in alternatives:
+            if src.count(old) == 1:
+                return src.replace(old, new)
+        raise ValueError(f"none of {[a[0][:40] for a in alternatives]} "
+                         "found once")
+    return edit
+
+
+def no_mma(src: str) -> str:
+    """Every mma.sync's instruction text emptied: its operands are still
+    loaded, its accumulators keep what they held."""
+    out, n = re.subn(r'"mma\.sync[^"]*"\s*"[^"]*"', '""', src)
+    if not n:
+        raise ValueError("no mma.sync found")
+    return out
+
+
+# The tap fragments of every k16 step replaced by one fragment held in
+# registers (the L2 tap stream's share): the parent's per-step __ldg, or
+# the fragment loader of the redesigned engine.
+TAPS_IN_REGISTERS = replace_first(
+    ("  for (int ks = 0; ks < ksteps; ++ks, ap += 64) {\n"
+     "    const uint4 ah = __ldg(ap), al = __ldg(ap + 1);\n",
+     "  const uint4 ah0 = __ldg(ap), al0 = __ldg(ap + 1);\n"
+     "  for (int ks = 0; ks < ksteps; ++ks, ap += 64) {\n"
+     "    const uint4 ah = ah0, al = al0;\n"),
+    ("  f[0] = __ldg(p);\n  f[1] = __ldg(p + 1);\n",
+     "  f[0] = make_uint4(threadIdx.x, 1u, 2u, 3u);\n  f[1] = f[0];\n"))
+HIGH_PROBES = {
+    "full": [],
+    "taps_in_registers": [TAPS_IN_REGISTERS],
+    "no_mma": [no_mma],
+    "no_fold": [cut_call("fold_high")],
+    "no_denoiser": [cut_pass(DENOISER)],
+    "forward_only": [cut_call("fold_high"), cut_call("adjoint_high"),
+                     cut_pass(DENOISER)],
+    "adjoint_only": [cut_call("forward_high"), cut_call("fold_high"),
+                     cut_pass(DENOISER)],
+}
+
+
+# Variants of the redesigned HIGH engine (``high_pass``) and denoiser,
+# each the shipped source with one design choice changed; each computes the
+# same products and posteriors in the same order, so its result must equal
+# the shipped build's bit for bit.
+MMA_PASSES = """#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) mma_bf16(hh[nt], ah, bf[nt][0], bf[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
+#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
+"""
+STEP = """        uint4 f[2];
+        tap_load(f, ap);
+"""
+K_LOOP = "      for (int k = 0; k < ks; ++k, ap += 64, b += 16) {\n"
+SEGMENTS = "        for (int s = tid / G; s < N / p.M; s += blockDim.x / G)\n"
+HIGH_VARIANTS = {
+    # the three passes of one n8 tile after one another
+    "tile_order": [replace_first((MMA_PASSES, """#pragma unroll
+        for (int nt = 0; nt < kMaxNT; ++nt)
+          if (nt >= n0 && nt < n1) {
+            mma_bf16(hh[nt], ah, bf[nt][0], bf[nt][1]);
+            mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
+            mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
+          }
+"""))],
+    # every tile one unit, whatever the warps
+    "no_parts": [replace_first(("  return s < 1 ? 1 : (s > NT ? NT : s);",
+                                "  return 1;"))],
+    # the next k16 step's tap fragments loaded a step ahead (the product's
+    # first step waits for its own)
+    "prefetch": [replace_first((STEP, """        uint4 f[2];
+        if (k == 0) tap_load(nf, ap);
+        f[0] = nf[0];
+        f[1] = nf[1];
+        if (k + 1 < ks) tap_load(nf, ap + 64);
+""")), replace_first(("      float hh[kMaxNT][4], cx[kMaxNT][4];\n",
+                      "      float hh[kMaxNT][4], cx[kMaxNT][4];\n"
+                      "      uint4 nf[2];\n"))],
+    # two k16 steps per turn of the loop
+    "unroll_k2": [replace_first((K_LOOP, "#pragma unroll 2\n" + K_LOOP))],
+    # the denoiser's segments two per turn of the loop (both instances)
+    "segments2": [replace_first((SEGMENTS, "#pragma unroll 2\n" + SEGMENTS))],
+    # the denoiser taking K as it comes at every alphabet
+    "runtime_k": [replace_first((
+        "      constexpr bool kStaticK = kHigh;",
+        "      constexpr bool kStaticK = false;"))],
+}
+
+
+def high_sources(root: Path, probes):
+    """{variant: {file name: text}} of K1's source in the checkout at
+    ``root``: as shipped and each probe or variant of ``probes``."""
+    csrc = root / "amp_sparc_spatialmodulation_tpu_torch" / "ops" \
+        / "kernels" / "csrc"
+    files = {f.name: f.read_text() for f in csrc.glob("*.cuh")}
+    src = (csrc / "fused_bamp_decode.cu").read_text()
+    out = {"shipped": {**files, "fused_bamp_decode.cu": src}}
+    to_cap = KERNELS["fused_bamp_decode"]["to_cap"]
+    for name in probes:
+        if name in HIGH_VARIANTS:
+            text = src
+            for edit in HIGH_VARIANTS[name]:
+                text = edit(text)
+        else:
+            text = variant(src, to_cap)
+            for edit in HIGH_PROBES[name]:
+                text = edit(text)
+        out[name] = {**files, "fused_bamp_decode.cu": text}
+    return out
+
+
+def high_shapes(dev):
+    """K1-high's two timed shapes, as chip_smoke's kernels_bamp_high builds
+    them: {name: (cfg, realization, s0, cap)}: the QPSK flagship, 4096
+    trials at 5 dB, cap 100 (the main path's shape), and the OOK flagship
+    at its phase-1 shape, 65536 trials at 8 dB, cap 12."""
+    import chip_smoke as cs
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_qpsk)
+    out = {}
+    for name, cfg, B, cap, ebn0, seed in (
+            ("qpsk_cap100", flagship_bamp_qpsk(), cs.FLAGSHIP_B, 100,
+             cs.BAMP_HIGH_EBN0_DB, 42),
+            ("ook_phase1", flagship_bamp_ook(), cs.RES, cs.K1, cs.EBN0_DB,
+             41)):
+        r = montecarlo.generate_realization(
+            make_generator(dev, seed), cfg, "sparc", "banded", B,
+            cs.snr_of(cfg, ebn0), "high")
+        out[name] = (cfg, r, bamp.initial_state(r.y, cfg.N, r.sigma2), cap)
+    return out
+
+
+def cs_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` calls after one, by CUDA
+    events."""
+    import chip_smoke
+    return chip_smoke.cuda_ms(fn, 1, reps)
+
+
+def main_high(args, roots, smi) -> int:
+    """The HIGH probes of K1 at both timed shapes, for each tree."""
+    probes = [p for p in (args.probes.split(",") if args.probes
+                          else HIGH_PROBES) if p]
+    jobs = {}
+    for tree, root in roots.items():
+        mine = [p for p in probes
+                if p not in HIGH_VARIANTS or tree == "change"]
+        for v, files in high_sources(root, mine).items():
+            d = args.out.joinpath("high", tree, v)
+            if d.exists():
+                shutil.rmtree(d)
+            d.mkdir(parents=True)
+            for fname, text in files.items():
+                (d / fname).write_text(text)
+            jobs[("fused_bamp_decode", tree, v)] = d
+    built = compile_all(jobs)
+    for (_, tree, v), (_, log) in built.items():
+        print(json.dumps({"tree": tree, "variant": v,
+                          "ptxas": ptxas_lines(log)}), flush=True)
+    dev = torch.device("cuda")
+    shapes = high_shapes(dev)
+    for shape, (cfg, r, s0, cap) in shapes.items():
+        reps = args.reps if shape == "ook_phase1" else max(args.reps - 1, 1)
+        for tree, root in roots.items():
+            mod = wrapper_module(root, "fused_bamp", f"high_{tree}")
+            times, shipped = {}, None
+            for v in ["shipped"] + probes:
+                if ("fused_bamp_decode", tree, v) not in built:
+                    continue
+                build._loaded["fused_bamp_decode"] = ctypes.CDLL(
+                    str(built[("fused_bamp_decode", tree, v)][0]))
+                mod._library()
+                try:
+                    run = lambda: mod.whole_decode(r.A, s0, r.y, r.sigma2,
+                                                   cap, cfg, "high")
+                    out = run()
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(reps):
+                        out = run()
+                    stop.record()
+                    torch.cuda.synchronize()
+                finally:
+                    build._loaded.pop("fused_bamp_decode", None)
+                times[v] = start.elapsed_time(stop) / reps
+                iters = int((out.T.long() - s0.T.long()).sum())
+                if v == "shipped":
+                    shipped = out
+                same = _same(out, shipped) if v in HIGH_VARIANTS else None
+                print(json.dumps({
+                    "kernel": "fused_bamp_decode_high", "shape": shape,
+                    "tree": tree, "probe": v, "ms": times[v],
+                    "iterations": iters, "us_per_trial_iteration_per_sm":
+                    1e3 * times[v] * 132 / iters,
+                    "identical_to_shipped": same}), flush=True)
+                if same is False:
+                    raise AssertionError(f"{v} differs from the shipped "
+                                         "build")
+                del out
+            # the shipped build with each block size of --threads, where
+            # the tree's wrapper picks one (high_threads)
+            rule = getattr(mod, "high_threads", None)
+            for threads in filter(None, args.threads.split(",")):
+                if rule is None:
+                    break
+                build._loaded["fused_bamp_decode"] = ctypes.CDLL(
+                    str(built[("fused_bamp_decode", tree, "shipped")][0]))
+                mod._library()
+                mod.high_threads = lambda cfg, n=int(threads): n
+                try:
+                    ms = cs_ms(lambda: mod.whole_decode(
+                        r.A, s0, r.y, r.sigma2, cap, cfg, "high"), reps)
+                finally:
+                    mod.high_threads = rule
+                    build._loaded.pop("fused_bamp_decode", None)
+                times[f"threads_{threads}"] = ms
+                print(json.dumps({
+                    "kernel": "fused_bamp_decode_high", "shape": shape,
+                    "tree": tree, "probe": f"threads_{threads}", "ms": ms,
+                    "shipped_threads": rule(cfg)}), flush=True)
+            del shipped
+            full = times.get("full")
+            print(json.dumps({
+                "kernel": "fused_bamp_decode_high", "shape": shape,
+                "tree": tree, "device": smi, "B": int(s0.T.numel()),
+                "cap": cap, "ms": times,
+                "share_of_full": {v: t / full for v, t in times.items()}
+                if full else None,
+                "ptxas": ptxas_lines(
+                    built[("fused_bamp_decode", tree, "shipped")][1])}),
+                flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent", type=Path, required=True,
-                   help="root of the other checkout")
+    p.add_argument("--parent", type=Path, default=None,
+                   help="root of the other checkout (required but for "
+                   "--precision high, where it is optional)")
     p.add_argument("--kernel", choices=sorted(GROUPS), default="bamp")
     p.add_argument("--out", type=Path, default=Path("build/k1_passes"))
     p.add_argument("--res", type=int, default=65536)
@@ -300,9 +598,25 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--tiles", default="",
                    help="comma-separated tile sizes to build and time")
+    p.add_argument("--precision", choices=("highest", "high"),
+                   default="highest",
+                   help="high: K1's HIGH instance and its probes (--kernel "
+                   "bamp only)")
+    p.add_argument("--probes", default="",
+                   help="with --precision high: comma-separated probes "
+                   f"(default all: {','.join(HIGH_PROBES)}) and variants "
+                   f"of this checkout's engine ({','.join(HIGH_VARIANTS)})")
+    p.add_argument("--threads", default="",
+                   help="with --precision high: block sizes to time the "
+                   "shipped build at, e.g. 256,512 (trees whose wrapper "
+                   "picks one)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_passes: no CUDA device")
+    if args.precision == "high" and args.kernel != "bamp":
+        raise SystemExit("torch_k1_passes: --precision high is K1's")
+    if args.parent is None and args.precision != "high":
+        raise SystemExit("torch_k1_passes: --parent is required")
     cap = args.cap or {"bamp": 12, "scamp": 8, "vamp": 10,
                        "periter": 1}[args.kernel]
     dev = torch.device("cuda")
@@ -310,7 +624,10 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     roots = {"parent": args.parent.resolve(),
-             "change": Path(__file__).resolve().parents[1]}
+             "change": Path(__file__).resolve().parents[1]} \
+        if args.parent else {"change": Path(__file__).resolve().parents[1]}
+    if args.precision == "high":
+        return main_high(args, roots, smi)
     tiles = list(filter(None, args.tiles.split(",")))
     jobs, passes = {}, {}
     for name in GROUPS[args.kernel]:

@@ -31,7 +31,11 @@ of ``massive_mimo()`` at Eb/N0 = 8 dB after two plain HIGH iterations and
 one of this checkout's K5 at HIGH, the state of chip_smoke's
 ``kernel_timing_tiled_high``; ``tiled_high_tail``: the trials still active
 after 40 HIGH iterations of 2048 at 18 dB, run by this checkout's K5,
-gathered, and one iteration more, chip_smoke's phase-2 shape), each timed only
+gathered, and one iteration more, chip_smoke's phase-2 shape), and
+``bamp_high_qpsk`` and ``bamp_high_ook``, the HIGH form of K1 at
+chip_smoke's two timed K1-high shapes (the QPSK flagship, 4096 trials at
+5 dB to the cap of 100, seed 42, the main path's shape; the OOK flagship,
+65536 trials at 8 dB to k1=12, seed 41), each timed only
 for a tree whose wrapper takes ``precision`` (a tree without the HIGH form
 is left out of the case).  The two trees' results
 must be bit-identical for K1, K2, K5 and K6 (every plane and ``notok``;
@@ -41,7 +45,8 @@ tree to the other, they are held to
 ``chip_smoke.compare_vamp``'s ``trial_share`` rule instead, and the
 bit-identical share is printed; K5's HIGH results are not compared (its
 bits may change from tree to tree, the rules of chip_smoke hold it), only
-the share of bit-identical elements is printed.  A kernel whose source the other checkout
+the share of bit-identical elements is printed; likewise K1's HIGH
+results.  A kernel whose source the other checkout
 lacks is timed on its own.  ``--cases`` picks cases by name.
 
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
@@ -54,6 +59,8 @@ lacks is timed on its own.  ``--cases`` picks cases by name.
         --cases tiled,tiled_tail --rounds 3
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
         --cases tiled_high,tiled_high_tail --rounds 4
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
+        --cases bamp_high_qpsk,bamp_high_ook,bamp_phase1,bamp_phase2
 
 Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
@@ -174,6 +181,8 @@ def _cases(dev, wanted=frozenset()):
         yield from _tiled_cases(dev, want)
     if want("tiled_high", "tiled_high_tail"):
         yield from _tiled_high_cases(dev, want)
+    if want("bamp_high_qpsk", "bamp_high_ook"):
+        yield from _bamp_high_cases(dev, want)
 
 
 def _periter_cases(dev, want):
@@ -295,6 +304,30 @@ def _tiled_high_cases(dev, want):
                                              cfg, "high"), ps.active))
 
 
+def _bamp_high_cases(dev, want):
+    """K1's HIGH form at its two timed shapes, as chip_smoke's
+    kernels_bamp_high builds them: the QPSK flagship, 4096 trials at 5 dB,
+    cap 100, seed 42 (the main path's shape), and the OOK flagship at its
+    phase-1 shape, 65536 trials at 8 dB, cap 12, seed 41."""
+    import chip_smoke
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_qpsk)
+    for case, cfg, B, cap, ebn0, seed in (
+            ("bamp_high_qpsk", flagship_bamp_qpsk(), chip_smoke.FLAGSHIP_B,
+             100, chip_smoke.BAMP_HIGH_EBN0_DB, 42),
+            ("bamp_high_ook", flagship_bamp_ook(), RES, chip_smoke.K1,
+             chip_smoke.EBN0_DB, 41)):
+        if not want(case):
+            continue
+        r = montecarlo.generate_realization(
+            make_generator(dev, seed), cfg, "sparc", "banded", B,
+            chip_smoke.snr_of(cfg, ebn0), "high")
+        s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+        yield (case, "fused_bamp_decode", "fused_bamp",
+               lambda mod, cfg=cfg, r=r, s0=s0, cap=cap: mod.whole_decode(
+                   r.A, s0, r.y, r.sigma2, cap, cfg, "high"))
+
+
 def _vamp_case(dev, algo, precision=None):
     """K3 or K4 at the VAMP main point: 65536 trials to the cap of 10, in
     the HIGHEST form or, with ``precision='high'``, the HIGH form (whose
@@ -358,13 +391,18 @@ def _same(a, b) -> bool:
                for f in a._fields if f != "t")
 
 
-def _same_share(a: Step, b: Step) -> float:
-    """The share of the elements of two K5 results that are bit-identical
-    (xmap on the active trials only)."""
-    names = a.out._fields
+def _same_share(a, b) -> float:
+    """The share of the elements of two K5 results (xmap on the active
+    trials only), or of two whole-decode states, that are bit-identical."""
+    if isinstance(a, Step):
+        names, xs, ys = a.out._fields, a.out, b.out
+    else:
+        names = [f for f in a._fields if f != "t"]
+        xs = [getattr(a, f) for f in names]
+        ys = [getattr(b, f) for f in names]
     same = total = 0
-    for n, x, y in zip(names, a.out, b.out):
-        if n.startswith("xmap"):
+    for n, x, y in zip(names, xs, ys):
+        if isinstance(a, Step) and n.startswith("xmap"):
             x, y = x[a.rows], y[a.rows]
         same += int((x == y).sum())
         total += x.numel()
@@ -382,7 +420,7 @@ def _across(case, first) -> dict:
     if len(first) < 2:
         return {}
     a, b = first["change"], first["parent"]
-    if case.startswith("tiled_high"):
+    if case.startswith(("tiled_high", "bamp_high")):
         return {"bit_identical_share": _same_share(a, b)}
     identical = _same(a, b)
     if not case.startswith("vamp"):
