@@ -28,10 +28,15 @@ points whose trials run to the cap go faster at HIGH (``PERF.md`` §5,
 kernel K1 and frame-tiled kernel K5 (the massive geometry, e.g. ``--Nt
 1344 --Na 84 --Nr 73 --Lin 32 --Lh 6``) have HIGH forms, and SCAMP, whose
 kernel K2 keeps HIGHEST inside (JAX's has no precision; at HIGH only ``y =
-x A^T`` changes).  It raises for BAMP where the decode would take the
-plain loop (a dense ``--operator``, the real-channel mode, a geometry no
-kernel fits), and for SCAMP where it would take the plain loop.  Runs on
-the CUDA card
+x A^T`` changes); every plain loop (a dense ``--operator``, the
+real-channel mode, a geometry no kernel fits, ``--use-pallas false``)
+runs its products at HIGH, as the JAX package's XLA decodes do.
+``--use-pallas auto|true|false`` is the JAX package's knob: ``auto`` takes
+the kernels where the decoders' routes take them, ``false`` the plain
+loops (an A/B against the kernels on the card), ``true`` raises where no
+kernel covers the config.  ``--two-phase auto`` probes each point with
+``min(2048, res)`` trials for its k1 (``AMP_AUTO_PROBE=0`` takes the
+previous point's mean T instead).  Runs on the CUDA card
 unless ``--device cpu`` is given.  Only the ``sweep`` subcommand is
 ported; ``plot``, ``capacity``, ``bench`` and ``sparc-trial`` wait for
 ROADMAP.md Queue 1 item 5.
@@ -96,8 +101,9 @@ def main(argv=None) -> int:
                        type=lambda s: s if s == "auto" else int(s),
                        help="continuation decoding: cap phase 1 at K1 "
                             "iterations and finish the unconverged trials "
-                            "separately; 'auto' picks K1 from the previous "
-                            "point's mean T")
+                            "separately; 'auto' picks K1 from a probe of "
+                            "the point's mean T (AMP_AUTO_PROBE=0: from the "
+                            "previous point's)")
     sweep.add_argument("--estimate-phi", action="store_true",
                        help="SCAMP: empirical residual variance per output "
                             "block (estSCAMP)")
@@ -114,10 +120,13 @@ def main(argv=None) -> int:
                             "early its error sits at the 1e-5 allclose "
                             "tolerance and inflates T) | 'auto' (per "
                             "point: 'high' when the previous point's mean T "
-                            "pinned at the iteration cap, else 'highest'); "
-                            "'high' and 'auto' raise where the decode has "
-                            "no HIGH form (BAMP on a dense operator, SCAMP "
-                            "off its kernel)")
+                            "pinned at the iteration cap, else 'highest')")
+    sweep.add_argument("--use-pallas", default="auto",
+                       choices=["auto", "true", "false"],
+                       help="the decode kernels: 'auto' where the decoders' "
+                            "routes take them | 'true' (raise where no "
+                            "kernel covers the config) | 'false' (the plain "
+                            "PyTorch loops)")
     sweep.add_argument("--device", default=None,
                        help="torch device (default: the CUDA card)")
 
@@ -131,7 +140,9 @@ def main(argv=None) -> int:
                     seed=args.seed, operator_form=args.operator,
                     two_phase=args.two_phase, device=args.device,
                     estimate_phi=args.estimate_phi, precision=args.precision,
-                    chans_per_batch=args.chans)
+                    chans_per_batch=args.chans,
+                    use_pallas=(args.use_pallas if args.use_pallas == "auto"
+                                else args.use_pallas == "true"))
     sim.simulate(epochs=args.epochs, start=args.start, final=args.final,
                  step=args.step, res=args.res, resume=args.resume)
     return 0

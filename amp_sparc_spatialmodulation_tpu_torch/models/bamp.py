@@ -27,8 +27,17 @@ its HIGH form inside :func:`plane_loop`, whose plain version is one
 :func:`step` with :func:`linear_step_high` for a real x (the JAX kernel
 ``fused_bamp_tiled.py:47`` with ``make_dot(HIGH)``); K6 runs at HIGHEST,
 as in JAX, whose per-iteration kernel has no precision knob
-(`fused_bamp.py:409` there).  The plain loop raises at HIGH
-(:func:`check_high`).
+(`fused_bamp.py:409` there); the plain loop runs the JAX decoder's XLA body
+at HIGH (`bamp.py:333-352` there, each operator map's products through
+``ops/precision.py::matmul``), a different function from
+:func:`linear_step_high`.  Where K1's HIGH form holds no trial in one
+block, the route falls through to the next link, as JAX's does
+(`bamp.py:241-283`).
+
+``decode(use_pallas=...)`` is the JAX decoder's knob: ``'auto'`` (the
+default) takes :func:`route`'s chain, ``False`` the plain loop, and
+``True`` the chain too but raises where no kernel covers the config or the
+operator is dense, as JAX's does (`bamp.py:241-249`).
 """
 from __future__ import annotations
 
@@ -174,15 +183,19 @@ def initial_state(y: torch.Tensor, N: int, sigma2: float) -> BAMPState:
         t=0)
 
 
-def linear_step(op, xmmse, var, z, u, y, sigma2: float):
+def linear_step(op, xmmse, var, z, u, y, sigma2: float,
+                precision: str = "highest"):
     """The linear half of one AMP iteration (`bamp.py:59-63`): returns
-    ``(xmap, cov, z, u)``.  The plain version of kernel K7."""
-    v = op.apply_abs2(var)                                       # (B, n)
-    z = op.apply(xmmse) - denoise.div_real(v * (y - z), u).to(y.dtype)
+    ``(xmap, cov, z, u)``, each operator map's products at ``precision``
+    (the JAX decoder's XLA body, `bamp.py:333-352` there).  At
+    ``'highest'`` the plain version of kernel K7."""
+    v = op.apply_abs2(var, precision)                            # (B, n)
+    z = (op.apply(xmmse, precision)
+         - denoise.div_real(v * (y - z), u).to(y.dtype))
     u = v + sigma2
-    cov = 1.0 / op.apply_abs2T(1.0 / u)                          # (B, N)
+    cov = 1.0 / op.apply_abs2T(1.0 / u, precision)               # (B, N)
     resid = denoise.div_real(y - z, u).to(y.dtype)
-    xmap = xmmse + cov * op.apply_adj(resid)
+    xmap = xmmse + cov * op.apply_adj(resid, precision)
     return xmap, cov, z, u
 
 
@@ -210,16 +223,18 @@ def step(op, s: BAMPState, y: torch.Tensor, sigma2: float, denoiser,
 
 
 def plain_loop(op, s: BAMPState, y: torch.Tensor, sigma2: float, cap: int,
-               cfg: Config) -> BAMPState:
+               cfg: Config, precision: str = "highest") -> BAMPState:
     """The plain PyTorch iteration loop from state ``s``: run until ``t``
-    reaches ``cap`` or every trial converged (`bamp.py:136-141`)."""
+    reaches ``cap`` or every trial converged (`bamp.py:136-141`), the
+    operator's products at ``precision`` (:func:`linear_step`)."""
     global plain_decodes
     plain_decodes += 1
     sigma2 = float(np.float32(sigma2))
     cap = int(cap)
     denoiser = make_denoiser(cfg, y.device)
+    linear = partial(linear_step, precision=prec.canonical(precision))
     while s.t < cap and bool(s.active.any()):
-        s, _ = step(op, s, y, sigma2, denoiser)
+        s, _ = step(op, s, y, sigma2, denoiser, linear)
     return s
 
 
@@ -435,13 +450,23 @@ def advance(ps: PlaneState, out: IterOut) -> PlaneState:
         t=ps.t + 1)
 
 
-def route(cfg: Config, op, B: int, device) -> str:
+def check_use_pallas(use_pallas) -> None:
+    """Raise unless ``use_pallas`` is ``'auto'``, True or False, the values
+    of the decoders' and the sweep engine's knob."""
+    if use_pallas not in ("auto", True, False):
+        raise ValueError(f"use_pallas must be 'auto', True or False, not "
+                         f"{use_pallas!r}")
+
+
+def route(cfg: Config, op, B: int, device, precision: str = "highest",
+          use_pallas="auto") -> str:
     """Which route :func:`decode` takes for ``B`` trials of ``cfg`` on
-    ``op``, decided without launching anything: the JAX chain of
-    ``bamp.py:256-295``.
+    ``op`` at ``precision``, decided without launching anything: the JAX
+    chain of ``bamp.py:241-283``.
 
     * ``'whole'``: K1, when ``AMP_PALLAS_MODE`` is ``whole`` (the default)
-      and K1 covers the config and holds a trial in one block;
+      and K1 covers the config and its form at ``precision`` holds a trial
+      in one block;
     * ``'periter'``: K6, for K=1 segmented alphabets with M a power of two
       whose trial fits one block;
     * ``'tiled'``: K5, for real alphabets with tail truncation and
@@ -450,26 +475,36 @@ def route(cfg: Config, op, B: int, device) -> str:
 
     As in JAX, ``AMP_PALLAS_MODE=xla`` skips only K1 and K5 (it still takes
     K6 for K=1 alphabets), and any other value than ``whole`` or ``xla``
-    skips K1.  Unlike JAX, neither the batch size nor a frame tile limits
-    K5: ``B`` is any count (the ragged trial tile is masked).  The chain is
-    the same on both devices; on the CPU each kernel's wrapper runs its
-    plain version."""
+    skips K1; at HIGH a geometry whose K1 HIGH form does not fit falls
+    through to K6 (at HIGHEST), K5 and the plain loop.  ``use_pallas``
+    as in :func:`decode`: ``False`` is the plain loop, decided before any
+    environment variable is read (JAX reads them only under
+    ``use_pallas``).  Unlike JAX, neither the batch size nor a frame tile
+    limits K5: ``B`` is any count (the ragged trial tile is masked).  The
+    chain is the same on both devices; on the CPU each kernel's wrapper
+    runs its plain version."""
     if torch.device(device).type not in ("cpu", "cuda"):
         raise ValueError(f"no decode route for device {device}")
     if B < 0:
         raise ValueError(f"batch of {B} trials")
-    return route_of(cfg, isinstance(op, operators.BandedOperator), op)
+    return route_of(cfg, isinstance(op, operators.BandedOperator), op,
+                    precision, use_pallas)
 
 
-def route_of(cfg: Config, banded: bool, op=None) -> str:
+def route_of(cfg: Config, banded: bool, op=None, precision: str = "highest",
+             use_pallas="auto") -> str:
     """:func:`route`'s chain for ``cfg`` on a banded operator (``banded``)
     or a dense one; without ``op``, K5 is judged by the config alone.
-    Raises where ``AMP_KERNEL_XMAP_PRECISION`` is set: the JAX package's K1
-    then runs its xmap products at that precision (`fused_bamp.py:990-991`
-    there), a function the port has no form of."""
+    Raises for ``use_pallas=True`` where no kernel covers the config or the
+    operator is dense, and where ``AMP_KERNEL_XMAP_PRECISION`` is set: the
+    JAX package's K1 then runs its xmap products at that precision
+    (`fused_bamp.py:990-991` there), a function the port has no form of."""
     from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
                                fused_bamp_tiled)
 
+    check_use_pallas(use_pallas)
+    if use_pallas is False:
+        return "plain"
     if os.environ.get("AMP_KERNEL_XMAP_PRECISION", ""):
         raise ValueError(
             "AMP_KERNEL_XMAP_PRECISION is set: the JAX package's BAMP kernel "
@@ -477,9 +512,17 @@ def route_of(cfg: Config, banded: bool, op=None) -> str:
             "port does not; unset it")
 
     if not (banded and fused_bamp.covers(cfg)):
+        if use_pallas is True:
+            # JAX's honest knob (bamp.py:241-249): never the plain loop
+            # silently under use_pallas=True
+            raise ValueError(
+                "use_pallas=True: the BAMP kernels need a banded operator "
+                "and cover complex segmented/sparc alphabets and the random "
+                f"mode, not mode={cfg.mode!r} is_complex={cfg.is_complex} "
+                f"on a {'banded' if banded else 'dense'} operator")
         return "plain"
     mode = os.environ.get("AMP_PALLAS_MODE", "whole")
-    if mode == "whole" and fused_bamp.fits(cfg):
+    if mode == "whole" and fused_bamp.fits(cfg, precision):
         return "whole"
     if fused_bamp_iteration.covers(cfg) and fused_bamp_iteration.fits(cfg):
         return "periter"
@@ -488,30 +531,10 @@ def route_of(cfg: Config, banded: bool, op=None) -> str:
     return "plain"
 
 
-def check_high(cfg: Config, way: str) -> None:
-    """Raise for ``precision='high'`` where route ``way`` has no HIGH form:
-    the plain loop, and K1 on a geometry whose HIGH form holds no trial in
-    one block.  K1 and K5 (the frame-tiled route of the massive geometry)
-    run their HIGH forms; K6 runs at HIGHEST, as in JAX."""
-    from ..ops.kernels import fused_bamp
-
-    if way == "plain":
-        raise ValueError(
-            "precision='high' has no form on the plain BAMP loop (a dense "
-            "operator, the real-channel mode, or a geometry no kernel "
-            f"fits; mode={cfg.mode!r} is_complex={cfg.is_complex}); use "
-            "'highest'")
-    if way == "whole" and not fused_bamp.fits(cfg, prec.HIGH):
-        need = fused_bamp.smem_bytes(cfg, prec.HIGH)
-        raise ValueError(
-            "precision='high': the HIGH form of kernel K1 holds no trial of "
-            f"this geometry in one block ({need} bytes of shared memory); "
-            "use 'highest'")
-
-
 def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
            state0: BAMPState | None = None, iter_cap: int | None = None,
-           return_state: bool = False, precision: str = "highest"):
+           return_state: bool = False, precision: str = "highest",
+           use_pallas="auto"):
     """Run BAMP on a batch of trials sharing one channel operator.
 
     Args:
@@ -525,8 +548,9 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
             (global count), and/or return the final state.  Splitting a
             decode at any cap and continuing yields the same trajectory.
         precision: 'highest' (default) or 'high' (module docstring): K1
-            and K5 in their HIGH forms, K6 at HIGHEST; raises on the plain
-            loop.
+            and K5 in their HIGH forms, K6 at HIGHEST, the plain loop's
+            products at HIGH.
+        use_pallas: 'auto' (default), True or False (module docstring).
 
     The route is :func:`route`'s.  A banded operator with a complex
     segmented, sparc or random-mode config whose trial fits one block's
@@ -535,7 +559,8 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
     plain loop runs dense operators, the real-channel mode, and the
     geometries that fit no block with a complex alphabet or a truncation
     other than tail (the massive geometry with QPSK or trunc, the SCAMP
-    8PSK sweep's dimensions under BAMP), as in the JAX package.
+    8PSK sweep's dimensions under BAMP), as in the JAX package, and
+    ``use_pallas=False`` runs it everywhere.
 
     Returns:
         :class:`DecodeResult` (and the final :class:`BAMPState` when
@@ -551,9 +576,7 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
     if state0 is None:
         state0 = initial_state(y, N, sigma2)
     cap = cfg.N_Layers if iter_cap is None else int(iter_cap)
-    way = route(cfg, op, y.shape[0], y.device)
-    if precision == prec.HIGH:
-        check_high(cfg, way)
+    way = route(cfg, op, y.shape[0], y.device, precision, use_pallas)
     if way == "whole":
         s = fused_bamp.whole_decode(op, state0, y, sigma2, cap, cfg,
                                     precision)
@@ -566,7 +589,7 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
             iteration = partial(iteration, precision=precision)
         s = plane_loop(iteration, op, state0, y, sigma2, cap, cfg)
     else:
-        s = plain_loop(op, state0, y, sigma2, cap, cfg)
+        s = plain_loop(op, state0, y, sigma2, cap, cfg, precision)
     result = DecodeResult(xmap=s.xmap, xmmse=s.xmmse, var=s.var, T=s.T)
     if return_state:
         return result, s

@@ -16,7 +16,10 @@ exactly, phase 2 finishes them to the cap, and the merged state is
 evaluated.  Decodes are resumable and per-trial, so the metric sums equal
 a single-phase run's.  The JAX package's static bucket, rolling hint and
 overflow redo exist only for ``jit``'s static shapes and have no
-counterpart here.
+counterpart here.  ``two_phase='auto'`` sets k1 just above the point's
+own mean T, measured by a probe decode of ``min(2048, res)`` trials at the
+point's precision (JAX ``montecarlo.py:962-1003``), or, with
+``AMP_AUTO_PROBE=0``, from the previous point's mean T.
 
 Each realization keeps its message as the small structured truth
 ``(ant, sym, gray, flat)`` and drops the dense ``x`` once ``y`` is formed;
@@ -33,13 +36,17 @@ matrix's SVD, computed once per realization and shared by both phases
 (``ops/precision.py``: ``y = x A^T`` in either operator form, the
 projection and the VAMP and vamp2 decodes in three-pass bf16 products, on
 the card through the HIGH form of kernels K3 and K4; the BAMP decode
-through K1's HIGH form; SCAMP through K2, which keeps HIGHEST inside, as
-JAX's has no precision) or ``'auto'`` (HIGH for a point exactly when the
-previous point's mean T pinned at the iteration cap).  The BAMP decode
-at HIGH runs K1's HIGH form, or K5's on the massive geometry.  BAMP
-raises on ``'high'`` and ``'auto'`` where its route is the plain loop (a
-dense operator, the real-channel mode, a geometry no kernel fits), SCAMP
-where it is the plain loop.  ``chans_per_batch=C`` rounds the
+through K1's HIGH form, or K5's on the massive geometry; SCAMP through
+K2, which keeps HIGHEST inside, as JAX's has no precision; every plain
+loop with its products at HIGH) or ``'auto'`` (HIGH for a point exactly
+when the previous point's mean T pinned at the iteration cap).  Every
+route takes every precision, as in JAX; ``'default'`` raises
+(``ops/precision.py``).
+
+``use_pallas='auto'|True|False`` is the JAX package's knob
+(``resolve_use_pallas``): ``'auto'`` takes the kernels exactly where the
+decoders' routes take them, ``False`` the plain loops, ``True`` raises
+where no kernel covers the config.  ``chans_per_batch=C`` rounds the
 realizations of a single-phase point up to a multiple of C, as the JAX
 package does; every realization then runs through the one sequential
 path (the JAX package decodes C of them per launch, which on the card
@@ -68,28 +75,72 @@ ALGO_DIRS = {"bamp": "BAMP", "vamp": "VAMP", "vamp2": "VAMP2",
 
 SVD_ALGOS = ("vamp", "vamp2")
 
+# The probe of two_phase='auto': at most this many trials, drawn from a
+# generator whose fourth entropy word no realization has (a realization's
+# generator takes three: seed, point, realization).
+PROBE_TRIALS = 2048
+PROBE_ENTROPY = 0x9A0BE
 
-def check_precision(algo: str, cfg: Config, precision: str,
-                    operator_form: str) -> str:
-    """The canonical form of a sweep's ``precision`` (``'highest'``,
-    ``'high'`` or ``'auto'``); raises where ``algo`` has no HIGH form on
-    ``cfg`` in ``operator_form`` (resolved, 'banded' or 'dense'): BAMP on
-    the plain loop (``bamp.check_high``; K1 and K5 have HIGH forms), SCAMP
-    on the plain loop, and VAMP or vamp2 on a config their kernels do not
-    cover (random mode, real channel).  ``'default'`` raises everywhere
-    (``ops/precision.py``)."""
-    precision = prec.canonical(precision, allow_auto=True)
-    if precision == prec.HIGHEST:
-        return precision
-    banded = operator_form == "banded"
-    if algo == "bamp":
-        bamp.check_high(cfg, bamp.route_of(cfg, banded))
-    elif algo == "scamp":
-        scamp.check_high(cfg, banded)
-    else:
-        from ..ops.kernels import fused_vamp
-        vamp.check_high(cfg, fused_vamp.covers(cfg))
-    return precision
+
+def kernel_module(algo: str):
+    """The wrapper module of ``algo``'s whole-decode kernel (None for an
+    algorithm without one), whose ``covers`` and ``fits`` decide
+    :func:`resolve_use_pallas` (JAX ``pallas_kernel_class``,
+    ``montecarlo.py:264-281``)."""
+    from ..ops.kernels import fused_bamp, fused_scamp, fused_vamp, fused_vamp2
+    return {"bamp": fused_bamp, "scamp": fused_scamp, "vamp": fused_vamp,
+            "vamp2": fused_vamp2}.get(algo)
+
+
+def resolve_use_pallas(use_pallas, cfg: Config, algo: str,
+                       operator_form: str, batch: Optional[int] = None
+                       ) -> bool:
+    """``use_pallas`` (``'auto'``, True or False) resolved to whether the
+    decode takes its kernels: JAX ``montecarlo.py:210-261`` as it resolves
+    on a TPU, decided from the wrappers' own ``covers`` and ``fits``.
+
+    * ``'auto'``: BAMP and SCAMP on a banded operator (``operator_form``
+      resolved), VAMP and vamp2 on either, where the kernel covers the
+      config and, with ``batch`` given as in JAX, fits it; for BAMP a
+      geometry K1 does not fit is taken when K5 covers it
+      (``fused_bamp_tiled.covers``).  This is exactly where the decoders'
+      routes take a kernel, on either device: on the CPU each wrapper runs
+      its plain version, where JAX's ``'auto'`` means XLA
+      (``montecarlo.py:227-228``).  The port's ``fits`` do not depend on
+      the batch (a block holds one trial; K3, K4 and K5 keep their state
+      in device memory), where JAX's count VMEM tiles.
+    * ``True``: raises where no kernel covers the config, or the operator
+      of BAMP or SCAMP is dense (JAX's honest knob, ``:100-109`` and
+      ``:242-259``); a geometry that does not fit still takes the plain
+      loop inside the decoder, as in JAX.
+    * ``False``: the plain loops.
+    """
+    bamp.check_use_pallas(use_pallas)
+    kern = kernel_module(algo)
+    banded_only = algo in ("bamp", "scamp")
+    if use_pallas == "auto":
+        if kern is None or (banded_only and operator_form != "banded"):
+            return False
+        ok = kern.covers(cfg)
+        if ok and batch is not None and hasattr(kern, "fits"):
+            ok = kern.fits(cfg)
+            if not ok and algo == "bamp":
+                from ..ops.kernels import fused_bamp_tiled
+                ok = fused_bamp_tiled.covers(cfg)
+        return ok
+    if use_pallas:
+        if kern is None:
+            raise ValueError(f"use_pallas=True, but no decode kernel exists "
+                             f"for algo={algo!r}")
+        if not kern.covers(cfg):
+            raise ValueError(
+                f"use_pallas=True, but the {algo} kernel does not cover "
+                f"mode={cfg.mode!r} alphabet={cfg.alphabet!r} "
+                f"(is_complex={cfg.is_complex})")
+        if banded_only and operator_form != "banded":
+            raise ValueError("use_pallas=True requires the banded operator "
+                             "form for bamp and scamp")
+    return bool(use_pallas)
 
 
 def check_algo(algo: str, channel_kind: str) -> None:
@@ -174,39 +225,41 @@ def with_svd(algo: str, r: Realization) -> Realization:
 
 
 def decode(algo: str, r: Realization, y: torch.Tensor, cfg: Config,
-           estimate_phi: bool = False, precision: str = "highest", **kw):
+           estimate_phi: bool = False, precision: str = "highest",
+           use_pallas="auto", **kw):
     """Decode ``y`` (all of ``r.y`` or a gathered subset) on realization
     ``r`` (for VAMP and vamp2, one that went through :func:`with_svd`) with
-    ``algo`` at ``precision`` (``'highest'`` or ``'high'``); ``kw`` are the
-    decoders' resume arguments (``state0``, ``iter_cap``,
+    ``algo`` at ``precision`` (``'highest'`` or ``'high'``) and
+    ``use_pallas`` (``'auto'``, True or False, the decoders' knob); ``kw``
+    are the decoders' resume arguments (``state0``, ``iter_cap``,
     ``return_state``)."""
+    kw = dict(kw, precision=precision, use_pallas=use_pallas)
     if algo == "vamp":
-        return vamp.decode(r.dec, y, r.sigma2, cfg, precision=precision,
-                           **kw)
+        return vamp.decode(r.dec, y, r.sigma2, cfg, **kw)
     if algo == "vamp2":
-        return vamp2.decode(r.dec, y, r.sigma2, cfg, precision=precision,
-                            **kw)
+        return vamp2.decode(r.dec, y, r.sigma2, cfg, **kw)
     if algo == "scamp":
         return scamp.decode(r.W, r.A, y, r.sigma2, cfg,
-                            estimate_phi=estimate_phi, precision=precision,
-                            **kw)
-    return bamp.decode(r.A, y, r.sigma2, cfg, precision=precision, **kw)
+                            estimate_phi=estimate_phi, **kw)
+    return bamp.decode(r.A, y, r.sigma2, cfg, **kw)
 
 
 def make_realization_fn(cfg: Config, algo: str, channel_kind: str, res: int,
                         operator_form: str = "auto",
                         estimate_phi: bool = False,
-                        precision: str = "highest"):
+                        precision: str = "highest", use_pallas="auto"):
     """One single-phase realization: ``fn(gen, snr) -> metric sums``
-    (`bamp_model.py:54-59`), its products at ``precision``."""
+    (`bamp_model.py:54-59`), its products at ``precision``, its kernels as
+    :func:`resolve_use_pallas` resolves ``use_pallas``."""
     check_algo(algo, channel_kind)
     form = resolve_operator_form(channel_kind, operator_form, algo)
-    precision = check_precision(algo, cfg, precision, form)
+    precision = prec.canonical(precision, allow_auto=True)
+    use = resolve_use_pallas(use_pallas, cfg, algo, form, batch=res)
 
     def one_realization(gen, snr):
         r = with_svd(algo, generate_realization(gen, cfg, channel_kind, form,
                                                 res, snr, precision))
-        out = decode(algo, r, r.y, cfg, estimate_phi, precision)
+        out = decode(algo, r, r.y, cfg, estimate_phi, precision, use)
         return metrics.evaluate_sums(out.xmap, out.xmmse, r.msg, out.T, cfg)
 
     return one_realization
@@ -234,26 +287,28 @@ def state_merge_trials(state, sub, idx: torch.Tensor):
 def make_two_phase_fn(cfg: Config, algo: str, channel_kind: str, res: int,
                       k1: int, operator_form: str = "auto",
                       estimate_phi: bool = False,
-                      precision: str = "highest"):
+                      precision: str = "highest", use_pallas="auto"):
     """One continuation-batched realization: ``fn(gen, snr) -> sums``.
 
     Phase 1 runs every trial up to ``k1`` iterations; the still-active
     trials are gathered exactly and phase 2 finishes them to the cap; the
     merged state is evaluated.  The trajectory of every trial is the
-    single-phase one, so are the sums.  Products at ``precision``."""
+    single-phase one, so are the sums.  Products at ``precision``, kernels
+    as :func:`resolve_use_pallas` resolves ``use_pallas``."""
     check_algo(algo, channel_kind)
     form = resolve_operator_form(channel_kind, operator_form, algo)
-    precision = check_precision(algo, cfg, precision, form)
+    precision = prec.canonical(precision, allow_auto=True)
+    use = resolve_use_pallas(use_pallas, cfg, algo, form, batch=res)
 
     def two_phase(gen, snr):
         r = with_svd(algo, generate_realization(gen, cfg, channel_kind, form,
                                                 res, snr, precision))
-        _, state = decode(algo, r, r.y, cfg, estimate_phi, precision,
+        _, state = decode(algo, r, r.y, cfg, estimate_phi, precision, use,
                           iter_cap=k1, return_state=True)
         idx = torch.nonzero(state.active).flatten()
         if idx.numel():
             _, sub = decode(algo, r, r.y[idx], cfg, estimate_phi, precision,
-                            state0=state_take_trials(state, idx),
+                            use, state0=state_take_trials(state, idx),
                             return_state=True)
             state = state_merge_trials(state, sub, idx)
         return metrics.evaluate_sums(state.xmap, state.xmmse, r.msg,
@@ -267,9 +322,9 @@ _AUTO_K1_GRID = (4, 6, 8, 10, 12, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 
 
 def auto_k1(mean_t: Optional[float], cap: int) -> int:
-    """Phase-1 budget just above the expected mean T (the previous sweep
-    point's; 16 without history), on a quantized grid, clamped to
-    ``cap``."""
+    """Phase-1 budget just above the expected mean T (the probe's or the
+    previous sweep point's; 16 without either), on a quantized grid,
+    clamped to ``cap``."""
     target = 16 if mean_t is None else int(np.ceil(mean_t)) + 1
     for k in _AUTO_K1_GRID:
         if k >= target:
@@ -292,13 +347,17 @@ class Simulator:
         operator_form: 'auto' (tap form wherever the channel has one;
             dense for VAMP and vamp2), 'banded' or 'dense'.
         two_phase: None (single phase), an int ``k1``, or 'auto' (k1 just
-            above the previous point's mean T).
+            above the point's mean T, measured by :meth:`_probe_meanT`,
+            or with ``AMP_AUTO_PROBE=0`` (or ``false``) the previous
+            point's).
         estimate_phi: SCAMP's empirical residual variance (estSCAMP).
         device: where the sweep runs; None means the CUDA card, and raises
             when there is none.  Pass 'cpu' to run on the CPU.
         precision: 'highest' (default), 'high' or 'auto' (module
-            docstring); 'high' and 'auto' only where the decode's route
-            has a HIGH form (``check_precision``).
+            docstring).
+        use_pallas: 'auto' (default), True or False
+            (:func:`resolve_use_pallas`); True raises here where no kernel
+            covers the config.
         chans_per_batch: realizations per single-phase point round up to
             a multiple of it (the JAX package's C realizations per
             launch); they run one after another.
@@ -309,13 +368,14 @@ class Simulator:
                  algo_dir: Optional[str] = None, seed: int = 0,
                  operator_form: str = "auto", two_phase=None, device=None,
                  estimate_phi: bool = False, precision: str = "highest",
-                 chans_per_batch: int = 1,
+                 chans_per_batch: int = 1, use_pallas="auto",
                  progress: Callable[[str], None] = print):
         check_algo(algo, channel_kind)
         form = resolve_operator_form(channel_kind, operator_form, algo)
         if isinstance(two_phase, str) and two_phase != "auto":
             raise ValueError("two_phase must be an int, 'auto', or None")
-        precision = check_precision(algo, cfg, precision, form)
+        precision = prec.canonical(precision, allow_auto=True)
+        resolve_use_pallas(use_pallas, cfg, algo, form)
         if int(chans_per_batch) < 1:
             raise ValueError("chans_per_batch must be >= 1")
         # 'auto' (montecarlo.py:885-897 of the JAX package): the three-pass
@@ -334,11 +394,16 @@ class Simulator:
         self.operator_form = operator_form
         self.two_phase = two_phase
         self.estimate_phi = estimate_phi
+        self.use_pallas = use_pallas
         self.progress = progress
         self.path = os.path.join(out_root, algo_dir or ALGO_DIRS[algo],
                                  cfg.name)
         self._last_meanT = None   # previous point's mean T (auto k1, auto
                                   # precision)
+        # two_phase='auto': the last point's probe mean T (None when it
+        # did not probe) and its k1
+        self.probe_meanT = None
+        self.k1 = None
 
     def _effective_precision(self) -> str:
         """The product precision of the NEXT point (see the 'auto' note
@@ -350,18 +415,42 @@ class Simulator:
             return prec.HIGH
         return prec.HIGHEST
 
-    def _realization_fn(self, res: int):
-        precision = self._effective_precision()
+    def _single_phase_fn(self, res: int):
+        return make_realization_fn(self.cfg, self.algo, self.channel_kind,
+                                   res, self.operator_form,
+                                   self.estimate_phi,
+                                   self._effective_precision(),
+                                   self.use_pallas)
+
+    def _probe_meanT(self, snr: float, snr_idx: int, res: int) -> float:
+        """Mean T of this point from one single-phase probe realization of
+        ``min(PROBE_TRIALS, res)`` trials at the point's precision and
+        ``use_pallas`` (JAX ``montecarlo.py:962-977``), drawn from a
+        generator no realization of the point uses.  Sized to ``res`` and
+        built per point, it avoids two faults of JAX's probe: a fixed 2048
+        trials, and a probe compiled once at the first point's
+        precision."""
+        fn = self._single_phase_fn(min(PROBE_TRIALS, res))
+        gen = make_generator(self.device, self.seed, snr_idx, PROBE_ENTROPY,
+                             0)
+        return metrics.finalize(fn(gen, snr), self.cfg)["T"]
+
+    def _realization_fn(self, res: int, snr: float, snr_idx: int):
         if self.two_phase is None:
-            return make_realization_fn(self.cfg, self.algo,
-                                       self.channel_kind, res,
-                                       self.operator_form, self.estimate_phi,
-                                       precision)
-        k1 = (auto_k1(self._last_meanT, self.cfg.N_Layers)
-              if self.two_phase == "auto" else int(self.two_phase))
+            return self._single_phase_fn(res)
+        self.probe_meanT = None
+        if self.two_phase != "auto":
+            self.k1 = int(self.two_phase)
+        else:
+            mean_t = self._last_meanT
+            if os.environ.get("AMP_AUTO_PROBE", "1") not in ("0", "false"):
+                mean_t = self.probe_meanT = self._probe_meanT(snr, snr_idx,
+                                                              res)
+            self.k1 = auto_k1(mean_t, self.cfg.N_Layers)
         return make_two_phase_fn(self.cfg, self.algo, self.channel_kind,
-                                 res, k1, self.operator_form,
-                                 self.estimate_phi, precision)
+                                 res, self.k1, self.operator_form,
+                                 self.estimate_phi,
+                                 self._effective_precision(), self.use_pallas)
 
     def _realizations(self, epochs: int, res: int) -> int:
         """Realizations per point: whole realizations of ``res``, rounded
@@ -388,7 +477,7 @@ class Simulator:
         snr_db = ebn0_db + 10 * np.log10(cfg.code_rate)
         snr = float(10 ** (snr_db / 10))
         n_real = self._realizations(epochs, res)
-        fn = self._realization_fn(res)
+        fn = self._realization_fn(res, snr, snr_idx)
         total = None
         for c in range(n_real):
             gen = make_generator(self.device, self.seed, snr_idx, c)

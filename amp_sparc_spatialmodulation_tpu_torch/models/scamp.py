@@ -16,12 +16,16 @@ per-block mean of ``|z|^2`` (the reference's ``estSCAMP``, `sparc.py:199`).
 On a banded operator with a config the CUDA kernel covers, :func:`decode`
 runs the whole decode through
 :func:`..ops.kernels.fused_scamp.whole_decode` (the kernel on the card, its
-plain version on the CPU); everything else runs the plain PyTorch loop.
+plain version on the CPU); everything else, and ``use_pallas=False``, runs
+the plain PyTorch loop (:func:`kernel_route`).
 
 ``decode(precision='high')`` runs the kernel at HIGHEST, as the JAX
 package builds its SCAMP kernel without a precision (`scamp.py:125-130`
-there), so at HIGH only the realization's generation changes; the plain
-loop has no HIGH form and raises (:func:`check_high`).
+there), so there at HIGH only the realization's generation changes; the
+plain loop runs JAX's XLA body at HIGH: the operator's products through
+``ops/precision.py::matmul`` and the two base-matrix products
+(``mm(psi, Wt)`` and ``mm(1/phi, W)`` there) in three bf16 passes
+(:func:`base_product`).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import torch
 from ..config import Config
 from ..ops import denoise, operators
 from ..ops import precision as prec
-from .bamp import DecodeResult, _allclose_rows, _freeze
+from .bamp import DecodeResult, _allclose_rows, _freeze, check_use_pallas
 
 # Decodes that ran the plain PyTorch loop (any device).
 plain_decodes = 0
@@ -72,12 +76,32 @@ def initial_state(y: torch.Tensor, cfg: Config) -> SCAMPState:
         t=0)
 
 
+def base_product(a: torch.Tensor, m: torch.Tensor,
+                 precision: str = "highest") -> torch.Tensor:
+    """``a @ m.T`` for the small base-matrix products, ``(B, K) x (R, K)
+    -> (B, R)``, as a product and a sum over its contiguous last axis, not
+    a matmul: cuBLAS orders a small GEMM's sum by the batch size, and
+    psi's stop test sees the last bit.  At ``'high'`` the three bf16
+    passes of ``ops/precision.py::dot3``, grouped as it groups them, each
+    in that form."""
+    def rowdot(p, q):
+        return (p[:, None, :] * q).sum(-1)
+
+    if prec.canonical(precision) == prec.HIGHEST:
+        return rowdot(a, m)
+    a_hi, a_lo = (t.float() for t in prec.split_bf16(a))
+    m_hi, m_lo = (t.float() for t in prec.split_bf16(m))
+    return rowdot(a_hi, m_hi) + (rowdot(a_hi, m_lo) + rowdot(a_lo, m_hi))
+
+
 def plain_loop(op, W: torch.Tensor, s: SCAMPState, y: torch.Tensor,
                sigma2: float, cap: int, cfg: Config,
-               estimate_phi: bool = False) -> SCAMPState:
+               estimate_phi: bool = False,
+               precision: str = "highest") -> SCAMPState:
     """The plain PyTorch iteration loop from state ``s``: run until ``t``
     reaches ``cap`` or every trial converged (`scamp.py:167-200`).  ``W``
-    is the float32 base matrix on ``y``'s device."""
+    is the float32 base matrix on ``y``'s device; the operator's and the
+    base matrix's products at ``precision``."""
     global plain_decodes
     plain_decodes += 1
     sigma2 = float(np.float32(sigma2))
@@ -89,23 +113,21 @@ def plain_loop(op, W: torch.Tensor, s: SCAMPState, y: torch.Tensor,
     denoiser = partial(denoise.segmented_posterior,
                        symbols=torch.as_tensor(cfg.symbols, device=y.device),
                        L=L, M=cfg.M, halve_tau=cfg.is_complex, variance=None)
-    # The two base-matrix products (K = Lin and Lout) are a product and a
-    # sum over its contiguous last axis, not a matmul: cuBLAS orders a
-    # small GEMM's sum by the batch size, and psi's stop test sees the last
-    # bit.  (Wt is contiguous so that the product's last axis is too.)
+    # (Wt is contiguous so that base_product's last axis is too.)
     while s.t < cap and bool(s.active.any()):
-        gma = (s.psi[:, None, :] * W).sum(-1) / Lc               # (B, Lr)
+        gma = base_product(s.psi, W, precision) / Lc             # (B, Lr)
         b = gma / s.phi             # 0 on the first iteration (phi = inf)
-        z = y - op.apply(s.xmmse) + _expand(b, Mr).to(cdtype) * s.z
+        z = (y - op.apply(s.xmmse, precision)
+             + _expand(b, Mr).to(cdtype) * s.z)
         if estimate_phi:
             # `sparc.py:199`: empirical residual variance per output block
             phi = (z.abs() ** 2).reshape(B, Lr, Mr).sum(-1) / Mr
         else:
             phi = sigma2 + gma                                  # `scamp.py:50`
-        tau = L / ((1.0 / phi)[:, None, :] * Wt).sum(-1) / Mr    # (B, Lc)
+        tau = L / base_product(1.0 / phi, Wt, precision) / Mr    # (B, Lc)
         tau_use = _expand(tau, Mc)                               # (B, N)
         resid = denoise.div_real(z, _expand(phi, Mr))
-        xmap = s.xmmse + tau_use * op.apply_adj(resid)
+        xmap = s.xmmse + tau_use * op.apply_adj(resid, precision)
         xmmse, _ = denoiser(xmap, tau_use)
         psi = 1.0 - (xmmse.abs() ** 2).reshape(B, Lc, Mc).sum(-1) / cfg.Na
         converged = _allclose_rows(psi, s.psi)
@@ -121,28 +143,31 @@ def plain_loop(op, W: torch.Tensor, s: SCAMPState, y: torch.Tensor,
     return s
 
 
-def kernel_route(cfg: Config, banded: bool) -> bool:
+def kernel_route(cfg: Config, banded: bool, use_pallas="auto") -> bool:
     """True when :func:`decode` runs the kernel: a banded operator and a
-    config the kernel covers and fits."""
+    config the kernel covers and fits, unless ``use_pallas`` is False.
+    ``use_pallas=True`` raises where no kernel covers the config or the
+    operator is dense (JAX's honest knob, `scamp.py:117-124` there); a
+    geometry that does not fit still takes the plain loop, as in JAX."""
     from ..ops.kernels import fused_scamp
-    return banded and fused_scamp.covers(cfg) and fused_scamp.fits(cfg)
 
-
-def check_high(cfg: Config, banded: bool) -> None:
-    """Raise for ``precision='high'`` where :func:`decode` would run the
-    plain loop, which has no HIGH form."""
-    if not kernel_route(cfg, banded):
+    check_use_pallas(use_pallas)
+    if use_pallas is False:
+        return False
+    covered = banded and fused_scamp.covers(cfg)
+    if use_pallas is True and not covered:
         raise ValueError(
-            "precision='high' has no form on the plain SCAMP loop (a dense "
-            "operator, the real-channel mode, or a geometry kernel K2 does "
-            f"not fit; mode={cfg.mode!r} is_complex={cfg.is_complex}); use "
-            "'highest'")
+            "use_pallas=True: the SCAMP kernel needs a banded operator and "
+            f"covers complex segmented/sparc alphabets, not mode="
+            f"{cfg.mode!r} is_complex={cfg.is_complex} on a "
+            f"{'banded' if banded else 'dense'} operator")
+    return covered and fused_scamp.fits(cfg)
 
 
 def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
            estimate_phi: bool = False, state0: SCAMPState | None = None,
            iter_cap: int | None = None, return_state: bool = False,
-           precision: str = "highest"):
+           precision: str = "highest", use_pallas="auto"):
     """Run SCAMP on a batch of trials sharing one ``(W, A)`` realization.
 
     Args:
@@ -156,7 +181,8 @@ def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
         state0 / iter_cap / return_state: resumable decoding, as in
             :func:`.bamp.decode`.
         precision: 'highest' (default) or 'high' (module docstring): the
-            kernel at HIGHEST either way; the plain loop raises at 'high'.
+            kernel at HIGHEST either way, the plain loop at ``precision``.
+        use_pallas: 'auto' (default), True or False (:func:`kernel_route`).
 
     A banded operator with a config the kernel covers (complex
     segmented/sparc alphabets; whole trial in shared memory) goes through
@@ -174,9 +200,8 @@ def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
 
     precision = prec.canonical(precision)
     op = operators.as_operator(A)
-    banded = isinstance(op, operators.BandedOperator)
-    if precision == prec.HIGH:
-        check_high(cfg, banded)
+    kernel = kernel_route(cfg, isinstance(op, operators.BandedOperator),
+                          use_pallas)
     if not torch.is_tensor(W):
         W = torch.from_numpy(np.array(W, dtype=np.float32))
     W = W.to(device=y.device, dtype=torch.float32).contiguous()
@@ -184,11 +209,12 @@ def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
     if state0 is None:
         state0 = initial_state(y, cfg)
     cap = cfg.N_Layers if iter_cap is None else int(iter_cap)
-    if kernel_route(cfg, banded):
+    if kernel:
         s = fused_scamp.whole_decode(op, W, state0, y, sigma2, cap, cfg,
                                      estimate_phi)
     else:
-        s = plain_loop(op, W, state0, y, sigma2, cap, cfg, estimate_phi)
+        s = plain_loop(op, W, state0, y, sigma2, cap, cfg, estimate_phi,
+                       precision)
     result = DecodeResult(xmap=s.xmap, xmmse=s.xmmse, var=1.0 - s.psi, T=s.T)
     if return_state:
         return result, s

@@ -16,16 +16,19 @@ The per-trial scalars of the reference (``sigma2_tilde``, ``alpha``,
 loop run side by side.  The SVD is computed once per channel realization,
 outside the decode.  For a config the CUDA kernel covers, :func:`decode`
 runs the whole decode through :func:`..ops.kernels.fused_vamp.whole_decode`
-(the kernel on the card, its plain version on the CPU); everything else
-runs the plain PyTorch loop on either device.
+(the kernel on the card, its plain version on the CPU); everything else,
+and ``use_pallas=False``, runs the plain PyTorch loop on either device
+(:func:`kernel_route`).
 
 ``precision='high'`` is the JAX package's ``lax.Precision.HIGH``
 (``ops/precision.py``): the projection ``y U^*`` as four real three-pass
 bf16 products, and the decode through the kernel's HIGH form, whose plain
 version is :func:`plain_loop_high`, the JAX kernel's iteration step by step
 (Gauss combinations, ``dot3`` on each, ``rowsum3`` for the two row sums).
-The random mode and the real-channel mode, which run the plain loop, have
-no HIGH form and raise.
+The plain loop at HIGH (the random mode, the real-channel mode,
+``use_pallas=False``) is JAX's XLA body at HIGH (`vamp.py:226-231` there),
+its two products through ``ops/precision.py::matmul``: a different
+function from :func:`plain_loop_high`.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from ..config import Config
 from ..ops import denoise
 from ..ops import precision as prec
 from ..ops.precision import dot3, rowsum3
-from .bamp import DecodeResult, _allclose_rows, _freeze
+from .bamp import DecodeResult, _allclose_rows, _freeze, check_use_pallas
 
 _VR_MIN = 1e-5          # `vamp.py:51-52`
 _VR_MAX = 1.0 - _VR_MIN
@@ -172,11 +175,12 @@ def initial_state(y: torch.Tensor, cfg: Config) -> VAMPState:
 
 
 def plain_loop(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
-               s: VAMPState, sigma2: float, cap: int,
-               cfg: Config) -> VAMPState:
+               s: VAMPState, sigma2: float, cap: int, cfg: Config,
+               precision: str = "highest") -> VAMPState:
     """The plain PyTorch iteration loop from state ``s`` on one SVD factor
     ``Vh (p, N)`` with squared singular values ``s2 (p,)``: run until ``t``
-    reaches ``cap`` or every trial converged (`vamp.py:220-261`)."""
+    reaches ``cap`` or every trial converged (`vamp.py:220-261`), the two
+    products at ``precision``."""
     global plain_decodes
     plain_decodes += 1
     noise_var = float(np.float32(sigma2))
@@ -185,15 +189,16 @@ def plain_loop(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     eta = p / N                                               # `vamp.py:28`
     s2 = s2.reshape(1, p)
     Vh_t, Vh_c = Vh.T, Vh.conj()        # r @ Vh_t == Vh r; w @ Vh_c == V w
+    mm = partial(prec.matmul, precision=prec.canonical(precision))
     denoiser = make_denoiser(cfg, y_tilde.device)
     while s.t < cap and bool(s.active.any()):
         # LMMSE stage in the SV domain (`vamp.py:66-73`).
         var_ratio = noise_var / s.sigma2_tilde                   # (B, 1)
-        q = s.r_tilde @ Vh_t                                     # (B, p)
+        q = mm(s.r_tilde, Vh_t)                                  # (B, p)
         scale = 1.0 / (s2 + var_ratio)                           # (B, p)
         x_sv = scale * (y_tilde + var_ratio * q)
         var_lmmse = scale.mean(dim=1, keepdim=True) * noise_var
-        x_tilde = (x_sv - q) @ Vh_c + s.r_tilde                  # (B, N)
+        x_tilde = mm(x_sv - q, Vh_c) + s.r_tilde                 # (B, N)
         x_tilde_var = eta * var_lmmse + (1.0 - eta) * s.sigma2_tilde
 
         # Extrinsic subtraction (`vamp.py:75-82`).
@@ -281,19 +286,26 @@ def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     return s
 
 
-def check_high(cfg: Config, covered: bool) -> None:
-    """Raise for ``precision='high'`` where the decode would run the plain
-    loop (random mode, real channel): that loop has no HIGH form."""
-    if not covered:
+def kernel_route(cfg: Config, covered: bool, use_pallas="auto") -> bool:
+    """True when the VAMP or vamp2 decode runs its kernel: on a config the
+    kernel covers (``covered``), unless ``use_pallas`` is False;
+    ``use_pallas=True`` raises on a config it does not cover (JAX's honest
+    knob, `vamp.py:173-180` there)."""
+    check_use_pallas(use_pallas)
+    if use_pallas is False:
+        return False
+    if use_pallas is True and not covered:
         raise ValueError(
-            "precision='high' needs a config the VAMP kernels cover "
-            f"(complex segmented/sparc alphabets), not mode={cfg.mode!r} "
+            "use_pallas=True: the VAMP kernels cover complex "
+            f"segmented/sparc alphabets, not mode={cfg.mode!r} "
             f"is_complex={cfg.is_complex}")
+    return covered
 
 
 def decode(dec: SVD, y: torch.Tensor, sigma2, cfg: Config, *,
            state0: VAMPState | None = None, iter_cap: int | None = None,
-           return_state: bool = False, precision: str = "highest"):
+           return_state: bool = False, precision: str = "highest",
+           use_pallas="auto"):
     """Run VAMP on a batch of trials sharing one channel SVD.
 
     Args:
@@ -304,6 +316,7 @@ def decode(dec: SVD, y: torch.Tensor, sigma2, cfg: Config, *,
         state0 / iter_cap / return_state: resumable decoding, as in
             :func:`.bamp.decode`.
         precision: 'highest' (default) or 'high' (module docstring).
+        use_pallas: 'auto' (default), True or False (:func:`kernel_route`).
 
     A config the kernel covers (complex segmented/sparc alphabets) goes
     through the whole-decode CUDA kernel on a CUDA device and its plain
@@ -317,18 +330,18 @@ def decode(dec: SVD, y: torch.Tensor, sigma2, cfg: Config, *,
     from ..ops.kernels import fused_vamp
 
     precision = prec.canonical(precision)
-    if precision == prec.HIGH:
-        check_high(cfg, fused_vamp.covers(cfg))
+    kernel = kernel_route(cfg, fused_vamp.covers(cfg), use_pallas)
     if state0 is None:
         state0 = initial_state(y, cfg)
     cap = cfg.N_Layers if iter_cap is None else int(iter_cap)
     y_tilde = project(dec, y, precision)
     s2 = dec.s ** 2
-    if fused_vamp.covers(cfg):
+    if kernel:
         s = fused_vamp.whole_decode(dec.Vh, s2, y_tilde, state0, sigma2, cap,
                                     cfg, precision)
     else:
-        s = plain_loop(dec.Vh, s2, y_tilde, state0, sigma2, cap, cfg)
+        s = plain_loop(dec.Vh, s2, y_tilde, state0, sigma2, cap, cfg,
+                       precision)
     result = DecodeResult(xmap=s.r, xmmse=s.xmmse, var=s.var, T=s.T)
     if return_state:
         return result, s

@@ -15,13 +15,14 @@ test_vamp2_runs_and_decodes`).
 
 The whitening divides by ``s``, so vamp2 needs the direct SVD.  For a
 config the CUDA kernel covers, :func:`decode` runs the whole decode
-through :func:`..ops.kernels.fused_vamp2.whole_decode`; everything else
-runs the plain PyTorch loop on either device.
+through :func:`..ops.kernels.fused_vamp2.whole_decode`; everything else,
+and ``use_pallas=False``, runs the plain PyTorch loop on either device.
 
 ``precision='high'`` (``ops/precision.py``) whitens with four real
 three-pass bf16 products and decodes through the kernel's HIGH form, whose
-plain version is :func:`plain_loop_high`; the modes without a kernel raise,
-as in :mod:`.vamp`.
+plain version is :func:`plain_loop_high`; the plain loop at HIGH is JAX's
+XLA body at HIGH (`vamp2.py:166-167` there), its two products through
+``ops/precision.py::matmul``, as in :mod:`.vamp`.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from ..ops import denoise
 from ..ops import precision as prec
 from ..ops.precision import dot3, rowsum3
 from .bamp import DecodeResult, _allclose_rows, _freeze
-from .vamp import SVD, check_high, gauss_taps
+from .vamp import SVD, gauss_taps, kernel_route
 
 _VAR_MIN = 1e-11        # `vamp2.py:48-49`
 _VAR_MAX = 1e11
@@ -96,12 +97,12 @@ def initial_state(y: torch.Tensor, cfg: Config) -> VAMP2State:
 
 
 def plain_loop(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
-               s: VAMP2State, sigma2: float, cap: int,
-               cfg: Config) -> VAMP2State:
+               s: VAMP2State, sigma2: float, cap: int, cfg: Config,
+               precision: str = "highest") -> VAMP2State:
     """The plain PyTorch iteration loop from state ``s`` on the SVD factor
     ``Vh (p, N)`` with squared singular values ``s2 (p,)`` and whitened data
     ``y_tilde``: run until ``t`` reaches ``cap`` or every trial converged
-    (`vamp2.py:147-180`)."""
+    (`vamp2.py:147-180`), the two products at ``precision``."""
     global plain_decodes
     plain_decodes += 1
     noise_var = float(np.float32(sigma2))
@@ -111,6 +112,7 @@ def plain_loop(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     eta = N / p                                        # `vamp2.py:26` (N/p)
     s2 = s2.reshape(1, p)
     Vh_t, Vh_c = Vh.T, Vh.conj()
+    mm = partial(prec.matmul, precision=prec.canonical(precision))
     denoiser = make_denoiser(cfg, y_tilde.device)
     while s.t < cap and bool(s.active.any()):
         # Denoiser and damping (`vamp2.py:62-63`).
@@ -127,8 +129,8 @@ def plain_loop(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
         gamma_new = gamma_tilde * d_mean / (eta - d_mean)      # `vamp2.py:72`
         gamma = rho * gamma_new + (1.0 - rho) * s.gamma
 
-        w = (d / d_mean) * (y_tilde - r_tilde @ Vh_t)
-        r = r_tilde + eta * (w @ Vh_c)                         # `vamp2.py:77`
+        w = (d / d_mean) * (y_tilde - mm(r_tilde, Vh_t))
+        r = r_tilde + eta * mm(w, Vh_c)                        # `vamp2.py:77`
 
         converged = _allclose_rows(var, s.var)
         s = VAMP2State(
@@ -197,26 +199,28 @@ def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
 
 def decode(dec: SVD, y: torch.Tensor, sigma2, cfg: Config, *,
            state0: VAMP2State | None = None, iter_cap: int | None = None,
-           return_state: bool = False, precision: str = "highest"):
+           return_state: bool = False, precision: str = "highest",
+           use_pallas="auto"):
     """Run damped Rangan VAMP on a batch of trials sharing one (direct)
     SVD.  Arguments and dispatch as :func:`.vamp.decode`: a config the
     kernel covers runs the whole-decode CUDA kernel on the card and its
-    plain version on the CPU; other configs run the plain loop."""
+    plain version on the CPU; other configs, and ``use_pallas=False``, run
+    the plain loop."""
     from ..ops.kernels import fused_vamp2
 
     precision = prec.canonical(precision)
-    if precision == prec.HIGH:
-        check_high(cfg, fused_vamp2.covers(cfg))
+    kernel = kernel_route(cfg, fused_vamp2.covers(cfg), use_pallas)
     if state0 is None:
         state0 = initial_state(y, cfg)
     cap = cfg.N_Layers if iter_cap is None else int(iter_cap)
     y_tilde = whiten(dec, y, precision)
     s2 = dec.s ** 2
-    if fused_vamp2.covers(cfg):
+    if kernel:
         s = fused_vamp2.whole_decode(dec.Vh, s2, y_tilde, state0, sigma2,
                                      cap, cfg, precision)
     else:
-        s = plain_loop(dec.Vh, s2, y_tilde, state0, sigma2, cap, cfg)
+        s = plain_loop(dec.Vh, s2, y_tilde, state0, sigma2, cap, cfg,
+                       precision)
     result = DecodeResult(xmap=s.r, xmmse=s.xmmse, var=s.var, T=s.T)
     if return_state:
         return result, s

@@ -1,6 +1,6 @@
 """Shrinkage / denoiser library — pure functions over (B, N) pseudo-data.
 
-Port of the parts of the JAX package's ``ops/denoise.py`` that BAMP needs:
+Port of the JAX package's ``ops/denoise.py``:
 
 * :func:`segmented_posterior`   — softmax posterior over (antenna, symbol)
   per segment, with BAMP's ``tau/2`` calibration as a flag (`bamp.py:68`)
@@ -8,6 +8,13 @@ Port of the parts of the JAX package's ``ops/denoise.py`` that BAMP needs:
   variance.
 * :func:`bernoulli_mixture_posterior` — i.i.d. Bernoulli-symbol-mixture
   posterior for ``random`` mode (`bamp.py:79-97`, `shrink.py:78-96`).
+* :func:`shrink_with_derivative` — posterior mean and analytic derivative
+  for scalar Onsager terms (`shrink.py:98-119`).
+* :func:`lasso`                 — soft threshold (`shrink.py:121-137`).
+* :func:`shrink_ook`            — LLR-form OOK posterior (`shrink.py:139-157`).
+* :func:`sw_shrink_ook`         — segment-wise OOK softmax (`shrink.py:58-76`).
+
+No decoder calls the last four; they complete the library, as in JAX.
 
 The softmax is stabilized by the per-segment maximum, as in the JAX
 package; overflow clamps follow ``regularize_exp`` (`shrink.py:163-166`).
@@ -165,3 +172,58 @@ def bernoulli_mixture_posterior(r: torch.Tensor, cov, symbols: torch.Tensor,
     second = Ps * (symbols.abs() ** 2 * Gs).sum(dim=-1) / norm
     var = second - mean.abs() ** 2
     return mean, var.to(torch.float32)
+
+
+def shrink_with_derivative(r: torch.Tensor, cov, symbols: torch.Tensor,
+                           Ps: float, P0: float):
+    """Posterior mean and analytic derivative for Onsager terms
+    (`shrink.py:98-119`), both complex64."""
+    cov = _broadcast(cov, r)[..., None]
+    d = r[..., None] - symbols                              # (..., K)
+    Gs = torch.exp(-regularize_exp(d.abs() ** 2 / cov))
+    ds = 2.0 * d.abs() * torch.sign((symbols - r[..., None]).real) / cov
+    cov = cov[..., 0]
+    G0 = torch.exp(-regularize_exp(r.abs() ** 2 / cov))
+    d0 = 2.0 * r.abs() * torch.sign(-r.real) / cov
+    dG0, dGs = d0 * G0, ds * Gs
+    norm = P0 * G0 + Ps * Gs.sum(dim=-1) + _TOL
+    mean = div_real(Ps * (symbols * Gs).sum(dim=-1), norm)
+    dnorm = P0 * dG0 + Ps * dGs.sum(dim=-1)
+    sdGs = Ps * (symbols * dGs).sum(dim=-1)
+    der = div_real(sdGs * norm - mean * dnorm, norm ** 2)
+    return mean, der
+
+
+def lasso(r: torch.Tensor, cov, lmda: float = 1.0):
+    """Soft-threshold shrinkage (`shrink.py:121-137`): ``(F, G)``."""
+    cov = _broadcast(cov, r)
+    F = torch.sign(r.real) * torch.maximum(r.abs(), lmda * cov)
+    G = cov * torch.where(r.abs() < cov, 0.0, 1.0)
+    return F, G
+
+
+def shrink_ook(r: torch.Tensor, cov, Ps: float, P0: float):
+    """LLR-form OOK posterior mean (complex64) and the mean of its
+    derivative (`shrink.py:139-157`)."""
+    theta = float(np.log(P0 / Ps))
+    cov = torch.as_tensor(cov, dtype=torch.float32, device=r.device)
+    eta = torch.exp(regularize_exp(theta + (1.0 - 2.0 * r.real) / cov))
+    mean = 1.0 / (1.0 + eta + _TOL)
+    der = torch.nan_to_num(2.0 * eta * mean ** 2 / cov, nan=0.0)
+    return mean.to(torch.complex64), der.mean()
+
+
+def sw_shrink_ook(r: torch.Tensor, cov, L: int, M: int):
+    """Segment-wise OOK softmax posterior (`shrink.py:58-76`): the mean
+    (complex64) and variance (float32), shape (B, L*M)."""
+    B = r.shape[0]
+    cov = _broadcast(cov, r)
+    Lr = ((2.0 * r.real - 1.0) / cov).reshape(B, L, M)
+    exp_Lr = torch.exp(regularize_exp(Lr))
+    sum_exp = exp_Lr.sum(dim=-1, keepdim=True)
+    Le = -torch.log(torch.clamp(sum_exp - exp_Lr, min=_TOL))
+    eta = torch.exp(regularize_exp(Lr + Le))
+    mean = eta / (1.0 + eta)
+    var = mean * (1.0 - mean)
+    return (mean.reshape(B, L * M).to(torch.complex64),
+            var.reshape(B, L * M).to(torch.float32))

@@ -16,12 +16,13 @@ product plus a shifted accumulation over the ``Lh`` taps.
 Unlike the JAX ``_fwd``/``_bwd``, taps that place no block (``trunc`` with
 ``Lh > Lin``) are skipped rather than indexed.
 
-``BandedOperator``'s maps take the precision of their tap-stack products
-(JAX ``ops/operators.py:77-84``, there an attribute of the operator):
-``'highest'`` (the default) is exactly ``x @ taps``; ``'high'`` is
-``ops/precision.py::matmul``, four three-pass bf16 products per complex
-product, the form the port takes for XLA's products at HIGH.  The gains
-are applied after the products either way.
+Each map of either operator takes the precision of its products (JAX
+``ops/operators.py:41-63`` and ``:77-84``, there an attribute of the
+operator): ``'highest'`` (the default) is exactly ``x @ H^T`` or ``x @
+taps``; ``'high'`` is ``ops/precision.py::matmul``, four three-pass bf16
+products per complex product, the form the port takes for XLA's products
+at HIGH.  ``BandedOperator`` applies its gains after the products either
+way.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from . import precision as prec
 
 
 class DenseOperator:
-    """Materialized (n, N) measurement matrix with precomputed constants."""
+    """Materialized (n, N) measurement matrix with precomputed constants.
+    Each map takes ``precision``, that of its product (module docstring)."""
 
     def __init__(self, H: torch.Tensor):
         self.H = H
@@ -47,17 +49,17 @@ class DenseOperator:
     def shape(self):
         return tuple(self.H.shape)
 
-    def apply(self, x):
-        return x @ self.Ht
+    def apply(self, x, precision="highest"):
+        return prec.matmul(x, self.Ht, precision)
 
-    def apply_adj(self, r):
-        return r @ self.Hc
+    def apply_adj(self, r, precision="highest"):
+        return prec.matmul(r, self.Hc, precision)
 
-    def apply_abs2(self, v):
-        return v @ self.abs2T
+    def apply_abs2(self, v, precision="highest"):
+        return prec.matmul(v, self.abs2T, precision)
 
-    def apply_abs2T(self, u):
-        return u @ self.abs2
+    def apply_abs2T(self, u, precision="highest"):
+        return prec.matmul(u, self.abs2, precision)
 
 
 class BandedOperator:

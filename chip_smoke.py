@@ -142,7 +142,27 @@ Phases, each printing one JSON line:
    seeds, 2 realizations of 2048 each (K5's HIGH instance alone, FER and
    BER within 3 sigma, mean T within 1.0, both runs' trials/s), and
    ``precision='auto'``, HIGHEST on a first point and K5-high after it;
-13. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+13. the sweep engine (no kernel of its own; counts set to 0 just before
+   each run and read just after): main_auto_k1, ``Simulator(
+   flagship_bamp_ook(), two_phase='auto')`` at 7 and 8 dB, 8 realizations
+   of 65536 each, each point's probe mean T (2048 trials through K1), its
+   k1 and the k1 of the previous-point rule, then the 8 dB point at a
+   fixed k1 equal to the probe's and under ``AMP_AUTO_PROBE=0``, on the
+   same seeds (gate: FER, BER and mean T identical in the three, K1 alone
+   in each); main_plain, ``use_pallas=False`` beside ``'auto'`` on the
+   same seeds at the BAMP main point (k1 = 12, 16 realizations) and the
+   SCAMP main point (k1 = 8, 8 realizations) (gates: no K1 or K2 launch
+   and two plain decodes a realization in the False runs, |d mean T| <=
+   0.02, FER and BER within 3 sigma; whether the sums are identical
+   printed); main_plain_high, the plain BAMP loop at HIGH beside K1-high
+   at main_bamp_high's point (2 realizations of 4096; FER and BER within
+   3 sigma, mean T within 1.0, the plain side no launch) and SCAMP at the
+   8PSK sweep geometry (reference_scamp_8psk_golden.json, cap 200) at 7
+   dB, one realization of 4096 a form, HIGH beside HIGHEST, both the plain
+   loop (FER within 3 sigma; both
+   mean Ts printed), ``precision='auto'`` built there; every run's
+   trials/s printed;
+14. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -405,6 +425,29 @@ def bound(flop, nbytes, peak=PEAK_FP32_FLOPS):
     t_ops, t_bytes = flop / peak, nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def fer_sigma(fer: float, trials: int) -> float:
+    """Binomial sigma of a FER over ``trials`` trials (at least one error
+    and one success counted), as main_bamp_high takes it."""
+    k = round(fer * trials)
+    pf = min(max(k, 1), trials - 1) / trials
+    return math.sqrt(pf * (1 - pf) / trials)
+
+
+def ber_sigma(torch, cfg, out, msg, res: int, trials: int) -> float:
+    """Sigma of the difference of two runs' BER over ``trials`` trials
+    each, from the BER scatter of ``BAMP_HIGH_BER_GROUPS`` groups of one
+    decoded realization's ``res`` trials (``out`` of message ``msg``), as
+    main_bamp_high takes it."""
+    from amp_sparc_spatialmodulation_tpu_torch.utils import metrics
+    group = torch.arange(res, device=out.T.device) % BAMP_HIGH_BER_GROUPS
+    bers = [metrics.finalize(metrics.evaluate_sums(
+        out.xmap, out.xmmse, msg, out.T, cfg,
+        weight=(group == g).float()), cfg)["ber"]
+        for g in range(BAMP_HIGH_BER_GROUPS)]
+    return statistics.stdev(bers) * math.sqrt(
+        2 * (res // BAMP_HIGH_BER_GROUPS) / trials)
 
 
 def banded_library(torch, cfg, A, s, dev) -> dict:
@@ -1430,9 +1473,7 @@ def phase_main_vamp_high(torch, dev, algo: str):
         st.xmap, st.xmmse, r.msg, st.T, cfg)))
     del r, yt, st
 
-    k = round(hs["avg"]["fer"] * epochs)
-    pf = min(max(k, 1), epochs - 1) / epochs
-    sigma = math.sqrt(pf * (1 - pf) / epochs)
+    sigma = fer_sigma(hs["avg"]["fer"], epochs)
     emit(f"main_{algo}_high", config="vamp_ook_segmented_flagship_dims",
          ebn0_db=EBN0_DB, res=RES, realizations=n_real, trials=epochs,
          cap=cfg.N_Layers,
@@ -1719,18 +1760,10 @@ def phase_main_bamp_high(torch, dev):
                                                 precision="high"))
     timed("metrics_s", lambda: metrics.fetch_sums(metrics.evaluate_sums(
         out.xmap, out.xmmse, r.msg, out.T, cfg)))
-    group = torch.arange(RES, device=dev) % BAMP_HIGH_BER_GROUPS
-    bers = [metrics.finalize(metrics.evaluate_sums(
-        out.xmap, out.xmmse, r.msg, out.T, cfg,
-        weight=(group == g).float()), cfg)["ber"]
-        for g in range(BAMP_HIGH_BER_GROUPS)]
-    ber_sigma = statistics.stdev(bers) * math.sqrt(
-        2 * (RES // BAMP_HIGH_BER_GROUPS) / epochs)
-    del r, out, group
+    bsig = ber_sigma(torch, cfg, out, r.msg, RES, epochs)
+    del r, out
 
-    k = round(hs["avg"]["fer"] * epochs)
-    pf = min(max(k, 1), epochs - 1) / epochs
-    sigma = math.sqrt(pf * (1 - pf) / epochs)
+    sigma = fer_sigma(hs["avg"]["fer"], epochs)
     emit("main_bamp_high", config="flagship_bamp_qpsk",
          ebn0_db=BAMP_HIGH_EBN0_DB, res=RES, realizations=n_real,
          trials=epochs, cap=cfg.N_Layers,
@@ -1745,7 +1778,7 @@ def phase_main_bamp_high(torch, dev):
                          ("plain_decodes", run["plain"]))},
          high_over_highest_trials_per_s=(hi["trials_per_s"]
                                          / hs["trials_per_s"]),
-         fer_sigma=sigma, ber_sigma=ber_sigma, layers_high=layers,
+         fer_sigma=sigma, ber_sigma=bsig, layers_high=layers,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     if hi["launches_high"] <= 0 or hi["launches"] or hi["plain"]:
         raise AssertionError("the BAMP HIGH path did not run through K1's "
@@ -1753,7 +1786,7 @@ def phase_main_bamp_high(torch, dev):
     if abs(hi["avg"]["fer"] - hs["avg"]["fer"]) > 3 * sigma:
         raise AssertionError(f"BAMP HIGH FER {hi['avg']['fer']} vs "
                              f"HIGHEST {hs['avg']['fer']}")
-    if abs(hi["avg"]["ber"] - hs["avg"]["ber"]) > 3 * ber_sigma:
+    if abs(hi["avg"]["ber"] - hs["avg"]["ber"]) > 3 * bsig:
         raise AssertionError(f"BAMP HIGH BER {hi['avg']['ber']} vs "
                              f"HIGHEST {hs['avg']['ber']}")
     if abs(hi["avg"]["T"] - hs["avg"]["T"]) > 1.0:
@@ -2476,18 +2509,10 @@ def phase_main_massive_high(torch, dev):
                                                 precision="high"))
     timed("metrics_s", lambda: metrics.fetch_sums(metrics.evaluate_sums(
         out.xmap, out.xmmse, r.msg, out.T, cfg)))
-    group = torch.arange(res, device=dev) % BAMP_HIGH_BER_GROUPS
-    bers = [metrics.finalize(metrics.evaluate_sums(
-        out.xmap, out.xmmse, r.msg, out.T, cfg,
-        weight=(group == g).float()), cfg)["ber"]
-        for g in range(BAMP_HIGH_BER_GROUPS)]
-    ber_sigma = statistics.stdev(bers) * math.sqrt(
-        2 * (res // BAMP_HIGH_BER_GROUPS) / epochs)
-    del r, out, group
+    bsig = ber_sigma(torch, cfg, out, r.msg, res, epochs)
+    del r, out
 
-    k = round(hs["avg"]["fer"] * epochs)
-    pf = min(max(k, 1), epochs - 1) / epochs
-    sigma = math.sqrt(pf * (1 - pf) / epochs)
+    sigma = fer_sigma(hs["avg"]["fer"], epochs)
     # the plane loop runs to the slowest trial: the cap when mean T is
     iters = (n_real * cfg.N_Layers if hi["avg"]["T"] == cfg.N_Layers
              else None)
@@ -2505,7 +2530,7 @@ def phase_main_massive_high(torch, dev):
                          ("plain_decodes", run["plain"]))},
          high_over_highest_trials_per_s=(hi["trials_per_s"]
                                          / hs["trials_per_s"]),
-         iterations_run=iters, fer_sigma=sigma, ber_sigma=ber_sigma,
+         iterations_run=iters, fer_sigma=sigma, ber_sigma=bsig,
          auto_first_mean_T=first["T"], auto_first=auto_first,
          auto_second_mean_T=second["T"], auto_second=auto_second,
          layers_high=layers,
@@ -2519,7 +2544,7 @@ def phase_main_massive_high(torch, dev):
     if abs(hi["avg"]["fer"] - hs["avg"]["fer"]) > 3 * sigma:
         raise AssertionError(f"massive HIGH FER {hi['avg']['fer']} vs "
                              f"HIGHEST {hs['avg']['fer']}")
-    if abs(hi["avg"]["ber"] - hs["avg"]["ber"]) > 3 * ber_sigma:
+    if abs(hi["avg"]["ber"] - hs["avg"]["ber"]) > 3 * bsig:
         raise AssertionError(f"massive HIGH BER {hi['avg']['ber']} vs "
                              f"HIGHEST {hs['avg']['ber']}")
     if abs(hi["avg"]["T"] - hs["avg"]["T"]) > 1.0:
@@ -2850,6 +2875,317 @@ def phase_main_massive(torch, dev):
     return launches
 
 
+# main_auto_k1: the flagship BAMP OOK point of a sweep that reaches 8 dB
+# from 7 dB under two_phase='auto' (the published 7 dB point has mean T
+# 25.3, Simulations/BAMPfinal/OOK,segmented/.../7.0.json), 8 realizations
+# of 65536 per point.
+AUTO_K1_DB = (7.0, 8.0)
+AUTO_K1_REALIZATIONS = 8
+# main_plain: use_pallas=False beside 'auto' on the same seeds, at the BAMP
+# main point (16 realizations) and the SCAMP main point (8).
+PLAIN_BAMP_REALIZATIONS = 16
+PLAIN_SCAMP_REALIZATIONS = 8
+# main_plain_high: the plain BAMP loop at HIGH beside K1-high at
+# main_bamp_high's point, cut from 65536 to 4096 trials a realization (the
+# plain HIGH loop takes about 9x K1-high's time); then SCAMP at the 8PSK
+# sweep geometry and cap of reference_scamp_8psk_golden.json (Nt=480,
+# Na=30, Nr=57, Lin=32, Lh=6, cap 200), which K2 does not fit, at 7 dB
+# (published FER 0.756, T 68.6), HIGH beside HIGHEST, both the plain loop,
+# cut to one realization of 4096 a form: at HIGH nearly every trial runs
+# to the cap (mean T 194.9 against HIGHEST's 80.5), and two realizations
+# took 38 s of the sweep-engine phases' 70 (PERF.md, section 4).
+PLAIN_HIGH_RES = 4096
+PLAIN_HIGH_REALIZATIONS = 2
+SCAMP_8PSK_DB = 7.0
+SCAMP_8PSK_REALIZATIONS = 1
+
+
+def scamp_8psk_config():
+    from amp_sparc_spatialmodulation_tpu_torch.config import Config
+    return Config(Nt=480, Na=30, Nr=57, Lin=32, Lh=6, mode="sparc",
+                  alphabet="8PSK", profile="uniform", trunc="tail",
+                  iterations=200)
+
+
+def run_counted(torch, sim, ebn0_db, epochs, res, counters, snr_idx=0):
+    """``sim.run_point`` with every counter of ``counters`` (module,
+    attribute names) set to 0 just before it and read just after:
+    (averages, seconds, {attribute: count})."""
+    for mod, names in counters:
+        for n in names:
+            setattr(mod, n, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = sim.run_point(ebn0_db, epochs=epochs, res=res, snr_idx=snr_idx)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return avg, seconds, {n: getattr(mod, n) for mod, names in counters
+                          for n in names}
+
+
+def phase_main_auto_k1(torch, dev):
+    """``Simulator(flagship_bamp_ook(), two_phase='auto')`` at 7 and 8 dB,
+    ``AUTO_K1_REALIZATIONS`` realizations of 65536 each: each point's probe
+    mean T (2048 trials, through K1), the k1 it picked and the k1 the
+    previous point's mean T would have picked; then the 8 dB point again at
+    a fixed k1 equal to the probe's and under ``AMP_AUTO_PROBE=0`` (k1 from
+    the 7 dB point's mean T), both on the same seeds.  Gates: K1 alone in
+    every run (no plain decode), and FER, BER and mean T identical in the
+    three 8 dB runs (metric sums do not depend on k1: K1's split and resume
+    are exact).  Trials/s of every run printed, none gated."""
+    import os
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+
+    cfg = flagship_bamp_ook()
+    epochs = AUTO_K1_REALIZATIONS * RES
+    counters = [(fused_bamp, ("launches",)), (bamp, ("plain_decodes",))]
+
+    def simulator(two_phase):
+        return montecarlo.Simulator(cfg, algo="bamp", two_phase=two_phase,
+                                    device=dev, progress=lambda s: None)
+
+    sim = simulator("auto")
+    points, runs = [], []
+    for i, ebn0 in enumerate(AUTO_K1_DB):
+        previous_rule = montecarlo.auto_k1(sim._last_meanT, cfg.N_Layers)
+        avg, seconds, n = run_counted(torch, sim, ebn0, epochs, RES,
+                                      counters, snr_idx=i)
+        points.append(dict(
+            ebn0_db=ebn0, probe_mean_T=sim.probe_meanT, k1=sim.k1,
+            k1_previous_point_rule=previous_rule, seconds=seconds,
+            trials_per_s=epochs / seconds, mean_T=avg["T"], fer=avg["fer"],
+            ber=avg["ber"], k1_launches=n["launches"],
+            plain_decodes=n["plain_decodes"]))
+        runs.append(n)
+    probe_k1 = sim.k1
+    fixed = simulator(probe_k1)
+    avg_fixed, sec_fixed, n = run_counted(torch, fixed, AUTO_K1_DB[1], epochs,
+                                          RES, counters, snr_idx=1)
+    runs.append(n)
+    off = simulator("auto")
+    off._last_meanT = points[0]["mean_T"]
+    old = os.environ.get("AMP_AUTO_PROBE")
+    os.environ["AMP_AUTO_PROBE"] = "0"
+    try:
+        avg_off, sec_off, n = run_counted(torch, off, AUTO_K1_DB[1], epochs,
+                                          RES, counters, snr_idx=1)
+    finally:
+        if old is None:
+            del os.environ["AMP_AUTO_PROBE"]
+        else:
+            os.environ["AMP_AUTO_PROBE"] = old
+    runs.append(n)
+    last = points[1]
+    same = {k: last[k] == avg_fixed[a] == avg_off[a]
+            for k, a in (("fer", "fer"), ("ber", "ber"), ("mean_T", "T"))}
+    emit("main_auto_k1", config="flagship_bamp_ook", res=RES,
+         realizations=AUTO_K1_REALIZATIONS, points=points,
+         fixed_k1=probe_k1, fixed_seconds=sec_fixed,
+         fixed_trials_per_s=epochs / sec_fixed, fixed_mean_T=avg_fixed["T"],
+         fixed_fer=avg_fixed["fer"], fixed_ber=avg_fixed["ber"],
+         no_probe_k1=off.k1, no_probe_seconds=sec_off,
+         no_probe_trials_per_s=epochs / sec_off, no_probe_mean_T=avg_off["T"],
+         no_probe_fer=avg_off["fer"], no_probe_ber=avg_off["ber"],
+         identical=same, k1_launches=[r["launches"] for r in runs],
+         plain_decodes=[r["plain_decodes"] for r in runs])
+    if any(r["launches"] <= 0 or r["plain_decodes"] for r in runs):
+        raise AssertionError("an auto-k1 run did not run through K1 alone")
+    if off.probe_meanT is not None or fixed.probe_meanT is not None:
+        raise AssertionError("a run probed that should not have")
+    if not all(same.values()):
+        raise AssertionError(f"the 8 dB point's metrics depend on k1: "
+                             f"{same}")
+    return runs
+
+
+def phase_main_plain(torch, dev):
+    """``use_pallas=False`` beside ``'auto'`` on the same seeds: the BAMP
+    main point (flagship OOK, 8 dB, k1 = 12, ``PLAIN_BAMP_REALIZATIONS``
+    realizations of 65536) and the SCAMP main point (8 dB, k1 = 8,
+    ``PLAIN_SCAMP_REALIZATIONS``).  Gates: no K1 or K2 launch in the
+    False runs, whose plain loops run twice a realization (both phases);
+    the kernel alone in the 'auto' runs; |d mean T| <= 0.02 and FER and
+    BER within 3 sigma (compare's rule; FER binomial, BER from the scatter
+    of groups of one realization's trials).  Prints whether the sums are
+    identical (K1 and K2 are their plain versions bit for bit) and both
+    runs' trials/s."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+    from amp_sparc_spatialmodulation_tpu_torch.models import (bamp,
+                                                              montecarlo,
+                                                              scamp)
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_scamp)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    points = (("bamp", flagship_bamp_ook(), K1, PLAIN_BAMP_REALIZATIONS,
+               fused_bamp, bamp),
+              ("scamp", scamp_main_config(), SCAMP_K1,
+               PLAIN_SCAMP_REALIZATIONS, fused_scamp, scamp))
+    out = {}
+    for algo, cfg, k1, n_real, kern, mod in points:
+        epochs = n_real * RES
+        counters = [(kern, ("launches",)), (mod, ("plain_decodes",))]
+        runs = {}
+        for use in ("auto", False):
+            sim = montecarlo.Simulator(cfg, algo=algo, two_phase=k1,
+                                       use_pallas=use, device=dev,
+                                       progress=lambda s: None)
+            avg, seconds, n = run_counted(torch, sim, EBN0_DB, epochs, RES,
+                                          counters)
+            runs[str(use)] = dict(avg=avg, seconds=seconds,
+                                  trials_per_s=epochs / seconds, **n)
+        r = montecarlo.generate_realization(make_generator(dev, 12345), cfg,
+                                            "sparc", "banded", RES,
+                                            snr_of(cfg, EBN0_DB))
+        dec = montecarlo.decode(algo, r, r.y, cfg)
+        bsig = ber_sigma(torch, cfg, dec, r.msg, RES, epochs)
+        del r, dec
+        ka, pa = runs["auto"], runs["False"]
+        fsig = fer_sigma(ka["avg"]["fer"], epochs)
+        emit("main_plain", algo=algo, ebn0_db=EBN0_DB, two_phase_k1=k1,
+             res=RES, realizations=n_real, trials=epochs,
+             **{f"{'kernel' if u == 'auto' else 'plain'}_{k}": v
+                for u, run in runs.items()
+                for k, v in (("seconds", run["seconds"]),
+                             ("trials_per_s", run["trials_per_s"]),
+                             ("mean_T", run["avg"]["T"]),
+                             ("fer", run["avg"]["fer"]),
+                             ("ber", run["avg"]["ber"]),
+                             ("launches", run["launches"]),
+                             ("plain_decodes", run["plain_decodes"]))},
+             plain_over_kernel_trials_per_s=(pa["trials_per_s"]
+                                             / ka["trials_per_s"]),
+             sums_identical=pa["avg"] == ka["avg"], fer_sigma=fsig,
+             ber_sigma=bsig)
+        if pa["launches"] or pa["plain_decodes"] != 2 * n_real:
+            raise AssertionError(f"{algo} use_pallas=False launched a "
+                                 "kernel or skipped a plain loop")
+        if ka["launches"] <= 0 or ka["plain_decodes"]:
+            raise AssertionError(f"{algo} 'auto' did not run through the "
+                                 "kernel alone")
+        if (abs(pa["avg"]["T"] - ka["avg"]["T"]) > 0.02
+                or abs(pa["avg"]["fer"] - ka["avg"]["fer"]) > 3 * fsig
+                or abs(pa["avg"]["ber"] - ka["avg"]["ber"]) > 3 * bsig):
+            raise AssertionError(f"{algo} plain loop vs kernel: {pa['avg']} "
+                                 f"vs {ka['avg']}")
+        out[algo] = runs
+    return out
+
+
+def phase_main_plain_high(torch, dev):
+    """The plain loops at HIGH.  First ``Simulator(flagship_bamp_qpsk(),
+    use_pallas=False, precision='high')`` beside K1-high (``'auto'``,
+    ``'high'``) on the same seeds at main_bamp_high's point (5 dB, cap
+    100, every trial at the cap), ``PLAIN_HIGH_REALIZATIONS`` realizations
+    of ``PLAIN_HIGH_RES``; gates main_bamp_high's rule: FER and BER within 3
+    sigma, mean T within 1.0, the plain side no kernel launch.  Then SCAMP
+    at the 8PSK sweep geometry, 7 dB, cap 200, ``SCAMP_8PSK_REALIZATIONS``
+    of ``PLAIN_HIGH_RES``, at 'high' beside 'highest': both the plain loop
+    (K2 does not fit), FER
+    within 3 sigma; both mean Ts printed without a gate (HIGH inflates T
+    where trials stop early); and ``precision='auto'`` builds there."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import (bamp,
+                                                              montecarlo,
+                                                              scamp)
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_scamp)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    n_real, res = PLAIN_HIGH_REALIZATIONS, PLAIN_HIGH_RES
+    epochs = n_real * res
+
+    def summary(runs):
+        return {f"{name}_{k}": v for name, run in runs.items()
+                for k, v in (("seconds", run["seconds"]),
+                             ("trials_per_s", run["trials_per_s"]),
+                             ("mean_T", run["avg"]["T"]),
+                             ("fer", run["avg"]["fer"]),
+                             ("ber", run["avg"]["ber"]),
+                             ("launches", run["launches"]),
+                             ("launches_high", run["launches_high"]),
+                             ("plain_decodes", run["plain_decodes"]))}
+
+    cfg = flagship_bamp_qpsk()
+    counters = [(fused_bamp, ("launches", "launches_high")),
+                (bamp, ("plain_decodes",))]
+    runs = {}
+    for name, use in (("kernel_high", "auto"), ("plain_high", False)):
+        sim = montecarlo.Simulator(cfg, algo="bamp", precision="high",
+                                   use_pallas=use, device=dev,
+                                   progress=lambda s: None)
+        avg, seconds, n = run_counted(torch, sim, BAMP_HIGH_EBN0_DB, epochs,
+                                      res, counters)
+        runs[name] = dict(avg=avg, seconds=seconds,
+                          trials_per_s=epochs / seconds, **n)
+    r = montecarlo.generate_realization(
+        make_generator(dev, 12345), cfg, "sparc", "banded", res,
+        snr_of(cfg, BAMP_HIGH_EBN0_DB), "high")
+    dec = bamp.decode(r.A, r.y, r.sigma2, cfg, precision="high")
+    bsig = ber_sigma(torch, cfg, dec, r.msg, res, epochs)
+    del r, dec
+    ks, ps = runs["kernel_high"], runs["plain_high"]
+    fsig = fer_sigma(ks["avg"]["fer"], epochs)
+    emit("main_plain_high", algo="bamp", config="flagship_bamp_qpsk",
+         ebn0_db=BAMP_HIGH_EBN0_DB, cap=cfg.N_Layers, res=res,
+         realizations=n_real, trials=epochs, **summary(runs),
+         plain_over_kernel_trials_per_s=(ps["trials_per_s"]
+                                         / ks["trials_per_s"]),
+         fer_sigma=fsig, ber_sigma=bsig)
+    if (ps["launches"] or ps["launches_high"]
+            or ps["plain_decodes"] != n_real):
+        raise AssertionError("the plain BAMP HIGH run launched a kernel")
+    if ks["launches_high"] <= 0 or ks["launches"] or ks["plain_decodes"]:
+        raise AssertionError("the BAMP HIGH run did not run through K1's "
+                             "HIGH instance alone")
+    if (abs(ps["avg"]["fer"] - ks["avg"]["fer"]) > 3 * fsig
+            or abs(ps["avg"]["ber"] - ks["avg"]["ber"]) > 3 * bsig
+            or abs(ps["avg"]["T"] - ks["avg"]["T"]) > 1.0):
+        raise AssertionError(f"plain BAMP HIGH {ps['avg']} vs K1-high "
+                             f"{ks['avg']}")
+
+    cfg = scamp_8psk_config()
+    n_real, epochs = SCAMP_8PSK_REALIZATIONS, SCAMP_8PSK_REALIZATIONS * res
+    counters = [(fused_scamp, ("launches",)), (scamp, ("plain_decodes",))]
+    runs = {}
+    for precision in ("highest", "high"):
+        sim = montecarlo.Simulator(cfg, algo="scamp", precision=precision,
+                                   device=dev, progress=lambda s: None)
+        avg, seconds, n = run_counted(torch, sim, SCAMP_8PSK_DB, epochs, res,
+                                      counters)
+        runs[precision] = dict(avg=avg, seconds=seconds,
+                               trials_per_s=epochs / seconds,
+                               launches_high=0, **n)
+    auto = montecarlo.Simulator(cfg, algo="scamp", precision="auto",
+                                device=dev, progress=lambda s: None)
+    auto._last_meanT = float(cfg.N_Layers)
+    hs, hi = runs["highest"], runs["high"]
+    fsig = fer_sigma(hs["avg"]["fer"], epochs)
+    emit("main_plain_high", algo="scamp", config="scamp_8psk_sweep",
+         ebn0_db=SCAMP_8PSK_DB, cap=cfg.N_Layers, res=res,
+         realizations=n_real, trials=epochs, **summary(runs),
+         high_over_highest_trials_per_s=(hi["trials_per_s"]
+                                         / hs["trials_per_s"]),
+         fer_sigma=fsig, auto_builds=True,
+         auto_after_pinned_point=auto._effective_precision(),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if any(run["launches"] or run["plain_decodes"] != n_real
+           for run in runs.values()):
+        raise AssertionError("the SCAMP 8PSK runs did not take the plain "
+                             "loop alone")
+    if abs(hi["avg"]["fer"] - hs["avg"]["fer"]) > 3 * fsig:
+        raise AssertionError(f"SCAMP 8PSK HIGH FER {hi['avg']['fer']} vs "
+                             f"HIGHEST {hs['avg']['fer']}")
+    if auto._effective_precision() != "high":
+        raise AssertionError("'auto' did not pick HIGH after a pinned point")
+
+
 def kernel_entry(name, replaces, launches, max_err, timing, source=None):
     return {"name": name, "route": "cuda",
             "source": "amp_sparc_spatialmodulation_tpu_torch/ops/kernels/"
@@ -2943,6 +3279,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches5h = phase_main_massive_high(torch, dev)
     emit("tiled_high_phases", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_main_auto_k1(torch, dev)
+    phase_main_plain(torch, dev)
+    torch.cuda.empty_cache()
+    phase_main_plain_high(torch, dev)
+    torch.cuda.empty_cache()
+    emit("sweep_engine_phases", seconds=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_bamp_decode", "fused_bamp.py:617", launches,

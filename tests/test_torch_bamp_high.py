@@ -442,8 +442,8 @@ def test_smem_and_fit_of_the_high_form():
 
 def test_routes_at_high(monkeypatch):
     """K1 runs its HIGH form; K6 (``AMP_PALLAS_MODE=periter``) runs at
-    HIGHEST, as JAX's has no precision; a dense operator (the plain loop)
-    raises."""
+    HIGHEST, as JAX's has no precision; a dense operator runs the plain
+    loop at HIGH (the JAX decoder's XLA body, not K1's HIGH form)."""
     cfg, op, y, s2, *_ = shared_inputs(GEOMETRIES[0][1], 0, 1.2)
     high = bamp.decode(op, y, s2, cfg, precision="high")
     want = _plain_high(op, y, s2, cfg)
@@ -455,9 +455,14 @@ def test_routes_at_high(monkeypatch):
     assert torch.equal(periter.xmap, highest.xmap)
     assert torch.equal(periter.T, highest.T)
     monkeypatch.delenv("AMP_PALLAS_MODE")
-    with pytest.raises(ValueError, match="plain BAMP loop"):
-        bamp.decode(op.densify(), y, s2, cfg, precision="high")
-    bamp.decode(op.densify(), y, s2, cfg, iter_cap=2)
+    dense = op.densify()
+    got = bamp.decode(dense, y, s2, cfg, precision="high")
+    s0 = bamp.initial_state(y, cfg.N, float(np.float32(s2)))
+    plain = bamp.plain_loop(operators.as_operator(dense), s0, y, s2,
+                            cfg.N_Layers, cfg, "high")
+    assert torch.equal(got.T, plain.T) and torch.equal(got.xmap, plain.xmap)
+    assert not torch.equal(got.xmap, bamp.decode(dense, y, s2, cfg).xmap)
+    assert not torch.equal(got.xmap, want.xmap)
 
 
 def _manual_sums(cfg, algo, res, snr, seed, precision, decode_precision):
@@ -527,11 +532,22 @@ def test_cli_sweep_bamp_scamp_high(tmp_path, monkeypatch):
 
 
 def test_high_decode_raises_on_scamp_plain_loop():
+    """A dense operator takes SCAMP's plain loop, which at HIGH runs its
+    products at HIGH (held to JAX's XLA decode at HIGH in
+    tests/test_torch_plain_high.py) and differs from HIGHEST."""
     cfg = Config(**dict(SMALL, mode="sparc"))
     gen = make_generator(torch.device("cpu"), 1)
     r = montecarlo.generate_realization(gen, cfg, "sparc", "dense", 8, 10.0)
-    with pytest.raises(ValueError, match="plain SCAMP loop"):
-        scamp.decode(r.W, r.A, r.y, r.sigma2, cfg, precision="high")
+    before = scamp.plain_decodes
+    got = scamp.decode(r.W, r.A, r.y, r.sigma2, cfg, precision="high")
+    assert scamp.plain_decodes == before + 1
+    s0 = scamp.initial_state(r.y, cfg)
+    want = scamp.plain_loop(operators.as_operator(r.A), torch.as_tensor(
+        r.W, dtype=torch.float32), s0, r.y, r.sigma2, cfg.N_Layers, cfg,
+        precision="high")
+    assert torch.equal(got.T, want.T) and torch.equal(got.xmap, want.xmap)
+    highest = scamp.decode(r.W, r.A, r.y, r.sigma2, cfg)
+    assert not torch.equal(got.xmap, highest.xmap)
     assert fused_scamp.covers(cfg) and fused_scamp.fits(cfg)
     assert isinstance(operators.as_operator(r.A), operators.DenseOperator)
 

@@ -131,3 +131,88 @@ def test_regularizers():
     got = denoise.div_real(z, d)
     assert got.real.item() == np.float32(1.0) / np.float32(3.0)
     assert got.imag.item() == np.float32(2.0) / np.float32(3.0)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("tau_shape", ["scalar", "full"])
+@pytest.mark.parametrize("alphabet", ["OOK", "QPSK", "8PSK"])
+def test_shrink_with_derivative_matches_jax(alphabet, tau_shape):
+    """Posterior mean and its analytic derivative (`shrink.py:98-119`)
+    against the JAX package's on shared (r, cov); the mean is the
+    Bernoulli mixture's within 1e-3 relative (the same prior; the norm
+    there has a zero guard, here 1e-9 added, which moves the norms of
+    1e-6 these inputs reach by 1e-3)."""
+    cfg = Config(Nt=16, Na=4, Nr=8, Lin=6, Lh=3, mode="random",
+                 alphabet=alphabet)
+    r, tau = _inputs(cfg.replace(mode="segmented"), 4, 6, tau_shape)
+    sym = cfg.symbols
+    jm, jd = jdenoise.shrink_with_derivative(
+        jnp.asarray(r), jnp.asarray(tau), jnp.asarray(sym), cfg.Ps, cfg.P0)
+    tm, td = denoise.shrink_with_derivative(
+        torch.as_tensor(r), _t(tau), torch.as_tensor(sym), cfg.Ps, cfg.P0)
+    assert tm.dtype == td.dtype == torch.complex64
+    _close(tm.numpy(), jm)
+    _close(td.numpy(), jd, 1e-4)
+    bm, _ = denoise.bernoulli_mixture_posterior(
+        torch.as_tensor(r), _t(tau), torch.as_tensor(sym), cfg.Ps, cfg.P0)
+    np.testing.assert_allclose(tm.numpy(), bm.numpy(), rtol=1e-3,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("tau_shape", ["scalar", "full"])
+def test_lasso_matches_jax(tau_shape):
+    cfg = Config(Nt=16, Na=4, Nr=8, Lin=6, Lh=3)
+    r, tau = _inputs(cfg, 4, 7, tau_shape)
+    jF, jG = jdenoise.lasso(jnp.asarray(r), jnp.asarray(tau), 0.7)
+    tF, tG = denoise.lasso(torch.as_tensor(r), _t(tau), 0.7)
+    # |r| of a complex number rounds by an ulp apart in XLA and PyTorch
+    _close(tF.numpy(), jF, 1e-6)
+    np.testing.assert_array_equal(tG.numpy(), np.asarray(jG))
+    # closed form: G is cov where |r| >= cov and 0 below it
+    full = np.broadcast_to(tau, r.shape)
+    np.testing.assert_array_equal(tG.numpy(),
+                                  np.where(np.abs(r) < full, 0.0, full))
+
+
+@pytest.mark.parametrize("cov", [0.5, "row"])
+def test_shrink_ook_matches_jax_and_the_mixture(cov):
+    """The LLR-form OOK posterior against the JAX package's, and its mean
+    against the Bernoulli-mixture posterior of OOK
+    (tests/test_denoise.py:109-120, within 1e-4)."""
+    rng = np.random.default_rng(4)
+    Ps, P0 = 0.1, 0.9
+    r = (rng.normal(size=(3, 8)) * 0.5 + 0.5).astype(np.complex64)
+    if cov == "row":
+        cov = rng.uniform(0.2, 0.8, (3, 1)).astype(np.float32)
+    jm, jd = jdenoise.shrink_ook(jnp.asarray(r), jnp.asarray(cov), Ps, P0)
+    tm, td = denoise.shrink_ook(torch.as_tensor(r), _t(cov), Ps, P0)
+    assert tm.dtype == torch.complex64 and td.ndim == 0
+    _close(tm.numpy(), jm)
+    _close(td.numpy(), jd)
+    bm, _ = denoise.bernoulli_mixture_posterior(
+        torch.as_tensor(r), _t(cov), torch.tensor([1.0 + 0j]), Ps, P0)
+    np.testing.assert_allclose(tm.numpy().real, bm.numpy().real, atol=1e-4)
+
+
+def test_sw_shrink_ook_matches_jax_and_segment_posterior():
+    """The segment-wise OOK softmax against the JAX package's on shared
+    (r, cov), and tests/test_denoise.py:123-130's closed form: shapes, the
+    mean in [0, 1], the variance mean (1 - mean)."""
+    rng = np.random.default_rng(5)
+    L, M = 3, 4
+    r = rng.normal(size=(2, L * M)).astype(np.complex64)
+    for cov in (0.3, rng.uniform(0.1, 0.5, (2, L * M)).astype(np.float32)):
+        jm, jv = jdenoise.sw_shrink_ook(jnp.asarray(r), jnp.asarray(cov), L,
+                                        M)
+        tm, tv = denoise.sw_shrink_ook(torch.as_tensor(r), _t(cov), L, M)
+        assert tm.shape == tv.shape == (2, L * M)
+        assert tm.dtype == torch.complex64 and tv.dtype == torch.float32
+        _close(tm.numpy(), jm)
+        _close(tv.numpy(), jv)
+        m = tm.numpy().real
+        assert np.all((m >= 0) & (m <= 1))
+        np.testing.assert_allclose(tv.numpy(), m * (1 - m), atol=1e-7)

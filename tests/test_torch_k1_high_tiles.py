@@ -3,7 +3,7 @@
 
 * its shared memory and fit are those of the earlier form wherever that
   form fit (a copy of the earlier formula is kept here), so that
-  ``bamp.route`` and ``check_high`` route as before;
+  ``bamp.route`` routes as before;
 * the rule that picks the block (``fused_bamp.high_threads``): 16 warps
   where one block fills an SM's shared memory, else 8 warps and two blocks
   per SM, 128 registers a thread either way;

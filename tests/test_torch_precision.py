@@ -15,10 +15,11 @@ of the VAMP and vamp2 decodes and the sweep engine's ``precision`` and
   5e-2 (it divides by ``1 - alpha``, which amplifies float32
   summation-order noise up to 1e5).
 * ``Simulator(precision='auto')`` picks the precision of JAX's policy
-  (``tests/test_two_phase.py:158-176``) number for number; BAMP raises on
-  'high' and 'auto' where its route is K5 or the plain loop, SCAMP where
-  it is the plain loop, every entry point on 'default', the random mode of
-  VAMP on 'high'.
+  (``tests/test_two_phase.py:158-176``) number for number; 'high' and
+  'auto' run on every route, as in JAX (BAMP on a dense operator, SCAMP
+  where K2 does not fit, VAMP's random mode: the plain loops at HIGH, held
+  to JAX's XLA decodes in ``tests/test_torch_plain_high.py``); every entry
+  point raises on 'default'.
 * ``chans_per_batch=2`` gives the sums of 1 and rounds
   ``trials_per_point`` as JAX does.
 
@@ -253,12 +254,20 @@ def test_decode_high_split_and_resume(algo):
 
 
 def test_random_mode_raises_at_high():
+    """The random mode, which no kernel covers, decodes at HIGH through the
+    plain loop at HIGH (a decode of its own, not HIGHEST's); only
+    ``use_pallas=True`` raises there, JAX's honest knob."""
     cfg, dec, y, s2, *_ = shared_inputs(dict(alphabet="QPSK",
                                              mode="random"), 1.9)
     for mod in (vamp, vamp2):
+        before = mod.plain_decodes
+        high = mod.decode(dec, y, s2, cfg, precision="high")
+        assert mod.plain_decodes == before + 1
+        highest = mod.decode(dec, y, s2, cfg, precision="highest")
+        assert not torch.equal(high.xmap, highest.xmap)
+        assert int(high.T.max()) <= cfg.N_Layers
         with pytest.raises(ValueError, match="kernels cover"):
-            mod.decode(dec, y, s2, cfg, precision="high")
-        mod.decode(dec, y, s2, cfg, precision="highest")
+            mod.decode(dec, y, s2, cfg, precision="high", use_pallas=True)
 
 
 POLICY_CFG = dict(Nt=16, Na=4, Nr=10, Lin=6, Lh=3, mode="segmented",
@@ -310,14 +319,13 @@ def test_precision_auto_runs_high_point(tmp_path):
     assert np.isfinite(a["fer"]) and 0 < a["T"] <= cfg.N_Layers
 
 
-# (algo, config, operator form, the message naming the missing form):
-# BAMP on the dense operator (the plain loop), SCAMP on a geometry K2 does
-# not fit (the plain loop)
+# (algo, config, operator form, decoded here): BAMP on the dense operator
+# (the plain loop), SCAMP on a geometry K2 does not fit (the plain loop;
+# built only, at this width nothing is decoded on the CPU)
 NO_HIGH = [
-    ("bamp", dict(POLICY_CFG, mode="sparc"), "dense", "plain BAMP loop"),
+    ("bamp", dict(POLICY_CFG, mode="sparc", iterations=10), "dense", True),
     ("scamp", dict(Nt=1344, Na=84, Nr=73, Lin=32, Lh=6, mode="sparc",
-                   alphabet="OOK", trunc="tail"), "auto",
-     "K2 does not fit"),
+                   alphabet="OOK", trunc="tail"), "auto", False),
 ]
 MASSIVE = dict(Nt=1344, Na=84, Nr=73, Lin=32, Lh=6, mode="segmented",
                alphabet="OOK", trunc="tail")
@@ -330,7 +338,7 @@ def test_bamp_massive_takes_high(tmp_path, precision):
     without raising (built only; nothing is decoded at this width here)."""
     cfg = Config(**MASSIVE)
     assert bamp.route_of(cfg, True) == "tiled"
-    assert mc.check_precision("bamp", cfg, precision, "banded") == precision
+    assert bamp.route_of(cfg, True, precision="high") == "tiled"
     sim = mc.Simulator(cfg, algo="bamp", precision=precision, device="cpu",
                        out_root=str(tmp_path))
     assert sim._effective_precision() == ("high" if precision == "high"
@@ -342,19 +350,32 @@ def test_bamp_massive_takes_high(tmp_path, precision):
 
 
 @pytest.mark.parametrize("precision", ["high", "auto"])
-@pytest.mark.parametrize("algo,kw,form,match", NO_HIGH,
+@pytest.mark.parametrize("algo,kw,form,decoded", NO_HIGH,
                          ids=["bamp-dense", "scamp-nofit"])
 def test_bamp_scamp_raise_without_high_kernels(tmp_path, algo, kw, form,
-                                               match, precision):
+                                               decoded, precision):
+    """Where no kernel has a HIGH form (the plain loops), 'high' and 'auto'
+    build as in JAX; the dense BAMP point at 'high' (and 'auto' after a
+    cap-pinned point) runs the plain loop at HIGH, whose sums are not
+    HIGHEST's."""
     cfg = Config(**kw)
-    with pytest.raises(ValueError, match=match):
-        mc.Simulator(cfg, algo=algo, precision=precision, device="cpu",
-                     operator_form=form, out_root=str(tmp_path))
-    with pytest.raises(ValueError, match=match):
-        mc.make_realization_fn(cfg, algo, "sparc", 8, operator_form=form,
-                               precision=precision)
-    mc.Simulator(cfg, algo=algo, device="cpu", operator_form=form,
-                 out_root=str(tmp_path))
+    assert mc.resolve_use_pallas("auto", cfg, algo,
+                                 "dense" if form == "dense" else "banded",
+                                 8) is False
+    kw = dict(algo=algo, device="cpu", operator_form=form,
+              out_root=str(tmp_path), progress=lambda s: None)
+    sim = mc.Simulator(cfg, precision=precision, **kw)
+    assert callable(mc.make_realization_fn(cfg, algo, "sparc", 8,
+                                           operator_form=form,
+                                           precision=precision))
+    if not decoded:
+        return
+    sim._last_meanT = float(cfg.N_Layers)
+    before = bamp.plain_decodes
+    got = sim.run_point(6.0, epochs=16, res=16)
+    assert bamp.plain_decodes == before + 1
+    highest = mc.Simulator(cfg, **kw).run_point(6.0, epochs=16, res=16)
+    assert got != highest and np.isfinite(got["fer"])
 
 
 @pytest.mark.parametrize("algo", ["bamp", "scamp", "vamp", "vamp2"])
@@ -366,12 +387,19 @@ def test_default_precision_raises(tmp_path, algo):
 
 
 def test_random_mode_simulator_raises(tmp_path):
-    cfg = Config(**dict(POLICY_CFG, mode="random", alphabet="QPSK"))
+    """VAMP's random mode builds at 'high' and 'auto' and runs a point at
+    'high' (the plain loop at HIGH); ``use_pallas=True`` raises there."""
+    cfg = Config(**dict(POLICY_CFG, mode="random", alphabet="QPSK",
+                        iterations=10))
+    kw = dict(algo="vamp", device="cpu", out_root=str(tmp_path),
+              progress=lambda s: None)
     for precision in ("high", "auto"):
-        with pytest.raises(ValueError):
-            mc.Simulator(cfg, algo="vamp", precision=precision,
-                         device="cpu", out_root=str(tmp_path))
-    mc.Simulator(cfg, algo="vamp", device="cpu", out_root=str(tmp_path))
+        mc.Simulator(cfg, precision=precision, **kw)
+    got = mc.Simulator(cfg, precision="high", **kw).run_point(
+        8.0, epochs=16, res=16)
+    assert 0 < got["T"] <= cfg.N_Layers and np.isfinite(got["fer"])
+    with pytest.raises(ValueError, match="use_pallas=True"):
+        mc.Simulator(cfg, precision="high", use_pallas=True, **kw)
 
 
 @pytest.mark.parametrize("precision", ["highest", "high"])

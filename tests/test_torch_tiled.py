@@ -146,7 +146,8 @@ def test_plane_loop_matches_jax_tiled_kernel(Lin, Lh, F):
 def force_tiled(monkeypatch):
     """Make the whole-decode and per-iteration kernels decline, as they do
     at the massive geometry, so that small geometries take K5."""
-    monkeypatch.setattr(fused_bamp, "fits", lambda cfg: False)
+    monkeypatch.setattr(fused_bamp, "fits",
+                        lambda cfg, precision="highest": False)
     monkeypatch.setattr(fused_bamp_iteration, "fits", lambda cfg: False)
 
 

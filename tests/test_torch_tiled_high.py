@@ -253,7 +253,7 @@ def test_decode_high_on_the_tiled_route(monkeypatch):
     force_tiled(monkeypatch)
     cfg, op, y, s2, *_ = shared(B=37, seed=3)
     assert bamp.route(cfg, op, 37, "cuda") == "tiled"
-    bamp.check_high(cfg, "tiled")
+    assert bamp.route(cfg, op, 37, "cuda", "high") == "tiled"
     calls = []
     real = fused_bamp_tiled.iteration
     monkeypatch.setattr(fused_bamp_tiled, "iteration",
@@ -273,8 +273,8 @@ def test_decode_high_on_the_tiled_route(monkeypatch):
             assert torch.equal(getattr(got, f), getattr(st, f)), f
     highest = bamp.decode(op, y, s2, cfg)
     assert not torch.equal(got.xmap, highest.xmap)
-    with pytest.raises(ValueError, match="plain BAMP loop"):
-        bamp.check_high(cfg, "plain")
+    assert bamp.route(cfg, op, 37, "cuda", "high", use_pallas=False) == \
+        "plain"
 
 
 def _manual_sums(cfg, res, snr, seed, precision):
