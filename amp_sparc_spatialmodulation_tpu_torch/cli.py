@@ -37,13 +37,28 @@ loops (an A/B against the kernels on the card), ``true`` raises where no
 kernel covers the config.  ``--two-phase auto`` probes each point with
 ``min(2048, res)`` trials for its k1 (``AMP_AUTO_PROBE=0`` takes the
 previous point's mean T instead).  Runs on the CUDA card
-unless ``--device cpu`` is given.  Only the ``sweep`` subcommand is
-ported; ``plot``, ``capacity``, ``bench`` and ``sparc-trial`` wait for
-ROADMAP.md Queue 1 item 5.
+unless ``--device cpu`` is given.
+
+``--shard`` splits each point's realizations over the ranks that
+``torch.distributed.run`` starts, one card each (NCCL), or CPU processes
+under gloo with ``--device cpu``; ``--model-axis K`` also splits each
+realization's frame over K ranks (``parallel/``).  The ``--`` keeps
+``torch.distributed.run``'s parser off the sweep's options (torch 2.11's
+takes ``--start`` for an abbreviation of its ``--start-method``)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m amp_sparc_spatialmodulation_tpu_torch.cli -- sweep --shard \\
+        --algo bamp --alphabet OOK --mode segmented --Nt 128 --Na 8 \\
+        --Nr 24 --Lin 20 --Lh 3 --trunc tail --profile uniform \\
+        --epochs 262144 --start 6 --final 10 --res 65536 --two-phase 12
+
+Only the ``sweep`` subcommand is ported; ``plot``, ``capacity``,
+``bench`` and ``sparc-trial`` wait for ROADMAP.md Queue 1 item 5.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import sys
 
 
@@ -129,23 +144,60 @@ def main(argv=None) -> int:
                             "PyTorch loops)")
     sweep.add_argument("--device", default=None,
                        help="torch device (default: the CUDA card)")
+    sweep.add_argument("--shard", action="store_true",
+                       help="split the realizations over every rank of "
+                            "torch.distributed.run (NCCL on the cards, "
+                            "gloo with --device cpu)")
+    sweep.add_argument("--model-axis", type=int, default=1,
+                       help="ranks each realization's frame is split over "
+                            "(bamp, scamp, vamp; implies --shard)")
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--"]:
+        # torch.distributed.run passes on the "--" that ends its own options
+        argv = argv[1:]
     args = parser.parse_args(argv)
     cfg = _build_config(args)
 
-    from .models.montecarlo import Simulator
+    kw = dict(algo=args.algo, channel_kind=args.channel, out_root=args.out,
+              algo_dir=args.algo_dir, seed=args.seed,
+              operator_form=args.operator, two_phase=args.two_phase,
+              estimate_phi=args.estimate_phi, precision=args.precision,
+              chans_per_batch=args.chans,
+              use_pallas=(args.use_pallas if args.use_pallas == "auto"
+                          else args.use_pallas == "true"))
+    if not (args.shard or args.model_axis > 1):
+        from .models.montecarlo import Simulator
 
-    sim = Simulator(cfg, algo=args.algo, channel_kind=args.channel,
-                    out_root=args.out, algo_dir=args.algo_dir,
-                    seed=args.seed, operator_form=args.operator,
-                    two_phase=args.two_phase, device=args.device,
-                    estimate_phi=args.estimate_phi, precision=args.precision,
-                    chans_per_batch=args.chans,
-                    use_pallas=(args.use_pallas if args.use_pallas == "auto"
-                                else args.use_pallas == "true"))
+        sim = Simulator(cfg, device=args.device, **kw)
+        sim.simulate(epochs=args.epochs, start=args.start, final=args.final,
+                     step=args.step, res=args.res, resume=args.resume)
+        return 0
+
+    import torch.distributed as dist
+
+    from .parallel.mesh import initialize_distributed
+
+    dev = initialize_distributed(device=args.device)
+    try:
+        _sharded_sweep(cfg, args, dev, kw)
+    finally:
+        dist.destroy_process_group()
+        # the mesh and its groups are gone with the call's frame; collect
+        # any cycle now, not in the interpreter's teardown, where gloo can
+        # abort
+        gc.collect()
+    return 0
+
+
+def _sharded_sweep(cfg, args, dev, kw) -> None:
+    from .parallel.mesh import make_mesh
+    from .parallel.sweep import ShardedSimulator
+
+    mesh = make_mesh(model=args.model_axis, device_type=dev.type)
+    sim = ShardedSimulator(cfg, mesh=mesh, device=dev, **kw)
     sim.simulate(epochs=args.epochs, start=args.start, final=args.final,
                  step=args.step, res=args.res, resume=args.resume)
-    return 0
 
 
 if __name__ == "__main__":

@@ -363,6 +363,10 @@ class Simulator:
             launch); they run one after another.
     """
 
+    # False where another process writes this sweep's artifacts (the
+    # sharded sweep's ranks other than 0)
+    writes_artifacts = True
+
     def __init__(self, cfg: Config, algo: str = "bamp",
                  channel_kind: str = "sparc", out_root: str = "Simulations",
                  algo_dir: Optional[str] = None, seed: int = 0,
@@ -435,18 +439,23 @@ class Simulator:
                              0)
         return metrics.finalize(fn(gen, snr), self.cfg)["T"]
 
-    def _realization_fn(self, res: int, snr: float, snr_idx: int):
-        if self.two_phase is None:
-            return self._single_phase_fn(res)
+    def _choose_k1(self, res: int, snr: float, snr_idx: int) -> None:
+        """Set ``self.k1`` for this point: ``two_phase`` itself, or under
+        ``'auto'`` from the probe's mean T (``self.probe_meanT``) or, with
+        ``AMP_AUTO_PROBE=0``, the previous point's."""
         self.probe_meanT = None
         if self.two_phase != "auto":
             self.k1 = int(self.two_phase)
-        else:
-            mean_t = self._last_meanT
-            if os.environ.get("AMP_AUTO_PROBE", "1") not in ("0", "false"):
-                mean_t = self.probe_meanT = self._probe_meanT(snr, snr_idx,
-                                                              res)
-            self.k1 = auto_k1(mean_t, self.cfg.N_Layers)
+            return
+        mean_t = self._last_meanT
+        if os.environ.get("AMP_AUTO_PROBE", "1") not in ("0", "false"):
+            mean_t = self.probe_meanT = self._probe_meanT(snr, snr_idx, res)
+        self.k1 = auto_k1(mean_t, self.cfg.N_Layers)
+
+    def _realization_fn(self, res: int, snr: float, snr_idx: int):
+        if self.two_phase is None:
+            return self._single_phase_fn(res)
+        self._choose_k1(res, snr, snr_idx)
         return make_two_phase_fn(self.cfg, self.algo, self.channel_kind,
                                  res, self.k1, self.operator_form,
                                  self.estimate_phi,
@@ -486,6 +495,13 @@ class Simulator:
         self._last_meanT = out["T"]
         return out
 
+    def _resumed(self) -> Dict[float, Dict[str, float]]:
+        """The points the manifest lists as done, with their exported
+        results (empty where a point's JSON is missing)."""
+        pts = artifacts.load_points(self.path)
+        return {float(k): pts.get(float(k), {})
+                for k in artifacts.load_manifest(self.path)["points"]}
+
     def simulate(self, epochs: int, final: Optional[float] = None,
                  start: Optional[float] = None, step: float = 1.0,
                  res: int = 1, fer_stop: float = 1e-3,
@@ -498,13 +514,12 @@ class Simulator:
         if final is None:
             final = start + 20.0
         grid = np.arange(start, final + step, step)
-        done = artifacts.load_manifest(self.path)["points"] if resume else {}
+        done = self._resumed() if resume else {}
         results = {}
         for i, ebn0 in enumerate(grid):
             snr_db = ebn0 + 10 * np.log10(cfg.code_rate)
-            if str(float(ebn0)) in done:
-                pts = artifacts.load_points(self.path)
-                results[float(ebn0)] = pts.get(float(ebn0), {})
+            if float(ebn0) in done:
+                results[float(ebn0)] = done[float(ebn0)]
                 fer = results[float(ebn0)].get("fer", 1.0)
                 self.progress(f"EbN0dB={ebn0} (resumed) FER={fer}")
                 if fer < fer_stop:
@@ -514,8 +529,10 @@ class Simulator:
             avg = self.run_point(ebn0, epochs, res, snr_idx=i)
             dt = time.perf_counter() - t0
             n_trials = self.trials_per_point(epochs, res)
-            artifacts.export_point(self.path, ebn0, snr_db, cfg, avg)
-            artifacts.update_manifest(self.path, ebn0, n_trials, self.seed)
+            if self.writes_artifacts:
+                artifacts.export_point(self.path, ebn0, snr_db, cfg, avg)
+                artifacts.update_manifest(self.path, ebn0, n_trials,
+                                          self.seed)
             results[float(ebn0)] = avg
             self.progress(
                 f"EbN0dB={ebn0} FER={avg['fer']:.3e} T={avg['T']:.1f} "

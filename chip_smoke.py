@@ -162,7 +162,22 @@ Phases, each printing one JSON line:
    loop (FER within 3 sigma; both
    mean Ts printed), ``precision='auto'`` built there; every run's
    trials/s printed;
-14. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+14. the sharded paths (``parallel/``; no kernel of their own; each phase
+   in a world-1 NCCL group, the card's only world, destroyed at its end):
+   main_sharded, ``ShardedSimulator`` on a (1, 1) mesh beside
+   ``Simulator`` on the same seeds, in turns, at the BAMP main point (16
+   x 65536, K1) and the SCAMP main point (8 x 65536, K2) (gates: FER, BER
+   and mean T identical, the same launch counts, no plain decode; both
+   trials/s and their ratio printed); main_cli_sharded, ``python -m
+   torch.distributed.run --standalone --nproc-per-node 1 -m
+   amp_sparc_spatialmodulation_tpu_torch.cli -- sweep --shard`` at the
+   BAMP point (gate: its artifact's FER and mean T equal main_sharded's);
+   main_model_axis, the halo BAMP, halo SCAMP, dense i.i.d. BAMP and
+   SV-domain VAMP decoders at full width on 4096 trials against the plain
+   loop under ``compare``'s rule at 1e-3, each time beside the plain
+   loop's.  Several ranks run on the CPU under gloo (the tests) and on
+   several cards in tests/torch_parallel_cards.py;
+15. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -3186,6 +3201,250 @@ def phase_main_plain_high(torch, dev):
         raise AssertionError("'auto' did not pick HIGH after a pinned point")
 
 
+# The sharded paths (parallel/): the card runs a world of one rank, since
+# NCCL puts no two ranks on one device; several ranks are held on the CPU
+# under gloo (tests/test_torch_parallel.py, test_torch_banded_tp.py,
+# test_torch_tensor_tp.py).  main_sharded: 16 realizations of BAMP, 8 of
+# SCAMP (main_plain's counts, cut from the main cells' 128 and 64 to keep
+# the three phases near 40 s; widths uncut); main_model_axis: each
+# frame-split decoder at full width on 4096 trials (kernels' full-width
+# shape).
+SHARDED_BAMP_REALIZATIONS = 16
+SHARDED_SCAMP_REALIZATIONS = 8
+MODEL_AXIS_B = 4096
+MODEL_AXIS_TOL = 1e-3
+CLI_TIMEOUT_S = 300
+
+
+class Nccl:
+    """A world-1 NCCL group on the card for one phase, destroyed at its end;
+    one all-reduce on entry, so that the group's NCCL communicator is
+    built (and a failing NCCL init fails the phase)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from amp_sparc_spatialmodulation_tpu_torch.parallel import mesh
+        self.dev = mesh.initialize_distributed(device=self.dev)
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"expected a world-1 NCCL group, have "
+                                 f"{dist.get_backend()} of "
+                                 f"{dist.get_world_size()}")
+        one = self.torch.ones(1, device=self.dev)
+        dist.all_reduce(one)
+        if float(one.item()) != 1.0:
+            raise AssertionError(f"NCCL all-reduce of one rank gave {one}")
+        return mesh.make_mesh(1, 1, device_type="cuda")
+
+    def __exit__(self, *exc):
+        import gc
+
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        gc.collect()
+        return False
+
+
+def phase_main_sharded(torch, dev):
+    """``ShardedSimulator`` on a (1, 1) NCCL mesh beside
+    ``Simulator.run_point`` on the same seeds, in turns (Simulator,
+    sharded, sharded, Simulator): the BAMP flagship (8 dB, k1 = 12,
+    ``SHARDED_BAMP_REALIZATIONS`` x 65536, K1) and the SCAMP main point (8
+    dB, k1 = 8, ``SHARDED_SCAMP_REALIZATIONS`` x 65536, K2).  Gates: FER,
+    BER and mean T identical in every run, the same kernel launch count in
+    every run (> 0) and no plain decode.  Prints each run's trials/s and
+    the sharded runs' ratio to the Simulator's.  Returns the BAMP sharded
+    run's averages, for main_cli_sharded."""
+    import torch.distributed as dist
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+    from amp_sparc_spatialmodulation_tpu_torch.models import (bamp,
+                                                              montecarlo,
+                                                              scamp)
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_scamp)
+    from amp_sparc_spatialmodulation_tpu_torch.parallel import sweep
+
+    cells = (("bamp", flagship_bamp_ook(), K1, SHARDED_BAMP_REALIZATIONS,
+              [(fused_bamp, ("launches",)), (bamp, ("plain_decodes",))]),
+             ("scamp", scamp_main_config(), SCAMP_K1,
+              SHARDED_SCAMP_REALIZATIONS,
+              [(fused_scamp, ("launches",)), (scamp, ("plain_decodes",))]))
+    out = {}
+    with Nccl(torch, dev) as mesh:
+        for algo, cfg, k1, n_real, counters in cells:
+            epochs = n_real * RES
+            kw = dict(algo=algo, two_phase=k1, progress=lambda s: None)
+            plain_sim = montecarlo.Simulator(cfg, device=dev, **kw)
+            sharded = sweep.ShardedSimulator(cfg, mesh=mesh, **kw)
+            runs = []
+            for name, sim in (("simulator", plain_sim),
+                              ("sharded", sharded), ("sharded", sharded),
+                              ("simulator", plain_sim)):
+                avg, seconds, n = run_counted(torch, sim, EBN0_DB, epochs,
+                                              RES, counters)
+                runs.append(dict(run=name, seconds=seconds,
+                                 trials_per_s=epochs / seconds,
+                                 mean_T=avg["T"], fer=avg["fer"],
+                                 ber=avg["ber"], launches=n["launches"],
+                                 plain_decodes=n["plain_decodes"]))
+            secs = {r: sum(x["seconds"] for x in runs if x["run"] == r)
+                    for r in ("simulator", "sharded")}
+            first = runs[0]
+            same = all(r[k] == first[k] for r in runs
+                       for k in ("fer", "ber", "mean_T", "launches"))
+            emit("main_sharded", algo=algo, ebn0_db=EBN0_DB, res=RES,
+                 realizations=n_real, two_phase_k1=k1, mesh=[1, 1],
+                 backend=dist.get_backend(), device=str(sharded.device),
+                 runs=runs,
+                 sharded_over_simulator=secs["simulator"] / secs["sharded"],
+                 identical=same)
+            if not same:
+                raise AssertionError(f"{algo}: the sharded runs differ from "
+                                     f"the Simulator's: {runs}")
+            if any(r["launches"] <= 0 or r["plain_decodes"] for r in runs):
+                raise AssertionError(f"{algo}: a run left its kernel: "
+                                     f"{runs}")
+            out[algo] = runs[1]
+    return out["bamp"]
+
+
+def phase_main_cli_sharded(torch, dev, sharded_bamp):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1
+    -m amp_sparc_spatialmodulation_tpu_torch.cli -- sweep --shard`` at the
+    flagship geometry, 8 dB only, main_sharded's BAMP trials and seed,
+    into a temporary directory.  Gate: the artifact's FER and mean T equal
+    main_sharded's sharded run's."""
+    import glob
+    import os
+    import tempfile
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+
+    cfg = flagship_bamp_ook()
+    epochs = SHARDED_BAMP_REALIZATIONS * RES
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m",
+               "amp_sparc_spatialmodulation_tpu_torch.cli", "--", "sweep",
+               "--shard", "--algo", "bamp", "--Nt", str(cfg.Nt), "--Na",
+               str(cfg.Na), "--Nr", str(cfg.Nr), "--Lin", str(cfg.Lin),
+               "--Lh", str(cfg.Lh), "--mode", cfg.mode, "--alphabet",
+               cfg.alphabet, "--profile", cfg.profile, "--trunc", cfg.trunc,
+               "--iterations", str(cfg.iterations), "--epochs", str(epochs),
+               "--res", str(RES), "--start", str(EBN0_DB), "--final",
+               str(EBN0_DB), "--two-phase", str(K1), "--seed", "0",
+               "--device", str(dev), "--out", tmp]
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=CLI_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        found = glob.glob(os.path.join(tmp, "BAMP", "**", f"{EBN0_DB}.json"),
+                          recursive=True)
+        point = None
+        if proc.returncode == 0 and len(found) == 1:
+            with open(found[0]) as f:
+                point = json.load(f)
+    emit("main_cli_sharded", command=" ".join(cmd[1:11]) + " ...",
+         returncode=proc.returncode, seconds=seconds,
+         fer=None if point is None else point["fer"],
+         mean_T=None if point is None else point["T"],
+         sharded_fer=sharded_bamp["fer"],
+         sharded_mean_T=sharded_bamp["mean_T"],
+         stdout_tail=proc.stdout[-600:],
+         stderr_tail=proc.stderr[-1500:] if proc.returncode else "")
+    if point is None:
+        raise AssertionError(f"the sharded CLI run failed (rc "
+                             f"{proc.returncode}, {len(found)} artifacts)")
+    if (point["fer"] != sharded_bamp["fer"]
+            or point["T"] != sharded_bamp["mean_T"]):
+        raise AssertionError("the sharded CLI's point differs from "
+                             "main_sharded's")
+
+
+def phase_main_model_axis(torch, dev):
+    """The model-axis decoders called directly at full width on a (1, 1)
+    NCCL mesh, each against the port's single-device plain loop on the
+    same inputs under ``compare``'s rule at 1e-3 (``MODEL_AXIS_B``
+    trials): halo BAMP at the flagship geometry, halo SCAMP at the SCAMP
+    main geometry, dense BAMP on the i.i.d. channel at the flagship
+    dimensions and ``vamp_tp`` at the VAMP main geometry (cap 10), 8 dB.
+    Prints each decode's seconds beside its plain loop's.  With one rank
+    on the axis every exchange and all-reduce is the identity; what runs is
+    the decoders' own arithmetic (the local products, the owned-slot masks,
+    the gathers), which the gloo tests hold at k = 2 and 4."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+    from amp_sparc_spatialmodulation_tpu_torch.models import (bamp,
+                                                              montecarlo,
+                                                              scamp, vamp)
+    from amp_sparc_spatialmodulation_tpu_torch.parallel import (banded,
+                                                                tensor,
+                                                                vamp_tp)
+    from amp_sparc_spatialmodulation_tpu_torch.parallel.mesh import (
+        MODEL_AXIS, axis_of)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def realization(cfg, channel, form, algo="bamp"):
+        gen = make_generator(dev, 19, 0, 0)
+        return montecarlo.with_svd(algo, montecarlo.generate_realization(
+            gen, cfg, channel, form, MODEL_AXIS_B, snr_of(cfg, EBN0_DB)))
+
+    with Nccl(torch, dev) as mesh:
+        ax = axis_of(mesh, MODEL_AXIS)
+        cases = []
+        cfg = flagship_bamp_ook()
+        r = realization(cfg, "sparc", "banded")
+        cases.append(("halo_bamp", cfg, lambda: banded.decode(
+            r.A.h, r.A.gains, banded.shard_rows(r.y, cfg, ax), r.sigma2,
+            cfg, mesh=mesh, return_state=True), lambda: bamp.decode(
+            r.A, r.y, r.sigma2, cfg, use_pallas=False, return_state=True),
+            ("xmap", "xmmse", "var")))
+        scfg = scamp_main_config()
+        rs = realization(scfg, "sparc", "banded", "scamp")
+        cases.append(("halo_scamp", scfg, lambda: banded.scamp_decode(
+            rs.A.h, rs.A.gains, rs.W, banded.shard_rows(rs.y, scfg, ax),
+            rs.sigma2, scfg, mesh=mesh, return_state=True),
+            lambda: scamp.decode(rs.W, rs.A, rs.y, rs.sigma2, scfg,
+                                 use_pallas=False, return_state=True),
+            ("xmap", "xmmse", "psi")))
+        ri = realization(cfg, "iid", "dense")
+        cases.append(("dense_bamp_iid", cfg, lambda: tensor.decode(
+            tensor.shard_columns(ri.A, ax), ri.y, ri.sigma2, cfg, mesh=mesh,
+            return_state=True), lambda: bamp.decode(
+            ri.A, ri.y, ri.sigma2, cfg, use_pallas=False,
+            return_state=True), ("xmap", "xmmse", "var")))
+        vcfg = vamp_main_config()
+        rv = realization(vcfg, "sparc", "dense", "vamp")
+        cases.append(("vamp_tp", vcfg, lambda: vamp_tp.decode(
+            rv.dec.U, rv.dec.s, tensor.shard_columns(rv.dec.Vh, ax), rv.y,
+            rv.sigma2, vcfg, mesh=mesh, return_state=True),
+            lambda: vamp.decode(rv.dec, rv.y, rv.sigma2, vcfg,
+                                use_pallas=False, return_state=True),
+            VAMP_FIELDS))
+        for name, c, split, plain, fields in cases:
+            sk, split_s = timed(split)
+            (_, sp), plain_s = timed(plain)
+            compare(f"main_model_axis_{name}", sk, sp, MODEL_AXIS_TOL,
+                    fields=fields, cap=c.N_Layers, ebn0_db=EBN0_DB,
+                    mesh=[1, 1], backend=torch.distributed.get_backend(),
+                    split_s=split_s, plain_s=plain_s,
+                    split_over_plain=split_s / plain_s)
+
+
 def kernel_entry(name, replaces, launches, max_err, timing, source=None):
     return {"name": name, "route": "cuda",
             "source": "amp_sparc_spatialmodulation_tpu_torch/ops/kernels/"
@@ -3287,6 +3546,13 @@ def main() -> int:
     phase_main_plain_high(torch, dev)
     torch.cuda.empty_cache()
     emit("sweep_engine_phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sharded_bamp = phase_main_sharded(torch, dev)
+    torch.cuda.empty_cache()
+    phase_main_cli_sharded(torch, dev, sharded_bamp)
+    phase_main_model_axis(torch, dev)
+    torch.cuda.empty_cache()
+    emit("sharded_phases", seconds=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_bamp_decode", "fused_bamp.py:617", launches,
