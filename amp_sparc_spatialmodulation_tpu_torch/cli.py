@@ -52,8 +52,36 @@ takes ``--start`` for an abbreviation of its ``--start-method``)::
         --Nr 24 --Lin 20 --Lh 3 --trunc tail --profile uniform \\
         --epochs 262144 --start 6 --final 10 --res 65536 --two-phase 12
 
-Only the ``sweep`` subcommand is ported; ``plot``, ``capacity``,
-``bench`` and ``sparc-trial`` wait for ROADMAP.md Queue 1 item 5.
+``sweep --plot`` rebuilds the waterfall and iteration plots after the
+sweep; ``plot`` rebuilds them from the artifacts alone (matplotlib, Agg
+backend; no device)::
+
+    python -m amp_sparc_spatialmodulation_tpu_torch.cli plot \\
+        --algo-dir BAMP --alphabet OOK --mode segmented --Nt 128 --Na 8 \\
+        --Nr 24 --Lin 20 --Lh 3 --trunc tail --profile uniform
+
+``capacity`` writes the AWGN capacity, the water-filling capacity and the
+constellation-constrained MI per Eb/N0 as CSV under
+``<out>/Capacity/<config>/`` (``models/capacity.py``; channels, Gram
+eigenvalues and MI on the device, water-filling on the host)::
+
+    python -m amp_sparc_spatialmodulation_tpu_torch.cli capacity \\
+        --alphabet OOK --mode segmented --Nt 128 --Na 8 --Nr 24 --Lin 20 \\
+        --Lh 3 --trunc tail --profile uniform --epochs 100
+
+``sparc-trial`` decodes one SPARC frame, optionally with exponentially
+decaying power allocation, by SCAMP, BAMP or both on the same draw
+(``models/sparc_tools.py``; on the card through kernels K2 and K1 at a
+batch of one)::
+
+    python -m amp_sparc_spatialmodulation_tpu_torch.cli sparc-trial \\
+        --alphabet OOK --mode sparc --Nt 128 --Na 8 --Nr 24 --Lin 20 \\
+        --Lh 3 --trunc tail --profile uniform --ebn0 6 --sparc-algo both
+
+``capacity``, ``sparc-trial`` and ``sweep`` run on the CUDA card unless
+``--device cpu`` is given.  ``bench`` waits for the port's benchmark
+(ROADMAP.md Queue 1 item 1), ``--precision default`` for the one-pass
+bf16 form of the kernels (Queue 2 A item 1).
 """
 from __future__ import annotations
 
@@ -152,12 +180,61 @@ def main(argv=None) -> int:
                        help="ranks each realization's frame is split over "
                             "(bamp, scamp, vamp; implies --shard)")
 
+    sweep.add_argument("--plot", action="store_true",
+                       help="rebuild the plots from the artifacts after "
+                            "the sweep")
+
+    plot = sub.add_parser("plot", help="rebuild plots from artifacts")
+    _add_config_args(plot)
+    plot.add_argument("--algo-dir", required=True)
+    plot.add_argument("--out", default="Simulations")
+
+    cap = sub.add_parser("capacity", help="capacity / mutual information")
+    _add_config_args(cap)
+    cap.add_argument("--epochs", type=int, default=100)
+    cap.add_argument("--start", type=float, default=None)
+    cap.add_argument("--final", type=float, default=None)
+    cap.add_argument("--step", type=float, default=1.0)
+    cap.add_argument("--out", default="Simulations")
+    cap.add_argument("--device", default=None,
+                     help="torch device (default: the CUDA card)")
+
+    sparc = sub.add_parser("sparc-trial",
+                           help="single-trial SPARC experiment with "
+                                "optional power allocation (sparc.py twin)")
+    _add_config_args(sparc)
+    sparc.add_argument("--ebn0", type=float, required=True)
+    sparc.add_argument("--sparc-algo", default="scamp",
+                       choices=["scamp", "bamp", "both"],
+                       help="'both' decodes the same draw with SCAMP and "
+                            "BAMP head-to-head (sparc.py:453-474)")
+    sparc.add_argument("--power-allocation", action="store_true",
+                       help="exponentially-decaying power allocation")
+    sparc.add_argument("--estimate-phi", action="store_true")
+    sparc.add_argument("--seed", type=int, default=0)
+    sparc.add_argument("--device", default=None,
+                       help="torch device (default: the CUDA card)")
+
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--"]:
         # torch.distributed.run passes on the "--" that ends its own options
         argv = argv[1:]
     args = parser.parse_args(argv)
     cfg = _build_config(args)
+
+    if args.cmd == "sparc-trial":
+        _sparc_trial(cfg, args)
+        return 0
+    if args.cmd == "plot":
+        _plot(cfg, args.algo_dir, args.out)
+        return 0
+    if args.cmd == "capacity":
+        from .models.capacity import InfoTheory
+
+        InfoTheory(cfg, out_root=args.out, device=args.device).simulate(
+            epochs=args.epochs, start=args.start, final=args.final,
+            step=args.step)
+        return 0
 
     kw = dict(algo=args.algo, channel_kind=args.channel, out_root=args.out,
               algo_dir=args.algo_dir, seed=args.seed,
@@ -172,6 +249,8 @@ def main(argv=None) -> int:
         sim = Simulator(cfg, device=args.device, **kw)
         sim.simulate(epochs=args.epochs, start=args.start, final=args.final,
                      step=args.step, res=args.res, resume=args.resume)
+        if args.plot:
+            _plot(cfg, _algo_dir(args), args.out)
         return 0
 
     import torch.distributed as dist
@@ -198,6 +277,53 @@ def _sharded_sweep(cfg, args, dev, kw) -> None:
     sim = ShardedSimulator(cfg, mesh=mesh, device=dev, **kw)
     sim.simulate(epochs=args.epochs, start=args.start, final=args.final,
                  step=args.step, res=args.res, resume=args.resume)
+    if args.plot and sim.writes_artifacts:
+        _plot(cfg, _algo_dir(args), args.out)
+
+
+def _algo_dir(args) -> str:
+    from .models.montecarlo import ALGO_DIRS
+
+    return args.algo_dir or ALGO_DIRS[args.algo]
+
+
+def _plot(cfg, algo_dir, out_root) -> None:
+    """Rebuild both plots of ``out_root/algo_dir/<config>`` and print their
+    paths."""
+    from .utils.plotting import Plotter
+
+    p = Plotter(cfg, algo_dir, out_root=out_root)
+    print(p.plot_metrics())
+    print(p.plot_iter())
+
+
+def _sparc_trial(cfg, args) -> None:
+    """One single-trial SPARC experiment, printed as the JAX package's CLI
+    prints it."""
+    from .models import sparc_tools as st
+
+    pa = None
+    if args.power_allocation:
+        _, snr = st.trial_point(cfg, args.ebn0)
+        pa = st.exp_power_allocation(snr, cfg.Lin)
+
+    def show(res, label=""):
+        print(({"algo": label} if label else {})
+              | {"ser": res.ser, "fer": res.fer,
+                 "nmse": round(res.nmse, 6), "C": round(res.C, 3),
+                 "rate_nats": round(res.rate, 4)})
+
+    if args.sparc_algo == "both":
+        both = st.compare_single_trial(cfg, args.ebn0, power_allocation=pa,
+                                       estimate_phi=args.estimate_phi,
+                                       seed=args.seed, device=args.device)
+        for name, res in both.items():
+            show(res, name)
+    else:
+        show(st.run_single_trial(cfg, args.ebn0, algo=args.sparc_algo,
+                                 power_allocation=pa,
+                                 estimate_phi=args.estimate_phi,
+                                 seed=args.seed, device=args.device))
 
 
 if __name__ == "__main__":

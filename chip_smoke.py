@@ -177,7 +177,19 @@ Phases, each printing one JSON line:
    loop under ``compare``'s rule at 1e-3, each time beside the plain
    loop's.  Several ranks run on the CPU under gloo (the tests) and on
    several cards in tests/torch_parallel_cards.py;
-15. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+15. the analysis tools (no kernel of their own): main_sparc_trial,
+   ``sparc_tools.compare_single_trial`` over 256 seeds at the SCAMP main
+   geometry, 7 dB (K1 and K2 at a batch of one, 256 launches each, no
+   plain decode; on the same draws each kernel against its plain loop
+   under compare's rule at B = 1; FER and SER within 3 sigma of the JAX
+   package's CPU run; ``cli sparc-trial`` twice as a subprocess);
+   main_capacity, ``InfoTheory(flagship_bamp_ook()).simulate`` at 100
+   epochs over 3 points (Cawgn exact, device MI against the host routine,
+   the Gram in FP32, Cwf and Mi against the JAX package's seed spread);
+   main_profiling, one flagship BAMP realization inside ``Profiler`` and
+   ``torch_trace`` (K1 in the trace as often as it launched, the
+   Profiler's items/s against a synchronized host clock);
+16. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -3445,6 +3457,378 @@ def phase_main_model_axis(torch, dev):
                     split_over_plain=split_s / plain_s)
 
 
+# main_sparc_trial: single SPARC trials (B = 1) through
+# models/sparc_tools.py::compare_single_trial at the SCAMP main geometry
+# (no power allocation), 256 seeds at the Eb/N0 where the JAX package's FER
+# lies between 0.05 and 0.5 for both decoders.  The JAX package's CPU run
+# over the same seeds (tests/torch_analysis_reference.py --part sparc
+# --ebn0 7 --seeds 256): FER and SER per decoder and the standard deviation
+# of one trial's SER, from which the 3-sigma bound of the difference of two
+# 256-trial runs is taken (FER's from its binomial sigma).
+SPARC_TRIAL_DB = 7.0
+SPARC_TRIAL_SEEDS = 256
+SPARC_TRIAL_REF = {
+    "scamp": dict(fer=0.33984375, ser=0.021875,
+                  ser_sd=0.03500700210070024),
+    "bamp": dict(fer=0.375, ser=0.0259765625, ser_sd=0.041052613748557294)}
+SPARC_TRIAL_KEYS = ["ser", "fer", "nmse", "C", "rate_nats"]
+# Each kernel's result at B = 1 against its plain loop on the same trial,
+# for the first SPARC_TRIAL_PLAIN seeds: the plain loop with the trial in a
+# batch of SPARC_TRIAL_WIDE copies must give the kernel's T and state bit
+# for bit.  At a batch of one the plain loop's products have 20 rows, where
+# cuBLAS sums in another order than at 1,280 and more (the order the
+# kernels follow at every batch, one block a trial), so there T, the
+# results and the state are printed beside the kernel's, not held: in the
+# waterfall a trial's T turns on the last bits of its products.
+SPARC_TRIAL_PLAIN = 24
+SPARC_TRIAL_WIDE = 64
+
+# main_capacity: InfoTheory.simulate at flagship_bamp_ook(), 100 epochs a
+# point, grid_points=100, 3 Eb/N0 points from the default start (ceil of
+# the Shannon limit: 1, 2, 3 dB).  The JAX package's CPU run at the same
+# config and epochs over seeds 0-3 (tests/torch_analysis_reference.py
+# --part capacity --epochs 100 --points 3 --cap-seeds 0,1,2,3): the mean
+# and standard deviation over the seeds of Cwf and Mi (each the largest of
+# 100 epochs).  The port's one run (seed 0; its random stream differs)
+# must lie within CAP_SIGMAS * sd * sqrt(1 + 1/4) of JAX's 4-seed mean: 5
+# sigma, as an sd from 4 seeds is itself uncertain by about 40%.
+CAP_EPOCHS = 100
+CAP_POINTS = 3
+CAP_GRID = 100
+CAP_SIGMAS = 5.0
+CAP_REF = dict(seeds=4,
+               cwf_mean=[19.65456352397389, 23.891244573088066,
+                         29.237100953740526],
+               cwf_sd=[0.1786636999164399, 0.13296135095435244,
+                       0.17477067318017592],
+               mi_mean=[11.072975873947144, 13.882849216461182,
+                        17.277530670166016],
+               mi_sd=[0.07650165880086934, 0.07725651120985905,
+                      0.07831759380160304])
+# The Gram in FP32 (no TF32): the eigenvalues of one epoch's Gram within
+# this share of the largest of a float64 host eigvalsh of the same H.
+CAP_GRAM_TOL = 1e-5
+
+
+def sparc_trial_cli(dev, cfg, extra):
+    """``python -m amp_sparc_spatialmodulation_tpu_torch.cli sparc-trial``
+    at ``cfg`` and ``SPARC_TRIAL_DB`` with ``extra`` options, started (not
+    waited for) as a subprocess."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "amp_sparc_spatialmodulation_tpu_torch.cli",
+           "sparc-trial", "--Nt", str(cfg.Nt), "--Na", str(cfg.Na), "--Nr",
+           str(cfg.Nr), "--Lin", str(cfg.Lin), "--Lh", str(cfg.Lh), "--mode",
+           cfg.mode, "--alphabet", cfg.alphabet, "--profile", cfg.profile,
+           "--trunc", cfg.trunc, "--iterations", str(cfg.iterations),
+           "--ebn0", str(SPARC_TRIAL_DB), "--device", str(dev), *extra]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return cmd, subprocess.Popen(cmd, cwd=here, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+
+
+def phase_main_sparc_trial(torch, dev):
+    """Single SPARC trials at a batch of one: ``compare_single_trial`` at
+    the SCAMP main geometry over ``SPARC_TRIAL_SEEDS`` seeds at
+    ``SPARC_TRIAL_DB`` (counts set to 0 just before, read just after: K1
+    and K2 once a trial each, no plain decode); then on the same draws each
+    decoder's kernel alone, timed, giving the head-to-head's results, and
+    for the first ``SPARC_TRIAL_PLAIN`` draws its plain loop
+    (``use_pallas=False``): in a batch of ``SPARC_TRIAL_WIDE`` copies of
+    the trial bit for bit the kernel's T and state, at B = 1 printed
+    beside it (T agreement, identical results, state where T agrees below
+    the cap); FER and SER of each decoder within 3 sigma of the JAX
+    package's CPU run; ``cli sparc-trial --power-allocation`` and
+    ``--estimate-phi --sparc-algo scamp`` as subprocesses (exit 0, the JAX
+    CLI's fields).  Prints the trials/s of the head-to-head and of each
+    decoder's kernel and plain loop."""
+    import ast
+
+    from amp_sparc_spatialmodulation_tpu_torch.models import (bamp, scamp,
+                                                              sparc_tools)
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_scamp)
+
+    cfg = scamp_main_config()
+    n = SPARC_TRIAL_SEEDS
+    sparc_tools.compare_single_trial(cfg, SPARC_TRIAL_DB, seed=n,
+                                     device=dev)           # warm-up
+    counters = [(fused_bamp, ("launches",)), (fused_scamp, ("launches",)),
+                (bamp, ("plain_decodes",)), (scamp, ("plain_decodes",))]
+    for mod, names in counters:
+        for name in names:
+            setattr(mod, name, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = [sparc_tools.compare_single_trial(cfg, SPARC_TRIAL_DB, seed=s,
+                                             device=dev) for s in range(n)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"k1_launches": fused_bamp.launches,
+              "k2_launches": fused_scamp.launches,
+              "plain_decodes": bamp.plain_decodes + scamp.plain_decodes}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    kern = {a: dict(seconds=0.0) for a in ("bamp", "scamp")}
+    held = []
+    for s in range(n):
+        trial = sparc_tools._build_trial(cfg, SPARC_TRIAL_DB, None, s, dev)
+        outs = {}
+        for algo, st in kern.items():
+            outs[algo], t = timed(lambda: sparc_tools._decode(algo, trial,
+                                                               cfg))
+            st["seconds"] += t
+            got = sparc_tools._eval_trial(outs[algo], trial.msg, cfg,
+                                          trial.snr, trial.rate)
+            if got != runs[s][algo]:
+                raise AssertionError(f"{algo} seed {s}: the same draw gave "
+                                     f"{got} and {runs[s][algo]}")
+        if s < SPARC_TRIAL_PLAIN:
+            held.append((trial, outs))
+    # both CLI runs beside the plain loops (whose trials/s they may slow):
+    # each builds nothing (the kernels are built) and decodes one trial
+    clis = [sparc_trial_cli(dev, cfg, extra) for extra in
+            (["--power-allocation"],
+             ["--estimate-phi", "--sparc-algo", "scamp"])]
+    plain = {a: dict(wide_exact=0, seconds=0.0, T_agree=0, same_result=0,
+                     max_state_err=0.0) for a in ("bamp", "scamp")}
+    fields = ("xmap", "xmmse", "var")
+    for trial, outs in held:
+        wide = trial._replace(y=trial.y.expand(SPARC_TRIAL_WIDE, -1)
+                              .contiguous())
+        for algo, st in plain.items():
+            ok = outs[algo]
+            ow = sparc_tools._decode(algo, wide, cfg, use_pallas=False)
+            st["wide_exact"] += int(
+                torch.equal(ow.T[:1], ok.T)
+                and all(torch.equal(getattr(ow, f)[:1], getattr(ok, f))
+                        for f in fields))
+            op, t = timed(lambda: sparc_tools._decode(algo, trial, cfg,
+                                                      use_pallas=False))
+            st["seconds"] += t
+            if int(op.T[0]) != int(ok.T[0]):
+                continue
+            st["T_agree"] += 1
+            st["same_result"] += int(
+                sparc_tools._eval_trial(op, trial.msg, cfg, trial.snr,
+                                        trial.rate)
+                == sparc_tools._eval_trial(ok, trial.msg, cfg, trial.snr,
+                                           trial.rate))
+            if int(ok.T[0]) < cfg.N_Layers:
+                st["max_state_err"] = max(st["max_state_err"], max(
+                    float((getattr(op, f) - getattr(ok, f)).abs().max())
+                    for f in fields))
+    outs = []
+    for cmd, proc in clis:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+        lines = [ast.literal_eval(ln) for ln in out.strip().splitlines()
+                 if ln.startswith("{")] if proc.returncode == 0 else []
+        outs.append(dict(args=cmd[-3:], returncode=proc.returncode,
+                         printed=lines,
+                         stderr_tail=err[-1500:] if proc.returncode else ""))
+    m = len(held)
+    stats = {}
+    for algo in ("scamp", "bamp"):
+        fer = statistics.fmean(r[algo].fer for r in runs)
+        ser = statistics.fmean(r[algo].ser for r in runs)
+        ref, pl = SPARC_TRIAL_REF[algo], plain[algo]
+        stats[algo] = dict(
+            fer=fer, ser=ser, ref_fer=ref["fer"], ref_ser=ref["ser"],
+            fer_3sigma=3 * math.sqrt(2 * ref["fer"] * (1 - ref["fer"]) / n),
+            ser_3sigma=3 * ref["ser_sd"] * math.sqrt(2 / n),
+            kernel_trials_per_s=n / kern[algo]["seconds"],
+            kernel_ms_per_trial=1e3 * kern[algo]["seconds"] / n,
+            plain_trials=m,
+            plain_wide_exact_fraction=pl["wide_exact"] / m,
+            plain_b1_T_agree_fraction=pl["T_agree"] / m,
+            plain_b1_same_result_fraction=pl["same_result"] / m,
+            plain_b1_max_state_err_T_agree_converged=pl["max_state_err"],
+            plain_b1_trials_per_s=m / pl["seconds"])
+    emit("main_sparc_trial", config="scamp_ook_sparc_flagship_dims",
+         ebn0_db=SPARC_TRIAL_DB, trials=n, seconds=seconds,
+         trials_per_s=n / seconds, **counts, plain_wide_batch=SPARC_TRIAL_WIDE,
+         decoders=stats, cli=outs)
+    if (counts["k1_launches"] != n or counts["k2_launches"] != n
+            or counts["plain_decodes"]):
+        raise AssertionError(f"single trials did not run through K1 and K2 "
+                             f"once each: {counts}")
+    for algo, st in stats.items():
+        if st["plain_wide_exact_fraction"] != 1.0:
+            raise AssertionError(f"{algo} at B=1: kernel != plain {st}")
+        if (abs(st["fer"] - st["ref_fer"]) > st["fer_3sigma"]
+                or abs(st["ser"] - st["ref_ser"]) > st["ser_3sigma"]):
+            raise AssertionError(f"{algo} FER/SER outside 3 sigma of the "
+                                 f"JAX package's: {st}")
+    for o in outs:
+        if o["returncode"] != 0 or not o["printed"] or any(
+                list(d) != SPARC_TRIAL_KEYS for d in o["printed"]):
+            raise AssertionError(f"cli sparc-trial failed: {o}")
+
+
+def phase_main_capacity(torch, dev):
+    """``InfoTheory(flagship_bamp_ook()).simulate`` on the card:
+    ``CAP_EPOCHS`` epochs at each of ``CAP_POINTS`` Eb/N0 points from the
+    default start, ``grid_points=CAP_GRID``.  Gates: Cawgn = log2(1 + snr)
+    to 1e-12; for the first chunk of each point the device MI within rtol
+    2e-4 of the host routine on the same gains; one epoch's eigenvalues
+    within ``CAP_GRAM_TOL`` of a float64 host eigvalsh of its H (the Gram
+    in FP32); Cwf and Mi within the bound of ``CAP_REF``; the CSV's header.
+    Prints seconds per point, epochs/s, the chunk, the peak memory and one
+    chunk's channels, eigvalsh and MI timed by CUDA events."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+    from amp_sparc_spatialmodulation_tpu_torch.models import capacity
+    from amp_sparc_spatialmodulation_tpu_torch.ops import channel
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    cfg = flagship_bamp_ook()
+    start = int(np.ceil(cfg.shannon_limit_dB))
+    final = start + CAP_POINTS - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        it = capacity.InfoTheory(cfg, out_root=tmp, device=dev)
+        chunk = it.chunk(CAP_EPOCHS, CAP_GRID)
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = it.simulate(epochs=CAP_EPOCHS, start=start, final=final,
+                          grid_points=CAP_GRID,
+                          progress=lambda m: stamps.append(
+                              time.perf_counter()))
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(it.csv_path()) as f:
+            header = f.readline().strip()
+        ebn0 = np.arange(start, final + 1.0, 1.0)
+        snr = 10 ** ((ebn0 + 10 * np.log10(cfg.code_rate)) / 10)
+        cawgn_err = float(np.abs(out[:, 0] - np.log2(1 + snr)).max())
+        mi_rel = []
+        for j, s in enumerate(snr):
+            g = it._gains(j, 0, chunk)
+            dev_mi = capacity.mutual_information(
+                cfg, g, float(np.float32(s)), CAP_GRID).cpu().numpy()
+            host = np.array([it._mutual_information(gi, s, N=CAP_GRID)
+                             for gi in g.cpu().numpy()])
+            mi_rel.append(float(np.abs(dev_mi / host - 1).max()))
+        H = channel.generate_channel(make_generator(dev, 0, 0, 0), cfg)
+        H64 = H.cpu().numpy().astype(np.complex128)
+        exact = np.linalg.eigvalsh(H64 @ H64.conj().T)
+        g0 = it._gains(0, 0, 1)[0].cpu().numpy()
+        gram_err = float(np.abs(np.sort(g0) - np.sort(exact)).max()
+                         / exact.max())
+        def channels():
+            return torch.stack([channel.generate_channel(
+                make_generator(dev, 0, 0, e), cfg) for e in range(chunk)])
+
+        Hs = channels()
+        G = Hs @ Hs.conj().transpose(-2, -1)
+        g = capacity.gram_eigvalsh(Hs)
+        timing = dict(
+            channels_ms=cuda_ms(channels, 1, 3),
+            gram_ms=cuda_ms(lambda: Hs @ Hs.conj().transpose(-2, -1), 1, 3),
+            eigvalsh_ms=cuda_ms(lambda: torch.linalg.eigvalsh(G), 1, 3),
+            mi_ms=cuda_ms(lambda: capacity.mutual_information(
+                cfg, g, float(np.float32(snr[0])), CAP_GRID), 1, 3))
+        del Hs, G, g
+    scale = CAP_SIGMAS * math.sqrt(1 + 1 / CAP_REF["seeds"])
+    bound = ([scale * sd for sd in CAP_REF["cwf_sd"]],
+             [scale * sd for sd in CAP_REF["mi_sd"]])
+    d_cwf = [float(out[j, 2] - CAP_REF["cwf_mean"][j])
+             for j in range(CAP_POINTS)]
+    d_mi = [float(out[j, 3] - CAP_REF["mi_mean"][j])
+            for j in range(CAP_POINTS)]
+    points_s = np.diff([t0] + stamps).tolist()
+    emit("main_capacity", config="flagship_bamp_ook", epochs=CAP_EPOCHS,
+         grid_points=CAP_GRID, ebn0_db=ebn0.tolist(), chunk=chunk,
+         seconds=seconds, seconds_per_point=points_s,
+         epochs_per_s=CAP_POINTS * CAP_EPOCHS / seconds,
+         peak_mem_gib=peak, cawgn=out[:, 0].tolist(),
+         cwf=out[:, 2].tolist(), mi=out[:, 3].tolist(),
+         cawgn_max_err=cawgn_err, mi_device_vs_host_rel=mi_rel,
+         gram_eig_err_of_max=gram_err, d_cwf=d_cwf, cwf_bound=bound[0],
+         d_mi=d_mi, mi_bound=bound[1], csv_header=header, chunk_ms=timing)
+    if not cawgn_err <= 1e-12:
+        raise AssertionError(f"Cawgn off log2(1 + snr) by {cawgn_err}")
+    if not max(mi_rel) <= 2e-4:
+        raise AssertionError(f"device MI off the host routine: {mi_rel}")
+    if not gram_err <= CAP_GRAM_TOL:
+        raise AssertionError(f"the Gram is not FP32: {gram_err}")
+    if any(abs(d) > b for d, b in zip(d_cwf + d_mi, bound[0] + bound[1])):
+        raise AssertionError(f"Cwf / Mi outside the JAX package's bound: "
+                             f"{d_cwf} {d_mi}")
+    if header != ",EbN0dB,SNRdB,Cawgn,Cfs,Cwf,Mi":
+        raise AssertionError(f"CSV header {header!r}")
+
+
+def phase_main_profiling(torch, dev):
+    """One flagship BAMP realization (65536 trials, k1 = 12, through
+    ``Simulator.run_point``) inside ``Profiler.phase(..., items=65536)``
+    and ``torch_trace``.  Gates: the exported trace names K1's kernel
+    (``bamp_decode_kernel``) as often as K1's launch counter moved in the
+    run (> 0), and the Profiler's items/s within 5% of the trials/s of a
+    synchronized host clock around the same block.  Prints the trace's
+    size and K1's device time in it."""
+    import os
+    import tempfile
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_bamp_ook
+    from amp_sparc_spatialmodulation_tpu_torch.models import montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils import profiling
+
+    cfg = flagship_bamp_ook()
+    sim = montecarlo.Simulator(cfg, algo="bamp", two_phase=K1, device=dev,
+                               progress=lambda s: None)
+    prof = profiling.Profiler()
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_bamp.launches = 0
+        with profiling.torch_trace(tmp, device=dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with prof.phase("realization", items=RES):
+                avg = sim.run_point(EBN0_DB, epochs=RES, res=RES)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        launches = fused_bamp.launches
+        path = os.path.join(tmp, profiling.TRACE_FILE)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "bamp_decode_kernel" in e.get("name", "")]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    rep = prof.report()["realization"]
+    host_rate = RES / host_s
+    emit("main_profiling", config="flagship_bamp_ook", ebn0_db=EBN0_DB,
+         res=RES, two_phase_k1=K1, k1_launches=launches,
+         k1_in_trace=len(k1), k1_name=k1[0]["name"] if k1 else None,
+         k1_device_ms=[e.get("dur", 0) / 1e3 for e in k1],
+         kernels_in_trace=kernels, trace_events=len(events),
+         trace_bytes=size, profiler=rep, host_trials_per_s=host_rate,
+         items_per_s_over_host=rep["items_per_s"] / host_rate,
+         mean_T=avg["T"], fer=avg["fer"])
+    if launches <= 0 or len(k1) != launches:
+        raise AssertionError(f"K1 launched {launches} times, the trace "
+                             f"names it {len(k1)} times")
+    if abs(rep["items_per_s"] / host_rate - 1) > 0.05:
+        raise AssertionError(f"Profiler items/s {rep['items_per_s']} vs "
+                             f"host {host_rate}")
+
+
 def kernel_entry(name, replaces, launches, max_err, timing, source=None):
     return {"name": name, "route": "cuda",
             "source": "amp_sparc_spatialmodulation_tpu_torch/ops/kernels/"
@@ -3553,6 +3937,12 @@ def main() -> int:
     phase_main_model_axis(torch, dev)
     torch.cuda.empty_cache()
     emit("sharded_phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_main_sparc_trial(torch, dev)
+    phase_main_capacity(torch, dev)
+    torch.cuda.empty_cache()
+    phase_main_profiling(torch, dev)
+    emit("analysis_phases", seconds=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_bamp_decode", "fused_bamp.py:617", launches,

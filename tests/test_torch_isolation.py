@@ -5,6 +5,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+from functools import partial
 
 import pytest
 import torch
@@ -71,6 +72,34 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
         with pytest.raises(RuntimeError):
             Simulator(flagship_bamp_ook(), algo=algo)
         Simulator(flagship_bamp_ook(), algo=algo, device="cpu")
+
+
+def test_analysis_entry_points_need_the_card_or_an_explicit_cpu(tmp_path):
+    """``InfoTheory``, the single-trial experiments and the CLI subcommands
+    that run on a device raise without a card unless asked for the CPU."""
+    from amp_sparc_spatialmodulation_tpu_torch import cli
+    from amp_sparc_spatialmodulation_tpu_torch.config import Config
+    from amp_sparc_spatialmodulation_tpu_torch.models import capacity
+    from amp_sparc_spatialmodulation_tpu_torch.models import sparc_tools
+    if torch.cuda.is_available():
+        return
+    dims = dict(Nt=16, Na=2, Nr=12, Lin=6, Lh=2)
+    cfg = Config(mode="sparc", alphabet="QPSK", **dims)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        capacity.InfoTheory(cfg, out_root=str(tmp_path))
+    assert not (tmp_path / "Capacity").exists()
+    capacity.InfoTheory(cfg, out_root=str(tmp_path), device="cpu")
+    for fn in (partial(sparc_tools.run_single_trial, algo="bamp"),
+               sparc_tools.compare_single_trial):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(cfg, 10.0)
+    args = [w for k, v in dims.items() for w in (f"--{k}", str(v))]
+    for cmd in (["capacity", "--epochs", "1", "--out", str(tmp_path)],
+                ["sparc-trial", "--mode", "sparc", "--ebn0", "10"],
+                ["sparc-trial", "--mode", "sparc", "--ebn0", "10",
+                 "--sparc-algo", "both"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(cmd + args)
 
 
 KERNEL_MODULES = ("fused_bamp", "fused_scamp", "fused_vamp", "fused_vamp2",
