@@ -31,6 +31,13 @@ kernel K2 keeps HIGHEST inside (JAX's has no precision; at HIGH only ``y =
 x A^T`` changes); every plain loop (a dense ``--operator``, the
 real-channel mode, a geometry no kernel fits, ``--use-pallas false``)
 runs its products at HIGH, as the JAX package's XLA decodes do.
+``--precision default`` is the one-pass bf16 product (the TPU's
+``Precision.DEFAULT``) in the same places: ``y``, the DEFAULT forms of K1,
+K3, K4 and K5, K2 and the per-iteration kernel K6 at HIGHEST, every plain
+loop at DEFAULT; ``auto`` never picks it.  On an H100 it did not pin T at
+the cap at the flagship BAMP OOK 8 dB point (mean T 15.0 against HIGHEST's
+11.4, 6.4% of trials at the cap, FER unchanged) and stopped VAMP's trials
+near T = 12 at cap 100 (``PERF.md`` §6).
 ``--use-pallas auto|true|false`` is the JAX package's knob: ``auto`` takes
 the kernels where the decoders' routes take them, ``false`` the plain
 loops (an A/B against the kernels on the card), ``true`` raises where no
@@ -80,8 +87,7 @@ batch of one)::
 
 ``capacity``, ``sparc-trial`` and ``sweep`` run on the CUDA card unless
 ``--device cpu`` is given.  ``bench`` waits for the port's benchmark
-(ROADMAP.md Queue 1 item 1), ``--precision default`` for the one-pass
-bf16 form of the kernels (Queue 2 A item 1).
+(ROADMAP.md Queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -156,12 +162,18 @@ def main(argv=None) -> int:
                             "(which decodes C VAMP realizations per launch); "
                             "here they run one after another")
     sweep.add_argument("--precision", default="highest",
-                       choices=["highest", "high", "auto"],
+                       choices=["highest", "high", "default", "auto"],
                        help="product precision: 'highest' (FP32, the "
                             "reference's trajectories) | 'high' (three-pass "
                             "bf16 on the tensor cores; where trials stop "
                             "early its error sits at the 1e-5 allclose "
-                            "tolerance and inflates T) | 'auto' (per "
+                            "tolerance and inflates T) | 'default' "
+                            "(one-pass bf16; on an H100 the flagship BAMP "
+                            "OOK 8 dB point ran mean T 15.0 against "
+                            "HIGHEST's 11.4, 6.4%% of trials at the cap, "
+                            "FER unchanged, and VAMP's trials stopped near "
+                            "T 12 where HIGH ran them to 100, a different "
+                            "decode: PERF.md section 6) | 'auto' (per "
                             "point: 'high' when the previous point's mean T "
                             "pinned at the iteration cap, else 'highest')")
     sweep.add_argument("--use-pallas", default="auto",

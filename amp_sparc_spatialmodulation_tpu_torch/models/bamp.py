@@ -34,6 +34,12 @@ at HIGH (`bamp.py:333-352` there, each operator map's products through
 block, the route falls through to the next link, as JAX's does
 (`bamp.py:241-283`).
 
+``decode(precision='default')`` is the JAX decoder's ``precision=DEFAULT``,
+the one-pass bf16 product (``ops/precision.py::dot1``), on the same chain
+with DEFAULT in place of HIGH: K1's DEFAULT form (plain version
+:func:`plain_loop_default`, :func:`linear_step_high` with ``dot1``), K6 at
+HIGHEST, K5's DEFAULT form, the plain loop's products at DEFAULT.
+
 ``decode(use_pallas=...)`` is the JAX decoder's knob: ``'auto'`` (the
 default) takes :func:`route`'s chain, ``False`` the plain loop, and
 ``True`` the chain too but raises where no kernel covers the config or the
@@ -385,6 +391,14 @@ def plain_loop_high(op, s: BAMPState, y: torch.Tensor, sigma2: float,
     return s
 
 
+def plain_loop_default(op, s: BAMPState, y: torch.Tensor, sigma2: float,
+                       cap: int, cfg: Config) -> BAMPState:
+    """The plain version of K1's DEFAULT form: :func:`plain_loop_high` with
+    the one-pass product ``precision.dot1`` (JAX's ``make_dot(DEFAULT)``,
+    `fused_bamp.py:81-93` there)."""
+    return plain_loop_high(op, s, y, sigma2, cap, cfg, dot=prec.dot1)
+
+
 def to_planes(s: BAMPState) -> PlaneState:
     """``s`` in the per-iteration kernels' layout."""
     part = lambda a: a.contiguous()
@@ -475,9 +489,9 @@ def route(cfg: Config, op, B: int, device, precision: str = "highest",
 
     As in JAX, ``AMP_PALLAS_MODE=xla`` skips only K1 and K5 (it still takes
     K6 for K=1 alphabets), and any other value than ``whole`` or ``xla``
-    skips K1; at HIGH a geometry whose K1 HIGH form does not fit falls
-    through to K6 (at HIGHEST), K5 and the plain loop.  ``use_pallas``
-    as in :func:`decode`: ``False`` is the plain loop, decided before any
+    skips K1; at HIGH (DEFAULT) a geometry whose K1 HIGH (DEFAULT) form
+    does not fit falls through to K6 (at HIGHEST), K5 and the plain loop.
+    ``use_pallas`` as in :func:`decode`: ``False`` is the plain loop, decided before any
     environment variable is read (JAX reads them only under
     ``use_pallas``).  Unlike JAX, neither the batch size nor a frame tile
     limits K5: ``B`` is any count (the ragged trial tile is masked).  The
@@ -547,9 +561,9 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
             previous :class:`BAMPState`, stop at ``iter_cap`` iterations
             (global count), and/or return the final state.  Splitting a
             decode at any cap and continuing yields the same trajectory.
-        precision: 'highest' (default) or 'high' (module docstring): K1
-            and K5 in their HIGH forms, K6 at HIGHEST, the plain loop's
-            products at HIGH.
+        precision: 'highest' (default), 'high' or 'default' (module
+            docstring): K1 and K5 in their HIGH (DEFAULT) forms, K6 at
+            HIGHEST, the plain loop's products at HIGH (DEFAULT).
         use_pallas: 'auto' (default), True or False (module docstring).
 
     The route is :func:`route`'s.  A banded operator with a complex
@@ -585,7 +599,7 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
                        sigma2, cap, cfg)
     elif way == "tiled":
         iteration = fused_bamp_tiled.iteration
-        if precision == prec.HIGH:
+        if precision in prec.BF16:
             iteration = partial(iteration, precision=precision)
         s = plane_loop(iteration, op, state0, y, sigma2, cap, cfg)
     else:

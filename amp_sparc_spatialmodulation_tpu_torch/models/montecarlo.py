@@ -38,10 +38,13 @@ projection and the VAMP and vamp2 decodes in three-pass bf16 products, on
 the card through the HIGH form of kernels K3 and K4; the BAMP decode
 through K1's HIGH form, or K5's on the massive geometry; SCAMP through
 K2, which keeps HIGHEST inside, as JAX's has no precision; every plain
-loop with its products at HIGH) or ``'auto'`` (HIGH for a point exactly
-when the previous point's mean T pinned at the iteration cap).  Every
-route takes every precision, as in JAX; ``'default'`` raises
-(``ops/precision.py``).
+loop with its products at HIGH), ``'default'`` (the one-pass bf16 product
+of ``ops/precision.py``, in the same places as HIGH: ``y``, the
+projection, the DEFAULT forms of K1, K3, K4 and K5, K2 and K6 at HIGHEST
+as in JAX, every plain loop's products at DEFAULT; the SVD stays at
+HIGHEST) or ``'auto'`` (HIGH for a point exactly when the previous point's
+mean T pinned at the iteration cap; never DEFAULT).  Every route takes
+every precision, as in JAX.
 
 ``use_pallas='auto'|True|False`` is the JAX package's knob
 (``resolve_use_pallas``): ``'auto'`` takes the kernels exactly where the
@@ -229,7 +232,7 @@ def decode(algo: str, r: Realization, y: torch.Tensor, cfg: Config,
            use_pallas="auto", **kw):
     """Decode ``y`` (all of ``r.y`` or a gathered subset) on realization
     ``r`` (for VAMP and vamp2, one that went through :func:`with_svd`) with
-    ``algo`` at ``precision`` (``'highest'`` or ``'high'``) and
+    ``algo`` at ``precision`` (``'highest'``, ``'high'`` or ``'default'``) and
     ``use_pallas`` (``'auto'``, True or False, the decoders' knob); ``kw``
     are the decoders' resume arguments (``state0``, ``iter_cap``,
     ``return_state``)."""
@@ -353,8 +356,8 @@ class Simulator:
         estimate_phi: SCAMP's empirical residual variance (estSCAMP).
         device: where the sweep runs; None means the CUDA card, and raises
             when there is none.  Pass 'cpu' to run on the CPU.
-        precision: 'highest' (default), 'high' or 'auto' (module
-            docstring).
+        precision: 'highest' (default), 'high', 'default' or 'auto'
+            (module docstring).
         use_pallas: 'auto' (default), True or False
             (:func:`resolve_use_pallas`); True raises here where no kernel
             covers the config.

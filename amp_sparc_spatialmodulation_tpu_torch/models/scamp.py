@@ -25,7 +25,8 @@ there), so there at HIGH only the realization's generation changes; the
 plain loop runs JAX's XLA body at HIGH: the operator's products through
 ``ops/precision.py::matmul`` and the two base-matrix products
 (``mm(psi, Wt)`` and ``mm(1/phi, W)`` there) in three bf16 passes
-(:func:`base_product`).
+(:func:`base_product`).  ``precision='default'`` is the same with the
+one-pass bf16 product in place of the three passes.
 """
 from __future__ import annotations
 
@@ -83,12 +84,16 @@ def base_product(a: torch.Tensor, m: torch.Tensor,
     a matmul: cuBLAS orders a small GEMM's sum by the batch size, and
     psi's stop test sees the last bit.  At ``'high'`` the three bf16
     passes of ``ops/precision.py::dot3``, grouped as it groups them, each
-    in that form."""
+    in that form; at ``'default'`` the one pass of ``dot1`` (hi by hi)."""
     def rowdot(p, q):
         return (p[:, None, :] * q).sum(-1)
 
-    if prec.canonical(precision) == prec.HIGHEST:
+    precision = prec.canonical(precision)
+    if precision == prec.HIGHEST:
         return rowdot(a, m)
+    if precision == prec.DEFAULT:
+        return rowdot(a.to(torch.bfloat16).float(),
+                      m.to(torch.bfloat16).float())
     a_hi, a_lo = (t.float() for t in prec.split_bf16(a))
     m_hi, m_lo = (t.float() for t in prec.split_bf16(m))
     return rowdot(a_hi, m_hi) + (rowdot(a_hi, m_lo) + rowdot(a_lo, m_hi))
@@ -180,8 +185,9 @@ def decode(W, A, y: torch.Tensor, sigma2, cfg: Config, *,
         estimate_phi: empirical residual variance (estSCAMP).
         state0 / iter_cap / return_state: resumable decoding, as in
             :func:`.bamp.decode`.
-        precision: 'highest' (default) or 'high' (module docstring): the
-            kernel at HIGHEST either way, the plain loop at ``precision``.
+        precision: 'highest' (default), 'high' or 'default' (module
+            docstring): the kernel at HIGHEST always, the plain loop at
+            ``precision``.
         use_pallas: 'auto' (default), True or False (:func:`kernel_route`).
 
     A banded operator with a config the kernel covers (complex

@@ -25,6 +25,10 @@ and ``use_pallas=False``, runs the plain PyTorch loop on either device
 bf16 products, and the decode through the kernel's HIGH form, whose plain
 version is :func:`plain_loop_high`, the JAX kernel's iteration step by step
 (Gauss combinations, ``dot3`` on each, ``rowsum3`` for the two row sums).
+``precision='default'`` is the same with the one-pass product: the
+projection in four real ``dot1`` products, the decode through the kernel's
+DEFAULT form, whose plain version is :func:`plain_loop_default`
+(``dot1`` and ``rowsum1``), the plain loop's products at DEFAULT.
 The plain loop at HIGH (the random mode, the real-channel mode,
 ``use_pallas=False``) is JAX's XLA body at HIGH (`vamp.py:226-231` there),
 its two products through ``ops/precision.py::matmul``: a different
@@ -41,7 +45,6 @@ import torch
 from ..config import Config
 from ..ops import denoise
 from ..ops import precision as prec
-from ..ops.precision import dot3, rowsum3
 from .bamp import DecodeResult, _allclose_rows, _freeze, check_use_pallas
 
 _VR_MIN = 1e-5          # `vamp.py:51-52`
@@ -230,13 +233,15 @@ def plain_loop(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
 
 
 def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
-                    s: VAMPState, sigma2: float, cap: int,
-                    cfg: Config) -> VAMPState:
+                    s: VAMPState, sigma2: float, cap: int, cfg: Config,
+                    precision: str = "high") -> VAMPState:
     """The plain loop at ``precision='high'``: the JAX kernel's iteration
     (``fused_vamp.py:124-200``) step by step, with the Gauss combinations
     of :func:`gauss_taps`, ``dot3`` on each real product and ``rowsum3``
     for the two row sums the kernel writes as products with ones
-    (``var_lmmse``, ``dxdr``); the rest as :func:`plain_loop`."""
+    (``var_lmmse``, ``dxdr``); the rest as :func:`plain_loop`.  At
+    ``precision='default'`` the same with ``dot1`` and ``rowsum1``."""
+    dot, rowsum = prec.DOTS[precision]
     global plain_decodes
     plain_decodes += 1
     noise_var = float(np.float32(sigma2))
@@ -250,13 +255,13 @@ def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     while s.t < cap and bool(s.active.any()):
         var_ratio = noise_var / s.sigma2_tilde                   # (B, 1)
         a, b = s.r_tilde.real, s.r_tilde.imag
-        k1, k2, k3 = dot3(a + b, T0), dot3(a, T1), dot3(b, T2)
+        k1, k2, k3 = dot(a + b, T0), dot(a, T1), dot(b, T2)
         q_re, q_im = k1 - k3, k1 + k2                            # (B, p)
         scale = 1.0 / (s2 + var_ratio)
         w_re = scale * (y_re + var_ratio * q_re) - q_re
         w_im = scale * (y_im + var_ratio * q_im) - q_im
-        var_lmmse = rowsum3(scale) / p * noise_var
-        k1, k2, k3 = dot3(w_re + w_im, T3), dot3(w_re, T4), dot3(w_im, T5)
+        var_lmmse = rowsum(scale) / p * noise_var
+        k1, k2, k3 = dot(w_re + w_im, T3), dot(w_re, T4), dot(w_im, T5)
         xt_re, xt_im = k1 - k3 + a, k1 + k2 + b                  # (B, N)
         x_tilde_var = eta * var_lmmse + (1.0 - eta) * s.sigma2_tilde
 
@@ -267,7 +272,7 @@ def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
                                _VAR_MIN, _VAR_MAX)
 
         xmmse, var = denoiser(r, sig2_den)
-        dxdr = torch.clamp(rowsum3(var) / N / sig2_den, _VR_MIN, _VR_MAX)
+        dxdr = torch.clamp(rowsum(var) / N / sig2_den, _VR_MIN, _VR_MAX)
         norm = 1.0 / (1.0 - dxdr)
         r_tilde = (xmmse - dxdr * r) * norm
         sigma2_tilde = torch.clamp(sig2_den * dxdr * norm, _VAR_MIN,
@@ -284,6 +289,13 @@ def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
             T=torch.where(s.active, torch.full_like(s.T, s.t + 1), s.T),
             t=s.t + 1)
     return s
+
+
+def plain_loop_default(Vh, s2, y_tilde, s: VAMPState, sigma2: float,
+                       cap: int, cfg: Config) -> VAMPState:
+    """The plain version of K3's DEFAULT form: :func:`plain_loop_high` at
+    ``'default'``."""
+    return plain_loop_high(Vh, s2, y_tilde, s, sigma2, cap, cfg, "default")
 
 
 def kernel_route(cfg: Config, covered: bool, use_pallas="auto") -> bool:
@@ -315,7 +327,8 @@ def decode(dec: SVD, y: torch.Tensor, sigma2, cfg: Config, *,
         cfg: system config.
         state0 / iter_cap / return_state: resumable decoding, as in
             :func:`.bamp.decode`.
-        precision: 'highest' (default) or 'high' (module docstring).
+        precision: 'highest' (default), 'high' or 'default' (module
+            docstring).
         use_pallas: 'auto' (default), True or False (:func:`kernel_route`).
 
     A config the kernel covers (complex segmented/sparc alphabets) goes

@@ -22,7 +22,8 @@ and ``use_pallas=False``, runs the plain PyTorch loop on either device.
 three-pass bf16 products and decodes through the kernel's HIGH form, whose
 plain version is :func:`plain_loop_high`; the plain loop at HIGH is JAX's
 XLA body at HIGH (`vamp2.py:166-167` there), its two products through
-``ops/precision.py::matmul``, as in :mod:`.vamp`.
+``ops/precision.py::matmul``, as in :mod:`.vamp`.  ``precision='default'``
+is the same with the one-pass product (:func:`plain_loop_default`).
 """
 from __future__ import annotations
 
@@ -35,7 +36,6 @@ import torch
 from ..config import Config
 from ..ops import denoise
 from ..ops import precision as prec
-from ..ops.precision import dot3, rowsum3
 from .bamp import DecodeResult, _allclose_rows, _freeze
 from .vamp import SVD, gauss_taps, kernel_route
 
@@ -145,13 +145,15 @@ def plain_loop(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
 
 
 def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
-                    s: VAMP2State, sigma2: float, cap: int,
-                    cfg: Config) -> VAMP2State:
+                    s: VAMP2State, sigma2: float, cap: int, cfg: Config,
+                    precision: str = "high") -> VAMP2State:
     """The plain loop at ``precision='high'``: the JAX kernel's iteration
     (``fused_vamp2.py:61-124``) step by step, with the Gauss combinations of
     ``vamp.gauss_taps``, ``dot3`` on each real product and ``rowsum3`` for
     ``alpha`` and ``d_mean``, which the kernel writes as products with
-    ones; the rest as :func:`plain_loop`."""
+    ones; the rest as :func:`plain_loop`.  At ``precision='default'`` the
+    same with ``dot1`` and ``rowsum1``."""
+    dot, rowsum = prec.DOTS[precision]
     global plain_decodes
     plain_decodes += 1
     noise_var = float(np.float32(sigma2))
@@ -166,23 +168,23 @@ def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     while s.t < cap and bool(s.active.any()):
         xmmse_new, var = denoiser(s.r, s.gamma)
         xmmse = rho * xmmse_new + (1.0 - rho) * s.xmmse
-        alpha = rowsum3(var) / N * s.gamma                        # (B, 1)
+        alpha = rowsum(var) / N * s.gamma                        # (B, 1)
 
         r_tilde = denoise.div_real(xmmse - alpha * s.r, 1.0 - alpha)
         gamma_tilde = torch.clamp(s.gamma * (1.0 - alpha) / alpha,
                                   _VAR_MIN, _VAR_MAX)
 
         d = s2 / (s2 + noise_var * gamma_tilde)                   # (B, p)
-        d_mean = rowsum3(d) / p
+        d_mean = rowsum(d) / p
         gamma_new = gamma_tilde * d_mean / (eta - d_mean)
         gamma = rho * gamma_new + (1.0 - rho) * s.gamma
 
         a, b = r_tilde.real, r_tilde.imag
-        k1, k2, k3 = dot3(a + b, T0), dot3(a, T1), dot3(b, T2)
+        k1, k2, k3 = dot(a + b, T0), dot(a, T1), dot(b, T2)
         scale = d / d_mean
         w_re = scale * (y_re - (k1 - k3))
         w_im = scale * (y_im - (k1 + k2))
-        k1, k2, k3 = dot3(w_re + w_im, T3), dot3(w_re, T4), dot3(w_im, T5)
+        k1, k2, k3 = dot(w_re + w_im, T3), dot(w_re, T4), dot(w_im, T5)
         r = torch.complex(a + eta * (k1 - k3), b + eta * (k1 + k2))
 
         converged = _allclose_rows(var, s.var)
@@ -195,6 +197,13 @@ def plain_loop_high(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
             T=torch.where(s.active, torch.full_like(s.T, s.t + 1), s.T),
             t=s.t + 1)
     return s
+
+
+def plain_loop_default(Vh, s2, y_tilde, s: VAMP2State, sigma2: float,
+                       cap: int, cfg: Config) -> VAMP2State:
+    """The plain version of K4's DEFAULT form: :func:`plain_loop_high` at
+    ``'default'``."""
+    return plain_loop_high(Vh, s2, y_tilde, s, sigma2, cap, cfg, "default")
 
 
 def decode(dec: SVD, y: torch.Tensor, sigma2, cfg: Config, *,

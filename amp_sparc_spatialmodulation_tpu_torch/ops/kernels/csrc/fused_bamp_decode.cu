@@ -137,6 +137,14 @@
 // 35% of the time at either flagship), the products' other instructions,
 // and the denoiser (about 30%).  The HIGHEST
 // instance (kHigh false) is the code above, unchanged.
+//
+// The DEFAULT form (kOne; precision='default', the JAX kernel with
+// make_dot(Precision.DEFAULT), one bf16 pass, fused_bamp.py:58-59 and
+// 81-93 there) is the HIGH form with one pass: each product issues only
+// the hi hi mma, on the same tap fragments and split operands (the lo
+// halves are written as in HIGH but neither loaded nor multiplied), so its
+// block, carve-out and threads are the HIGH form's; its plain version is
+// bamp.plain_loop_default.
 
 #include <cuda_bf16.h>
 
@@ -437,7 +445,9 @@ __device__ __forceinline__ int high_parts(int mtiles, int warps, int NT) {
 // hi lo, the lo hi: each accumulator's sums run in the order of one tile
 // at a time.  The step does nothing else: every address is set up once
 // per unit and product.
-template <class Operand, class Epi>
+// kOne: the DEFAULT form's single pass, out[nt][e] = A_hi B_hi (the hi lo
+// and lo hi mma and their B words left out).
+template <bool kOne, class Operand, class Epi>
 __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
                                           int mtiles, int ks, int nq,
                                           Operand operand, int lo, int ld,
@@ -465,7 +475,10 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
         for (int e = 0; e < 4; ++e) hh[nt][e] = cx[nt][e] = 0.f;
       for (int k = 0; k < ks; ++k, ap += 64, b += 16) {
         uint4 f[2];
-        tap_load(f, ap);
+        if (kOne)
+          f[0] = f[1] = __ldg(ap);  // the hi half only (f[1] unused)
+        else
+          tap_load(f, ap);
         const unsigned ah[4] = {f[0].x, f[0].y, f[0].z, f[0].w};
         const unsigned al[4] = {f[1].x, f[1].y, f[1].z, f[1].w};
         unsigned bf[kMaxNT][4];
@@ -475,23 +488,30 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
             const __nv_bfloat16* r = b + boff[nt];
             bf[nt][0] = *reinterpret_cast<const unsigned*>(r);
             bf[nt][1] = *reinterpret_cast<const unsigned*>(r + 8);
-            bf[nt][2] = *reinterpret_cast<const unsigned*>(r + lo);
-            bf[nt][3] = *reinterpret_cast<const unsigned*>(r + lo + 8);
+            if (!kOne) {
+              bf[nt][2] = *reinterpret_cast<const unsigned*>(r + lo);
+              bf[nt][3] = *reinterpret_cast<const unsigned*>(r + lo + 8);
+            }
           }
 #pragma unroll
         for (int nt = 0; nt < kMaxNT; ++nt)
           if (nt >= n0 && nt < n1) mma_bf16(hh[nt], ah, bf[nt][0], bf[nt][1]);
+        if (!kOne) {
 #pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
+          for (int nt = 0; nt < kMaxNT; ++nt)
+            if (nt >= n0 && nt < n1)
+              mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
 #pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
+          for (int nt = 0; nt < kMaxNT; ++nt)
+            if (nt >= n0 && nt < n1)
+              mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
+        }
       }
+      if (!kOne)
 #pragma unroll
-      for (int nt = 0; nt < kMaxNT; ++nt)
+        for (int nt = 0; nt < kMaxNT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) hh[nt][e] = hh[nt][e] + cx[nt][e];
+          for (int e = 0; e < 4; ++e) hh[nt][e] = hh[nt][e] + cx[nt][e];
       epi(mt, q, n0, n1, hh);
     }
   }
@@ -501,7 +521,8 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
 // stack along the rows): P[c, l, m] for every column block c whose tap l
 // places a block: Pv = dot3(var, S_a2), Pr = k1 (- k3), Pi = k1 + k2, k1
 // parked in Pr's slot until the last product.  The gains, where not
-// folded, multiply in the fold.
+// folded, multiply in the fold.  kOne: the DEFAULT form's single pass.
+template <bool kOne>
 __device__ __forceinline__ void forward_high(
     const Params& p, const Split& xs, int kx, int kz, bool real_x, float* Pv,
     float* Pr, float* Pi, int NrP) {
@@ -515,7 +536,7 @@ __device__ __forceinline__ void forward_high(
   auto operand = [&](int q) {
     return xs.at(q == 0 ? 0 : q == 1 ? o1 : q == 2 ? 1 : 3, 0);
   };
-  high_pass(
+  high_pass<kOne>(
       p.taps, plane, mtiles, ks, real_x ? 3 : 4, operand, xs.plane, xs.ld,
       p.Lin, NT,
       [&](int mt, int q, int n0, int n1, const float (&v)[kMaxNT][4]) {
@@ -626,7 +647,9 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
 // The adjoint products of the HIGH form (x element k along the rows): cov
 // = 1 / dot3(Zc, S_a2^T), adj = (k1 - k3) + i (k1 + k2) on A + B, A, B,
 // xmap = xmmse + cov adj (its imaginary part to xmap_g, stride 2); k1
-// parked in xmap_re until the last product.
+// parked in xmap_re until the last product.  kOne: the DEFAULT form's
+// single pass.
+template <bool kOne>
 __device__ __forceinline__ void adjoint_high(
     const Params& p, const Split& zs, int kx, int kz, bool real_x,
     const float* xm_re, const float* xm_im, float* xmap_re, float* xmap_g,
@@ -635,7 +658,7 @@ __device__ __forceinline__ void adjoint_high(
   const int mtiles = kx / 16, ks = kz / 16, NT = (p.Lin + 7) / 8;
   const size_t plane = static_cast<size_t>(mtiles) * ks * 64;
   auto operand = [&](int q) { return zs.at(q, 0); };
-  high_pass(
+  high_pass<kOne>(
       p.taps + 4 * plane, plane, mtiles, ks, 4, operand, zs.plane, zs.ld,
       p.Lin, NT,
       [&](int mt, int q, int n0, int n1, const float (&v)[kMaxNT][4]) {
@@ -858,7 +881,7 @@ __device__ __forceinline__ int mixture_posterior(
   return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
 }
 
-template <bool kHigh, int kBlock, int kMinBlocks>
+template <bool kHigh, bool kOne, int kBlock, int kMinBlocks>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     bamp_decode_kernel(Params p) {
   const int b = blockIdx.x;
@@ -951,12 +974,12 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   for (int it = 0; it < p.cap; ++it) {
     if (kHigh) {
       // ---- the HIGH form's linear half: products on the tensor cores ---
-      forward_high(p, xs, kx, kz, real_x, Zc, Zr, Zi, NrP);
+      forward_high<kOne>(p, xs, kx, kz, real_x, Zc, Zr, Zi, NrP);
       __syncthreads();
       fold_high(p, zs, kz, Zc, Zr, Zi, NrP, y_re, y_im, z_re, z_im, u);
       __syncthreads();
-      adjoint_high(p, zs, kx, kz, real_x, xm_re, xm_im, xmap_re, xmap_g,
-                   cov);
+      adjoint_high<kOne>(p, zs, kx, kz, real_x, xm_re, xm_im, xmap_re,
+                         xmap_g, cov);
       __syncthreads();
     } else {
     // ---- forward products: thread per (kFR source blocks, tap column) ---
@@ -1086,8 +1109,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 extern "C" {
 
 // Launch the decode of B trials on `stream` with `smem` bytes of dynamic
-// shared memory per block; high: the HIGH form, on the tap fragments
-// `taps` (folded: the gains are in them).  Returns a cudaError_t code (0 on success): the
+// shared memory per block; high: 0 the HIGHEST form, 1 the HIGH form, 2
+// the DEFAULT form, the last two on the tap fragments `taps` (folded: the
+// gains are in them) with `threads` threads a block.  Returns a cudaError_t code (0 on success): the
 // attribute call's, or cudaGetLastError() after the launch.  The kernel
 // allocates nothing; every buffer is the caller's.
 int fused_bamp_decode(
@@ -1144,15 +1168,19 @@ int fused_bamp_decode(
   p.cap = cap;
   p.taps = static_cast<const uint4*>(taps);
   p.folded = folded;
-  if (high && (taps == nullptr || Lin > 8 * kMaxNT))
+  if (high < 0 || high > 2 ||
+      (high && (taps == nullptr || Lin > 8 * kMaxNT)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = bamp_decode_kernel<false, kThreads, 3>;
+  auto kernel = bamp_decode_kernel<false, false, kThreads, 3>;
+  const bool one = high == 2;
   if (!high)
     threads = kThreads;
   else if (threads == kHighThreads1)
-    kernel = bamp_decode_kernel<true, kHighThreads1, 1>;
+    kernel = one ? bamp_decode_kernel<true, true, kHighThreads1, 1>
+                 : bamp_decode_kernel<true, false, kHighThreads1, 1>;
   else if (threads == kHighThreads2)
-    kernel = bamp_decode_kernel<true, kHighThreads2, 2>;
+    kernel = one ? bamp_decode_kernel<true, true, kHighThreads2, 2>
+                 : bamp_decode_kernel<true, false, kHighThreads2, 2>;
   else
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(

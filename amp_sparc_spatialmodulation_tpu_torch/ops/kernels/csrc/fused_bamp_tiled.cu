@@ -160,6 +160,13 @@
 //
 // The HIGHEST instance (the product_kernel above and the fold's kHigh
 // false instance) is unchanged.
+//
+// The DEFAULT form (precision='default', make_dot(DEFAULT): one bf16 pass)
+// is the HIGH form's launches, layout and taps with the kOne instance of
+// high_product_kernel, whose k16 step issues only the hi hi mma (from zero,
+// then the FP32 add); the split launch, the fold and the denoiser write the
+// lo halves as in HIGH, which the copies bring and no mma reads.  Its plain
+// version is one bamp.step with bamp.linear_step_high on precision.dot1.
 
 #include <cuda_bf16.h>
 
@@ -779,7 +786,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
 // Thread 0 issues the copies of the slot S - 1 ahead after each slot's
 // barrier; one pipeline runs over every (product, slot) of the block, so
 // the next product's copies are in flight during an epilogue.
-template <bool kFwd, class F>
+template <bool kFwd, class F, bool kOne>
 __global__ void __launch_bounds__(F::kNT, F::MIN)
     high_product_kernel(Params p) {
   constexpr int BM = F::BM, BN = F::BN, MT = F::MT, NT = F::NT, S = F::S;
@@ -1018,7 +1025,7 @@ __global__ void __launch_bounds__(F::kNT, F::MIN)
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         ldmatrix_x4(ah[i], sa + a_hi[i]);
-        ldmatrix_x4(al[i], sa + a_lo[i]);
+        if (!kOne) ldmatrix_x4(al[i], sa + a_lo[i]);
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) ldmatrix_x4(b[j], sb + b_at[j]);
@@ -1030,8 +1037,10 @@ __global__ void __launch_bounds__(F::kNT, F::MIN)
           // the header: the tensor cores truncate as they accumulate)
           float th[4];
           mma_bf16_zero(th, ah[i], b[j][0], b[j][1]);
-          mma_bf16(th, ah[i], b[j][2], b[j][3]);
-          mma_bf16(th, al[i], b[j][0], b[j][1]);
+          if (!kOne) {
+            mma_bf16(th, ah[i], b[j][2], b[j][3]);
+            mma_bf16(th, al[i], b[j][0], b[j][1]);
+          }
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = acc[i][j][e] + th[e];
         }
@@ -1316,10 +1325,17 @@ cudaError_t launch_form(const Params& p, cudaStream_t s) {
       product_kernel<kFwd, F>, p, s);
 }
 
-template <bool kFwd, class F>
+template <bool kFwd, class F, bool kOne = false>
 cudaError_t launch_high(const Params& p, cudaStream_t s) {
   return launch_tiles<kFwd, F::BM, F::BN, F::kNT, F::smem(kFwd)>(
-      high_product_kernel<kFwd, F>, p, s);
+      high_product_kernel<kFwd, F, kOne>, p, s);
+}
+
+// The HIGH (one false) or the DEFAULT (one) form's product kernel.
+template <bool kFwd, class F>
+cudaError_t launch_bf16(const Params& p, cudaStream_t s, bool one) {
+  return one ? launch_high<kFwd, F, true>(p, s)
+             : launch_high<kFwd, F, false>(p, s);
 }
 
 }  // namespace
@@ -1332,14 +1348,16 @@ extern "C" {
 // previous call split x and var), in order, each product in its large form
 // or, where its bit of `forms` is set (1 forward, 2 adjoint), its small
 // form.  Wp is the row stride of the six scratch planes (B Lin, Wp): at
-// least Lh Nr and a multiple of 4.  With `high` the HIGH form runs (split,
+// least Lh Nr and a multiple of 4.  With `high` 1 the HIGH form runs (split,
 // products and fold) on the split Gauss taps `taps_high` and the split
 // operand planes `xs_high` (2 rtiles 2 ceil(Nt / 32) kHRows 32 bf16) and
 // `zs_high` (4 rtiles 2 ceil(Lh Nr / 32) kHRows 32 bf16), all 16-byte
 // aligned (Params), and h_re .. gains2 and the scratch planes Z_c .. Z_im
 // are not read; where `xs_next` (the size of xs_high) is not null, the
 // denoiser also writes the new x and var split into it, so that the next
-// call on them may leave out its split (stage bit 16).  Returns a cudaError_t code (0 on
+// call on them may leave out its split (stage bit 16).  With `high` 2 the
+// DEFAULT form runs: the same, with one bf16 pass in each product.
+// Returns a cudaError_t code (0 on
 // success): cudaErrorInvalidValue for a geometry the kernel does not take,
 // else the first error that a launch reports.  The kernel allocates
 // nothing; every buffer, the scratch included, is the caller's.
@@ -1359,6 +1377,7 @@ int fused_bamp_tiled_iteration(
       Nt % M != 0 || K < 1 || K > kMaxK || Wp < Lh * Nr || Wp % 4 != 0 ||
       static_cast<long long>(B) * Lin >= (1ll << 31) ||
       static_cast<long long>(B) * (Lin + Lh - 1) * Nr >= (1ll << 31) ||
+      high < 0 || high > 2 ||
       (high && (taps_high == nullptr || xs_high == nullptr ||
                 zs_high == nullptr ||
                 (reinterpret_cast<uintptr_t>(taps_high) |
@@ -1423,6 +1442,7 @@ int fused_bamp_tiled_iteration(
   p.sigma2 = sigma2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
+  const bool one = high == 2;
   if (high && (stages & kStageSplit)) {
     const long long n = 2LL * p.rtiles * p.kxs * kHRows;
     split_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
@@ -1432,8 +1452,8 @@ int fused_bamp_tiled_iteration(
   }
   if (stages & kStageForward) {
     if (high)
-      err = forms & kSmallForward ? launch_high<true, HighSmall>(p, s)
-                                  : launch_high<true, HighLarge>(p, s);
+      err = forms & kSmallForward ? launch_bf16<true, HighSmall>(p, s, one)
+                                  : launch_bf16<true, HighLarge>(p, s, one);
     else
       err = forms & kSmallForward ? launch_form<true, SmallForm>(p, s)
                                   : launch_form<true, LargeForm>(p, s);
@@ -1453,8 +1473,8 @@ int fused_bamp_tiled_iteration(
   }
   if (stages & kStageAdjoint) {
     if (high)
-      err = forms & kSmallAdjoint ? launch_high<false, HighSmall>(p, s)
-                                  : launch_high<false, HighLarge>(p, s);
+      err = forms & kSmallAdjoint ? launch_bf16<false, HighSmall>(p, s, one)
+                                  : launch_bf16<false, HighLarge>(p, s, one);
     else
       err = forms & kSmallAdjoint ? launch_form<false, SmallForm>(p, s)
                                   : launch_form<false, LargeForm>(p, s);

@@ -46,6 +46,11 @@
 // split (no FP32 w), into the wrapper's scratch xs, one region per block.
 // The HIGHEST instance (kHigh false) is the code above, unchanged.
 //
+// The DEFAULT form (kOne; precision='default', make_dot(Precision.DEFAULT),
+// one bf16 pass) is the HIGH form's code with product_x3's one pass and
+// alpha and d_mean as sum(hi) (warp_rowsum1); its plain version is
+// vamp2.plain_loop_default.
+//
 // Layouts: r, xmmse (B, N) complex64, var (B, N), gamma (B, 1), y_tilde
 // (B, p) complex64; Vh (p, N) complex64, s^2 (p,); the scratch w (B, p)
 // complex64.  Built with -fmad=false: every FMA is explicit.
@@ -86,7 +91,7 @@ struct Params {
   __nv_bfloat16* xs;
 };
 
-template <bool kHigh>
+template <bool kHigh, bool kOne>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     vamp2_decode_kernel(Params P) {
   const int tid = threadIdx.x;
@@ -167,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const float gamma = s_gamma[m];
       auto get = [&](int j) { return vm[j]; };
       const float alpha =
-          (kHigh ? warp_rowsum3(N, P.vec4_N, get) * P.inv_N
+          (kHigh ? warp_rowsum<kOne>(N, P.vec4_N, get) * P.inv_N
                  : warp_torch_mean(N, P.vec4_N, P.inv_N, get)) *
           gamma;
       const float gt = clampf(gamma * (1.f - alpha) / alpha, kVarMin, kVarMax);
@@ -175,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const float sk = __ldg(s2 + k);
         return sk / (sk + P.sigma2 * gt);
       };
-      const float dm = kHigh ? warp_rowsum3(p, P.vec4_p, d) * P.inv_p
+      const float dm = kHigh ? warp_rowsum<kOne>(p, P.vec4_p, d) * P.inv_p
                              : warp_torch_mean(p, P.vec4_p, P.inv_p, d);
       if (lane == 0) {
         s_alpha[m] = alpha;
@@ -225,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 4. w = (d / d_mean) (y_tilde - r_tilde Vh^T) ---------------------
     if constexpr (kHigh) {
-      product_x3(xsf, kf, tf, p, smx, ring,
+      product_x3<kOne>(xsf, kf, tf, p, smx, ring,
                  [&](int m, int k, float cr0, float ci0, float cr1,
                      float ci1) {
         if (m >= nrows || !s_act[m]) return;
@@ -265,7 +270,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 5. r = r_tilde + eta w conj(Vh) ----------------------------------
     if constexpr (kHigh) {
-      product_x3(xsb, kb, tb, N, smx, ring,
+      product_x3<kOne>(xsb, kb, tb, N, smx, ring,
                  [&](int m, int jc, float cr0, float ci0, float cr1,
                      float ci1) {
         if (m >= nrows || !s_act[m]) return;
@@ -318,7 +323,8 @@ extern "C" {
 
 // Launch the decode of B trials on `stream`, in the HIGHEST form (high ==
 // 0: FP32 on the CUDA cores, Vh read) or the HIGH form (high == 1: bf16 x
-// 3 on the tensor cores, the split tap tiles `taps` read, ldf and ldb the
+// 3 on the tensor cores; high == 2, the DEFAULT form: one bf16 pass; both
+// with the split tap tiles `taps` read, ldf and ldb the
 // forward's and the adjoint's padded k, xs the scratch of the blocks' split
 // operands: 6 kBt (ldf + ldb) bf16 for each of the ceil(B / kBt) blocks).  The state buffers are updated in
 // place (the caller passes copies).  Returns a cudaError_t code (0 on
@@ -334,7 +340,7 @@ int fused_vamp2_decode(void* r, void* gamma, void* var, void* xm, void* act,
                        int cap, int high, const void* taps, int ldf, int ldb,
                        void* xs, void* stream) {
   if (K < 1 || K > decode::kMaxK || M < 1 || N % M != 0 || B < 1 || p < 1 ||
-      (high != 0 && high != 1))
+      (high < 0 || high > 2))
     return static_cast<int>(cudaErrorInvalidValue);
   if (high && (taps == nullptr || xs == nullptr || ldf < N || ldf % 16 ||
                ldb < p || ldb % 16))
@@ -371,8 +377,9 @@ int fused_vamp2_decode(void* r, void* gamma, void* var, void* xm, void* act,
   P.ldb = ldb;
   P.xs = static_cast<__nv_bfloat16*>(xs);
   const dim3 grid((B + kBt - 1) / kBt);
-  const auto kernel = high ? vamp2_decode_kernel<true>
-                           : vamp2_decode_kernel<false>;
+  const auto kernel = high == 2   ? vamp2_decode_kernel<true, true>
+                      : high == 1 ? vamp2_decode_kernel<true, false>
+                                  : vamp2_decode_kernel<false, false>;
   const int smem = high ? kSmemBytesX3 : kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

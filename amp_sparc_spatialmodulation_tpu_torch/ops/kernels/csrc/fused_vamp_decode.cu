@@ -71,6 +71,11 @@
 // denoiser, which precision does not change, then take most of the time.
 // The HIGHEST instance (kHigh false) is the code above, unchanged.
 //
+// The DEFAULT form (kOne; precision='default', make_dot(Precision.DEFAULT),
+// one bf16 pass) is the HIGH form's code with product_x3's one pass and
+// the row sums as sum(hi) (warp_rowsum1); its plain version is
+// vamp.plain_loop_default.
+//
 // Layouts: every state plane is per-trial contiguous, complex values
 // interleaved (PyTorch complex64): r_tilde, r, xmmse (B, N), var (B, N),
 // sigma2_tilde (B, 1), y_tilde (B, p); Vh (C, p, N) complex64, s^2 (C, p);
@@ -117,7 +122,7 @@ struct Params {
   __nv_bfloat16* xs;
 };
 
-template <bool kHigh>
+template <bool kHigh, bool kOne>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     vamp_decode_kernel(Params P) {
   const int tid = threadIdx.x;
@@ -177,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       auto scale = [&](int k) { return 1.f / (__ldg(s2 + k) + vr); };
       float mean;
       if constexpr (kHigh)
-        mean = warp_rowsum3(p, P.vec4_p, scale) * P.inv_p;
+        mean = warp_rowsum<kOne>(p, P.vec4_p, scale) * P.inv_p;
       else
         mean = warp_torch_mean(p, P.vec4_p, P.inv_p, scale);
       if (lane == 0) {
@@ -193,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 1. q = r_tilde Vh^T, w = scale (y_tilde + vr q) - q ------------
     if constexpr (kHigh) {
-      product_x3(xsf, kf, tf, p, smx, ring,
+      product_x3<kOne>(xsf, kf, tf, p, smx, ring,
                  [&](int m, int k, float cr0, float ci0, float cr1,
                      float ci1) {
         if (m >= nrows || !s_act[m]) return;
@@ -235,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // ---- 2. x_tilde = w conj(Vh) + r_tilde, r = (x_tilde - a r_tilde)/(1-a)
     if constexpr (kHigh) {
-      product_x3(xsb, kb, tb, N, smx, ring,
+      product_x3<kOne>(xsb, kb, tb, N, smx, ring,
                  [&](int m, int jc, float cr0, float ci0, float cr1,
                      float ci1) {
         if (m >= nrows || !s_act[m]) return;
@@ -296,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       auto get = [&](int j) { return vm[j]; };
       float mean;
       if constexpr (kHigh)
-        mean = warp_rowsum3(N, P.vec4_N, get) * P.inv_N;
+        mean = warp_rowsum<kOne>(N, P.vec4_N, get) * P.inv_N;
       else
         mean = warp_torch_mean(N, P.vec4_N, P.inv_N, get);
       if (lane == 0) {
@@ -363,7 +368,8 @@ extern "C" {
 
 // Launch the decode of C * B_per trials on C stacked factors on `stream`,
 // in the HIGHEST form (high == 0: FP32 on the CUDA cores, Vh read) or the
-// HIGH form (high == 1: bf16 x 3 on the tensor cores, the split tap tiles
+// HIGH form (high == 1: bf16 x 3 on the tensor cores; high == 2, the
+// DEFAULT form: one bf16 pass; both with the split tap tiles
 // `taps` read, tap_c values per factor, ldf and ldb the forward's and the
 // adjoint's padded k, xs the scratch of the blocks' split operands: 6 kBt
 // (ldf + ldb) bf16 for each of the C ceil(B_per / kBt) blocks).  The state buffers are updated in place (the caller
@@ -380,7 +386,7 @@ int fused_vamp_decode(void* rt, void* s2t, void* r, void* var, void* xm,
                       int cap, int high, const void* taps, long long tap_c,
                       int ldf, int ldb, void* xs, void* stream) {
   if (K < 1 || K > decode::kMaxK || M < 1 || N % M != 0 || C < 1 ||
-      C > 65535 || B_per < 1 || p < 1 || (high != 0 && high != 1))
+      C > 65535 || B_per < 1 || p < 1 || (high < 0 || high > 2))
     return static_cast<int>(cudaErrorInvalidValue);
   if (high && (taps == nullptr || xs == nullptr || ldf < N || ldf % 16 ||
                ldb < p || ldb % 16 ||
@@ -420,8 +426,9 @@ int fused_vamp_decode(void* rt, void* s2t, void* r, void* var, void* xm,
   P.ldb = ldb;
   P.xs = static_cast<__nv_bfloat16*>(xs);
   const dim3 grid((B_per + kBt - 1) / kBt, C);
-  const auto kernel = high ? vamp_decode_kernel<true>
-                           : vamp_decode_kernel<false>;
+  const auto kernel = high == 2   ? vamp_decode_kernel<true, true>
+                      : high == 1 ? vamp_decode_kernel<true, false>
+                                  : vamp_decode_kernel<false, false>;
   const int smem = high ? kSmemBytesX3 : kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

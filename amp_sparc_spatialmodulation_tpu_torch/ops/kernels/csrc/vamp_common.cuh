@@ -566,8 +566,11 @@ __device__ __forceinline__ int x3_col(int n0, int j, int e) {
 // epi(m, n, cr0, ci0, cr1, ci1); n + 1 may be ncols.  The trials of xs the
 // launch did not write give outputs the caller drops.  xs may have been
 // written earlier in this launch by this block; the taps are read-only.
-// ring counts the steps served (init_ring).
-template <class Epi>
+// ring counts the steps served (init_ring).  kOne: the DEFAULT form's one
+// pass, k_g = hi.hi (the lo halves come with the copies, as in HIGH, but
+// are neither loaded into fragments nor multiplied), each k16 step's mma
+// from zero and added in FP32 as the HIGH form's hi.hi.
+template <bool kOne = false, class Epi>
 __device__ __forceinline__ void product_x3(
     const __nv_bfloat16* xs, int ksteps,
     const __nv_bfloat16* __restrict__ taps, int ncols, SmemX3& sm, int& ring,
@@ -637,12 +640,12 @@ __device__ __forceinline__ void product_x3(
         const StageX3& st = sm.st[slot];
         unsigned ah[4], al[4];
         ldmatrix_x4(ah, st.a + a_hi);
-        ldmatrix_x4(al, st.a + a_lo);
+        if (!kOne) ldmatrix_x4(al, st.a + a_lo);
 #pragma unroll
         for (int q = 0; q < kNB3 / 2; ++q) {
           unsigned bh[4], bl[4];
           ldmatrix_x4(bh, st.b + b_hi + q * 16 * 2 * kBK);
-          ldmatrix_x4(bl, st.b + b_lo + q * 16 * 2 * kBK);
+          if (!kOne) ldmatrix_x4(bl, st.b + b_lo + q * 16 * 2 * kBK);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int j = 2 * q + h;
@@ -650,8 +653,10 @@ __device__ __forceinline__ void product_x3(
             // tensor cores truncate as they add into an accumulator
             float th[4] = {0.f, 0.f, 0.f, 0.f};
             mma_bf16(th, ah, bh[2 * h], bh[2 * h + 1]);
-            mma_bf16(cx[j], ah, bl[2 * h], bl[2 * h + 1]);
-            mma_bf16(cx[j], al, bh[2 * h], bh[2 * h + 1]);
+            if (!kOne) {
+              mma_bf16(cx[j], ah, bl[2 * h], bl[2 * h + 1]);
+              mma_bf16(cx[j], al, bh[2 * h], bh[2 * h + 1]);
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) hh[j][e] = hh[j][e] + th[e];
           }
@@ -663,7 +668,7 @@ __device__ __forceinline__ void product_x3(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * j + e;
-          const float k = hh[j][e] + cx[j][e];
+          const float k = kOne ? hh[j][e] : hh[j][e] + cx[j][e];
           if (g == 0) {
             sm.park[0][i][tid] = k;
           } else if (g == 1) {
@@ -702,6 +707,25 @@ __device__ __forceinline__ float warp_rowsum3(int n, bool vec4, Get get) {
         __float2bfloat16_rn(x - __bfloat162float(__float2bfloat16_rn(x))));
   });
   return s_hi + s_lo;
+}
+
+// The row sum the DEFAULT kernels write as a product with ones (JAX's
+// dot(x, ones) under one bf16 pass): sum(hi), in PyTorch's CUDA reduction
+// order (as precision.rowsum1 forms it), by a whole warp.
+template <class Get>
+__device__ __forceinline__ float warp_rowsum1(int n, bool vec4, Get get) {
+  return warp_torch_sum(n, vec4, [&](int k) {
+    return __bfloat162float(__float2bfloat16_rn(get(k)));
+  });
+}
+
+// The row sum of the HIGH (kOne false) or the DEFAULT (kOne) form.
+template <bool kOne, class Get>
+__device__ __forceinline__ float warp_rowsum(int n, bool vec4, Get get) {
+  if constexpr (kOne)
+    return warp_rowsum1(n, vec4, get);
+  else
+    return warp_rowsum3(n, vec4, get);
 }
 
 // Ask for the 128-byte lines of n values at p in L1, without waiting.

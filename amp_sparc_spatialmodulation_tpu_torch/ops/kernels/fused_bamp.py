@@ -16,7 +16,8 @@ column blocks.
   the ported ``BandedOperator``, ``segmented_posterior`` and the
   ``bamp.decode`` loop.
 * ``launches`` counts kernel launches of the HIGHEST form,
-  ``launches_high`` those of the HIGH form.
+  ``launches_high`` those of the HIGH form, ``launches_default`` those of
+  the DEFAULT form.
 
 Both take ``precision``: ``'highest'`` (the default; FP32 products on the
 CUDA cores, bit for bit the plain version's) or ``'high'``, the JAX
@@ -28,7 +29,12 @@ in the kernel (the ``kHigh`` instance of the same source) and as
 The HIGH kernel reads the eight Gauss tap planes split into bf16 hi and lo
 and laid out as mma fragments (:func:`high_taps`, cached per operator),
 and splits its x-side operands once, in shared memory, by the passes that
-write them.
+write them.  ``'default'`` is ``make_dot(Precision.DEFAULT)``, the one-pass
+bf16 product: the ``kOne`` instance of the HIGH form, which issues only
+the hi·hi ``mma`` of each product on the same tap fragments and split
+operands (so its block, fit and threads are the HIGH form's), with
+``bamp.plain_loop_default`` as its plain version
+(:func:`decode_plain_default`).
 
 Both take and return a :class:`..models.bamp.BAMPState` in the JAX
 layouts and are resumable: ``cap`` is the global iteration cap, and the
@@ -53,9 +59,13 @@ from ...models import bamp
 from .. import precision as prec
 from . import build
 
-# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form.
+# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form,
+# the DEFAULT form.
 launches = 0
 launches_high = 0
+launches_default = 0
+# The form code each launcher (K1, K3, K4, K5) takes for each precision.
+FORM = {prec.HIGHEST: 0, prec.HIGH: 1, prec.DEFAULT: 2}
 
 # Column blocks the HIGH form's products take (four n8 mma tiles).
 HIGH_MAX_LIN = 32
@@ -125,16 +135,19 @@ def smem_bytes(cfg: Config, precision: str = "highest") -> int:
     planes of (Lin, Lh, scratch_row) floats (the forward products, then
     the adjoint inputs), 4 x-side planes (5 for complex alphabets) and 5
     y-side planes of float32, carved in that order by the kernel; at
-    ``'high'`` then the split operands (:func:`high_split_elems`)."""
+    ``'high'`` and ``'default'`` then the split operands
+    (:func:`high_split_elems`: the DEFAULT form keeps the HIGH layout and
+    reads only its hi planes)."""
     fp32 = 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
                 + (4 if real_x(cfg) else 5) * cfg.N + 5 * cfg.n)
-    if prec.canonical(precision) == prec.HIGH:
+    if prec.canonical(precision) in prec.BF16:
         return fp32 + 2 * high_split_elems(cfg)
     return fp32
 
 
 def high_threads(cfg: Config) -> int:
-    """Threads of the HIGH form's block for ``cfg``: 8 warps where two
+    """Threads of the HIGH (and DEFAULT) form's block for ``cfg``: 8 warps
+    where two
     blocks share an SM's shared memory (each still runs 128 registers a
     thread), else 16 warps in the one block an SM holds (the same
     registers, twice the warps to hide the latency of the products, the
@@ -145,17 +158,20 @@ def high_threads(cfg: Config) -> int:
 
 def fits(cfg: Config, precision: str = "highest") -> bool:
     """True when one trial's planes fit a block's shared memory (and, at
-    ``'high'``, its column blocks the HIGH products' tiles)."""
+    ``'high'`` and ``'default'``, its column blocks the products' tiles)."""
     ok = smem_bytes(cfg, precision) <= SMEM_LIMIT
-    if prec.canonical(precision) == prec.HIGH:
+    if prec.canonical(precision) in prec.BF16:
         ok = ok and cfg.Lin <= HIGH_MAX_LIN
     return ok
 
 
 # The kernel's function in plain PyTorch (any device), with the wrapper's
-# signature: the HIGHEST form, the HIGH form.
+# signature: the HIGHEST form, the HIGH form, the DEFAULT form.
 decode_plain = bamp.plain_loop
 decode_plain_high = bamp.plain_loop_high
+decode_plain_default = bamp.plain_loop_default
+PLAIN = {prec.HIGHEST: decode_plain, prec.HIGH: decode_plain_high,
+         prec.DEFAULT: decode_plain_default}
 
 
 def mma_tiles(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -241,18 +257,18 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
                  precision: str = "highest") -> bamp.BAMPState:
     """The whole decode of ``y`` from state ``s0`` up to global iteration
     ``cap``: the CUDA kernel for a CUDA tensor, :func:`decode_plain` (at
-    ``'high'`` :func:`decode_plain_high`) for a CPU tensor.  The caller
+    ``'high'`` :func:`decode_plain_high`, at ``'default'``
+    :func:`decode_plain_default`) for a CPU tensor.  The caller
     has checked :func:`covers` and :func:`fits` at ``precision`` for
     ``cfg`` (``bamp.decode`` does); on the card the form asked for is the
     form that runs, or the call raises."""
     precision = prec.canonical(precision)
-    high = precision == prec.HIGH
+    high = precision in prec.BF16
     if y.device.type == "cpu":
-        return (decode_plain_high if high else decode_plain)(
-            op, s0, y, sigma2, cap, cfg)
+        return PLAIN[precision](op, s0, y, sigma2, cap, cfg)
     if y.device.type != "cuda":
         raise ValueError(f"no kernel for device {y.device}")
-    global launches, launches_high
+    global launches, launches_high, launches_default
     B = y.shape[0]
     N, n = cfg.N, cfg.n
     dev = y.device
@@ -301,13 +317,15 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
         cfg.M, cfg.K, 0 if cfg.mode in ("segmented", "sparc") else 1,
         int(real_x(cfg)), float(cfg.Ps), float(cfg.P0),
         float(np.float32(sigma2)), cap_rem, smem_bytes(cfg, precision),
-        int(high), taps.data_ptr() if high else None, int(folded),
+        FORM[precision], taps.data_ptr() if high else None, int(folded),
         high_threads(cfg) if high else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_bamp_decode launch failed: "
                            + lib.fused_bamp_error_string(rc).decode())
-    if high:
+    if precision == prec.DEFAULT:
+        launches_default += 1
+    elif high:
         launches_high += 1
     else:
         launches += 1

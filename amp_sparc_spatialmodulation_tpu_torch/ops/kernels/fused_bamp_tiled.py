@@ -24,7 +24,8 @@ forward product, for as long as the operator lives.
   the plane loop over it, which equals ``bamp.plain_loop``.
 * ``launches`` counts wrapper calls that launched the HIGHEST form (one
   per iteration, each of four kernel launches), ``launches_high`` those
-  that launched the HIGH form.
+  that launched the HIGH form, ``launches_default`` those that launched
+  the DEFAULT form.
 * :func:`stage_ms` times the four launches of one call apart (the entry
   point's stage mask; at ``'high'`` also the split launch), for
   chip_smoke.py and the probe scripts.
@@ -40,7 +41,12 @@ in one tiled layout (:func:`split_at`, :func:`split_tiles`): the taps from
 :func:`high_taps` (cached per operator), x and var from a split launch
 (``SPLIT_STAGE``) or, where a call gets the x and var that the previous
 call wrote (the plane loop's next iteration), from that call's denoiser,
-which splits them as it writes them (:func:`kept_split`).
+which splits them as it writes them (:func:`kept_split`).  ``'default'``
+is ``make_dot(Precision.DEFAULT)``, one bf16 pass per real product: the
+HIGH form's launches, layout and taps with the products' one pass (the lo
+halves are split and copied as in HIGH but not multiplied), and one
+``bamp.step`` with ``bamp.linear_step_high`` on ``precision.dot1`` as its
+plain version.
 
 Coverage (:func:`covers`): complex segmented/sparc configs with a real
 alphabet (the posterior mean stays real, so the x-side imaginary state is
@@ -63,12 +69,13 @@ from ...models import bamp
 from ...ops import operators
 from .. import precision as prec
 from . import build
-from .fused_bamp import _check, real_x, symbol_planes
+from .fused_bamp import FORM, _check, real_x, symbol_planes
 
 # Wrapper calls that launched the kernel (one per iteration): the HIGHEST
-# form, the HIGH form.
+# form, the HIGH form, the DEFAULT form.
 launches = 0
 launches_high = 0
+launches_default = 0
 
 # The kernel's two product forms (fused_bamp_tiled.cu), each taken by both
 # products: block rows, block columns, contraction steps per ring slot and
@@ -77,7 +84,7 @@ launches_high = 0
 # form's large one, which the form rule fills; and the SM count of the H100.
 FORMS = {"large": (64, 64, 16, 3), "small": (32, 16, 16, 3)}
 FORMS_HIGH = {"large": (128, 112, 3), "small": (32, 16, 3)}
-PER_SM = {prec.HIGHEST: 2, prec.HIGH: 1}
+PER_SM = {prec.HIGHEST: 2, prec.HIGH: 1, prec.DEFAULT: 1}
 SMS = 132
 # The HIGH form's split layout (split_at): rows of a trial-side tile, output
 # columns of a tap tile, contraction steps of a tile, and the multiple of
@@ -113,12 +120,14 @@ def gains_per_tap(op) -> bool:
 def iteration_plain(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
                     cfg: Config, precision: str = "highest") -> bamp.IterOut:
     """The kernel's function in plain PyTorch (any device): one
-    ``bamp.step``, at ``'high'`` with ``bamp.linear_step_high`` on
-    ``bamp.gauss_taps`` for a real x."""
+    ``bamp.step``, at ``'high'`` (``'default'``) with
+    ``bamp.linear_step_high`` on ``bamp.gauss_taps`` for a real x and
+    ``precision.dot3`` (``dot1``)."""
     linear = bamp.linear_step
-    if prec.canonical(precision) == prec.HIGH:
+    precision = prec.canonical(precision)
+    if precision in prec.BF16:
         linear = partial(bamp.linear_step_high, taps=bamp.gauss_taps(op),
-                         real_x=True)
+                         real_x=True, dot=prec.DOTS[precision][0])
     return bamp.step_planes(op, ps, y_re, y_im, sigma2,
                             bamp.make_denoiser(cfg, y_re.device), linear)
 
@@ -147,7 +156,7 @@ def tile_forms(B: int, Lin: int, W: int, Nt: int,
     H100 at once (two per SM; one per SM for the HIGH form at ``'high'``);
     it then runs in the small form."""
     precision = prec.canonical(precision)
-    table = FORMS_HIGH if precision == prec.HIGH else FORMS
+    table = FORMS_HIGH if precision in prec.BF16 else FORMS
     BM, BN = table["large"][:2]
     forms = 0
     for bit, cols in ((1, W), (2, Nt)):
@@ -166,7 +175,7 @@ def smem_bytes(forward: bool, small: bool, precision: str = "highest") -> int:
     the block tile; then an 8-byte mbarrier per slot and, for the adjoint,
     one for its last epilogue's copies."""
     form = "small" if small else "large"
-    if prec.canonical(precision) == prec.HIGH:
+    if prec.canonical(precision) in prec.BF16:
         BM, BN, S = FORMS_HIGH[form]
         ring = S * HIGH_SLOT_STEPS * 64 * (BM + BN)
         return ring + 2 * 4 * BM * BN + 8 * (S if forward else S + 1)
@@ -317,7 +326,7 @@ def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
     ``split``; the denoiser also splits the new x and var into
     ``split_next`` where it is given)."""
     B = ps.var.shape[0]
-    high = precision == prec.HIGH
+    high = precision in prec.BF16
     act = ps.active.to(torch.int32).contiguous()
     *taps, gains2 = _operator_planes(op)
     taps_high = high_taps(op) if high else None
@@ -336,7 +345,7 @@ def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
         op.gains.data_ptr(), gains2.data_ptr(), sym_re.data_ptr(),
         sym_im.data_ptr(), B, cfg.Nt, cfg.Nr, cfg.Lin, cfg.Lh, cfg.M, cfg.K,
         scratch_stride(cfg), tile_forms(B, cfg.Lin, W, cfg.Nt, precision),
-        stages, float(np.float32(sigma2)), int(high),
+        stages, float(np.float32(sigma2)), FORM[precision],
         *([t.data_ptr() for t in (taps_high, *split)] if high
           else [None] * 3),
         split_next.data_ptr() if high and split_next is not None else None,
@@ -405,7 +414,7 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
         return iteration_plain(op, ps, y_re, y_im, sigma2, cfg, precision)
     if y_re.device.type != "cuda":
         raise ValueError(f"no kernel for device {y_re.device}")
-    global launches, launches_high
+    global launches, launches_high, launches_default
     _check_call(op, ps, y_re, y_im, cfg)
     if ps.var.shape[0] == 0:
         return bamp.IterOut(ps.xmap_re, ps.xmap_im, ps.xm_re, ps.xm_im,
@@ -414,7 +423,7 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
                                         device=y_re.device))
     out, scratch, cov = _buffers(ps, cfg)
     stages, split, split_next = ALL_STAGES, None, None
-    if precision == prec.HIGH:
+    if precision in prec.BF16:
         # the forward's split operands: those the previous call's denoiser
         # wrote where this call gets its x and var unchanged (the plane
         # loop's next iteration), else the split launch's
@@ -425,9 +434,12 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
         split_next = torch.empty_like(split[0])
     _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, stages,
             precision, split, split_next)
-    if precision == prec.HIGH:
+    if precision in prec.BF16:
         out.xm_re._k5_high_split = (split_next, out.var, out.xm_re._version,
                                     out.var._version)
+    if precision == prec.DEFAULT:
+        launches_default += 1
+    elif precision == prec.HIGH:
         launches_high += 1
     else:
         launches += 1
@@ -462,7 +474,7 @@ def stage_ms(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
     _check_call(op, ps, y_re, y_im, cfg)
     out, scratch, cov = _buffers(ps, cfg)
     whole, stages, split = ALL_STAGES, list(STAGES.items()), None
-    if precision == prec.HIGH:
+    if precision in prec.BF16:
         split = _split_buffers(ps, cfg)
         whole |= SPLIT_STAGE
         stages.insert(0, ("split", SPLIT_STAGE))

@@ -17,7 +17,8 @@ realization-major, each block reading its own realization's factor
 * :func:`decode_plain` is the same function in plain PyTorch: the
   ``vamp.plain_loop`` of :mod:`..models.vamp`, once per realization.
 * ``launches`` counts kernel launches of the HIGHEST form,
-  ``launches_high`` those of the HIGH form.
+  ``launches_high`` those of the HIGH form, ``launches_default`` those of
+  the DEFAULT form.
 
 Both take ``precision``: ``'highest'`` (the default; FP32 products on the
 CUDA cores) or ``'high'``, the JAX kernel's ``make_dot(Precision.HIGH)``:
@@ -27,7 +28,11 @@ kernel and as ``vamp.plain_loop_high`` in the plain version.  The HIGH
 kernel reads the six Gauss tap planes split into bf16 hi and lo
 (:func:`high_taps`), built by each HIGH call, and splits each product's
 trial side once into a scratch the wrapper allocates
-(:func:`split_scratch`).
+(:func:`split_scratch`).  ``'default'`` is ``make_dot(Precision.DEFAULT)``,
+one bf16 pass per real product and ``sum(hi)`` for the two row sums
+(``precision.dot1``, ``rowsum1``): the HIGH form's code with one pass, on
+the same taps and scratch (the lo halves travel but are not multiplied),
+and ``vamp.plain_loop_default`` as its plain version.
 
 Both take and return a :class:`..models.vamp.VAMPState` in the JAX layouts
 and are resumable: ``cap`` is the global iteration cap, and the result's
@@ -44,12 +49,14 @@ from ...config import Config
 from ...models import vamp
 from .. import precision as prec
 from . import build
-from .fused_bamp import _check, symbol_planes
+from .fused_bamp import FORM, _check, symbol_planes
 from .fused_scamp import _recip, vec4
 
-# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form.
+# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form,
+# the DEFAULT form.
 launches = 0
 launches_high = 0
+launches_default = 0
 # Trials of one thread block and output columns of one HIGH product tile
 # (kBt and kBN3 of csrc/vamp_common.cuh).
 BLOCK_TRIALS = 64
@@ -76,10 +83,11 @@ def decode_plain(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
                  cfg: Config, precision: str = "highest") -> vamp.VAMPState:
     """The kernel's function in plain PyTorch (any device), with the
     wrapper's signature: ``vamp.plain_loop`` (``vamp.plain_loop_high`` at
-    ``precision='high'``) on one factor, or on each realization's rows of a
-    (C, p, N) stack in turn."""
-    loop = (vamp.plain_loop_high if prec.canonical(precision) == prec.HIGH
-            else vamp.plain_loop)
+    ``precision='high'``, ``vamp.plain_loop_default`` at ``'default'``) on
+    one factor, or on each realization's rows of a (C, p, N) stack in
+    turn."""
+    loop = {prec.HIGHEST: vamp.plain_loop, prec.HIGH: vamp.plain_loop_high,
+            prec.DEFAULT: vamp.plain_loop_default}[prec.canonical(precision)]
     C, _, _ = _factors(Vh)
     if C == 0:
         return loop(Vh, s2, y_tilde, s0, sigma2, cap, cfg)
@@ -194,14 +202,15 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     values, or (C, p, N) and (C, p) stacks whose realization c owns rows
     ``c*B/C .. (c+1)*B/C - 1`` of the state and of ``y_tilde`` (B, p).  The
     caller has checked :func:`covers` (``vamp.decode`` does).
-    ``precision`` is ``'highest'`` or ``'high'`` (module docstring); on the
-    card the form asked for is the form that runs, or the call raises."""
+    ``precision`` is ``'highest'``, ``'high'`` or ``'default'`` (module
+    docstring); on the card the form asked for is the form that runs, or
+    the call raises."""
     precision = prec.canonical(precision)
     if y_tilde.device.type == "cpu":
         return decode_plain(Vh, s2, y_tilde, s0, sigma2, cap, cfg, precision)
     if y_tilde.device.type != "cuda":
         raise ValueError(f"no kernel for device {y_tilde.device}")
-    global launches, launches_high
+    global launches, launches_high, launches_default
     C, p, N = _factors(Vh)
     B = y_tilde.shape[0]
     dev = y_tilde.device
@@ -229,7 +238,7 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     scratch = torch.empty((B, p), dtype=c64, device=dev)
     sym_re, sym_im = symbol_planes(cfg, dev)
     cap_rem = max(int(cap) - int(s0.t), 0)
-    high = precision == prec.HIGH
+    high = precision in prec.BF16
     taps, ldf, ldb = high_taps(Vh) if high else (None, 0, 0)
     xs = (split_scratch(max(C, 1) * -(-(B // max(C, 1)) // BLOCK_TRIALS),
                         ldf, ldb, dev) if high else None)
@@ -243,14 +252,16 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
         max(C, 1), B // max(C, 1), N, p, cfg.M, cfg.K, int(vec4(p)),
         int(vec4(N)), float(np.float32(sigma2)), float(np.float32(p / N)),
         float(np.float32(1.0 - p / N)), _recip(p), _recip(N), cap_rem,
-        int(high), taps.data_ptr() if high else None,
+        FORM[precision], taps.data_ptr() if high else None,
         taps.shape[-1] if high else 0, ldf, ldb,
         xs.data_ptr() if high else None,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_vamp_decode launch failed: "
                            + lib.fused_vamp_error_string(rc).decode())
-    if high:
+    if precision == prec.DEFAULT:
+        launches_default += 1
+    elif high:
         launches_high += 1
     else:
         launches += 1

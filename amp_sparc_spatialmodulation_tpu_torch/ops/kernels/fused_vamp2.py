@@ -16,14 +16,17 @@ formed outside, from the direct SVD.
 * :func:`decode_plain` is the same function in plain PyTorch: the
   ``vamp2.plain_loop`` of :mod:`..models.vamp2`.
 * ``launches`` counts kernel launches of the HIGHEST form,
-  ``launches_high`` those of the HIGH form.
+  ``launches_high`` those of the HIGH form, ``launches_default`` those of
+  the DEFAULT form.
 
-Both take ``precision``, ``'highest'`` (default) or ``'high'``, as K3's
+Both take ``precision``, ``'highest'`` (default), ``'high'`` or
+``'default'``, as K3's
 wrapper does (:mod:`.fused_vamp`): the HIGH kernel runs the Gauss form's
 products in bf16 x 3 on the tensor cores on the split tap planes of
 ``fused_vamp.high_taps`` and the split operands of
 ``fused_vamp.split_scratch``, its plain version is
-``vamp2.plain_loop_high``.
+``vamp2.plain_loop_high``; the DEFAULT kernel runs the same with one
+pass, its plain version ``vamp2.plain_loop_default``.
 """
 from __future__ import annotations
 
@@ -38,11 +41,13 @@ from .. import precision as prec
 from . import build
 from .fused_bamp import _check, symbol_planes
 from .fused_scamp import _recip, vec4
-from .fused_vamp import BLOCK_TRIALS, high_taps, split_scratch
+from .fused_vamp import BLOCK_TRIALS, FORM, high_taps, split_scratch
 
-# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form.
+# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form,
+# the DEFAULT form.
 launches = 0
 launches_high = 0
+launches_default = 0
 
 
 def covers(cfg: Config) -> bool:
@@ -57,9 +62,11 @@ def decode_plain(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
                  cfg: Config, precision: str = "highest") -> vamp2.VAMP2State:
     """The kernel's function in plain PyTorch (any device), with the
     wrapper's signature: ``vamp2.plain_loop``, or ``vamp2.plain_loop_high``
-    at ``precision='high'``."""
-    loop = (vamp2.plain_loop_high if prec.canonical(precision) == prec.HIGH
-            else vamp2.plain_loop)
+    at ``precision='high'``, ``vamp2.plain_loop_default`` at
+    ``'default'``."""
+    loop = {prec.HIGHEST: vamp2.plain_loop, prec.HIGH: vamp2.plain_loop_high,
+            prec.DEFAULT: vamp2.plain_loop_default}[
+                prec.canonical(precision)]
     return loop(Vh, s2, y_tilde, s0, sigma2, cap, cfg)
 
 
@@ -85,14 +92,14 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     (p, N) with squared singular values ``s2`` (p,): the CUDA kernel for a
     CUDA tensor, :func:`decode_plain` for a CPU tensor.  The caller has
     checked :func:`covers` (``vamp2.decode`` does).  ``precision`` is
-    ``'highest'`` or ``'high'``; on the card the form asked for is the form
-    that runs, or the call raises."""
+    ``'highest'``, ``'high'`` or ``'default'``; on the card the form asked
+    for is the form that runs, or the call raises."""
     precision = prec.canonical(precision)
     if y_tilde.device.type == "cpu":
         return decode_plain(Vh, s2, y_tilde, s0, sigma2, cap, cfg, precision)
     if y_tilde.device.type != "cuda":
         raise ValueError(f"no kernel for device {y_tilde.device}")
-    global launches, launches_high
+    global launches, launches_high, launches_default
     p, N = Vh.shape
     B = y_tilde.shape[0]
     dev = y_tilde.device
@@ -116,7 +123,7 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     scratch = torch.empty((B, p), dtype=c64, device=dev)
     sym_re, sym_im = symbol_planes(cfg, dev)
     cap_rem = max(int(cap) - int(s0.t), 0)
-    high = precision == prec.HIGH
+    high = precision in prec.BF16
     taps, ldf, ldb = high_taps(Vh) if high else (None, 0, 0)
     xs = (split_scratch(-(-B // BLOCK_TRIALS), ldf, ldb, dev) if high
           else None)
@@ -130,14 +137,16 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
         float(np.float32(sigma2)), float(np.float32(N / p)),
         float(np.float32(vamp2.DAMPING)),
         float(np.float32(1.0 - vamp2.DAMPING)),
-        _recip(p), _recip(N), cap_rem, int(high),
+        _recip(p), _recip(N), cap_rem, FORM[precision],
         taps.data_ptr() if high else None, ldf, ldb,
         xs.data_ptr() if high else None,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_vamp2_decode launch failed: "
                            + lib.fused_vamp2_error_string(rc).decode())
-    if high:
+    if precision == prec.DEFAULT:
+        launches_default += 1
+    elif high:
         launches_high += 1
     else:
         launches += 1

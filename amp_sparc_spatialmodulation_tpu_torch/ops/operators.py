@@ -19,10 +19,10 @@ Unlike the JAX ``_fwd``/``_bwd``, taps that place no block (``trunc`` with
 Each map of either operator takes the precision of its products (JAX
 ``ops/operators.py:41-63`` and ``:77-84``, there an attribute of the
 operator): ``'highest'`` (the default) is exactly ``x @ H^T`` or ``x @
-taps``; ``'high'`` is ``ops/precision.py::matmul``, four three-pass bf16
-products per complex product, the form the port takes for XLA's products
-at HIGH.  ``BandedOperator`` applies its gains after the products either
-way.
+taps``; ``'high'`` (``'default'``) is ``ops/precision.py::matmul``, four
+three-pass (one-pass) bf16 products per complex product, the form the port
+takes for XLA's products at HIGH (DEFAULT).  ``BandedOperator`` applies its
+gains after the products either way.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Matrix-product precision of the VAMP and vamp2 paths.
+"""Matrix-product precision of the decoders' products.
 
 The port's own copy of the JAX package's ``ops/pallas/fused_bamp.py:60-93``
 (``_split_bf16``, ``dot3``, ``make_dot``).  ``'highest'`` is the full FP32
@@ -6,16 +6,22 @@ product, the default everywhere.  ``'high'`` is the three-pass bf16 product
 of ``lax.Precision.HIGH`` as the JAX kernels compute it in-kernel: both
 operands split into bf16 hi + lo parts, and the three significant cross
 products (hi·hi, hi·lo, lo·hi) summed in float32; the lo·lo term lies below
-float32's resolution.  A bf16 × bf16 product is exact in float32, so the
-plain versions here compute in float32 the function that XLA computes for
-``dot3`` on the CPU; the CUDA kernels K3 and K4 run the same passes on the
-tensor cores (``kernels/csrc/vamp_common.cuh``).
+float32's resolution.  ``'default'`` is the one-pass bf16 product of
+``lax.Precision.DEFAULT`` on the TPU (``make_dot(DEFAULT)``, ``_DOT1``
+there): both operands rounded to bf16 (the hi part, round to nearest even)
+and the product accumulated in float32.  A bf16 × bf16 product is exact in
+float32, so the plain versions here compute in float32 what the TPU's
+passes compute; the CUDA kernels run the same passes on the tensor cores.
+
+XLA on the CPU computes a product at DEFAULT (and at HIGH) in full float32,
+so the JAX package run unpatched on the CPU is no witness of either: the
+port's tests patch JAX's in-kernel ``make_dot`` and its ``jnp.matmul`` to
+the passes above (``tests/test_torch_default.py``,
+``tests/test_torch_plain_high.py``).
 
 ``'auto'`` is a policy of the sweep engine (``models/montecarlo.py``), not a
 precision of a product: it picks ``'high'`` for a point when the previous
-point's mean T pinned at the iteration cap.  ``'default'`` (JAX's one-pass
-bf16 product on the TPU) has no form here: XLA on the CPU computes it in
-full float32, so no CPU witness of the TPU's function exists.
+point's mean T pinned at the iteration cap, and never ``'default'``.
 """
 from __future__ import annotations
 
@@ -23,24 +29,22 @@ import torch
 
 HIGHEST = "highest"
 HIGH = "high"
+DEFAULT = "default"
 AUTO = "auto"
+# The precisions whose products run in bf16 passes on the tensor cores.
+BF16 = (HIGH, DEFAULT)
 
 
 def canonical(precision, allow_auto: bool = False) -> str:
-    """``'highest'`` (also for ``None``), ``'high'`` or, where
-    ``allow_auto``, ``'auto'``; raises on anything else, ``'default'``
-    included."""
+    """``'highest'`` (also for ``None``), ``'high'``, ``'default'`` or,
+    where ``allow_auto``, ``'auto'``; raises on anything else."""
     if precision is None:
         return HIGHEST
     p = str(precision).lower()
-    if p == "default":
-        raise ValueError(
-            "precision='default' (one-pass bf16) has no form in the port: "
-            "XLA on the CPU computes it in float32, so nothing witnesses "
-            "the TPU's function; use 'highest' or 'high'")
-    if p in (HIGHEST, HIGH) or (allow_auto and p == AUTO):
+    if p in (HIGHEST, HIGH, DEFAULT) or (allow_auto and p == AUTO):
         return p
-    allowed = "'highest', 'high'" + (" or 'auto'" if allow_auto else "")
+    allowed = "'highest', 'high', 'default'" + (" or 'auto'" if allow_auto
+                                                else "")
     raise ValueError(f"unknown precision {precision!r}: use {allowed}")
 
 
@@ -69,16 +73,34 @@ def rowsum3(x: torch.Tensor) -> torch.Tensor:
             + lo.float().sum(dim=1, keepdim=True))
 
 
+def dot1(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``x @ a`` of two float32 matrices in one bf16 pass, JAX's
+    ``make_dot(DEFAULT)`` on the TPU: both operands rounded to bf16 (the hi
+    part of :func:`split_bf16`), the product summed in float32."""
+    return x.to(torch.bfloat16).float() @ a.to(torch.bfloat16).float()
+
+
+def rowsum1(x: torch.Tensor) -> torch.Tensor:
+    """``dot1(x, ones((n, 1)))``, the row sums the JAX kernels write as a
+    product with ones at DEFAULT: ``sum(hi)`` (shape (B, 1))."""
+    return x.to(torch.bfloat16).float().sum(dim=1, keepdim=True)
+
+
+# The real product and the row sum of each bf16 precision.
+DOTS = {HIGH: (dot3, rowsum3), DEFAULT: (dot1, rowsum1)}
+
+
 def matmul(x: torch.Tensor, a: torch.Tensor, precision: str) -> torch.Tensor:
     """``x @ a`` at ``precision``.  At ``'highest'`` exactly ``x @ a``; at
-    ``'high'`` a complex product is four real :func:`dot3` products, as XLA
-    forms a complex product at HIGH outside the kernels."""
+    ``'high'`` (``'default'``) a complex product is four real :func:`dot3`
+    (:func:`dot1`) products, as XLA forms a complex product at HIGH
+    (DEFAULT) outside the kernels."""
     if precision == HIGHEST:
         return x @ a
-    if precision != HIGH:
+    if precision not in DOTS:
         raise ValueError(f"no product at precision {precision!r}")
+    d = DOTS[precision][0]
     if not x.is_complex():
-        return dot3(x, a)
+        return d(x, a)
     xr, xi, ar, ai = x.real, x.imag, a.real, a.imag
-    return torch.complex(dot3(xr, ar) - dot3(xi, ai),
-                         dot3(xr, ai) + dot3(xi, ar))
+    return torch.complex(d(xr, ar) - d(xi, ai), d(xr, ai) + d(xi, ar))

@@ -63,7 +63,7 @@ class HaloBandedOperator:
             rank.
         cfg: system config (Lin, Lout, truncation).
         axis: the :class:`.mesh.Axis` the frame is split over.
-        precision: 'highest' or 'high', of the tap products.
+        precision: 'highest', 'high' or 'default', of the tap products.
     """
 
     def __init__(self, h: torch.Tensor, gains: torch.Tensor, cfg: Config,
@@ -257,7 +257,7 @@ def decode(h: torch.Tensor, gains, y_local: torch.Tensor, sigma2,
         y_local: (B, R, Nr) this rank's received rows (:func:`shard_rows`).
         sigma2: noise variance.
         mesh: the mesh; the frame is split over its model axis.
-        precision: 'highest' or 'high', of the tap products.
+        precision: 'highest', 'high' or 'default', of the tap products.
         state0 / iter_cap / return_state: resumable decoding, as in
             :func:`..models.bamp.decode`.
 

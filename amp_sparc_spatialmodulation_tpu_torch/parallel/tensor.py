@@ -90,7 +90,7 @@ def decode(H_k: torch.Tensor, y: torch.Tensor, sigma2, cfg: Config, *,
         y: (B, n) received vectors, the same on every rank of the axis.
         mesh: the device mesh; the columns are split over its model
             axis.
-        precision: 'highest' or 'high', of every product.
+        precision: 'highest', 'high' or 'default', of every product.
         state0 / iter_cap / return_state: resumable decoding, as in
             :func:`..models.bamp.decode`: splitting at any cap and resuming
             gives the same trajectory (continuation batching).

@@ -142,7 +142,28 @@ Phases, each printing one JSON line:
    seeds, 2 realizations of 2048 each (K5's HIGH instance alone, FER and
    BER within 3 sigma, mean T within 1.0, both runs' trials/s), and
    ``precision='auto'``, HIGHEST on a first point and K5-high after it;
-13. the sweep engine (no kernel of its own; counts set to 0 just before
+13. the DEFAULT precision (precision='default', one bf16 pass on the
+   tensor cores; each instance against its plain DEFAULT version, drawn at
+   DEFAULT, with a T rule per shape whose limits come from
+   tests/torch_bamp_high_rule.py --precision default, a state bound per
+   shape on the trials that stopped before the cap, and a one-iteration
+   control from the state after two plain DEFAULT iterations that the
+   HIGH instance must fail): kernels_bamp_default (K1 at the OOK phase-1
+   shape and the QPSK flagship at 5 dB, cap 100, each timed beside HIGH
+   and HIGHEST with its one-pass bound and the one-pass products as
+   PyTorch calls on bf16 tensors), main_bamp_default (the flagship OOK
+   point at full width, 2 x 65536, two-phase k1=12, beside HIGH and
+   HIGHEST: trials/s, mean T, FER, the share of trials at the cap; the
+   QPSK point at 5 dB, cap 100, 2 x 4096: FER within 3 sigma of HIGH's,
+   T at the cap), kernels_vamp_default / kernels_vamp2_default (the main
+   geometry at 4096 trials, cap 10, compare_vamp and the control; the
+   main shape timed), main_vamp_default / main_vamp2_default (VAMP cap
+   100, vamp2 cap 10, 2 x 65536 beside HIGH: FER, for vamp2 BER, within 3
+   sigma), kernels_tiled_default (K5 at 8 dB, cap 10 and 10 dB, cap 100,
+   2048 trials, the control, one iteration timed) and
+   main_massive_default (8 dB, cap 100, 2 x 2048 beside HIGH: FER within 3
+   sigma); every DEFAULT run through its DEFAULT instance alone;
+14. the sweep engine (no kernel of its own; counts set to 0 just before
    each run and read just after): main_auto_k1, ``Simulator(
    flagship_bamp_ook(), two_phase='auto')`` at 7 and 8 dB, 8 realizations
    of 65536 each, each point's probe mean T (2048 trials through K1), its
@@ -162,7 +183,7 @@ Phases, each printing one JSON line:
    loop (FER within 3 sigma; both
    mean Ts printed), ``precision='auto'`` built there; every run's
    trials/s printed;
-14. the sharded paths (``parallel/``; no kernel of their own; each phase
+15. the sharded paths (``parallel/``; no kernel of their own; each phase
    in a world-1 NCCL group, the card's only world, destroyed at its end):
    main_sharded, ``ShardedSimulator`` on a (1, 1) mesh beside
    ``Simulator`` on the same seeds, in turns, at the BAMP main point (16
@@ -177,7 +198,7 @@ Phases, each printing one JSON line:
    loop under ``compare``'s rule at 1e-3, each time beside the plain
    loop's.  Several ranks run on the CPU under gloo (the tests) and on
    several cards in tests/torch_parallel_cards.py;
-15. the analysis tools (no kernel of their own): main_sparc_trial,
+16. the analysis tools (no kernel of their own): main_sparc_trial,
    ``sparc_tools.compare_single_trial`` over 256 seeds at the SCAMP main
    geometry, 7 dB (K1 and K2 at a batch of one, 256 launches each, no
    plain decode; on the same draws each kernel against its plain loop
@@ -189,7 +210,7 @@ Phases, each printing one JSON line:
    main_profiling, one flagship BAMP realization inside ``Profiler`` and
    ``torch_trace`` (K1 in the trace as often as it launched, the
    Profiler's items/s against a synchronized host clock);
-16. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+17. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -930,15 +951,19 @@ def vamp_gap(sk, sp) -> dict:
     return out
 
 
-def vamp_high_control(kern, cfg, case, kernel):
+def vamp_high_control(kern, cfg, case, kernel, precision="high",
+                      wrong="highest"):
     """The HIGH form's control after one iteration: (the gaps of the HIGH
     instance, the gaps of the HIGHEST instance) to the plain HIGH version
     (:func:`vamp_gap`) on ``case`` = (realization, y_tilde, s^2, state);
-    ``kernel(cfg, case, s0, cap, precision)`` runs wrapper ``kern``."""
+    ``kernel(cfg, case, s0, cap, precision)`` runs wrapper ``kern``.  With
+    ``precision`` and ``wrong`` the same for another form (the DEFAULT
+    instance, and the HIGH one as the wrong precision)."""
     r, yt, s2, s0 = case
-    one = kern.decode_plain(r.dec.Vh, s2, yt, s0, r.sigma2, 1, cfg, "high")
-    return (vamp_gap(kernel(cfg, case, s0, 1, "high"), one),
-            vamp_gap(kernel(cfg, case, s0, 1, "highest"), one))
+    one = kern.decode_plain(r.dec.Vh, s2, yt, s0, r.sigma2, 1, cfg,
+                            precision)
+    return (vamp_gap(kernel(cfg, case, s0, 1, precision), one),
+            vamp_gap(kernel(cfg, case, s0, 1, wrong), one))
 
 
 def compare_vamp(phase: str, sk, sp, tol: float, failed: list,
@@ -961,6 +986,12 @@ def compare_vamp(phase: str, sk, sp, tol: float, failed: list,
       cuBLAS sums in another order at each batch size, and no other FP32
       order gives its mean T (tests/torch_vamp_precision.py); the paired
       standard error of d mean T is printed.
+    * ``mean_T_only`` (the DEFAULT form): |d mean T| <= 2% of the cap
+      alone.  At one bf16 pass a last-bit difference of the FP32 sums
+      moves a bf16 rounding by a whole step, r amplifies it, and two
+      correct DEFAULT decodes part on T and on the posterior of many
+      trials (tests/torch_vamp_high_control.py --precision default); the
+      one-iteration control holds the products.
 
     r's largest error and 99.9th percentile are printed in every case.
     Returns the largest posterior error where T agrees."""
@@ -986,7 +1017,8 @@ def compare_vamp(phase: str, sk, sp, tol: float, failed: list,
     for f in VAMP_FIELDS + ("r",):
         a, b = getattr(sk, f), getattr(sp, f)
         same &= (a == b).reshape(n, -1).all(dim=1)
-    dT_max = 0.02 * info["cap"] if rule == "mean_T" else 0.02
+    dT_max = (0.02 * info["cap"] if rule in ("mean_T", "mean_T_only")
+              else 0.02)
     emit(phase, **info, B=n, rule=rule, T_agree_fraction=frac,
          mean_T_kernel=float(sk.T.float().mean()),
          mean_T_plain=float(sp.T.float().mean()), dmean_T=mean_d,
@@ -995,9 +1027,11 @@ def compare_vamp(phase: str, sk, sp, tol: float, failed: list,
          trials_over_tolerance=over, r_max_abs_err=r_max,
          r_p999_abs_err=r_p999, r_tolerance=r_tol,
          bit_exact_fraction=float(same.float().mean()))
-    ok = abs(mean_d) <= dT_max and (over == 0 if rule == "every_trial"
-                                    else over <= 0.005 * row_err.numel())
-    if rule != "mean_T":
+    ok = abs(mean_d) <= dT_max
+    if rule != "mean_T_only":
+        ok = ok and (over == 0 if rule == "every_trial"
+                     else over <= 0.005 * row_err.numel())
+    if rule not in ("mean_T", "mean_T_only"):
         ok = ok and frac >= 0.995
     if r_tol is not None:
         ok = ok and r_max < r_tol
@@ -3829,6 +3863,691 @@ def phase_main_profiling(torch, dev):
                              f"host {host_rate}")
 
 
+# ---- The DEFAULT precision (precision='default', one bf16 pass) ----------
+# The DEFAULT instances of K1, K3, K4 and K5 against their plain DEFAULT
+# versions.  As at HIGH, two correct DEFAULT decodes part on the T of the
+# trials that stop by the allclose test (a last-bit difference of the FP32
+# sums moves a bf16 rounding by a whole step), and here also on the state
+# of a few trials that stopped: so each shape has a T rule and a state
+# bound on the trials that stopped before the cap in both, whose limits lie
+# between the readings of tests/torch_bamp_high_rule.py --precision
+# default on an NVIDIA H100 at 700 W (PERF.md, section 6): below, the
+# kernel and the plain DEFAULT version with its sums in float64 (two
+# correct decodes); above, the HIGH and HIGHEST instances (wrong products).
+# Per shape (T agreement, |d mean T|, state bound, the HIGH instance must
+# fail the rule); readings kernel / float64 sums against HIGH / HIGHEST:
+# - K1 at the OOK phase-1 shape (65536 trials, cap 12, 8 dB): T agreement
+#   99.17% / 99.48% against 78.06% / 76.94%, |d mean T| 0.00047 / 0.00044
+#   against 0.232 / 0.267, state 9.93e-4 / 9.82e-4 against 7.82e-3 (so the
+#   1e-4 of the small CPU geometries does not hold at this width for two
+#   correct decodes: 60,234 trials stopped, a few of them apart by ~1e-3);
+# - K1 at the QPSK flagship, 5 dB, cap 100: every decode at the cap,
+#   nothing parts on T (the control separates);
+# - K5 at the massive geometry, 10 dB, 2048 trials, cap 100: 51.3% /
+#   51.4% against 45.8% / 46.1%, 0.017 / 0.074 against 0.144 / 0.119,
+#   state 7.0e-7 / 1.5e-4 against 1.3e-2; at 8 dB, cap 10, every trial at
+#   the cap.
+K1_DEFAULT_RULES = {"ook_phase1": (0.985, 0.02, 3e-3, True),
+                    "qpsk_cap100": (0.995, 0.02, 1e-4, False)}
+K5_DEFAULT_RULES = {"massive_8db": (10, 0.995, 0.02, 1e-3, False),
+                    "massive_10db": (100, 0.48, 0.10, 1e-3, True)}
+# The state error reported beside each bound: the share of the stopped
+# trials whose T agrees that lie within this (the CPU tests' bound).
+DEFAULT_STATE_TOL = 1e-4
+# The controls: one iteration from the state after two plain DEFAULT
+# iterations against the plain DEFAULT step, each median under its limit
+# for the DEFAULT instance, the HIGH instance's first statistic over it.
+# K1 (vamp_gap): kernel xmap 3.3e-8 / 1.2e-7, z 1.1e-7 / 8.4e-8, u 4.5e-8 /
+# 6.0e-8 (OOK / QPSK) against HIGH's 1.45e-3 / 1.97e-3, 9.6e-4 / 9.7e-4,
+# 3.0e-5 / 3.9e-5.  K5 (iter_gap, 10 dB): z_re 1.5e-7, xmap_re 1.8e-7, u
+# 1.2e-7 against 5.9e-4, 1.6e-3, 3.3e-5.
+K1_DEFAULT_CONTROL = {"xmap_p50": 1e-5, "z_p50": 1e-5, "u_p50": 1e-5}
+K5_DEFAULT_CONTROL = {"z_re_p50": 1e-5, "xmap_re_p50": 1e-5, "u_p50": 1e-5}
+# K3 and K4: the control's median |d r| after one iteration at the main
+# geometry (tests/torch_vamp_high_control.py --precision default): 1.19e-7
+# (VAMP) and 1.23e-7 (vamp2) against HIGH's 1.54e-3 and 1.55e-3.
+VAMP_DEFAULT_CONTROL_TOL = 1e-5
+# main_bamp_default: the flagship OOK point (two-phase k1 = 12) and the
+# BAMP QPSK point at 5 dB, cap 100, 2 realizations each.
+DEFAULT_REALIZATIONS = 2
+
+
+def stopped_share(sk, sp, tol=DEFAULT_STATE_TOL) -> float:
+    """The share of the trials that stopped before the cap in both and
+    whose T agrees with every state plane within ``tol``."""
+    rows = (sk.T == sp.T) & ~(sk.active | sp.active)
+    if not bool(rows.any()):
+        return 1.0
+    ok = rows.clone()
+    for f in BAMP_FIELDS:
+        d = (getattr(sk, f) - getattr(sp, f)).abs()
+        ok &= (d.reshape(d.shape[0], -1) <= tol).all(dim=1)
+    return float(ok.sum()) / float(rows.sum())
+
+
+def bf16_library(torch, pairs):
+    """(function, form) of the one-pass products ``pairs`` ((x, a) float32
+    tensors) as PyTorch calls on bf16 tensors: ``torch.mm(..., out_dtype=
+    torch.float32)`` where this PyTorch has it ('bf16_in_fp32_out'), else
+    ``torch.matmul`` of the bf16 tensors ('bf16_in_bf16_out', the FP32 sums
+    rounded to bf16 at the end)."""
+    bf = [(x.bfloat16(), a.bfloat16()) for x, a in pairs]
+    x0, a0 = bf[0]
+    try:
+        torch.mm(x0, a0, out_dtype=torch.float32)
+        return (lambda: [torch.mm(x, a, out_dtype=torch.float32)
+                         for x, a in bf]), "bf16_in_fp32_out"
+    except (TypeError, RuntimeError):
+        return (lambda: [torch.matmul(x, a) for x, a in bf]), \
+            "bf16_in_bf16_out"
+
+
+def gate_control(failed, phase, sound, wrong, limits, wrong_stat, **info):
+    """Emit a control's readings; fail unless every statistic of the sound
+    instance lies under its limit and the wrong instance's ``wrong_stat``
+    over its limit."""
+    emit(phase, **info, limits=limits, default=sound, wrong=wrong)
+    if not (all(sound[k] < v for k, v in limits.items())
+            and wrong[wrong_stat] >= limits[wrong_stat]):
+        failed.append(f"control {phase} {info}")
+
+
+def phase_kernels_bamp_default(torch, dev, ptxas_lines):
+    """K1's DEFAULT instance (precision='default', one bf16 pass on the
+    tensor cores) against its plain DEFAULT version
+    (``fused_bamp.decode_plain_default``) at the shapes of
+    ``kernels_bamp_high``'s timed checks, drawn at DEFAULT: the OOK
+    flagship at its phase-1 shape (65536 trials, cap 12, 8 dB) and the QPSK
+    flagship at 5 dB, cap 100 (4096 trials).  Each under :func:`compare`
+    with its rule (``K1_DEFAULT_RULES``: T agreement, |d mean T| and the
+    state bound on the trials that stopped before the cap in both, with the
+    share of those within 1e-4 printed), the HIGH instance held to
+    the same rule (it must fail where the rule separates), the control
+    (``K1_DEFAULT_CONTROL``, the HIGH instance's reading beside it), then
+    timed by CUDA events beside the HIGH and HIGHEST instances and the
+    plain DEFAULT version, with the bound (one bf16 pass of the Gauss
+    products at 989 TFLOP/s, or the bytes) and the same one-pass products
+    as PyTorch calls on bf16 tensors.  Returns the largest state error and
+    the timings, the QPSK shape first."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_ook, flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    p = "default"
+    failed, timings, max_err = [], [], 0.0
+    for name, cfg, B, cap, ebn0, seed in (
+            ("qpsk_cap100", flagship_bamp_qpsk(), FLAGSHIP_B, 100,
+             BAMP_HIGH_EBN0_DB, 42),
+            ("ook_phase1", flagship_bamp_ook(), RES, K1, EBN0_DB, 41)):
+        r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
+                                            "sparc", "banded", B,
+                                            snr_of(cfg, ebn0), p)
+        op, y, s2 = r.A, r.y, r.sigma2
+        s0 = bamp.initial_state(y, cfg.N, s2)
+        min_agree, max_dmean, tol, separates = K1_DEFAULT_RULES[name]
+        s1 = fused_bamp.whole_decode(op, s0, y, s2, cap, cfg, p)
+        sp = fused_bamp.decode_plain_default(op, s0, y, s2, cap, cfg)
+        max_err = max(max_err, compare(
+            "kernel_main_bamp_default", s1, sp, tol, free_unconverged=True,
+            min_agree=min_agree, max_dmean_T=max_dmean, case=name, cap=cap,
+            ebn0_db=ebn0, stopped_within_1e4=stopped_share(s1, sp)))
+        sh = fused_bamp.whole_decode(op, s0, y, s2, cap, cfg, "high")
+        frac, dmean, inside = rule_passes(sh, sp, min_agree, max_dmean)
+        emit("kernel_main_bamp_default_high", case=name,
+             T_agree_fraction=frac, abs_dmean_T=dmean, inside_rule=inside,
+             must_fail=separates)
+        if separates and inside:
+            failed.append(f"{name}: the HIGH instance passes the rule")
+        del sh, sp
+        ps = fused_bamp.decode_plain_default(op, s0, y, s2, 2, cfg)
+        one = fused_bamp.decode_plain_default(op, ps, y, s2, ps.t + 1, cfg)
+        gate_control(failed, "kernel_main_bamp_default_control",
+                     vamp_gap(fused_bamp.whole_decode(
+                         op, ps, y, s2, ps.t + 1, cfg, p), one),
+                     vamp_gap(fused_bamp.whole_decode(
+                         op, ps, y, s2, ps.t + 1, cfg, "high"), one),
+                     K1_DEFAULT_CONTROL, "xmap_p50", case=name, presteps=2)
+        del ps, one
+        ms = cuda_ms(lambda: fused_bamp.whole_decode(
+            op, s0, y, s2, cap, cfg, p), 1, 3)
+        high_ms = cuda_ms(lambda: fused_bamp.whole_decode(
+            op, s0, y, s2, cap, cfg, "high"), 1, 3)
+        highest_ms = cuda_ms(lambda: fused_bamp.whole_decode(
+            op, s0, y, s2, cap, cfg), 1, 3)
+        plain_ms = cuda_ms(lambda: fused_bamp.decode_plain_default(
+            op, s0, y, s2, cap, cfg), 0, 1)
+        real = fused_bamp.real_x(cfg)
+        taps = fused_bamp.high_taps(op)[0]
+        state = [getattr(s0, f) for f in s0._fields if f != "t"]
+        state += [getattr(s1, f) for f in s1._fields if f != "t"]
+        # one pass of the Gauss products (7 for a real x, 8 complex); the
+        # taps' hi halves, the only ones the DEFAULT instance reads
+        flop, nbytes, iters = decode_work(cfg, s0, s1, state + [y],
+                                          7 if real else 8)
+        nbytes += taps.numel() * taps.element_size() // 2
+        bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
+        t = bamp.gauss_taps(op)
+        rows, W = B * cfg.Lin, cfg.Lh * cfg.Nr
+        xv = s1.var.reshape(rows, cfg.Nt)
+        zr = torch.rand(rows, W, device=dev)
+        pairs = [(xv, a) for a in (t.s_a2, t.s_re, t.dmc)
+                 + (() if real else (t.cpd,))]
+        pairs += [(zr, a) for a in (t.st_a2, t.st_re, t.amc, t.adm)]
+        lib, form = bf16_library(torch, pairs)
+        library_iter_ms = cuda_ms(lib, 1, 3)
+        del lib, zr
+        timing = dict(kernel="fused_bamp_decode_default", case=name, B=B,
+                      cap=cap, ms=ms, high_ms=high_ms,
+                      highest_ms=highest_ms, plain_ms=plain_ms,
+                      default_over_high=ms / high_ms,
+                      ns_per_iter_trial=1e6 * ms / iters, iterations=iters,
+                      flop=flop, bytes=nbytes, bound_ms=bound_ms,
+                      bound_by=bound_by, pct_of_bound=100 * bound_ms / ms,
+                      library_ms=library_iter_ms * iters / B,
+                      library_ms_per_iteration=library_iter_ms,
+                      library_form=form,
+                      smem_bytes=fused_bamp.smem_bytes(cfg, p),
+                      threads=fused_bamp.high_threads(cfg),
+                      ptxas=ptxas_lines)
+        emit("kernel_timing_bamp_default", **timing)
+        timings.append(timing)
+        del r, op, y, s0, s1, taps, state
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K1 DEFAULT kernel != plain: {failed}")
+    return max_err, timings
+
+
+def run_precisions(torch, sim_of, ebn0, epochs, res, counts, zero,
+                   precisions):
+    """``run_point`` of ``sim_of(precision)`` at each precision on the same
+    seeds: {precision: dict(avg, seconds, trials_per_s, **counts())}, the
+    counts set to 0 just before each run and read just after."""
+    runs = {}
+    for precision in precisions:
+        sim = sim_of(precision)
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        avg = sim.run_point(ebn0, epochs=epochs, res=res)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[precision] = dict(avg=avg, seconds=seconds,
+                               trials_per_s=epochs / seconds, **counts())
+    return runs
+
+
+def flat_runs(runs, keys):
+    return {f"{p}_{k}": (run["avg"][k[5:]] if k.startswith("mean_")
+                         else run[k])
+            for p, run in runs.items() for k in keys}
+
+
+def phase_main_bamp_default(torch, dev):
+    """``Simulator(algo='bamp', precision='default')`` on its main path
+    through K1's DEFAULT instance.  The flagship OOK point at full width
+    (``flagship_bamp_ook()``, 8 dB, two-phase k1 = 12, 2 realizations of
+    65536) beside 'high' and 'highest' on the same seeds: trials/s, mean T,
+    FER, BER, the share of trials at the cap of 100 (one DEFAULT
+    realization decoded single-phase), the DEFAULT run through
+    ``launches_default`` alone with no plain decode; printed, not gated
+    against HIGH (whether one pass pins T at the cap here is what the run
+    measures).  Then the BAMP QPSK point at 5 dB, cap 100, 2 realizations
+    of 4096 beside 'high' and 'highest': the DEFAULT run through K1's
+    DEFAULT instance alone, FER within 3 sigma of HIGH's (binomial, HIGH's
+    count, at least one error), mean T at the cap (>= 99% of it) in all
+    three.  Returns the flagship run's ``launches_default``."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_ook, flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_bamp_iteration as fbi, fused_bamp_tiled)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    def counts():
+        return dict(launches=fused_bamp.launches,
+                    launches_high=fused_bamp.launches_high,
+                    launches_default=fused_bamp.launches_default,
+                    others=(fbi.fused_launches + fused_bamp_tiled.launches
+                            + fused_bamp_tiled.launches_high
+                            + fused_bamp_tiled.launches_default),
+                    plain=bamp.plain_decodes)
+
+    def zero():
+        fused_bamp.launches = fused_bamp.launches_high = 0
+        fused_bamp.launches_default = fbi.fused_launches = 0
+        fused_bamp_tiled.launches = fused_bamp_tiled.launches_high = 0
+        fused_bamp_tiled.launches_default = bamp.plain_decodes = 0
+
+    keys = ("seconds", "trials_per_s", "mean_T", "mean_fer", "mean_ber",
+            "launches", "launches_high", "launches_default", "others",
+            "plain")
+    ok_path = lambda run: (run["launches_default"] > 0 and not (
+        run["launches"] or run["launches_high"] or run["others"]
+        or run["plain"]))
+    n = DEFAULT_REALIZATIONS
+    cfg = flagship_bamp_ook()
+    runs = run_precisions(torch, lambda p: montecarlo.Simulator(
+        cfg, algo="bamp", device=dev, precision=p, two_phase=K1,
+        progress=lambda s: None), EBN0_DB, n * RES, RES, counts, zero,
+        ("highest", "high", "default"))
+    r = montecarlo.generate_realization(make_generator(dev, 12345), cfg,
+                                        "sparc", "banded", RES,
+                                        snr_of(cfg, EBN0_DB), "default")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bamp.decode(r.A, r.y, r.sigma2, cfg, precision="default")
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    at_cap = float((out.T == cfg.N_Layers).float().mean())
+    del r, out
+    d = runs["default"]
+    emit("main_bamp_default", config="flagship_bamp_ook", ebn0_db=EBN0_DB,
+         res=RES, realizations=n, trials=n * RES, k1=K1, cap=cfg.N_Layers,
+         **flat_runs(runs, keys), share_at_cap_default=at_cap,
+         single_phase_decode_s=one_s,
+         default_over_highest_trials_per_s=(
+             d["trials_per_s"] / runs["highest"]["trials_per_s"]),
+         fer_sigma_high=fer_sigma(runs["high"]["avg"]["fer"], n * RES))
+    if not ok_path(d):
+        raise AssertionError("the flagship DEFAULT run did not run through "
+                             "K1's DEFAULT instance alone")
+    flagship_launches = d["launches_default"]
+
+    qcfg, qres = flagship_bamp_qpsk(), FLAGSHIP_B
+    runs = run_precisions(torch, lambda p: montecarlo.Simulator(
+        qcfg, algo="bamp", device=dev, precision=p,
+        progress=lambda s: None), BAMP_HIGH_EBN0_DB, n * qres, qres, counts,
+        zero, ("highest", "high", "default"))
+    d, h = runs["default"], runs["high"]
+    sigma = fer_sigma(h["avg"]["fer"], n * qres)
+    emit("main_bamp_default_qpsk", config="flagship_bamp_qpsk",
+         ebn0_db=BAMP_HIGH_EBN0_DB, res=qres, realizations=n,
+         trials=n * qres, cap=qcfg.N_Layers, **flat_runs(runs, keys),
+         fer_sigma=sigma)
+    if not ok_path(d):
+        raise AssertionError("the QPSK DEFAULT run did not run through K1's "
+                             "DEFAULT instance alone")
+    if abs(d["avg"]["fer"] - h["avg"]["fer"]) > 3 * sigma:
+        raise AssertionError(f"BAMP QPSK DEFAULT FER {d['avg']['fer']} vs "
+                             f"HIGH {h['avg']['fer']}")
+    if any(run["avg"]["T"] < 0.99 * qcfg.N_Layers for run in runs.values()):
+        raise AssertionError("BAMP QPSK at 5 dB: T not at the cap")
+    return flagship_launches
+
+
+def phase_kernels_vamp_default(torch, dev, algo: str, ptxas_lines):
+    """K3's (``algo='vamp'``) or K4's (``'vamp2'``) DEFAULT instance
+    against its plain DEFAULT version (``decode_plain(..., 'default')``) at
+    the main geometry, drawn and projected at DEFAULT: 4096 trials at cap
+    10 under ``compare_vamp``'s mean_T_only rule (the HIGH instance must
+    fail it for VAMP), the control after one iteration (the median |d r|
+    under ``VAMP_DEFAULT_CONTROL_TOL``, the HIGH instance's over it), then
+    the main path's shape (65536 trials, cap 10) compared and timed by
+    CUDA events beside the HIGH and HIGHEST instances, the bound (9 real products of one bf16 pass at 989
+    TFLOP/s, or the bytes) and the same one-pass products as PyTorch calls
+    on bf16 tensors."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import (
+        montecarlo, vamp, vamp2)
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_vamp, fused_vamp2)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    mod, kern = (vamp, fused_vamp) if algo == "vamp" else (vamp2, fused_vamp2)
+    data = vamp.project if algo == "vamp" else vamp2.whiten
+    tag = "" if algo == "vamp" else "2"
+    p = "default"
+
+    def realization(cfg, B, seed, snr):
+        r = montecarlo.with_svd(algo, montecarlo.generate_realization(
+            make_generator(dev, seed), cfg, "sparc", "dense", B, snr, p))
+        return (r, data(r.dec, r.y, p), (r.dec.s ** 2).contiguous(),
+                mod.initial_state(r.y, cfg))
+
+    def kernel(cfg, case, s0, cap, precision=p):
+        r, yt, s2, _ = case
+        return kern.whole_decode(r.dec.Vh, s2, yt, s0, r.sigma2, cap, cfg,
+                                 precision)
+
+    failed = []
+    mcfg = vamp_main_config()
+    snr = snr_of(mcfg, EBN0_DB)
+    case = realization(mcfg, FLAGSHIP_B, 27, snr)
+    r, yt, s2, s0 = case
+    sp = kern.decode_plain(r.dec.Vh, s2, yt, s0, r.sigma2, 10, mcfg, p)
+    max_err = compare_vamp(
+        f"kernel_main_{algo}_default", kernel(mcfg, case, s0, 10), sp,
+        1e-3, failed, "mean_T_only", cap=10)
+    # the HIGH instance under the same rule: VAMP's trials stop earlier at
+    # one pass, so it must fail there; vamp2 runs every trial to the cap
+    # of 10 at every precision
+    sh = kernel(mcfg, case, s0, 10, "high")
+    dmean = abs(float(sh.T.float().mean() - sp.T.float().mean()))
+    emit(f"kernel_main_{algo}_default_high", abs_dmean_T=dmean,
+         dmean_T_max=0.2, must_fail=algo == "vamp")
+    if algo == "vamp" and dmean <= 0.2:
+        failed.append("the HIGH instance passes the mean-T rule")
+    del sh, sp
+    sound, wrong = vamp_high_control(kern, mcfg, case, kernel, p, "high")
+    emit(f"kernel_main_{algo}_default_control", B=FLAGSHIP_B, cap=1,
+         statistic=HIGH_CONTROL_STAT, limit=VAMP_DEFAULT_CONTROL_TOL,
+         default=sound, high=wrong)
+    if not (sound[HIGH_CONTROL_STAT] < VAMP_DEFAULT_CONTROL_TOL
+            <= wrong[HIGH_CONTROL_STAT]):
+        failed.append("control main")
+    del case, r, yt, s0
+    torch.cuda.empty_cache()
+
+    case = realization(mcfg, RES, 29, snr)
+    r, yt, s2, s0 = case
+    out = {}
+    ms = cuda_ms(lambda: out.update(k=kernel(mcfg, case, s0, 10)), 1, 3)
+    high_ms = cuda_ms(lambda: kernel(mcfg, case, s0, 10, "high"), 1, 3)
+    highest_ms = cuda_ms(lambda: kernel(mcfg, case, s0, 10, "highest"), 1, 3)
+    plain_ms = cuda_ms(lambda: out.update(p=kern.decode_plain(
+        r.dec.Vh, s2, yt, s0, r.sigma2, 10, mcfg, p)), 1, 2)
+    s1 = out["k"]
+    max_err = max(max_err, compare_vamp(
+        f"kernel_phase1_{algo}_default", s1, out.pop("p"), 1e-3, failed,
+        "mean_T_only", cap=10))
+    iters = int((s1.T.long() - s0.T.long()).sum())
+    pp, N = r.dec.Vh.shape
+    taps = vamp.gauss_taps(r.dec.Vh)
+    rt = s0.r_tilde if algo == "vamp" else s0.r
+    xw = torch.zeros((RES, pp), device=dev)
+    pairs = [(x.contiguous(), t) for x, t in zip(
+        (rt.real + rt.imag, rt.real, rt.imag), taps[:3])]
+    pairs += [(xw, t) for t in taps[3:]]
+    lib, form = bf16_library(torch, pairs)
+    library_iter_ms = cuda_ms(lib, 1, 3)
+    library_ms = library_iter_ms * int(s1.T.max())
+    del lib, xw, pairs
+    state = [getattr(s0, f) for f in s0._fields if f != "t"]
+    state += [getattr(s1, f) for f in s1._fields if f != "t"]
+    tap_buf = kern.high_taps(r.dec.Vh)[0]
+    # the taps' hi halves, the only ones the DEFAULT instance multiplies
+    nbytes = (sum(t.numel() * t.element_size() for t in state + [yt, s2])
+              + tap_buf.numel() * tap_buf.element_size() // 2)
+    # one bf16 pass: 3 real products x 2 N p flop, two products
+    flop = iters * 12 * N * pp
+    bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
+    timing = dict(kernel=f"fused_vamp{tag}_decode_default", B=RES, cap=10,
+                  ms=ms, high_ms=high_ms, highest_ms=highest_ms,
+                  plain_ms=plain_ms, default_over_high=ms / high_ms,
+                  ns_per_iter_trial=1e6 * ms / iters, iterations=iters,
+                  flop=flop, bytes=nbytes, bound_ms=bound_ms,
+                  bound_by=bound_by, pct_of_bound=100 * bound_ms / ms,
+                  library_ms=library_ms,
+                  library_ms_per_iteration=library_iter_ms,
+                  library_form=form, ptxas=ptxas_lines)
+    emit(f"kernel_timing_{algo}_default", **timing)
+    if failed:
+        raise AssertionError(f"DEFAULT kernel != plain ({algo}): {failed}")
+    return max_err, timing
+
+
+def phase_main_vamp_default(torch, dev, algo: str):
+    """``Simulator(algo=..., precision='default')`` beside 'high' on the
+    same seeds: VAMP at the cap-running VAMP OOK point (cap 100), vamp2 at
+    its main point (cap 10); 2 realizations of 65536 each; and the same
+    DEFAULT run with the kernel's plain DEFAULT version in the wrapper's
+    place (``decode_plain(..., 'default')``, the function the CPU tests
+    hold to the patched JAX package).  Gates: the DEFAULT run through the
+    DEFAULT instance alone (no plain decode); FER (vamp2: BER, whose FER is
+    1 in every form) within 3 sigma of the plain DEFAULT run's and mean T
+    within 2% of the cap; for vamp2 also BER within 3 sigma of HIGH's
+    (BER's sigma from the scatter of ``BAMP_HIGH_BER_GROUPS`` groups of one
+    DEFAULT realization's trials).  VAMP's FER beside HIGH's is printed
+    with its distance in sigma, not gated: one bf16 pass stops VAMP's
+    trials near T = 12 where HIGH runs them to the cap, a different
+    decode (PERF.md, section 6).  Returns ``launches_default``."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import (
+        montecarlo, vamp, vamp2)
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_vamp, fused_vamp2)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    mod, kern = (vamp, fused_vamp) if algo == "vamp" else (vamp2, fused_vamp2)
+    cfg = vamp_main_config(iterations=100 if algo == "vamp" else 10)
+    n = DEFAULT_REALIZATIONS
+
+    def counts():
+        return dict(launches=kern.launches, launches_high=kern.launches_high,
+                    launches_default=kern.launches_default,
+                    plain=mod.plain_decodes)
+
+    def zero():
+        kern.launches = kern.launches_high = kern.launches_default = 0
+        mod.plain_decodes = 0
+
+    sim_of = lambda p: montecarlo.Simulator(
+        cfg, algo=algo, device=dev, precision=p, progress=lambda s: None)
+    runs = run_precisions(torch, sim_of, EBN0_DB, n * RES, RES, counts,
+                          zero, ("high", "default"))
+    kernel = kern.whole_decode
+    kern.whole_decode = kern.decode_plain
+    try:
+        runs.update(plain=run_precisions(
+            torch, sim_of, EBN0_DB, n * RES, RES, counts, zero,
+            ("default",))["default"])
+    finally:
+        kern.whole_decode = kernel
+    d, h, pl = runs["default"], runs["high"], runs["plain"]
+    r = montecarlo.with_svd(algo, montecarlo.generate_realization(
+        make_generator(dev, 12345), cfg, "sparc", "dense", RES,
+        snr_of(cfg, EBN0_DB), "default"))
+    out = mod.decode(r.dec, r.y, r.sigma2, cfg, precision="default")
+    bsig = ber_sigma(torch, cfg, out, r.msg, RES, n * RES)
+    del r, out
+    sigma = fer_sigma(pl["avg"]["fer"], n * RES)
+    sigma_high = fer_sigma(h["avg"]["fer"], n * RES)
+    emit(f"main_{algo}_default", config="vamp_ook_segmented_flagship_dims",
+         ebn0_db=EBN0_DB, res=RES, realizations=n, trials=n * RES,
+         cap=cfg.N_Layers,
+         **flat_runs(runs, ("seconds", "trials_per_s", "mean_T", "mean_fer",
+                            "mean_ber", "launches", "launches_high",
+                            "launches_default", "plain")),
+         default_over_high_trials_per_s=d["trials_per_s"]
+         / h["trials_per_s"], fer_sigma_plain=sigma,
+         fer_sigma_high=sigma_high,
+         fer_sigmas_from_high=abs(d["avg"]["fer"] - h["avg"]["fer"])
+         / sigma_high, ber_sigma=bsig)
+    if d["launches_default"] <= 0 or d["launches"] or d["launches_high"] \
+            or d["plain"]:
+        raise AssertionError(f"the {algo} DEFAULT path did not run through "
+                             "the DEFAULT kernel alone")
+    if abs(d["avg"]["T"] - pl["avg"]["T"]) > 0.02 * cfg.N_Layers:
+        raise AssertionError(f"{algo} DEFAULT mean T {d['avg']['T']} vs the "
+                             f"plain DEFAULT version's {pl['avg']['T']}")
+    if algo == "vamp" and abs(d["avg"]["fer"] - pl["avg"]["fer"]) > 3 * sigma:
+        raise AssertionError(f"VAMP DEFAULT FER {d['avg']['fer']} vs the "
+                             f"plain DEFAULT version's {pl['avg']['fer']}")
+    if algo == "vamp2" and max(abs(d["avg"]["ber"] - pl["avg"]["ber"]),
+                               abs(d["avg"]["ber"] - h["avg"]["ber"])) \
+            > 3 * bsig:
+        raise AssertionError(f"vamp2 DEFAULT BER {d['avg']['ber']} vs HIGH "
+                             f"{h['avg']['ber']} and the plain DEFAULT "
+                             f"version's {pl['avg']['ber']}")
+    return d["launches_default"]
+
+
+def phase_kernels_tiled_default(torch, dev, ptxas):
+    """K5's DEFAULT instance (one bf16 pass) against its plain DEFAULT
+    version through ``bamp.plane_loop``, drawn at DEFAULT: the main path's
+    8 dB state at 2048 trials (cap 10) and the converging 10 dB shape
+    (2048 trials, cap 100) under :func:`compare` with ``K5_DEFAULT_RULES``
+    (the state bound on the trials that stopped before the cap in both; the
+    HIGH instance must fail the rule where it separates), each with the
+    control (``K5_DEFAULT_CONTROL``: one iteration
+    from the state after two plain DEFAULT iterations; the HIGH instance's
+    reading beside it); one iteration at the 8 dB state timed by CUDA
+    events as the plane loop runs it (on the split planes the previous
+    call's denoiser wrote), beside the HIGH and HIGHEST instances, the
+    plain DEFAULT step, the bound (7 one-pass products at 989 TFLOP/s, or
+    the bytes) and those products as PyTorch calls on bf16 tensors, with
+    the launches timed apart."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp_tiled as kern)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    p = "default"
+    failed, max_err = [], 0.0
+    mcfg = dataclasses.replace(massive_main_config(),
+                               iterations=MASSIVE_HIGH_CAP)
+
+    def realization(seed, db):
+        r = montecarlo.generate_realization(make_generator(dev, seed), mcfg,
+                                            "sparc", "banded", MASSIVE_RES,
+                                            snr_of(mcfg, db), p)
+        return r, bamp.initial_state(r.y, mcfg.N, r.sigma2)
+
+    def run(r, s0, cap, precision=p):
+        return bamp.plane_loop(partial(kern.iteration, precision=precision),
+                               r.A, s0, r.y, r.sigma2, cap, mcfg)
+
+    for name, seed, db in (("massive_8db", 45, MASSIVE_HIGH_DB),
+                           ("massive_10db", 44, MASSIVE_CONVERGING_DB)):
+        r, s0 = realization(seed, db)
+        cap, min_agree, max_dmean, tol, separates = K5_DEFAULT_RULES[name]
+        sk = run(r, s0, cap)
+        sp = kern.decode_plain(r.A, s0, r.y, r.sigma2, cap, mcfg, p)
+        max_err = max(max_err, compare(
+            "kernel_main_tiled_default", sk, sp, tol, free_unconverged=True,
+            min_agree=min_agree, max_dmean_T=max_dmean, case=name, cap=cap,
+            ebn0_db=db, stopped_within_1e4=stopped_share(sk, sp)))
+        sh = run(r, s0, cap, "high")
+        frac, dmean, inside = rule_passes(sh, sp, min_agree, max_dmean)
+        emit("kernel_main_tiled_default_high", case=name,
+             T_agree_fraction=frac, abs_dmean_T=dmean, inside_rule=inside,
+             must_fail=separates)
+        if separates and inside:
+            failed.append(f"{name}: the HIGH instance passes the rule")
+        del sk, sp, sh
+        ps = bamp.to_planes(kern.decode_plain(
+            r.A, s0, r.y, r.sigma2, s0.t + K5_HIGH_PRESTEPS, mcfg, p))
+        y_re, y_im = r.y.real.contiguous(), r.y.imag.contiguous()
+        one = kern.iteration_plain(r.A, ps, y_re, y_im, r.sigma2, mcfg, p)
+        gate_control(failed, "kernel_main_tiled_default_control",
+                     iter_gap(kern.iteration(r.A, ps, y_re, y_im, r.sigma2,
+                                             mcfg, p), one, ps.active),
+                     iter_gap(kern.iteration(r.A, ps, y_re, y_im, r.sigma2,
+                                             mcfg, "high"), one, ps.active),
+                     K5_DEFAULT_CONTROL, "z_re_p50", case=name,
+                     presteps=K5_HIGH_PRESTEPS)
+        if name != "massive_8db":
+            del r, s0, ps, one
+            continue
+        A, B, W = r.A, MASSIVE_RES, mcfg.Lh * mcfg.Nr
+        out = {}
+        step = lambda q: out.update(k=kern.iteration(A, ps, y_re, y_im,
+                                                     r.sigma2, mcfg, q))
+        ms_split = cuda_ms(lambda: step(p), 2, 10)
+        ps = bamp.advance(ps, out["k"])
+        step(p)
+        ms = cuda_ms(lambda: step(p), 2, 10)
+        high_ms = cuda_ms(lambda: step("high"), 2, 10)
+        highest_ms = cuda_ms(lambda: step("highest"), 2, 10)
+        plain_ms = cuda_ms(lambda: kern.iteration_plain(
+            A, ps, y_re, y_im, r.sigma2, mcfg, p), 1, 3)
+        t = bamp.gauss_taps(A)
+        xv = ps.var.reshape(B * mcfg.Lin, mcfg.Nt)
+        zr = torch.rand(B * mcfg.Lin, W, device=dev)
+        pairs = [(xv, a) for a in (t.s_a2, t.s_re, t.dmc)]
+        pairs += [(zr, a) for a in (t.st_a2, t.st_re, t.amc, t.adm)]
+        lib, form = bf16_library(torch, pairs)
+        library_ms = cuda_ms(lib, 1, 5)
+        del lib, zr, pairs
+        k = out["k"]
+        taps = kern.high_taps(A)
+        planes = [ps.xm_re, ps.var, ps.z_re, ps.z_im, ps.u, y_re, y_im,
+                  ps.active, k.xmap_re, k.xmap_im, k.xm_re, k.var, k.z_re,
+                  k.z_im, k.u, k.notok]
+        flop, nbytes = iteration_work(mcfg, B, 7, planes)
+        nbytes += taps.numel() * taps.element_size() // 2
+        bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
+        timing = dict(kernel="fused_bamp_tiled_default", B=B, ebn0_db=db,
+                      ms=ms, ms_with_split=ms_split, high_ms=high_ms,
+                      highest_ms=highest_ms, default_over_high=ms / high_ms,
+                      plain_ms=plain_ms, library_ms=library_ms,
+                      library_form=form, flop=flop, bytes=nbytes,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      pct_of_bound=100 * bound_ms / ms,
+                      stage_ms=kern.stage_ms(A, ps, y_re, y_im, r.sigma2,
+                                             mcfg, precision=p),
+                      forms=kern.tile_forms(B, mcfg.Lin, W, mcfg.Nt, p),
+                      ptxas=list(ptxas))
+        emit("kernel_timing_tiled_default", **timing)
+        del r, s0, ps, one, out, k
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K5 DEFAULT kernel != plain: {failed}")
+    return max_err, timing
+
+
+def phase_main_massive_default(torch, dev):
+    """``Simulator(massive_mimo(), algo='bamp', precision='default')``
+    beside 'high' on the same seeds at 8 dB, cap 100, single phase (every
+    trial at the cap), 2 realizations of 2048.  Gates: the DEFAULT run
+    through K5's DEFAULT instance alone (no other kernel, no plain
+    decode), FER within 3 sigma of HIGH's (binomial, HIGH's count, at
+    least one error).  Returns ``launches_default``."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_bamp_iteration as fbi, fused_bamp_tiled as kern)
+
+    cfg = dataclasses.replace(massive_main_config(),
+                              iterations=MASSIVE_HIGH_CAP)
+    n, res = DEFAULT_REALIZATIONS, MASSIVE_RES
+
+    def counts():
+        return dict(launches=kern.launches, launches_high=kern.launches_high,
+                    launches_default=kern.launches_default,
+                    others=(fused_bamp.launches + fused_bamp.launches_high
+                            + fused_bamp.launches_default
+                            + fbi.fused_launches),
+                    plain=bamp.plain_decodes)
+
+    def zero():
+        kern.launches = kern.launches_high = kern.launches_default = 0
+        fused_bamp.launches = fused_bamp.launches_high = 0
+        fused_bamp.launches_default = fbi.fused_launches = 0
+        bamp.plain_decodes = 0
+
+    runs = run_precisions(torch, lambda p: montecarlo.Simulator(
+        cfg, algo="bamp", device=dev, precision=p, progress=lambda s: None),
+        MASSIVE_HIGH_DB, n * res, res, counts, zero, ("high", "default"))
+    d, h = runs["default"], runs["high"]
+    sigma = fer_sigma(h["avg"]["fer"], n * res)
+    emit("main_massive_default", config="massive_mimo",
+         ebn0_db=MASSIVE_HIGH_DB, res=res, realizations=n, trials=n * res,
+         cap=cfg.N_Layers,
+         **flat_runs(runs, ("seconds", "trials_per_s", "mean_T", "mean_fer",
+                            "mean_ber", "launches", "launches_high",
+                            "launches_default", "others", "plain")),
+         default_over_high_trials_per_s=d["trials_per_s"]
+         / h["trials_per_s"], fer_sigma=sigma)
+    if (d["launches_default"] < n * d["avg"]["T"] or d["launches"]
+            or d["launches_high"] or d["others"] or d["plain"]):
+        raise AssertionError("the massive DEFAULT path did not run through "
+                             "K5's DEFAULT instance alone")
+    if abs(d["avg"]["fer"] - h["avg"]["fer"]) > 3 * sigma:
+        raise AssertionError(f"massive DEFAULT FER {d['avg']['fer']} vs "
+                             f"HIGH {h['avg']['fer']}")
+    return d["launches_default"]
+
+
 def kernel_entry(name, replaces, launches, max_err, timing, source=None):
     return {"name": name, "route": "cuda",
             "source": "amp_sparc_spatialmodulation_tpu_torch/ops/kernels/"
@@ -3924,6 +4643,28 @@ def main() -> int:
     emit("tiled_high_phases", seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    max_err1d, (timing1d, _) = phase_kernels_bamp_default(
+        torch, dev, ptxas("fused_bamp_decode", entries=True))
+    torch.cuda.empty_cache()
+    launches1d = phase_main_bamp_default(torch, dev)
+    torch.cuda.empty_cache()
+    max_err3d, timing3d = phase_kernels_vamp_default(
+        torch, dev, "vamp", ptxas("fused_vamp_decode", entries=True))
+    torch.cuda.empty_cache()
+    max_err4d, timing4d = phase_kernels_vamp_default(
+        torch, dev, "vamp2", ptxas("fused_vamp2_decode", entries=True))
+    torch.cuda.empty_cache()
+    launches3d = phase_main_vamp_default(torch, dev, "vamp")
+    torch.cuda.empty_cache()
+    launches4d = phase_main_vamp_default(torch, dev, "vamp2")
+    torch.cuda.empty_cache()
+    max_err5d, timing5d = phase_kernels_tiled_default(
+        torch, dev, ptxas("fused_bamp_tiled", entries=True))
+    torch.cuda.empty_cache()
+    launches5d = phase_main_massive_default(torch, dev)
+    emit("default_phases", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     phase_main_auto_k1(torch, dev)
     phase_main_plain(torch, dev)
     torch.cuda.empty_cache()
@@ -3965,6 +4706,18 @@ def main() -> int:
                      launches5, max_err5, timing5),
         kernel_entry("fused_bamp_tiled_high", "fused_bamp_tiled.py:47",
                      launches5h, max_err5h, timing5h,
+                     source="fused_bamp_tiled"),
+        kernel_entry("fused_bamp_decode_default", "fused_bamp.py:617",
+                     launches1d, max_err1d, timing1d,
+                     source="fused_bamp_decode"),
+        kernel_entry("fused_vamp_decode_default", "fused_vamp.py:73",
+                     launches3d, max_err3d, timing3d,
+                     source="fused_vamp_decode"),
+        kernel_entry("fused_vamp2_decode_default", "fused_vamp2.py:39",
+                     launches4d, max_err4d, timing4d,
+                     source="fused_vamp2_decode"),
+        kernel_entry("fused_bamp_tiled_default", "fused_bamp_tiled.py:47",
+                     launches5d, max_err5d, timing5d,
                      source="fused_bamp_tiled"),
         kernel_entry("fused_bamp_iteration_fused", "fused_bamp.py:567",
                      k6[2], k6[0], k6[1], source="fused_bamp_iteration"),

@@ -404,7 +404,8 @@ def test_split_and_resume_high():
 
 def test_wrapper_high_on_cpu_is_plain_high():
     """On CPU tensors the wrapper at 'high' is the plain HIGH loop and
-    launches nothing; 'default' and unknown precisions raise."""
+    launches nothing; at 'default' it is the plain DEFAULT loop (one bf16
+    pass) and launches nothing; unknown precisions raise."""
     cfg, op, y, s2, *_ = shared_inputs(GEOMETRIES[3][1], 0, 1.5)
     s0 = bamp.initial_state(y, cfg.N, float(np.float32(s2)))
     before = (fused_bamp.launches, fused_bamp.launches_high)
@@ -414,11 +415,22 @@ def test_wrapper_high_on_cpu_is_plain_high():
     for f in bamp.BAMPState._fields:
         a, b = getattr(got, f), getattr(want, f)
         assert (a == b) if f == "t" else torch.equal(a, b), f
-    for bad in ("default", "low"):
-        with pytest.raises(ValueError):
-            fused_bamp.whole_decode(op, s0, y, s2, 4, cfg, bad)
-        with pytest.raises(ValueError):
-            bamp.decode(op, y, s2, cfg, precision=bad)
+    before = (fused_bamp.launches, fused_bamp.launches_high,
+              fused_bamp.launches_default)
+    one = fused_bamp.whole_decode(op, s0, y, s2, cfg.N_Layers, cfg,
+                                  "default")
+    ref = bamp.plain_loop_high(op, s0, y, s2, cfg.N_Layers, cfg,
+                               dot=prec.dot1)
+    assert (fused_bamp.launches, fused_bamp.launches_high,
+            fused_bamp.launches_default) == before
+    for f in bamp.BAMPState._fields:
+        a, b = getattr(one, f), getattr(ref, f)
+        assert (a == b) if f == "t" else torch.equal(a, b), f
+    assert not torch.equal(one.xmap, got.xmap)
+    with pytest.raises(ValueError):
+        fused_bamp.whole_decode(op, s0, y, s2, 4, cfg, "low")
+    with pytest.raises(ValueError):
+        bamp.decode(op, y, s2, cfg, precision="low")
 
 
 def test_smem_and_fit_of_the_high_form():

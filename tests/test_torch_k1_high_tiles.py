@@ -15,7 +15,10 @@
   mma takes, the 32 lanes' words of a load on 32 banks;
 * a NumPy mirror of the engine (units, the products one after another, k1
   parked in the forward's P_re slot and in the adjoint's xmap_re, 1/cov in
-  cov) equal to the Gauss combinations of whole products.
+  cov) equal to the Gauss combinations of whole products;
+* the DEFAULT form (the ``kOne`` instances, one bf16 pass): the HIGH
+  form's carve-out, fit, block and units, its tap loads the hi half of
+  each fragment, and its pass the hi hi products alone.
 
 The kernel itself is held against its plain HIGH version on the card by
 ``chip_smoke.py`` (``kernels_bamp_high``).
@@ -388,3 +391,41 @@ def test_imaginary_part_fits_the_scratch(name):
     scratch = 3 * cfg.Lin * cfg.Lh * fused_bamp.scratch_row(cfg)
     assert cfg.N <= scratch
     assert 4 * scratch <= fused_bamp.smem_bytes(cfg, "high")
+
+
+SOURCE = (fused_bamp.build.CSRC / "fused_bamp_decode.cu").read_text()
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_default_form_shares_the_high_block(name):
+    """The DEFAULT form keeps the HIGH form's split layout (it reads only
+    the hi planes), so its carve-out, fit and block are the HIGH form's,
+    and so are its units (the same ``high_pass``)."""
+    cfg = _config(name)
+    assert fused_bamp.smem_bytes(cfg, "default") == fused_bamp.smem_bytes(
+        cfg, "high")
+    assert fused_bamp.fits(cfg, "default") == fused_bamp.fits(cfg, "high")
+    assert fused_bamp.FORM == {"highest": 0, "high": 1, "default": 2}
+
+
+def test_default_pass_is_the_hi_hi_product():
+    """The source's one-pass form: ``high_pass<kOne>`` loads the first
+    16-byte word of a lane's tap fragment (its 8 hi bf16, ``mma_tiles``)
+    and issues the hi hi mma alone; the launcher maps form 2 to the kOne
+    instances of both blocks.  On the fragments, the hi halves alone give
+    ``precision.dot1``: the hi plane of ``mma_tiles`` is the bf16 of the
+    tap plane."""
+    assert "template <bool kOne, class Operand, class Epi>" in SOURCE
+    assert "f[0] = f[1] = __ldg(ap);" in SOURCE
+    for tag, blocks in ((1, 1), (2, 2)):
+        assert (f"bamp_decode_kernel<true, true, kHighThreads{tag}, "
+                f"{blocks}>") in SOURCE
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.standard_normal((40, 50)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((50, 24)).astype(np.float32))
+    frag = fused_bamp.mma_tiles(*prec.split_bf16(a))
+    hi = _unfragment(frag.reshape(-1), 3, 4)[0][:40, :50]
+    assert np.array_equal(hi, a.bfloat16().float().numpy())
+    np.testing.assert_allclose(
+        hi.astype(np.float64) @ b.bfloat16().double().numpy(),
+        prec.dot1(a, b).numpy(), rtol=0, atol=1e-5)

@@ -5,9 +5,10 @@ the split layout of its operands (``split_at``, ``split_tiles``) with its
 zero pads, the fold's pad cover, the ldmatrix fragments the layout gives
 each lane (the mma operands, free of bank conflicts), a NumPy mirror of
 both forms' products through that layout and their epilogue's output map
-against ``precision.dot3``'s three passes, the rule that picks the small
-form, and the BAMP route's refusal of the JAX package's xmap-precision
-knob.  The kernel itself runs only on the card (``chip_smoke.py``)."""
+against ``precision.dot3``'s three passes (and, for the DEFAULT form's
+``kOne`` instance, its one pass against ``precision.dot1``), the rule that
+picks the small form, and the BAMP route's refusal of the JAX package's
+xmap-precision knob.  The kernel itself runs only on the card (``chip_smoke.py``)."""
 import re
 
 import numpy as np
@@ -173,7 +174,7 @@ def test_fragments_are_the_mma_operands(form):
                         assert (regs[mat, :, e, 2] == mat >> 1).all()
 
 
-def mirror_product(form, A, Bt):
+def mirror_product(form, A, Bt, one=False):
     """The kernel's product of one stage pass through the split layout, in
     float64: A (rows, K) and the taps Bt (cols, K) split and laid out as
     the wrapper and the split launch lay them (``split_tiles``); each block
@@ -181,7 +182,8 @@ def mirror_product(form, A, Bt):
     the ring's bulk copies do; each warp reads its fragments at the lane
     addresses and runs hi hi + hi lo + lo hi per n8 x m16 tile, joined per
     step; the epilogue's map puts each lane's outputs at (R, n).  Returns
-    (rows, cols)."""
+    (rows, cols).  ``one``: the DEFAULT form's step, hi hi alone, on the
+    same layout and fragments."""
     BM, BN, _ = dims(form)
     WM, WN, MT, NT, _, _ = FORMS[form]
     rows, K = A.shape
@@ -225,7 +227,8 @@ def mirror_product(form, A, Bt):
                         for i in range(MT):
                             ah = frag_a(ldmatrix(sa, a_hi[i]))
                             al = frag_a(ldmatrix(sa, a_lo[i]))
-                            th = ah @ bh + ah @ bl + al @ bh
+                            th = (ah @ bh if one
+                                  else ah @ bh + ah @ bl + al @ bh)
                             key = (wm, wn, i, j)
                             acc[key] = acc.get(key, 0.0) + th
         for (wm, wn, i, j), c in acc.items():
@@ -255,6 +258,26 @@ def test_mirror_product_is_the_three_passes(form, rows, cols, K):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
     # and the FP32 function within its rounding
     np.testing.assert_allclose(got, prec.dot3(A, Bt.T).numpy(), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("form,rows,cols,K", [("large", 200, 130, 40),
+                                              ("small", 70, 40, 24)])
+def test_mirror_product_one_pass_is_dot1(form, rows, cols, K):
+    """The DEFAULT form's products (``high_product_kernel<..., kOne>``: the
+    hi hi mma alone on the HIGH layout) through the same copies, fragments
+    and output map equal hi hi of the split operands in float64, and
+    ``precision.dot1`` within its rounding."""
+    assert "template <bool kFwd, class F, bool kOne>" in SOURCE
+    assert "if (!kOne) ldmatrix_x4(al[i], sa + a_lo[i]);" in SOURCE
+    g = torch.Generator().manual_seed(rows + cols + K + 1)
+    A = torch.randn(rows, K, generator=g)
+    Bt = torch.randn(cols, K, generator=g)
+    got = mirror_product(form, A, Bt, one=True)
+    want = (A.bfloat16().double() @ Bt.bfloat16().double().T).numpy()
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got, prec.dot1(A, Bt.T).numpy(), rtol=0,
                                atol=1e-5)
 
 

@@ -19,7 +19,8 @@ of the VAMP and vamp2 decodes and the sweep engine's ``precision`` and
   'auto' run on every route, as in JAX (BAMP on a dense operator, SCAMP
   where K2 does not fit, VAMP's random mode: the plain loops at HIGH, held
   to JAX's XLA decodes in ``tests/test_torch_plain_high.py``); every entry
-  point raises on 'default'.
+  point takes 'default' too (held to the patched JAX package in
+  ``tests/test_torch_default.py``) and raises on an unknown precision.
 * ``chans_per_batch=2`` gives the sums of 1 and rounds
   ``trials_per_point`` as JAX does.
 
@@ -138,8 +139,13 @@ def test_complex_matmul_high_is_four_dot3():
     assert float(np.max(np.abs(got - ref) / scale)) < 1e-6
     assert torch.equal(prec.matmul(tx, tU.conj(), "highest"),
                        tx @ tU.conj())
+    # at 'default' four real one-pass products, formed the same way
+    xr, xi, ar, ai = tx.real, tx.imag, tU.real, tU.imag
+    want = torch.complex(prec.dot1(xr, ar) - prec.dot1(xi, ai),
+                         prec.dot1(xr, ai) + prec.dot1(xi, ar))
+    assert torch.equal(prec.matmul(tx, tU, "default"), want)
     with pytest.raises(ValueError):
-        prec.matmul(tx, tU, "default")
+        prec.matmul(tx, tU, "low")
 
 
 def _jax_y_tilde(algo, jdec, jy):
@@ -213,7 +219,8 @@ def test_plain_high_steps_are_the_kernels():
 
 def test_wrapper_high_on_cpu_is_plain_high():
     """On CPU tensors the wrapper at 'high' is the plain HIGH loop and
-    launches nothing; 'default' and unknown precisions raise."""
+    launches nothing; at 'default' it is the plain DEFAULT loop and
+    launches nothing; unknown precisions raise."""
     cfg, dec, y, s2, *_ = shared_inputs(dict(alphabet="QPSK"), 1.9)
     yt, sq = vamp.project(dec, y, "high"), dec.s ** 2
     s0 = vamp.initial_state(y, cfg)
@@ -223,11 +230,19 @@ def test_wrapper_high_on_cpu_is_plain_high():
     assert (fused_vamp.launches, fused_vamp.launches_high) == before
     for f in ("r", "xmmse", "var", "T", "sigma2_tilde"):
         assert torch.equal(getattr(done, f), getattr(want, f)), f
-    for bad in ("default", "low"):
-        with pytest.raises(ValueError):
-            fused_vamp.whole_decode(dec.Vh, sq, yt, s0, s2, 10, cfg, bad)
-        with pytest.raises(ValueError):
-            vamp2.decode(dec, y, s2, cfg, precision=bad)
+    before = (fused_vamp.launches, fused_vamp.launches_high,
+              fused_vamp.launches_default)
+    one = fused_vamp.whole_decode(dec.Vh, sq, yt, s0, s2, 10, cfg, "default")
+    ref = vamp.plain_loop_default(dec.Vh, sq, yt, s0, s2, 10, cfg)
+    assert (fused_vamp.launches, fused_vamp.launches_high,
+            fused_vamp.launches_default) == before
+    for f in ("r", "xmmse", "var", "T", "sigma2_tilde"):
+        assert torch.equal(getattr(one, f), getattr(ref, f)), f
+    assert not torch.equal(one.r, done.r)
+    with pytest.raises(ValueError):
+        fused_vamp.whole_decode(dec.Vh, sq, yt, s0, s2, 10, cfg, "low")
+    with pytest.raises(ValueError):
+        vamp2.decode(dec, y, s2, cfg, precision="low")
 
 
 @pytest.mark.parametrize("algo", ["vamp", "vamp2"])
@@ -380,10 +395,18 @@ def test_bamp_scamp_raise_without_high_kernels(tmp_path, algo, kw, form,
 
 @pytest.mark.parametrize("algo", ["bamp", "scamp", "vamp", "vamp2"])
 def test_default_precision_raises(tmp_path, algo):
+    """Every decoder's sweep takes 'default' and runs a point with it, as
+    JAX's does (its function is held to the patched JAX package in
+    tests/test_torch_default.py); an unknown precision raises."""
     cfg = Config(**dict(POLICY_CFG, mode="sparc"))
-    with pytest.raises(ValueError, match="witness"):
-        mc.Simulator(cfg, algo=algo, precision="default", device="cpu",
-                     out_root=str(tmp_path))
+    kw = dict(algo=algo, device="cpu", out_root=str(tmp_path),
+              progress=lambda s: None)
+    sim = mc.Simulator(cfg, precision="default", **kw)
+    assert sim._effective_precision() == "default"
+    got = sim.run_point(6.0, epochs=16, res=16)
+    assert 0 < got["T"] <= cfg.N_Layers and np.isfinite(got["fer"])
+    with pytest.raises(ValueError, match="unknown precision"):
+        mc.Simulator(cfg, precision="low", **kw)
 
 
 def test_random_mode_simulator_raises(tmp_path):
@@ -452,7 +475,7 @@ def test_cli_sweep_high_chans_on_cpu(tmp_path):
     assert "64" in manifest            # 48 trials round up to 2 x 2 x 16
     with pytest.raises(SystemExit):
         cli.main(["sweep", "--Nt", "16", "--Na", "4", "--Nr", "10", "--Lin",
-                  "8", "--Lh", "3", "--precision", "default"])
+                  "8", "--Lh", "3", "--precision", "low"])
 
 
 @pytest.mark.cuda

@@ -217,14 +217,23 @@ def test_high_forms_and_shared_memory():
     assert tf(32, m.Lin, W, m.Nt, "high") == 3
     assert tf(64, m.Lin, W, m.Nt, "high") == 1
     assert tf(64, m.Lin, W, m.Nt) == 1
+    # the DEFAULT form runs the HIGH form's launches: its forms and blocks
+    for B in (2048, 64, 32, 6):
+        assert tf(B, m.Lin, W, m.Nt, "default") == tf(B, m.Lin, W, m.Nt,
+                                                       "high")
+    for fwd in (True, False):
+        for small in (True, False):
+            assert fused_bamp_tiled.smem_bytes(fwd, small, "default") == \
+                fused_bamp_tiled.smem_bytes(fwd, small, "high")
     with pytest.raises(ValueError):
-        tf(64, m.Lin, W, m.Nt, "default")
+        tf(64, m.Lin, W, m.Nt, "low")
 
 
 def test_cpu_wrapper_high_is_the_plain_high_step():
     """On CPU tensors the wrapper at 'high' runs the plain HIGH step and
-    launches nothing; it differs from the HIGHEST step; 'default' and
-    unknown precisions raise."""
+    launches nothing; it differs from the HIGHEST step; at 'default' it is
+    the plain DEFAULT step (one bf16 pass) and launches nothing; unknown
+    precisions raise."""
     cfg, op, y, s2, *_ = shared()
     ps = mid_state(cfg, op, y, s2)
     y_re, y_im = y.real.contiguous(), y.imag.contiguous()
@@ -240,9 +249,20 @@ def test_cpu_wrapper_high_is_the_plain_high_step():
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     highest = fused_bamp_tiled.iteration(op, ps, y_re, y_im, s2, cfg)
     assert not torch.equal(got.z_re, highest.z_re)
-    for bad in ("default", "low"):
-        with pytest.raises(ValueError):
-            fused_bamp_tiled.iteration(op, ps, y_re, y_im, s2, cfg, bad)
+    before = (fused_bamp_tiled.launches, fused_bamp_tiled.launches_high,
+              fused_bamp_tiled.launches_default)
+    one = fused_bamp_tiled.iteration(op, ps, y_re, y_im, s2, cfg, "default")
+    want = bamp.step_planes(
+        op, ps, y_re, y_im, s2, bamp.make_denoiser(cfg, "cpu"),
+        lambda *a: bamp.linear_step_high(*a, taps=bamp.gauss_taps(op),
+                                         real_x=True, dot=prec.dot1))
+    assert (fused_bamp_tiled.launches, fused_bamp_tiled.launches_high,
+            fused_bamp_tiled.launches_default) == before
+    for f in bamp.IterOut._fields:
+        assert torch.equal(getattr(one, f), getattr(want, f)), f
+    assert not torch.equal(one.z_re, got.z_re)
+    with pytest.raises(ValueError):
+        fused_bamp_tiled.iteration(op, ps, y_re, y_im, s2, cfg, "low")
 
 
 def test_decode_high_on_the_tiled_route(monkeypatch):

@@ -9,7 +9,9 @@ hand the mma the fragments it expects; the split operand and the
 wrapper's tap tiles are laid out where the engine reads them; and running
 the three Gauss products as three passes (k1, then k2, then k3, each
 output's hi.hi and hi.lo + lo.hi accumulators joined at the end of its
-pass) gives the same bits as running them at once.  The constants are read
+pass) gives the same bits as running them at once; the DEFAULT form's
+one pass (``product_x3<true>``, hi.hi alone on the same layout) is
+``precision.dot1`` of the Gauss form.  The constants are read
 from the source; the kernels themselves run only on the card
 (``chip_smoke.py``)."""
 import re
@@ -97,9 +99,10 @@ def test_constants_as_designed():
     assert re.search(r"constexpr int kTapStep = kBN3 \* 2 \* kBK;", COMMON)
     # the wrapper's mirrors of the block and tile sizes
     assert fused_vamp.BLOCK_TRIALS == BT and fused_vamp.TILE_COLS == BN3
-    # both kernels run the HIGH products on the engine, nothing else
+    # both kernels run the HIGH (and DEFAULT) products on the engine,
+    # nothing else
     for src in KERNELS.values():
-        assert src.count("product_x3(") == 2
+        assert src.count("product_x3<kOne>(") == 2
         assert "product_tile_x3" not in src and "cp_async16" not in src
 
 
@@ -362,10 +365,10 @@ def joint_order(xs, ts, K):
     return k[0] - k[2], k[0] + k[1]
 
 
-def pass_order(xs, ts, K, merged=False):
+def pass_order(xs, ts, K, merged=False, one=False):
     """This engine: pass g over all of K, k1 parked, k1 + k2 beside it;
     ``merged`` sums hi.hi and hi.lo + lo.hi in one accumulator (the form
-    that was not shipped)."""
+    that was not shipped); ``one`` is the DEFAULT form, hi.hi alone."""
     R, C = xs[0][0].shape[0], ts[0][0].shape[1]
     park = [None, None]
     for g in range(3):
@@ -380,9 +383,11 @@ def pass_order(xs, ts, K, merged=False):
                 hh = mma(hh, al[:, ks], bh[ks])
                 continue
             hh = mma(hh, ah[:, ks], bh[ks])
+            if one:
+                continue
             cx = mma(cx, ah[:, ks], bl[ks])
             cx = mma(cx, al[:, ks], bh[ks])
-        k = hh + cx
+        k = hh if one else hh + cx
         if g == 0:
             park[0] = k
         elif g == 1:
@@ -413,3 +418,22 @@ def test_pass_order_is_dot3_of_the_gauss_form(gauss_operands):
     scale = max(float(np.abs(x).max()) for x in k)
     assert np.abs(pr - (k[0] - k[2])).max() <= 1e-5 * scale
     assert np.abs(pi - (k[0] + k[1])).max() <= 1e-5 * scale
+
+
+def test_one_pass_is_dot1_of_the_gauss_form(gauss_operands):
+    """The DEFAULT form's engine (``product_x3<true>``, instantiated by
+    both kernels' DEFAULT instances): each pass hi.hi alone, parked as the
+    HIGH form parks; against precision.dot1 on the same Gauss operands
+    within 1e-5 of the largest |k|, and apart from the three passes."""
+    assert "template <bool kOne = false, class Epi>" in COMMON
+    for name, src in KERNELS.items():
+        assert "product_x3<kOne>(" in src and "<true, true>" in src, name
+    xs, ts, K, ops, taps = gauss_operands
+    pr, pi = pass_order(xs, ts, K, one=True)
+    k = [prec.dot1(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+         for x, t in zip(ops, taps)]
+    scale = max(float(np.abs(x).max()) for x in k)
+    assert np.abs(pr - (k[0] - k[2])).max() <= 1e-5 * scale
+    assert np.abs(pi - (k[0] + k[1])).max() <= 1e-5 * scale
+    hr, _ = pass_order(xs, ts, K)
+    assert np.abs(pr - hr).max() > 1e-4 * scale

@@ -37,6 +37,19 @@ iterations, its median |d z_re|, |d xmap_re| and |d u|.
     env PYTHONPATH=. python tests/torch_bamp_high_rule.py [--qpsk-db 7 9]
     env PYTHONPATH=. python tests/torch_bamp_high_rule.py --route tiled \
         [--massive-db 10]
+    env PYTHONPATH=. python tests/torch_bamp_high_rule.py --precision default \
+        [--route tiled]
+
+With ``--precision default`` the readings of the DEFAULT rule (one bf16
+pass, ``chip_smoke.py``'s ``kernels_bamp_default`` and
+``kernels_tiled_default``): every decode of the same trials, drawn with
+``y`` at DEFAULT, against the plain DEFAULT version, the four decodes being
+``kernel_default`` (the DEFAULT instance under test), ``plain_exact`` (the
+plain DEFAULT version with its bf16 products summed in float64 and rounded
+once: two correct DEFAULT decodes), ``kernel_high`` and ``kernel_highest``
+(the instances of the other precisions: wrong products); the control is
+one iteration from the state after two plain DEFAULT iterations on both
+routes, its median |d z|, |d xmap| and |d u|.
 
 Prints one JSON line per shape and decode: T agreement, mean T of both,
 |d mean T|, the trials that converged in both, the largest state error on
@@ -62,6 +75,12 @@ def dot3_exact(x, a):
     return (xh @ ah + (xh @ al + xl @ ah)).float()
 
 
+def dot1_exact(x, a):
+    """``precision.dot1`` summed in float64 and rounded once."""
+    return (x.to(torch.bfloat16).double()
+            @ a.to(torch.bfloat16).double()).float()
+
+
 def dot_one_pass(x, a):
     """The hi x hi pass of ``precision.dot3`` alone."""
     from amp_sparc_spatialmodulation_tpu_torch.ops import precision as prec
@@ -83,7 +102,7 @@ def reading(sk, sp) -> dict:
                     sk, sp, agree & converged))
 
 
-def shape(tag, cfg, B, cap, ebn0_db, seed, dev):
+def shape(tag, cfg, B, cap, ebn0_db, seed, dev, precision="high"):
     from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
     from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
     from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
@@ -91,9 +110,12 @@ def shape(tag, cfg, B, cap, ebn0_db, seed, dev):
 
     r = montecarlo.generate_realization(
         make_generator(dev, seed), cfg, "sparc", "banded", B,
-        chip_smoke.snr_of(cfg, ebn0_db), "high")
+        chip_smoke.snr_of(cfg, ebn0_db), precision)
     op, y, s2 = r.A, r.y, r.sigma2
     s0 = bamp.initial_state(y, cfg.N, s2)
+    if precision == "default":
+        shape_default(tag, cfg, B, cap, ebn0_db, op, y, s2, s0)
+        return
     forms = {
         "kernel_high": lambda c: fused_bamp.whole_decode(
             op, s0, y, s2, c, cfg, "high"),
@@ -118,7 +140,38 @@ def shape(tag, cfg, B, cap, ebn0_db, seed, dev):
     torch.cuda.empty_cache()
 
 
-def tiled_shape(tag, cfg, r, s0, cap, dev, y=None):
+def shape_default(tag, cfg, B, cap, ebn0_db, op, y, s2, s0):
+    """The DEFAULT readings of :func:`shape` (module docstring)."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+
+    forms = {
+        "kernel_default": lambda s, c: fused_bamp.whole_decode(
+            op, s, y, s2, c, cfg, "default"),
+        "plain_exact": lambda s, c: bamp.plain_loop_high(
+            op, s, y, s2, c, cfg, dot=dot1_exact),
+        "kernel_high": lambda s, c: fused_bamp.whole_decode(
+            op, s, y, s2, c, cfg, "high"),
+        "kernel_highest": lambda s, c: fused_bamp.whole_decode(
+            op, s, y, s2, c, cfg),
+    }
+    sp = fused_bamp.decode_plain_default(op, s0, y, s2, cap, cfg)
+    ps = fused_bamp.decode_plain_default(op, s0, y, s2, 2, cfg)
+    one = fused_bamp.decode_plain_default(op, ps, y, s2, 3, cfg)
+    for name, run in forms.items():
+        sk = run(s0, cap)
+        gap = chip_smoke.vamp_gap(run(ps, 3), one)
+        print(json.dumps({"shape": tag, "decode": name, "B": B, "cap": cap,
+                          "ebn0_db": ebn0_db, **reading(sk, sp),
+                          **{f"control_{k}": gap[k] for k in (
+                              "z_p50", "xmap_p50", "u_p50")}}),
+              flush=True)
+        del sk
+    del sp, ps, one
+    torch.cuda.empty_cache()
+
+
+def tiled_shape(tag, cfg, r, s0, cap, dev, y=None, precision="high"):
     """The four K5 decodes of ``tiled`` (module docstring) from ``s0`` to
     ``cap`` against the plain HIGH version, and each one's control."""
     from functools import partial
@@ -142,11 +195,17 @@ def tiled_shape(tag, cfg, r, s0, cap, dev, y=None):
              "plain_exact": plain(dot3_exact),
              "kernel_highest": kern.iteration,
              "plain_one_pass": plain(dot_one_pass)}
-    sp = kern.decode_plain(op, s0, y, s2, cap, cfg, "high")
+    if precision == "default":
+        steps = {"kernel_default": partial(kern.iteration,
+                                           precision="default"),
+                 "plain_exact": plain(dot1_exact),
+                 "kernel_high": steps["kernel_high"],
+                 "kernel_highest": kern.iteration}
+    sp = kern.decode_plain(op, s0, y, s2, cap, cfg, precision)
     ps = bamp.to_planes(kern.decode_plain(
-        op, s0, y, s2, s0.t + chip_smoke.K5_HIGH_PRESTEPS, cfg, "high"))
+        op, s0, y, s2, s0.t + chip_smoke.K5_HIGH_PRESTEPS, cfg, precision))
     y_re, y_im = y.real.contiguous(), y.imag.contiguous()
-    one = kern.iteration_plain(op, ps, y_re, y_im, s2, cfg, "high")
+    one = kern.iteration_plain(op, ps, y_re, y_im, s2, cfg, precision)
     for name, step in steps.items():
         sk = bamp.plane_loop(step, op, s0, y, s2, cap, cfg)
         gap = chip_smoke.iter_gap(step(op, ps, y_re, y_im, s2, cfg), one,
@@ -162,7 +221,7 @@ def tiled_shape(tag, cfg, r, s0, cap, dev, y=None):
     torch.cuda.empty_cache()
 
 
-def tiled(dev, massive_db) -> None:
+def tiled(dev, massive_db, precision="high") -> None:
     """The readings of ``--route tiled`` (module docstring)."""
     import dataclasses
 
@@ -174,7 +233,8 @@ def tiled(dev, massive_db) -> None:
 
     def realization(cfg, B, seed, snr):
         r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
-                                            "sparc", "banded", B, snr, "high")
+                                            "sparc", "banded", B, snr,
+                                            precision)
         return r, bamp.initial_state(r.y, cfg.N, r.sigma2)
 
     cases = [("ook_8_3", {}, chip_smoke.SMALL_B),
@@ -184,23 +244,25 @@ def tiled(dev, massive_db) -> None:
     for i, (name, kw, B) in enumerate(cases):
         cfg = chip_smoke.tiled_small_config(**kw)
         r, s0 = realization(cfg, B, 400 + i, 10 ** 0.8)
-        tiled_shape(name, cfg, r, s0, cfg.N_Layers, dev)
+        tiled_shape(name, cfg, r, s0, cfg.N_Layers, dev,
+                    precision=precision)
     mcfg = dataclasses.replace(chip_smoke.massive_main_config(),
                                iterations=chip_smoke.MASSIVE_HIGH_CAP)
     for db in massive_db:
         r, s0 = realization(mcfg, chip_smoke.MASSIVE_RES, 44,
                             chip_smoke.snr_of(mcfg, db))
-        tiled_shape(f"massive_{db:g}db", mcfg, r, s0, mcfg.N_Layers, dev)
+        tiled_shape(f"massive_{db:g}db", mcfg, r, s0, mcfg.N_Layers, dev,
+                    precision=precision)
         del r, s0
     pcfg = chip_smoke.massive_main_config()
     r, s0 = realization(pcfg, chip_smoke.MASSIVE_RES, 43,
                         chip_smoke.snr_of(pcfg, chip_smoke.MASSIVE_EBN0_DB))
-    s1 = bamp.plane_loop(lambda *a: kern.iteration(*a, precision="high"),
+    s1 = bamp.plane_loop(lambda *a: kern.iteration(*a, precision=precision),
                          r.A, s0, r.y, r.sigma2, chip_smoke.MASSIVE_K1, pcfg)
     idx = torch.nonzero(s1.active).flatten()
     tiled_shape(f"phase2_{int(idx.numel())}", pcfg, r,
                 montecarlo.state_take_trials(s1, idx),
-                chip_smoke.MASSIVE_CAP, dev, y=r.y[idx])
+                chip_smoke.MASSIVE_CAP, dev, y=r.y[idx], precision=precision)
 
 
 def main() -> None:
@@ -215,17 +277,20 @@ def main() -> None:
     ap.add_argument("--massive-db", type=float, nargs="*",
                     default=[chip_smoke.MASSIVE_CONVERGING_DB],
                     help="--route tiled: massive points at cap 100 (dB)")
+    ap.add_argument("--precision", choices=["high", "default"],
+                    default="high", help="the rule of the HIGH or the "
+                    "DEFAULT instances (module docstring)")
     args = ap.parse_args()
     dev = torch.device("cuda")
     print(chip_smoke.nvidia_smi(), flush=True)
     if args.route == "tiled":
-        tiled(dev, args.massive_db)
+        tiled(dev, args.massive_db, args.precision)
         return
     shape("ook_phase1", flagship_bamp_ook(), chip_smoke.RES, chip_smoke.K1,
-          chip_smoke.EBN0_DB, 41, dev)
+          chip_smoke.EBN0_DB, 41, dev, args.precision)
     for db in [chip_smoke.BAMP_HIGH_EBN0_DB] + list(args.qpsk_db):
         shape(f"qpsk_cap100_{db:g}db", flagship_bamp_qpsk(),
-              chip_smoke.FLAGSHIP_B, 100, db, 42, dev)
+              chip_smoke.FLAGSHIP_B, 100, db, 42, dev, args.precision)
 
 
 if __name__ == "__main__":

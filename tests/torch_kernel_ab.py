@@ -37,7 +37,11 @@ chip_smoke's two timed K1-high shapes (the QPSK flagship, 4096 trials at
 5 dB to the cap of 100, seed 42, the main path's shape; the OOK flagship,
 65536 trials at 8 dB to k1=12, seed 41), each timed only
 for a tree whose wrapper takes ``precision`` (a tree without the HIGH form
-is left out of the case).  The two trees' results
+is left out of the case); ``vamp_default_cap10``, ``vamp2_default_cap10``,
+``tiled_default``, ``tiled_default_tail``, ``bamp_default_qpsk`` and
+``bamp_default_ook``, the same cases of the DEFAULT form
+(``precision='default'``, one bf16 pass; a tree without it is left out).
+The two trees' results
 must be bit-identical for K1, K2, K5 and K6 (every plane and ``notok``;
 xmap on the active trials, the only ones K5 and K6 write it for) and K7;
 for K3 and K4, whose product engine may sum in another order from one
@@ -173,16 +177,18 @@ def _cases(dev, wanted=frozenset()):
     for algo in ("vamp", "vamp2"):
         if want(f"{algo}_cap10"):
             yield _vamp_case(dev, algo)
-        if want(f"{algo}_high_cap10"):
-            yield _vamp_case(dev, algo, "high")
+        for precision in ("high", "default"):
+            if want(f"{algo}_{precision}_cap10"):
+                yield _vamp_case(dev, algo, precision)
     if want("periter_fused", "periter_linear", "periter_tail"):
         yield from _periter_cases(dev, want)
     if want("tiled", "tiled_tail"):
         yield from _tiled_cases(dev, want)
-    if want("tiled_high", "tiled_high_tail"):
-        yield from _tiled_high_cases(dev, want)
-    if want("bamp_high_qpsk", "bamp_high_ook"):
-        yield from _bamp_high_cases(dev, want)
+    for p in ("high", "default"):
+        if want(f"tiled_{p}", f"tiled_{p}_tail"):
+            yield from _tiled_high_cases(dev, want, p)
+        if want(f"bamp_{p}_qpsk", f"bamp_{p}_ook"):
+            yield from _bamp_high_cases(dev, want, p)
 
 
 def _periter_cases(dev, want):
@@ -258,9 +264,9 @@ def _tiled_cases(dev, want):
                        ps.active))
 
 
-def _tiled_high_cases(dev, want):
-    """K5's HIGH form for one iteration at the massive point's HIGH
-    shapes."""
+def _tiled_high_cases(dev, want, precision="high"):
+    """K5's HIGH (or DEFAULT) form for one iteration at the massive
+    point's HIGH shapes, drawn and run at ``precision``."""
     import chip_smoke
     from amp_sparc_spatialmodulation_tpu_torch.config import massive_mimo
     from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
@@ -268,28 +274,28 @@ def _tiled_high_cases(dev, want):
     planes = lambda s, y: (bamp.to_planes(s), y.real.contiguous(),
                            y.imag.contiguous())
     shapes = {}
-    if want("tiled_high"):
+    p = precision
+    if want(f"tiled_{p}"):
         m = massive_mimo()
         r = montecarlo.generate_realization(
             make_generator(dev, 45), m, "sparc", "banded",
-            chip_smoke.MASSIVE_RES, chip_smoke.snr_of(m, 8.0), "high")
+            chip_smoke.MASSIVE_RES, chip_smoke.snr_of(m, 8.0), p)
         s0 = bamp.initial_state(r.y, m.N, r.sigma2)
         s2 = fused_bamp_tiled.decode_plain(r.A, s0, r.y, r.sigma2,
-                                           chip_smoke.K5_HIGH_PRESTEPS, m,
-                                           "high")
-        shapes["tiled_high"] = (m, r.A, r.sigma2, planes(s2, r.y))
-    if want("tiled_high_tail"):
+                                           chip_smoke.K5_HIGH_PRESTEPS, m, p)
+        shapes[f"tiled_{p}"] = (m, r.A, r.sigma2, planes(s2, r.y))
+    if want(f"tiled_{p}_tail"):
         cfg = chip_smoke.massive_main_config()
         r = montecarlo.generate_realization(
             make_generator(dev, 43), cfg, "sparc", "banded",
             chip_smoke.MASSIVE_RES,
-            chip_smoke.snr_of(cfg, chip_smoke.MASSIVE_EBN0_DB), "high")
+            chip_smoke.snr_of(cfg, chip_smoke.MASSIVE_EBN0_DB), p)
         s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
-        it = lambda *a: fused_bamp_tiled.iteration(*a, precision="high")
+        it = lambda *a: fused_bamp_tiled.iteration(*a, precision=p)
         s1 = bamp.plane_loop(it, r.A, s0, r.y, r.sigma2,
                              chip_smoke.MASSIVE_K1, cfg)
         idx = torch.nonzero(s1.active).flatten()
-        shapes["tiled_high_tail"] = (
+        shapes[f"tiled_{p}_tail"] = (
             cfg, r.A, r.sigma2,
             planes(montecarlo.state_take_trials(s1, idx), r.y[idx]))
     for case, (cfg, op, sigma2, (ps, y_re, y_im)) in shapes.items():
@@ -297,35 +303,36 @@ def _tiled_high_cases(dev, want):
         # loop runs it: the next call takes the split x and var planes its
         # denoiser wrote (a tree without them splits them itself)
         ps = bamp.advance(ps, fused_bamp_tiled.iteration(
-            op, ps, y_re, y_im, sigma2, cfg, "high"))
+            op, ps, y_re, y_im, sigma2, cfg, p))
         yield (case, "fused_bamp_tiled", "fused_bamp_tiled",
                lambda mod, cfg=cfg, op=op, sigma2=sigma2, ps=ps, y_re=y_re,
                y_im=y_im: Step(mod.iteration(op, ps, y_re, y_im, sigma2,
-                                             cfg, "high"), ps.active))
+                                             cfg, p), ps.active))
 
 
-def _bamp_high_cases(dev, want):
-    """K1's HIGH form at its two timed shapes, as chip_smoke's
+def _bamp_high_cases(dev, want, precision="high"):
+    """K1's HIGH (or DEFAULT) form at its two timed shapes, as chip_smoke's
     kernels_bamp_high builds them: the QPSK flagship, 4096 trials at 5 dB,
     cap 100, seed 42 (the main path's shape), and the OOK flagship at its
-    phase-1 shape, 65536 trials at 8 dB, cap 12, seed 41."""
+    phase-1 shape, 65536 trials at 8 dB, cap 12, seed 41; drawn and run at
+    ``precision``."""
     import chip_smoke
     from amp_sparc_spatialmodulation_tpu_torch.config import (
         flagship_bamp_qpsk)
     for case, cfg, B, cap, ebn0, seed in (
-            ("bamp_high_qpsk", flagship_bamp_qpsk(), chip_smoke.FLAGSHIP_B,
-             100, chip_smoke.BAMP_HIGH_EBN0_DB, 42),
-            ("bamp_high_ook", flagship_bamp_ook(), RES, chip_smoke.K1,
-             chip_smoke.EBN0_DB, 41)):
+            (f"bamp_{precision}_qpsk", flagship_bamp_qpsk(),
+             chip_smoke.FLAGSHIP_B, 100, chip_smoke.BAMP_HIGH_EBN0_DB, 42),
+            (f"bamp_{precision}_ook", flagship_bamp_ook(), RES,
+             chip_smoke.K1, chip_smoke.EBN0_DB, 41)):
         if not want(case):
             continue
         r = montecarlo.generate_realization(
             make_generator(dev, seed), cfg, "sparc", "banded", B,
-            chip_smoke.snr_of(cfg, ebn0), "high")
+            chip_smoke.snr_of(cfg, ebn0), precision)
         s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
         yield (case, "fused_bamp_decode", "fused_bamp",
                lambda mod, cfg=cfg, r=r, s0=s0, cap=cap: mod.whole_decode(
-                   r.A, s0, r.y, r.sigma2, cap, cfg, "high"))
+                   r.A, s0, r.y, r.sigma2, cap, cfg, precision))
 
 
 def _vamp_case(dev, algo, precision=None):
@@ -420,7 +427,8 @@ def _across(case, first) -> dict:
     if len(first) < 2:
         return {}
     a, b = first["change"], first["parent"]
-    if case.startswith(("tiled_high", "bamp_high")):
+    if case.startswith(("tiled_high", "bamp_high", "tiled_default",
+                        "bamp_default")):
         return {"bit_identical_share": _same_share(a, b)}
     identical = _same(a, b)
     if not case.startswith("vamp"):
@@ -463,6 +471,10 @@ def main(argv=None) -> int:
                 for k, root in roots.items()}
         if "_high" in case:
             mods = {k: m for k, m in mods.items() if _takes_precision(m)}
+        if "_default" in case:
+            # a tree without the DEFAULT form is left out
+            mods = {k: m for k, m in mods.items()
+                    if hasattr(m, "launches_default")}
         libs = _libraries(name, mods, {k: trees[k] for k in mods})
         order = [k for k in ("parent", "change", "change", "parent")
                  if k in libs] * args.rounds

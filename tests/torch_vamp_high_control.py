@@ -16,6 +16,21 @@ wrapper module and library (``tests/torch_kernel_ab.py``'s loading).
     env PYTHONPATH=. python3 tests/torch_vamp_high_control.py \\
         --parent build/parent
 
+With ``--precision default`` the DEFAULT instance (one bf16 pass) and, as
+the wrong precision, the HIGH instance against the plain DEFAULT version,
+on a realization drawn at DEFAULT: the readings behind chip_smoke.py's
+``VAMP_DEFAULT_CONTROL_TOL``; ``--parent`` is then optional (a tree without
+a DEFAULT form is left out).  Then, at the main geometry, whole decodes to
+the cap of 10 against the plain DEFAULT version: the DEFAULT instance, the
+plain DEFAULT version with its one-pass sums taken in float64 (two
+correct DEFAULT decodes), the HIGH and HIGHEST instances: T agreement,
+mean T, |d mean T| and the share of the T-agreeing trials whose
+posterior lies within 1e-3, the readings behind kernels_vamp_default's
+rule.
+
+    env PYTHONPATH=. python3 tests/torch_vamp_high_control.py \
+        --precision default
+
 Prints one JSON line per tree, algorithm and geometry.  Needs the card and
 ``nvcc``; imports no JAX.
 """
@@ -41,15 +56,17 @@ from amp_sparc_spatialmodulation_tpu_torch.utils.device import (  # noqa: E402
     make_generator)
 
 
-def cases(dev, algo):
-    """(name, cfg, case) of the two geometries, as chip_smoke builds them."""
+def cases(dev, algo, precision="high"):
+    """(name, cfg, case) of the two geometries, as chip_smoke builds them,
+    drawn and projected at ``precision``."""
     mod, data = (vamp, vamp.project) if algo == "vamp" else (vamp2,
                                                               vamp2.whiten)
 
     def realization(cfg, B, seed, snr):
         r = montecarlo.with_svd(algo, montecarlo.generate_realization(
-            make_generator(dev, seed), cfg, "sparc", "dense", B, snr, "high"))
-        return (r, data(r.dec, r.y, "high"), (r.dec.s ** 2).contiguous(),
+            make_generator(dev, seed), cfg, "sparc", "dense", B, snr,
+            precision))
+        return (r, data(r.dec, r.y, precision), (r.dec.s ** 2).contiguous(),
                 mod.initial_state(r.y, cfg))
 
     small = Config(Nt=16, Na=4, Nr=10, Lin=8, Lh=3, mode="segmented",
@@ -63,14 +80,20 @@ def cases(dev, algo):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent", type=Path, required=True,
-                   help="root of the other checkout")
+    p.add_argument("--parent", type=Path, default=None,
+                   help="root of the other checkout (required at 'high')")
+    p.add_argument("--precision", choices=["high", "default"],
+                   default="high")
     args = p.parse_args(argv)
+    default = args.precision == "default"
+    if args.parent is None and not default:
+        p.error("--parent is required at --precision high")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.nvidia_smi()
-    roots = {"parent": args.parent.resolve(),
-             "change": Path(__file__).resolve().parents[1]}
+    roots = {"change": Path(__file__).resolve().parents[1]}
+    if args.parent is not None and not default:
+        roots = {"parent": args.parent.resolve(), **roots}
     trees = {k: root / "amp_sparc_spatialmodulation_tpu_torch" / "ops"
              / "kernels" / "csrc" for k, root in roots.items()}
     for algo in ("vamp", "vamp2"):
@@ -79,7 +102,7 @@ def main(argv=None) -> int:
         mods = {k: ab.wrapper_module(root, module, k)
                 for k, root in roots.items()}
         libs = ab._libraries(name, mods, trees)
-        for geometry, cfg, case in cases(dev, algo):
+        for geometry, cfg, case in cases(dev, algo, args.precision):
             for label, mod in mods.items():
                 build._loaded[name] = libs[label]
 
@@ -88,16 +111,72 @@ def main(argv=None) -> int:
                     return mod.whole_decode(r.dec.Vh, s2, yt, s0, r.sigma2,
                                             cap, cfg, precision)
 
-                high, highest = cs.vamp_high_control(mod, cfg, case, kernel)
+                if default:
+                    sound, wrong = cs.vamp_high_control(
+                        mod, cfg, case, kernel, "default", "high")
+                    forms = {"default": sound, "high": wrong}
+                else:
+                    high, highest = cs.vamp_high_control(mod, cfg, case,
+                                                         kernel)
+                    forms = {"high": high, "highest": highest}
                 print(json.dumps({"algo": algo, "geometry": geometry,
                                   "tree": label, "device": smi,
                                   "B": int(case[0].y.shape[0]),
                                   "statistic": cs.HIGH_CONTROL_STAT,
-                                  "high": high, "highest": highest}),
+                                  "precision": args.precision, **forms}),
                       flush=True)
             del case
         build._loaded.pop(name, None)
+    if default:
+        decode_readings(dev)
     return 0
+
+
+def decode_readings(dev) -> None:
+    """The whole-decode readings of ``--precision default`` (module
+    docstring), this checkout's kernels."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops import precision as prec
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_vamp, fused_vamp2)
+
+    exact = (lambda x, a: (x.bfloat16().double()
+                           @ a.bfloat16().double()).float(),
+             lambda x: x.bfloat16().double().sum(1, keepdim=True).float())
+    for algo, kern in (("vamp", fused_vamp), ("vamp2", fused_vamp2)):
+        _, cfg, case = list(cases(dev, algo, "default"))[1]
+        r, yt, s2, s0 = case
+        run = lambda p: kern.whole_decode(r.dec.Vh, s2, yt, s0, r.sigma2,
+                                          10, cfg, p)
+        plain = lambda: kern.decode_plain(r.dec.Vh, s2, yt, s0, r.sigma2,
+                                          10, cfg, "default")
+        sp = plain()
+        saved = prec.DOTS["default"]
+        prec.DOTS["default"] = exact
+        try:
+            sx = plain()
+        finally:
+            prec.DOTS["default"] = saved
+        for name, sk in (("kernel_default", run("default")),
+                         ("plain_exact", sx), ("kernel_high", run("high")),
+                         ("kernel_highest", run("highest"))):
+            agree = sk.T == sp.T
+            n = int(agree.sum())
+            d = torch.zeros(sk.T.numel(), device=dev)
+            for f in ("xmmse", "var"):
+                e = (getattr(sk, f) - getattr(sp, f)).abs()
+                d = torch.maximum(d, e.reshape(e.shape[0], -1).max(1).values)
+            within = float((d[agree] <= 1e-3).sum()) / max(n, 1)
+            print(json.dumps({
+                "algo": algo, "geometry": "main", "decode": name, "cap": 10,
+                "B": int(sk.T.numel()),
+                "T_agree_fraction": n / sk.T.numel(),
+                "mean_T": float(sk.T.float().mean()),
+                "mean_T_plain_default": float(sp.T.float().mean()),
+                "abs_dmean_T": abs(float(sk.T.float().mean())
+                                   - float(sp.T.float().mean())),
+                "posterior_within_1e3_share": within}), flush=True)
+        del case, r, yt, s0, sp, sx
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
