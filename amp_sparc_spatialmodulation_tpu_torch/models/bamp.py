@@ -40,6 +40,13 @@ with DEFAULT in place of HIGH: K1's DEFAULT form (plain version
 :func:`plain_loop_default`, :func:`linear_step_high` with ``dot1``), K6 at
 HIGHEST, K5's DEFAULT form, the plain loop's products at DEFAULT.
 
+``AMP_KERNEL_XMAP_PRECISION`` is the JAX whole-decode kernel's knob for
+the precision of its xmap chain (`fused_bamp.py:990-991` there): where it
+names another precision than the decode's, K1 runs a split form, the
+variance chain (``Pv``, ``cov``; the stop test reads them) at
+``precision`` and the xmap chain at the variable's (plain version
+:func:`plain_loop_split`); as in JAX, no other link of the chain reads it.
+
 ``decode(use_pallas=...)`` is the JAX decoder's knob: ``'auto'`` (the
 default) takes :func:`route`'s chain, ``False`` the plain loop, and
 ``True`` the chain too but raises where no kernel covers the config or the
@@ -289,7 +296,8 @@ def gauss_taps(op) -> GaussTaps:
 
 
 def linear_step_high(op, xmmse, var, z, u, y, sigma2: float, *,
-                     taps: GaussTaps, real_x: bool, dot=prec.dot3):
+                     taps: GaussTaps, real_x: bool, dot=prec.dot3,
+                     dot_x=None):
     """The linear half of one iteration at ``precision='high'``, the JAX
     kernel's ``_linear_iteration`` (`fused_bamp.py:144-352`) with
     ``make_dot(HIGH)`` and ``cmul='gauss'`` step by step: the forward's
@@ -302,21 +310,25 @@ def linear_step_high(op, xmmse, var, z, u, y, sigma2: float, *,
     (column block, tap), ``cov = 1 / dot3(Zc, S_a2^T)`` and the adjoint's
     Gauss products on ``A + B``, ``A``, ``B``.  ``dot`` is the real
     product (``precision.dot3``; a study passes another to see how far the
-    decode moves with its rounding).  Returns ``(xmap, cov, z, u)`` like
-    :func:`linear_step`."""
+    decode moves with its rounding).  ``dot_x``, where given, is the xmap
+    chain's product in place of ``dot`` (JAX's ``dot_x``,
+    `fused_bamp.py:185` there): the forward's and the adjoint's Gauss
+    products; ``dot`` stays the variance chain's (``Pv`` and ``cov``).
+    Returns ``(xmap, cov, z, u)`` like :func:`linear_step`."""
     B = y.shape[0]
     Lin, Lout, Lh, Nt, Nr = op.Lin, op.Lout, op.Lh, op.Nt, op.Nr
     W = Lh * Nr
     d = dot
+    dx = dot if dot_x is None else dot_x
     xr = xmmse.real.reshape(B * Lin, Nt)
     Pv = d(var.reshape(B * Lin, Nt), taps.s_a2)
     if real_x:
-        k1 = d(xr, taps.s_re)
-        Pr, Pi = k1, k1 + d(xr, taps.dmc)
+        k1 = dx(xr, taps.s_re)
+        Pr, Pi = k1, k1 + dx(xr, taps.dmc)
     else:
         xi = xmmse.imag.reshape(B * Lin, Nt)
-        k1 = d(xr + xi, taps.s_re)
-        k2, k3 = d(xr, taps.dmc), d(xi, taps.cpd)
+        k1 = dx(xr + xi, taps.s_re)
+        k2, k3 = dx(xr, taps.dmc), dx(xi, taps.cpd)
         Pr, Pi = k1 - k3, k1 + k2
     if not taps.folded:
         # (B*Lin, W) gain planes: row block c, column group l holds
@@ -360,8 +372,8 @@ def linear_step_high(op, xmmse, var, z, u, y, sigma2: float, *,
     if not taps.folded:
         Zc, A, Bp = G2f * Zc, Gf * A, Gf * Bp
     cov = 1.0 / d(Zc, taps.st_a2)
-    k1 = d(A + Bp, taps.st_re)
-    k2, k3 = d(A, taps.amc), d(Bp, taps.adm)
+    k1 = dx(A + Bp, taps.st_re)
+    k2, k3 = dx(A, taps.amc), dx(Bp, taps.adm)
     adj_re, adj_im = k1 - k3, k1 + k2
     xmap_re = xr + cov * adj_re
     xmap_im = cov * adj_im if real_x else xi + cov * adj_im
@@ -371,12 +383,14 @@ def linear_step_high(op, xmmse, var, z, u, y, sigma2: float, *,
 
 
 def plain_loop_high(op, s: BAMPState, y: torch.Tensor, sigma2: float,
-                    cap: int, cfg: Config, dot=prec.dot3) -> BAMPState:
+                    cap: int, cfg: Config, dot=prec.dot3,
+                    dot_x=None) -> BAMPState:
     """The plain loop at ``precision='high'``, the plain version of K1's
     HIGH form: :func:`linear_step_high` on :func:`gauss_taps`, then the
     denoiser, the allclose test and the freeze of :func:`plain_loop` (JAX
     gives its denoisers and the stop test no precision knob,
-    `fused_bamp.py:409-510`); ``dot`` as in :func:`linear_step_high`."""
+    `fused_bamp.py:409-510`); ``dot`` and ``dot_x`` as in
+    :func:`linear_step_high`."""
     from ..ops.kernels.fused_bamp import real_x
 
     global plain_decodes
@@ -384,7 +398,7 @@ def plain_loop_high(op, s: BAMPState, y: torch.Tensor, sigma2: float,
     sigma2 = float(np.float32(sigma2))
     cap = int(cap)
     linear = partial(linear_step_high, taps=gauss_taps(op),
-                     real_x=real_x(cfg), dot=dot)
+                     real_x=real_x(cfg), dot=dot, dot_x=dot_x)
     denoiser = make_denoiser(cfg, y.device)
     while s.t < cap and bool(s.active.any()):
         s, _ = step(op, s, y, sigma2, denoiser, linear)
@@ -397,6 +411,21 @@ def plain_loop_default(op, s: BAMPState, y: torch.Tensor, sigma2: float,
     the one-pass product ``precision.dot1`` (JAX's ``make_dot(DEFAULT)``,
     `fused_bamp.py:81-93` there)."""
     return plain_loop_high(op, s, y, sigma2, cap, cfg, dot=prec.dot1)
+
+
+def plain_loop_split(op, s: BAMPState, y: torch.Tensor, sigma2: float,
+                     cap: int, cfg: Config, precision: str,
+                     x_precision: str) -> BAMPState:
+    """The plain version of K1's split forms (``AMP_KERNEL_XMAP_PRECISION``,
+    `fused_bamp.py:990-991` of the JAX package): :func:`plain_loop_high`
+    with the variance chain's products at ``precision`` and the xmap
+    chain's at ``x_precision``, each product through
+    ``precision.matmul`` (``x @ a`` in FP32 at ``'highest'``, ``dot3`` at
+    ``'high'``, ``dot1`` at ``'default'``, JAX's ``make_dot``)."""
+    return plain_loop_high(
+        op, s, y, sigma2, cap, cfg,
+        dot=partial(prec.matmul, precision=prec.canonical(precision)),
+        dot_x=partial(prec.matmul, precision=prec.canonical(x_precision)))
 
 
 def to_planes(s: BAMPState) -> PlaneState:
@@ -505,25 +534,35 @@ def route(cfg: Config, op, B: int, device, precision: str = "highest",
                     precision, use_pallas)
 
 
+def xmap_split(precision: str = "highest"):
+    """The xmap chain's precision of K1's split form that
+    ``AMP_KERNEL_XMAP_PRECISION`` asks for (``precision.xmap_precision``,
+    which raises where JAX's ``make_dot`` would), or None where the variable
+    is unset or empty or names ``precision`` itself: JAX's ``dot_x`` is
+    then ``dot`` (`fused_bamp.py:184-185` there), and K1 runs the form at
+    ``precision``."""
+    x = prec.xmap_precision()
+    return None if x is None or x == prec.canonical(precision) else x
+
+
 def route_of(cfg: Config, banded: bool, op=None, precision: str = "highest",
              use_pallas="auto") -> str:
     """:func:`route`'s chain for ``cfg`` on a banded operator (``banded``)
     or a dense one; without ``op``, K5 is judged by the config alone.
     Raises for ``use_pallas=True`` where no kernel covers the config or the
-    operator is dense, and where ``AMP_KERNEL_XMAP_PRECISION`` is set: the
-    JAX package's K1 then runs its xmap products at that precision
-    (`fused_bamp.py:990-991` there), a function the port has no form of."""
+    operator is dense.  ``AMP_KERNEL_XMAP_PRECISION`` is read only where
+    the chain takes K1, as JAX's K1 alone reads it (`fused_bamp.py:990-991`
+    there): a bad value raises there (:func:`xmap_split`), and where K1's
+    form at ``precision`` fits but the split form it asks for does not
+    (a trial of more than ``fused_bamp.HIGH_MAX_LIN`` column blocks, or
+    one whose HIGH block passes the shared memory, at ``'highest'``), the
+    route raises rather than decode another function than JAX's."""
     from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
                                fused_bamp_tiled)
 
     check_use_pallas(use_pallas)
     if use_pallas is False:
         return "plain"
-    if os.environ.get("AMP_KERNEL_XMAP_PRECISION", ""):
-        raise ValueError(
-            "AMP_KERNEL_XMAP_PRECISION is set: the JAX package's BAMP kernel "
-            "then runs its xmap products at another precision, which the "
-            "port does not; unset it")
 
     if not (banded and fused_bamp.covers(cfg)):
         if use_pallas is True:
@@ -537,6 +576,14 @@ def route_of(cfg: Config, banded: bool, op=None, precision: str = "highest",
         return "plain"
     mode = os.environ.get("AMP_PALLAS_MODE", "whole")
     if mode == "whole" and fused_bamp.fits(cfg, precision):
+        x = xmap_split(precision)
+        if x is not None and not fused_bamp.fits(cfg, precision, x):
+            raise ValueError(
+                f"AMP_KERNEL_XMAP_PRECISION={x!r}: K1's split form "
+                f"(precision={prec.canonical(precision)!r}) holds no trial "
+                f"of this geometry (Nt={cfg.Nt}, Nr={cfg.Nr}, Lin={cfg.Lin},"
+                f" Lh={cfg.Lh}, {cfg.alphabet}) in one block, where JAX's "
+                f"K1 runs it; unset the variable")
         return "whole"
     if fused_bamp_iteration.covers(cfg) and fused_bamp_iteration.fits(cfg):
         return "periter"
@@ -593,7 +640,7 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
     way = route(cfg, op, y.shape[0], y.device, precision, use_pallas)
     if way == "whole":
         s = fused_bamp.whole_decode(op, state0, y, sigma2, cap, cfg,
-                                    precision)
+                                    precision, xmap_split(precision))
     elif way == "periter":
         s = plane_loop(fused_bamp_iteration.iteration_fused, op, state0, y,
                        sigma2, cap, cfg)

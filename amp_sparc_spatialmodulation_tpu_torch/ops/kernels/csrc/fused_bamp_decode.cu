@@ -145,6 +145,28 @@
 // halves are written as in HIGH but neither loaded nor multiplied), so its
 // block, carve-out and threads are the HIGH form's; its plain version is
 // bamp.plain_loop_default.
+//
+// The split forms (AMP_KERNEL_XMAP_PRECISION; the JAX kernel's
+// _linear_iteration with dot = make_dot(precision) for the variance chain
+// and dot_x = make_dot(x_precision) for the xmap chain, fused_bamp.py:
+// 158-162, 184-185 there) compute the HIGH form's function with each
+// chain's products at its own precision: the variance chain is Pv =
+// dot(var, S_a2) and cov = 1 / dot(Zc, S_a2^T), which feed the stop test;
+// the xmap chain the forward's and the adjoint's Gauss products.  Template
+// <kVP, kXP> of the kernel: each chain's products take 3 or 1 bf16 mma
+// passes (high_pass<kOne> per chain, the xmap chain's products q = 1.. in
+// a second pass over the same units, so each element stays with its lane)
+// or, at 'highest', FP32 FMA chains on the CUDA cores (fp32_pass: a thread
+// per column and four rows, the FP32 tap planes fp32_taps from L2, the x
+// side from the FP32 state in shared memory).  The fold writes an FP32
+// chain's adjoint inputs (Zc, or A and B) in FP32 into the scratch slots it
+// has just read, as the HIGHEST form does, so a split form's block is the
+// HIGH form's: 96,960 B at the OOK flagship, 220,800 B at the QPSK one.
+// The adjoint runs the variance chain first and the xmap chain after a
+// barrier, since the xmap epilogue reads cov.  The six off-diagonal
+// (variance, xmap) pairs are one instance each, compiled for 16 warps and
+// launched with the HIGH form's 8 or 16; plain version
+// bamp.plain_loop_split.
 
 #include <cuda_bf16.h>
 
@@ -196,10 +218,13 @@ struct Params {
   int Nt, Nr, Lin, Lout, Lh, trunc, M, K, den, real_x;
   float Ps, P0, sigma2;
   int cap;  // remaining iteration budget
-  // HIGH form only: the eight Gauss tap planes as mma A fragments
+  // every form but HIGHEST: the eight Gauss tap planes as mma A fragments
   // (fused_bamp.py::high_taps), and whether the gains are folded in
   const uint4* taps;
   int folded;
+  // split forms with a chain at HIGHEST only: the eight Gauss tap planes in
+  // FP32 (fused_bamp.py::fp32_taps)
+  const float* taps32;
 };
 
 // Four consecutive floats of shared memory: one 16-byte load when the
@@ -431,9 +456,9 @@ __device__ __forceinline__ int high_parts(int mtiles, int warps, int NT) {
   return s < 1 ? 1 : (s > NT ? NT : s);
 }
 
-// One pass of the HIGH form's products under dot3: nq Gauss products of
-// the 16-row tiles of one stack of tap planes (plane q at taps + q plane,
-// ks k16 steps), product q on the split operand whose hi plane is
+// One pass of the HIGH form's products under dot3: Gauss products q0 ..
+// nq-1 of the 16-row tiles of one stack of tap planes (plane q at taps + q
+// plane, ks k16 steps), product q on the split operand whose hi plane is
 // operand(q) (its lo plane lo bf16 further; row c of the N side at c ld,
 // rows past nrows - 1 read row nrows - 1 and are dropped).  Warp w runs
 // units w, w + warps, ... (tile mt, n8 tiles n0 .. n1-1), each unit's
@@ -447,9 +472,12 @@ __device__ __forceinline__ int high_parts(int mtiles, int warps, int NT) {
 // per unit and product.
 // kOne: the DEFAULT form's single pass, out[nt][e] = A_hi B_hi (the hi lo
 // and lo hi mma and their B words left out).
+// The unit a lane runs and the elements it holds depend on the block's
+// warps and the tiles alone, so two passes over the same stack (the split
+// forms' two chains) give each element to the same lane.
 template <bool kOne, class Operand, class Epi>
 __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
-                                          int mtiles, int ks, int nq,
+                                          int mtiles, int ks, int q0, int nq,
                                           Operand operand, int lo, int ld,
                                           int nrows, int NT, Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -465,7 +493,7 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
     const int mt = u / parts, part = u - mt * parts;
     const int n0 = part * NT / parts, n1 = (part + 1) * NT / parts;
     const uint4* tile = taps + (static_cast<size_t>(mt) * ks * 32 + lane) * 2;
-    for (int q = 0; q < nq; ++q) {
+    for (int q = q0; q < nq; ++q) {
       const uint4* ap = tile + q * plane;
       const __nv_bfloat16* b = operand(q);
       float hh[kMaxNT][4], cx[kMaxNT][4];
@@ -517,65 +545,176 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
   }
 }
 
-// The forward products of the HIGH form (column j = l Nr + m of the tap
-// stack along the rows): P[c, l, m] for every column block c whose tap l
-// places a block: Pv = dot3(var, S_a2), Pr = k1 (- k3), Pi = k1 + k2, k1
-// parked in Pr's slot until the last product.  The gains, where not
-// folded, multiply in the fold.  kOne: the DEFAULT form's single pass.
-template <bool kOne>
+// FP32 products on the CUDA cores: the chain of a split form that runs at
+// 'highest' (bamp.plain_loop_split's torch.matmul).  kQ products that share
+// their rows: out_q[c, j] = sum_kk x(q, c rs + off(kk)) A_q[kk, j] for rows
+// c < rows and columns j < ncols, A_q the FP32 plane at a + q plane
+// ((K, ncols), row-major, from fused_bamp.py::fp32_taps), the contraction
+// kk = l L2 + m (l < L1, m < L2) read from the row at off(kk) = l ls + m.
+// A thread owns kRows32 rows of one column: per kk it loads each product's
+// tap once (neighbouring threads on neighbouring columns, from L2) and its
+// rows' x values from shared memory (one address across most of a warp).
+// Each output is one FMA chain in kk order from zero; epi(c, j, out) gets
+// the kQ sums of one output.
+constexpr int kRows32 = 4;
+
+template <int kQ, class X, class Epi>
+__device__ __forceinline__ void fp32_pass(const float* a, size_t plane,
+                                          int ncols, int rows, int rs,
+                                          int L1, int ls, int L2, X x,
+                                          Epi epi) {
+  const int groups = (rows + kRows32 - 1) / kRows32;
+  for (int f = threadIdx.x; f < groups * ncols; f += blockDim.x) {
+    const int g = f / ncols;
+    const int j = f - g * ncols;
+    int row[kRows32];
+#pragma unroll
+    for (int i = 0; i < kRows32; ++i)
+      row[i] = min(g * kRows32 + i, rows - 1) * rs;
+    float acc[kRows32][kQ];
+#pragma unroll
+    for (int i = 0; i < kRows32; ++i)
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) acc[i][q] = 0.f;
+    const float* t = a + j;
+    for (int l = 0; l < L1; ++l)
+      for (int m = 0; m < L2; ++m, t += ncols) {
+        float av[kQ];
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) av[q] = __ldg(t + q * plane);
+        const int off = l * ls + m;
+#pragma unroll
+        for (int i = 0; i < kRows32; ++i)
+#pragma unroll
+          for (int q = 0; q < kQ; ++q)
+            acc[i][q] = fmaf(x(q, row[i] + off), av[q], acc[i][q]);
+      }
+#pragma unroll
+    for (int i = 0; i < kRows32; ++i)
+      if (g * kRows32 + i < rows) epi(g * kRows32 + i, j, acc[i]);
+  }
+}
+
+// The forward products of the HIGH layout's forms (column j = l Nr + m of
+// the tap stack along the rows): P[c, l, m] for every column block c whose
+// tap l places a block: the variance chain's Pv = dot(var, S_a2) and the
+// xmap chain's Pr = k1 (- k3), Pi = k1 + k2, k1 parked in Pr's slot until
+// the last product.  The gains, where not folded, multiply in the fold.
+// kVP, kXP: the passes of the variance and the xmap chain, 3 (HIGH) or 1
+// (DEFAULT) bf16 passes on the tensor cores, or 0, FP32 on the CUDA cores
+// (fp32_pass, on the FP32 planes xm_re, xm_im and var).  The HIGH and
+// DEFAULT forms (kVP == kXP) run the four products in one pass.
+template <int kVP, int kXP>
 __device__ __forceinline__ void forward_high(
-    const Params& p, const Split& xs, int kx, int kz, bool real_x, float* Pv,
+    const Params& p, const Split& xs, int kx, int kz, bool real_x,
+    const float* xm_re, const float* xm_im, const float* var, float* Pv,
     float* Pr, float* Pi, int NrP) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int W = p.Lh * p.Nr;
   const int mtiles = kz / 16, ks = kx / 16, NT = (p.Lin + 7) / 8;
   const size_t plane = static_cast<size_t>(mtiles) * ks * 64;
+  const int nq = real_x ? 3 : 4;
   // the products' operands: var, k1's (xm_re, or xm_re + xm_im), xm_re,
   // xm_im
   const int o1 = real_x ? 1 : 2;
   auto operand = [&](int q) {
     return xs.at(q == 0 ? 0 : q == 1 ? o1 : q == 2 ? 1 : 3, 0);
   };
-  high_pass<kOne>(
-      p.taps, plane, mtiles, ks, real_x ? 3 : 4, operand, xs.plane, xs.ld,
-      p.Lin, NT,
-      [&](int mt, int q, int n0, int n1, const float (&v)[kMaxNT][4]) {
+  auto epi = [&](int mt, int q, int n0, int n1,
+                 const float (&v)[kMaxNT][4]) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int j = mt * 16 + g + 8 * h;
-          if (j >= W) continue;
-          const int l = j / p.Nr;
-          const int row = l * NrP + (j - l * p.Nr);
+    for (int h = 0; h < 2; ++h) {
+      const int j = mt * 16 + g + 8 * h;
+      if (j >= W) continue;
+      const int l = j / p.Nr;
+      const int row = l * NrP + (j - l * p.Nr);
 #pragma unroll
-          for (int nt = 0; nt < kMaxNT; ++nt) {
-            if (nt < n0 || nt >= n1) continue;
+      for (int nt = 0; nt < kMaxNT; ++nt) {
+        if (nt < n0 || nt >= n1) continue;
 #pragma unroll
-            for (int w = 0; w < 2; ++w) {
-              const int c = nt * 8 + 2 * t + w;
-              if (c >= p.Lin || dst_block(c, l, p) < 0) continue;
-              const int slot = c * p.Lh * NrP + row;
-              const float val = v[nt][2 * h + w];
-              if (q == 0) Pv[slot] = val;
-              else if (q == 1) Pr[slot] = val;  // k1
-              else if (q == 2) Pi[slot] = Pr[slot] + val;
-              else Pr[slot] = Pr[slot] - val;
-            }
-          }
+        for (int w = 0; w < 2; ++w) {
+          const int c = nt * 8 + 2 * t + w;
+          if (c >= p.Lin || dst_block(c, l, p) < 0) continue;
+          const int slot = c * p.Lh * NrP + row;
+          const float val = v[nt][2 * h + w];
+          if (q == 0) Pv[slot] = val;
+          else if (q == 1) Pr[slot] = val;  // k1
+          else if (q == 2) Pi[slot] = Pr[slot] + val;
+          else Pr[slot] = Pr[slot] - val;
         }
-      });
+      }
+    }
+  };
+  if constexpr (kVP == kXP) {
+    high_pass<kVP == 1>(p.taps, plane, mtiles, ks, 0, nq, operand, xs.plane,
+                        xs.ld, p.Lin, NT, epi);
+  } else {
+    // the FP32 planes (Nt, W): S_a2, S_re, Im S - Re S, Re S + Im S
+    const size_t p32 = static_cast<size_t>(p.Nt) * W;
+    // the slot of output (c, j) where tap l = j / Nr places a block, else -1
+    auto slot_of = [&](int c, int j) {
+      const int l = j / p.Nr;
+      return dst_block(c, l, p) < 0 ? -1
+                                     : (c * p.Lh + l) * NrP + (j - l * p.Nr);
+    };
+    if constexpr (kVP != 0) {
+      high_pass<kVP == 1>(p.taps, plane, mtiles, ks, 0, 1, operand, xs.plane,
+                          xs.ld, p.Lin, NT, epi);
+    } else {
+      fp32_pass<1>(
+          p.taps32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt,
+          [&](int, int i) { return var[i]; },
+          [&](int c, int j, const float (&o)[1]) {
+            const int e = slot_of(c, j);
+            if (e >= 0) Pv[e] = o[0];
+          });
+    }
+    if constexpr (kXP != 0) {
+      high_pass<kXP == 1>(p.taps, plane, mtiles, ks, 1, nq, operand,
+                          xs.plane, xs.ld, p.Lin, NT, epi);
+    } else if (real_x) {
+      fp32_pass<2>(
+          p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt,
+          [&](int, int i) { return xm_re[i]; },
+          [&](int c, int j, const float (&o)[2]) {
+            const int e = slot_of(c, j);
+            if (e < 0) return;
+            Pr[e] = o[0];
+            Pi[e] = o[0] + o[1];
+          });
+    } else {
+      fp32_pass<3>(
+          p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt,
+          [&](int q, int i) {
+            return q == 0 ? xm_re[i] + xm_im[i] : q == 1 ? xm_re[i]
+                                                         : xm_im[i];
+          },
+          [&](int c, int j, const float (&o)[3]) {
+            const int e = slot_of(c, j);
+            if (e < 0) return;
+            Pr[e] = o[0] - o[2];
+            Pi[e] = o[0] + o[1];
+          });
+    }
+  }
 }
 
-// The fold of the HIGH form, output (r, m) per thread: the taps summed in
-// order (after their gains unless folded), w = v / u, z' = hx - w (y - z),
-// u' = v + sigma2, then the adjoint's inputs Zc = 1/u', A = (y - z'_re) /
-// u', B = (y - z'_im) / u' (gains^2 and gains applied unless folded) of
-// every (c, l) feeding the row, written split with A + B.  The slots no
-// output writes (the pad columns, the (c, l) that place no block) are
+// The fold of the HIGH layout's forms, output (r, m) per thread: the taps
+// summed in order (after their gains unless folded), w = v / u, z' = hx - w
+// (y - z), u' = v + sigma2, then the adjoint's inputs Zc = 1/u', A = (y -
+// z'_re) / u', B = (y - z'_im) / u' (gains^2 and gains applied unless
+// folded) of every (c, l) feeding the row: split into bf16 hi and lo for a
+// chain on the tensor cores (Zc for the variance chain; A + B, A, B for the
+// xmap chain), in FP32 for a chain at kVP or kXP = 0 (Zc in Pv's slot, A
+// and B in Pr's and Pi's, which this thread has just read; the slots of the
+// (c, l) that place no block stay zero from the launch).  The split slots
+// no output writes (the pad columns, the (c, l) that place no block) are
 // written zero, a pad column or a (c, l) at a time.
+template <int kVP, int kXP>
 __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
-                                          int kz, const float* Pv,
-                                          const float* Pr, const float* Pi,
-                                          int NrP, const float* y_re,
+                                          int kz, float* Pv, float* Pr,
+                                          float* Pi, int NrP,
+                                          const float* y_re,
                                           const float* y_im, float* z_re,
                                           float* z_im, float* u) {
   const int n = p.Lout * p.Nr;
@@ -617,10 +756,19 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
       const float za = folded ? rr : gn * rr;
       const float zb = folded ? ri : gn * ri;
       const int off = c * zs.ld + l * p.Nr + m;
-      split_store(zs.at(0, 0) + off, zs.at(0, 1) + off, zc);
-      split_store(zs.at(1, 0) + off, zs.at(1, 1) + off, za + zb);
-      split_store(zs.at(2, 0) + off, zs.at(2, 1) + off, za);
-      split_store(zs.at(3, 0) + off, zs.at(3, 1) + off, zb);
+      const int e = (c * p.Lh + l) * NrP + m;
+      if (kVP != 0)
+        split_store(zs.at(0, 0) + off, zs.at(0, 1) + off, zc);
+      else
+        Pv[e] = zc;
+      if (kXP != 0) {
+        split_store(zs.at(1, 0) + off, zs.at(1, 1) + off, za + zb);
+        split_store(zs.at(2, 0) + off, zs.at(2, 1) + off, za);
+        split_store(zs.at(3, 0) + off, zs.at(3, 1) + off, zb);
+      } else {
+        Pr[e] = za;
+        Pi[e] = zb;
+      }
     }
   }
   const int W = p.Lh * p.Nr;
@@ -644,51 +792,91 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
   }
 }
 
-// The adjoint products of the HIGH form (x element k along the rows): cov
-// = 1 / dot3(Zc, S_a2^T), adj = (k1 - k3) + i (k1 + k2) on A + B, A, B,
-// xmap = xmmse + cov adj (its imaginary part to xmap_g, stride 2); k1
-// parked in xmap_re until the last product.  kOne: the DEFAULT form's
-// single pass.
-template <bool kOne>
+// The adjoint products of the HIGH layout's forms (x element k along the
+// rows): the variance chain's cov = 1 / dot(Zc, S_a2^T), then the xmap
+// chain's adj = (k1 - k3) + i (k1 + k2) on A + B, A, B, xmap = xmmse + cov
+// adj (its imaginary part to xmap_g, stride 2); k1 parked in xmap_re until
+// the last product.  kVP, kXP as in forward_high: the HIGH and DEFAULT
+// forms run the four products in one pass; the split forms run the
+// variance chain first, then, once every cov is written, the xmap chain
+// (an FP32 chain reads Zc, A and B from the FP32 planes the fold wrote).
+template <int kVP, int kXP>
 __device__ __forceinline__ void adjoint_high(
     const Params& p, const Split& zs, int kx, int kz, bool real_x,
     const float* xm_re, const float* xm_im, float* xmap_re, float* xmap_g,
-    float* cov) {
+    float* cov, const float* Zc, const float* A, const float* B, int NrP) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mtiles = kx / 16, ks = kz / 16, NT = (p.Lin + 7) / 8;
   const size_t plane = static_cast<size_t>(mtiles) * ks * 64;
   auto operand = [&](int q) { return zs.at(q, 0); };
-  high_pass<kOne>(
-      p.taps + 4 * plane, plane, mtiles, ks, 4, operand, zs.plane, zs.ld,
-      p.Lin, NT,
-      [&](int mt, int q, int n0, int n1, const float (&v)[kMaxNT][4]) {
+  auto epi = [&](int mt, int q, int n0, int n1,
+                 const float (&v)[kMaxNT][4]) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = mt * 16 + g + 8 * h;
-          if (k >= p.Nt) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int k = mt * 16 + g + 8 * h;
+      if (k >= p.Nt) continue;
 #pragma unroll
-          for (int nt = 0; nt < kMaxNT; ++nt) {
-            if (nt < n0 || nt >= n1) continue;
+      for (int nt = 0; nt < kMaxNT; ++nt) {
+        if (nt < n0 || nt >= n1) continue;
 #pragma unroll
-            for (int w = 0; w < 2; ++w) {
-              const int c = nt * 8 + 2 * t + w;
-              if (c >= p.Lin) continue;
-              const int j = c * p.Nt + k;
-              const float val = v[nt][2 * h + w];
-              if (q == 0) {
-                cov[j] = 1.f / val;
-              } else if (q == 1) {
-                xmap_re[j] = val;  // k1
-              } else if (q == 2) {
-                const float im = cov[j] * (xmap_re[j] + val);
-                xmap_g[2 * j + 1] = real_x ? im : xm_im[j] + im;
-              } else {
-                xmap_re[j] = xm_re[j] + cov[j] * (xmap_re[j] - val);
-              }
-            }
+        for (int w = 0; w < 2; ++w) {
+          const int c = nt * 8 + 2 * t + w;
+          if (c >= p.Lin) continue;
+          const int j = c * p.Nt + k;
+          const float val = v[nt][2 * h + w];
+          if (q == 0) {
+            cov[j] = 1.f / val;
+          } else if (q == 1) {
+            xmap_re[j] = val;  // k1
+          } else if (q == 2) {
+            const float im = cov[j] * (xmap_re[j] + val);
+            xmap_g[2 * j + 1] = real_x ? im : xm_im[j] + im;
+          } else {
+            xmap_re[j] = xm_re[j] + cov[j] * (xmap_re[j] - val);
           }
         }
-      });
+      }
+    }
+  };
+  const uint4* taps = p.taps + 4 * plane;
+  if constexpr (kVP == kXP) {
+    high_pass<kVP == 1>(taps, plane, mtiles, ks, 0, 4, operand, zs.plane,
+                        zs.ld, p.Lin, NT, epi);
+  } else {
+    // the FP32 planes (W, Nt): S_a2^T, Re S^T, -Im S^T - Re S^T, Re S^T -
+    // Im S^T, after the forward's four
+    const size_t p32 = static_cast<size_t>(p.Nt) * p.Lh * p.Nr;
+    const float* t32 = p.taps32 + 4 * p32;
+    const int rs = p.Lh * NrP;
+    if constexpr (kVP != 0) {
+      high_pass<kVP == 1>(taps, plane, mtiles, ks, 0, 1, operand, zs.plane,
+                          zs.ld, p.Lin, NT, epi);
+    } else {
+      fp32_pass<1>(
+          t32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr,
+          [&](int, int i) { return Zc[i]; },
+          [&](int c, int k, const float (&o)[1]) {
+            cov[c * p.Nt + k] = 1.f / o[0];
+          });
+    }
+    __syncthreads();
+    if constexpr (kXP != 0) {
+      high_pass<kXP == 1>(taps, plane, mtiles, ks, 1, 4, operand, zs.plane,
+                          zs.ld, p.Lin, NT, epi);
+    } else {
+      fp32_pass<3>(
+          t32 + p32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr,
+          [&](int q, int i) {
+            return q == 0 ? A[i] + B[i] : q == 1 ? A[i] : B[i];
+          },
+          [&](int c, int k, const float (&o)[3]) {
+            const int j = c * p.Nt + k;
+            xmap_re[j] = xm_re[j] + cov[j] * (o[0] - o[2]);
+            const float im = cov[j] * (o[0] + o[1]);
+            xmap_g[2 * j + 1] = real_x ? im : xm_im[j] + im;
+          });
+    }
+  }
 }
 
 // Zeros in the pad columns Nt .. kx-1 of the forward's split operands.
@@ -881,9 +1069,16 @@ __device__ __forceinline__ int mixture_posterior(
   return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
 }
 
-template <bool kHigh, bool kOne, int kBlock, int kMinBlocks>
+// kVP, kXP: the passes of the variance chain and of the xmap chain (0 FP32
+// on the CUDA cores, 1 one bf16 pass, 3 three).  <0, 0> is the HIGHEST form
+// on its own layout and engine; every other pair runs on the HIGH layout:
+// <3, 3> the HIGH form, <1, 1> the DEFAULT form, the rest the split forms.
+template <int kVP, int kXP, int kBlock, int kMinBlocks>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     bamp_decode_kernel(Params p) {
+  constexpr bool kHigh = kVP != 0 || kXP != 0;
+  // a split form with an FP32 chain, which reads the scratch planes whole
+  constexpr bool kFP32 = kHigh && (kVP == 0 || kXP == 0);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = p.Lin * p.Nt;
@@ -946,7 +1141,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 
   // Slots of (c, l) pairs that place no block, and the row padding, stay
   // zero: the adjoint reads them as exact zeros.
-  if (!kHigh)
+  if (!kHigh || kFP32)
     for (int e = tid; e < 3 * S; e += blockDim.x) sm[e] = 0.f;
   for (int j = tid; j < N; j += blockDim.x) {
     const float2 m = p.xmmse_in[xo + j];
@@ -973,13 +1168,16 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   const bool vec = p.Nt % 4 == 0;
   for (int it = 0; it < p.cap; ++it) {
     if (kHigh) {
-      // ---- the HIGH form's linear half: products on the tensor cores ---
-      forward_high<kOne>(p, xs, kx, kz, real_x, Zc, Zr, Zi, NrP);
+      // ---- the HIGH layout's linear half: each chain on the tensor cores
+      // or, in a split form, in FP32 on the CUDA cores ---
+      forward_high<kVP, kXP>(p, xs, kx, kz, real_x, xm_re, xm_im, var, Zc,
+                             Zr, Zi, NrP);
       __syncthreads();
-      fold_high(p, zs, kz, Zc, Zr, Zi, NrP, y_re, y_im, z_re, z_im, u);
+      fold_high<kVP, kXP>(p, zs, kz, Zc, Zr, Zi, NrP, y_re, y_im, z_re,
+                          z_im, u);
       __syncthreads();
-      adjoint_high<kOne>(p, zs, kx, kz, real_x, xm_re, xm_im, xmap_re,
-                         xmap_g, cov);
+      adjoint_high<kVP, kXP>(p, zs, kx, kz, real_x, xm_re, xm_im, xmap_re,
+                             xmap_g, cov, Zc, Zr, Zi, NrP);
       __syncthreads();
     } else {
     // ---- forward products: thread per (kFR source blocks, tap column) ---
@@ -1104,16 +1302,45 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
 }
 
+using Kernel = void (*)(Params);
+
+// The passes of a chain at form code f (0 HIGHEST, 1 HIGH, 2 DEFAULT).
+constexpr int passes_of(int f) { return f == 0 ? 0 : f == 1 ? 3 : 1; }
+
+// The split form of variance form vf and xmap form xf (vf != xf): one
+// instance each, compiled for the 16-warp block and launched with 8 or 16
+// warps (128 registers a thread either way).
+template <int vf, int xf>
+Kernel split_kernel() {
+  return bamp_decode_kernel<passes_of(vf), passes_of(xf), kHighThreads1, 1>;
+}
+
+Kernel split_instance(int vf, int xf) {
+  switch (vf * 3 + xf) {
+    case 1: return split_kernel<0, 1>();
+    case 2: return split_kernel<0, 2>();
+    case 3: return split_kernel<1, 0>();
+    case 5: return split_kernel<1, 2>();
+    case 6: return split_kernel<2, 0>();
+    case 7: return split_kernel<2, 1>();
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch the decode of B trials on `stream` with `smem` bytes of dynamic
-// shared memory per block; high: 0 the HIGHEST form, 1 the HIGH form, 2
-// the DEFAULT form, the last two on the tap fragments `taps` (folded: the
-// gains are in them) with `threads` threads a block.  Returns a cudaError_t code (0 on success): the
-// attribute call's, or cudaGetLastError() after the launch.  The kernel
-// allocates nothing; every buffer is the caller's.
+// shared memory per block; high: the form of the variance chain, xhigh:
+// that of the xmap chain (0 HIGHEST, 1 HIGH, 2 DEFAULT).  high == xhigh:
+// the HIGHEST, HIGH or DEFAULT form; else a split form.  Every form but
+// HIGHEST runs on the tap fragments `taps` (folded: the gains are in them)
+// with `threads` threads a block; a split form with a chain at HIGHEST
+// also on the FP32 tap planes `taps32` (fused_bamp.py::fp32_taps).  Returns
+// a cudaError_t code (0 on success): the attribute call's, or
+// cudaGetLastError() after the launch.  The kernel allocates nothing;
+// every buffer is the caller's.
 int fused_bamp_decode(
     const void* y, const void* xmap_in, const void* xmmse_in,
     const void* var_in, const void* z_in, const void* u_in,
@@ -1125,8 +1352,8 @@ int fused_bamp_decode(
     const void* sym_re, const void* sym_im,
     int B, int Nt, int Nr, int Lin, int Lout, int Lh, int trunc, int M,
     int K, int den, int real_x, float Ps, float P0, float sigma2, int cap,
-    int smem, int high, const void* taps, int folded, int threads,
-    void* stream) {
+    int smem, int high, int xhigh, const void* taps, const void* taps32,
+    int folded, int threads, void* stream) {
   if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.y = static_cast<const float2*>(y);
@@ -1167,22 +1394,27 @@ int fused_bamp_decode(
   p.sigma2 = sigma2;
   p.cap = cap;
   p.taps = static_cast<const uint4*>(taps);
+  p.taps32 = static_cast<const float*>(taps32);
   p.folded = folded;
-  if (high < 0 || high > 2 ||
-      (high && (taps == nullptr || Lin > 8 * kMaxNT)))
+  const bool split = high != xhigh;
+  if (high < 0 || high > 2 || xhigh < 0 || xhigh > 2 ||
+      ((high || xhigh) && (taps == nullptr || Lin > 8 * kMaxNT)) ||
+      (split && !(high && xhigh) && taps32 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = bamp_decode_kernel<false, false, kThreads, 3>;
+  Kernel kernel = bamp_decode_kernel<0, 0, kThreads, 3>;
   const bool one = high == 2;
-  if (!high)
+  if (!high && !xhigh)
     threads = kThreads;
-  else if (threads == kHighThreads1)
-    kernel = one ? bamp_decode_kernel<true, true, kHighThreads1, 1>
-                 : bamp_decode_kernel<true, false, kHighThreads1, 1>;
-  else if (threads == kHighThreads2)
-    kernel = one ? bamp_decode_kernel<true, true, kHighThreads2, 2>
-                 : bamp_decode_kernel<true, false, kHighThreads2, 2>;
-  else
+  else if (threads != kHighThreads1 && threads != kHighThreads2)
     return static_cast<int>(cudaErrorInvalidValue);
+  else if (split)
+    kernel = split_instance(high, xhigh);
+  else if (threads == kHighThreads1)
+    kernel = one ? bamp_decode_kernel<1, 1, kHighThreads1, 1>
+                 : bamp_decode_kernel<3, 3, kHighThreads1, 1>;
+  else
+    kernel = one ? bamp_decode_kernel<1, 1, kHighThreads2, 2>
+                 : bamp_decode_kernel<3, 3, kHighThreads2, 2>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -17,7 +17,7 @@ column blocks.
   ``bamp.decode`` loop.
 * ``launches`` counts kernel launches of the HIGHEST form,
   ``launches_high`` those of the HIGH form, ``launches_default`` those of
-  the DEFAULT form.
+  the DEFAULT form, ``launches_xmap`` those of the split forms.
 
 Both take ``precision``: ``'highest'`` (the default; FP32 products on the
 CUDA cores, bit for bit the plain version's) or ``'high'``, the JAX
@@ -35,6 +35,17 @@ the hi·hi ``mma`` of each product on the same tap fragments and split
 operands (so its block, fit and threads are the HIGH form's), with
 ``bamp.plain_loop_default`` as its plain version
 (:func:`decode_plain_default`).
+
+The wrapper also takes ``x_precision``, the precision of the xmap chain
+that ``AMP_KERNEL_XMAP_PRECISION`` sets in JAX's kernel (`fused_bamp.py:
+990-991` there): where it differs from ``precision``, a split form runs
+the HIGH form's function with the variance chain's products (``Pv`` and
+``cov``, which feed the stop test) at ``precision`` and the xmap chain's
+(the Gauss products of the forward pseudo-data and of the adjoint) at
+``x_precision``: a chain at ``'high'`` or ``'default'`` on the tensor cores
+as in those forms, a chain at ``'highest'`` in FP32 on the CUDA cores on
+the FP32 tap planes of :func:`fp32_taps`.  Its block is the HIGH form's;
+its plain version is ``bamp.plain_loop_split`` (:func:`decode_plain_split`).
 
 Both take and return a :class:`..models.bamp.BAMPState` in the JAX
 layouts and are resumable: ``cap`` is the global iteration cap, and the
@@ -60,10 +71,11 @@ from .. import precision as prec
 from . import build
 
 # Kernel launches made by whole_decode: the HIGHEST form, the HIGH form,
-# the DEFAULT form.
+# the DEFAULT form, the split forms (any of the six).
 launches = 0
 launches_high = 0
 launches_default = 0
+launches_xmap = 0
 # The form code each launcher (K1, K3, K4, K5) takes for each precision.
 FORM = {prec.HIGHEST: 0, prec.HIGH: 1, prec.DEFAULT: 2}
 
@@ -130,17 +142,34 @@ def high_split_elems(cfg: Config) -> int:
                8 * cfg.Lin * split_ld(cfg.Lh * cfg.Nr))
 
 
-def smem_bytes(cfg: Config, precision: str = "highest") -> int:
+def chains(precision: str = "highest", x_precision=None):
+    """``(precision, x_precision)`` canonical: the variance chain's and the
+    xmap chain's precision, the second ``precision``'s where None."""
+    precision = prec.canonical(precision)
+    return precision, (precision if x_precision is None
+                       else prec.canonical(x_precision))
+
+
+def high_layout(precision: str = "highest", x_precision=None) -> bool:
+    """True for the forms on the HIGH layout: every form with a chain on
+    the tensor cores (HIGH, DEFAULT and the split forms)."""
+    return any(p in prec.BF16 for p in chains(precision, x_precision))
+
+
+def smem_bytes(cfg: Config, precision: str = "highest",
+               x_precision=None) -> int:
     """Dynamic shared memory of one block, passed to the launch: 3 scratch
     planes of (Lin, Lh, scratch_row) floats (the forward products, then
     the adjoint inputs), 4 x-side planes (5 for complex alphabets) and 5
-    y-side planes of float32, carved in that order by the kernel; at
-    ``'high'`` and ``'default'`` then the split operands
+    y-side planes of float32, carved in that order by the kernel; on the
+    HIGH layout (:func:`high_layout`) then the split operands
     (:func:`high_split_elems`: the DEFAULT form keeps the HIGH layout and
-    reads only its hi planes)."""
+    reads only its hi planes; a split form's FP32 chain reads the FP32
+    planes and writes its adjoint inputs into the scratch planes, so its
+    block is the HIGH form's)."""
     fp32 = 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
                 + (4 if real_x(cfg) else 5) * cfg.N + 5 * cfg.n)
-    if prec.canonical(precision) in prec.BF16:
+    if high_layout(precision, x_precision):
         return fp32 + 2 * high_split_elems(cfg)
     return fp32
 
@@ -156,11 +185,13 @@ def high_threads(cfg: Config) -> int:
     return HIGH_THREADS_TWO_BLOCKS if two else HIGH_THREADS_ONE_BLOCK
 
 
-def fits(cfg: Config, precision: str = "highest") -> bool:
-    """True when one trial's planes fit a block's shared memory (and, at
-    ``'high'`` and ``'default'``, its column blocks the products' tiles)."""
-    ok = smem_bytes(cfg, precision) <= SMEM_LIMIT
-    if prec.canonical(precision) in prec.BF16:
+def fits(cfg: Config, precision: str = "highest", x_precision=None) -> bool:
+    """True when one trial's planes fit a block's shared memory (and, on
+    the HIGH layout, its column blocks the products' tiles); the form is
+    that of ``precision`` for the variance chain and ``x_precision`` (None:
+    the same) for the xmap chain."""
+    ok = smem_bytes(cfg, precision, x_precision) <= SMEM_LIMIT
+    if high_layout(precision, x_precision):
         ok = ok and cfg.Lin <= HIGH_MAX_LIN
     return ok
 
@@ -172,6 +203,8 @@ decode_plain_high = bamp.plain_loop_high
 decode_plain_default = bamp.plain_loop_default
 PLAIN = {prec.HIGHEST: decode_plain, prec.HIGH: decode_plain_high,
          prec.DEFAULT: decode_plain_default}
+# ... and of the split forms, with ``(precision, x_precision)`` after ``cfg``.
+decode_plain_split = bamp.plain_loop_split
 
 
 def mma_tiles(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -216,13 +249,32 @@ def high_taps(op):
     return _high_cache[op]
 
 
+# Each live operator's FP32 tap planes for the split forms.
+_fp32_cache = weakref.WeakKeyDictionary()
+
+
+def fp32_taps(op) -> torch.Tensor:
+    """The split forms' FP32 taps of banded operator ``op``: the eight
+    Gauss planes of ``bamp.gauss_taps`` as they are, the forward's ``S_a2,
+    S_re, Im S - Re S, Re S + Im S`` (Nt, Lh*Nr) then the adjoint's ``S_a2^T,
+    Re S^T, -Im S^T - Re S^T, Re S^T - Im S^T`` (Lh*Nr, Nt), row-major, one
+    contiguous float32 buffer in that order (cached per operator); a chain
+    at 'highest' reads its products' planes from it."""
+    if op not in _fp32_cache:
+        t = bamp.gauss_taps(op)
+        planes = (t.s_a2, t.s_re, t.dmc, t.cpd, t.st_a2, t.st_re, t.amc,
+                  t.adm)
+        _fp32_cache[op] = torch.cat([x.reshape(-1) for x in planes])
+    return _fp32_cache[op]
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("fused_bamp_decode")
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_decode.argtypes = (
-            [ptr] * 23 + [i32] * 11 + [f32] * 3 + [i32, i32, i32, ptr, i32,
-                                                    i32, ptr])
+            [ptr] * 23 + [i32] * 11 + [f32] * 3
+            + [i32, i32, i32, i32, ptr, ptr, i32, i32, ptr])
         lib.fused_bamp_decode.restype = i32
         lib.fused_bamp_error_string.argtypes = [i32]
         lib.fused_bamp_error_string.restype = ctypes.c_char_p
@@ -253,22 +305,27 @@ def symbol_planes(cfg: Config, device):
 
 
 def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
-                 cap: int, cfg: Config,
-                 precision: str = "highest") -> bamp.BAMPState:
+                 cap: int, cfg: Config, precision: str = "highest",
+                 x_precision=None) -> bamp.BAMPState:
     """The whole decode of ``y`` from state ``s0`` up to global iteration
     ``cap``: the CUDA kernel for a CUDA tensor, :func:`decode_plain` (at
     ``'high'`` :func:`decode_plain_high`, at ``'default'``
-    :func:`decode_plain_default`) for a CPU tensor.  The caller
-    has checked :func:`covers` and :func:`fits` at ``precision`` for
-    ``cfg`` (``bamp.decode`` does); on the card the form asked for is the
-    form that runs, or the call raises."""
-    precision = prec.canonical(precision)
-    high = precision in prec.BF16
+    :func:`decode_plain_default`; with an ``x_precision`` other than
+    ``precision``, :func:`decode_plain_split`) for a CPU tensor.  The
+    caller has checked :func:`covers` and :func:`fits` at ``precision``
+    and ``x_precision`` for ``cfg`` (``bamp.decode`` does); on the card the
+    form asked for is the form that runs, or the call raises."""
+    precision, x_precision = chains(precision, x_precision)
+    split = x_precision != precision
+    high = high_layout(precision, x_precision)
     if y.device.type == "cpu":
+        if split:
+            return decode_plain_split(op, s0, y, sigma2, cap, cfg, precision,
+                                      x_precision)
         return PLAIN[precision](op, s0, y, sigma2, cap, cfg)
     if y.device.type != "cuda":
         raise ValueError(f"no kernel for device {y.device}")
-    global launches, launches_high, launches_default
+    global launches, launches_high, launches_default, launches_xmap
     B = y.shape[0]
     N, n = cfg.N, cfg.n
     dev = y.device
@@ -283,9 +340,10 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     _check("gains", op.gains, (cfg.Lh, cfg.Lin), f32, dev)
     if (op.Lin, op.Lout, op.trunc) != (cfg.Lin, cfg.Lout, cfg.trunc):
         raise ValueError("operator geometry differs from the config")
-    if not fits(cfg, precision):
+    if not fits(cfg, precision, x_precision):
         raise ValueError(f"no block holds a trial of this geometry at "
-                         f"precision={precision!r}")
+                         f"precision={precision!r}, "
+                         f"x_precision={x_precision!r}")
     if B == 0:
         return s0
     act_in = s0.active.to(i32).contiguous()
@@ -301,6 +359,9 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     gains2 = op.gains2.contiguous()
     sym_re, sym_im = symbol_planes(cfg, dev)
     taps, folded = high_taps(op) if high else (None, False)
+    taps32 = (fp32_taps(op) if split and prec.HIGHEST in (precision,
+                                                          x_precision)
+              else None)
     cap_rem = max(int(cap) - int(s0.t), 0)
     lib = _library()
     rc = lib.fused_bamp_decode(
@@ -316,14 +377,18 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
         B, cfg.Nt, cfg.Nr, cfg.Lin, cfg.Lout, cfg.Lh, _TRUNC[cfg.trunc],
         cfg.M, cfg.K, 0 if cfg.mode in ("segmented", "sparc") else 1,
         int(real_x(cfg)), float(cfg.Ps), float(cfg.P0),
-        float(np.float32(sigma2)), cap_rem, smem_bytes(cfg, precision),
-        FORM[precision], taps.data_ptr() if high else None, int(folded),
+        float(np.float32(sigma2)), cap_rem,
+        smem_bytes(cfg, precision, x_precision), FORM[precision],
+        FORM[x_precision], taps.data_ptr() if high else None,
+        None if taps32 is None else taps32.data_ptr(), int(folded),
         high_threads(cfg) if high else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_bamp_decode launch failed: "
                            + lib.fused_bamp_error_string(rc).decode())
-    if precision == prec.DEFAULT:
+    if split:
+        launches_xmap += 1
+    elif precision == prec.DEFAULT:
         launches_default += 1
     elif high:
         launches_high += 1

@@ -25,6 +25,8 @@ point's mean T pinned at the iteration cap, and never ``'default'``.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 HIGHEST = "highest"
@@ -46,6 +48,34 @@ def canonical(precision, allow_auto: bool = False) -> str:
     allowed = "'highest', 'high', 'default'" + (" or 'auto'" if allow_auto
                                                 else "")
     raise ValueError(f"unknown precision {precision!r}: use {allowed}")
+
+
+# The names ``jax.lax.Precision(str)`` accepts, each with the precision it
+# stands for (``_precision_strings`` in JAX's ``lax.py``): exact, lower case.
+PRECISION_NAMES = {"highest": HIGHEST, "float32": HIGHEST, "high": HIGH,
+                   "bfloat16_3x": HIGH, "tensorfloat32": HIGH,
+                   "default": DEFAULT, "bfloat16": DEFAULT,
+                   "fastest": DEFAULT}
+# The JAX whole-decode kernel's knob for the precision of its xmap chain
+# (``FusedBandedDecode.__init__``, `fused_bamp.py:990-991` there).
+XMAP_PRECISION_VAR = "AMP_KERNEL_XMAP_PRECISION"
+
+
+def xmap_precision():
+    """The xmap chain's precision that ``AMP_KERNEL_XMAP_PRECISION`` asks
+    the BAMP whole-decode kernel for: None where the variable is unset or
+    empty, else ``'highest'``, ``'high'`` or ``'default'``.  It takes
+    exactly the strings ``jax.lax.Precision`` takes (:data:`PRECISION_NAMES`)
+    and raises ``ValueError`` on any other, ``'HIGHEST'`` included, as JAX's
+    ``make_dot`` does when the kernel is traced."""
+    value = os.environ.get(XMAP_PRECISION_VAR, "")
+    if not value:
+        return None
+    if value not in PRECISION_NAMES:
+        raise ValueError(
+            f"{XMAP_PRECISION_VAR}={value!r} is not a valid precision: use "
+            f"one of {', '.join(map(repr, PRECISION_NAMES))}")
+    return PRECISION_NAMES[value]
 
 
 def split_bf16(x: torch.Tensor):

@@ -210,7 +210,22 @@ Phases, each printing one JSON line:
    main_profiling, one flagship BAMP realization inside ``Profiler`` and
    ``torch_trace`` (K1 in the trace as often as it launched, the
    Profiler's items/s against a synchronized host clock);
-17. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+17. K1's split forms (``AMP_KERNEL_XMAP_PRECISION``: the variance chain at
+   the decode's precision, the xmap chain at the variable's):
+   kernels_bamp_xmap, each of the six (variance, xmap) instances against
+   its plain version (``fused_bamp.decode_plain_split``) at the QPSK
+   flagship (5 dB, cap 100, 4096 trials) and the OOK flagship's phase-1
+   shape, under ``compare`` with the shape's rule and a one-iteration
+   control that the form at the variance chain's precision must fail, each
+   timed beside that form with its bound (FP32 products at 67 TFLOP/s plus
+   bf16 passes at 989 TFLOP/s, or the bytes) and its products as PyTorch
+   calls (FP32 for a 'highest' chain, bf16 for the others); main_bamp_xmap,
+   the flagship OOK point (8 dB, two-phase k1 = 12, 16 x 65536) at
+   precision='highest' with the variable set to 'high' and to 'default'
+   beside HIGHEST and DEFAULT on the same seeds (each split run through its
+   split instance alone, FER and BER within 3 sigma of HIGHEST's, mean T
+   printed), then the other four pairs on 2 x 65536 each (the path alone);
+18. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -4548,6 +4563,366 @@ def phase_main_massive_default(torch, dev):
     return d["launches_default"]
 
 
+# K1's split forms (AMP_KERNEL_XMAP_PRECISION): the six (variance chain,
+# xmap chain) precision pairs off the diagonal, the two that users set the
+# variable for first.
+XMAP_PAIRS = (("highest", "high"), ("highest", "default"),
+              ("high", "default"), ("high", "highest"),
+              ("default", "high"), ("default", "highest"))
+XMAP_VAR = "AMP_KERNEL_XMAP_PRECISION"
+# kernels_bamp_xmap's rule per shape (T agreement, |d mean T|, the state
+# bound on the trials that stopped before the cap in both; at the OOK
+# phase-1 shape the form at the variance chain's precision, a wrong xmap
+# chain, must fail it) and the control's limits (one iteration from the
+# state after two plain split iterations, the medians |d xmap|, |d z|,
+# |d u| of the split instance against the plain split version; that form
+# must exceed the xmap limit).  The readings behind them
+# (tests/torch_bamp_high_rule.py --split, NVIDIA H100 80GB HBM3, 700 W;
+# split instance / plain split with float64 sums / the form), OOK phase 1:
+# - T agreement 97.73 / 97.64 / 95.25% (highest:high), 99.21 / 98.97 /
+#   81.30% (highest:default), 99.05 / 99.24 / 82.50% (high:default), 99.44
+#   / 99.01 / 95.18% (high:highest), 97.54 / 97.59 / 81.17% (default:high),
+#   99.30 / 98.81 / 79.54% (default:highest);
+# - |d mean T| at most 0.0013 / 0.0028 against at least 0.0328 for a form;
+# - the state of two correct decodes at most 1.10e-3 (a 'default' xmap
+#   chain; 99.42% of the stopped trials within 1e-4), 1.4e-4 otherwise;
+# QPSK 5 dB, cap 100: every trial at the cap in every decode (99.85% for
+# the float64 sums of high:highest), so the control holds it.  Control:
+# xmap 3.0e-8 to 6.7e-7, z 6.0e-8 to 1.2e-7, u at most 6.0e-8 for the
+# split instance and the float64 sums; the form's xmap 2.72e-6 (OOK) and
+# 3.69e-6 (QPSK) where the chains part by HIGH against HIGHEST, 1.45e-3 /
+# 1.97e-3 where one of them is DEFAULT.
+XMAP_RULES = {"ook_phase1": (0.965, 0.02, 3e-3, True),
+              "qpsk_cap100": (0.995, 0.02, 1e-4, False)}
+XMAP_CONTROL = {"xmap_p50": 1.5e-6, "z_p50": 5e-7, "u_p50": 1e-6}
+# main_bamp_xmap: realizations of 65536 per run at the flagship OOK point
+# for the two user pairs and the forms beside them; the other four pairs
+# on XMAP_OTHER_REALIZATIONS each.
+XMAP_REALIZATIONS = 16
+XMAP_OTHER_REALIZATIONS = 2
+
+
+def xmap_env(value):
+    """Set ``AMP_KERNEL_XMAP_PRECISION`` to ``value`` (None: unset); returns
+    a function that puts back what was there."""
+    import os
+    old = os.environ.get(XMAP_VAR)
+
+    def put(v):
+        if v is None:
+            os.environ.pop(XMAP_VAR, None)
+        else:
+            os.environ[XMAP_VAR] = v
+
+    put(value)
+    return lambda: put(old)
+
+
+def split_work(cfg, s0, s1, tensors, precision, x_precision):
+    """(flop, bytes, iterations, bound ms, bound_by) of a split decode:
+    the variance chain's 2 real products and the xmap chain's 5 (a real x)
+    or 6 per iteration, an FP32 chain's at the FP32 peak, a bf16 chain's 3
+    or 1 passes at the bf16 peak; every input read once, every output
+    written once."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    nx = 5 if fused_bamp.real_x(cfg) else 6
+    t_ops, flop = 0.0, 0
+    for p, n in ((precision, 2), (x_precision, nx)):
+        f, nbytes, iters = decode_work(cfg, s0, s1, tensors, n)
+        passes, peak = {"highest": (1, PEAK_FP32_FLOPS),
+                        "high": (3, PEAK_BF16_FLOPS),
+                        "default": (1, PEAK_BF16_FLOPS)}[p]
+        flop += passes * f
+        t_ops += passes * f / peak
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return (flop, nbytes, iters, 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def split_library(torch, cfg, op, xv, zr, precision, x_precision):
+    """(function, bf16 form) of a split decode's products of one iteration
+    of every trial as PyTorch calls: an FP32 chain's as torch.matmul in
+    FP32, a bf16 chain's on bf16 tensors (``bf16_library``), three per
+    product at 'high' (hi x hi, hi x lo, lo x hi), one at 'default'."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
+    from amp_sparc_spatialmodulation_tpu_torch.ops import precision as prec
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    t = bamp.gauss_taps(op)
+    xplanes = (t.s_re, t.dmc) + (() if fused_bamp.real_x(cfg) else (t.cpd,))
+    chains = ((precision, [(xv, t.s_a2), (zr, t.st_a2)]),
+              (x_precision, [(xv, a) for a in xplanes]
+               + [(zr, a) for a in (t.st_re, t.amc, t.adm)]))
+    fp32, bf16 = [], []
+    for p, pairs in chains:
+        for x, a in pairs:
+            if p == "highest":
+                fp32.append((x, a))
+            elif p == "default":
+                bf16.append((x, a))
+            else:
+                (xh, xl), (ah, al) = prec.split_bf16(x), prec.split_bf16(a)
+                bf16 += [(xh.float(), ah.float()), (xh.float(), al.float()),
+                         (xl.float(), ah.float())]
+    lib, form = bf16_library(torch, bf16)
+
+    def run():
+        for x, a in fp32:
+            torch.matmul(x, a)
+        lib()
+
+    return run, form
+
+
+def phase_kernels_bamp_xmap(torch, dev, ptxas_lines):
+    """K1's six split instances (``AMP_KERNEL_XMAP_PRECISION``: the variance
+    chain at ``precision``, the xmap chain at the variable's) against their
+    plain version (``fused_bamp.decode_plain_split``): on four small
+    geometries of ``kernels_bamp_high`` at 1024 trials (trunc with
+    column-dependent gains, cyclic, 8PSK, the random mode's mixture
+    denoiser) under its small rule, then at the QPSK flagship, 5 dB, cap
+    100 (4096 trials, main_bamp_high's point) and the OOK flagship's
+    phase-1 shape (65536 trials, cap 12, 8 dB), drawn at the variance
+    chain's precision.  Each under :func:`compare` with the shape's rule
+    (``XMAP_RULES``; at the OOK shape the form at the variance chain's
+    precision must fail it) and the one-iteration control
+    (``XMAP_CONTROL``; that form must fail it too), then timed by CUDA
+    events beside that form, with the plain split version's time, the
+    bound (:func:`split_work`) and the same products as PyTorch calls
+    (:func:`split_library`).  Returns {pair:
+    (largest state error, [timings, the QPSK shape first])}."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        Config, flagship_bamp_ook, flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    failed = []
+    errs = dict.fromkeys(XMAP_PAIRS, 0.0)
+    times = {pair: [] for pair in XMAP_PAIRS}
+    # the small geometries of kernels_bamp_high that reach the other
+    # branches (column-dependent gains, cyclic, 8PSK's general K, the
+    # mixture denoiser), 1024 trials, under its small rule
+    small = dict(Nt=16, Na=4, Nr=8, Lin=8, Lh=3, mode="segmented",
+                 profile="uniform")
+    for i, (name, kw, snr_exp) in enumerate((
+            ("ook_trunc", dict(alphabet="OOK", trunc="trunc",
+                               iterations=12), 1.2),
+            ("ook_cyclic", dict(alphabet="OOK", trunc="cyclic",
+                                iterations=12), 1.2),
+            ("8psk_tail", dict(alphabet="8PSK", trunc="tail",
+                               iterations=10), 1.6),
+            ("random_qpsk", dict(alphabet="QPSK", trunc="tail",
+                                 iterations=10, mode="random"), 1.4))):
+        cfg = Config(**{**small, **kw})
+        r = montecarlo.generate_realization(
+            make_generator(dev, 200 + i), cfg,
+            "toeplitz" if cfg.mode == "random" else "sparc", "banded",
+            SMALL_B, 10 ** snr_exp)
+        s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+        cap = cfg.N_Layers
+        for v, x in XMAP_PAIRS:
+            sk = fused_bamp.whole_decode(r.A, s0, r.y, r.sigma2, cap, cfg,
+                                         v, x)
+            sp = fused_bamp.decode_plain_split(r.A, s0, r.y, r.sigma2, cap,
+                                               cfg, v, x)
+            err = compare(
+                "kernel_small_bamp_xmap", sk, sp, 1e-4,
+                free_unconverged=True,
+                min_agree=BAMP_HIGH_SMALL_RULE["min_agree"],
+                max_dmean_T=BAMP_HIGH_SMALL_RULE["dmean_T_of_cap"] * cap,
+                cap=cap, case=name, pair=f"{v}:{x}")
+            errs[(v, x)] = max(errs[(v, x)], err)
+    for name, cfg, B, cap, ebn0, seed in (
+            ("qpsk_cap100", flagship_bamp_qpsk(), FLAGSHIP_B, 100,
+             BAMP_HIGH_EBN0_DB, 42),
+            ("ook_phase1", flagship_bamp_ook(), RES, K1, EBN0_DB, 41)):
+        min_agree, max_dmean, tol, separates = XMAP_RULES[name]
+        for v in ("highest", "high", "default"):
+            r = montecarlo.generate_realization(
+                make_generator(dev, seed), cfg, "sparc", "banded", B,
+                snr_of(cfg, ebn0), v)
+            op, y, s2 = r.A, r.y, r.sigma2
+            s0 = bamp.initial_state(y, cfg.N, s2)
+            form_ms = None
+            for x in [x for vv, x in XMAP_PAIRS if vv == v]:
+                pair = (v, x)
+                split = lambda s, c: fused_bamp.whole_decode(
+                    op, s, y, s2, c, cfg, v, x)
+                form = lambda s, c: fused_bamp.whole_decode(
+                    op, s, y, s2, c, cfg, v)
+                plain = lambda s, c: fused_bamp.decode_plain_split(
+                    op, s, y, s2, c, cfg, v, x)
+                s1, sp = split(s0, cap), plain(s0, cap)
+                err = compare(
+                    "kernel_main_bamp_xmap", s1, sp, tol,
+                    free_unconverged=True, min_agree=min_agree,
+                    max_dmean_T=max_dmean, case=name, pair=f"{v}:{x}",
+                    cap=cap, ebn0_db=ebn0,
+                    stopped_within_1e4=stopped_share(s1, sp))
+                if separates:
+                    frac, dmean, inside = rule_passes(form(s0, cap), sp,
+                                                      min_agree, max_dmean)
+                    emit("kernel_main_bamp_xmap_form", case=name,
+                         pair=f"{v}:{x}", T_agree_fraction=frac,
+                         abs_dmean_T=dmean, inside_rule=inside)
+                    if inside:
+                        failed.append(f"{name} {v}:{x}: the form at {v} "
+                                      "passes the rule")
+                del sp
+                ps = plain(s0, 2)
+                one = plain(ps, 3)
+                gate_control(failed, "kernel_main_bamp_xmap_control",
+                             vamp_gap(split(ps, 3), one),
+                             vamp_gap(form(ps, 3), one), XMAP_CONTROL,
+                             "xmap_p50", case=name, pair=f"{v}:{x}",
+                             presteps=2)
+                del ps, one
+                ms = cuda_ms(lambda: split(s0, cap), 0, 2)
+                if form_ms is None:
+                    form_ms = cuda_ms(lambda: form(s0, cap), 0, 2)
+                plain_ms = cuda_ms(lambda: plain(s0, cap), 0, 1)
+                tensors = [getattr(s0, f) for f in s0._fields if f != "t"]
+                tensors += [getattr(s1, f) for f in s1._fields if f != "t"]
+                tensors += [y, fused_bamp.high_taps(op)[0]]
+                if "highest" in pair:
+                    tensors.append(fused_bamp.fp32_taps(op))
+                flop, nbytes, iters, bound_ms, bound_by = split_work(
+                    cfg, s0, s1, tensors, v, x)
+                rows, W = B * cfg.Lin, cfg.Lh * cfg.Nr
+                lib, lib_form = split_library(
+                    torch, cfg, op, s1.var.reshape(rows, cfg.Nt),
+                    torch.rand(rows, W, device=dev), v, x)
+                library_iter_ms = cuda_ms(lib, 1, 3)
+                del lib
+                timing = dict(kernel=f"fused_bamp_decode_xmap_{v}_{x}",
+                              case=name, pair=f"{v}:{x}", B=B, cap=cap,
+                              ms=ms, form_ms=form_ms, plain_ms=plain_ms,
+                              split_over_form=ms / form_ms,
+                              ns_per_iter_trial=1e6 * ms / iters,
+                              iterations=iters, flop=flop, bytes=nbytes,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              pct_of_bound=100 * bound_ms / ms,
+                              library_ms=library_iter_ms * iters / B,
+                              library_ms_per_iteration=library_iter_ms,
+                              library_form=lib_form,
+                              smem_bytes=fused_bamp.smem_bytes(cfg, v, x),
+                              threads=fused_bamp.high_threads(cfg),
+                              ptxas=ptxas_lines)
+                emit("kernel_timing_bamp_xmap", **timing)
+                errs[pair] = max(errs[pair], err)
+                times[pair].append(timing)
+                del s1, tensors
+            del r, op, y, s0
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K1 split kernel != plain: {failed}")
+    return {pair: (errs[pair], times[pair]) for pair in XMAP_PAIRS}
+
+
+def phase_main_bamp_xmap(torch, dev):
+    """``Simulator(flagship_bamp_ook(), algo='bamp', precision='highest')``
+    at 8 dB, two-phase k1 = 12, with ``AMP_KERNEL_XMAP_PRECISION`` set to
+    'high' and to 'default', beside 'highest' and 'default' with it unset,
+    on the same seeds (``XMAP_REALIZATIONS`` of 65536 each): trials/s,
+    FER, BER and mean T of each; each split run through ``launches_xmap``
+    alone (no other K1 form, no other kernel, no plain decode), FER and BER
+    within 3 sigma of HIGHEST's (sigma as main_bamp_high takes them);
+    mean T printed, not gated.  Then each of the other four pairs
+    (precision 'high' or 'default' with the variable set to another
+    precision) over ``XMAP_OTHER_REALIZATIONS``, through ``launches_xmap``
+    alone.  Returns {pair: launches_xmap of its run}."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_ook)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import (
+        fused_bamp, fused_bamp_iteration as fbi, fused_bamp_tiled)
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    def counts():
+        return dict(launches=fused_bamp.launches,
+                    launches_high=fused_bamp.launches_high,
+                    launches_default=fused_bamp.launches_default,
+                    launches_xmap=fused_bamp.launches_xmap,
+                    others=(fbi.fused_launches + fused_bamp_tiled.launches
+                            + fused_bamp_tiled.launches_high
+                            + fused_bamp_tiled.launches_default),
+                    plain=bamp.plain_decodes)
+
+    def zero():
+        fused_bamp.launches = fused_bamp.launches_high = 0
+        fused_bamp.launches_default = fused_bamp.launches_xmap = 0
+        fbi.fused_launches = fused_bamp_tiled.launches = 0
+        fused_bamp_tiled.launches_high = 0
+        fused_bamp_tiled.launches_default = bamp.plain_decodes = 0
+
+    def run(precision, x, n):
+        restore = xmap_env(x)
+        try:
+            return run_precisions(torch, lambda p: montecarlo.Simulator(
+                cfg, algo="bamp", device=dev, precision=p, two_phase=K1,
+                progress=lambda s: None), EBN0_DB, n * RES, RES, counts,
+                zero, (precision,))[precision]
+        finally:
+            restore()
+
+    split_path = lambda r: r["launches_xmap"] > 0 and not (
+        r["launches"] or r["launches_high"] or r["launches_default"]
+        or r["others"] or r["plain"])
+    cfg, n = flagship_bamp_ook(), XMAP_REALIZATIONS
+    runs = {"highest": run("highest", None, n),
+            "highest_x_high": run("highest", "high", n),
+            "highest_x_default": run("highest", "default", n),
+            "default": run("default", None, n)}
+    restore = xmap_env(None)
+    try:
+        r = montecarlo.generate_realization(
+            make_generator(dev, 12345), cfg, "sparc", "banded", RES,
+            snr_of(cfg, EBN0_DB), "highest")
+        out = bamp.decode(r.A, r.y, r.sigma2, cfg)
+        bsig = ber_sigma(torch, cfg, out, r.msg, RES, n * RES)
+        del r, out
+    finally:
+        restore()
+    hs = runs["highest"]
+    sigma = fer_sigma(hs["avg"]["fer"], n * RES)
+    keys = ("seconds", "trials_per_s", "mean_T", "mean_fer", "mean_ber",
+            "launches", "launches_high", "launches_default",
+            "launches_xmap", "others", "plain")
+    emit("main_bamp_xmap", config="flagship_bamp_ook", ebn0_db=EBN0_DB,
+         res=RES, realizations=n, trials=n * RES, k1=K1, cap=cfg.N_Layers,
+         **flat_runs(runs, keys), fer_sigma=sigma, ber_sigma=bsig,
+         **{f"{k}_over_highest_trials_per_s":
+            runs[k]["trials_per_s"] / hs["trials_per_s"] for k in runs})
+    launches = {}
+    for k, pair in (("highest_x_high", ("highest", "high")),
+                    ("highest_x_default", ("highest", "default"))):
+        d = runs[k]
+        if not split_path(d):
+            raise AssertionError(f"main_bamp_xmap {k} did not run through "
+                                 "K1's split instance alone")
+        if abs(d["avg"]["fer"] - hs["avg"]["fer"]) > 3 * sigma:
+            raise AssertionError(f"main_bamp_xmap {k} FER {d['avg']['fer']}"
+                                 f" vs HIGHEST {hs['avg']['fer']}")
+        if abs(d["avg"]["ber"] - hs["avg"]["ber"]) > 3 * bsig:
+            raise AssertionError(f"main_bamp_xmap {k} BER {d['avg']['ber']}"
+                                 f" vs HIGHEST {hs['avg']['ber']}")
+        launches[pair] = d["launches_xmap"]
+    others = {}
+    for v, x in XMAP_PAIRS[2:]:
+        d = run(v, x, XMAP_OTHER_REALIZATIONS)
+        others[f"{v}_x_{x}"] = d
+        if not split_path(d):
+            raise AssertionError(f"main_bamp_xmap {v}:{x} did not run "
+                                 "through K1's split instance alone")
+        launches[(v, x)] = d["launches_xmap"]
+    emit("main_bamp_xmap_other_pairs", config="flagship_bamp_ook",
+         ebn0_db=EBN0_DB, res=RES, realizations=XMAP_OTHER_REALIZATIONS,
+         k1=K1, **flat_runs(others, keys))
+    return launches
+
+
 def kernel_entry(name, replaces, launches, max_err, timing, source=None):
     return {"name": name, "route": "cuda",
             "source": "amp_sparc_spatialmodulation_tpu_torch/ops/kernels/"
@@ -4665,6 +5040,13 @@ def main() -> int:
     emit("default_phases", seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    xmap_checks = phase_kernels_bamp_xmap(
+        torch, dev, ptxas("fused_bamp_decode", entries=True))
+    torch.cuda.empty_cache()
+    xmap_launches = phase_main_bamp_xmap(torch, dev)
+    torch.cuda.empty_cache()
+    emit("xmap_phases", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     phase_main_auto_k1(torch, dev)
     phase_main_plain(torch, dev)
     torch.cuda.empty_cache()
@@ -4722,8 +5104,12 @@ def main() -> int:
         kernel_entry("fused_bamp_iteration_fused", "fused_bamp.py:567",
                      k6[2], k6[0], k6[1], source="fused_bamp_iteration"),
         kernel_entry("fused_bamp_iteration_linear", "fused_bamp.py:359",
-                     k7[2], k7[0], k7[1], source="fused_bamp_iteration")]}),
-          flush=True)
+                     k7[2], k7[0], k7[1], source="fused_bamp_iteration")]
+        + [kernel_entry(f"fused_bamp_decode_xmap_{v}_{x}",
+                        "fused_bamp.py:617", xmap_launches[(v, x)],
+                        xmap_checks[(v, x)][0], xmap_checks[(v, x)][1][-1],
+                        source="fused_bamp_decode")
+           for v, x in XMAP_PAIRS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -412,13 +412,14 @@ def test_default_pass_is_the_hi_hi_product():
     """The source's one-pass form: ``high_pass<kOne>`` loads the first
     16-byte word of a lane's tap fragment (its 8 hi bf16, ``mma_tiles``)
     and issues the hi hi mma alone; the launcher maps form 2 to the kOne
-    instances of both blocks.  On the fragments, the hi halves alone give
+    instances of both blocks (one pass in both chains: ``<1, 1, ...>``).
+    On the fragments, the hi halves alone give
     ``precision.dot1``: the hi plane of ``mma_tiles`` is the bf16 of the
     tap plane."""
     assert "template <bool kOne, class Operand, class Epi>" in SOURCE
     assert "f[0] = f[1] = __ldg(ap);" in SOURCE
     for tag, blocks in ((1, 1), (2, 2)):
-        assert (f"bamp_decode_kernel<true, true, kHighThreads{tag}, "
+        assert (f"bamp_decode_kernel<1, 1, kHighThreads{tag}, "
                 f"{blocks}>") in SOURCE
     rng = np.random.default_rng(2)
     a = torch.from_numpy(rng.standard_normal((40, 50)).astype(np.float32))

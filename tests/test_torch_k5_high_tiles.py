@@ -304,18 +304,20 @@ def test_split_sizes():
                                          4 * 3 * 128 * 32 * 2)
 
 
-@pytest.mark.parametrize("value,raises", [("highest", True), ("HIGH", True),
-                                          ("", False)])
+@pytest.mark.parametrize("value,raises", [("highest", False),
+                                          ("HIGH", True), ("", False)])
 def test_route_refuses_the_xmap_precision_knob(monkeypatch, value, raises):
     """The JAX package's K1 reads ``AMP_KERNEL_XMAP_PRECISION``
     (``fused_bamp.py:990-991`` there) and runs its xmap products at that
-    precision; the port has no such form, so its BAMP route raises, naming
-    the variable, rather than decode another function; empty is unset."""
+    precision; the port's K1 has that form (its split forms), so at 'high'
+    the route takes K1 for 'highest' and refuses, naming the variable, only
+    what JAX's ``make_dot`` refuses ('HIGH'), where K1 is taken; empty is
+    unset.  tests/test_torch_xmap_split.py holds the rest of the route."""
     small = Config(Nt=16, Na=4, Nr=10, Lin=8, Lh=3, mode="segmented",
                    alphabet="OOK", profile="uniform", trunc="tail")
     monkeypatch.setenv("AMP_KERNEL_XMAP_PRECISION", value)
     if raises:
         with pytest.raises(ValueError, match="AMP_KERNEL_XMAP_PRECISION"):
-            bamp.route_of(small, True)
+            bamp.route_of(small, True, precision="high")
     else:
-        assert bamp.route_of(small, True) == "whole"
+        assert bamp.route_of(small, True, precision="high") == "whole"

@@ -51,6 +51,19 @@ once: two correct DEFAULT decodes), ``kernel_high`` and ``kernel_highest``
 one iteration from the state after two plain DEFAULT iterations on both
 routes, its median |d z|, |d xmap| and |d u|.
 
+With ``--split`` the readings of the split forms' rule (K1 with
+``AMP_KERNEL_XMAP_PRECISION``, ``chip_smoke.py``'s ``kernels_bamp_xmap``):
+for each of the six (variance, xmap) precision pairs, drawn with ``y`` at
+the variance chain's precision, every decode against the plain split
+version (``bamp.plain_loop_split``): ``kernel_split`` (the split instance
+under test), ``plain_exact`` (the plain split version with each chain's
+products summed in float64 and rounded once: two correct split decodes)
+and ``kernel_form`` (the form at the variance chain's precision, the
+variable unset: a wrong xmap chain); the control as at DEFAULT.
+
+    env PYTHONPATH=. python tests/torch_bamp_high_rule.py --split \
+        [--pairs highest:high,highest:default]
+
 Prints one JSON line per shape and decode: T agreement, mean T of both,
 |d mean T|, the trials that converged in both, the largest state error on
 those whose T agrees, and the control's median |d xmap| after one
@@ -87,6 +100,16 @@ def dot_one_pass(x, a):
     xh, _ = prec.split_bf16(x)
     ah, _ = prec.split_bf16(a)
     return xh.float() @ ah.float()
+
+
+def dot_exact(precision):
+    """The real product of a chain at ``precision`` summed in float64 and
+    rounded once."""
+    if precision == "high":
+        return dot3_exact
+    if precision == "default":
+        return dot1_exact
+    return lambda x, a: (x.double() @ a.double()).float()
 
 
 def reading(sk, sp) -> dict:
@@ -169,6 +192,49 @@ def shape_default(tag, cfg, B, cap, ebn0_db, op, y, s2, s0):
         del sk
     del sp, ps, one
     torch.cuda.empty_cache()
+
+
+def shape_split(tag, cfg, B, cap, ebn0_db, seed, dev, pairs):
+    """The split readings (module docstring) of each (variance, xmap) pair
+    of ``pairs`` at one shape."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    for v, x in pairs:
+        r = montecarlo.generate_realization(
+            make_generator(dev, seed), cfg, "sparc", "banded", B,
+            chip_smoke.snr_of(cfg, ebn0_db), v)
+        op, y, s2 = r.A, r.y, r.sigma2
+        s0 = bamp.initial_state(y, cfg.N, s2)
+        forms = {
+            "kernel_split": lambda s, c: fused_bamp.whole_decode(
+                op, s, y, s2, c, cfg, v, x),
+            "plain_exact": lambda s, c: bamp.plain_loop_high(
+                op, s, y, s2, c, cfg, dot=dot_exact(v), dot_x=dot_exact(x)),
+            "kernel_form": lambda s, c: fused_bamp.whole_decode(
+                op, s, y, s2, c, cfg, v),
+        }
+        plain = lambda s, c: fused_bamp.decode_plain_split(
+            op, s, y, s2, c, cfg, v, x)
+        sp = plain(s0, cap)
+        ps = plain(s0, 2)
+        one = plain(ps, 3)
+        for name, run in forms.items():
+            sk = run(s0, cap)
+            gap = chip_smoke.vamp_gap(run(ps, 3), one)
+            print(json.dumps({"shape": tag, "pair": f"{v}:{x}",
+                              "decode": name, "B": B, "cap": cap,
+                              "ebn0_db": ebn0_db, **reading(sk, sp),
+                              "stopped_within_1e4": chip_smoke.stopped_share(
+                                  sk, sp),
+                              **{f"control_{k}": gap[k] for k in (
+                                  "z_p50", "xmap_p50", "u_p50")}}),
+                  flush=True)
+            del sk
+        del sp, ps, one, r, op, y, s0
+        torch.cuda.empty_cache()
 
 
 def tiled_shape(tag, cfg, r, s0, cap, dev, y=None, precision="high"):
@@ -280,9 +346,22 @@ def main() -> None:
     ap.add_argument("--precision", choices=["high", "default"],
                     default="high", help="the rule of the HIGH or the "
                     "DEFAULT instances (module docstring)")
+    ap.add_argument("--split", action="store_true",
+                    help="the rule of the split forms (module docstring)")
+    ap.add_argument("--pairs", default=",".join(
+        f"{v}:{x}" for v, x in chip_smoke.XMAP_PAIRS),
+        help="--split: variance:xmap precision pairs")
     args = ap.parse_args()
     dev = torch.device("cuda")
     print(chip_smoke.nvidia_smi(), flush=True)
+    if args.split:
+        pairs = [tuple(p.split(":")) for p in args.pairs.split(",")]
+        shape_split("ook_phase1", flagship_bamp_ook(), chip_smoke.RES,
+                    chip_smoke.K1, chip_smoke.EBN0_DB, 41, dev, pairs)
+        shape_split("qpsk_cap100", flagship_bamp_qpsk(),
+                    chip_smoke.FLAGSHIP_B, 100, chip_smoke.BAMP_HIGH_EBN0_DB,
+                    42, dev, pairs)
+        return
     if args.route == "tiled":
         tiled(dev, args.massive_db, args.precision)
         return

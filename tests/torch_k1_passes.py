@@ -311,9 +311,11 @@ DENOISER = "// ---- denoiser"
 
 def cut_call(name: str):
     """Remove the statement that calls ``name`` (the one line of the source
-    that starts with ``name(``, up to its closing ``);``)."""
+    that starts with ``name(`` or ``name<...>(``, up to its closing
+    ``);``)."""
     def edit(src: str) -> str:
-        found = list(re.finditer(rf"^[ \t]*{name}\(", src, flags=re.M))
+        found = list(re.finditer(rf"^[ \t]*{name}(<[^>(]*>)?\(", src,
+                                 flags=re.M))
         if len(found) != 1:
             raise ValueError(f"call of {name} found {len(found)} times")
         i, depth = found[0].end() - 1, 0
