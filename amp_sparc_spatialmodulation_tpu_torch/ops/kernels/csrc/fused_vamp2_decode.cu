@@ -47,9 +47,14 @@
 // The HIGHEST instance (kHigh false) is the code above, unchanged.
 //
 // The DEFAULT form (kOne; precision='default', make_dot(Precision.DEFAULT),
-// one bf16 pass) is the HIGH form's code with product_x3's one pass and
-// alpha and d_mean as sum(hi) (warp_rowsum1); its plain version is
-// vamp2.plain_loop_default.
+// one bf16 pass) is the HIGH form's code with alpha and d_mean as sum(hi)
+// (warp_rowsum1) and the products on K3's one-pass engine
+// (vamp_common.cuh, product_x1, through product_x3<true>; the wrapper's
+// fused_vamp.default_taps); its plain version is vamp2.plain_loop_default.
+// On this card (NVIDIA H100 80GB HBM3 at 700 W, the main path,
+// tests/torch_kernel_ab.py, PERF.md) it went from 314 ms on the HIGH
+// layout, more than half of it in the denoiser, to 136 ms, bound as K3's
+// DEFAULT form is (fused_vamp_decode.cu).
 //
 // Layouts: r, xmmse (B, N) complex64, var (B, N), gamma (B, 1), y_tilde
 // (B, p) complex64; Vh (p, N) complex64, s^2 (p,); the scratch w (B, p)
@@ -112,11 +117,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   SmemX3& smx = *reinterpret_cast<SmemX3*>(smem_raw);
   const int kf = P.ldf / kBK, kb = P.ldb / kBK;  // k16 steps of each
+  // the form's split step and tap tiles (DEFAULT: hi parts only)
+  constexpr int kStep = kOne ? kSplitStep1 : kSplitStep;
   const __nv_bfloat16* tf = P.taps;
-  const __nv_bfloat16* tb = tf + tap_tiles_size(p, kf);
-  __nv_bfloat16* xsf = P.xs + static_cast<size_t>(blockIdx.x) * 3 *
-                                  (kf + kb) * kSplitStep;
-  __nv_bfloat16* xsb = xsf + 3 * kf * kSplitStep;
+  const __nv_bfloat16* tb =
+      tf + (kOne ? tap_tiles1_size(p, kf) : tap_tiles_size(p, kf));
+  __nv_bfloat16* xsf =
+      P.xs + static_cast<size_t>(blockIdx.x) * 3 * (kf + kb) * kStep;
+  __nv_bfloat16* xsb = xsf + 3 * kf * kStep;
   __shared__ int s_act[kBt], s_T[kBt], s_bad[kBt];
   __shared__ float s_gamma[kBt], s_alpha[kBt], s_gt[kBt], s_dmean[kBt],
       s_gnext[kBt];
@@ -130,37 +138,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   int ring;  // HIGH: the steps the product ring has served
   if constexpr (kHigh) {
-    init_ring(smx, ring);
+    init_ring<kOne>(smx, ring);
     // the split operands' pad columns
-    split_rows(nullptr, 0, 0, (N + 1) & ~1, nrows, kf, xsf);
-    split_rows(nullptr, 0, 0, (p + 1) & ~1, nrows, kb, xsb);
+    split_rows<kOne>(nullptr, 0, 0, (N + 1) & ~1, nrows, kf, xsf);
+    split_rows<kOne>(nullptr, 0, 0, (p + 1) & ~1, nrows, kb, xsb);
   }
 
   for (int it = 0; it < P.cap; ++it) {
     if (!__syncthreads_or(tid < kBt && s_act[tid])) break;
 
-    // ---- 1. denoiser with tau = gamma, damping, allclose: a thread per
+    // ---- 1. denoiser with tau = gamma, damping, allclose: a lane group per
     // (trial, segment) -----------------------------------------------------
     {
       const float rho = P.rho, omr = P.omr;
-      for_each_segment(nrows, N, M, s_act, s_bad, [&](int m, size_t j0) {
-        float2* xo = xm + j0;
-        float* vo = var + j0;
-        return segment_posterior<true>(
-            M, P.K, P.sym_re, P.sym_im, r + j0, s_gamma[m],
-            [=](int i, float mr, float mi, float v) {
-              const float2 old = xo[i];
-              xo[i] = make_float2(rho * mr + omr * old.x,
-                                  rho * mi + omr * old.y);
-              const int flag = not_close(v, vo[i]);
-              vo[i] = v;
-              return flag;
-            });
-      }, [&](size_t j0) {
-        prefetch_l1(r + j0, M);
-        prefetch_l1(var + j0, M);
-        prefetch_l1(xm + j0, M);
-      });
+      denoise_segments<true>(
+          nrows, N, M, P.K, P.sym_re, P.sym_im, s_act, s_gamma, s_bad,
+          [&](size_t j) { return LanePlanes{r[j], var[j], xm[j]}; },
+          [&](size_t j, float mr, float mi, float v, LanePlanes d) {
+            xm[j] = make_float2(rho * mr + omr * d.xm.x,
+                                rho * mi + omr * d.xm.y);
+            var[j] = v;
+            return not_close(v, d.var);
+          });
     }
     __syncthreads();
 
@@ -194,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     // ---- 3. r_tilde = (xmmse - alpha r) / (1 - alpha), written over r ----
     // (HIGH: split for the first product as it is written)
     if constexpr (kHigh)
-      for_each_split_pair<2>(
+      for_each_split_pair<4, kOne>(
           nrows, N, kf, s_act, xsf,
           [&](int, size_t e, bool last) {
             const bool al = (N & 1) == 0;
@@ -241,9 +240,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const float2 y = __ldg(yt + static_cast<size_t>(m) * p + k);
           return make_float2(sc * (y.x - cr), sc * (y.y - ci));
         };
-        store_split(xsb, kb, m, k, w_at(k, cr0, ci0),
-                    k + 1 < p ? w_at(k + 1, cr1, ci1)
-                              : make_float2(0.f, 0.f));
+        store_split<kOne>(xsb, kb, m, k, w_at(k, cr0, ci0),
+                          k + 1 < p ? w_at(k + 1, cr1, ci1)
+                                    : make_float2(0.f, 0.f));
       });
     } else
     for (int n0 = 0; n0 < p; n0 += kBN1) {
@@ -380,7 +379,8 @@ int fused_vamp2_decode(void* r, void* gamma, void* var, void* xm, void* act,
   const auto kernel = high == 2   ? vamp2_decode_kernel<true, true>
                       : high == 1 ? vamp2_decode_kernel<true, false>
                                   : vamp2_decode_kernel<false, false>;
-  const int smem = high ? kSmemBytesX3 : kSmemBytes;
+  const int smem =
+      high == 2 ? kSmemBytesX1 : high ? kSmemBytesX3 : kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

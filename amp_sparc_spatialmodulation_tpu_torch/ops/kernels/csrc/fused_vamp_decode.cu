@@ -72,9 +72,23 @@
 // The HIGHEST instance (kHigh false) is the code above, unchanged.
 //
 // The DEFAULT form (kOne; precision='default', make_dot(Precision.DEFAULT),
-// one bf16 pass) is the HIGH form's code with product_x3's one pass and
-// the row sums as sum(hi) (warp_rowsum1); its plain version is
-// vamp.plain_loop_default.
+// one bf16 pass) is the HIGH form's code with the row sums as sum(hi)
+// (warp_rowsum1) and the products on the one-pass engine
+// (vamp_common.cuh, product_x1, reached through product_x3<true>): the
+// hi parts alone (the wrapper's fused_vamp.default_taps, a split operand
+// of half the HIGH size), ring slots of three k16 steps; its plain
+// version is vamp.plain_loop_default.  Its bound is the tensor cores': 12
+// N p flop per trial and iteration, about 9 ms at the main path.  What
+// bounds it on this card (NVIDIA H100 80GB HBM3 at 700 W, the main path,
+// tests/torch_vamp_probes.py --precision default and
+// tests/torch_kernel_ab.py, PERF.md): on the HIGH engine's layout it took
+// 280 ms, half of it in the denoiser (a thread per segment, its lanes one
+// after the other) and a third in the products, which waited on the
+// copies of halves they never multiplied.  The denoiser's lane groups
+// (every form) and the one-pass engine took it to 135 ms; the products
+// are then bound by each warp's chain of ldmatrix, mma and FP32 adds
+// between barriers, and the passes outside them (the denoiser, step 5,
+// the row sums) by their loads.
 //
 // Layouts: every state plane is per-trial contiguous, complex values
 // interleaved (PyTorch complex64): r_tilde, r, xmmse (B, N), var (B, N),
@@ -146,12 +160,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   SmemX3& smx = *reinterpret_cast<SmemX3*>(smem_raw);
   const int kf = P.ldf / kBK, kb = P.ldb / kBK;  // k16 steps of each
+  // the form's split step and tap tiles (DEFAULT: hi parts only)
+  constexpr int kStep = kOne ? kSplitStep1 : kSplitStep;
   const __nv_bfloat16* tf = P.taps + c * P.tap_c;
-  const __nv_bfloat16* tb = tf + tap_tiles_size(p, kf);
+  const __nv_bfloat16* tb =
+      tf + (kOne ? tap_tiles1_size(p, kf) : tap_tiles_size(p, kf));
   __nv_bfloat16* xsf =
       P.xs + (static_cast<size_t>(c) * gridDim.x + blockIdx.x) * 3 *
-                 (kf + kb) * kSplitStep;
-  __nv_bfloat16* xsb = xsf + 3 * kf * kSplitStep;
+                 (kf + kb) * kStep;
+  __nv_bfloat16* xsb = xsf + 3 * kf * kStep;
   __shared__ int s_act[kBt], s_T[kBt], s_bad[kBt];
   __shared__ float s_s2t[kBt], s_vr[kBt], s_alpha[kBt], s_tau[kBt],
       s_dxdr[kBt];
@@ -164,10 +181,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   int ring;  // HIGH: the steps the product ring has served
   if constexpr (kHigh) {
-    init_ring(smx, ring);
+    init_ring<kOne>(smx, ring);
     // the incoming r_tilde split for the first product; w's pad columns
-    split_rows(rt, N, N, 0, nrows, kf, xsf);
-    split_rows(nullptr, 0, 0, (p + 1) & ~1, nrows, kb, xsb);
+    split_rows<kOne>(rt, N, N, 0, nrows, kf, xsf);
+    split_rows<kOne>(nullptr, 0, 0, (p + 1) & ~1, nrows, kb, xsb);
   }
 
   for (int it = 0; it < P.cap; ++it) {
@@ -210,9 +227,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           const float xi = sc * (y.y + vr * ci);
           return make_float2(xr - cr, xi - ci);
         };
-        store_split(xsb, kb, m, k, w_at(k, cr0, ci0),
-                    k + 1 < p ? w_at(k + 1, cr1, ci1)
-                              : make_float2(0.f, 0.f));
+        store_split<kOne>(xsb, kb, m, k, w_at(k, cr0, ci0),
+                          k + 1 < p ? w_at(k + 1, cr1, ci1)
+                                    : make_float2(0.f, 0.f));
       });
     } else
     for (int n0 = 0; n0 < p; n0 += kBN1) {
@@ -276,22 +293,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     __syncthreads();
 
-    // ---- 3. denoiser and allclose: a thread per (trial, segment) ---------
-    for_each_segment(nrows, N, M, s_act, s_bad, [&](int m, size_t j0) {
-      float2* xo = xm + j0;
-      float* vo = var + j0;
-      return segment_posterior<false>(
-          M, P.K, P.sym_re, P.sym_im, r + j0, s_tau[m],
-          [=](int i, float mr, float mi, float v) {
-            xo[i] = make_float2(mr, mi);
-            const int flag = not_close(v, vo[i]);
-            vo[i] = v;
-            return flag;
-          });
-    }, [&](size_t j0) {
-      prefetch_l1(r + j0, M);
-      prefetch_l1(var + j0, M);
-    });
+    // ---- 3. denoiser and allclose: a lane group per (trial, segment) -----
+    denoise_segments<false>(
+        nrows, N, M, P.K, P.sym_re, P.sym_im, s_act, s_tau, s_bad,
+        [&](size_t j) { return LanePlanes{r[j], var[j], {}}; },
+        [&](size_t j, float mr, float mi, float v, LanePlanes d) {
+          xm[j] = make_float2(mr, mi);
+          var[j] = v;
+          return not_close(v, d.var);
+        });
     __syncthreads();
 
     // ---- 4. dxdr = mean(var) / tau and sigma2_tilde: a warp per trial ----
@@ -318,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     // ---- 5. r_tilde = (xmmse - dxdr r) / (1 - dxdr) -----------------------
     // (HIGH: split for the next first product as it is written)
     if constexpr (kHigh)
-      for_each_split_pair<2>(
+      for_each_split_pair<4, kOne>(
           nrows, N, kf, s_act, xsf,
           [&](int, size_t e, bool last) {
             const bool al = (N & 1) == 0;
@@ -388,10 +398,11 @@ int fused_vamp_decode(void* rt, void* s2t, void* r, void* var, void* xm,
   if (K < 1 || K > decode::kMaxK || M < 1 || N % M != 0 || C < 1 ||
       C > 65535 || B_per < 1 || p < 1 || (high < 0 || high > 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long tap_need =
+      high == 2 ? tap_tiles1_size(p, ldf / 16) + tap_tiles1_size(N, ldb / 16)
+                : tap_tiles_size(p, ldf / 16) + tap_tiles_size(N, ldb / 16);
   if (high && (taps == nullptr || xs == nullptr || ldf < N || ldf % 16 ||
-               ldb < p || ldb % 16 ||
-               tap_c < tap_tiles_size(p, ldf / 16) +
-                           tap_tiles_size(N, ldb / 16)))
+               ldb < p || ldb % 16 || tap_c < tap_need))
     return static_cast<int>(cudaErrorInvalidValue);
   Params P;
   P.rt = static_cast<float2*>(rt);
@@ -429,7 +440,8 @@ int fused_vamp_decode(void* rt, void* s2t, void* r, void* var, void* xm,
   const auto kernel = high == 2   ? vamp_decode_kernel<true, true>
                       : high == 1 ? vamp_decode_kernel<true, false>
                                   : vamp_decode_kernel<false, false>;
-  const int smem = high ? kSmemBytesX3 : kSmemBytes;
+  const int smem =
+      high == 2 ? kSmemBytesX1 : high ? kSmemBytesX3 : kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

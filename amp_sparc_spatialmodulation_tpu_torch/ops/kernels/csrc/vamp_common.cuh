@@ -333,6 +333,74 @@ __device__ __forceinline__ int x3_chunk(int c, int n) {
   return c ^ ((n >> 1) & 3);
 }
 
+// ---- The DEFAULT form's one-pass engine (product_x1) -------------------
+//
+// It computes what the HIGH engine's hi.hi pass alone computes (the three
+// Gauss products k1 = (a + b) T0, k2 = a T1, k3 = b T2 of bf16 hi parts,
+// each k16 step's mma from zero and added in FP32 in k order, re = k1 -
+// k3, im = k1 + k2), on operands that hold the hi parts only: rows of 16
+// bf16 (32 bytes), their two 16-byte chunks swizzled (chunk c of row n at
+// c ^ ((n / 4) % 2)) so that the eight rows an ldmatrix phase reads fall
+// on distinct banks; the wrapper's taps (fused_vamp.default_taps) and the
+// trial side (split1_at) are half the HIGH form's bytes.  The tile is the
+// block's 64 trials x kBNX1 = 96 columns, three passes over k with k1 and
+// k1 + k2 parked in shared memory as in HIGH (warp (warp % 4, warp / 4)
+// owns 16 trials x 48 columns, six n8 blocks, 24 FP32 accumulators a
+// thread), and a ring slot holds kSlotSteps = 3 k16 steps of the pass
+// (one bulk copy of each operand), kStagesX1 = 4 slots: a barrier and an
+// mbarrier wait per three steps, nine steps in flight.
+//
+// What bounds it on this card (NVIDIA H100 80GB HBM3 at 700 W, the main
+// path, 65536 trials to the cap of 10; probe builds of
+// tests/torch_vamp_probes.py --precision default, PERF.md): not the copy
+// streams and not the tensor cores but each warp's chain of ldmatrix,
+// mma and FP32 adds between barriers.  On the HIGH layout the products
+// took about 100 ms (both halves copied, one k16 step a slot).  Hi-only
+// 176-column tiles with a 3-slot ring of one step (the design first
+// predicted: the trial side read 0.55 times as often) took them to about
+// 58 ms, and no copy stream moved them any more: with 44 accumulators a
+// thread under the 128-register cap ptxas serialised each step into
+// ldmatrix, two mma, eight adds, one n8 pair after another.  Narrower
+// tiles with several steps a slot ran faster, the deeper single-step
+// rings slower: 96 columns x 4 slots x 3 steps 136 ms for K3 against 153
+// ms for 176 x 3 x 1 (PERF.md lists the variants).
+constexpr int kBNX1 = 96;              // columns of a DEFAULT product tile
+constexpr int kNB1 = kBNX1 / 16;       // n8 blocks of a warp's half tile
+constexpr int kOut1 = 4 * kNB1;        // a thread's outputs of one product
+constexpr int kStagesX1 = 4;           // slots of the DEFAULT ring
+constexpr int kSlotSteps = 3;          // k16 steps of one slot
+constexpr int kSplitStep1 = kBt * kBK;      // bf16 of a split operand step
+constexpr int kTapStep1 = kBNX1 * kBK;      // bf16 of a tap tile step
+constexpr int kSlotBytesA = 2 * kSplitStep1;  // a step's trial side
+constexpr int kSlotBytesB = 2 * kTapStep1;    // a step's tap tile
+struct __align__(128) StageX1 {
+  __nv_bfloat16 a[kSlotSteps][kSplitStep1];  // the pass's trial-side steps
+  __nv_bfloat16 b[kSlotSteps][kTapStep1];    // the pass's tap tile steps
+};
+struct __align__(128) SmemX1 {
+  StageX1 st[kStagesX1];
+  float park[2][kOut1][kThreads];   // a thread's k1, then k1 + k2
+  unsigned long long full[kStagesX1];  // mbarriers: slot s has landed
+};
+constexpr int kSmemBytesX1 = static_cast<int>(sizeof(SmemX1));
+static_assert(kBNX1 % 16 == 0 && kStagesX1 >= 2 && kSlotSteps >= 1,
+              "a warp's n8 blocks: pairs by ldmatrix.x4, an odd one by .x2");
+static_assert(kSmemBytesX1 <= 113664,
+              "two blocks per SM with the kernels' static arrays");
+
+// The DEFAULT form's tap tiles of a product with ncols output columns and
+// ksteps k16 steps: the bf16 hi of its three Gauss planes.
+__device__ __host__ __forceinline__ long long tap_tiles1_size(int ncols,
+                                                              int ksteps) {
+  return 3LL * ((ncols + kBNX1 - 1) / kBNX1) * ksteps * kTapStep1;
+}
+
+// The 16-byte chunk of a 32-byte DEFAULT operand row n where its chunk c
+// lies.
+__device__ __forceinline__ int x1_chunk(int c, int n) {
+  return c ^ ((n >> 2) & 1);
+}
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -394,15 +462,24 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
-// The HIGH ring's mbarriers, by thread 0 at the start of a launch (before
-// a barrier).  ring (every thread's) counts the steps the ring has served.
+// The ring's mbarriers of the HIGH form (kOne false) or of the DEFAULT
+// form's engine (kOne: SmemX1 on the same shared memory), by thread 0 at
+// the start of a launch (before a barrier).  ring (every thread's) counts
+// the steps the ring has served.
+template <bool kOne = false>
 __device__ __forceinline__ void init_ring(SmemX3& sm, int& ring) {
   ring = 0;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStagesX3; ++s) mbar_init(&sm.full[s]);
+    if constexpr (kOne) {
+      SmemX1& s1 = reinterpret_cast<SmemX1&>(sm);
+      for (int s = 0; s < kStagesX1; ++s) mbar_init(&s1.full[s]);
+    } else {
+      for (int s = 0; s < kStagesX3; ++s) mbar_init(&sm.full[s]);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 }
+
 
 // bf16 hi and lo parts of (x0, x1), each packed as a pair (x0 in the low
 // half, the lower k first in memory).
@@ -426,9 +503,19 @@ __device__ __forceinline__ size_t split_at(int ksteps, int o, int m, int k,
          m * (2 * kBK) + x3_chunk(2 * h + ((k & 15) >> 3), m) * 8 + (k & 7);
 }
 
+// Where (operand o, trial m of the block, k) lies in a block's DEFAULT
+// split operand of ksteps k16 steps (3 ksteps kSplitStep1 bf16): the hi
+// part alone, rows of 16 bf16 (x1_chunk).
+__device__ __forceinline__ size_t split1_at(int ksteps, int o, int m, int k) {
+  return static_cast<size_t>(o * ksteps + (k >> 4)) * kSplitStep1 +
+         m * kBK + x1_chunk((k & 15) >> 3, m) * 8 + (k & 7);
+}
+
 // Writes the complex values u0 at k and u1 at k + 1 (k even) of trial m
 // into the split operand xs: the bf16 hi and lo of a + b (summed in FP32),
-// of a and of b, as the all-at-once tile split them.
+// of a and of b, as the all-at-once tile split them; kOne (DEFAULT) the hi
+// parts alone, in the one-pass engine's layout.
+template <bool kOne = false>
 __device__ __forceinline__ void store_split(__nv_bfloat16* xs, int ksteps,
                                             int m, int k, float2 u0,
                                             float2 u1) {
@@ -436,6 +523,12 @@ __device__ __forceinline__ void store_split(__nv_bfloat16* xs, int ksteps,
   split_pair(u0.x + u0.y, u1.x + u1.y, hi[0], lo[0]);
   split_pair(u0.x, u1.x, hi[1], lo[1]);
   split_pair(u0.y, u1.y, hi[2], lo[2]);
+  if constexpr (kOne) {
+#pragma unroll
+    for (int o = 0; o < 3; ++o)
+      *reinterpret_cast<unsigned*>(xs + split1_at(ksteps, o, m, k)) = hi[o];
+    return;
+  }
 #pragma unroll
   for (int o = 0; o < 3; ++o) {
     *reinterpret_cast<unsigned*>(xs + split_at(ksteps, o, m, k, 0)) = hi[o];
@@ -446,6 +539,7 @@ __device__ __forceinline__ void store_split(__nv_bfloat16* xs, int ksteps,
 // Writes the columns k0 <= k < 16 ksteps (k0 even) of the trials m < nrows
 // into the split operand xs: X[m ld + k] (complex) for k < K, zeros beyond
 // (the pad, which the zero tap pad multiplies).
+template <bool kOne = false>
 __device__ __forceinline__ void split_rows(const float2* X, int ld, int K,
                                            int k0, int nrows, int ksteps,
                                            __nv_bfloat16* xs) {
@@ -454,7 +548,8 @@ __device__ __forceinline__ void split_rows(const float2* X, int ld, int K,
   for (int item = threadIdx.x; item < nrows * pairs; item += kThreads) {
     const int m = item / pairs, k = k0 + 2 * (item % pairs);
     const float2* x = X + static_cast<size_t>(m) * ld;
-    store_split(xs, ksteps, m, k, k < K ? x[k] : z, k + 1 < K ? x[k + 1] : z);
+    store_split<kOne>(xs, ksteps, m, k, k < K ? x[k] : z,
+                      k + 1 < K ? x[k + 1] : z);
   }
 }
 
@@ -488,36 +583,42 @@ __device__ __forceinline__ void store_pair(float2* x, size_t e, Pair v,
 }
 
 // An elementwise pass over the N elements of each active trial of the
-// block, as for_each_row_element, by pairs (k, k + 1), k even, consecutive
-// threads on consecutive pairs, that also splits the new values into the
-// split operand xs of ksteps k16 steps: v = load(m, e, last) for kUnroll
-// pairs, then store(m, e, v, last), which stores the new pair and returns
-// it; last marks the lone element at the end of an odd row (its partner
-// splits as zero and is neither loaded nor stored).
-template <int kUnroll, class Load, class Store>
+// block by pairs (k, k + 1), k even, that also splits the new values into
+// the split operand xs of ksteps k16 steps: v = load(m, e, last) for
+// kUnroll pairs, then store(m, e, v, last), which stores the new pair and
+// returns it; last marks the lone element at the end of an odd row (its
+// partner splits as zero and is neither loaded nor stored).  Consecutive
+// threads take consecutive pairs of the block's (trial, pair) items, so
+// the loads of kUnroll pairs a thread are in flight at once across the
+// rows (a walk over the rows one after the other, as for_each_row_element
+// does, left two pairs a thread in flight and waited on every row).
+template <int kUnroll, bool kOne, class Load, class Store>
 __device__ __forceinline__ void for_each_split_pair(int nrows, int N,
                                                     int ksteps, const int* act,
                                                     __nv_bfloat16* xs,
                                                     Load load, Store store) {
   const int pairs = (N + 1) / 2;
-  for (int m = 0; m < nrows; ++m) {
-    if (!act[m]) continue;
-    const size_t e0 = static_cast<size_t>(m) * N;
-    for (int q0 = threadIdx.x; q0 < pairs; q0 += kUnroll * kThreads) {
-      decltype(load(m, e0, false)) v[kUnroll];
+  const int items = nrows * pairs;
+  for (int i0 = threadIdx.x; i0 < items; i0 += kUnroll * kThreads) {
+    decltype(load(0, 0, false)) v[kUnroll];
+    int mk[kUnroll][2];  // (m, k) of each pair; m = -1: none
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = 2 * (q0 + u * kThreads);
-        if (k < N) v[u] = load(m, e0 + k, k + 1 == N);
-      }
+    for (int u = 0; u < kUnroll; ++u) {
+      const int item = i0 + u * kThreads;
+      const int m = item / pairs, k = 2 * (item - m * pairs);
+      mk[u][0] = item < items && act[m] ? m : -1;
+      mk[u][1] = k;
+      if (mk[u][0] >= 0)
+        v[u] = load(m, static_cast<size_t>(m) * N + k, k + 1 == N);
+    }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = 2 * (q0 + u * kThreads);
-        if (k >= N) continue;
-        const Pair x = store(m, e0 + k, v[u], k + 1 == N);
-        store_split(xs, ksteps, m, k, x.u0,
-                    k + 1 < N ? x.u1 : make_float2(0.f, 0.f));
-      }
+    for (int u = 0; u < kUnroll; ++u) {
+      const int m = mk[u][0], k = mk[u][1];
+      if (m < 0) continue;
+      const Pair x = store(m, static_cast<size_t>(m) * N + k, v[u],
+                           k + 1 == N);
+      store_split<kOne>(xs, ksteps, m, k, x.u0,
+                        k + 1 < N ? x.u1 : make_float2(0.f, 0.f));
     }
   }
 }
@@ -555,6 +656,171 @@ __device__ __forceinline__ int x3_col(int n0, int j, int e) {
   return n0 + kBN3 / 2 * (warp >> 2) + 8 * j + 2 * (lane & 3) + (e & 1);
 }
 
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2],
+                                            const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// Column of output (j, e) of a thread's DEFAULT tile (rows as x3_row).
+__device__ __forceinline__ int x1_col(int n0, int j, int e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return n0 + kBNX1 / 2 * (warp >> 2) + 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+// d = a b for one m16n8k16 tile from a zero accumulator (the C operand
+// one register holding +0, so no accumulator is zeroed per call): the
+// same result as mma_bf16 on d = 0.
+__device__ __forceinline__ void mma_bf16_z(float (&d)[4],
+                                           const unsigned (&a)[4],
+                                           unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// The DEFAULT form's complex product (the one-pass engine above), with
+// product_x3's contract: A the block's DEFAULT split operand xs (ksteps
+// k16 steps, split1_at), T the DEFAULT tap tiles (tap_tiles1_size(ncols,
+// ksteps) bf16), epi(m, n, cr0, ci0, cr1, ci1) for each thread's pairs of
+// outputs, ring the slots served.  Tile t, pass g, slot c (k16 steps c
+// kSlotSteps on) run in that order; thread 0 issues the copies of the slot
+// kStagesX1 - 1 ahead after each slot's barrier.
+template <class Epi>
+__device__ __forceinline__ void product_x1(
+    const __nv_bfloat16* xs, int ksteps,
+    const __nv_bfloat16* __restrict__ taps, int ncols, SmemX1& sm, int& ring,
+    Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int slots = (ksteps + kSlotSteps - 1) / kSlotSteps;
+  const int tiles = (ncols + kBNX1 - 1) / kBNX1;
+  const int total = tiles * 3 * slots;
+  // thread 0: the copies of ring slot f (tile t, pass g, slot c of the
+  // pass) into its place, the pass's last slot holding what is left of K
+  auto load = [&](int t, int g, int c, int f) {
+    const int slot = (ring + f) % kStagesX1;
+    const int s0 = c * kSlotSteps, n = min(kSlotSteps, ksteps - s0);
+    StageX1& st = sm.st[slot];
+    mbar_expect(&sm.full[slot], n * (kSlotBytesA + kSlotBytesB));
+    bulk_copy_once(st.a[0],
+                   xs + static_cast<size_t>(g * ksteps + s0) * kSplitStep1,
+                   n * kSlotBytesA, &sm.full[slot]);
+    bulk_copy(st.b[0],
+              taps + (static_cast<size_t>(g * tiles + t) * ksteps + s0) *
+                         kTapStep1,
+              n * kSlotBytesB, &sm.full[slot]);
+  };
+  auto next = [&](int& t, int& g, int& c) {
+    if (++c == slots) {
+      c = 0;
+      if (++g == 3) {
+        g = 0;
+        ++t;
+      }
+    }
+  };
+  int lt = 0, lg = 0, lc = 0;  // thread 0: the next (tile, pass, slot)
+  fence_proxy_async();  // this thread's writes of xs before the copies
+  __syncthreads();  // everyone's, and the previous product's ring reads
+  if (tid == 0) {
+    for (int f = 0; f < kStagesX1 - 1 && f < total; ++f) {
+      load(lt, lg, lc, f);
+      next(lt, lg, lc);
+    }
+  }
+  // ldmatrix rows: A rows 16 wm + lane % 16, chunk lane / 16; taps rows
+  // kBNX1 / 2 wn + 16 q + lane % 8 + 8 (lane / 16), chunk (lane / 8) % 2
+  // (the row's swizzle does not change with q; the .x2 of an odd last n8
+  // block reads lanes 0-15's rows)
+  const int ar = 16 * wm + (lane & 15), ac = lane >> 4;
+  const int br = kBNX1 / 2 * wn + (lane & 7) + ((lane >> 4) << 3);
+  const int bc = (lane >> 3) & 1;
+  const int a_at = ar * kBK + x1_chunk(ac, ar) * 8;
+  const int b_at = br * kBK + x1_chunk(bc, br) * 8;
+  float acc[kNB1][4];
+  int f = 0;  // the slot being computed, over every tile and pass
+  for (int t = 0; t < tiles; ++t) {
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int j = 0; j < kNB1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int c = 0; c < slots; ++c, ++f) {
+        const int slot = (ring + f) % kStagesX1;
+        mbar_wait(&sm.full[slot], ((ring + f) / kStagesX1) & 1);
+        __syncthreads();  // every warp is done with slot f - 1
+        if (tid == 0 && f + kStagesX1 - 1 < total) {
+          load(lt, lg, lc, f + kStagesX1 - 1);
+          next(lt, lg, lc);
+        }
+        const StageX1& st = sm.st[slot];
+        const int n = min(kSlotSteps, ksteps - c * kSlotSteps);
+#pragma unroll
+        for (int s = 0; s < kSlotSteps; ++s) {
+          if (s >= n) break;
+          unsigned ah[4];
+          ldmatrix_x4(ah, st.a[s] + a_at);
+          // each k16 step's product from zero, then an FP32 add: the
+          // tensor cores truncate as they add into an accumulator
+#pragma unroll
+          for (int q = 0; q < kNB1 / 2; ++q) {
+            unsigned bh[4];
+            ldmatrix_x4(bh, st.b[s] + b_at + q * 16 * kBK);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float th[4];
+              mma_bf16_z(th, ah, bh[2 * h], bh[2 * h + 1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[2 * q + h][e] = acc[2 * q + h][e] + th[e];
+            }
+          }
+          if constexpr (kNB1 % 2 == 1) {
+            unsigned bh[2];
+            ldmatrix_x2(bh, st.b[s] + b_at + kNB1 / 2 * 16 * kBK);
+            float th[4];
+            mma_bf16_z(th, ah, bh[0], bh[1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[kNB1 - 1][e] = acc[kNB1 - 1][e] + th[e];
+          }
+        }
+      }
+      // the end of pass g: k1 parked, k1 + k2 beside it, re = k1 - k3
+#pragma unroll
+      for (int j = 0; j < kNB1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          if (g == 0) {
+            sm.park[0][i][tid] = acc[j][e];
+          } else if (g == 1) {
+            sm.park[1][i][tid] = sm.park[0][i][tid] + acc[j][e];
+          } else {
+            acc[j][e] = sm.park[0][i][tid] - acc[j][e];
+          }
+        }
+    }
+    // re in acc, im in the park; e = 0, 1 and e = 2, 3 are column pairs
+#pragma unroll
+    for (int j = 0; j < kNB1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int n = x1_col(t * kBNX1, j, e);
+        if (n < ncols)
+          epi(x3_row(e), n, acc[j][e], sm.park[1][4 * j + e][tid],
+              acc[j][e + 1], sm.park[1][4 * j + e + 1][tid]);
+      }
+  }
+  ring += total;
+}
+
 // A complex product of the block's trials in the HIGH form, every column
 // tile, computed by the whole block:
 //
@@ -567,14 +833,18 @@ __device__ __forceinline__ int x3_col(int n0, int j, int e) {
 // launch did not write give outputs the caller drops.  xs may have been
 // written earlier in this launch by this block; the taps are read-only.
 // ring counts the steps served (init_ring).  kOne: the DEFAULT form's one
-// pass, k_g = hi.hi (the lo halves come with the copies, as in HIGH, but
-// are neither loaded into fragments nor multiplied), each k16 step's mma
-// from zero and added in FP32 as the HIGH form's hi.hi.
+// pass, k_g = hi.hi, on its own engine (product_x1: hi-only operands and
+// taps, wider tiles) over the same shared memory, seen as SmemX1.
 template <bool kOne = false, class Epi>
 __device__ __forceinline__ void product_x3(
     const __nv_bfloat16* xs, int ksteps,
     const __nv_bfloat16* __restrict__ taps, int ncols, SmemX3& sm, int& ring,
     Epi epi) {
+  if constexpr (kOne) {
+    product_x1(xs, ksteps, taps, ncols, reinterpret_cast<SmemX1&>(sm), ring,
+               epi);
+    return;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int steps = ksteps;  // k16 steps of a pass
@@ -640,12 +910,12 @@ __device__ __forceinline__ void product_x3(
         const StageX3& st = sm.st[slot];
         unsigned ah[4], al[4];
         ldmatrix_x4(ah, st.a + a_hi);
-        if (!kOne) ldmatrix_x4(al, st.a + a_lo);
+        ldmatrix_x4(al, st.a + a_lo);
 #pragma unroll
         for (int q = 0; q < kNB3 / 2; ++q) {
           unsigned bh[4], bl[4];
           ldmatrix_x4(bh, st.b + b_hi + q * 16 * 2 * kBK);
-          if (!kOne) ldmatrix_x4(bl, st.b + b_lo + q * 16 * 2 * kBK);
+          ldmatrix_x4(bl, st.b + b_lo + q * 16 * 2 * kBK);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int j = 2 * q + h;
@@ -653,10 +923,8 @@ __device__ __forceinline__ void product_x3(
             // tensor cores truncate as they add into an accumulator
             float th[4] = {0.f, 0.f, 0.f, 0.f};
             mma_bf16(th, ah, bh[2 * h], bh[2 * h + 1]);
-            if (!kOne) {
-              mma_bf16(cx[j], ah, bl[2 * h], bl[2 * h + 1]);
-              mma_bf16(cx[j], al, bh[2 * h], bh[2 * h + 1]);
-            }
+            mma_bf16(cx[j], ah, bl[2 * h], bl[2 * h + 1]);
+            mma_bf16(cx[j], al, bh[2 * h], bh[2 * h + 1]);
 #pragma unroll
             for (int e = 0; e < 4; ++e) hh[j][e] = hh[j][e] + th[e];
           }
@@ -668,7 +936,7 @@ __device__ __forceinline__ void product_x3(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * j + e;
-          const float k = kOne ? hh[j][e] : hh[j][e] + cx[j][e];
+          const float k = hh[j][e] + cx[j][e];
           if (g == 0) {
             sm.park[0][i][tid] = k;
           } else if (g == 1) {
@@ -728,33 +996,129 @@ __device__ __forceinline__ float warp_rowsum(int n, bool vec4, Get get) {
     return warp_rowsum3(n, vec4, get);
 }
 
-// Ask for the 128-byte lines of n values at p in L1, without waiting.
-template <class T>
-__device__ __forceinline__ void prefetch_l1(const T* p, int n) {
-  const char* c = reinterpret_cast<const char*>(p);
-  for (int b = 0; b < n * static_cast<int>(sizeof(T)); b += 128)
-    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(c + b));
-}
+// The planes of one lane the denoiser reads: the pseudo-data x, the old
+// variance and (vamp2's damping) the old mean.
+struct LanePlanes {
+  float2 x;
+  float var;
+  float2 xm;
+};
 
-// The denoiser's thread map: one thread per (trial, segment of M lanes) of
-// the block's nrows trials, trials with act[m] == 0 skipped.  seg(m, j0)
-// runs the segment at flat offset j0 of the block's planes and returns its
-// allclose flag, which is ORed into bad[m] (zeroed by the caller before a
-// barrier); touch(j0) asks for the planes of the thread's next segment
-// while this one runs (a segment is a chain of dependent steps that would
-// otherwise stall on its first read from device memory).
-template <class Seg, class Touch>
-__device__ __forceinline__ void for_each_segment(int nrows, int N, int M,
-                                                 const int* act, int* bad,
-                                                 Seg seg, Touch touch) {
+// The denoiser: the posterior of every segment of M lanes of the block's
+// active trials under the one-active-per-segment prior with effective
+// noise tau[m], WITHOUT the tau/2 halving of BAMP and SCAMP, as the plain
+// version's segmented_posterior(halve_tau=False) computes it: t = Re((x /
+// tau) conj(s)), the segment max, exp, the sums in PyTorch's order, the
+// mean and the variance, decomposed (kSecondMoment false, VAMP) or second
+// moment sum |s|^2 eta / eta2 - |mean|^2 (vamp2).  load(j) returns the
+// LanePlanes at flat offset j = m N + lane of the block's planes;
+// store(j, mean_re, mean_im, var, d) stores the lane (d its load) and
+// returns 1 when its variance fails the allclose test against the old one;
+// bad[m] (zeroed by the caller before a barrier) is set where one did.
+//
+// Thread map: a group of G = min(last_pow2(M), 32) lanes per segment
+// (torch_sum's lane count for M terms), consecutive groups on consecutive
+// segments, so a warp's loads are consecutive elements; lane t of a group
+// takes the segment's elements t, t + G, ..., folds their eta into four
+// accumulators in turn and the group joins them in torch_sum's tree by
+// shuffles (lane_sum's order, bit for bit); the segment max is joined the
+// same way (max is exact in any order).  The lane's first element (its
+// only one where G = M) is loaded once, into registers, a round ahead, and
+// its division by tau and its eta are kept.  A thread per segment, walking
+// its M lanes one after the other with every element loaded three times
+// (the map this one replaced), ran the denoiser at about 0.27 TB/s of its
+// bytes: half of the DEFAULT decode's time at the main path
+// (tests/torch_vamp_probes.py nodenoise, PERF.md).
+template <bool kSecondMoment, class Load, class Store>
+__device__ __forceinline__ void denoise_segments(
+    int nrows, int N, int M, int K, const float* sr, const float* si,
+    const int* act, const float* tau, int* bad, Load load, Store store) {
+  const int G = M >= 32 ? 32 : decode::last_pow2(M);
+  const int t = threadIdx.x & (G - 1);
   const int nseg = N / M, items = nrows * nseg;
-  for (int item = threadIdx.x; item < items; item += kThreads) {
-    const int m = item / nseg;
-    if (item + kThreads < items)
-      touch(static_cast<size_t>(item + kThreads) * M);
-    if (!act[m]) continue;
-    const size_t j0 = static_cast<size_t>(item) * M;
-    if (seg(m, j0)) atomicOr(bad + m, 1);
+  const int per = kThreads / G;  // segments of one round of the block
+  // the lane's first element of segment item, where that trial is decoded
+  auto first = [&](int item) {
+    LanePlanes d{};
+    if (item < items && act[item / nseg])
+      d = load(static_cast<size_t>(item) * M + t);
+    return d;
+  };
+  LanePlanes next = first(static_cast<int>(threadIdx.x) / G);
+  for (int base = 0; base < items; base += per) {
+    const int item = base + static_cast<int>(threadIdx.x) / G;
+    const LanePlanes d0 = next;
+    next = first(item + per);
+    // a group's lanes agree on ok; the shuffles run on every lane
+    const bool ok = item < items && act[item / nseg];
+    if (!__any_sync(0xffffffffu, ok)) continue;
+    const int m = ok ? item / nseg : 0;
+    const size_t j0 = static_cast<size_t>(ok ? item : 0) * M;
+    const float tm = ok ? tau[m] : 1.f;
+    const float xr0 = d0.x.x / tm, xi0 = d0.x.y / tm;
+    auto t_of = [&](int i, int q) {
+      if (i == t) return re_conj_mul(xr0, xi0, sr[q], si[q]);
+      const float2 v = load(j0 + i).x;
+      return re_conj_mul(v.x / tm, v.y / tm, sr[q], si[q]);
+    };
+    float mx = -INFINITY;
+    for (int i = t; i < M; i += G)
+      for (int q = 0; q < K; ++q) mx = fmaxf(mx, t_of(i, q));
+    for (int off = G / 2; off >= 1; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, G));
+    auto eta = [&](int i, int q) {
+      return expf(fminf(t_of(i, q) - mx, kExpMax));
+    };
+    auto eta_m = [&](int i) {
+      return K == 1 ? eta(i, 0)
+                    : torch_sum(K, [&](int q) { return eta(i, q); });
+    };
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    float eta_t = 0.f;  // eta_m of the lane's first element
+    for (int i = t, s = 0; i < M; i += G, ++s) {
+      const float e = eta_m(i);
+      if (s == 0) eta_t = e;
+      switch (s & 3) {
+        case 0: acc[0] = acc[0] + e; break;
+        case 1: acc[1] = acc[1] + e; break;
+        case 2: acc[2] = acc[2] + e; break;
+        default: acc[3] = acc[3] + e; break;
+      }
+    }
+    float sum = ((acc[0] + acc[1]) + acc[2]) + acc[3];
+    for (int off = G / 2; off >= 1; off >>= 1)
+      sum = sum + __shfl_down_sync(0xffffffffu, sum, off, G);
+    const float eta2 = __shfl_sync(0xffffffffu, sum, 0, G);
+    if (!ok) continue;
+    int flag = 0;
+    for (int i = t; i < M; i += G) {
+      float mr, mi, vn;
+      if (K == 1) {
+        const float post = (i == t ? eta_t : eta(i, 0)) / eta2;
+        mr = sr[0] * post;
+        mi = si[0] * post;
+        vn = kSecondMoment ? abs2(sr[0], si[0]) * post - abs2(mr, mi)
+                           : abs2(mr, mi) * (1.f - post) +
+                                 abs2(mr - sr[0], mi - si[0]) * post;
+      } else {
+        mr = torch_sum(K, [&](int q) { return sr[q] * eta(i, q); }) / eta2;
+        mi = torch_sum(K, [&](int q) { return si[q] * eta(i, q); }) / eta2;
+        if (kSecondMoment) {
+          vn = torch_sum(K, [&](int q) {
+                 return abs2(sr[q], si[q]) * eta(i, q);
+               }) / eta2 -
+               abs2(mr, mi);
+        } else {
+          const float var0 = abs2(mr, mi) * (1.f - eta_m(i) / eta2);
+          const float vs = torch_sum(K, [&](int q) {
+            return abs2(mr - sr[q], mi - si[q]) * eta(i, q);
+          });
+          vn = var0 + vs / eta2;
+        }
+      }
+      flag |= store(j0 + i, mr, mi, vn, i == t ? d0 : load(j0 + i));
+    }
+    if (flag) bad[m] = 1;  // every writer stores the same 1
   }
 }
 
@@ -790,68 +1154,6 @@ template <class Get>
 __device__ __forceinline__ float warp_torch_mean(int n, bool vec4,
                                                  float inv_n, Get get) {
   return warp_torch_sum(n, vec4, get) * inv_n;
-}
-
-// Posterior of the segment of M lanes x[0 .. M-1] (complex pseudo-data in
-// device memory) under the one-active-per-segment prior with effective
-// noise tau, WITHOUT the tau/2 halving of BAMP and SCAMP, as the plain
-// version's segmented_posterior(halve_tau=False) computes it: t = Re((x /
-// tau) conj(s)), the segment max, exp, the sums in PyTorch's order, the
-// mean and the variance — decomposed (kSecondMoment false, VAMP) or
-// second moment sum |s|^2 eta / eta2 - |mean|^2 (vamp2).  Calls emit(i,
-// mean_re, mean_im, var) for every lane, which stores the lane and returns
-// 1 when its variance fails the allclose test against the old one; returns
-// the OR of those.  Kept out of line with a callback that captures by
-// value, as decode_common.cuh keeps its posterior, so that the product
-// loops' registers are allocated on their own.
-template <bool kSecondMoment, class Emit>
-__device__ __noinline__ int segment_posterior(
-    int M, int K, const float* sr, const float* si, const float2* x,
-    float tau, Emit emit) {
-  auto t_of = [&](int i, int q) {
-    const float2 v = x[i];
-    return re_conj_mul(v.x / tau, v.y / tau, sr[q], si[q]);
-  };
-  float segmax = -INFINITY;
-  for (int i = 0; i < M; ++i)
-    for (int q = 0; q < K; ++q) segmax = fmaxf(segmax, t_of(i, q));
-  auto eta = [&](int i, int q) {
-    return expf(fminf(t_of(i, q) - segmax, kExpMax));
-  };
-  auto eta_m = [&](int i) {
-    return K == 1 ? eta(i, 0)
-                  : torch_sum(K, [&](int q) { return eta(i, q); });
-  };
-  const float eta2 = torch_sum(M, eta_m);
-  int bad = 0;
-  for (int i = 0; i < M; ++i) {
-    float mr, mi, vn;
-    if (K == 1) {
-      const float post = eta(i, 0) / eta2;
-      mr = sr[0] * post;
-      mi = si[0] * post;
-      vn = kSecondMoment ? abs2(sr[0], si[0]) * post - abs2(mr, mi)
-                         : abs2(mr, mi) * (1.f - post) +
-                               abs2(mr - sr[0], mi - si[0]) * post;
-    } else {
-      mr = torch_sum(K, [&](int q) { return sr[q] * eta(i, q); }) / eta2;
-      mi = torch_sum(K, [&](int q) { return si[q] * eta(i, q); }) / eta2;
-      if (kSecondMoment) {
-        vn = torch_sum(K, [&](int q) {
-               return abs2(sr[q], si[q]) * eta(i, q);
-             }) / eta2 -
-             abs2(mr, mi);
-      } else {
-        const float var0 = abs2(mr, mi) * (1.f - eta_m(i) / eta2);
-        const float vs = torch_sum(K, [&](int q) {
-          return abs2(mr - sr[q], mi - si[q]) * eta(i, q);
-        });
-        vn = var0 + vs / eta2;
-      }
-    }
-    bad |= emit(i, mr, mi, vn);
-  }
-  return bad;
 }
 
 // 1 when new differs from old beyond torch.allclose(rtol=1e-5, atol=1e-8)

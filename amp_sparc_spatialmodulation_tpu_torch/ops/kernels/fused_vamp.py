@@ -30,9 +30,11 @@ kernel reads the six Gauss tap planes split into bf16 hi and lo
 trial side once into a scratch the wrapper allocates
 (:func:`split_scratch`).  ``'default'`` is ``make_dot(Precision.DEFAULT)``,
 one bf16 pass per real product and ``sum(hi)`` for the two row sums
-(``precision.dot1``, ``rowsum1``): the HIGH form's code with one pass, on
-the same taps and scratch (the lo halves travel but are not multiplied),
-and ``vamp.plain_loop_default`` as its plain version.
+(``precision.dot1``, ``rowsum1``): the HIGH form's code with the products
+on a one-pass engine of their own, which reads the hi parts alone
+(:func:`default_taps`, tiles of ``DEFAULT_TILE_COLS`` columns, and a
+scratch of half the HIGH size), and ``vamp.plain_loop_default`` as its
+plain version.
 
 Both take and return a :class:`..models.vamp.VAMPState` in the JAX layouts
 and are resumable: ``cap`` is the global iteration cap, and the result's
@@ -57,10 +59,11 @@ from .fused_scamp import _recip, vec4
 launches = 0
 launches_high = 0
 launches_default = 0
-# Trials of one thread block and output columns of one HIGH product tile
-# (kBt and kBN3 of csrc/vamp_common.cuh).
+# Trials of one thread block and output columns of one HIGH and of one
+# DEFAULT product tile (kBt, kBN3 and kBNX1 of csrc/vamp_common.cuh).
 BLOCK_TRIALS = 64
 TILE_COLS = 96
+DEFAULT_TILE_COLS = 96
 
 
 def covers(cfg: Config) -> bool:
@@ -145,15 +148,17 @@ def tap_tiles(hi: torch.Tensor, lo: torch.Tensor, ld: int) -> torch.Tensor:
     return x.reshape(lead + (-1,))
 
 
-def split_scratch(blocks: int, ldf: int, ldb: int,
-                  device: torch.device) -> torch.Tensor:
+def split_scratch(blocks: int, ldf: int, ldb: int, device: torch.device,
+                  precision: str = "high") -> torch.Tensor:
     """The HIGH kernels' scratch for the split operands of ``blocks``
     blocks of ``BLOCK_TRIALS`` trials (``vamp_common.cuh::split_at``): per
     block the bf16 hi and lo of the three Gauss operands of the first
     product's trial side (k padded to ``ldf``) and of the second's (k padded
     to ``ldb``), written and read inside the launch, so left
-    uninitialised."""
-    return torch.empty(blocks * 6 * BLOCK_TRIALS * (ldf + ldb),
+    uninitialised.  At ``precision='default'`` the hi parts alone
+    (``split1_at``): half the size."""
+    parts = 3 if prec.canonical(precision) == prec.DEFAULT else 6
+    return torch.empty(blocks * parts * BLOCK_TRIALS * (ldf + ldb),
                        dtype=torch.bfloat16, device=device)
 
 
@@ -175,6 +180,62 @@ def high_taps(Vh: torch.Tensor):
                       for planes, ld in ((fwd, ldf), (bwd, ldb))
                       for x in planes], dim=-1).contiguous()
     return taps, ldf, ldb
+
+
+def chunk_order1(rows: int) -> torch.Tensor:
+    """(rows, 2): the 16-byte chunk of each DEFAULT operand row (16 hi
+    bf16: k 0-7, k 8-15 of a k16 step) that holds chunk 0, 1: chunk c of
+    row n lies at ``c ^ ((n // 4) % 2)`` (``vamp_common.cuh::x1_chunk``),
+    so that the eight 32-byte rows an ldmatrix phase reads fall on distinct
+    banks.  Its own inverse."""
+    n = torch.arange(rows)[:, None]
+    return torch.arange(2)[None, :] ^ ((n >> 2) & 1)
+
+
+def default_tap_tiles(hi: torch.Tensor, ld: int) -> torch.Tensor:
+    """The DEFAULT engine's tap tiles of one Gauss plane's bf16 hi part
+    ``hi`` (..., rows, K): per tile of ``DEFAULT_TILE_COLS`` rows (the last
+    padded with zero rows) and k16 step (K padded with zeros to ``ld``),
+    the tile's rows of 16 bf16, chunks in :func:`chunk_order1`, flattened:
+    one contiguous 3 KB block per step."""
+    rows, K = hi.shape[-2:]
+    cols = DEFAULT_TILE_COLS
+    tiles, lead = -(-rows // cols), hi.shape[:-2]
+    x = torch.nn.functional.pad(hi, (0, ld - K, 0, tiles * cols - rows))
+    # (.., tile, row, step, chunk, 8) -> (.., tile, step, row, chunk, 8)
+    x = x.reshape(lead + (tiles, cols, ld // 16, 2, 8))
+    d = len(lead)
+    x = x.permute(*range(d), d, d + 2, d + 1, d + 3, d + 4)
+    where = chunk_order1(cols).to(x.device)
+    x = x.gather(-2, where[..., None].expand(x.shape))
+    return x.reshape(lead + (-1,))
+
+
+def default_taps(Vh: torch.Tensor):
+    """The DEFAULT kernels' taps of the factor ``Vh`` ((p, N) or a (C, p,
+    N) stack): the hi parts (``precision.split_bf16``) of the six Gauss
+    planes of ``vamp.gauss_taps``, output column along the rows, laid out
+    as :func:`default_tap_tiles` (k padded to ``ldf`` = N and ``ldb`` = p
+    rounded up to 16); one contiguous bf16 buffer per factor, the
+    forward's three planes, then the adjoint's.  Returns ``(taps, ldf,
+    ldb)``."""
+    _, p, N = _factors(Vh)
+    ldf, ldb = padded_k(N), padded_k(p)
+    t = vamp.gauss_taps(Vh)
+    fwd = [x.mT for x in t[:3]]          # (.., p, N): row n, k contiguous
+    bwd = [x.mT for x in t[3:]]          # (.., N, p)
+    taps = torch.cat([default_tap_tiles(prec.split_bf16(x.contiguous())[0],
+                                        ld)
+                      for planes, ld in ((fwd, ldf), (bwd, ldb))
+                      for x in planes], dim=-1).contiguous()
+    return taps, ldf, ldb
+
+
+def form_taps(Vh: torch.Tensor, precision: str):
+    """``(taps, ldf, ldb)`` of the form ``precision`` ('high' or
+    'default') for ``Vh``."""
+    return (default_taps if prec.canonical(precision) == prec.DEFAULT
+            else high_taps)(Vh)
 
 
 def _library() -> ctypes.CDLL:
@@ -239,9 +300,9 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     sym_re, sym_im = symbol_planes(cfg, dev)
     cap_rem = max(int(cap) - int(s0.t), 0)
     high = precision in prec.BF16
-    taps, ldf, ldb = high_taps(Vh) if high else (None, 0, 0)
+    taps, ldf, ldb = form_taps(Vh, precision) if high else (None, 0, 0)
     xs = (split_scratch(max(C, 1) * -(-(B // max(C, 1)) // BLOCK_TRIALS),
-                        ldf, ldb, dev) if high else None)
+                        ldf, ldb, dev, precision) if high else None)
     lib = _library()
     rc = lib.fused_vamp_decode(
         out.r_tilde.data_ptr(), out.sigma2_tilde.data_ptr(),

@@ -25,8 +25,9 @@ wrapper does (:mod:`.fused_vamp`): the HIGH kernel runs the Gauss form's
 products in bf16 x 3 on the tensor cores on the split tap planes of
 ``fused_vamp.high_taps`` and the split operands of
 ``fused_vamp.split_scratch``, its plain version is
-``vamp2.plain_loop_high``; the DEFAULT kernel runs the same with one
-pass, its plain version ``vamp2.plain_loop_default``.
+``vamp2.plain_loop_high``; the DEFAULT kernel runs them in one pass on
+K3's one-pass engine (``fused_vamp.default_taps``, the half-size
+scratch), its plain version ``vamp2.plain_loop_default``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from .. import precision as prec
 from . import build
 from .fused_bamp import _check, symbol_planes
 from .fused_scamp import _recip, vec4
-from .fused_vamp import BLOCK_TRIALS, FORM, high_taps, split_scratch
+from .fused_vamp import BLOCK_TRIALS, FORM, form_taps, split_scratch
 
 # Kernel launches made by whole_decode: the HIGHEST form, the HIGH form,
 # the DEFAULT form.
@@ -124,9 +125,9 @@ def whole_decode(Vh: torch.Tensor, s2: torch.Tensor, y_tilde: torch.Tensor,
     sym_re, sym_im = symbol_planes(cfg, dev)
     cap_rem = max(int(cap) - int(s0.t), 0)
     high = precision in prec.BF16
-    taps, ldf, ldb = high_taps(Vh) if high else (None, 0, 0)
-    xs = (split_scratch(-(-B // BLOCK_TRIALS), ldf, ldb, dev) if high
-          else None)
+    taps, ldf, ldb = form_taps(Vh, precision) if high else (None, 0, 0)
+    xs = (split_scratch(-(-B // BLOCK_TRIALS), ldf, ldb, dev, precision)
+          if high else None)
     lib = _library()
     rc = lib.fused_vamp2_decode(
         out.r.data_ptr(), out.gamma.data_ptr(), out.var.data_ptr(),

@@ -4195,6 +4195,33 @@ def phase_main_bamp_default(torch, dev):
     return flagship_launches
 
 
+def vamp_engine_bytes(torch, fused_vamp, p, N, s0, s1) -> dict:
+    """The bytes the DEFAULT product engine's ring copies in one K3 or K4
+    launch from state s0 to s1: each block runs its slowest trial's
+    iterations, and each iteration copies, for every (tile, pass, k16 step)
+    of both products, the block's trial-side step (64 trials x 16 bf16)
+    and the tap step (DEFAULT_TILE_COLS columns x 16 bf16)."""
+    bt, cols = fused_vamp.BLOCK_TRIALS, fused_vamp.DEFAULT_TILE_COLS
+    kf, kb = fused_vamp.padded_k(N) // 16, fused_vamp.padded_k(p) // 16
+    steps = 3 * (-(-p // cols) * kf + -(-N // cols) * kb)
+    d = s1.T.long() - s0.T.long()
+    d = torch.nn.functional.pad(d, (0, -d.numel() % bt)).view(-1, bt)
+    block_iters = int(d.amax(1).sum())
+    return {"block_iterations": block_iters, "steps_per_iteration": steps,
+            "trial_side": block_iters * steps * 2 * bt * 16,
+            "taps": block_iters * steps * 2 * cols * 16}
+
+
+def instance_ptxas(lines, mangled: str) -> list:
+    """The ptxas lines of the kernel instance whose mangled name holds
+    ``mangled`` (from its 'Compiling entry' line to the next one)."""
+    starts = [i for i, ln in enumerate(lines) if "Compiling entry" in ln]
+    for a, b in zip(starts, starts[1:] + [len(lines)]):
+        if mangled in lines[a]:
+            return lines[a:b]
+    return []
+
+
 def phase_kernels_vamp_default(torch, dev, algo: str, ptxas_lines):
     """K3's (``algo='vamp'``) or K4's (``'vamp2'``) DEFAULT instance
     against its plain DEFAULT version (``decode_plain(..., 'default')``) at
@@ -4284,10 +4311,11 @@ def phase_kernels_vamp_default(torch, dev, algo: str, ptxas_lines):
     del lib, xw, pairs
     state = [getattr(s0, f) for f in s0._fields if f != "t"]
     state += [getattr(s1, f) for f in s1._fields if f != "t"]
-    tap_buf = kern.high_taps(r.dec.Vh)[0]
-    # the taps' hi halves, the only ones the DEFAULT instance multiplies
+    tap_buf = fused_vamp.default_taps(r.dec.Vh)[0]
+    # the taps' hi halves, the only ones the DEFAULT instance reads
     nbytes = (sum(t.numel() * t.element_size() for t in state + [yt, s2])
-              + tap_buf.numel() * tap_buf.element_size() // 2)
+              + tap_buf.numel() * tap_buf.element_size())
+    engine = vamp_engine_bytes(torch, fused_vamp, pp, N, s0, s1)
     # one bf16 pass: 3 real products x 2 N p flop, two products
     flop = iters * 12 * N * pp
     bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
@@ -4299,7 +4327,9 @@ def phase_kernels_vamp_default(torch, dev, algo: str, ptxas_lines):
                   bound_by=bound_by, pct_of_bound=100 * bound_ms / ms,
                   library_ms=library_ms,
                   library_ms_per_iteration=library_iter_ms,
-                  library_form=form, ptxas=ptxas_lines)
+                  library_form=form, ptxas=ptxas_lines,
+                  engine_bytes=engine,
+                  ptxas_default=instance_ptxas(ptxas_lines, "ILb1ELb1E"))
     emit(f"kernel_timing_{algo}_default", **timing)
     if failed:
         raise AssertionError(f"DEFAULT kernel != plain ({algo}): {failed}")

@@ -120,20 +120,27 @@ def test_products_cover_every_output_once(geometry):
 
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_denoiser_covers_every_segment_once(geometry):
-    """for_each_segment: thread tid takes items tid, tid + kThreads, ...,
-    item -> (m, sg) = divmod(item, N / M) over the block's nrows trials, at
-    flat offset item * M; each thread asks for its next item's lines."""
+    """denoise_segments: lane group tid / G of G = min(last_pow2(M), 32)
+    lanes takes items tid / G, tid / G + kThreads / G, ..., item -> (m, sg)
+    = divmod(item, N / M) over the block's nrows trials, at flat offset
+    item * M; lane tid % G of the group the segment's lanes tid % G,
+    tid % G + G, ...: every lane of every segment once."""
     spec, b_per, _ = GEOMETRIES[geometry]
     cfg, N, _ = dims(spec)
     assert N % cfg.M == 0
     nseg = N // cfg.M
     nrows = min(BT, b_per)
     items = nrows * nseg
-    seen = np.concatenate([np.arange(t, items, THREADS)
-                           for t in range(THREADS)])
+    G = 32 if cfg.M >= 32 else 1 << (cfg.M.bit_length() - 1)
+    per = THREADS // G
+    seen = np.concatenate([np.arange(tid // G, items, per)
+                           for tid in range(0, THREADS, G)])
     m, sg = np.divmod(seen, nseg)
     assert (m * N + sg * cfg.M == seen * cfg.M).all()
     assert sorted(seen.tolist()) == list(range(items))
+    lanes = [j for item in range(min(items, per)) for t in range(G)
+             for j in range(item * cfg.M + t, (item + 1) * cfg.M, G)]
+    assert sorted(lanes) == list(range(min(items, per) * cfg.M))
 
 
 def loader_map(nj, factor_rows):
