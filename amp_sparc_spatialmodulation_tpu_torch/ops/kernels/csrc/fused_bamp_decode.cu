@@ -140,11 +140,21 @@
 //
 // The DEFAULT form (kOne; precision='default', the JAX kernel with
 // make_dot(Precision.DEFAULT), one bf16 pass, fused_bamp.py:58-59 and
-// 81-93 there) is the HIGH form with one pass: each product issues only
-// the hi hi mma, on the same tap fragments and split operands (the lo
-// halves are written as in HIGH but neither loaded nor multiplied), so its
-// block, carve-out and threads are the HIGH form's; its plain version is
-// bamp.plain_loop_default.
+// 81-93 there) is the HIGH form with one pass on the hi halves alone: each
+// product issues only the hi hi mma, its tap fragments are 16 bytes a lane
+// and k16 step (fused_bamp.py::default_taps), its split operands hi planes
+// only (Form::kParts = 1), so its region is half the HIGH form's (180,800
+// B a block at the QPSK flagship, 82,880 B at the OOK one: neither gains
+// a block per SM, and it runs the HIGH form's threads); its plain version
+// is bamp.plain_loop_default.  Measured on an H100 (PERF.md,
+// tests/torch_k1_passes.py --precision default), what bounds it is the
+// denoiser (about a third of the time: a chain of shuffles, divisions and
+// exponentials per segment, latency-bound) and the mma's issue and
+// latency in both products, not the tap stream (held in registers, the
+// taps gain nothing).  So every form on the HIGH layout runs the
+// denoiser two segments a round where a lane holds one element
+// (pair_posterior: 7 rounds become 4 at the QPSK flagship, 10 become 5 at
+// the OOK one), the same arithmetic per segment.
 //
 // The split forms (AMP_KERNEL_XMAP_PRECISION; the JAX kernel's
 // _linear_iteration with dot = make_dot(precision) for the variance chain
@@ -156,17 +166,24 @@
 // <kVP, kXP> of the kernel: each chain's products take 3 or 1 bf16 mma
 // passes (high_pass<kOne> per chain, the xmap chain's products q = 1.. in
 // a second pass over the same units, so each element stays with its lane)
-// or, at 'highest', FP32 FMA chains on the CUDA cores (fp32_pass: a thread
-// per column and four rows, the FP32 tap planes fp32_taps from L2, the x
-// side from the FP32 state in shared memory).  The fold writes an FP32
-// chain's adjoint inputs (Zc, or A and B) in FP32 into the scratch slots it
-// has just read, as the HIGHEST form does, so a split form's block is the
-// HIGH form's: 96,960 B at the OOK flagship, 220,800 B at the QPSK one.
-// The adjoint runs the variance chain first and the xmap chain after a
-// barrier, since the xmap epilogue reads cov.  The six off-diagonal
-// (variance, xmap) pairs are one instance each, compiled for 16 warps and
-// launched with the HIGH form's 8 or 16; plain version
-// bamp.plain_loop_split.
+// or, at 'highest', FP32 FMA chains on the CUDA cores (fp32_pass: register
+// tiles of 3-5 rows x 2 or 4 columns a thread, the products in turn,
+// on the FP32 tap planes fused_bamp.py::fp32_taps staged panel by panel
+// through shared memory by cp.async, into the split planes that chain
+// leaves dead; the x side from the FP32 state, xm_re + xm_im and A + B
+// formed once a pass).  The fold writes an FP32 chain's adjoint inputs
+// (Zc, or A and B) in FP32 into the scratch slots it has just read, as the
+// HIGHEST form does, so a split form's block is the HIGH form's: 96,960 B
+// at the OOK flagship, 220,800 B at the QPSK one.  A form whose bf16 chain
+// is 'default' reads default_taps and splits hi halves only.  The adjoint
+// runs the variance chain first and the xmap chain after a barrier, since
+// the xmap epilogue reads cov.  The six off-diagonal (variance, xmap)
+// pairs are one instance each, compiled for 16 warps and launched with the
+// HIGH form's 8 or 16; plain version bamp.plain_loop_split.  Measured on
+// an H100 (PERF.md, tests/torch_k1_passes.py --xmap-precision), an FP32
+// chain still bounds its form at about a quarter of the FP32 peak, held
+// back neither by its loads, its barriers nor its tap stream from L2
+// (cutting each gains little); what does hold it is not measured yet.
 
 #include <cuda_bf16.h>
 
@@ -397,36 +414,46 @@ __device__ __forceinline__ void adjoint_tile(
 
 // The HIGH form's pieces.
 
-// bf16 hi and lo of x (x ~ hi + lo, both rounded to nearest even), as
-// precision.split_bf16 computes them.
-__device__ __forceinline__ void split_store(__nv_bfloat16* hi,
-                                            __nv_bfloat16* lo, float x) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(x);
-  *hi = h;
-  *lo = __float2bfloat16_rn(x - __bfloat162float(h));
-}
-
-// The HIGH form's split operands in shared memory: plane 2 o + part (part
-// 0 hi, 1 lo) of operand o is (Lin, ld) bf16 at base + (2 o + part) Lin ld.
-// The forward's x side: o = 0 var, 1 xm_re, and for a complex alphabet 2
-// xm_re + xm_im, 3 xm_im (ld = ldx); the adjoint's inputs, in the same
-// place: o = 0 Zc, 1 A + B, 2 A, 3 B (ld = ldz).
+// The HIGH layout's split operands in shared memory: plane kParts o + part
+// (part 0 hi, 1 lo) of operand o is (Lin, ld) bf16 at base + (kParts o +
+// part) Lin ld, kParts = 2 (hi and lo) where a chain runs three passes, 1
+// (hi alone) where every bf16 chain is one pass (Form::kParts).  The
+// forward's x side: o = 0 var, 1 xm_re, and for a complex alphabet 2 xm_re
+// + xm_im, 3 xm_im (ld = ldx); the adjoint's inputs, in the same place: o
+// = 0 Zc, 1 A + B, 2 A, 3 B (ld = ldz).  An operand that only an FP32
+// chain reads is never split: its planes, and the region past the last
+// operand, hold that chain's staged taps (split_end).
 struct Split {
   __nv_bfloat16* base;
   int Nt, ld, plane;  // plane = Lin * ld
+  template <int kParts>
   __device__ __forceinline__ __nv_bfloat16* at(int o, int part) const {
-    return base + (2 * o + part) * plane;
+    return base + (kParts * o + part) * plane;
   }
-  // The x side of element j = c Nt + k, as the denoiser writes it.
+  // Operand o of element off, as precision.split_bf16 computes it: hi (x
+  // rounded to nearest even) and, at kParts = 2, lo = x - hi rounded.
+  template <int kParts>
+  __device__ __forceinline__ void put(int o, int off, float x) const {
+    __nv_bfloat16* hi = base + kParts * o * plane + off;
+    const __nv_bfloat16 h = __float2bfloat16_rn(x);
+    *hi = h;
+    if (kParts == 2) hi[plane] = __float2bfloat16_rn(x - __bfloat162float(h));
+  }
+  // The x side of element j = c Nt + k, as the denoiser writes it: var
+  // where kMask has bit 0 (the variance chain on the tensor cores), the
+  // xmap chain's operands where it has bit 1.
+  template <int kMask, int kParts>
   __device__ __forceinline__ void store_x(int j, float mr, float mi,
                                           float vn, bool real_x) const {
     const int c = j / Nt;
     const int off = c * ld + (j - c * Nt);
-    split_store(at(0, 0) + off, at(0, 1) + off, vn);
-    split_store(at(1, 0) + off, at(1, 1) + off, mr);
-    if (!real_x) {
-      split_store(at(2, 0) + off, at(2, 1) + off, mr + mi);
-      split_store(at(3, 0) + off, at(3, 1) + off, mi);
+    if (kMask & 1) put<kParts>(0, off, vn);
+    if (kMask & 2) {
+      put<kParts>(1, off, mr);
+      if (!real_x) {
+        put<kParts>(2, off, mr + mi);
+        put<kParts>(3, off, mi);
+      }
     }
   }
 };
@@ -471,11 +498,14 @@ __device__ __forceinline__ int high_parts(int mtiles, int warps, int NT) {
 // at a time.  The step does nothing else: every address is set up once
 // per unit and product.
 // kOne: the DEFAULT form's single pass, out[nt][e] = A_hi B_hi (the hi lo
-// and lo hi mma and their B words left out).
+// and lo hi mma and their B words left out).  kWords: 16-byte tap words a
+// lane reads per k16 step, 2 (hi then lo, fused_bamp.py::high_taps) or 1
+// (hi alone, fused_bamp.py::default_taps: a warp's step is 512 contiguous
+// bytes).
 // The unit a lane runs and the elements it holds depend on the block's
 // warps and the tiles alone, so two passes over the same stack (the split
 // forms' two chains) give each element to the same lane.
-template <bool kOne, class Operand, class Epi>
+template <bool kOne, int kWords, class Operand, class Epi>
 __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
                                           int mtiles, int ks, int q0, int nq,
                                           Operand operand, int lo, int ld,
@@ -492,7 +522,8 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
   for (int u = warp; u < units; u += warps) {
     const int mt = u / parts, part = u - mt * parts;
     const int n0 = part * NT / parts, n1 = (part + 1) * NT / parts;
-    const uint4* tile = taps + (static_cast<size_t>(mt) * ks * 32 + lane) * 2;
+    const uint4* tile =
+        taps + (static_cast<size_t>(mt) * ks * 32 + lane) * kWords;
     for (int q = q0; q < nq; ++q) {
       const uint4* ap = tile + q * plane;
       const __nv_bfloat16* b = operand(q);
@@ -501,7 +532,7 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
       for (int nt = 0; nt < kMaxNT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) hh[nt][e] = cx[nt][e] = 0.f;
-      for (int k = 0; k < ks; ++k, ap += 64, b += 16) {
+      for (int k = 0; k < ks; ++k, ap += 32 * kWords, b += 16) {
         uint4 f[2];
         if (kOne)
           f[0] = f[1] = __ldg(ap);  // the hi half only (f[1] unused)
@@ -545,23 +576,54 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
   }
 }
 
+// cp.async of one 16-byte word from global to shared memory (L2 only),
+// and its group fences.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
 // FP32 products on the CUDA cores: the chain of a split form that runs at
 // 'highest' (bamp.plain_loop_split's torch.matmul).  kQ products that share
-// their rows: out_q[c, j] = sum_kk x(q, c rs + off(kk)) A_q[kk, j] for rows
+// their rows: out_q[c, j] = sum_kk x_q[c rs + off(kk)] A_q[kk, j] for rows
 // c < rows and columns j < ncols, A_q the FP32 plane at a + q plane
-// ((K, ncols), row-major, from fused_bamp.py::fp32_taps), the contraction
-// kk = l L2 + m (l < L1, m < L2) read from the row at off(kk) = l ls + m.
-// A thread owns kRows32 rows of one column: per kk it loads each product's
-// tap once (neighbouring threads on neighbouring columns, from L2) and its
-// rows' x values from shared memory (one address across most of a warp).
-// Each output is one FMA chain in kk order from zero; epi(c, j, out) gets
-// the kQ sums of one output.
+// ((K, ncols), row-major, from fused_bamp.py::fp32_taps), x_q a plane of
+// shared memory (a sum of two operands formed once into a plane by the
+// caller), the contraction kk = l L2 + m (l < L1, m < L2) read from the
+// row at off(kk) = l ls + m.  Each output is one FMA chain in kk order from
+// zero, whoever computes it; epi(c, j, out) gets the kQ sums of one output.
+
+//
+// Register tiles (fp32_tiles): where the contraction is contiguous along a
+// row (ls = L2, or L1 = 1), K, rs and ncols multiples of 4 and the staging
+// buffer holds two panels of 4 steps, a thread owns kR rows x kC adjacent
+// columns (kC = 2 in a pass of one product, 4 in a pass of several; kR of
+// 3, 4 or 5, the one that fills the block's threads in fewest rounds of
+// least work) and runs the kQ products one after another, the finished
+// ones' sums held in registers for the epilogue.  The block stages each
+// plane's taps in panels of KC contraction steps through shared memory by
+// 16-byte cp.async copies, the next panel in flight while one is read and
+// one barrier a panel, so every tap comes from L2 once per block, round
+// and iteration; per 4 steps a thread reads each of its rows' x values as
+// one 16-byte word (the same address across its warp, which shares a row
+// group) and per step its kC taps as one vector word, by ld.shared at
+// 32-bit addresses.  Elsewhere (fp32_rows, the earlier loop): a thread per
+// column and kRows32 rows, its taps from L2 at every step.
 constexpr int kRows32 = 4;
 
-template <int kQ, class X, class Epi>
-__device__ __forceinline__ void fp32_pass(const float* a, size_t plane,
+template <int kQ, class Epi>
+__device__ __forceinline__ void fp32_rows(const float* a, size_t plane,
                                           int ncols, int rows, int rs,
-                                          int L1, int ls, int L2, X x,
+                                          int L1, int ls, int L2,
+                                          const float* const (&x)[kQ],
                                           Epi epi) {
   const int groups = (rows + kRows32 - 1) / kRows32;
   for (int f = threadIdx.x; f < groups * ncols; f += blockDim.x) {
@@ -587,7 +649,7 @@ __device__ __forceinline__ void fp32_pass(const float* a, size_t plane,
         for (int i = 0; i < kRows32; ++i)
 #pragma unroll
           for (int q = 0; q < kQ; ++q)
-            acc[i][q] = fmaf(x(q, row[i] + off), av[q], acc[i][q]);
+            acc[i][q] = fmaf(x[q][row[i] + off], av[q], acc[i][q]);
       }
 #pragma unroll
     for (int i = 0; i < kRows32; ++i)
@@ -595,30 +657,264 @@ __device__ __forceinline__ void fp32_pass(const float* a, size_t plane,
   }
 }
 
+// Columns of an FP32 register tile (2, 4 or 8: 8, 16 or 32 bytes of taps a
+// step) for a pass of one product and for a pass of several.
+constexpr int kColsOne32 = 2;
+constexpr int kColsMany32 = 4;
+
+// Shared-memory loads at a 32-bit shared address (the tiles' pointers pass
+// through arrays and ranges where the compiler no longer sees that they
+// point into shared memory, and would load through the generic path with
+// 64-bit addresses).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ float4 lds128(unsigned a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+__device__ __forceinline__ float2 lds64(unsigned a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a));
+  return v;
+}
+
+// kC taps at shared address a of a staged panel, one vector word.
+template <int kC>
+__device__ __forceinline__ void tap_words(float (&t)[kC], unsigned a) {
+  if constexpr (kC >= 4) {
+#pragma unroll
+    for (int h = 0; h < kC / 4; ++h) {
+      const float4 v = lds128(a + 16 * h);
+      t[4 * h] = v.x;
+      t[4 * h + 1] = v.y;
+      t[4 * h + 2] = v.z;
+      t[4 * h + 3] = v.w;
+    }
+  } else {
+    const float2 v = lds64(a);
+    t[0] = v.x;
+    t[1] = v.y;
+  }
+}
+
+template <int kQ, int kR, int kC, class Epi>
+__device__ __forceinline__ void fp32_tiles(const float* a, size_t plane,
+                                           int ncols, int rows, int rs,
+                                           int K, const float* const (&x)[kQ],
+                                           float* stage, int KC, Epi epi) {
+  const int cgroups = ncols / kC;
+  const int items = (rows + kR - 1) / kR * cgroups;
+  const int chunks = (K + KC - 1) / KC;
+  const int panel = KC * ncols;  // floats of one staged panel
+  // the panel of steps ci KC .. of plane q into buffer n & 1, as one
+  // cp.async group
+  auto stage_panel = [&](int q, int ci, int n) {
+    const int k0 = ci * KC, n4 = min(KC, K - k0) * ncols / 4;
+    float* buf = stage + (n & 1) * panel;
+    const float* src = a + q * plane + static_cast<size_t>(k0) * ncols;
+    for (int w = threadIdx.x; w < n4; w += blockDim.x) {
+      cp_async16(buf + 4 * w, src + 4 * w);  // fp32 tap panel
+    }
+    cp_async_commit();
+  };
+  const unsigned tstep = 4 * ncols;  // bytes from one step's taps to the next
+  for (int base = 0; base < items; base += blockDim.x) {
+    const int item = base + threadIdx.x;
+    const bool live = item < items;
+    const int g = live ? item / cgroups : 0;
+    const int j0 = live ? (item - g * cgroups) * kC : 0;
+    // the products one after another, each over every panel of its plane;
+    // the finished products' sums wait in res for the epilogue
+    float res[kQ][kR][kC];
+    stage_panel(0, 0, 0);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      float acc[kR][kC];
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc[i][c] = 0.f;
+      for (int ci = 0; ci < chunks; ++ci) {
+        // panels run on across the products: panel n = q chunks + ci.  Once
+        // it has landed and every thread is past this barrier (so done with
+        // panel n - 1), the next panel goes into n - 1's buffer while this
+        // one is read: one barrier a panel
+        const int n = q * chunks + ci;
+        cp_async_wait<0>();
+        __syncthreads();
+        if (ci + 1 < chunks)
+          stage_panel(q, ci + 1, n + 1);
+        else if (q + 1 < kQ)
+          stage_panel(q + 1, 0, n + 1);
+        if (live) {
+          const int k0 = ci * KC, kc = min(KC, K - k0);
+          // shared addresses in bytes, stepped along the panel: this
+          // panel's taps of column j0, the x rows at step k0
+          unsigned tp = smem_addr(stage + (n & 1) * panel + j0);
+          unsigned xp[kR];
+#pragma unroll
+          for (int i = 0; i < kR; ++i)
+            xp[i] = smem_addr(x[q] + min(g * kR + i, rows - 1) * rs + k0);
+          for (int kk = 0; kk < kc; kk += 4) {  // fp32 tile step loop
+            float4 xv[kR];
+#pragma unroll
+            for (int i = 0; i < kR; ++i) xv[i] = lds128(xp[i]);
+#pragma unroll
+            for (int st = 0; st < 4; ++st) {
+              float t[kC];
+              tap_words<kC>(t, tp + st * tstep);
+#pragma unroll
+              for (int i = 0; i < kR; ++i) {
+                const float xs = lane4(xv[i], st);
+#pragma unroll
+                for (int c = 0; c < kC; ++c)
+                  acc[i][c] = fmaf(xs, t[c], acc[i][c]);
+              }
+            }
+            tp += 4 * tstep;
+#pragma unroll
+            for (int i = 0; i < kR; ++i) xp[i] += 16;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int c = 0; c < kC; ++c) res[q][i][c] = acc[i][c];
+    }
+    // every panel read: the staging region is free for the next round
+    __syncthreads();
+    if (live)
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+        if (g * kR + i < rows)
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            float o[kQ];
+#pragma unroll
+            for (int q = 0; q < kQ; ++q) o[q] = res[q][i][c];
+            epi(g * kR + i, j0 + c, o);
+          }
+  }
+}
+
+// The FP32 pass: register tiles where they apply (see above), with the tap
+// panels staged in [stage, stage_end), else fp32_rows.
+template <int kQ, class Epi>
+__device__ __forceinline__ void fp32_pass(const float* a, size_t plane,
+                                          int ncols, int rows, int rs,
+                                          int L1, int ls, int L2,
+                                          const float* const (&x)[kQ],
+                                          float* stage,
+                                          const float* stage_end, Epi epi) {
+  const int K = L1 * L2;
+  // steps of a panel: two panels fit, a multiple of 4, at most K
+  int KC = static_cast<int>((stage_end - stage) / (2 * ncols)) & ~3;
+  KC = min(KC, K);
+  size_t align = reinterpret_cast<size_t>(stage);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) align |= reinterpret_cast<size_t>(x[q]);
+  constexpr int kC = kQ > 1 ? kColsMany32 : kColsOne32;
+  const bool tiles = (ls == L2 || L1 == 1) && K % 4 == 0 && rs % 4 == 0 &&
+                     ncols % 4 == 0 && ncols % kC == 0 && KC >= 4 &&
+                     (align & 15) == 0;
+  if (!tiles) {
+    fp32_rows<kQ>(a, plane, ncols, rows, rs, L1, ls, L2, x, epi);
+    return;
+  }
+  // the row tile that fills the threads in fewest rounds of least work
+  const int threads = blockDim.x, cgroups = ncols / kC;
+  auto cost = [&](int kR) {
+    const int items = (rows + kR - 1) / kR * cgroups;
+    return (items + threads - 1) / threads * kR;
+  };
+  int kR = 5;
+  if (cost(4) < cost(kR)) kR = 4;
+  if (cost(3) < cost(kR)) kR = 3;
+  if (kR == 5)
+    fp32_tiles<kQ, 5, kC>(a, plane, ncols, rows, rs, K, x, stage, KC, epi);
+  else if (kR == 4)
+    fp32_tiles<kQ, 4, kC>(a, plane, ncols, rows, rs, K, x, stage, KC, epi);
+  else
+    fp32_tiles<kQ, 3, kC>(a, plane, ncols, rows, rs, K, x, stage, KC, epi);
+}
+
+// An instance on the HIGH layout (kVP, kXP: the passes of the variance and
+// of the xmap chain, 3 or 1 bf16 passes on the tensor cores, 0 FP32 on the
+// CUDA cores): kParts planes per split operand (hi alone where no chain
+// runs three passes), as many 16-byte tap words per lane and k16 step
+// (fused_bamp.py::high_taps or default_taps), and the x-side operands the
+// denoiser splits (kMask bit 0 var, bit 1 the xmap chain's; an FP32
+// chain's are not).
+template <int kVP, int kXP>
+struct Form {
+  static constexpr int kParts = kVP == 3 || kXP == 3 ? 2 : 1;
+  static constexpr int kWords = kParts;
+  static constexpr int kMask = (kVP != 0 ? 1 : 0) | (kXP != 0 ? 2 : 0);
+};
+
+// The floats of shared memory from bf16 address a (rounded up to 16
+// bytes) to b.
+struct Range {
+  float* lo;
+  const float* hi;
+};
+__device__ __forceinline__ Range float_range(__nv_bfloat16* a,
+                                             const __nv_bfloat16* b) {
+  const size_t u = (reinterpret_cast<size_t>(a) + 15) & ~size_t(15);
+  return {reinterpret_cast<float*>(u), reinterpret_cast<const float*>(b)};
+}
+// The end of a split form's region (the HIGH form's whole:
+// fused_bamp.py::high_split_elems).
+__device__ __forceinline__ const __nv_bfloat16* split_end(
+    const Params& p, const Split& s, int kx, int kz, bool real_x) {
+  return s.base + max((real_x ? 4 : 8) * p.Lin * (kx + 8),
+                      8 * p.Lin * (kz + 8));
+}
+// The larger of an FP32 variance chain's two dead ranges of a split
+// region: its operand's planes, or the region past the xmap chain's nops
+// operands.
+template <int kParts>
+__device__ __forceinline__ Range dead_var(const Split& s, int nops,
+                                          const __nv_bfloat16* end) {
+  const Range a = float_range(s.base, s.at<kParts>(1, 0));
+  const Range b = float_range(s.at<kParts>(nops, 0), end);
+  return (a.hi - a.lo) >= (b.hi - b.lo) ? a : b;
+}
+
 // The forward products of the HIGH layout's forms (column j = l Nr + m of
 // the tap stack along the rows): P[c, l, m] for every column block c whose
 // tap l places a block: the variance chain's Pv = dot(var, S_a2) and the
 // xmap chain's Pr = k1 (- k3), Pi = k1 + k2, k1 parked in Pr's slot until
 // the last product.  The gains, where not folded, multiply in the fold.
-// kVP, kXP: the passes of the variance and the xmap chain, 3 (HIGH) or 1
-// (DEFAULT) bf16 passes on the tensor cores, or 0, FP32 on the CUDA cores
-// (fp32_pass, on the FP32 planes xm_re, xm_im and var).  The HIGH and
-// DEFAULT forms (kVP == kXP) run the four products in one pass.
+// The HIGH and DEFAULT forms (kVP == kXP) run the four products in one
+// pass; a split form runs the variance chain's, then the xmap chain's: a
+// chain on the tensor cores as those forms do, a chain in FP32 by
+// fp32_pass on the FP32 planes var, or xm_re and xm_im with xm_re + xm_im
+// formed once into a plane, its taps staged through the split planes it
+// leaves dead.
 template <int kVP, int kXP>
 __device__ __forceinline__ void forward_high(
     const Params& p, const Split& xs, int kx, int kz, bool real_x,
     const float* xm_re, const float* xm_im, const float* var, float* Pv,
     float* Pr, float* Pi, int NrP) {
+  using F = Form<kVP, kXP>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int W = p.Lh * p.Nr;
   const int mtiles = kz / 16, ks = kx / 16, NT = (p.Lin + 7) / 8;
-  const size_t plane = static_cast<size_t>(mtiles) * ks * 64;
+  const size_t plane = static_cast<size_t>(mtiles) * ks * 32 * F::kWords;
   const int nq = real_x ? 3 : 4;
   // the products' operands: var, k1's (xm_re, or xm_re + xm_im), xm_re,
   // xm_im
   const int o1 = real_x ? 1 : 2;
   auto operand = [&](int q) {
-    return xs.at(q == 0 ? 0 : q == 1 ? o1 : q == 2 ? 1 : 3, 0);
+    return xs.at<F::kParts>(q == 0 ? 0 : q == 1 ? o1 : q == 2 ? 1 : 3, 0);
   };
   auto epi = [&](int mt, int q, int n0, int n1,
                  const float (&v)[kMaxNT][4]) {
@@ -646,8 +942,9 @@ __device__ __forceinline__ void forward_high(
     }
   };
   if constexpr (kVP == kXP) {
-    high_pass<kVP == 1>(p.taps, plane, mtiles, ks, 0, nq, operand, xs.plane,
-                        xs.ld, p.Lin, NT, epi);
+    high_pass<kVP == 1, F::kWords>(p.taps, plane, mtiles, ks, 0,
+                                            nq, operand, xs.plane, xs.ld,
+                                            p.Lin, NT, epi);
   } else {
     // the FP32 planes (Nt, W): S_a2, S_re, Im S - Re S, Re S + Im S
     const size_t p32 = static_cast<size_t>(p.Nt) * W;
@@ -658,43 +955,53 @@ __device__ __forceinline__ void forward_high(
                                      : (c * p.Lh + l) * NrP + (j - l * p.Nr);
     };
     if constexpr (kVP != 0) {
-      high_pass<kVP == 1>(p.taps, plane, mtiles, ks, 0, 1, operand, xs.plane,
-                          xs.ld, p.Lin, NT, epi);
+      high_pass<kVP == 1, F::kWords>(p.taps, plane, mtiles, ks, 0,
+                                              1, operand, xs.plane, xs.ld,
+                                              p.Lin, NT, epi);
     } else {
-      fp32_pass<1>(
-          p.taps32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt,
-          [&](int, int i) { return var[i]; },
-          [&](int c, int j, const float (&o)[1]) {
-            const int e = slot_of(c, j);
-            if (e >= 0) Pv[e] = o[0];
-          });
+      const float* const xv[1] = {var};
+      const Range st = dead_var<F::kParts>(
+          xs, real_x ? 2 : 4, split_end(p, xs, kx, kz, real_x));
+      fp32_pass<1>(p.taps32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt, xv, st.lo,
+                   st.hi, [&](int c, int j, const float (&o)[1]) {
+                     const int e = slot_of(c, j);
+                     if (e >= 0) Pv[e] = o[0];
+                   });
     }
     if constexpr (kXP != 0) {
-      high_pass<kXP == 1>(p.taps, plane, mtiles, ks, 1, nq, operand,
-                          xs.plane, xs.ld, p.Lin, NT, epi);
-    } else if (real_x) {
-      fp32_pass<2>(
-          p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt,
-          [&](int, int i) { return xm_re[i]; },
-          [&](int c, int j, const float (&o)[2]) {
-            const int e = slot_of(c, j);
-            if (e < 0) return;
-            Pr[e] = o[0];
-            Pi[e] = o[0] + o[1];
-          });
+      high_pass<kXP == 1, F::kWords>(p.taps, plane, mtiles, ks, 1,
+                                              nq, operand, xs.plane, xs.ld,
+                                              p.Lin, NT, epi);
     } else {
-      fp32_pass<3>(
-          p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt,
-          [&](int q, int i) {
-            return q == 0 ? xm_re[i] + xm_im[i] : q == 1 ? xm_re[i]
-                                                         : xm_im[i];
-          },
-          [&](int c, int j, const float (&o)[3]) {
-            const int e = slot_of(c, j);
-            if (e < 0) return;
-            Pr[e] = o[0] - o[2];
-            Pi[e] = o[0] + o[1];
-          });
+      // dead from the variance chain's planes on
+      Range st = float_range(xs.at<F::kParts>(1, 0),
+                             split_end(p, xs, kx, kz, real_x));
+      if (real_x) {
+        const float* const xr[2] = {xm_re, xm_re};
+        fp32_pass<2>(p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt, xr,
+                     st.lo, st.hi, [&](int c, int j, const float (&o)[2]) {
+                       const int e = slot_of(c, j);
+                       if (e < 0) return;
+                       Pr[e] = o[0];
+                       Pi[e] = o[0] + o[1];
+                     });
+      } else {
+        // k1's operand xm_re + xm_im, formed once
+        float* sum = st.lo;
+        const int N = p.Lin * p.Nt;
+        for (int i = threadIdx.x; i < N; i += blockDim.x)
+          sum[i] = xm_re[i] + xm_im[i];
+        __syncthreads();
+        st.lo = sum + ((N + 3) & ~3);
+        const float* const xc[3] = {sum, xm_re, xm_im};
+        fp32_pass<3>(p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt, xc,
+                     st.lo, st.hi, [&](int c, int j, const float (&o)[3]) {
+                       const int e = slot_of(c, j);
+                       if (e < 0) return;
+                       Pr[e] = o[0] - o[2];
+                       Pi[e] = o[0] + o[1];
+                     });
+      }
     }
   }
 }
@@ -703,13 +1010,14 @@ __device__ __forceinline__ void forward_high(
 // summed in order (after their gains unless folded), w = v / u, z' = hx - w
 // (y - z), u' = v + sigma2, then the adjoint's inputs Zc = 1/u', A = (y -
 // z'_re) / u', B = (y - z'_im) / u' (gains^2 and gains applied unless
-// folded) of every (c, l) feeding the row: split into bf16 hi and lo for a
-// chain on the tensor cores (Zc for the variance chain; A + B, A, B for the
-// xmap chain), in FP32 for a chain at kVP or kXP = 0 (Zc in Pv's slot, A
-// and B in Pr's and Pi's, which this thread has just read; the slots of the
-// (c, l) that place no block stay zero from the launch).  The split slots
-// no output writes (the pad columns, the (c, l) that place no block) are
-// written zero, a pad column or a (c, l) at a time.
+// folded) of every (c, l) feeding the row: split into bf16 (hi, and lo at
+// kParts 2) for a chain on the tensor cores (Zc for the variance chain; A +
+// B, A, B for the xmap chain), in FP32 for a chain at kVP or kXP = 0 (Zc
+// in Pv's slot, A and B in Pr's and Pi's, which this thread has just read;
+// the slots of the (c, l) that place no block stay zero from the launch).
+// The split slots no output writes (the pad columns, the (c, l) that place
+// no block) are written zero in the planes a chain reads, a pad column or
+// a (c, l) at a time.
 template <int kVP, int kXP>
 __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
                                           int kz, float* Pv, float* Pr,
@@ -717,6 +1025,7 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
                                           const float* y_re,
                                           const float* y_im, float* z_re,
                                           float* z_im, float* u) {
+  using F = Form<kVP, kXP>;
   const int n = p.Lout * p.Nr;
   const bool folded = p.folded != 0;
   for (int o = threadIdx.x; o < n; o += blockDim.x) {
@@ -758,13 +1067,13 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
       const int off = c * zs.ld + l * p.Nr + m;
       const int e = (c * p.Lh + l) * NrP + m;
       if (kVP != 0)
-        split_store(zs.at(0, 0) + off, zs.at(0, 1) + off, zc);
+        zs.put<F::kParts>(0, off, zc);
       else
         Pv[e] = zc;
       if (kXP != 0) {
-        split_store(zs.at(1, 0) + off, zs.at(1, 1) + off, za + zb);
-        split_store(zs.at(2, 0) + off, zs.at(2, 1) + off, za);
-        split_store(zs.at(3, 0) + off, zs.at(3, 1) + off, zb);
+        zs.put<F::kParts>(1, off, za + zb);
+        zs.put<F::kParts>(2, off, za);
+        zs.put<F::kParts>(3, off, zb);
       } else {
         Pr[e] = za;
         Pi[e] = zb;
@@ -775,7 +1084,9 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   auto zero_slot = [&](int c, int j) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) zs.base[q * zs.plane + c * zs.ld + j] = zero;
+    for (int q = 0; q < 4 * F::kParts; ++q)
+      if (q < F::kParts ? kVP != 0 : kXP != 0)
+        zs.base[q * zs.plane + c * zs.ld + j] = zero;
   };
   // the pad columns W .. kz-1 of every column block
   const int pad = kz - W;
@@ -796,19 +1107,21 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
 // rows): the variance chain's cov = 1 / dot(Zc, S_a2^T), then the xmap
 // chain's adj = (k1 - k3) + i (k1 + k2) on A + B, A, B, xmap = xmmse + cov
 // adj (its imaginary part to xmap_g, stride 2); k1 parked in xmap_re until
-// the last product.  kVP, kXP as in forward_high: the HIGH and DEFAULT
-// forms run the four products in one pass; the split forms run the
-// variance chain first, then, once every cov is written, the xmap chain
-// (an FP32 chain reads Zc, A and B from the FP32 planes the fold wrote).
+// the last product.  The HIGH and DEFAULT forms run the four products in
+// one pass; the split forms run the variance chain first, then, once
+// every cov is written, the xmap chain (an FP32 chain reads Zc, or A and B
+// with A + B formed once into a plane, from the FP32 planes the fold
+// wrote, its taps staged as in forward_high).
 template <int kVP, int kXP>
 __device__ __forceinline__ void adjoint_high(
     const Params& p, const Split& zs, int kx, int kz, bool real_x,
     const float* xm_re, const float* xm_im, float* xmap_re, float* xmap_g,
     float* cov, const float* Zc, const float* A, const float* B, int NrP) {
+  using F = Form<kVP, kXP>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mtiles = kx / 16, ks = kz / 16, NT = (p.Lin + 7) / 8;
-  const size_t plane = static_cast<size_t>(mtiles) * ks * 64;
-  auto operand = [&](int q) { return zs.at(q, 0); };
+  const size_t plane = static_cast<size_t>(mtiles) * ks * 32 * F::kWords;
+  auto operand = [&](int q) { return zs.at<F::kParts>(q, 0); };
   auto epi = [&](int mt, int q, int n0, int n1,
                  const float (&v)[kMaxNT][4]) {
 #pragma unroll
@@ -840,8 +1153,9 @@ __device__ __forceinline__ void adjoint_high(
   };
   const uint4* taps = p.taps + 4 * plane;
   if constexpr (kVP == kXP) {
-    high_pass<kVP == 1>(taps, plane, mtiles, ks, 0, 4, operand, zs.plane,
-                        zs.ld, p.Lin, NT, epi);
+    high_pass<kVP == 1, F::kWords>(taps, plane, mtiles, ks, 0, 4,
+                                            operand, zs.plane, zs.ld, p.Lin,
+                                            NT, epi);
   } else {
     // the FP32 planes (W, Nt): S_a2^T, Re S^T, -Im S^T - Re S^T, Re S^T -
     // Im S^T, after the forward's four
@@ -849,26 +1163,35 @@ __device__ __forceinline__ void adjoint_high(
     const float* t32 = p.taps32 + 4 * p32;
     const int rs = p.Lh * NrP;
     if constexpr (kVP != 0) {
-      high_pass<kVP == 1>(taps, plane, mtiles, ks, 0, 1, operand, zs.plane,
-                          zs.ld, p.Lin, NT, epi);
+      high_pass<kVP == 1, F::kWords>(taps, plane, mtiles, ks, 0, 1,
+                                              operand, zs.plane, zs.ld,
+                                              p.Lin, NT, epi);
     } else {
-      fp32_pass<1>(
-          t32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr,
-          [&](int, int i) { return Zc[i]; },
-          [&](int c, int k, const float (&o)[1]) {
-            cov[c * p.Nt + k] = 1.f / o[0];
-          });
+      const float* const xv[1] = {Zc};
+      const Range st =
+          dead_var<F::kParts>(zs, 4, split_end(p, zs, kx, kz, real_x));
+      fp32_pass<1>(t32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr, xv, st.lo,
+                   st.hi, [&](int c, int k, const float (&o)[1]) {
+                     cov[c * p.Nt + k] = 1.f / o[0];
+                   });
     }
+    // k1's operand A + B of an FP32 xmap chain, formed once (dead from the
+    // variance chain's planes on)
+    Range st = float_range(zs.at<F::kParts>(1, 0),
+                           split_end(p, zs, kx, kz, real_x));
+    const int S = p.Lin * rs;
+    if (kXP == 0)
+      for (int e = threadIdx.x; e < S; e += blockDim.x) st.lo[e] = A[e] + B[e];
     __syncthreads();
     if constexpr (kXP != 0) {
-      high_pass<kXP == 1>(taps, plane, mtiles, ks, 1, 4, operand, zs.plane,
-                          zs.ld, p.Lin, NT, epi);
+      high_pass<kXP == 1, F::kWords>(taps, plane, mtiles, ks, 1, 4,
+                                              operand, zs.plane, zs.ld,
+                                              p.Lin, NT, epi);
     } else {
+      const float* const xa[3] = {st.lo, A, B};
       fp32_pass<3>(
-          t32 + p32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr,
-          [&](int q, int i) {
-            return q == 0 ? A[i] + B[i] : q == 1 ? A[i] : B[i];
-          },
+          t32 + p32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr, xa,
+          st.lo + ((S + 3) & ~3), st.hi,
           [&](int c, int k, const float (&o)[3]) {
             const int j = c * p.Nt + k;
             xmap_re[j] = xm_re[j] + cov[j] * (o[0] - o[2]);
@@ -879,15 +1202,21 @@ __device__ __forceinline__ void adjoint_high(
   }
 }
 
-// Zeros in the pad columns Nt .. kx-1 of the forward's split operands.
+// Zeros in the pad columns Nt .. kx-1 of the forward's split operands
+// that a chain on the tensor cores reads.
+template <int kVP, int kXP>
 __device__ __forceinline__ void zero_x_pad(const Split& xs, int Lin, int kx,
-                                           int nx) {
+                                           bool real_x) {
+  using F = Form<kVP, kXP>;
   const int pad = kx - xs.Nt;
+  const int o0 = kVP != 0 ? 0 : 1;
+  const int o1 = kXP == 0 ? 1 : real_x ? 2 : 4;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   for (int i = threadIdx.x; i < Lin * pad; i += blockDim.x) {
     const int c = i / pad;
     const int off = c * xs.ld + xs.Nt + (i - c * pad);
-    for (int q = 0; q < 2 * nx; ++q) xs.base[q * xs.plane + off] = zero;
+    for (int q = o0 * F::kParts; q < o1 * F::kParts; ++q)
+      xs.base[q * xs.plane + off] = zero;
   }
 }
 
@@ -931,11 +1260,11 @@ __device__ __forceinline__ float small_sum(int n, Get get) {
 // mean and decomposed variance of elements t, t+G, ..., written to the
 // state.  A lane keeps the scaled pseudo-data and eta of its first element
 // (its only one when M is a power of two up to 32) from pass to pass.
-// Returns the OR of the lanes' allclose failures.  kHigh: also writes the
-// new state split into xs (Split::store_x).  KS > 0: the alphabet's size
-// K, known to the compiler (the same arithmetic, no loop over kMaxK
-// symbols); 0: K as it comes.
-template <bool kHigh, int KS = 0>
+// Returns the OR of the lanes' allclose failures.  kMask != 0: also writes
+// the new state's operands of kMask split into xs (Split::store_x).  KS >
+// 0: the alphabet's size K, known to the compiler (the same arithmetic, no
+// loop over kMaxK symbols); 0: K as it comes.
+template <int kMask, int kParts, int KS = 0>
 __device__ __forceinline__ int group_posterior(
     int j0, int M, int K_in, int G, int t, unsigned mask, const float* sr,
     const float* si, bool real_x, const float* x_re, const float* xmap_g,
@@ -1026,16 +1355,93 @@ __device__ __forceinline__ int group_posterior(
     xm_re[j] = mr;
     if (!real_x) xm_im[j] = mi;
     var[j] = vn;
-    if (kHigh) xs.store_x(j, mr, mi, vn, real_x);
+    if (kMask) xs.store_x<kMask, kParts>(j, mr, mi, vn, real_x);
     flag |= int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
   }
   return flag;
 }
 
+// Two segments of M = G elements (one a lane) posterior'd by one group at
+// once, j0[0] and j0[1]: group_posterior's arithmetic for each, step by
+// step side by side (the same operations in the same order per segment,
+// so the same bits), so that the shuffles, divisions and loads of one
+// overlap the other's.  K known to the compiler (KS > 0).
+template <int kMask, int kParts, int KS>
+__device__ __forceinline__ int pair_posterior(
+    const int (&j0)[2], int G, int t, unsigned mask, const float* sr,
+    const float* si, bool real_x, const float* x_re, const float* xmap_g,
+    const float* cov, float* xm_re, float* xm_im, float* var,
+    const Split& xs) {
+  constexpr int K = KS;
+  auto t_of = [&](float a, float b, int q) {
+    return real_x ? a * sr[q] : re_conj_mul(a, b, sr[q], si[q]);
+  };
+  int j[2];
+  float a[2], b[2], old[2], mx[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    j[s] = j0[s] + t;
+    const float tau = cov[j[s]] / 2.f;
+    a[s] = x_re[j[s]] / tau;
+    b[s] = real_x ? 0.f : xmap_g[2 * j[s] + 1] / tau;
+    old[s] = var[j[s]];
+    mx[s] = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < K; ++q) mx[s] = fmaxf(mx[s], t_of(a[s], b[s], q));
+  }
+  for (int off = G / 2; off >= 1; off >>= 1)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      mx[s] = fmaxf(mx[s], __shfl_xor_sync(mask, mx[s], off, G));
+  // eta of every symbol, summed over the symbols, then over the segment
+  float e[2][K], sum[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      e[s][q] = expf(fminf(t_of(a[s], b[s], q) - mx[s], kExpMax));
+    const float em =
+        K == 1 ? e[s][0] : small_sum(K, [&](int q) { return e[s][q]; });
+    sum[s] = (((0.f + em) + 0.f) + 0.f) + 0.f;
+  }
+  for (int off = G / 2; off >= 1; off >>= 1)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      sum[s] = sum[s] + __shfl_down_sync(mask, sum[s], off, G);
+  int flag = 0;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const float eta2 = __shfl_sync(mask, sum[s], 0, G);
+    float mr, mi, vn;
+    if (K == 1) {
+      const float post = e[s][0] / eta2;
+      mr = sr[0] * post;
+      mi = si[0] * post;
+      vn = abs2(mr, mi) * (1.f - post) + abs2(mr - sr[0], mi - si[0]) * post;
+    } else {
+      mr = small_sum(K, [&](int q) { return sr[q] * e[s][q]; }) / eta2;
+      mi = small_sum(K, [&](int q) { return si[q] * e[s][q]; }) / eta2;
+      const float var0 =
+          abs2(mr, mi) *
+          (1.f - small_sum(K, [&](int q) { return e[s][q]; }) / eta2);
+      const float vs = small_sum(K, [&](int q) {
+        return abs2(mr - sr[q], mi - si[q]) * e[s][q];
+      });
+      vn = var0 + vs / eta2;
+    }
+    xm_re[j[s]] = mr;
+    if (!real_x) xm_im[j[s]] = mi;
+    var[j[s]] = vn;
+    if (kMask) xs.store_x<kMask, kParts>(j[s], mr, mi, vn, real_x);
+    flag |= int(fabsf(vn - old[s]) > kAtol + kRtol * fabsf(old[s]));
+  }
+  return flag;
+}
+
 // The Bernoulli-symbol mixture posterior of element j, with the exponent
-// clamps and the zero-norm guard of the plain version (kHigh: also split
-// into xs).
-template <bool kHigh>
+// clamps and the zero-norm guard of the plain version (kMask != 0: also
+// split into xs).
+template <int kMask, int kParts>
 __device__ __forceinline__ int mixture_posterior(
     const Params& p, int j, bool real_x, const float* x_re,
     const float* xmap_g, const float* cov, float* xm_re, float* xm_im,
@@ -1065,7 +1471,7 @@ __device__ __forceinline__ int mixture_posterior(
   xm_re[j] = mr;
   if (!real_x) xm_im[j] = mi;
   var[j] = vn;
-  if (kHigh) xs.store_x(j, mr, mi, vn, real_x);
+  if (kMask) xs.store_x<kMask, kParts>(j, mr, mi, vn, real_x);
   return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
 }
 
@@ -1079,6 +1485,11 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   constexpr bool kHigh = kVP != 0 || kXP != 0;
   // a split form with an FP32 chain, which reads the scratch planes whole
   constexpr bool kFP32 = kHigh && (kVP == 0 || kXP == 0);
+  using F = Form<kVP, kXP>;
+  constexpr int kMask = kHigh ? F::kMask : 0;
+  // the denoiser's segments two at a time where each lane holds one element
+  // and K is fixed (pair_posterior): every form on the HIGH layout
+  constexpr bool kPair = kHigh;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = p.Lin * p.Nt;
@@ -1131,13 +1542,14 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   float* xmap_g = reinterpret_cast<float*>(p.xmap_out + xo);
   // HIGH form: the split operands after the FP32 planes, the forward's x
   // side (xs) and the adjoint's inputs (zs) in one region; contractions
-  // padded to 16 (kx, kz), rows kx + 8 and kz + 8 bf16 apart.
+  // padded to 16 (kx, kz), rows kx + 8 and kz + 8 bf16 apart: kParts
+  // planes per operand (fused_bamp.py::high_split_elems; a split form's
+  // region is the HIGH form's whole).
   const int kx = (p.Nt + 15) & ~15;
   const int kz = (p.Lh * p.Nr + 15) & ~15;
   __nv_bfloat16* split = reinterpret_cast<__nv_bfloat16*>(u + n);
   const Split xs{split, p.Nt, kx + 8, p.Lin * (kx + 8)};
   const Split zs{split, p.Nt, kz + 8, p.Lin * (kz + 8)};
-  const int nx = real_x ? 2 : 4;
 
   // Slots of (c, l) pairs that place no block, and the row padding, stay
   // zero: the adjoint reads them as exact zeros.
@@ -1148,9 +1560,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     xm_re[j] = m.x;
     if (!real_x) xm_im[j] = m.y;
     var[j] = p.var_in[xo + j];
-    if (kHigh) xs.store_x(j, m.x, m.y, var[j], real_x);
+    if (kHigh) xs.store_x<kMask, F::kParts>(j, m.x, m.y, var[j], real_x);
   }
-  if (kHigh) zero_x_pad(xs, p.Lin, kx, nx);
+  if (kHigh) zero_x_pad<kVP, kXP>(xs, p.Lin, kx, real_x);
   for (int o = tid; o < n; o += blockDim.x) {
     const float2 yy = p.y[yo + o];
     const float2 zz = p.z_in[yo + o];
@@ -1253,11 +1665,23 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       const int t = tid & (G - 1);
       const unsigned mask =
           G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((tid & 31) & ~(G - 1));
-      // every segment of the trial, K known to the compiler where KS > 0
+      // every segment of the trial, K known to the compiler where KS > 0;
+      // group g takes segments g, g + groups, ..., at kPair two at a time
       auto segments = [&](auto ks) {
         constexpr int KS = decltype(ks)::value;
-        for (int s = tid / G; s < N / p.M; s += blockDim.x / G)
-          bad |= group_posterior<kHigh, KS>(
+        const int nseg = N / p.M, groups = blockDim.x / G;
+        int s = tid / G;
+        if constexpr (kPair && KS > 0) {
+          if (G == p.M)
+            for (; s + groups < nseg; s += 2 * groups) {
+              const int j0[2] = {s * p.M, (s + groups) * p.M};
+              bad |= pair_posterior<kMask, F::kParts, KS>(
+                  j0, G, t, mask, p.sym_re, p.sym_im, real_x, xmap_re,
+                  xmap_g, cov, xm_re, xm_im, var, xs);
+            }
+        }
+        for (; s < nseg; s += groups)
+          bad |= group_posterior<kMask, F::kParts, KS>(
               s * p.M, p.M, p.K, G, t, mask, p.sym_re, p.sym_im, real_x,
               xmap_re, xmap_g, cov, xm_re, xm_im, var, xs);
       };
@@ -1276,10 +1700,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       }
     } else {
       for (int j = tid; j < N; j += blockDim.x)
-        bad |= mixture_posterior<kHigh>(p, j, real_x, xmap_re, xmap_g, cov,
-                                        xm_re, xm_im, var, xs);
+        bad |= mixture_posterior<kMask, F::kParts>(
+            p, j, real_x, xmap_re, xmap_g, cov, xm_re, xm_im, var, xs);
     }
-    if (kHigh) zero_x_pad(xs, p.Lin, kx, nx);
+    if (kHigh) zero_x_pad<kVP, kXP>(xs, p.Lin, kx, real_x);
     ++T;
     if (!__syncthreads_or(bad)) {
       act = 0;

@@ -30,10 +30,11 @@ The HIGH kernel reads the eight Gauss tap planes split into bf16 hi and lo
 and laid out as mma fragments (:func:`high_taps`, cached per operator),
 and splits its x-side operands once, in shared memory, by the passes that
 write them.  ``'default'`` is ``make_dot(Precision.DEFAULT)``, the one-pass
-bf16 product: the ``kOne`` instance of the HIGH form, which issues only
-the hi·hi ``mma`` of each product on the same tap fragments and split
-operands (so its block, fit and threads are the HIGH form's), with
-``bamp.plain_loop_default`` as its plain version
+bf16 product: the ``kOne`` instance of the HIGH layout, which issues only
+the hi·hi ``mma`` of each product, on the hi halves alone (the tap
+fragments of :func:`default_taps`, the split operands' hi planes in a
+region half the HIGH form's, :func:`split_parts`), with the HIGH form's
+threads; ``bamp.plain_loop_default`` is its plain version
 (:func:`decode_plain_default`).
 
 The wrapper also takes ``x_precision``, the precision of the xmap chain
@@ -44,7 +45,9 @@ the HIGH form's function with the variance chain's products (``Pv`` and
 (the Gauss products of the forward pseudo-data and of the adjoint) at
 ``x_precision``: a chain at ``'high'`` or ``'default'`` on the tensor cores
 as in those forms, a chain at ``'highest'`` in FP32 on the CUDA cores on
-the FP32 tap planes of :func:`fp32_taps`.  Its block is the HIGH form's;
+the FP32 tap planes of :func:`fp32_taps` (staged through the split planes
+that chain leaves dead).  Its block is the HIGH form's (a form whose bf16
+chain is 'default' reads :func:`default_taps` and splits hi halves only);
 its plain version is ``bamp.plain_loop_split`` (:func:`decode_plain_split`).
 
 Both take and return a :class:`..models.bamp.BAMPState` in the JAX
@@ -156,6 +159,14 @@ def high_layout(precision: str = "highest", x_precision=None) -> bool:
     return any(p in prec.BF16 for p in chains(precision, x_precision))
 
 
+def split_parts(precision: str = "highest", x_precision=None) -> int:
+    """Planes per split operand of a form on the HIGH layout: 2 (bf16 hi
+    and lo) where a chain runs three passes, 1 (hi alone) where every bf16
+    chain is 'default' (the DEFAULT form, the split forms of 'default' with
+    'highest'), which also read :func:`default_taps`."""
+    return 2 if prec.HIGH in chains(precision, x_precision) else 1
+
+
 def smem_bytes(cfg: Config, precision: str = "highest",
                x_precision=None) -> int:
     """Dynamic shared memory of one block, passed to the launch: 3 scratch
@@ -163,24 +174,31 @@ def smem_bytes(cfg: Config, precision: str = "highest",
     the adjoint inputs), 4 x-side planes (5 for complex alphabets) and 5
     y-side planes of float32, carved in that order by the kernel; on the
     HIGH layout (:func:`high_layout`) then the split operands
-    (:func:`high_split_elems`: the DEFAULT form keeps the HIGH layout and
-    reads only its hi planes; a split form's FP32 chain reads the FP32
-    planes and writes its adjoint inputs into the scratch planes, so its
-    block is the HIGH form's)."""
+    (:func:`high_split_elems`; the DEFAULT form's hi planes alone, half of
+    it; a split form keeps the HIGH form's region whole: its FP32 chain
+    reads the FP32 planes, writes its adjoint inputs into the scratch
+    planes and stages its taps through the split planes it leaves
+    dead)."""
     fp32 = 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
                 + (4 if real_x(cfg) else 5) * cfg.N + 5 * cfg.n)
-    if high_layout(precision, x_precision):
-        return fp32 + 2 * high_split_elems(cfg)
-    return fp32
+    if not high_layout(precision, x_precision):
+        return fp32
+    precision, x_precision = chains(precision, x_precision)
+    region = 2 * high_split_elems(cfg)
+    if precision == x_precision:
+        region = region * split_parts(precision) // 2
+    return fp32 + region
 
 
 def high_threads(cfg: Config) -> int:
-    """Threads of the HIGH (and DEFAULT) form's block for ``cfg``: 8 warps
-    where two
-    blocks share an SM's shared memory (each still runs 128 registers a
-    thread), else 16 warps in the one block an SM holds (the same
-    registers, twice the warps to hide the latency of the products, the
-    fold and the denoiser)."""
+    """Threads of the block of every form on the HIGH layout for ``cfg``,
+    by the HIGH form's carve-out: 8 warps where two blocks share an SM's
+    shared memory (each still runs 128 registers a thread), else 16 warps
+    in the one block an SM holds (the same registers, twice the warps to
+    hide the latency of the products, the fold and the denoiser).  The
+    DEFAULT form's smaller region gives neither flagship another block per
+    SM (180,800 B at the QPSK flagship, still one; 82,880 B at the OOK
+    one, still two), so it runs the HIGH form's block."""
     two = 2 * (smem_bytes(cfg, "high") + BLOCK_RESERVED) <= SM_SMEM
     return HIGH_THREADS_TWO_BLOCKS if two else HIGH_THREADS_ONE_BLOCK
 
@@ -266,6 +284,44 @@ def fp32_taps(op) -> torch.Tensor:
                   t.adm)
         _fp32_cache[op] = torch.cat([x.reshape(-1) for x in planes])
     return _fp32_cache[op]
+
+
+# Each live operator's hi-only tap fragments for the one-pass forms.
+_default_cache = weakref.WeakKeyDictionary()
+
+
+def default_taps(op):
+    """The one-pass forms' taps of banded operator ``op``: the hi halves of
+    :func:`high_taps`' fragments alone, the same eight planes in the same
+    order, per 16-row tile and k16 step the 8 hi bf16 of each lane's
+    fragment (rows g and g + 8, columns 2t, 2t + 1, 2t + 8, 2t + 9), so a
+    warp's k16 step is 512 contiguous bytes (shape per plane (tiles, steps,
+    32, 8); cached per operator).  Read by the forms of
+    :func:`split_parts` 1.  Returns ``(taps, folded)``, as
+    :func:`high_taps`."""
+    if op not in _default_cache:
+        t = bamp.gauss_taps(op)
+        planes = (t.s_a2, t.s_re, t.dmc, t.cpd, t.st_a2, t.st_re, t.amc,
+                  t.adm)
+        tiles = []
+        for x in planes:
+            hi, _ = prec.split_bf16(x.T.contiguous())
+            tiles.append(mma_tiles(hi, torch.zeros_like(hi))[:, :, :, 0]
+                         .reshape(-1))
+        _default_cache[op] = (torch.cat(tiles).contiguous(), t.folded)
+    return _default_cache[op]
+
+
+def instance_taps(op, precision: str = "highest", x_precision=None):
+    """``(taps, folded)``: the tap fragments the form's instance reads
+    (:func:`default_taps` where :func:`split_parts` is 1, else
+    :func:`high_taps`), and whether the gains are folded into them; None
+    and False off the HIGH layout."""
+    if not high_layout(precision, x_precision):
+        return None, False
+    if split_parts(precision, x_precision) == 1:
+        return default_taps(op)
+    return high_taps(op)
 
 
 def _library() -> ctypes.CDLL:
@@ -358,7 +414,7 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     a2T = a2.transpose(1, 2).contiguous()
     gains2 = op.gains2.contiguous()
     sym_re, sym_im = symbol_planes(cfg, dev)
-    taps, folded = high_taps(op) if high else (None, False)
+    taps, folded = instance_taps(op, precision, x_precision)
     taps32 = (fp32_taps(op) if split and prec.HIGHEST in (precision,
                                                           x_precision)
               else None)

@@ -151,7 +151,8 @@ Phases, each printing one JSON line:
    HIGH instance must fail): kernels_bamp_default (K1 at the OOK phase-1
    shape and the QPSK flagship at 5 dB, cap 100, each timed beside HIGH
    and HIGHEST with its one-pass bound and the one-pass products as
-   PyTorch calls on bf16 tensors), main_bamp_default (the flagship OOK
+   PyTorch calls on bf16 tensors, its tap bytes per launch and its ptxas
+   lines), main_bamp_default (the flagship OOK
    point at full width, 2 x 65536, two-phase k1=12, beside HIGH and
    HIGHEST: trials/s, mean T, FER, the share of trials at the cap; the
    QPSK point at 5 dB, cap 100, 2 x 4096: FER within 3 sigma of HIGH's,
@@ -219,7 +220,9 @@ Phases, each printing one JSON line:
    control that the form at the variance chain's precision must fail, each
    timed beside that form with its bound (FP32 products at 67 TFLOP/s plus
    bf16 passes at 989 TFLOP/s, or the bytes) and its products as PyTorch
-   calls (FP32 for a 'highest' chain, bf16 for the others); main_bamp_xmap,
+   calls (FP32 for a 'highest' chain, bf16 for the others), with each
+   instance's tap bytes per launch (``k1_tap_stream``) and its ptxas lines;
+   main_bamp_xmap,
    the flagship OOK point (8 dB, two-phase k1 = 12, 16 x 65536) at
    precision='highest' with the variable set to 'high' and to 'default'
    beside HIGHEST and DEFAULT on the same seeds (each split run through its
@@ -4035,14 +4038,13 @@ def phase_kernels_bamp_default(torch, dev, ptxas_lines):
         plain_ms = cuda_ms(lambda: fused_bamp.decode_plain_default(
             op, s0, y, s2, cap, cfg), 0, 1)
         real = fused_bamp.real_x(cfg)
-        taps = fused_bamp.high_taps(op)[0]
+        taps = fused_bamp.instance_taps(op, p)[0]
         state = [getattr(s0, f) for f in s0._fields if f != "t"]
         state += [getattr(s1, f) for f in s1._fields if f != "t"]
         # one pass of the Gauss products (7 for a real x, 8 complex); the
-        # taps' hi halves, the only ones the DEFAULT instance reads
-        flop, nbytes, iters = decode_work(cfg, s0, s1, state + [y],
+        # tap buffer the DEFAULT instance reads (the hi halves alone)
+        flop, nbytes, iters = decode_work(cfg, s0, s1, state + [y, taps],
                                           7 if real else 8)
-        nbytes += taps.numel() * taps.element_size() // 2
         bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
         t = bamp.gauss_taps(op)
         rows, W = B * cfg.Lin, cfg.Lh * cfg.Nr
@@ -4066,6 +4068,9 @@ def phase_kernels_bamp_default(torch, dev, ptxas_lines):
                       library_form=form,
                       smem_bytes=fused_bamp.smem_bytes(cfg, p),
                       threads=fused_bamp.high_threads(cfg),
+                      tap_bytes=k1_tap_stream(cfg, iters, p),
+                      ptxas_instance=instance_ptxas(
+                          ptxas_lines, k1_instance(cfg, p)),
                       ptxas=ptxas_lines)
         emit("kernel_timing_bamp_default", **timing)
         timings.append(timing)
@@ -4220,6 +4225,41 @@ def instance_ptxas(lines, mangled: str) -> list:
         if mangled in lines[a]:
             return lines[a:b]
     return []
+
+
+K1_PASSES = {"highest": 0, "high": 3, "default": 1}
+
+
+def k1_instance(cfg, precision, x_precision=None):
+    """The mangled tag of K1's instance ``bamp_decode_kernel<kVP, kXP,
+    threads, blocks>`` that runs the form (a split form: the 512-thread
+    one)."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    x_precision = x_precision or precision
+    v, x = K1_PASSES[precision], K1_PASSES[x_precision]
+    threads = 512 if v != x else fused_bamp.high_threads(cfg)
+    return f"ILi{v}ELi{x}ELi{threads}E"
+
+
+def k1_tap_stream(cfg, iters, precision, x_precision=None):
+    """Tap bytes one launch of K1's form streams from L2, each tap once per
+    trial-iteration: the mma fragments of the planes its bf16 chains
+    multiply (``fused_bamp.instance_taps``: 16 bytes a lane and k16 step
+    of a one-pass form, 32 of a three-pass one) and the FP32 planes of a
+    chain at 'highest' (``fused_bamp.fp32_taps``)."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    x_precision = x_precision or precision
+    words = fused_bamp.split_parts(precision, x_precision)
+    real = fused_bamp.real_x(cfg)
+    W = cfg.Lh * cfg.Nr
+    frag = (fused_bamp.padded16(W) * fused_bamp.padded16(cfg.Nt) * 2
+            * words)
+    fp32 = 4 * cfg.Nt * W
+    planes = {"var": 2, "xmap": (2 if real else 3) + 3}
+    total = 0
+    for chain, p in (("var", precision), ("xmap", x_precision)):
+        total += planes[chain] * (fp32 if p == "highest" else frag)
+    return iters * total
 
 
 def phase_kernels_vamp_default(torch, dev, algo: str, ptxas_lines):
@@ -4814,7 +4854,7 @@ def phase_kernels_bamp_xmap(torch, dev, ptxas_lines):
                 plain_ms = cuda_ms(lambda: plain(s0, cap), 0, 1)
                 tensors = [getattr(s0, f) for f in s0._fields if f != "t"]
                 tensors += [getattr(s1, f) for f in s1._fields if f != "t"]
-                tensors += [y, fused_bamp.high_taps(op)[0]]
+                tensors += [y, fused_bamp.instance_taps(op, v, x)[0]]
                 if "highest" in pair:
                     tensors.append(fused_bamp.fp32_taps(op))
                 flop, nbytes, iters, bound_ms, bound_by = split_work(
@@ -4838,6 +4878,9 @@ def phase_kernels_bamp_xmap(torch, dev, ptxas_lines):
                               library_form=lib_form,
                               smem_bytes=fused_bamp.smem_bytes(cfg, v, x),
                               threads=fused_bamp.high_threads(cfg),
+                              tap_bytes=k1_tap_stream(cfg, iters, v, x),
+                              ptxas_instance=instance_ptxas(
+                                  ptxas_lines, k1_instance(cfg, v, x)),
                               ptxas=ptxas_lines)
                 emit("kernel_timing_bamp_xmap", **timing)
                 errs[pair] = max(errs[pair], err)

@@ -17,8 +17,9 @@
   parked in the forward's P_re slot and in the adjoint's xmap_re, 1/cov in
   cov) equal to the Gauss combinations of whole products;
 * the DEFAULT form (the ``kOne`` instances, one bf16 pass): the HIGH
-  form's carve-out, fit, block and units, its tap loads the hi half of
-  each fragment, and its pass the hi hi products alone.
+  form's block on half its split region (hi planes alone), its tap loads
+  one hi word a fragment, and its pass the hi hi products alone (its own
+  tiles in ``test_torch_k1_default_tiles.py``).
 
 The kernel itself is held against its plain HIGH version on the card by
 ``chip_smoke.py`` (``kernels_bamp_high``).
@@ -398,26 +399,35 @@ SOURCE = (fused_bamp.build.CSRC / "fused_bamp_decode.cu").read_text()
 
 @pytest.mark.parametrize("name", NAMES)
 def test_default_form_shares_the_high_block(name):
-    """The DEFAULT form keeps the HIGH form's split layout (it reads only
-    the hi planes), so its carve-out, fit and block are the HIGH form's,
-    and so are its units (the same ``high_pass``)."""
+    """The DEFAULT form runs the HIGH form's block (its threads, from the
+    HIGH form's carve-out) on the HIGH layout with the hi planes alone: its
+    carve-out is the HIGH form's with half the split region, so it fits
+    wherever the HIGH form fits."""
     cfg = _config(name)
-    assert fused_bamp.smem_bytes(cfg, "default") == fused_bamp.smem_bytes(
-        cfg, "high")
-    assert fused_bamp.fits(cfg, "default") == fused_bamp.fits(cfg, "high")
+    high = fused_bamp.smem_bytes(cfg, "high")
+    region = 2 * fused_bamp.high_split_elems(cfg)
+    assert fused_bamp.smem_bytes(cfg, "default") == high - region // 2
+    assert fused_bamp.split_parts("default") == 1
+    if fused_bamp.fits(cfg, "high"):
+        assert fused_bamp.fits(cfg, "default")
     assert fused_bamp.FORM == {"highest": 0, "high": 1, "default": 2}
 
 
 def test_default_pass_is_the_hi_hi_product():
-    """The source's one-pass form: ``high_pass<kOne>`` loads the first
-    16-byte word of a lane's tap fragment (its 8 hi bf16, ``mma_tiles``)
-    and issues the hi hi mma alone; the launcher maps form 2 to the kOne
-    instances of both blocks (one pass in both chains: ``<1, 1, ...>``).
-    On the fragments, the hi halves alone give
-    ``precision.dot1``: the hi plane of ``mma_tiles`` is the bf16 of the
-    tap plane."""
-    assert "template <bool kOne, class Operand, class Epi>" in SOURCE
+    """The source's one-pass form: ``high_pass<kOne, kWords, ...>`` loads
+    one 16-byte tap word a lane and k16 step (the hi word of
+    ``high_taps``' fragments, alone in ``default_taps``) and issues the hi
+    hi mma alone; the launcher maps form 2 to the kOne instances of both
+    blocks (one pass in both chains: ``<1, 1, ...>``), whose split
+    operands are hi planes only (``Form::kParts``).  On the fragments, the
+    hi halves alone give ``precision.dot1``: the hi plane of
+    ``default_taps`` is the bf16 of the tap plane."""
+    assert "template <bool kOne, int kWords, class Operand, class Epi>" in (
+        SOURCE)
     assert "f[0] = f[1] = __ldg(ap);" in SOURCE
+    assert "ap += 32 * kWords" in SOURCE
+    assert ("static constexpr int kParts = kVP == 3 || kXP == 3 ? 2 : 1;"
+            in SOURCE)
     for tag, blocks in ((1, 1), (2, 2)):
         assert (f"bamp_decode_kernel<1, 1, kHighThreads{tag}, "
                 f"{blocks}>") in SOURCE

@@ -44,19 +44,32 @@ a shorter spec sets the first constants only); for K6/K7 ``7x5,4x4,...``
 product 1 ``kNJ1`` and of product 2 ``kNJ2`` x k per ring slot ``kBK`` x
 ring slots ``kStages`` x blocks per SM ``kMinBlocks``).
 
-With ``--precision high`` (K1 only) the same is done for K1's HIGH
-instances at K1-high's two timed shapes (as chip_smoke's kernels_bamp_high
-builds them: the QPSK flagship, 4096 trials at 5 dB to the cap of 100,
-the main path's shape; the OOK flagship's phase 1, 65536 trials at 8 dB
-to k1=12), ``--parent`` optional: the probes (``HIGH_PROBES``) are the
-source run to the cap (``full``) with the tap fragments held in registers
-(the share of their L2 stream), with the mma's instruction text emptied
-(operands still loaded), without the fold, without the denoiser, and with
-the forward or the adjoint products alone; the variants
-(``HIGH_VARIANTS``, this checkout only) change one design choice of the
-redesigned engine or denoiser and must equal the shipped build bit for
+With ``--precision high`` or ``default`` (K1 only) the same is done for
+K1's HIGH or DEFAULT instances, and with ``--xmap-precision x`` for the
+split instance of that (variance chain, xmap chain) pair, at K1-high's two
+timed shapes (as chip_smoke's kernels_bamp_high builds them, drawn at the
+variance chain's precision: the QPSK flagship, 4096 trials at 5 dB to the
+cap of 100, the main path's shape; the OOK flagship's phase 1, 65536
+trials at 8 dB to k1=12; ``--shapes`` picks one), ``--parent`` optional.
+The probes (``HIGH_PROBES``) are the source run to the cap (``full``) with
+one part cut; most time wrong arithmetic (their states are garbage and
+only their times are read): the tap fragments held in registers (the
+share of their L2 stream), the mma's instruction text emptied (operands
+still loaded), without the fold, without the denoiser, the forward or the
+adjoint products alone, every ``fp32_pass`` call cut (``no_fp32``, a split
+form's FP32 chain), the FP32 chain's tap loads or staging copies cut
+(``fp32_taps_in_registers``).  Three keep the results of the forms they
+are meant for and are checked to equal ``full`` bit for bit there
+(``EXACT_PROBES``): the DEFAULT form's dead lo split writes cut
+(``no_split_lo``) and the x-side splits an FP32 chain never reads
+(``no_xmap_split``, ``no_var_split``); they find their text only in a
+source that still writes those planes, and a probe whose text a tree
+lacks is skipped for it.  The
+variants (``HIGH_VARIANTS``, this checkout only) change one design choice
+of the engine or the denoiser and must equal the shipped build bit for
 bit; ``--threads 256,512`` times the shipped build at each block size
-where the tree's wrapper picks one (``high_threads``).
+where the tree's wrapper picks one (``high_threads``).  Each summary line
+carries the timed instance's ptxas lines and every K1 instance's.
 
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
         (mkdir -p build/parent && tar -x -C build/parent)
@@ -69,6 +82,9 @@ where the tree's wrapper picks one (``high_threads``).
         --kernel periter --tiles 4x4,4x5,7x4
     env PYTHONPATH=. python3 tests/torch_k1_passes.py --precision high \\
         --parent build/parent --threads 256,512
+    env PYTHONPATH=. python3 tests/torch_k1_passes.py --precision default \\
+        --xmap-precision highest --parent build/parent --shapes qpsk_cap100 \\
+        --probes full,no_fp32,fp32_taps_in_registers
 
 Prints one JSON line per timing and one summary line per tree and kernel.
 Needs the card and ``nvcc``; imports no JAX.
@@ -309,23 +325,44 @@ def periter_setup(dev, name, res):
 DENOISER = "// ---- denoiser"
 
 
+def _cut_statement(src: str, found) -> str:
+    """``src`` without the call statement that starts at match ``found``
+    (up to its closing ``);``)."""
+    i, depth = found.end() - 1, 0
+    while True:
+        depth += {"(": 1, ")": -1}.get(src[i], 0)
+        i += 1
+        if depth == 0:
+            break
+    end = src.index(";", i) + 1
+    return src[:found.start()] + src[end:].lstrip(" ").lstrip("\n")
+
+
+def _calls(name: str, src: str):
+    return list(re.finditer(rf"^[ \t]*{name}(<[^>(]*>)?\(", src, flags=re.M))
+
+
 def cut_call(name: str):
     """Remove the statement that calls ``name`` (the one line of the source
     that starts with ``name(`` or ``name<...>(``, up to its closing
     ``);``)."""
     def edit(src: str) -> str:
-        found = list(re.finditer(rf"^[ \t]*{name}(<[^>(]*>)?\(", src,
-                                 flags=re.M))
+        found = _calls(name, src)
         if len(found) != 1:
             raise ValueError(f"call of {name} found {len(found)} times")
-        i, depth = found[0].end() - 1, 0
-        while True:
-            depth += {"(": 1, ")": -1}.get(src[i], 0)
-            i += 1
-            if depth == 0:
-                break
-        end = src.index(";", i) + 1
-        return src[:found[0].start()] + src[end:].lstrip(" ").lstrip("\n")
+        return _cut_statement(src, found[0])
+    return edit
+
+
+def cut_calls(name: str):
+    """Remove every statement that calls ``name``; raises where there is
+    none."""
+    def edit(src: str) -> str:
+        if not _calls(name, src):
+            raise ValueError(f"no call of {name} found")
+        while _calls(name, src):
+            src = _cut_statement(src, _calls(name, src)[0])
+        return src
     return edit
 
 
@@ -362,17 +399,74 @@ def no_mma(src: str) -> str:
     return out
 
 
+def replace_every(*alternatives):
+    """Replace each ``(old, new)`` of ``alternatives`` whose ``old`` occurs
+    (the sources of two trees, or two instances' loaders, may differ);
+    raises where none does."""
+    def edit(src: str) -> str:
+        hit = [(old, new) for old, new in alternatives if old in src]
+        if not hit:
+            raise ValueError(f"none of {[a[0][:40] for a in alternatives]} "
+                             "found")
+        for old, new in hit:
+            src = src.replace(old, new)
+        return src
+    return edit
+
+
 # The tap fragments of every k16 step replaced by one fragment held in
-# registers (the L2 tap stream's share): the parent's per-step __ldg, or
-# the fragment loader of the redesigned engine.
-TAPS_IN_REGISTERS = replace_first(
-    ("  for (int ks = 0; ks < ksteps; ++ks, ap += 64) {\n"
-     "    const uint4 ah = __ldg(ap), al = __ldg(ap + 1);\n",
-     "  const uint4 ah0 = __ldg(ap), al0 = __ldg(ap + 1);\n"
-     "  for (int ks = 0; ks < ksteps; ++ks, ap += 64) {\n"
-     "    const uint4 ah = ah0, al = al0;\n"),
+# registers (the L2 tap stream's share): the hi and lo words of the three-
+# pass loader, the hi word of the one-pass loads (the parent's in
+# high_pass, the hi-only loader of the redesigned one).
+TAPS_IN_REGISTERS = replace_every(
     ("  f[0] = __ldg(p);\n  f[1] = __ldg(p + 1);\n",
-     "  f[0] = make_uint4(threadIdx.x, 1u, 2u, 3u);\n  f[1] = f[0];\n"))
+     "  f[0] = make_uint4(threadIdx.x, 1u, 2u, 3u);\n  f[1] = f[0];\n"),
+    ("f[0] = f[1] = __ldg(ap);",
+     "f[0] = f[1] = make_uint4(threadIdx.x, 1u, 2u, 3u);"),
+    ("  return __ldg(p);  // hi-only tap fragment\n",
+     "  return make_uint4(threadIdx.x, 1u, 2u, 3u);\n"))
+# The FP32 chains' taps (fp32_pass) made in registers from the loop indices
+# instead of loaded (the share of their tap stream): the parent's __ldg per
+# contraction step, or the redesigned pass's staging copies.
+FP32_TAPS_IN_REGISTERS = replace_every(
+    ("        for (int q = 0; q < kQ; ++q) av[q] = __ldg(t + q * plane);\n",
+     "        for (int q = 0; q < kQ; ++q)\n"
+     "          av[q] = __int_as_float(0x3c000000 + (j ^ (l * 64 + m)) + q);"
+     "\n"),
+    ("      cp_async16(buf + 4 * w, src + 4 * w);  // fp32 tap panel\n", ""))
+# The DEFAULT form's dead lo halves: no lo written by split_store, no lo
+# plane zeroed (the DEFAULT instances read no lo, so their results stay the
+# same bit for bit).
+NO_SPLIT_LO = replace_every(
+    ("  *lo = __float2bfloat16_rn(x - __bfloat162float(h));\n", ""),
+    ("    for (int q = 0; q < 2 * nx; ++q) xs.base[q * xs.plane + off] = "
+     "zero;",
+     "    for (int q = 0; q < 2 * nx; q += 2) xs.base[q * xs.plane + off] = "
+     "zero;"),
+    ("    for (int q = 0; q < 8; ++q) zs.base[q * zs.plane + c * zs.ld + j] "
+     "= zero;",
+     "    for (int q = 0; q < 8; q += 2) zs.base[q * zs.plane + c * zs.ld + "
+     "j] = zero;"))
+# The x side's split operands that a chain in FP32 never reads: the xmap
+# chain's three (and their pads) where that chain is FP32, var's where the
+# variance chain is (the results of those forms stay the same bit for bit).
+XMAP_SPLIT = """    split_store(at(1, 0) + off, at(1, 1) + off, mr);
+    if (!real_x) {
+      split_store(at(2, 0) + off, at(2, 1) + off, mr + mi);
+      split_store(at(3, 0) + off, at(3, 1) + off, mi);
+    }
+"""
+NO_XMAP_SPLIT = replace_every(
+    (XMAP_SPLIT, ""),
+    ("    for (int q = 0; q < 2 * nx; ++q) xs.base[q * xs.plane + off] = "
+     "zero;",
+     "    for (int q = 0; q < 2; ++q) xs.base[q * xs.plane + off] = zero;"))
+NO_VAR_SPLIT = replace_every(
+    ("    split_store(at(0, 0) + off, at(0, 1) + off, vn);\n", ""),
+    ("    for (int q = 0; q < 2 * nx; ++q) xs.base[q * xs.plane + off] = "
+     "zero;",
+     "    for (int q = 2; q < 2 * nx; ++q) xs.base[q * xs.plane + off] = "
+     "zero;"))
 HIGH_PROBES = {
     "full": [],
     "taps_in_registers": [TAPS_IN_REGISTERS],
@@ -383,59 +477,94 @@ HIGH_PROBES = {
                      cut_pass(DENOISER)],
     "adjoint_only": [cut_call("forward_high"), cut_call("fold_high"),
                      cut_pass(DENOISER)],
+    # the split forms' FP32 chains: every fp32_pass call cut, its taps
+    "no_fp32": [cut_calls("fp32_pass")],
+    "fp32_taps_in_registers": [FP32_TAPS_IN_REGISTERS],
+    # the FP32 register tiles' shared-memory loads in the product loop
+    # replaced by values made from the loop indices (what is left: the FMAs,
+    # the loop, the staging and the barriers)
+    "fp32_no_loads": [replace_every(
+        ("            for (int i = 0; i < kR; ++i) xv[i] = lds128(xp[i]);",
+         "            for (int i = 0; i < kR; ++i)\n"
+         "                xv[i] = make_float4(__uint_as_float(xp[i]), 1.f, "
+         "2.f, 3.f);"),
+        ("              tap_words<kC>(t, tp + st * tstep);",
+         "#pragma unroll\n              for (int c = 0; c < kC; ++c)\n"
+         "                t[c] = __uint_as_float(tp + st + c);"))],
+    # ... their barrier a panel removed
+    "fp32_no_sync": [replace_every(
+        ("        cp_async_wait<0>();\n        __syncthreads();\n        if "
+         "(ci + 1 < chunks)",
+         "        cp_async_wait<0>();\n        if (ci + 1 < chunks)"),
+        ("        __syncthreads();\n        if (live) {\n          const int k0"
+         " = ci * KC",
+         "        if (live) {\n          const int k0 = ci * KC"))],
+    # dead split writes (results equal to ``full`` bit for bit where dead)
+    "no_split_lo": [NO_SPLIT_LO],
+    "no_xmap_split": [NO_XMAP_SPLIT],
+    "no_var_split": [NO_VAR_SPLIT],
 }
+# Probes that leave the forms they are meant for bit-identical to ``full``
+# (they cut only writes those forms never read): {probe: forms}.
+EXACT_PROBES = {"no_split_lo": {("default", "default")},
+                "no_xmap_split": {("default", "highest"),
+                                  ("high", "highest")},
+                "no_var_split": {("highest", "default"),
+                                 ("highest", "high")}}
 
 
 # Variants of the redesigned HIGH engine (``high_pass``) and denoiser,
 # each the shipped source with one design choice changed; each computes the
 # same products and posteriors in the same order, so its result must equal
 # the shipped build's bit for bit.
-MMA_PASSES = """#pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) mma_bf16(hh[nt], ah, bf[nt][0], bf[nt][1]);
-#pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
-#pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
-"""
-STEP = """        uint4 f[2];
-        tap_load(f, ap);
-"""
-K_LOOP = "      for (int k = 0; k < ks; ++k, ap += 64, b += 16) {\n"
-SEGMENTS = "        for (int s = tid / G; s < N / p.M; s += blockDim.x / G)\n"
+K_LOOPS = ("      for (int k = 0; k < ks; ++k, ap += 64, b += 16) {\n",
+           "      for (int k = 0; k < ks; ++k, ap += 32 * kWords, b += 16) {\n")
+SEGMENTS = ("        for (int s = tid / G; s < N / p.M; s += blockDim.x / G)\n",
+            "        for (; s < nseg; s += groups)\n")
 HIGH_VARIANTS = {
-    # the three passes of one n8 tile after one another
-    "tile_order": [replace_first((MMA_PASSES, """#pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) {
-            mma_bf16(hh[nt], ah, bf[nt][0], bf[nt][1]);
-            mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
-            mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
-          }
-"""))],
-    # every tile one unit, whatever the warps
+    # every tile one unit, whatever the warps (the three-pass forms)
     "no_parts": [replace_first(("  return s < 1 ? 1 : (s > NT ? NT : s);",
                                 "  return 1;"))],
-    # the next k16 step's tap fragments loaded a step ahead (the product's
-    # first step waits for its own)
-    "prefetch": [replace_first((STEP, """        uint4 f[2];
-        if (k == 0) tap_load(nf, ap);
-        f[0] = nf[0];
-        f[1] = nf[1];
-        if (k + 1 < ks) tap_load(nf, ap + 64);
-""")), replace_first(("      float hh[kMaxNT][4], cx[kMaxNT][4];\n",
-                      "      float hh[kMaxNT][4], cx[kMaxNT][4];\n"
-                      "      uint4 nf[2];\n"))],
     # two k16 steps per turn of the loop
-    "unroll_k2": [replace_first((K_LOOP, "#pragma unroll 2\n" + K_LOOP))],
-    # the denoiser's segments two per turn of the loop (both instances)
-    "segments2": [replace_first((SEGMENTS, "#pragma unroll 2\n" + SEGMENTS))],
+    "unroll_k2": [replace_first(*((k, "#pragma unroll 2\n" + k)
+                                  for k in K_LOOPS))],
+    # the denoiser's segments two per turn of the loop (the forms that load
+    # no input ahead)
+    "segments2": [replace_first(*((k, "#pragma unroll 2\n" + k)
+                                  for k in SEGMENTS))],
     # the denoiser taking K as it comes at every alphabet
     "runtime_k": [replace_first((
         "      constexpr bool kStaticK = kHigh;",
         "      constexpr bool kStaticK = false;"))],
+    # the FP32 tiles 4 columns wide in a pass of one product too, 2 in a
+    # pass of several
+    "fp32_c4": [replace_first(("constexpr int kColsOne32 = 2;",
+                               "constexpr int kColsOne32 = 4;"))],
+    "fp32_c2": [replace_first(("constexpr int kColsMany32 = 4;",
+                               "constexpr int kColsMany32 = 2;"))],
+    "fp32_c8": [replace_first(("constexpr int kColsOne32 = 2;",
+                               "constexpr int kColsOne32 = 8;"))],
+    # ... 5 rows a tile wherever the rule picks one
+    "fp32_r5": [replace_first((
+        "  if (cost(4) < cost(kR)) kR = 4;\n  if (cost(3) < cost(kR)) kR = 3;\n",
+        ""))],
+    "fp32_c4_r5": [replace_first(("constexpr int kColsOne32 = 2;",
+                                  "constexpr int kColsOne32 = 4;")),
+                   replace_first((
+        "  if (cost(4) < cost(kR)) kR = 4;\n  if (cost(3) < cost(kR)) kR = 3;\n",
+        ""))],
+    # ... two turns of their step loop unrolled
+    "fp32_unroll2": [replace_first((
+        "          for (int kk = 0; kk < kc; kk += 4) {  // fp32 tile step",
+        "#pragma unroll 2\n          for (int kk = 0; kk < kc; kk += 4) {"
+        "  // fp32 tile step"))],
+    # where the rule picks 5 rows a tile, 8
+    "fp32_r8": [replace_first(("    fp32_tiles<kQ, 5, kC>(",
+                               "    fp32_tiles<kQ, 8, kC>("))],
+    # the denoiser one segment a round in every form
+    "no_pair": [replace_first((
+        "  constexpr bool kPair = kHigh;",
+        "  constexpr bool kPair = false;"))],
 }
 
 
@@ -449,23 +578,30 @@ def high_sources(root: Path, probes):
     out = {"shipped": {**files, "fused_bamp_decode.cu": src}}
     to_cap = KERNELS["fused_bamp_decode"]["to_cap"]
     for name in probes:
-        if name in HIGH_VARIANTS:
-            text = src
-            for edit in HIGH_VARIANTS[name]:
-                text = edit(text)
-        else:
-            text = variant(src, to_cap)
-            for edit in HIGH_PROBES[name]:
-                text = edit(text)
+        try:
+            if name in HIGH_VARIANTS:
+                text = src
+                for edit in HIGH_VARIANTS[name]:
+                    text = edit(text)
+            else:
+                text = variant(src, to_cap)
+                for edit in HIGH_PROBES[name]:
+                    text = edit(text)
+        except ValueError as err:
+            # a probe whose text this tree lacks is skipped for it
+            print(json.dumps({"tree": str(root), "probe": name,
+                              "skipped": str(err)}), flush=True)
+            continue
         out[name] = {**files, "fused_bamp_decode.cu": text}
     return out
 
 
-def high_shapes(dev):
+def high_shapes(dev, precision="high"):
     """K1-high's two timed shapes, as chip_smoke's kernels_bamp_high builds
-    them: {name: (cfg, realization, s0, cap)}: the QPSK flagship, 4096
-    trials at 5 dB, cap 100 (the main path's shape), and the OOK flagship
-    at its phase-1 shape, 65536 trials at 8 dB, cap 12."""
+    them, drawn at ``precision``: {name: (cfg, realization, s0, cap)}: the
+    QPSK flagship, 4096 trials at 5 dB, cap 100 (the main path's shape),
+    and the OOK flagship at its phase-1 shape, 65536 trials at 8 dB, cap
+    12."""
     import chip_smoke as cs
     from amp_sparc_spatialmodulation_tpu_torch.config import (
         flagship_bamp_qpsk)
@@ -477,7 +613,7 @@ def high_shapes(dev):
              41)):
         r = montecarlo.generate_realization(
             make_generator(dev, seed), cfg, "sparc", "banded", B,
-            cs.snr_of(cfg, ebn0), "high")
+            cs.snr_of(cfg, ebn0), precision)
         out[name] = (cfg, r, bamp.initial_state(r.y, cfg.N, r.sigma2), cap)
     return out
 
@@ -489,16 +625,45 @@ def cs_ms(fn, reps: int) -> float:
     return chip_smoke.cuda_ms(fn, 1, reps)
 
 
+def form_label(precision: str, x_precision) -> str:
+    """The kernel label of K1's form: ``fused_bamp_decode_high``,
+    ``..._default`` or, for a split form, ``..._xmap_<v>_<x>``."""
+    if x_precision in (None, precision):
+        return f"fused_bamp_decode_{precision}"
+    return f"fused_bamp_decode_xmap_{precision}_{x_precision}"
+
+
+def instance_lines(log: str, precision: str, x_precision, threads: int):
+    """ptxas's lines of the timed instance ``bamp_decode_kernel<kVP, kXP,
+    threads, blocks>`` (a split form: the one 512-thread instance)."""
+    passes = {"highest": 0, "high": 3, "default": 1}
+    v = passes[precision]
+    x = passes[x_precision or precision]
+    if v != x:
+        threads = 512
+    tag = f"ILi{v}ELi{x}ELi{threads}E"
+    lines = ptxas_lines(log)
+    starts = [i for i, ln in enumerate(lines) if "Compiling entry" in ln]
+    for a, b in zip(starts, starts[1:] + [len(lines)]):
+        if tag in lines[a]:
+            return lines[a:b]
+    return []
+
+
 def main_high(args, roots, smi) -> int:
-    """The HIGH probes of K1 at both timed shapes, for each tree."""
+    """The probes of K1's form (``--precision``, ``--xmap-precision``) at
+    both timed shapes, for each tree."""
+    precision, x_precision = args.precision, args.xmap_precision
+    form = (precision, x_precision or precision)
+    label = form_label(precision, x_precision)
     probes = [p for p in (args.probes.split(",") if args.probes
-                          else HIGH_PROBES) if p]
+                          else list(HIGH_PROBES)[:7]) if p]
     jobs = {}
     for tree, root in roots.items():
         mine = [p for p in probes
                 if p not in HIGH_VARIANTS or tree == "change"]
         for v, files in high_sources(root, mine).items():
-            d = args.out.joinpath("high", tree, v)
+            d = args.out.joinpath(label, tree, v)
             if d.exists():
                 shutil.rmtree(d)
             d.mkdir(parents=True)
@@ -510,12 +675,18 @@ def main_high(args, roots, smi) -> int:
         print(json.dumps({"tree": tree, "variant": v,
                           "ptxas": ptxas_lines(log)}), flush=True)
     dev = torch.device("cuda")
-    shapes = high_shapes(dev)
+    shapes = high_shapes(dev, precision)
+    wanted = (set(filter(None, args.shapes.split(","))) if args.shapes
+              else set(shapes))
     for shape, (cfg, r, s0, cap) in shapes.items():
+        if shape not in wanted:
+            continue
         reps = args.reps if shape == "ook_phase1" else max(args.reps - 1, 1)
         for tree, root in roots.items():
             mod = wrapper_module(root, "fused_bamp", f"high_{tree}")
-            times, shipped = {}, None
+            times, shipped, full = {}, None, None
+            run = lambda: mod.whole_decode(r.A, s0, r.y, r.sigma2, cap, cfg,
+                                           precision, x_precision)
             for v in ["shipped"] + probes:
                 if ("fused_bamp_decode", tree, v) not in built:
                     continue
@@ -523,8 +694,6 @@ def main_high(args, roots, smi) -> int:
                     str(built[("fused_bamp_decode", tree, v)][0]))
                 mod._library()
                 try:
-                    run = lambda: mod.whole_decode(r.A, s0, r.y, r.sigma2,
-                                                   cap, cfg, "high")
                     out = run()
                     torch.cuda.synchronize()
                     start = torch.cuda.Event(enable_timing=True)
@@ -540,16 +709,22 @@ def main_high(args, roots, smi) -> int:
                 iters = int((out.T.long() - s0.T.long()).sum())
                 if v == "shipped":
                     shipped = out
+                if v == "full":
+                    full = out
                 same = _same(out, shipped) if v in HIGH_VARIANTS else None
+                exact = (_same(out, full) if full is not None
+                         and form in EXACT_PROBES.get(v, ()) else None)
                 print(json.dumps({
-                    "kernel": "fused_bamp_decode_high", "shape": shape,
+                    "kernel": label, "shape": shape,
                     "tree": tree, "probe": v, "ms": times[v],
                     "iterations": iters, "us_per_trial_iteration_per_sm":
                     1e3 * times[v] * 132 / iters,
-                    "identical_to_shipped": same}), flush=True)
-                if same is False:
-                    raise AssertionError(f"{v} differs from the shipped "
-                                         "build")
+                    "identical_to_shipped": same,
+                    "identical_to_full": exact}), flush=True)
+                if same is False or exact is False:
+                    raise AssertionError(f"{v} differs from the "
+                                         f"{'shipped' if same is False else 'full'}"
+                                         " build")
                 del out
             # the shipped build with each block size of --threads, where
             # the tree's wrapper picks one (high_threads)
@@ -562,26 +737,42 @@ def main_high(args, roots, smi) -> int:
                 mod._library()
                 mod.high_threads = lambda cfg, n=int(threads): n
                 try:
-                    ms = cs_ms(lambda: mod.whole_decode(
-                        r.A, s0, r.y, r.sigma2, cap, cfg, "high"), reps)
+                    ms = cs_ms(run, reps)
                 finally:
                     mod.high_threads = rule
                     build._loaded.pop("fused_bamp_decode", None)
                 times[f"threads_{threads}"] = ms
                 print(json.dumps({
-                    "kernel": "fused_bamp_decode_high", "shape": shape,
+                    "kernel": label, "shape": shape,
                     "tree": tree, "probe": f"threads_{threads}", "ms": ms,
                     "shipped_threads": rule(cfg)}), flush=True)
-            del shipped
-            full = times.get("full")
+            del shipped, full
+            full_ms = times.get("full")
+            log = built[("fused_bamp_decode", tree, "shipped")][1]
             print(json.dumps({
-                "kernel": "fused_bamp_decode_high", "shape": shape,
+                "kernel": label, "shape": shape,
                 "tree": tree, "device": smi, "B": int(s0.T.numel()),
                 "cap": cap, "ms": times,
-                "share_of_full": {v: t / full for v, t in times.items()}
-                if full else None,
-                "ptxas": ptxas_lines(
-                    built[("fused_bamp_decode", tree, "shipped")][1])}),
+                "share_of_full": {v: t / full_ms for v, t in times.items()}
+                if full_ms else None,
+                "cut_ms": {v: full_ms - t for v, t in times.items()
+                           if v not in ("shipped", "full")
+                           and not v.startswith("threads_")}
+                if full_ms else None,
+                "ptxas_instance": instance_lines(
+                    log, precision, x_precision, rule(cfg) if rule else 512),
+                "ptxas_instances": {
+                    f"{v}:{x}": instance_lines(log, v, x, t)
+                    for v, x, t in (("highest", None, 256),
+                                    ("high", None, 256), ("high", None, 512),
+                                    ("default", None, 256),
+                                    ("default", None, 512),
+                                    ("highest", "high", 512),
+                                    ("highest", "default", 512),
+                                    ("high", "highest", 512),
+                                    ("high", "default", 512),
+                                    ("default", "highest", 512),
+                                    ("default", "high", 512))}}),
                 flush=True)
     return 0
 
@@ -590,7 +781,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", type=Path, default=None,
                    help="root of the other checkout (required but for "
-                   "--precision high, where it is optional)")
+                   "K1's other forms, where it is optional)")
     p.add_argument("--kernel", choices=sorted(GROUPS), default="bamp")
     p.add_argument("--out", type=Path, default=Path("build/k1_passes"))
     p.add_argument("--res", type=int, default=65536)
@@ -600,14 +791,25 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--tiles", default="",
                    help="comma-separated tile sizes to build and time")
-    p.add_argument("--precision", choices=("highest", "high"),
+    p.add_argument("--precision", choices=("highest", "high", "default"),
                    default="highest",
-                   help="high: K1's HIGH instance and its probes (--kernel "
-                   "bamp only)")
+                   help="high, default: K1's HIGH or DEFAULT instance and "
+                   "its probes (--kernel bamp only)")
+    p.add_argument("--xmap-precision", default=None,
+                   choices=("highest", "high", "default"),
+                   help="K1's split instance with the variance chain at "
+                   "--precision and the xmap chain at this one")
     p.add_argument("--probes", default="",
-                   help="with --precision high: comma-separated probes "
-                   f"(default all: {','.join(HIGH_PROBES)}) and variants "
-                   f"of this checkout's engine ({','.join(HIGH_VARIANTS)})")
+                   help="with --precision high|default or "
+                   "--xmap-precision: comma-separated probes (default the "
+                   "first seven: "
+                   f"{','.join(list(HIGH_PROBES)[:7])}; also "
+                   f"{','.join(list(HIGH_PROBES)[7:])}) and variants of "
+                   f"this checkout's engine ({','.join(HIGH_VARIANTS)})")
+    p.add_argument("--shapes", default="",
+                   help="with --precision high|default or "
+                   "--xmap-precision: the timed shapes (default both: "
+                   "qpsk_cap100,ook_phase1)")
     p.add_argument("--threads", default="",
                    help="with --precision high: block sizes to time the "
                    "shipped build at, e.g. 256,512 (trees whose wrapper "
@@ -615,9 +817,12 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_passes: no CUDA device")
-    if args.precision == "high" and args.kernel != "bamp":
-        raise SystemExit("torch_k1_passes: --precision high is K1's")
-    if args.parent is None and args.precision != "high":
+    form = args.precision != "highest" or args.xmap_precision not in (
+        None, args.precision)
+    if form and args.kernel != "bamp":
+        raise SystemExit("torch_k1_passes: --precision high|default and "
+                         "--xmap-precision are K1's")
+    if args.parent is None and not form:
         raise SystemExit("torch_k1_passes: --parent is required")
     cap = args.cap or {"bamp": 12, "scamp": 8, "vamp": 10,
                        "periter": 1}[args.kernel]
@@ -628,7 +833,7 @@ def main(argv=None) -> int:
     roots = {"parent": args.parent.resolve(),
              "change": Path(__file__).resolve().parents[1]} \
         if args.parent else {"change": Path(__file__).resolve().parents[1]}
-    if args.precision == "high":
+    if form:
         return main_high(args, roots, smi)
     tiles = list(filter(None, args.tiles.split(",")))
     jobs, passes = {}, {}

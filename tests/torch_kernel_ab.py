@@ -40,7 +40,10 @@ for a tree whose wrapper takes ``precision`` (a tree without the HIGH form
 is left out of the case); ``vamp_default_cap10``, ``vamp2_default_cap10``,
 ``tiled_default``, ``tiled_default_tail``, ``bamp_default_qpsk`` and
 ``bamp_default_ook``, the same cases of the DEFAULT form
-(``precision='default'``, one bf16 pass; a tree without it is left out).
+(``precision='default'``, one bf16 pass; a tree without it is left out);
+``bamp_xmap_<v>_<x>_qpsk`` and ``..._ook`` for the six (variance chain,
+xmap chain) pairs of K1's split forms (``AMP_KERNEL_XMAP_PRECISION``),
+at the same two shapes drawn at ``v`` (a tree without them is left out).
 The two trees' results
 must be bit-identical for K1, K2, K5 and K6 (every plane and ``notok``;
 xmap on the active trials, the only ones K5 and K6 write it for) and K7;
@@ -49,8 +52,8 @@ tree to the other, they are held to
 ``chip_smoke.compare_vamp``'s ``trial_share`` rule instead, and the
 bit-identical share is printed; K5's HIGH results are not compared (its
 bits may change from tree to tree, the rules of chip_smoke hold it), only
-the share of bit-identical elements is printed; likewise K1's HIGH
-results.  A kernel whose source the other checkout
+the share of bit-identical elements is printed; likewise K1's HIGH,
+DEFAULT and split results.  A kernel whose source the other checkout
 lacks is timed on its own.  ``--cases`` picks cases by name.
 
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
@@ -65,6 +68,8 @@ lacks is timed on its own.  ``--cases`` picks cases by name.
         --cases tiled_high,tiled_high_tail --rounds 4
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
         --cases bamp_high_qpsk,bamp_high_ook,bamp_phase1,bamp_phase2
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
+        --cases bamp_default_qpsk,bamp_xmap_default_highest_qpsk
 
 Prints one JSON line per timing, then one summary line per case.  Needs
 the card and ``nvcc``; imports no JAX.
@@ -189,6 +194,9 @@ def _cases(dev, wanted=frozenset()):
             yield from _tiled_high_cases(dev, want, p)
         if want(f"bamp_{p}_qpsk", f"bamp_{p}_ook"):
             yield from _bamp_high_cases(dev, want, p)
+    for v, x in XMAP_PAIRS:
+        if want(f"bamp_xmap_{v}_{x}_qpsk", f"bamp_xmap_{v}_{x}_ook"):
+            yield from _bamp_high_cases(dev, want, v, x)
 
 
 def _periter_cases(dev, want):
@@ -310,19 +318,31 @@ def _tiled_high_cases(dev, want, precision="high"):
                                              cfg, p), ps.active))
 
 
-def _bamp_high_cases(dev, want, precision="high"):
+# K1's split forms: (variance chain, xmap chain) precision pairs.
+XMAP_PAIRS = (("highest", "high"), ("highest", "default"),
+              ("high", "default"), ("high", "highest"),
+              ("default", "high"), ("default", "highest"))
+
+
+def _bamp_high_cases(dev, want, precision="high", x_precision=None):
     """K1's HIGH (or DEFAULT) form at its two timed shapes, as chip_smoke's
     kernels_bamp_high builds them: the QPSK flagship, 4096 trials at 5 dB,
     cap 100, seed 42 (the main path's shape), and the OOK flagship at its
     phase-1 shape, 65536 trials at 8 dB, cap 12, seed 41; drawn and run at
-    ``precision``."""
+    ``precision``; with ``x_precision``, K1's split form of that xmap
+    chain (``AMP_KERNEL_XMAP_PRECISION=<x_precision>``, passed to the
+    wrapper as ``x_precision``), drawn at the variance chain's precision as
+    chip_smoke's kernels_bamp_xmap draws it (cases
+    ``bamp_xmap_<precision>_<x_precision>_qpsk`` and ``..._ook``)."""
     import chip_smoke
     from amp_sparc_spatialmodulation_tpu_torch.config import (
         flagship_bamp_qpsk)
+    tag = (precision if x_precision is None
+           else f"xmap_{precision}_{x_precision}")
     for case, cfg, B, cap, ebn0, seed in (
-            (f"bamp_{precision}_qpsk", flagship_bamp_qpsk(),
+            (f"bamp_{tag}_qpsk", flagship_bamp_qpsk(),
              chip_smoke.FLAGSHIP_B, 100, chip_smoke.BAMP_HIGH_EBN0_DB, 42),
-            (f"bamp_{precision}_ook", flagship_bamp_ook(), RES,
+            (f"bamp_{tag}_ook", flagship_bamp_ook(), RES,
              chip_smoke.K1, chip_smoke.EBN0_DB, 41)):
         if not want(case):
             continue
@@ -332,7 +352,7 @@ def _bamp_high_cases(dev, want, precision="high"):
         s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
         yield (case, "fused_bamp_decode", "fused_bamp",
                lambda mod, cfg=cfg, r=r, s0=s0, cap=cap: mod.whole_decode(
-                   r.A, s0, r.y, r.sigma2, cap, cfg, precision))
+                   r.A, s0, r.y, r.sigma2, cap, cfg, precision, x_precision))
 
 
 def _vamp_case(dev, algo, precision=None):
@@ -428,7 +448,7 @@ def _across(case, first) -> dict:
         return {}
     a, b = first["change"], first["parent"]
     if case.startswith(("tiled_high", "bamp_high", "tiled_default",
-                        "bamp_default")):
+                        "bamp_default", "bamp_xmap")):
         return {"bit_identical_share": _same_share(a, b)}
     identical = _same(a, b)
     if not case.startswith("vamp"):
@@ -475,6 +495,10 @@ def main(argv=None) -> int:
             # a tree without the DEFAULT form is left out
             mods = {k: m for k, m in mods.items()
                     if hasattr(m, "launches_default")}
+        if "_xmap_" in case:
+            # ... and one without the split forms
+            mods = {k: m for k, m in mods.items()
+                    if hasattr(m, "launches_xmap")}
         libs = _libraries(name, mods, {k: trees[k] for k in mods})
         order = [k for k in ("parent", "change", "change", "parent")
                  if k in libs] * args.rounds
