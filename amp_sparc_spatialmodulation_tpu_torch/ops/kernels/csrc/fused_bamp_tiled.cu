@@ -162,11 +162,53 @@
 // false instance) is unchanged.
 //
 // The DEFAULT form (precision='default', make_dot(DEFAULT): one bf16 pass)
-// is the HIGH form's launches, layout and taps with the kOne instance of
-// high_product_kernel, whose k16 step issues only the hi hi mma (from zero,
-// then the FP32 add); the split launch, the fold and the denoiser write the
-// lo halves as in HIGH, which the copies bring and no mma reads.  Its plain
-// version is one bamp.step with bamp.linear_step_high on precision.dot1.
+// runs the HIGH form's launches and functions on operands of its own and
+// an engine of its own (default_product_kernel).  Its plain version is one
+// bamp.step with bamp.linear_step_high on precision.dot1.  What held it
+// back while it ran the HIGH engine with the hi·hi mma alone (PERF.md §6,
+// probe builds) was not the bytes copied into shared memory (half of
+// them, or none of one operand, gained nothing) but the work around the
+// mma in a block alone on its SM: one barrier a ring slot, so the eight
+// warps read their fragments and ran their mma in lockstep; tap ldmatrix
+// that brought lo halves no mma read; every block's prologue; and a last
+// epilogue that staged each output in the ring and waited for its stores
+// before the next (0.17 ms of the forward's 1.78, 0.59 of the adjoint's
+// 3.19).  This form:
+//
+// * hi halves only, in a layout of their own (split1_at): HIGH's tiles
+//   with the next k16 step's hi where HIGH keeps the lo, which is also
+//   wgmma's K-major 64-byte swizzle; the taps from the wrapper
+//   (fused_bamp_tiled.py::default_taps), x and var from the split launch
+//   or the previous call's denoiser, the adjoint inputs from the fold, each
+//   writing hi alone (kOne instances);
+// * the large form on wgmma: two warpgroups of 64 x 112 read both operands
+//   from the ring (no ldmatrix), each k16 step's product from zero (scale-d
+//   off), then one FP32 add; the small form on mma.sync (ldmatrix_x4 of a
+//   tap row brings both k16 steps of a tile);
+// * persistent blocks (one per SM; the small form four) that walk their
+//   tiles with one ring running on from tile to tile, so the next tile's
+//   copies are in flight during an epilogue and no block starts cold;
+// * ring slots of several tiles (the forward three, the adjoint two: one
+//   bulk copy per operand of 6 or 4 k16 steps): the copies cost by their
+//   number, not their bytes (half the bytes a copy gained nothing, half the
+//   copies 0.6 ms);
+// * a full and an empty mbarrier per slot in place of the block barrier:
+//   each warp frees a slot when it has read it, thread 0 refills the slot
+//   of the step before, so warps run up to S - 2 slots apart (a warp of
+//   its own for the copies, a ninth, capped every thread at 168 registers:
+//   three warps share a sub-partition's 16K; it spilled and ran slower);
+// * outputs stored from the registers and the parks (8-byte stores, a
+//   warp's 8 rows x 32 bytes: whole sectors), the forward's each at the
+//   epilogue that makes it final (P_re parked alone: one park), the
+//   adjoint's at its last, x read first, every load before the first store:
+//   no staging, no block barrier.  (Outputs staged in row-major parks and
+//   sent by bulk copies cost a block barrier per output; the adjoint's
+//   outputs spread over its epilogues, cov first; both ran slower: PERF.md
+//   §6.)
+
+// Each output is still one FP32 sum of its k16 steps in order, each step's
+// hi·hi product from zero, so the results are the HIGH engine's one-pass
+// results bit for bit.
 
 #include <cuda_bf16.h>
 
@@ -244,11 +286,13 @@ struct Params {
   // var), written by the split launch; the adjoint's (Z_re + Z_im, Z_re,
   // Z_im, Z_c), written by the fold; both in rtiles tiles of kHRows rows;
   // where xs_next is given, the denoiser writes the new x and var split
-  // into it as the split launch lays them out, for the next call
+  // into it as the split launch lays them out, for the next call.  DEFAULT
+  // form: the same planes, hi alone, in split1_at's layout
   const __nv_bfloat16* taps_high;
   __nv_bfloat16* xs_high;
   __nv_bfloat16* zs_high;
   __nv_bfloat16* xs_next;   // the denoiser's split x and var (or null)
+  int one;                  // DEFAULT: the split planes in split1_at's layout
   int B, Nt, Nr, Lin, Lout, Lh, M, K, W, Wp;
   int vec;                  // Nt % 4 == 0: 16-byte tap rows and x-side rows
   int kxs, kas, rtiles, ctf, cta;
@@ -587,6 +631,18 @@ __host__ __device__ __forceinline__ size_t split_at(int ks, int tile, int R,
   return (static_cast<size_t>(R / tile * ks + (k >> 4)) * tile + r) * 32 +
          split_chunk(2 * h + ((k & 15) >> 3), r) * 8 + (k & 7);
 }
+// The DEFAULT form's layout, hi halves alone: tiles of `tile` rows by two
+// k16 steps (ks / 2 of them along a plane of ks steps), a row 64 bytes, the
+// hi of its 32 contraction steps in chunks 0 .. 3, swizzled as above: the
+// HIGH layout with step 2 s + 1's hi where step 2 s's lo lies.  Where the
+// hi of element (row R, step k) lies, in bf16.
+__host__ __device__ __forceinline__ size_t split1_at(int ks, int tile, int R,
+                                                     int k) {
+  const int r = R % tile;
+  return (static_cast<size_t>(R / tile * (ks >> 1) + (k >> 5)) * tile + r) *
+             32 +
+         split_chunk((k & 31) >> 3, r) * 8 + (k & 7);
+}
 
 // One HIGH product form: WM x WN warps, each MT m16 tiles of rows by NT n8
 // tiles of columns, a ring of S slots of kSlotSteps k16 steps, MIN blocks
@@ -620,11 +676,117 @@ struct HighForm {
 using HighLarge = HighForm<4, 2, 2, 7, 3, 1>;
 using HighSmall = HighForm<2, 1, 1, 2, 3, 4>;
 
+// One DEFAULT product form: WM x WN warps, each MT m16 tiles of rows by NT
+// n8 tiles of columns (on wgmma: warpgroups of 64 rows), a ring of S slots
+// of T split1_at tiles (two k16 steps each) of each operand, MIN
+// persistent blocks per SM.  Shared memory: the ring, one park (forward)
+// or two (adjoint), each a float per output of the block tile, each
+// thread's in its own column, then a full and an empty mbarrier per slot.
+template <int WM_, int WN_, int MT_, int NT_, int S_, int MIN_,
+          bool WG_ = false, int T_ = 1>
+struct DefaultForm {
+  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_, S = S_,
+                       MIN = MIN_;
+  static constexpr bool WG = WG_;  // wgmma: warpgroups of 64 x BN
+  static constexpr int T = T_;     // split1_at tiles (2 k16 steps) a slot
+  static constexpr int BM = 16 * WM * MT, BN = 8 * WN * NT;
+  static constexpr int kNT = 32 * WM * WN, kWarps = WM * WN;
+  static constexpr int kOut = 4 * MT * NT;      // a thread's outputs
+  static constexpr int kTileA = BM * 64, kTileB = BN * 64;  // bytes
+  static constexpr int kSlotA = T * kTileA, kSlot = T * (kTileA + kTileB);
+  static constexpr int kPark = kOut * kNT * 4;
+  // the forward parks P_re alone, the adjoint k1 and k1 + k2
+  static constexpr int smem(bool fwd) {
+    return S * kSlot + (fwd ? 1 : 2) * kPark + 16 * S;
+  }
+  // a slot's T tiles of an operand lie in one piece of its plane only
+  // where the block takes whole layout tiles
+  static_assert(kHRows % BM == 0 && kHCols % BN == 0 && kSlot % 512 == 0 &&
+                    S >= 2 && (!WG || (WN == 1 && MT == 1 && WM % 4 == 0)) &&
+                    (T == 1 || (BM == kHRows && BN == kHCols)),
+                "tile shape");
+};
+// Large: HighLarge's 128 x 112 tiles, two warpgroups of 64 x 112 on wgmma
+// (a warp's outputs those of an mma.sync warp of 16 x 112), one block per
+// SM, 3 slots of three tiles in the forward (6 k16 steps: one 24 KB and
+// one 21 KB copy; the copies cost by their number more than by their
+// bytes; 195,632 B) and of two in the adjoint, whose two parks leave room
+// for no more (206,896 B); small: HighSmall's 32 x 16 on mma.sync, 4 slots
+// of a tile, four blocks per SM.
+using DefaultLarge = DefaultForm<8, 1, 1, 14, 3, 1, true, 3>;
+using DefaultLargeAdjoint = DefaultForm<8, 1, 1, 14, 3, 1, true, 2>;
+using DefaultSmall = DefaultForm<2, 1, 1, 2, 4, 4>;
+
+// wgmma on two shared-memory operands in split1_at's layout, which is the
+// K-major 64-byte swizzle of wgmma (a row 64 bytes, 16-byte chunk c of row
+// r at c ^ ((r / 2) % 4), the pattern repeating every 8 rows, 512 bytes):
+// the descriptor of the operand starting at shared address `addr` (512-byte
+// aligned, or 32 bytes past such a start for a tile's second k16 step),
+// rows 512 bytes apart in groups of 8.
+__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
+         (1ull << 16) |                      // leading byte offset (unused)
+         (static_cast<unsigned long long>(512 >> 4) << 32) |
+         (2ull << 62);                       // 64-byte swizzle
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// d = a b from zero (scale-d off) for a 64 x 112 x 16 warpgroup tile: a
+// the 64 rows of the trial side, b the 112 tap rows, both K-major; d in the
+// mma.sync C layout of 14 n8 tiles (d[4 j + e]).
+__device__ __forceinline__ void wgmma_m64n112_zero(float (&d)[56],
+                                                   unsigned long long da,
+                                                   unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+        "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
+        "=f"(d[55])
+      : "l"(da), "l"(db)
+      : "memory");
+}
+// keep the compiler from reading d before the wait that completes it
+__device__ __forceinline__ void wgmma_hold(float (&d)[56]) {
+#pragma unroll
+  for (int i = 0; i < 56; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 // One arrival that also expects `bytes` of copies to complete on bar.
@@ -721,29 +883,34 @@ __device__ __forceinline__ unsigned pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
          (static_cast<unsigned>(__bfloat16_as_ushort(b)) << 16);
 }
 
-// ---- 0. at HIGH: x and var split into the forward's operand planes -------
-// One thread per (plane, row tile, k16 step, row): 16 FP32 of the row in,
-// its 64-byte split row out (consecutive threads on consecutive rows, so a
-// warp writes 2 KB in one piece); x is plane 0, var plane 1; zeros past
-// the contraction and past the last row.
+// ---- 0. at HIGH and DEFAULT: x and var split into the forward's operands --
+// One thread per (plane, row tile, tile step, row): the row's FP32 of the
+// tile's contraction steps in (16 at HIGH, 32 at DEFAULT), its 64-byte
+// split row out (consecutive threads on consecutive rows, so a warp writes
+// 2 KB in one piece); x is plane 0, var plane 1; zeros past the
+// contraction and past the last row.  kOne: the hi halves alone, in
+// split1_at's layout.
+template <bool kOne>
 __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
-  const size_t per_plane = static_cast<size_t>(p.rtiles) * p.kxs * kHRows;
+  constexpr int kK = kOne ? 32 : 16;  // contraction steps of a tile's row
+  const int nt = kOne ? p.kxs / 2 : p.kxs;  // tiles along the contraction
+  const size_t per_plane = static_cast<size_t>(p.rtiles) * nt * kHRows;
   const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= 2 * per_plane) return;
   const int plane = static_cast<int>(e / per_plane);
   const size_t i = e - plane * per_plane;  // (tile, step, row) of the plane
   const int r = static_cast<int>(i % kHRows);
-  const int ks = static_cast<int>(i / kHRows % p.kxs);
-  const int R = static_cast<int>(i / (static_cast<size_t>(kHRows) * p.kxs)) *
+  const int ks = static_cast<int>(i / kHRows % nt);
+  const int R = static_cast<int>(i / (static_cast<size_t>(kHRows) * nt)) *
                     kHRows + r;
-  const int k0 = 16 * ks;
-  float v[16];
+  const int k0 = kK * ks;
+  float v[kK];
   const float* src =
       (plane == 0 ? p.xm : p.var) + static_cast<size_t>(R) * p.Nt + k0;
   const bool in = R < p.B * p.Lin;
-  if (in && p.vec && k0 + 16 <= p.Nt) {
+  if (in && p.vec && k0 + kK <= p.Nt) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < kK / 4; ++q) {
       const float4 t = reinterpret_cast<const float4*>(src)[q];
       v[4 * q] = t.x;
       v[4 * q + 1] = t.y;
@@ -752,16 +919,24 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
     }
   } else {
 #pragma unroll
-    for (int q = 0; q < 16; ++q) v[q] = in && k0 + q < p.Nt ? src[q] : 0.f;
+    for (int q = 0; q < kK; ++q) v[q] = in && k0 + q < p.Nt ? src[q] : 0.f;
   }
-  unsigned w[4][4];  // chunk c: hi (c < 2) or lo of steps 8 (c % 2) ..
+  unsigned w[4][4];  // chunk c: hi (c < 2) or lo of steps 8 (c % 2) ..;
+                     // kOne: the hi of steps 8 c ..
+  if constexpr (kOne) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    __nv_bfloat16 h0, l0, h1, l1;
-    split1(v[2 * q], h0, l0);
-    split1(v[2 * q + 1], h1, l1);
-    w[q >> 2][q & 3] = pack2(h0, h1);
-    w[2 + (q >> 2)][q & 3] = pack2(l0, l1);
+    for (int q = 0; q < 16; ++q)
+      w[q >> 2][q & 3] = pack2(__float2bfloat16_rn(v[2 * q]),
+                               __float2bfloat16_rn(v[2 * q + 1]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      __nv_bfloat16 h0, l0, h1, l1;
+      split1(v[2 * q], h0, l0);
+      split1(v[2 * q + 1], h1, l1);
+      w[q >> 2][q & 3] = pack2(h0, h1);
+      w[2 + (q >> 2)][q & 3] = pack2(l0, l1);
+    }
   }
   uint4* dst = reinterpret_cast<uint4*>(p.xs_high + plane * per_plane * 32 +
                                         i * 32);
@@ -786,7 +961,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
 // Thread 0 issues the copies of the slot S - 1 ahead after each slot's
 // barrier; one pipeline runs over every (product, slot) of the block, so
 // the next product's copies are in flight during an epilogue.
-template <bool kFwd, class F, bool kOne>
+template <bool kFwd, class F>
 __global__ void __launch_bounds__(F::kNT, F::MIN)
     high_product_kernel(Params p) {
   constexpr int BM = F::BM, BN = F::BN, MT = F::MT, NT = F::NT, S = F::S;
@@ -1025,7 +1200,7 @@ __global__ void __launch_bounds__(F::kNT, F::MIN)
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         ldmatrix_x4(ah[i], sa + a_hi[i]);
-        if (!kOne) ldmatrix_x4(al[i], sa + a_lo[i]);
+        ldmatrix_x4(al[i], sa + a_lo[i]);
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) ldmatrix_x4(b[j], sb + b_at[j]);
@@ -1037,10 +1212,8 @@ __global__ void __launch_bounds__(F::kNT, F::MIN)
           // the header: the tensor cores truncate as they accumulate)
           float th[4];
           mma_bf16_zero(th, ah[i], b[j][0], b[j][1]);
-          if (!kOne) {
-            mma_bf16(th, ah[i], b[j][2], b[j][3]);
-            mma_bf16(th, al[i], b[j][0], b[j][1]);
-          }
+          mma_bf16(th, ah[i], b[j][2], b[j][3]);
+          mma_bf16(th, al[i], b[j][0], b[j][1]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = acc[i][j][e] + th[e];
         }
@@ -1054,6 +1227,325 @@ __global__ void __launch_bounds__(F::kNT, F::MIN)
   }
 }
 
+// The products of one stage at DEFAULT: the functions of
+// high_product_kernel with one bf16 pass (0. P_re = dot1(x, Re S), 1. P_im
+// = P_re + dot1(x, Im S - Re S), 2. P_v = dot1(var, S_a2); adjoint 0. k1,
+// 1. k2, 2. k3, 3. cov and xmap, for the rows of active trials), on the
+// hi-only operands of split1_at.  A block is persistent: it takes tiles
+// blockIdx.x, + gridDim.x, ... (the column tile varying fastest, so the
+// blocks at work share their trial-side rows in L2), skipping those whose
+// rows hold no active trial, and one pipeline runs over every (tile,
+// product, slot) of the block.  Warp (wm, wn) takes the rows 16 MT wm ..
+// and columns 8 NT wn .. of a tile, lane (g, t) of an m16n8 output tile
+// rows g, g + 8 and columns 2t, 2t + 1.  A slot's full barrier completes
+// on its copies; each warp arrives on its empty barrier once it has read
+// it; thread 0, once its warp has read step f, waits for step f - 1's slot
+// to be free and refills it with step f - 1 + S, before its warp's adds.
+template <bool kFwd, class F>
+__global__ void __launch_bounds__(F::kNT, F::MIN)
+    default_product_kernel(Params p) {
+  constexpr int BM = F::BM, BN = F::BN, MT = F::MT, NT = F::NT, S = F::S;
+  constexpr int kPasses = kFwd ? 3 : 4;
+  extern __shared__ __align__(1024) unsigned char smem_one[];
+  const int rows = p.B * p.Lin;
+  const int cols = kFwd ? p.Wp : p.Nt;
+  const int col_tiles = (cols + BN - 1) / BN;
+  const int tiles = (rows + BM - 1) / BM * col_tiles;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / F::WN, wn = warp % F::WN;
+  const int g = lane >> 2, t = lane & 3;
+  const int nkt = (kFwd ? p.kxs : p.kas) / 2;  // tiles of a plane's row
+  const int nslots = (nkt + F::T - 1) / F::T;  // ring slots of a product
+  float* park = reinterpret_cast<float*>(smem_one + S * F::kSlot);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      smem_one + S * F::kSlot + (kFwd ? 1 : 2) * F::kPark);
+  unsigned long long* empty = full + S;
+
+  // a tile whose rows hold an active trial
+  auto live = [&](int tile) {
+    const int R0 = tile / col_tiles * BM;
+    const int last = (min(R0 + BM, rows) - 1) / p.Lin;
+    for (int b = R0 / p.Lin; b <= last; ++b)
+      if (p.act[b]) return true;
+    return false;
+  };
+  auto next_live = [&](int tile) {
+    do tile += gridDim.x;
+    while (tile < tiles && !live(tile));
+    return tile;
+  };
+
+  // the block's rows of trial-side plane a, and columns of tap plane b
+  const size_t aplane = static_cast<size_t>(p.rtiles) * nkt * kHRows * 32;
+  const __nv_bfloat16* abase = kFwd ? p.xs_high : p.zs_high;
+  const size_t bplane =
+      static_cast<size_t>(kFwd ? p.ctf : p.cta) * nkt * kHCols * 32;
+  const __nv_bfloat16* bbase =
+      p.taps_high +
+      (kFwd ? 0 : 3 * static_cast<size_t>(p.ctf) * (p.kxs / 2) * kHCols * 32);
+  // the tiles of slot s of a product (the last may hold fewer)
+  auto tiles_of = [&](int s) { return min(F::T, nkt - F::T * s); };
+  // thread 0: the copies of tile `tile`'s product q, slot s (tiles T s ..
+  // of each operand's row, in one piece), into ring slot `slot`
+  auto load = [&](int tile, int q, int s, int slot) {
+    const int R0 = tile / col_tiles * BM, n0 = tile % col_tiles * BN;
+    const int a = kFwd ? (q == 2 ? 1 : 0) : q;
+    const int n = tiles_of(s), k0 = F::T * s;
+    unsigned char* dst = smem_one + slot * F::kSlot;
+    mbar_expect(&full[slot], n * (F::kTileA + F::kTileB));
+    bulk_copy(dst,
+              abase + a * aplane +
+                  ((static_cast<size_t>(R0 / kHRows) * nkt + k0) * kHRows +
+                   R0 % kHRows) * 32,
+              n * F::kTileA, &full[slot]);
+    bulk_copy(dst + F::kSlotA,
+              bbase + q * bplane +
+                  ((static_cast<size_t>(n0 / kHCols) * nkt + k0) * kHCols +
+                   n0 % kHCols) * 32,
+              n * F::kTileB, &full[slot]);
+  };
+
+  // ldmatrix rows: A rows 16 (MT wm + i) + lane % 16, chunk lane / 16 of
+  // step 0 (k 0-7, 8-15) or 2 + lane / 16 of step 1; taps rows 8 (NT wn +
+  // j) + lane % 8, chunk lane / 8: the fragments b[0], b[1] of step 0 and
+  // b[2], b[3] of step 1
+  int a_at[2][MT], b_at[NT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r = 16 * (MT * wm + i) + (lane & 15);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      a_at[k][i] = r * 32 + split_chunk(2 * k + (lane >> 4), r) * 8;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int n = 8 * (NT * wn + j) + (lane & 7);
+    b_at[j] = n * 32 + split_chunk(lane >> 3, n) * 8;
+  }
+
+  // A thread's output e of its tile (i, j) is park entry ((i NT + j) 4 +
+  // e) of its column; park 1 lies a park further.  Every park entry is
+  // written and read by its own thread alone.
+  auto park_at = [&](int i, int j, int e) {
+    return park + ((i * NT + j) * 4 + e) * F::kNT + tid;
+  };
+  // an output pair (row R, columns n, n + 1) to device memory (n + 1 may
+  // lie past the last column)
+  auto store2 = [&](float* out, int R, int n, float v0, float v1) {
+    float* o = out + static_cast<size_t>(R) * cols + n;
+    if (n + 1 < cols && cols % 2 == 0) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else {
+      o[0] = v0;
+      if (n + 1 < cols) o[1] = v1;
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s]);
+      mbar_init(&empty[s], F::kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int first = live(blockIdx.x) ? static_cast<int>(blockIdx.x)
+                                     : next_live(blockIdx.x);
+  // thread 0's cursor: the next (tile, product, k32 step) to copy
+  int ct = first, cq = 0, cs = 0;
+  auto advance = [&]() {
+    if (++cs == nslots) {
+      cs = 0;
+      if (++cq == kPasses) {
+        cq = 0;
+        ct = next_live(ct);
+      }
+    }
+  };
+  // thread 0, once its warp has read step f: step f - 1's slot, when every
+  // warp has freed it, takes step f - 1 + S
+  auto refill = [&](int f) {
+    if (tid == 0 && f >= 1 && ct < tiles) {
+      const int prev = (f - 1) % S;
+      mbar_wait(&empty[prev], ((f - 1) / S) & 1);
+      load(ct, cq, cs, prev);
+      advance();
+    }
+  };
+  if (tid == 0)
+    for (int f = 0; f < S && ct < tiles; ++f) {
+      load(ct, cq, cs, f);
+      advance();
+    }
+
+  float acc[MT][NT][4];
+  int f = 0;
+  for (int tile = first; tile < tiles; tile = next_live(tile)) {
+    const int R0 = tile / col_tiles * BM, n0 = tile % col_tiles * BN;
+    for (int q = 0; q < kPasses; ++q) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int s = 0; s < nslots; ++s, ++f) {
+        const int slot = f % S;
+        mbar_wait(&full[slot], (f / S) & 1);
+        const int n = tiles_of(s);
+        if constexpr (F::WG) {
+          // per tile of the slot: the warpgroup's 64 rows and every tap
+          // row, each k16 step from zero, then added in order
+          const unsigned sa = smem_u32(smem_one + slot * F::kSlot);
+          for (int u = 0; u < n; ++u) {
+            const unsigned long long da = wgmma_desc(
+                sa + u * F::kTileA + (warp >> 2) * 4096);
+            const unsigned long long db =
+                wgmma_desc(sa + F::kSlotA + u * F::kTileB);
+            float d0[56], d1[56];
+            wgmma_fence();
+            wgmma_m64n112_zero(d0, da, db);
+            wgmma_m64n112_zero(d1, da + 2, db + 2);  // 32 bytes on: step 1
+            wgmma_commit_wait();
+            wgmma_hold(d0);
+            wgmma_hold(d1);
+            if (u + 1 == n) {
+              __syncwarp();
+              if (lane == 0) mbar_arrive(&empty[slot]);
+              refill(f);
+            }
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[0][j][e] = acc[0][j][e] + d0[4 * j + e];
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[0][j][e] = acc[0][j][e] + d1[4 * j + e];
+          }
+        } else {
+          static_assert(F::T == 1, "mma.sync: one tile a slot");
+          const __nv_bfloat16* sa = reinterpret_cast<const __nv_bfloat16*>(
+              smem_one + slot * F::kSlot);
+          const __nv_bfloat16* sb = sa + F::kSlotA / 2;
+          unsigned a[2][MT][4], b[NT][4];
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+#pragma unroll
+            for (int i = 0; i < MT; ++i) ldmatrix_x4(a[k][i], sa + a_at[k][i]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) ldmatrix_x4(b[j], sb + b_at[j]);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[slot]);
+          refill(f);
+          // the slot's two k16 steps in order, each step's hi hi from zero
+          // and then an FP32 add (the tensor cores truncate as they add)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) {
+                float th[4];
+                mma_bf16_zero(th, a[k][i], b[j][2 * k], b[j][2 * k + 1]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][j][e] = acc[i][j][e] + th[e];
+              }
+        }
+      }
+      if constexpr (kFwd) {
+        // the forward's epilogues, each output stored from the registers
+        // and the park once it is final: 0. P_re, parked; 1. P_im = P_re +
+        // the product; 2. P_v
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const int R = R0 + 16 * (MT * wm + i) + g + 8 * h;
+              const int n = n0 + 8 * (NT * wn + j) + 2 * t;
+              float* pk = park_at(i, j, 2 * h);
+              const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+              if (q == 0) {
+                pk[0] = v0;
+                pk[F::kNT] = v1;
+              }
+              if (R >= rows || n >= cols) continue;
+              if (q == 0) store2(p.P_re, R, n, v0, v1);
+              else if (q == 1)
+                store2(p.P_im, R, n, pk[0] + v0, pk[F::kNT] + v1);
+              else store2(p.P_v, R, n, v0, v1);
+            }
+        continue;
+      }
+      if (q + 1 < kPasses) {
+        // the adjoint's parks: 0. k1, 1. k1 + k2, 2. k1 - k3 over k1
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float* p0 = park_at(i, j, e);
+              float* p1 = p0 + F::kPark / 4;
+              const float v = acc[i][j][e];
+              if (q == 0) *p0 = v;
+              else if (q == 1) *p1 = *p0 + v;
+              else *p0 = *p0 - v;
+            }
+        continue;
+      }
+      // the adjoint's last: cov = 1 / v, xmap_re = x + cov (k1 - k3),
+      // xmap_im = cov (k1 + k2) for the rows of active trials; x comes in
+      // first, every load before any store (a load after a store to memory
+      // that may alias waits for it).  (Outputs stored at the epilogue that
+      // makes them final, cov first, ran slower: PERF.md §6.)
+      float2 xv[MT][2][NT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int R = R0 + 16 * (MT * wm + i) + g + 8 * h;
+            const int n = n0 + 8 * (NT * wn + j) + 2 * t;
+            float2 x = make_float2(0.f, 0.f);
+            if (R < rows && n < cols) {
+              const float* xp = p.xm + static_cast<size_t>(R) * cols + n;
+              if (n + 1 < cols && cols % 2 == 0) {
+                x = *reinterpret_cast<const float2*>(xp);
+              } else {
+                x.x = xp[0];
+                if (n + 1 < cols) x.y = xp[1];
+              }
+            }
+            xv[i][h][j] = x;
+          }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int R = R0 + 16 * (MT * wm + i) + g + 8 * h;
+            const int n = n0 + 8 * (NT * wn + j) + 2 * t;
+            if (R >= rows || n >= cols || !p.act[R / p.Lin]) continue;
+            const float* p0 = park_at(i, j, 2 * h);
+            const float* p1 = p0 + F::kPark / 4;
+            const float c0 = 1.f / acc[i][j][2 * h];
+            const float c1 = 1.f / acc[i][j][2 * h + 1];
+            store2(p.xmap_re, R, n, xv[i][h][j].x + c0 * p0[0],
+                   xv[i][h][j].y + c1 * p0[F::kNT]);
+            store2(p.cov, R, n, c0, c1);
+            store2(p.xmap_im, R, n, c0 * p1[0], c1 * p1[F::kNT]);
+          }
+    }
+  }
+}
+
 // ---- 2. band fold, Onsager, freeze of z and u, adjoint inputs -------------
 // One thread per y-side element (b, r, m).  Tap l of output row r reads
 // column block c = r - l (tail truncation: 0 <= c < Lin); the adjoint input
@@ -1063,8 +1555,9 @@ __global__ void __launch_bounds__(F::kNT, F::MIN)
 // Z_re + Z_im (the Gauss operand of k1, summed in FP32), Z_re, Z_im and Z_c
 // split into the adjoint's operand planes (zs_high, the split layout above,
 // in the adjoint's product order), and zeros in their contraction pad (W <=
-// w < 16 kas) of each row.
-template <bool kHigh>
+// w < 16 kas) of each row.  kOne: the DEFAULT form's fold, the same with
+// the hi halves alone in split1_at's layout.
+template <bool kHigh, bool kOne = false>
 __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   const int n = p.Lout * p.Nr, Wp = p.Wp;
   const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -1076,11 +1569,16 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
   const bool on = p.act[b] != 0;
   const size_t zrow = static_cast<size_t>(b) * p.Lin;
   // HIGH: adjoint input q of (row R, column w), split
-  const size_t zplane = static_cast<size_t>(p.rtiles) * p.kas * kHRows * 32;
+  const size_t zplane = static_cast<size_t>(p.rtiles) *
+                        (kOne ? p.kas / 2 : p.kas) * kHRows * 32;
   auto put = [&](int q, int R, int w, float v) {
+    __nv_bfloat16* z = p.zs_high + q * zplane;
+    if constexpr (kOne) {
+      z[split1_at(p.kas, kHRows, R, w)] = __float2bfloat16_rn(v);
+      return;
+    }
     __nv_bfloat16 hi, lo;
     split1(v, hi, lo);
-    __nv_bfloat16* z = p.zs_high + q * zplane;
     z[split_at(p.kas, kHRows, R, w, 0)] = hi;
     z[split_at(p.kas, kHRows, R, w, 1)] = lo;
   };
@@ -1165,6 +1663,38 @@ __global__ void __launch_bounds__(kThreads) fold_kernel(Params p) {
 
 // ---- 4. denoiser, freeze of x and var, notok --------------------------------
 
+// One element a lane, K = 1 (the massive geometry: M = G = 16, OOK): the
+// posterior of element j, whose cov, x and old variance are c, xj and old,
+// in group_posterior's operations and order below, each of them once (its
+// loops, with M and G unknown to the compiler, compute an element's t
+// three times and its exponential twice).  Returns 1 where the variance
+// leaves the allclose tolerance.
+template <class Put>
+__device__ __forceinline__ int lane_posterior(int j, float c, float xj,
+                                              float old, int G, unsigned mask,
+                                              const float* sr,
+                                              const float* si, float* xo,
+                                              float* vn, Put put) {
+  const float tau = c / 2.f;
+  const float tv = xj / tau * sr[0];
+  float mx = fmaxf(-INFINITY, tv);
+  for (int off = G / 2; off >= 1; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(mask, mx, off, G));
+  const float e = expf(fminf(tv - mx, kExpMax));
+  float sum = ((0.f + e) + 0.f) + 0.f + 0.f;
+  for (int off = G / 2; off >= 1; off >>= 1)
+    sum = sum + __shfl_down_sync(mask, sum, off, G);
+  const float eta2 = __shfl_sync(mask, sum, 0, G);
+  const float post = e / eta2;
+  const float mr = sr[0] * post, mi = si[0] * post;
+  const float v =
+      abs2(mr, mi) * (1.f - post) + abs2(mr - sr[0], mi - si[0]) * post;
+  xo[j] = mr;
+  vn[j] = v;
+  put(j, mr, v);
+  return !(fabsf(v - old) <= kAtol + kRtol * fabsf(old));
+}
+
 // The posterior of segment j0 .. j0+M-1 computed by the G lanes of one
 // group (lane t, mask the group's lanes), in segment_posterior's
 // arithmetic for a real posterior mean (halve_tau, decomposed variance):
@@ -1242,7 +1772,9 @@ __device__ __forceinline__ int group_posterior(
 
 // Block (b, y) takes kSegRounds lane groups' worth of segments of trial b
 // from segment y (kThreads / G) kSegRounds on; a frozen trial's elements
-// pass through.
+// pass through.  Where xs_next is given, the new x and var also go split
+// into it (HIGH: split_at's layout, hi and lo; DEFAULT: split1_at's, hi
+// alone).
 __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
   const int b = blockIdx.x, tid = threadIdx.x;
   const int N = p.Lin * p.Nt, M = p.M;
@@ -1253,13 +1785,20 @@ __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
   const float* vo = p.var + base;
   float* xo = p.xm_out + base;
   float* vn = p.var_out + base;
-  // HIGH: element j of the trial's new x and var, split into the next
-  // call's forward operand planes (xs_next: the split launch's layout)
-  const size_t xplane = static_cast<size_t>(p.rtiles) * p.kxs * kHRows * 32;
+  // element j of the trial's new x and var, split into the next call's
+  // forward operand planes (xs_next: the split launch's layout)
+  const size_t xplane = static_cast<size_t>(p.rtiles) *
+                        (p.one ? p.kxs / 2 : p.kxs) * kHRows * 32;
   const int R0 = b * p.Lin;
   auto put = [&](int j, float xv, float vv) {
     if (p.xs_next == nullptr) return;
     const int R = R0 + j / p.Nt, k = j % p.Nt;
+    if (p.one) {
+      const size_t at = split1_at(p.kxs, kHRows, R, k);
+      p.xs_next[at] = __float2bfloat16_rn(xv);
+      p.xs_next[xplane + at] = __float2bfloat16_rn(vv);
+      return;
+    }
     const size_t hi_at = split_at(p.kxs, kHRows, R, k, 0);
     const size_t lo_at = split_at(p.kxs, kHRows, R, k, 1);
     __nv_bfloat16 h, l;
@@ -1273,12 +1812,18 @@ __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
   if (p.xs_next != nullptr && blockIdx.y == 0) {
     // the contraction pad of the trial's rows, zero in both planes
     const int pad = 16 * p.kxs - p.Nt;
-    for (int e = tid; e < p.Lin * pad; e += kThreads)
+    for (int e = tid; e < p.Lin * pad; e += kThreads) {
+      const int R = R0 + e / pad, k = p.Nt + e % pad;
+      if (p.one) {
+        const size_t at = split1_at(p.kxs, kHRows, R, k);
+        p.xs_next[at] = p.xs_next[xplane + at] = __float2bfloat16_rn(0.f);
+        continue;
+      }
       for (int h = 0; h < 2; ++h) {
-        const size_t at = split_at(p.kxs, kHRows, R0 + e / pad,
-                                   p.Nt + e % pad, h);
+        const size_t at = split_at(p.kxs, kHRows, R, k, h);
         p.xs_next[at] = p.xs_next[xplane + at] = __float2bfloat16_rn(0.f);
       }
+    }
   }
   if (!p.act[b]) {
     const float* xi = p.xm + base;
@@ -1293,9 +1838,32 @@ __global__ void __launch_bounds__(kThreads) denoise_kernel(Params p) {
   const unsigned mask =
       G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((tid & 31) & ~(G - 1));
   int bad = 0;
-  for (int s = s0 + tid / G; s < s1; s += kThreads / G)
-    bad += group_posterior(s * M, M, G, t, mask, p.K, p.sym_re, p.sym_im,
-                           p.cov + base, p.xmap_re + base, vo, xo, vn, put);
+  if (M == G && p.K == 1) {
+    // a lane's element of each of its group's rounds, every round's loads
+    // first
+    const float* cv = p.cov + base;
+    const float* xv = p.xmap_re + base;
+    const int s = s0 + tid / G, ds = kThreads / G;
+    float c[kSegRounds], xj[kSegRounds], old[kSegRounds];
+#pragma unroll
+    for (int r = 0; r < kSegRounds; ++r)
+      if (s + r * ds < s1) {
+        const int j = (s + r * ds) * M + t;
+        c[r] = cv[j];
+        xj[r] = xv[j];
+        old[r] = vo[j];
+      }
+#pragma unroll
+    for (int r = 0; r < kSegRounds; ++r)
+      if (s + r * ds < s1)
+        bad += lane_posterior((s + r * ds) * M + t, c[r], xj[r], old[r], G,
+                              mask, p.sym_re, p.sym_im, xo, vn, put);
+  } else {
+    for (int s = s0 + tid / G; s < s1; s += kThreads / G)
+      bad += group_posterior(s * M, M, G, t, mask, p.K, p.sym_re, p.sym_im,
+                             p.cov + base, p.xmap_re + base, vo, xo, vn,
+                             put);
+  }
   bad = __reduce_add_sync(0xffffffffu, bad);
   if ((tid & 31) == 0 && bad) atomicAdd(p.notok + b, bad);
 }
@@ -1325,17 +1893,43 @@ cudaError_t launch_form(const Params& p, cudaStream_t s) {
       product_kernel<kFwd, F>, p, s);
 }
 
-template <bool kFwd, class F, bool kOne = false>
+template <bool kFwd, class F>
 cudaError_t launch_high(const Params& p, cudaStream_t s) {
   return launch_tiles<kFwd, F::BM, F::BN, F::kNT, F::smem(kFwd)>(
-      high_product_kernel<kFwd, F, kOne>, p, s);
+      high_product_kernel<kFwd, F>, p, s);
 }
 
-// The HIGH (one false) or the DEFAULT (one) form's product kernel.
+// The DEFAULT form's product kernel: as many persistent blocks as the card
+// keeps at once, at most one per tile.
 template <bool kFwd, class F>
-cudaError_t launch_bf16(const Params& p, cudaStream_t s, bool one) {
-  return one ? launch_high<kFwd, F, true>(p, s)
-             : launch_high<kFwd, F, false>(p, s);
+cudaError_t launch_default(const Params& p, cudaStream_t s) {
+  auto kernel = default_product_kernel<kFwd, F>;
+  constexpr int smem = F::smem(kFwd);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, F::kNT, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long rows = static_cast<long long>(p.B) * p.Lin;
+  const int cols = kFwd ? p.Wp : p.Nt;
+  const long long tiles = (rows + F::BM - 1) / F::BM *
+                          ((cols + F::BN - 1) / F::BN);
+  const long long blocks =
+      tiles < static_cast<long long>(sms) * per_sm ? tiles
+                                                   : static_cast<long long>(
+                                                         sms) * per_sm;
+  kernel<<<static_cast<unsigned>(blocks), F::kNT, smem, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1356,7 +1950,10 @@ extern "C" {
 // are not read; where `xs_next` (the size of xs_high) is not null, the
 // denoiser also writes the new x and var split into it, so that the next
 // call on them may leave out its split (stage bit 16).  With `high` 2 the
-// DEFAULT form runs: the same, with one bf16 pass in each product.
+// DEFAULT form runs: the same with one bf16 pass in each product, on its
+// own engine, with taps_high, xs_high (2 rtiles ceil(Nt / 32) kHRows 32
+// bf16), zs_high (4 rtiles ceil(Lh Nr / 32) kHRows 32) and xs_next in
+// split1_at's hi-only layout.
 // Returns a cudaError_t code (0 on
 // success): cudaErrorInvalidValue for a geometry the kernel does not take,
 // else the first error that a launch reports.  The kernel allocates
@@ -1433,6 +2030,7 @@ int fused_bamp_tiled_iteration(
   p.xs_high = static_cast<__nv_bfloat16*>(xs_high);
   p.zs_high = static_cast<__nv_bfloat16*>(zs_high);
   p.xs_next = high ? static_cast<__nv_bfloat16*>(xs_next) : nullptr;
+  p.one = high == 2;
   p.kxs = (Nt + 16 * kSlotSteps - 1) / (16 * kSlotSteps) * kSlotSteps;
   p.kas = (p.W + 16 * kSlotSteps - 1) / (16 * kSlotSteps) * kSlotSteps;
   p.rtiles = static_cast<int>((static_cast<long long>(B) * Lin + kHRows - 1) /
@@ -1444,16 +2042,23 @@ int fused_bamp_tiled_iteration(
   cudaError_t err = cudaSuccess;
   const bool one = high == 2;
   if (high && (stages & kStageSplit)) {
-    const long long n = 2LL * p.rtiles * p.kxs * kHRows;
-    split_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                   kThreads, 0, s>>>(p);
+    const long long n = 2LL * p.rtiles * (one ? p.kxs / 2 : p.kxs) * kHRows;
+    const unsigned blocks =
+        static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    if (one)
+      split_kernel<true><<<blocks, kThreads, 0, s>>>(p);
+    else
+      split_kernel<false><<<blocks, kThreads, 0, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (stages & kStageForward) {
-    if (high)
-      err = forms & kSmallForward ? launch_bf16<true, HighSmall>(p, s, one)
-                                  : launch_bf16<true, HighLarge>(p, s, one);
+    if (one)
+      err = forms & kSmallForward ? launch_default<true, DefaultSmall>(p, s)
+                                  : launch_default<true, DefaultLarge>(p, s);
+    else if (high)
+      err = forms & kSmallForward ? launch_high<true, HighSmall>(p, s)
+                                  : launch_high<true, HighLarge>(p, s);
     else
       err = forms & kSmallForward ? launch_form<true, SmallForm>(p, s)
                                   : launch_form<true, LargeForm>(p, s);
@@ -1463,7 +2068,9 @@ int fused_bamp_tiled_iteration(
     const long long ny = static_cast<long long>(B) * p.Lout * Nr;
     const unsigned blocks =
         static_cast<unsigned>((ny + kThreads - 1) / kThreads);
-    if (high)
+    if (one)
+      fold_kernel<true, true><<<blocks, kThreads, 0, s>>>(p);
+    else if (high)
       fold_kernel<true><<<blocks, kThreads, 0, s>>>(p);
     else
       fold_kernel<false><<<blocks, kThreads, 0, s>>>(p);
@@ -1472,9 +2079,13 @@ int fused_bamp_tiled_iteration(
 
   }
   if (stages & kStageAdjoint) {
-    if (high)
-      err = forms & kSmallAdjoint ? launch_bf16<false, HighSmall>(p, s, one)
-                                  : launch_bf16<false, HighLarge>(p, s, one);
+    if (one)
+      err = forms & kSmallAdjoint ? launch_default<false, DefaultSmall>(p, s)
+                                  : launch_default<false,
+                                                   DefaultLargeAdjoint>(p, s);
+    else if (high)
+      err = forms & kSmallAdjoint ? launch_high<false, HighSmall>(p, s)
+                                  : launch_high<false, HighLarge>(p, s);
     else
       err = forms & kSmallAdjoint ? launch_form<false, SmallForm>(p, s)
                                   : launch_form<false, LargeForm>(p, s);
@@ -1490,9 +2101,13 @@ int fused_bamp_tiled_iteration(
 }
 
 // Shared memory of one block of a product (forward when `forward`, else
-// the adjoint) in its small or large form, of the HIGH form when `high`,
-// in bytes.
+// the adjoint) in its small or large form, of the HIGH form when `high` is
+// 1, of the DEFAULT form when it is 2, in bytes.
 int fused_bamp_tiled_smem(int forward, int small, int high) {
+  if (high == 2)
+    return small ? DefaultSmall::smem(forward != 0)
+                 : forward ? DefaultLarge::smem(true)
+                           : DefaultLargeAdjoint::smem(false);
   if (high)
     return small ? HighSmall::smem(forward != 0)
                  : HighLarge::smem(forward != 0);

@@ -43,8 +43,10 @@ in one tiled layout (:func:`split_at`, :func:`split_tiles`): the taps from
 call wrote (the plane loop's next iteration), from that call's denoiser,
 which splits them as it writes them (:func:`kept_split`).  ``'default'``
 is ``make_dot(Precision.DEFAULT)``, one bf16 pass per real product: the
-HIGH form's launches, layout and taps with the products' one pass (the lo
-halves are split and copied as in HIGH but not multiplied), and one
+HIGH form's launches and functions on hi halves alone, in a layout of
+their own (:func:`split1_at`; ``split_tiles(..., 'default')``, the taps
+from :func:`default_taps`), on a product engine of its own (persistent
+blocks, one ring from tile to tile, :data:`FORMS_DEFAULT`), with one
 ``bamp.step`` with ``bamp.linear_step_high`` on ``precision.dot1`` as its
 plain version.
 
@@ -80,10 +82,16 @@ launches_default = 0
 # The kernel's two product forms (fused_bamp_tiled.cu), each taken by both
 # products: block rows, block columns, contraction steps per ring slot and
 # ring slots; those of the HIGH form (HighLarge, HighSmall): block rows,
-# block columns, ring slots of two k16 steps; the blocks per SM of each
-# form's large one, which the form rule fills; and the SM count of the H100.
+# block columns, ring slots of two k16 steps; those of the DEFAULT form
+# (DefaultLarge, DefaultLargeAdjoint, DefaultSmall): block rows, block
+# columns, and per (form, forward) ring slots and split1_at tiles (two k16
+# steps) of each operand a slot; the blocks per SM of each form's large
+# one, which the form rule fills; and the SM count of the H100.
 FORMS = {"large": (64, 64, 16, 3), "small": (32, 16, 16, 3)}
 FORMS_HIGH = {"large": (128, 112, 3), "small": (32, 16, 3)}
+FORMS_DEFAULT = {"large": (128, 112), "small": (32, 16)}
+DEFAULT_RINGS = {("large", True): (3, 3), ("large", False): (3, 2),
+                 ("small", True): (4, 1), ("small", False): (4, 1)}
 PER_SM = {prec.HIGHEST: 2, prec.HIGH: 1, prec.DEFAULT: 1}
 SMS = 132
 # The HIGH form's split layout (split_at): rows of a trial-side tile, output
@@ -154,9 +162,11 @@ def tile_forms(B: int, Lin: int, W: int, Nt: int,
     output columns) and bit 2 (adjoint, Nt columns) are set where that
     product's large form would launch fewer blocks than it keeps on the
     H100 at once (two per SM; one per SM for the HIGH form at ``'high'``);
-    it then runs in the small form."""
+    it then runs in the small form (the DEFAULT form's blocks are
+    persistent: the large form's tiles are shared out over that many)."""
     precision = prec.canonical(precision)
-    table = FORMS_HIGH if precision in prec.BF16 else FORMS
+    table = {prec.HIGH: FORMS_HIGH, prec.DEFAULT: FORMS_DEFAULT}.get(
+        precision, FORMS)
     BM, BN = table["large"][:2]
     forms = 0
     for bit, cols in ((1, W), (2, Nt)):
@@ -173,9 +183,18 @@ def smem_bytes(forward: bool, small: bool, precision: str = "highest") -> int:
     two k16 steps of one product's split operand tiles, 64 bytes a row (BM
     trial-side rows, BN tap rows); then two parks, a float per output of
     the block tile; then an 8-byte mbarrier per slot and, for the adjoint,
-    one for its last epilogue's copies."""
+    one for its last epilogue's copies.  At ``'default'`` a slot holds T
+    ``split1_at`` tiles of each operand (two k16 steps each, 64 bytes a
+    row; :data:`DEFAULT_RINGS`), then one park (forward) or two, then a
+    full and an empty mbarrier per slot."""
     form = "small" if small else "large"
-    if prec.canonical(precision) in prec.BF16:
+    precision = prec.canonical(precision)
+    if precision == prec.DEFAULT:
+        BM, BN = FORMS_DEFAULT[form]
+        S, T = DEFAULT_RINGS[(form, bool(forward))]
+        parks = 1 if forward else 2
+        return S * T * 64 * (BM + BN) + parks * 4 * BM * BN + 16 * S
+    if precision in prec.BF16:
         BM, BN, S = FORMS_HIGH[form]
         ring = S * HIGH_SLOT_STEPS * 64 * (BM + BN)
         return ring + 2 * 4 * BM * BN + 8 * (S if forward else S + 1)
@@ -212,11 +231,12 @@ def tap_planes(op):
             op.abs_h2.reshape(W, op.Nt).contiguous())
 
 
-# Each live operator's tap planes and squared gains, its HIGH form's split
-# taps, and the symbol planes per (alphabet, device): built once, not on
-# every call.  An operator's entry goes with the operator.
+# Each live operator's tap planes and squared gains, its HIGH and DEFAULT
+# forms' split taps, and the symbol planes per (alphabet, device): built
+# once, not on every call.  An operator's entry goes with the operator.
 _operator_cache = weakref.WeakKeyDictionary()
 _high_cache = weakref.WeakKeyDictionary()
+_default_cache = weakref.WeakKeyDictionary()
 _symbol_cache = {}
 
 
@@ -231,6 +251,19 @@ def split_at(steps: int, tile: int, R: int, k: int, h: int) -> int:
     return ((R // tile * steps + k // 16) * tile + r) * 32 + chunk * 8 + k % 8
 
 
+def split1_at(steps: int, tile: int, R: int, k: int) -> int:
+    """Where the hi of element (row ``R``, contraction ``k``) of a DEFAULT
+    split plane of ``steps`` k16 steps in tiles of ``tile`` rows lies, in
+    bf16 (``fused_bamp_tiled.cu::split1_at``): tile (R // tile, k // 32),
+    32 bf16 a row, chunk (k % 32) // 8 of row r stored at 16-byte position
+    chunk ^ ((r // 2) % 4); :func:`split_at`'s layout with step 2 s + 1's hi
+    where step 2 s's lo lies."""
+    r = R % tile
+    chunk = ((k % 32) // 8) ^ ((r >> 1) & 3)
+    return ((R // tile * (steps // 2) + k // 32) * tile + r) * 32 \
+        + chunk * 8 + k % 8
+
+
 def split_steps(K: int) -> int:
     """The k16 steps of a split plane of contraction ``K``: a multiple of
     a ring slot's steps."""
@@ -238,18 +271,26 @@ def split_steps(K: int) -> int:
     return -(-int(K) // per) * HIGH_SLOT_STEPS
 
 
-def split_tiles(m: torch.Tensor, tile: int) -> torch.Tensor:
+def split_tiles(m: torch.Tensor, tile: int,
+                precision: str = "high") -> torch.Tensor:
     """A float32 matrix ``m`` (rows, K) in the HIGH form's split layout
     (:func:`split_at`): split into bf16 hi and lo
     (``precision.split_bf16``), rows padded to a multiple of ``tile`` and
-    the contraction to :func:`split_steps` k16 steps with zeros, flat."""
+    the contraction to :func:`split_steps` k16 steps with zeros, flat.  At
+    ``'default'`` the hi halves alone in the DEFAULT form's layout
+    (:func:`split1_at`), half the size."""
     rows, K = m.shape
     rt, ks = -(-rows // tile), split_steps(K)
     full = torch.zeros((rt * tile, ks * HIGH_STEP), dtype=torch.float32,
                        device=m.device)
     full[:rows, :K] = m
-    halves = [h.reshape(rt, tile, ks, 2, 8) for h in prec.split_bf16(full)]
-    chunks = torch.stack(halves, dim=3).reshape(rt, tile, ks, 4, 8)
+    if prec.canonical(precision) == prec.DEFAULT:
+        ks //= 2
+        chunks = full.bfloat16().reshape(rt, tile, ks, 4, 8)
+    else:
+        halves = [h.reshape(rt, tile, ks, 2, 8)
+                  for h in prec.split_bf16(full)]
+        chunks = torch.stack(halves, dim=3).reshape(rt, tile, ks, 4, 8)
     chunks = chunks.permute(0, 2, 1, 3, 4)            # (rt, ks, tile, 4, 8)
     r = torch.arange(tile, device=m.device)[:, None]
     stored = torch.arange(4, device=m.device)[None, :] ^ ((r >> 1) & 3)
@@ -265,26 +306,72 @@ def high_taps(op) -> torch.Tensor:
     each in its products' order —
     each in the split layout (:func:`split_tiles`, tiles of ``HIGH_COLS``
     output columns), one contiguous bf16 buffer."""
-    if op not in _high_cache:
+    return _split_taps(op, prec.HIGH, _high_cache)
+
+
+def default_taps(op) -> torch.Tensor:
+    """The DEFAULT form's taps of ``op``: the hi halves of
+    :func:`high_taps`' seven planes, in the same order, in the DEFAULT
+    layout (``split_tiles(..., 'default')``, tiles of ``HIGH_COLS`` output
+    columns, zero pads), one contiguous bf16 buffer."""
+    return _split_taps(op, prec.DEFAULT, _default_cache)
+
+
+def _split_taps(op, precision: str, cache) -> torch.Tensor:
+    if op not in cache:
         t = bamp.gauss_taps(op)
         if not t.folded:
-            raise ValueError("the HIGH form of K5 needs gains constant per "
-                             "tap")
-        _high_cache[op] = torch.cat([
-            split_tiles(plane.T.contiguous(), HIGH_COLS)
+            raise ValueError(f"the {precision.upper()} form of K5 needs "
+                             "gains constant per tap")
+        cache[op] = torch.cat([
+            split_tiles(plane.T.contiguous(), HIGH_COLS, precision)
             for plane in (t.s_re, t.dmc, t.s_a2, t.st_re, t.amc, t.adm,
                           t.st_a2)])
-    return _high_cache[op]
+    return cache[op]
 
 
-def split_sizes(B: int, cfg: Config):
+def form_taps(op, precision: str) -> torch.Tensor:
+    """The split taps the form of ``precision`` reads."""
+    if prec.canonical(precision) == prec.DEFAULT:
+        return default_taps(op)
+    return high_taps(op)
+
+
+def split_sizes(B: int, cfg: Config, precision: str = "high"):
     """The bf16 counts of the two split operand buffers of a HIGH call of
     ``B`` trials: the forward's (x, var) and the adjoint's four inputs, in
-    tiles of ``HIGH_ROWS`` rows."""
+    tiles of ``HIGH_ROWS`` rows; half of each at ``'default'`` (hi
+    alone)."""
     rt = -(-B * cfg.Lin // HIGH_ROWS)
     per_step = rt * HIGH_ROWS * 2 * HIGH_STEP
+    if prec.canonical(precision) == prec.DEFAULT:
+        per_step //= 2
     return (2 * per_step * split_steps(cfg.Nt),
             4 * per_step * split_steps(cfg.Lh * cfg.Nr))
+
+
+def engine_bytes(B: int, cfg: Config, precision: str) -> dict:
+    """The bytes the product ring of one call of ``B`` trials, all active,
+    copies into shared memory at ``precision`` ('high' or 'default'), per
+    product launch and operand: every tile copies, for each of its products
+    and ring slots, its trial-side rows and tap rows of the slot (at 'high'
+    two k16 steps of hi and lo, 128 bytes a row; at 'default' the hi of two
+    steps, 64)."""
+    precision = prec.canonical(precision)
+    W = cfg.Lh * cfg.Nr
+    forms = tile_forms(B, cfg.Lin, W, cfg.Nt, precision)
+    table = FORMS_DEFAULT if precision == prec.DEFAULT else FORMS_HIGH
+    row = 64 if precision == prec.DEFAULT else 128
+    out = {}
+    for name, bit, cols, K, products in (
+            ("forward", 1, -(-W // 4) * 4, cfg.Nt, 3),
+            ("adjoint", 2, cfg.Nt, W, 4)):
+        BM, BN = table["small" if forms & bit else "large"][:2]
+        slots = products * split_steps(K) // HIGH_SLOT_STEPS
+        tiles = -(-B * cfg.Lin // BM) * -(-cols // BN)
+        out[name] = {"trial_side": tiles * slots * BM * row,
+                     "taps": tiles * slots * BN * row}
+    return out
 
 
 def transposed_tap_planes(op):
@@ -329,7 +416,7 @@ def _launch(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
     high = precision in prec.BF16
     act = ps.active.to(torch.int32).contiguous()
     *taps, gains2 = _operator_planes(op)
-    taps_high = high_taps(op) if high else None
+    taps_high = form_taps(op, precision) if high else None
     sym_re, sym_im = _symbols(cfg, y_re.device)
     W = cfg.Lh * cfg.Nr
     lib = _library()
@@ -371,11 +458,12 @@ def _buffers(ps: bamp.PlaneState, cfg: Config):
     return out, scratch, torch.empty_like(ps.var)
 
 
-def _split_buffers(ps: bamp.PlaneState, cfg: Config, x_var=None):
-    """The HIGH form's two split operand buffers of one call
+def _split_buffers(ps: bamp.PlaneState, cfg: Config, x_var=None,
+                   precision: str = "high"):
+    """The HIGH (or DEFAULT) form's two split operand buffers of one call
     (:func:`split_sizes`): ``x_var`` (the split planes a denoiser wrote)
     or a new one for the split launch, and the fold's."""
-    sizes = split_sizes(ps.var.shape[0], cfg)
+    sizes = split_sizes(ps.var.shape[0], cfg, precision)
     new = lambda n: torch.empty((n,), dtype=torch.bfloat16,
                                 device=ps.var.device)
     return [new(sizes[0]) if x_var is None else x_var, new(sizes[1])]
@@ -427,16 +515,16 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
         # the forward's split operands: those the previous call's denoiser
         # wrote where this call gets its x and var unchanged (the plane
         # loop's next iteration), else the split launch's
-        kept = kept_split(ps)
-        split = _split_buffers(ps, cfg, kept)
+        kept = kept_split(ps, precision)
+        split = _split_buffers(ps, cfg, kept, precision)
         if kept is None:
             stages |= SPLIT_STAGE
         split_next = torch.empty_like(split[0])
     _launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov, stages,
             precision, split, split_next)
     if precision in prec.BF16:
-        out.xm_re._k5_high_split = (split_next, out.var, out.xm_re._version,
-                                    out.var._version)
+        out.xm_re._k5_split = (precision, split_next, out.var,
+                               out.xm_re._version, out.var._version)
     if precision == prec.DEFAULT:
         launches_default += 1
     elif precision == prec.HIGH:
@@ -446,17 +534,18 @@ def iteration(op, ps: bamp.PlaneState, y_re: torch.Tensor,
     return out
 
 
-def kept_split(ps: bamp.PlaneState):
-    """The split x and var planes that the call which wrote ``ps.xm_re``
-    and ``ps.var`` left on ``ps.xm_re``, where both are still those
-    tensors, unmodified; else None (a new or gathered state: the call
+def kept_split(ps: bamp.PlaneState, precision: str = "high"):
+    """The split x and var planes that the call at ``precision`` which
+    wrote ``ps.xm_re`` and ``ps.var`` left on ``ps.xm_re``, where both are
+    still those tensors, unmodified; else None (a new or gathered state, or
+    one a call of the other form wrote, whose layout differs: the call
     splits them itself)."""
-    kept = getattr(ps.xm_re, "_k5_high_split", None)
+    kept = getattr(ps.xm_re, "_k5_split", None)
     if kept is None:
         return None
-    buf, var, v_x, v_var = kept
-    if var is ps.var and (v_x, v_var) == (ps.xm_re._version,
-                                          ps.var._version):
+    form, buf, var, v_x, v_var = kept
+    if (form == prec.canonical(precision) and var is ps.var
+            and (v_x, v_var) == (ps.xm_re._version, ps.var._version)):
         return buf
     return None
 
@@ -475,7 +564,7 @@ def stage_ms(op, ps: bamp.PlaneState, y_re, y_im, sigma2: float,
     out, scratch, cov = _buffers(ps, cfg)
     whole, stages, split = ALL_STAGES, list(STAGES.items()), None
     if precision in prec.BF16:
-        split = _split_buffers(ps, cfg)
+        split = _split_buffers(ps, cfg, None, precision)
         whole |= SPLIT_STAGE
         stages.insert(0, ("split", SPLIT_STAGE))
     times = {}

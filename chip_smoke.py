@@ -2214,25 +2214,26 @@ def k5_high_control(kern, op, cfg, s0, y, sigma2):
 
 
 def k5_high_split_check(kern, op, ps, y_re, y_im, sigma2, cfg,
-                        x_var=None) -> dict:
-    """The split operand planes of K5's HIGH form against their layout in
-    plain PyTorch (``fused_bamp_tiled.split_tiles``), bit for bit: the split
-    launch's x and var (or the given ``x_var``, the planes a denoiser
-    wrote), and the fold's four adjoint inputs (Z_re + Z_im, Z_re, Z_im
-    and Z_c = 1/u', with Z = (y - z') / u', gathered to the rows of the
-    column blocks they act on; zero for a frozen trial) from the fold's own
-    z' and u'."""
+                        x_var=None, precision="high") -> dict:
+    """The split operand planes of K5's HIGH (or DEFAULT) form against
+    their layout in plain PyTorch (``fused_bamp_tiled.split_tiles``), bit
+    for bit: the split launch's x and var (or the given ``x_var``, the
+    planes a denoiser wrote), and the fold's four adjoint inputs (Z_re +
+    Z_im, Z_re, Z_im and Z_c = 1/u', with Z = (y - z') / u', gathered to
+    the rows of the column blocks they act on; zero for a frozen trial)
+    from the fold's own z' and u'."""
     import torch
     B, Lin, Nr, Lh = ps.var.shape[0], cfg.Lin, cfg.Nr, cfg.Lh
     tile = kern.HIGH_ROWS
     out, scratch, cov = kern._buffers(ps, cfg)
-    split = kern._split_buffers(ps, cfg, x_var)
+    split = kern._split_buffers(ps, cfg, x_var, precision)
     st = kern.STAGES
     kern._launch(op, ps, y_re, y_im, sigma2, cfg, out, scratch, cov,
                  (0 if x_var is not None else kern.SPLIT_STAGE)
-                 | st["forward"] | st["fold"], "high", split)
+                 | st["forward"] | st["fold"], precision, split)
     torch.cuda.synchronize()
-    want_x = torch.cat([kern.split_tiles(t.reshape(B * Lin, cfg.Nt), tile)
+    want_x = torch.cat([kern.split_tiles(t.reshape(B * Lin, cfg.Nt), tile,
+                                         precision)
                         for t in (ps.xm_re, ps.var)])
     u = out.u.reshape(B, cfg.Lout, Nr)
     ui = 1.0 / u
@@ -2243,7 +2244,8 @@ def k5_high_split_check(kern, op, ps, y_re, y_im, sigma2, cfg,
     for v in (rr + ri, rr, ri, ui):
         z = torch.stack([v[:, l:l + Lin] for l in range(Lh)], dim=2)
         z = torch.where(on, z, torch.zeros_like(z))
-        planes.append(kern.split_tiles(z.reshape(B * Lin, Lh * Nr), tile))
+        planes.append(kern.split_tiles(z.reshape(B * Lin, Lh * Nr), tile,
+                                       precision))
     rows = B * Lin
     rt = -(-rows // tile)
 
@@ -2283,7 +2285,8 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
     its first iteration (on the split planes the previous call's denoiser
     wrote) and as a first iteration (with its own split), beside the
     HIGHEST instance, the plain HIGH step, the bound (21 bf16 products at
-    989 TFLOP/s) and those products as torch.matmul calls; the five
+    989 TFLOP/s) and those products as torch.matmul calls (at both
+    shapes); the five
     launches timed apart; shared memory per block against the wrapper's
     mirror; ptxas's lines."""
     import dataclasses
@@ -2437,18 +2440,19 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
     t = bamp.gauss_taps(A)
     fwd = [prec.split_bf16(x) for x in (t.s_a2, t.s_re, t.dmc)]
     adj = [prec.split_bf16(x) for x in (t.st_a2, t.st_re, t.amc, t.adm)]
-    xs = prec.split_bf16(ps.var.reshape(B * mcfg.Lin, mcfg.Nt))
-    zs = prec.split_bf16(torch.rand(B * mcfg.Lin, W, device=dev))
+    def gauss_bf16(var, trials):
+        xs = prec.split_bf16(var.reshape(trials * mcfg.Lin, mcfg.Nt))
+        zs = prec.split_bf16(torch.rand(trials * mcfg.Lin, W, device=dev))
 
-    def gauss_bf16():
-        for (xh, xl), planes in ((xs, fwd), (zs, adj)):
-            for th, tl in planes:
-                torch.matmul(xh, th)
-                torch.matmul(xh, tl)
-                torch.matmul(xl, th)
+        def run():
+            for (xh, xl), planes in ((xs, fwd), (zs, adj)):
+                for th, tl in planes:
+                    torch.matmul(xh, th)
+                    torch.matmul(xh, tl)
+                    torch.matmul(xl, th)
+        return run
 
-    library_ms = cuda_ms(gauss_bf16, 1, 5)
-    del xs, zs
+    library_ms = cuda_ms(gauss_bf16(ps.var, B), 1, 5)
     k = out["k"]
     taps = kern.high_taps(A)
     planes = [ps.xm_re, ps.var, ps.z_re, ps.z_im, ps.u, y_re, y_im,
@@ -2465,6 +2469,7 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
     tail(high)
     tail_ms = cuda_ms(lambda: tail(high), 2, 20)
     tail_highest_ms = cuda_ms(lambda: tail("highest"), 2, 20)
+    tail_library_ms = cuda_ms(gauss_bf16(ps2.var, n2), 2, 20)
     kt = out["t"]
     tail_flop, tail_bytes = iteration_work(
         pcfg, n2, 21, [ps2.xm_re, ps2.var, ps2.z_re, ps2.z_im, ps2.u, y2_re,
@@ -2489,6 +2494,7 @@ def phase_kernels_tiled_high(torch, dev, ptxas):
                   tail_B=n2, tail_ms=tail_ms,
                   tail_ms_with_split=tail_ms_split,
                   tail_highest_ms=tail_highest_ms,
+                  tail_library_ms=tail_library_ms,
                   tail_bound_ms=tail_bound_ms, tail_bound_by=tail_bound_by,
                   tail_pct_of_bound=100 * tail_bound_ms / tail_ms,
                   tail_stage_ms=kern.stage_ms(A, ps2, y2_re, y2_im, r.sigma2,
@@ -4217,14 +4223,19 @@ def vamp_engine_bytes(torch, fused_vamp, p, N, s0, s1) -> dict:
             "taps": block_iters * steps * 2 * cols * 16}
 
 
+def ptxas_entries(lines, name: str) -> list:
+    """The ptxas lines of every kernel instance whose mangled name holds
+    ``name``, each from its 'Compiling entry' line to the next one."""
+    starts = [i for i, ln in enumerate(lines) if "Compiling entry" in ln]
+    return [lines[a:b] for a, b in zip(starts, starts[1:] + [len(lines)])
+            if name in lines[a]]
+
+
 def instance_ptxas(lines, mangled: str) -> list:
     """The ptxas lines of the kernel instance whose mangled name holds
     ``mangled`` (from its 'Compiling entry' line to the next one)."""
-    starts = [i for i, ln in enumerate(lines) if "Compiling entry" in ln]
-    for a, b in zip(starts, starts[1:] + [len(lines)]):
-        if mangled in lines[a]:
-            return lines[a:b]
-    return []
+    found = ptxas_entries(lines, mangled)
+    return found[0] if found else []
 
 
 K1_PASSES = {"highest": 0, "high": 3, "default": 1}
@@ -4462,6 +4473,88 @@ def phase_main_vamp_default(torch, dev, algo: str):
     return d["launches_default"]
 
 
+def k5_default_library(torch, op, var, trials, cfg):
+    """(ms, form) of K5-default's seven one-pass products of one iteration
+    of ``trials`` trials as PyTorch calls on bf16 tensors
+    (``bf16_library``): var with S_a2, Re S, Im S - Re S; the adjoint
+    inputs (random, of their shape) with S_a2^T, Re S^T, -Im S^T - Re S^T,
+    Re S^T - Im S^T."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp
+    t = bamp.gauss_taps(op)
+    rows = trials * cfg.Lin
+    xv = var.reshape(rows, cfg.Nt)
+    zr = torch.rand(rows, cfg.Lh * cfg.Nr, device=var.device)
+    pairs = [(xv, a) for a in (t.s_a2, t.s_re, t.dmc)]
+    pairs += [(zr, a) for a in (t.st_a2, t.st_re, t.amc, t.adm)]
+    lib, form = bf16_library(torch, pairs)
+    return cuda_ms(lib, 2, 10), form
+
+
+def k5_default_smem(kern) -> dict:
+    """Shared memory of each DEFAULT product block, the kernel's against
+    the wrapper's mirror."""
+    lib = kern._library()
+    return {f"{name}_{form}": (lib.fused_bamp_tiled_smem(fwd, small, 2),
+                               kern.smem_bytes(bool(fwd), bool(small),
+                                               "default"))
+            for name, fwd in (("forward", 1), ("adjoint", 0))
+            for form, small in (("large", 0), ("small", 1))}
+
+
+def k5_default_tail(torch, dev, kern, p) -> dict:
+    """K5-default at the phase-2 shape: the trials still active after a
+    40-iteration DEFAULT phase 1 of 2048 at 18 dB (``tiled_default_tail``
+    of tests/torch_kernel_ab.py), gathered; one iteration as the plane loop
+    runs it after its first (on the split planes the previous call's
+    denoiser wrote) and as a first iteration, by CUDA events, beside the
+    HIGH instance (on its own next state), the plain DEFAULT step, its
+    bound and its seven one-pass products as PyTorch calls."""
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+    cfg = massive_main_config()
+    r = montecarlo.generate_realization(make_generator(dev, 43), cfg,
+                                        "sparc", "banded", MASSIVE_RES,
+                                        snr_of(cfg, MASSIVE_EBN0_DB), p)
+    s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+    s1 = bamp.plane_loop(partial(kern.iteration, precision=p), r.A, s0,
+                         r.y, r.sigma2, MASSIVE_K1, cfg)
+    idx = torch.nonzero(s1.active).flatten()
+    if not idx.numel():
+        raise AssertionError("no trial left for phase 2 (tiled, DEFAULT)")
+    n2 = int(idx.numel())
+    ps = bamp.to_planes(montecarlo.state_take_trials(s1, idx))
+    y_re, y_im = r.y[idx].real.contiguous(), r.y[idx].imag.contiguous()
+    out = {}
+    step = lambda q, s=ps: out.update(k=kern.iteration(
+        r.A, s, y_re, y_im, r.sigma2, cfg, q))
+    ms_split = cuda_ms(lambda: step(p), 2, 20)
+    nxt = {}
+    for q in (p, "high"):
+        step(q)
+        nxt[q] = bamp.advance(ps, out["k"])
+    ms = cuda_ms(lambda: step(p, nxt[p]), 2, 20)
+    high_ms = cuda_ms(lambda: step("high", nxt["high"]), 2, 20)
+    plain_ms = cuda_ms(lambda: kern.iteration_plain(
+        r.A, nxt[p], y_re, y_im, r.sigma2, cfg, p), 2, 20)
+    library_ms, _ = k5_default_library(torch, r.A, nxt[p].var, n2, cfg)
+    step(p, nxt[p])
+    k = out["k"]
+    q = nxt[p]
+    flop, nbytes = iteration_work(
+        cfg, n2, 7, [q.xm_re, q.var, q.z_re, q.z_im, q.u, y_re, y_im,
+                     q.active, kern.default_taps(r.A),
+                     *[getattr(k, f) for f in k._fields]])
+    bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
+    W = cfg.Lh * cfg.Nr
+    return dict(tail_B=n2, tail_ms=ms, tail_ms_with_split=ms_split,
+                tail_high_ms=high_ms, tail_plain_ms=plain_ms,
+                tail_library_ms=library_ms, tail_bound_ms=bound_ms,
+                tail_bound_by=bound_by,
+                tail_pct_of_bound=100 * bound_ms / ms,
+                tail_forms=kern.tile_forms(n2, cfg.Lin, W, cfg.Nt, p))
+
+
 def phase_kernels_tiled_default(torch, dev, ptxas):
     """K5's DEFAULT instance (one bf16 pass) against its plain DEFAULT
     version through ``bamp.plane_loop``, drawn at DEFAULT: the main path's
@@ -4471,12 +4564,19 @@ def phase_kernels_tiled_default(torch, dev, ptxas):
     HIGH instance must fail the rule where it separates), each with the
     control (``K5_DEFAULT_CONTROL``: one iteration
     from the state after two plain DEFAULT iterations; the HIGH instance's
-    reading beside it); one iteration at the 8 dB state timed by CUDA
-    events as the plane loop runs it (on the split planes the previous
-    call's denoiser wrote), beside the HIGH and HIGHEST instances, the
-    plain DEFAULT step, the bound (7 one-pass products at 989 TFLOP/s, or
-    the bytes) and those products as PyTorch calls on bf16 tensors, with
-    the launches timed apart."""
+    reading beside it); the hi-only split planes (the split launch's, the
+    fold's, the denoiser's for the next call) bit for bit against their
+    layout (``kernel_split_tiled_default``); one iteration at the 8 dB
+    state timed by CUDA events as the plane loop runs it (on the split
+    planes the previous call's denoiser wrote), beside the HIGH instance
+    (on its own next state) and the HIGHEST one, the plain DEFAULT step,
+    the bound (7 one-pass products at 989 TFLOP/s, or the bytes; also with
+    the hi-only split x and var read and written), those products as
+    PyTorch calls on bf16 tensors, the launches timed apart, the bytes the
+    product ring copies into shared memory (``engine_bytes``), each
+    product block's shared memory against the wrapper's mirror and the
+    DEFAULT instances' ptxas lines; the same at the phase-2 shape
+    (``k5_default_tail``)."""
     import dataclasses
 
     from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
@@ -4533,46 +4633,73 @@ def phase_kernels_tiled_default(torch, dev, ptxas):
             del r, s0, ps, one
             continue
         A, B, W = r.A, MASSIVE_RES, mcfg.Lh * mcfg.Nr
+        # the split planes against their layout: the split launch's, the
+        # fold's, and those the denoiser writes for the next call
+        split = k5_high_split_check(kern, A, ps, y_re, y_im, r.sigma2, mcfg,
+                                    precision=p)
         out = {}
-        step = lambda q: out.update(k=kern.iteration(A, ps, y_re, y_im,
-                                                     r.sigma2, mcfg, q))
+        step = lambda q, s=ps: out.update(k=kern.iteration(
+            A, s, y_re, y_im, r.sigma2, mcfg, q))
         ms_split = cuda_ms(lambda: step(p), 2, 10)
-        ps = bamp.advance(ps, out["k"])
-        step(p)
-        ms = cuda_ms(lambda: step(p), 2, 10)
-        high_ms = cuda_ms(lambda: step("high"), 2, 10)
-        highest_ms = cuda_ms(lambda: step("highest"), 2, 10)
+        # the plane loop's next state of each form: its call takes the split
+        # planes its predecessor's denoiser wrote (each form its own layout)
+        nxt = {}
+        for q in (p, "high"):
+            step(q)
+            nxt[q] = bamp.advance(ps, out["k"])
+        step(p, nxt[p])
+        kept = kern.kept_split(nxt[p], p)
+        split["kept_x_var"] = kept is not None and k5_high_split_check(
+            kern, A, nxt[p], y_re, y_im, r.sigma2, mcfg, kept, p)["x_var"]
+        emit("kernel_split_tiled_default", **split)
+        if not all(split.values()):
+            failed.append(f"split operand planes: {split}")
+        ms = cuda_ms(lambda: step(p, nxt[p]), 2, 10)
+        high_ms = cuda_ms(lambda: step("high", nxt["high"]), 2, 10)
+        highest_ms = cuda_ms(lambda: step("highest", nxt[p]), 2, 10)
+        ms_again = cuda_ms(lambda: step(p, nxt[p]), 2, 10)
+        ps = nxt[p]
         plain_ms = cuda_ms(lambda: kern.iteration_plain(
             A, ps, y_re, y_im, r.sigma2, mcfg, p), 1, 3)
-        t = bamp.gauss_taps(A)
-        xv = ps.var.reshape(B * mcfg.Lin, mcfg.Nt)
-        zr = torch.rand(B * mcfg.Lin, W, device=dev)
-        pairs = [(xv, a) for a in (t.s_a2, t.s_re, t.dmc)]
-        pairs += [(zr, a) for a in (t.st_a2, t.st_re, t.amc, t.adm)]
-        lib, form = bf16_library(torch, pairs)
-        library_ms = cuda_ms(lib, 1, 5)
-        del lib, zr, pairs
+        library_ms, form = k5_default_library(torch, A, ps.var, B, mcfg)
+        step(p, ps)
         k = out["k"]
-        taps = kern.high_taps(A)
+        taps = kern.default_taps(A)
         planes = [ps.xm_re, ps.var, ps.z_re, ps.z_im, ps.u, y_re, y_im,
-                  ps.active, k.xmap_re, k.xmap_im, k.xm_re, k.var, k.z_re,
-                  k.z_im, k.u, k.notok]
+                  ps.active, taps, k.xmap_re, k.xmap_im, k.xm_re, k.var,
+                  k.z_re, k.z_im, k.u, k.notok]
         flop, nbytes = iteration_work(mcfg, B, 7, planes)
-        nbytes += taps.numel() * taps.element_size() // 2
         bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16_FLOPS)
+        # with the hi-only split x and var the call reads (its
+        # predecessor's) and writes (for its successor)
+        split_bytes = 2 * 2 * kern.split_sizes(B, mcfg, p)[0]
+        bound_split_ms, _ = bound(flop, nbytes + split_bytes,
+                                  PEAK_BF16_FLOPS)
+        tail = k5_default_tail(torch, dev, kern, p)
         timing = dict(kernel="fused_bamp_tiled_default", B=B, ebn0_db=db,
-                      ms=ms, ms_with_split=ms_split, high_ms=high_ms,
-                      highest_ms=highest_ms, default_over_high=ms / high_ms,
+                      ms=ms, ms_again=ms_again, ms_with_split=ms_split,
+                      high_ms=high_ms, highest_ms=highest_ms,
+                      default_over_high=ms / high_ms,
                       plain_ms=plain_ms, library_ms=library_ms,
                       library_form=form, flop=flop, bytes=nbytes,
                       bound_ms=bound_ms, bound_by=bound_by,
                       pct_of_bound=100 * bound_ms / ms,
+                      split_bytes=split_bytes,
+                      bound_with_split_ms=bound_split_ms,
                       stage_ms=kern.stage_ms(A, ps, y_re, y_im, r.sigma2,
                                              mcfg, precision=p),
                       forms=kern.tile_forms(B, mcfg.Lin, W, mcfg.Nt, p),
+                      engine_bytes=kern.engine_bytes(B, mcfg, p),
+                      smem_bytes=k5_default_smem(kern),
+                      **tail,
+                      ptxas_default=[ln for e in ptxas_entries(
+                          ptxas, "default_product_kernel") for ln in e],
                       ptxas=list(ptxas))
         emit("kernel_timing_tiled_default", **timing)
-        del r, s0, ps, one, out, k
+        if any(c != w for c, w in timing["smem_bytes"].values()):
+            failed.append(f"shared memory differs from the wrapper's: "
+                          f"{timing['smem_bytes']}")
+        del r, s0, ps, one, out, k, nxt
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"K5 DEFAULT kernel != plain: {failed}")

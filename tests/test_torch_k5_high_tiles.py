@@ -6,7 +6,8 @@ zero pads, the fold's pad cover, the ldmatrix fragments the layout gives
 each lane (the mma operands, free of bank conflicts), a NumPy mirror of
 both forms' products through that layout and their epilogue's output map
 against ``precision.dot3``'s three passes (and, for the DEFAULT form's
-``kOne`` instance, its one pass against ``precision.dot1``), the rule that
+own engine on its hi-only layout, its one pass against
+``precision.dot1``), the rule that
 picks the small form, and the BAMP route's refusal of the JAX package's
 xmap-precision knob.  The kernel itself runs only on the card (``chip_smoke.py``)."""
 import re
@@ -182,15 +183,21 @@ def mirror_product(form, A, Bt, one=False):
     the ring's bulk copies do; each warp reads its fragments at the lane
     addresses and runs hi hi + hi lo + lo hi per n8 x m16 tile, joined per
     step; the epilogue's map puts each lane's outputs at (R, n).  Returns
-    (rows, cols).  ``one``: the DEFAULT form's step, hi hi alone, on the
-    same layout and fragments."""
+    (rows, cols).  ``one``: the DEFAULT form's engine
+    (``default_product_kernel``): the hi halves alone in ``split1_at``'s
+    layout, a slot one tile of two k16 steps of each operand, the lane
+    addresses that give HIGH's hi and lo fragments giving step 0's and step
+    1's hi, each step's hi hi from zero, joined in order."""
     BM, BN, _ = dims(form)
     WM, WN, MT, NT, _, _ = FORMS[form]
     rows, K = A.shape
     cols = Bt.shape[0]
     steps = k5.split_steps(K)
-    xs = k5.split_tiles(A, k5.HIGH_ROWS).float().numpy().astype(np.float64)
-    ts = k5.split_tiles(Bt, k5.HIGH_COLS).float().numpy().astype(np.float64)
+    layout = "default" if one else "high"
+    xs = k5.split_tiles(A, k5.HIGH_ROWS, layout).float().numpy().astype(
+        np.float64)
+    ts = k5.split_tiles(Bt, k5.HIGH_COLS, layout).float().numpy().astype(
+        np.float64)
     out = np.full((rows, cols), np.nan)
     col_tiles = -(-cols // BN)
     g, t = np.arange(32) // 4, np.arange(32) % 4
@@ -209,13 +216,14 @@ def mirror_product(form, A, Bt, one=False):
                 m[2 * t + 8 * (mat & 1) + e, g] = regs[mat, :, e]
         return m
 
+    tiles = steps // 2 if one else steps    # tiles along the contraction
     for blk in range(-(-rows // BM) * col_tiles):
         R0, n0 = blk // col_tiles * BM, blk % col_tiles * BN
         acc = {}
-        for ks in range(steps):
-            a0 = ((R0 // k5.HIGH_ROWS * steps + ks) * k5.HIGH_ROWS
+        for ks in range(tiles):
+            a0 = ((R0 // k5.HIGH_ROWS * tiles + ks) * k5.HIGH_ROWS
                   + R0 % k5.HIGH_ROWS) * 32
-            b0 = ((n0 // k5.HIGH_COLS * steps + ks) * k5.HIGH_COLS
+            b0 = ((n0 // k5.HIGH_COLS * tiles + ks) * k5.HIGH_COLS
                   + n0 % k5.HIGH_COLS) * 32
             sa, sb = xs[a0:a0 + BM * 32], ts[b0:b0 + BN * 32]
             for wm in range(WM):
@@ -227,9 +235,12 @@ def mirror_product(form, A, Bt, one=False):
                         for i in range(MT):
                             ah = frag_a(ldmatrix(sa, a_hi[i]))
                             al = frag_a(ldmatrix(sa, a_lo[i]))
-                            th = (ah @ bh if one
-                                  else ah @ bh + ah @ bl + al @ bh)
                             key = (wm, wn, i, j)
+                            if one:     # step 2 ks, then step 2 ks + 1
+                                acc[key] = acc.get(key, 0.0) + ah @ bh
+                                acc[key] = acc[key] + al @ bl
+                                continue
+                            th = ah @ bh + ah @ bl + al @ bh
                             acc[key] = acc.get(key, 0.0) + th
         for (wm, wn, i, j), c in acc.items():
             R, n = np.meshgrid(R0 + 16 * (MT * wm + i) + np.arange(16),
@@ -264,12 +275,15 @@ def test_mirror_product_is_the_three_passes(form, rows, cols, K):
 @pytest.mark.parametrize("form,rows,cols,K", [("large", 200, 130, 40),
                                               ("small", 70, 40, 24)])
 def test_mirror_product_one_pass_is_dot1(form, rows, cols, K):
-    """The DEFAULT form's products (``high_product_kernel<..., kOne>``: the
-    hi hi mma alone on the HIGH layout) through the same copies, fragments
-    and output map equal hi hi of the split operands in float64, and
-    ``precision.dot1`` within its rounding."""
-    assert "template <bool kFwd, class F, bool kOne>" in SOURCE
-    assert "if (!kOne) ldmatrix_x4(al[i], sa + a_lo[i]);" in SOURCE
+    """The DEFAULT form's products (``default_product_kernel``: the hi hi
+    mma alone on hi-only operands, two k16 steps a tile) through its
+    copies, fragments and output map equal hi hi of the operands in
+    float64, and ``precision.dot1`` within its rounding."""
+    assert "default_product_kernel(Params p) {" in SOURCE
+    assert ("a_at[k][i] = r * 32 + split_chunk(2 * k + (lane >> 4), r) * 8;"
+            in SOURCE)
+    assert ("mma_bf16_zero(th, a[k][i], b[j][2 * k], b[j][2 * k + 1]);"
+            in SOURCE)
     g = torch.Generator().manual_seed(rows + cols + K + 1)
     A = torch.randn(rows, K, generator=g)
     Bt = torch.randn(cols, K, generator=g)

@@ -217,14 +217,23 @@ def test_high_forms_and_shared_memory():
     assert tf(32, m.Lin, W, m.Nt, "high") == 3
     assert tf(64, m.Lin, W, m.Nt, "high") == 1
     assert tf(64, m.Lin, W, m.Nt) == 1
-    # the DEFAULT form runs the HIGH form's launches: its forms and blocks
+    # the DEFAULT form runs the HIGH form's launches on the HIGH form's
+    # tiles (its forms), with a carve-out of its own: 3 ring slots of three
+    # hi-only tiles of each operand in the forward, of two in the adjoint
+    # (small: 4 of one), one park in the forward, two in the adjoint, a
+    # full and an empty mbarrier per slot
+    # (tests/test_torch_k5_default_tiles.py)
     for B in (2048, 64, 32, 6):
         assert tf(B, m.Lin, W, m.Nt, "default") == tf(B, m.Lin, W, m.Nt,
                                                        "high")
-    for fwd in (True, False):
-        for small in (True, False):
-            assert fused_bamp_tiled.smem_bytes(fwd, small, "default") == \
-                fused_bamp_tiled.smem_bytes(fwd, small, "high")
+    sb = fused_bamp_tiled.smem_bytes
+    assert sb(True, False, "default") == (
+        3 * 3 * 64 * (128 + 112) + 4 * 128 * 112 + 16 * 3) == 195632
+    assert sb(False, False, "default") == (
+        3 * 2 * 64 * (128 + 112) + 2 * 4 * 128 * 112 + 16 * 3) == 206896
+    assert sb(True, True, "default") == (
+        4 * 64 * (32 + 16) + 4 * 32 * 16 + 16 * 4) == 14400
+    assert sb(False, True, "default") == 14400 + 4 * 32 * 16
     with pytest.raises(ValueError):
         tf(64, m.Lin, W, m.Nt, "low")
 

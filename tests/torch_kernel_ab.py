@@ -50,10 +50,13 @@ xmap on the active trials, the only ones K5 and K6 write it for) and K7;
 for K3 and K4, whose product engine may sum in another order from one
 tree to the other, they are held to
 ``chip_smoke.compare_vamp``'s ``trial_share`` rule instead, and the
-bit-identical share is printed; K5's HIGH results are not compared (its
-bits may change from tree to tree, the rules of chip_smoke hold it), only
-the share of bit-identical elements is printed; likewise K1's HIGH,
-DEFAULT and split results.  A kernel whose source the other checkout
+bit-identical share is printed; K5's HIGH and DEFAULT results are not
+held (their bits may change from tree to tree, the rules of chip_smoke
+hold them): whether they are identical and the share of bit-identical
+elements are printed; K1's HIGH, DEFAULT and split results, the share.
+At the K5 HIGH and DEFAULT cases each tree first runs one iteration of
+its own from the shared state, so that the timed call takes the split
+planes its own denoiser laid out.  A kernel whose source the other checkout
 lacks is timed on its own.  ``--cases`` picks cases by name.
 
     git archive <commit> amp_sparc_spatialmodulation_tpu_torch | \\
@@ -66,6 +69,9 @@ lacks is timed on its own.  ``--cases`` picks cases by name.
         --cases tiled,tiled_tail --rounds 3
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
         --cases tiled_high,tiled_high_tail --rounds 4
+    env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
+        --cases tiled,tiled_tail,tiled_high,tiled_high_tail,tiled_default,\\
+tiled_default_tail
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
         --cases bamp_high_qpsk,bamp_high_ook,bamp_phase1,bamp_phase2
     env PYTHONPATH=. python3 tests/torch_kernel_ab.py --parent build/parent \\
@@ -307,15 +313,23 @@ def _tiled_high_cases(dev, want, precision="high"):
             cfg, r.A, r.sigma2,
             planes(montecarlo.state_take_trials(s1, idx), r.y[idx]))
     for case, (cfg, op, sigma2, (ps, y_re, y_im)) in shapes.items():
-        # one iteration more by this checkout's K5 at HIGH, as the plane
-        # loop runs it: the next call takes the split x and var planes its
-        # denoiser wrote (a tree without them splits them itself)
-        ps = bamp.advance(ps, fused_bamp_tiled.iteration(
-            op, ps, y_re, y_im, sigma2, cfg, p))
-        yield (case, "fused_bamp_tiled", "fused_bamp_tiled",
-               lambda mod, cfg=cfg, op=op, sigma2=sigma2, ps=ps, y_re=y_re,
-               y_im=y_im: Step(mod.iteration(op, ps, y_re, y_im, sigma2,
-                                             cfg, p), ps.active))
+        # one iteration more by each tree's own K5 at this precision, as
+        # the plane loop runs it: the next call takes the split x and var
+        # planes its denoiser wrote, in that tree's layout (a tree without
+        # them splits them itself); the trees' next states are the same
+        # where their kernels are
+        nxt = {}
+
+        def launch(mod, cfg=cfg, op=op, sigma2=sigma2, ps=ps, y_re=y_re,
+                   y_im=y_im, nxt=nxt):
+            if mod not in nxt:
+                nxt[mod] = bamp.advance(ps, mod.iteration(
+                    op, ps, y_re, y_im, sigma2, cfg, p))
+            s = nxt[mod]
+            return Step(mod.iteration(op, s, y_re, y_im, sigma2, cfg, p),
+                        s.active)
+
+        yield case, "fused_bamp_tiled", "fused_bamp_tiled", launch
 
 
 # K1's split forms: (variance chain, xmap chain) precision pairs.
@@ -447,8 +461,10 @@ def _across(case, first) -> dict:
     if len(first) < 2:
         return {}
     a, b = first["change"], first["parent"]
-    if case.startswith(("tiled_high", "bamp_high", "tiled_default",
-                        "bamp_default", "bamp_xmap")):
+    if case.startswith(("tiled_high", "tiled_default")):
+        return {"identical": _same(a, b),
+                "bit_identical_share": _same_share(a, b)}
+    if case.startswith(("bamp_high", "bamp_default", "bamp_xmap")):
         return {"bit_identical_share": _same_share(a, b)}
     identical = _same(a, b)
     if not case.startswith("vamp"):
