@@ -507,9 +507,19 @@ def route(cfg: Config, op, B: int, device, precision: str = "highest",
     ``op`` at ``precision``, decided without launching anything: the JAX
     chain of ``bamp.py:241-283``.
 
-    * ``'whole'``: K1, when ``AMP_PALLAS_MODE`` is ``whole`` (the default)
-      and K1 covers the config and its form at ``precision`` holds a trial
-      in one block;
+    * ``'whole'``: K1, when ``AMP_PALLAS_MODE`` is ``whole`` (the default),
+      K1 covers the config, JAX's K1 would take it or the port's K1 form
+      at ``precision`` holds a trial in one block, and the port's K1 form
+      (the split form where ``AMP_KERNEL_XMAP_PRECISION`` asks for one)
+      holds a trial in one block;
+    * ``'whole_plain'``: where JAX's K1 takes ``B`` trials
+      (``fused_bamp.jax_fits``) and the port's K1 form holds no trial in
+      one block's shared memory (the QPSK flagship at Lin 32-48 at
+      'high', the SCAMP flagship's dimensions under BAMP at 'high' and
+      'default'): K1's function as its plain version on the decode's
+      device (``fused_bamp.PLAIN``, ``decode_plain_split`` under the
+      variable), counted in ``plain_decodes``; a plain version, not a
+      kernel;
     * ``'periter'``: K6, for K=1 segmented alphabets with M a power of two
       whose trial fits one block;
     * ``'tiled'``: K5, for real alphabets with tail truncation and
@@ -518,9 +528,9 @@ def route(cfg: Config, op, B: int, device, precision: str = "highest",
 
     As in JAX, ``AMP_PALLAS_MODE=xla`` skips only K1 and K5 (it still takes
     K6 for K=1 alphabets), and any other value than ``whole`` or ``xla``
-    skips K1; at HIGH (DEFAULT) a geometry whose K1 HIGH (DEFAULT) form
-    does not fit falls through to K6 (at HIGHEST), K5 and the plain loop.
-    ``use_pallas`` as in :func:`decode`: ``False`` is the plain loop, decided before any
+    skips K1; a geometry that neither JAX's K1 nor the port's takes falls
+    through to K6 (at HIGHEST), K5 and the plain loop.  ``use_pallas`` as
+    in :func:`decode`: ``False`` is the plain loop, decided before any
     environment variable is read (JAX reads them only under
     ``use_pallas``).  Unlike JAX, neither the batch size nor a frame tile
     limits K5: ``B`` is any count (the ragged trial tile is masked).  The
@@ -531,7 +541,7 @@ def route(cfg: Config, op, B: int, device, precision: str = "highest",
     if B < 0:
         raise ValueError(f"batch of {B} trials")
     return route_of(cfg, isinstance(op, operators.BandedOperator), op,
-                    precision, use_pallas)
+                    precision, use_pallas, B)
 
 
 def xmap_split(precision: str = "highest"):
@@ -546,17 +556,18 @@ def xmap_split(precision: str = "highest"):
 
 
 def route_of(cfg: Config, banded: bool, op=None, precision: str = "highest",
-             use_pallas="auto") -> str:
+             use_pallas="auto", batch=None) -> str:
     """:func:`route`'s chain for ``cfg`` on a banded operator (``banded``)
-    or a dense one; without ``op``, K5 is judged by the config alone.
-    Raises for ``use_pallas=True`` where no kernel covers the config or the
-    operator is dense.  ``AMP_KERNEL_XMAP_PRECISION`` is read only where
-    the chain takes K1, as JAX's K1 alone reads it (`fused_bamp.py:990-991`
-    there): a bad value raises there (:func:`xmap_split`), and where K1's
-    form at ``precision`` fits but the split form it asks for does not
-    (a trial of more than ``fused_bamp.HIGH_MAX_LIN`` column blocks, or
-    one whose HIGH block passes the shared memory, at ``'highest'``), the
-    route raises rather than decode another function than JAX's."""
+    or a dense one; without ``op``, K5 is judged by the config alone;
+    without ``batch``, JAX's K1 fit is not consulted (the port's alone
+    decides K1).  Raises for ``use_pallas=True`` where no kernel covers the
+    config or the operator is dense; ``'whole_plain'`` is K1's function,
+    which JAX's ``use_pallas=True`` takes there too.
+    ``AMP_KERNEL_XMAP_PRECISION`` is read only where the chain takes K1, as
+    JAX's K1 alone reads it (`fused_bamp.py:990-991` there): a bad value
+    raises there (:func:`xmap_split`); where the split form it asks for
+    holds no trial in one block, the route is ``'whole_plain'`` (the plain
+    split version)."""
     from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
                                fused_bamp_tiled)
 
@@ -575,16 +586,13 @@ def route_of(cfg: Config, banded: bool, op=None, precision: str = "highest",
                 f"on a {'banded' if banded else 'dense'} operator")
         return "plain"
     mode = os.environ.get("AMP_PALLAS_MODE", "whole")
-    if mode == "whole" and fused_bamp.fits(cfg, precision):
+    if mode == "whole" and (
+            fused_bamp.fits(cfg, precision)
+            or (batch is not None and fused_bamp.jax_fits(cfg, batch))):
         x = xmap_split(precision)
-        if x is not None and not fused_bamp.fits(cfg, precision, x):
-            raise ValueError(
-                f"AMP_KERNEL_XMAP_PRECISION={x!r}: K1's split form "
-                f"(precision={prec.canonical(precision)!r}) holds no trial "
-                f"of this geometry (Nt={cfg.Nt}, Nr={cfg.Nr}, Lin={cfg.Lin},"
-                f" Lh={cfg.Lh}, {cfg.alphabet}) in one block, where JAX's "
-                f"K1 runs it; unset the variable")
-        return "whole"
+        if fused_bamp.fits(cfg, precision, x):
+            return "whole"
+        return "whole_plain"
     if fused_bamp_iteration.covers(cfg) and fused_bamp_iteration.fits(cfg):
         return "periter"
     if mode != "xla" and fused_bamp_tiled.covers(cfg, op):
@@ -615,7 +623,9 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
 
     The route is :func:`route`'s.  A banded operator with a complex
     segmented, sparc or random-mode config whose trial fits one block's
-    shared memory takes the whole-decode kernel K1; the massive geometry
+    shared memory takes the whole-decode kernel K1 (where JAX's K1 takes
+    the batch and the port's block holds no trial, K1's function as its
+    plain version, ``'whole_plain'``); the massive geometry
     (``config.massive_mimo()``, OOK) takes the frame-tiled kernel K5.  The
     plain loop runs dense operators, the real-channel mode, and the
     geometries that fit no block with a complex alphabet or a truncation
@@ -641,6 +651,13 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
     if way == "whole":
         s = fused_bamp.whole_decode(op, state0, y, sigma2, cap, cfg,
                                     precision, xmap_split(precision))
+    elif way == "whole_plain":
+        x = xmap_split(precision)
+        if x is None:
+            s = fused_bamp.PLAIN[precision](op, state0, y, sigma2, cap, cfg)
+        else:
+            s = fused_bamp.decode_plain_split(op, state0, y, sigma2, cap,
+                                              cfg, precision, x)
     elif way == "periter":
         s = plane_loop(fused_bamp_iteration.iteration_fused, op, state0, y,
                        sigma2, cap, cfg)

@@ -138,6 +138,12 @@
 // and the denoiser (about 30%).  The HIGHEST
 // instance (kHigh false) is the code above, unchanged.
 //
+// The HIGH layout takes a trial of any number of column blocks: a unit of
+// a pass spans at most kMaxNT = 4 n8 tiles (32 column blocks), so a
+// 16-row tile of a wider trial takes as many units as it needs
+// (high_parts), each indexing its tiles from its first; up to 32 column
+// blocks the units are the earlier ones.
+//
 // The DEFAULT form (kOne; precision='default', the JAX kernel with
 // make_dot(Precision.DEFAULT), one bf16 pass, fused_bamp.py:58-59 and
 // 81-93 there) is the HIGH form with one pass on the hi halves alone: each
@@ -175,7 +181,15 @@
 // (Zc, or A and B) in FP32 into the scratch slots it has just read, as the
 // HIGHEST form does, so a split form's block is the HIGH form's: 96,960 B
 // at the OOK flagship, 220,800 B at the QPSK one.  A form whose bf16 chain
-// is 'default' reads default_taps and splits hi halves only.  The adjoint
+// is 'default' reads default_taps and splits hi halves only.  In the two
+// mixed forms <3, 1> and <1, 3> (one chain at 'high', the other at
+// 'default') each chain keeps its own layout: the three-pass chain's
+// operands hi and lo, on high_taps; the one-pass chain's hi alone, on
+// default_taps (Params::taps1), 16 contiguous bytes a lane and k16 step
+// (Form::kVParts, kXParts, plane_of, taps_of); the region holds only the
+// planes the chains read (190,800 and 210,800 B a block at the QPSK
+// flagship, 86,400 and 93,440 B at the OOK one, each still the HIGH
+// form's blocks per SM).  The adjoint
 // runs the variance chain first and the xmap chain after a barrier, since
 // the xmap epilogue reads cov.  The six off-diagonal (variance, xmap)
 // pairs are one instance each, compiled for 16 warps and launched with the
@@ -199,7 +213,7 @@ constexpr int kThreads = 256;
 constexpr int kFR = 7;  // forward: source blocks per thread
 constexpr int kAR = 5;  // adjoint: column blocks per thread
 constexpr float kZeroTol = 1e-9f;
-constexpr int kMaxNT = 4;  // HIGH form: n8 tiles over the column blocks
+constexpr int kMaxNT = 4;  // HIGH layout: n8 tiles a unit of a pass spans
 // HIGH form's blocks (fused_bamp.py::high_threads picks one): 16 warps
 // where one block fills an SM's shared memory, else 8 warps, two blocks per
 // SM; 128 registers a thread either way.
@@ -236,12 +250,16 @@ struct Params {
   float Ps, P0, sigma2;
   int cap;  // remaining iteration budget
   // every form but HIGHEST: the eight Gauss tap planes as mma A fragments
-  // (fused_bamp.py::high_taps), and whether the gains are folded in
+  // (fused_bamp.py::high_taps, or default_taps where no chain runs three
+  // passes), and whether the gains are folded in
   const uint4* taps;
   int folded;
   // split forms with a chain at HIGHEST only: the eight Gauss tap planes in
   // FP32 (fused_bamp.py::fp32_taps)
   const float* taps32;
+  // the mixed forms <3, 1> and <1, 3> only: the one-pass chain's tap
+  // fragments, hi alone (fused_bamp.py::default_taps)
+  const uint4* taps1;
 };
 
 // Four consecutive floats of shared memory: one 16-byte load when the
@@ -414,45 +432,81 @@ __device__ __forceinline__ void adjoint_tile(
 
 // The HIGH form's pieces.
 
-// The HIGH layout's split operands in shared memory: plane kParts o + part
-// (part 0 hi, 1 lo) of operand o is (Lin, ld) bf16 at base + (kParts o +
-// part) Lin ld, kParts = 2 (hi and lo) where a chain runs three passes, 1
-// (hi alone) where every bf16 chain is one pass (Form::kParts).  The
-// forward's x side: o = 0 var, 1 xm_re, and for a complex alphabet 2 xm_re
-// + xm_im, 3 xm_im (ld = ldx); the adjoint's inputs, in the same place: o
-// = 0 Zc, 1 A + B, 2 A, 3 B (ld = ldz).  An operand that only an FP32
-// chain reads is never split: its planes, and the region past the last
-// operand, hold that chain's staged taps (split_end).
+// An instance on the HIGH layout (kVP, kXP: the passes of the variance and
+// of the xmap chain, 3 or 1 bf16 passes on the tensor cores, 0 FP32 on the
+// CUDA cores): the planes of each split operand and the 16-byte tap words
+// a lane reads per k16 step for each chain, and the x-side operands the
+// denoiser splits (kMask bit 0 var, bit 1 the xmap chain's; an FP32
+// chain's are not).  kParts: 2 (hi and lo) where a chain runs three
+// passes, else 1 (hi alone).  Where both chains run on the tensor cores,
+// each chain's operands have its own planes (kVParts for operand 0, the
+// variance chain's, kXParts for operands 1..3, the xmap chain's) and its
+// chain reads its own tap words (kVParts or kXParts: 2 from
+// fused_bamp.py::high_taps, 1 from default_taps, the one-pass chain of a
+// mixed form <3, 1> or <1, 3> from Params::taps1); a form with an FP32
+// chain keeps kParts planes for every operand (the dead ones hold that
+// chain's staged taps) and kParts words.
+template <int kVP, int kXP>
+struct Form {
+  static constexpr int kParts = kVP == 3 || kXP == 3 ? 2 : 1;
+  static constexpr int kWords = kParts;
+  static constexpr int kMask = (kVP != 0 ? 1 : 0) | (kXP != 0 ? 2 : 0);
+  static constexpr bool kMixed = kVP != 0 && kXP != 0 && kVP != kXP;
+  static constexpr int kVParts = kMixed ? (kVP == 3 ? 2 : 1) : kParts;
+  static constexpr int kXParts = kMixed ? (kXP == 3 ? 2 : 1) : kParts;
+  // the first plane of operand o, and its planes
+  __host__ __device__ static constexpr int plane_of(int o) {
+    return o == 0 ? 0 : kVParts + (o - 1) * kXParts;
+  }
+  __host__ __device__ static constexpr int parts_of(int o) {
+    return o == 0 ? kVParts : kXParts;
+  }
+  // the tap fragments of the variance chain (v) or of the xmap chain
+  __device__ static const uint4* taps_of(const Params& p, bool v) {
+    return kMixed && (v ? kVParts : kXParts) == 1 ? p.taps1 : p.taps;
+  }
+};
+
+// The HIGH layout's split operands in shared memory: plane part (part 0
+// hi, 1 lo) of operand o is (Lin, ld) bf16 at base + (F::plane_of(o) +
+// part) Lin ld, F a Form (its parts per operand).  The forward's x side: o
+// = 0 var, 1 xm_re, and for a complex alphabet 2 xm_re + xm_im, 3 xm_im
+// (ld = ldx); the adjoint's inputs, in the same place: o = 0 Zc, 1 A + B,
+// 2 A, 3 B (ld = ldz).  An operand that only an FP32 chain reads is never
+// split: its planes, and the region past the last operand, hold that
+// chain's staged taps (split_end).
 struct Split {
   __nv_bfloat16* base;
   int Nt, ld, plane;  // plane = Lin * ld
-  template <int kParts>
+  template <class F>
   __device__ __forceinline__ __nv_bfloat16* at(int o, int part) const {
-    return base + (kParts * o + part) * plane;
+    return base + (F::plane_of(o) + part) * plane;
   }
   // Operand o of element off, as precision.split_bf16 computes it: hi (x
-  // rounded to nearest even) and, at kParts = 2, lo = x - hi rounded.
-  template <int kParts>
+  // rounded to nearest even) and, where the operand has two planes, lo =
+  // x - hi rounded.
+  template <class F>
   __device__ __forceinline__ void put(int o, int off, float x) const {
-    __nv_bfloat16* hi = base + kParts * o * plane + off;
+    __nv_bfloat16* hi = base + F::plane_of(o) * plane + off;
     const __nv_bfloat16 h = __float2bfloat16_rn(x);
     *hi = h;
-    if (kParts == 2) hi[plane] = __float2bfloat16_rn(x - __bfloat162float(h));
+    if (F::parts_of(o) == 2)
+      hi[plane] = __float2bfloat16_rn(x - __bfloat162float(h));
   }
   // The x side of element j = c Nt + k, as the denoiser writes it: var
   // where kMask has bit 0 (the variance chain on the tensor cores), the
   // xmap chain's operands where it has bit 1.
-  template <int kMask, int kParts>
+  template <int kMask, class F>
   __device__ __forceinline__ void store_x(int j, float mr, float mi,
                                           float vn, bool real_x) const {
     const int c = j / Nt;
     const int off = c * ld + (j - c * Nt);
-    if (kMask & 1) put<kParts>(0, off, vn);
+    if (kMask & 1) put<F>(0, off, vn);
     if (kMask & 2) {
-      put<kParts>(1, off, mr);
+      put<F>(1, off, mr);
       if (!real_x) {
-        put<kParts>(2, off, mr + mi);
-        put<kParts>(3, off, mi);
+        put<F>(2, off, mr + mi);
+        put<F>(3, off, mi);
       }
     }
   }
@@ -477,10 +531,14 @@ __device__ __forceinline__ void tap_load(uint4 (&f)[2], const uint4* p) {
 
 // Units of a pass of the HIGH products: each 16-row tile of the tap stack
 // cut into `parts` ranges of its NT n8 tiles, as many as the block has
-// warps per tile (tests/test_torch_k1_high_tiles.py mirrors it).
+// warps per tile, and at least as many as keep each range within kMaxNT
+// tiles (a trial of more than 8 kMaxNT column blocks); tests/
+// test_torch_k1_high_tiles.py mirrors it.
 __device__ __forceinline__ int high_parts(int mtiles, int warps, int NT) {
   const int s = warps / mtiles;
-  return s < 1 ? 1 : (s > NT ? NT : s);
+  const int parts = s < 1 ? 1 : (s > NT ? NT : s);
+  const int least = (NT + kMaxNT - 1) / kMaxNT;
+  return parts < least ? least : parts;
 }
 
 // One pass of the HIGH form's products under dot3: Gauss products q0 ..
@@ -488,16 +546,17 @@ __device__ __forceinline__ int high_parts(int mtiles, int warps, int NT) {
 // plane, ks k16 steps), product q on the split operand whose hi plane is
 // operand(q) (its lo plane lo bf16 further; row c of the N side at c ld,
 // rows past nrows - 1 read row nrows - 1 and are dropped).  Warp w runs
-// units w, w + warps, ... (tile mt, n8 tiles n0 .. n1-1), each unit's
-// products one after another: out[nt][e] = (A_hi B_hi) + (A_hi B_lo +
-// A_lo B_hi), lane (g, t) holding rows g, g + 8 (e / 2) and columns 2t, 2t
-// + 1 (e % 2) of tile nt, handed to epi(mt, q, n0, n1, out).  Per k16 step
+// units w, w + warps, ... (tile mt, n8 tiles n0 .. n1-1, at most kMaxNT),
+// each unit's products one after another: out[i][e] = (A_hi B_hi) + (A_hi
+// B_lo + A_lo B_hi) of n8 tile n0 + i, lane (g, t) holding rows g, g + 8
+// (e / 2) and columns 2t, 2t + 1 (e % 2) of it, handed to epi(mt, q, n0,
+// n1, out).  Per k16 step
 // each n8 tile's B fragments come by four 32-bit loads (row g, columns 2t
 // and 2t + 8, hi and lo), then the hi hi mma of every tile is issued, the
 // hi lo, the lo hi: each accumulator's sums run in the order of one tile
 // at a time.  The step does nothing else: every address is set up once
 // per unit and product.
-// kOne: the DEFAULT form's single pass, out[nt][e] = A_hi B_hi (the hi lo
+// kOne: the DEFAULT form's single pass, out[i][e] = A_hi B_hi (the hi lo
 // and lo hi mma and their B words left out).  kWords: 16-byte tap words a
 // lane reads per k16 step, 2 (hi then lo, fused_bamp.py::high_taps) or 1
 // (hi alone, fused_bamp.py::default_taps: a warp's step is 512 contiguous
@@ -514,14 +573,16 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
   const int warps = blockDim.x >> 5;
   const int parts = high_parts(mtiles, warps, NT);
   const int units = mtiles * parts;
-  // this lane's B fragment words in n8 tile nt: row g, column 2t
-  int boff[kMaxNT];
-#pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt)
-    boff[nt] = min(nt * 8 + (lane >> 2), nrows - 1) * ld + 2 * (lane & 3);
   for (int u = warp; u < units; u += warps) {
     const int mt = u / parts, part = u - mt * parts;
     const int n0 = part * NT / parts, n1 = (part + 1) * NT / parts;
+    const int nn = n1 - n0;
+    // this lane's B fragment words in n8 tile n0 + i: row g, column 2t
+    int boff[kMaxNT];
+#pragma unroll
+    for (int i = 0; i < kMaxNT; ++i)
+      boff[i] =
+          min((n0 + i) * 8 + (lane >> 2), nrows - 1) * ld + 2 * (lane & 3);
     const uint4* tile =
         taps + (static_cast<size_t>(mt) * ks * 32 + lane) * kWords;
     for (int q = q0; q < nq; ++q) {
@@ -529,9 +590,9 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
       const __nv_bfloat16* b = operand(q);
       float hh[kMaxNT][4], cx[kMaxNT][4];
 #pragma unroll
-      for (int nt = 0; nt < kMaxNT; ++nt)
+      for (int i = 0; i < kMaxNT; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) hh[nt][e] = cx[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) hh[i][e] = cx[i][e] = 0.f;
       for (int k = 0; k < ks; ++k, ap += 32 * kWords, b += 16) {
         uint4 f[2];
         if (kOne)
@@ -542,37 +603,112 @@ __device__ __forceinline__ void high_pass(const uint4* taps, size_t plane,
         const unsigned al[4] = {f[1].x, f[1].y, f[1].z, f[1].w};
         unsigned bf[kMaxNT][4];
 #pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) {
-            const __nv_bfloat16* r = b + boff[nt];
-            bf[nt][0] = *reinterpret_cast<const unsigned*>(r);
-            bf[nt][1] = *reinterpret_cast<const unsigned*>(r + 8);
+        for (int i = 0; i < kMaxNT; ++i)
+          if (i < nn) {
+            const __nv_bfloat16* r = b + boff[i];
+            bf[i][0] = *reinterpret_cast<const unsigned*>(r);
+            bf[i][1] = *reinterpret_cast<const unsigned*>(r + 8);
             if (!kOne) {
-              bf[nt][2] = *reinterpret_cast<const unsigned*>(r + lo);
-              bf[nt][3] = *reinterpret_cast<const unsigned*>(r + lo + 8);
+              bf[i][2] = *reinterpret_cast<const unsigned*>(r + lo);
+              bf[i][3] = *reinterpret_cast<const unsigned*>(r + lo + 8);
             }
           }
 #pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
-          if (nt >= n0 && nt < n1) mma_bf16(hh[nt], ah, bf[nt][0], bf[nt][1]);
+        for (int i = 0; i < kMaxNT; ++i)
+          if (i < nn) mma_bf16(hh[i], ah, bf[i][0], bf[i][1]);
         if (!kOne) {
 #pragma unroll
-          for (int nt = 0; nt < kMaxNT; ++nt)
-            if (nt >= n0 && nt < n1)
-              mma_bf16(cx[nt], ah, bf[nt][2], bf[nt][3]);
+          for (int i = 0; i < kMaxNT; ++i)
+            if (i < nn) mma_bf16(cx[i], ah, bf[i][2], bf[i][3]);
 #pragma unroll
-          for (int nt = 0; nt < kMaxNT; ++nt)
-            if (nt >= n0 && nt < n1)
-              mma_bf16(cx[nt], al, bf[nt][0], bf[nt][1]);
+          for (int i = 0; i < kMaxNT; ++i)
+            if (i < nn) mma_bf16(cx[i], al, bf[i][0], bf[i][1]);
         }
       }
       if (!kOne)
 #pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt)
+        for (int i = 0; i < kMaxNT; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) hh[nt][e] = hh[nt][e] + cx[nt][e];
+          for (int e = 0; e < 4; ++e) hh[i][e] = hh[i][e] + cx[i][e];
       epi(mt, q, n0, n1, hh);
     }
+  }
+}
+
+// The one-pass products of a mixed form's one-pass chain, several in one
+// k16 loop: products q0 .. nq-1 (at most kQ; hi-only tap fragments, one
+// 16-byte word a lane and k16 step, plane q at taps + q plane) of each unit
+// (high_pass's units, so each element stays with its lane), the step
+// loading every product's tap word and B words and then issuing the hi hi
+// mma of every (product, n8 tile): kQ times the independent accumulations
+// of one product's loop between two dependent mma, where one product at a
+// time waited on each mma's latency (tests/torch_k1_passes.py, Step 0 of
+// the mixed forms in PERF.md).  Each accumulator still sums its product's
+// k16 steps in order from zero, so the results are high_pass<true>'s bit
+// for bit; epi(mt, q, n0, n1, out) is called for q0 .. nq-1 in turn.  (The
+// DEFAULT form's four products in loops of two spilled and lost, in one
+// loop of four gained nothing: it keeps high_pass, PERF.md.)
+constexpr bool kFuseOnePass = true;
+
+template <int kQ, class Operand, class Epi>
+__device__ __forceinline__ void one_pass_products(
+    const uint4* taps, size_t plane, int mtiles, int ks, int q0, int nq,
+    Operand operand, int ld, int nrows, int NT, Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int parts = high_parts(mtiles, warps, NT);
+  const int units = mtiles * parts;
+  const int nqq = nq - q0;
+  for (int u = warp; u < units; u += warps) {
+    const int mt = u / parts, part = u - mt * parts;
+    const int n0 = part * NT / parts, n1 = (part + 1) * NT / parts;
+    const int nn = n1 - n0;
+    int boff[kMaxNT];
+#pragma unroll
+    for (int i = 0; i < kMaxNT; ++i)
+      boff[i] =
+          min((n0 + i) * 8 + (lane >> 2), nrows - 1) * ld + 2 * (lane & 3);
+    const uint4* ap =
+        taps + q0 * plane + static_cast<size_t>(mt) * ks * 32 + lane;
+    const __nv_bfloat16* b[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) b[j] = operand(q0 + min(j, nqq - 1));
+    float acc[kQ][kMaxNT][4];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+#pragma unroll
+      for (int i = 0; i < kMaxNT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][i][e] = 0.f;
+    for (int k = 0; k < ks; ++k, ap += 32) {
+      uint4 f[kQ];
+#pragma unroll
+      for (int j = 0; j < kQ; ++j)
+        if (j < nqq) f[j] = __ldg(ap + j * plane);
+      unsigned bf[kQ][kMaxNT][2];
+#pragma unroll
+      for (int j = 0; j < kQ; ++j)
+#pragma unroll
+        for (int i = 0; i < kMaxNT; ++i)
+          if (j < nqq && i < nn) {
+            const __nv_bfloat16* r = b[j] + boff[i];
+            bf[j][i][0] = *reinterpret_cast<const unsigned*>(r);
+            bf[j][i][1] = *reinterpret_cast<const unsigned*>(r + 8);
+          }
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const unsigned a[4] = {f[j].x, f[j].y, f[j].z, f[j].w};
+#pragma unroll
+        for (int i = 0; i < kMaxNT; ++i)
+          if (j < nqq && i < nn) mma_bf16(acc[j][i], a, bf[j][i][0],
+                                          bf[j][i][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) b[j] += 16;
+    }
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      if (j < nqq) epi(mt, q0 + j, n0, n1, acc[j]);
   }
 }
 
@@ -845,20 +981,6 @@ __device__ __forceinline__ void fp32_pass(const float* a, size_t plane,
     fp32_tiles<kQ, 3, kC>(a, plane, ncols, rows, rs, K, x, stage, KC, epi);
 }
 
-// An instance on the HIGH layout (kVP, kXP: the passes of the variance and
-// of the xmap chain, 3 or 1 bf16 passes on the tensor cores, 0 FP32 on the
-// CUDA cores): kParts planes per split operand (hi alone where no chain
-// runs three passes), as many 16-byte tap words per lane and k16 step
-// (fused_bamp.py::high_taps or default_taps), and the x-side operands the
-// denoiser splits (kMask bit 0 var, bit 1 the xmap chain's; an FP32
-// chain's are not).
-template <int kVP, int kXP>
-struct Form {
-  static constexpr int kParts = kVP == 3 || kXP == 3 ? 2 : 1;
-  static constexpr int kWords = kParts;
-  static constexpr int kMask = (kVP != 0 ? 1 : 0) | (kXP != 0 ? 2 : 0);
-};
-
 // The floats of shared memory from bf16 address a (rounded up to 16
 // bytes) to b.
 struct Range {
@@ -880,11 +1002,11 @@ __device__ __forceinline__ const __nv_bfloat16* split_end(
 // The larger of an FP32 variance chain's two dead ranges of a split
 // region: its operand's planes, or the region past the xmap chain's nops
 // operands.
-template <int kParts>
+template <class F>
 __device__ __forceinline__ Range dead_var(const Split& s, int nops,
                                           const __nv_bfloat16* end) {
-  const Range a = float_range(s.base, s.at<kParts>(1, 0));
-  const Range b = float_range(s.at<kParts>(nops, 0), end);
+  const Range a = float_range(s.base, s.at<F>(1, 0));
+  const Range b = float_range(s.at<F>(nops, 0), end);
   return (a.hi - a.lo) >= (b.hi - b.lo) ? a : b;
 }
 
@@ -908,13 +1030,17 @@ __device__ __forceinline__ void forward_high(
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int W = p.Lh * p.Nr;
   const int mtiles = kz / 16, ks = kx / 16, NT = (p.Lin + 7) / 8;
-  const size_t plane = static_cast<size_t>(mtiles) * ks * 32 * F::kWords;
+  // a tap plane's 16-byte words per word a lane reads a k16 step, and the
+  // plane of the form's and of each chain's tap fragments
+  const size_t words = static_cast<size_t>(mtiles) * ks * 32;
+  const size_t plane = words * F::kWords;
+  const size_t vplane = words * F::kVParts, xplane = words * F::kXParts;
   const int nq = real_x ? 3 : 4;
   // the products' operands: var, k1's (xm_re, or xm_re + xm_im), xm_re,
   // xm_im
   const int o1 = real_x ? 1 : 2;
   auto operand = [&](int q) {
-    return xs.at<F::kParts>(q == 0 ? 0 : q == 1 ? o1 : q == 2 ? 1 : 3, 0);
+    return xs.at<F>(q == 0 ? 0 : q == 1 ? o1 : q == 2 ? 1 : 3, 0);
   };
   auto epi = [&](int mt, int q, int n0, int n1,
                  const float (&v)[kMaxNT][4]) {
@@ -925,14 +1051,14 @@ __device__ __forceinline__ void forward_high(
       const int l = j / p.Nr;
       const int row = l * NrP + (j - l * p.Nr);
 #pragma unroll
-      for (int nt = 0; nt < kMaxNT; ++nt) {
-        if (nt < n0 || nt >= n1) continue;
+      for (int i = 0; i < kMaxNT; ++i) {
+        if (n0 + i >= n1) continue;
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
-          const int c = nt * 8 + 2 * t + w;
+          const int c = (n0 + i) * 8 + 2 * t + w;
           if (c >= p.Lin || dst_block(c, l, p) < 0) continue;
           const int slot = c * p.Lh * NrP + row;
-          const float val = v[nt][2 * h + w];
+          const float val = v[i][2 * h + w];
           if (q == 0) Pv[slot] = val;
           else if (q == 1) Pr[slot] = val;  // k1
           else if (q == 2) Pi[slot] = Pr[slot] + val;
@@ -942,9 +1068,8 @@ __device__ __forceinline__ void forward_high(
     }
   };
   if constexpr (kVP == kXP) {
-    high_pass<kVP == 1, F::kWords>(p.taps, plane, mtiles, ks, 0,
-                                            nq, operand, xs.plane, xs.ld,
-                                            p.Lin, NT, epi);
+    high_pass<kVP == 1, F::kWords>(p.taps, plane, mtiles, ks, 0, nq,
+                                   operand, xs.plane, xs.ld, p.Lin, NT, epi);
   } else {
     // the FP32 planes (Nt, W): S_a2, S_re, Im S - Re S, Re S + Im S
     const size_t p32 = static_cast<size_t>(p.Nt) * W;
@@ -955,12 +1080,12 @@ __device__ __forceinline__ void forward_high(
                                      : (c * p.Lh + l) * NrP + (j - l * p.Nr);
     };
     if constexpr (kVP != 0) {
-      high_pass<kVP == 1, F::kWords>(p.taps, plane, mtiles, ks, 0,
-                                              1, operand, xs.plane, xs.ld,
-                                              p.Lin, NT, epi);
+      high_pass<kVP == 1, F::kVParts>(F::taps_of(p, true), vplane, mtiles,
+                                      ks, 0, 1, operand, xs.plane, xs.ld,
+                                      p.Lin, NT, epi);
     } else {
       const float* const xv[1] = {var};
-      const Range st = dead_var<F::kParts>(
+      const Range st = dead_var<F>(
           xs, real_x ? 2 : 4, split_end(p, xs, kx, kz, real_x));
       fp32_pass<1>(p.taps32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt, xv, st.lo,
                    st.hi, [&](int c, int j, const float (&o)[1]) {
@@ -968,13 +1093,16 @@ __device__ __forceinline__ void forward_high(
                      if (e >= 0) Pv[e] = o[0];
                    });
     }
-    if constexpr (kXP != 0) {
-      high_pass<kXP == 1, F::kWords>(p.taps, plane, mtiles, ks, 1,
-                                              nq, operand, xs.plane, xs.ld,
-                                              p.Lin, NT, epi);
+    if constexpr (F::kMixed && kXP == 1 && kFuseOnePass) {
+      one_pass_products<3>(F::taps_of(p, false), xplane, mtiles, ks, 1, nq,
+                           operand, xs.ld, p.Lin, NT, epi);
+    } else if constexpr (kXP != 0) {
+      high_pass<kXP == 1, F::kXParts>(F::taps_of(p, false), xplane, mtiles,
+                                      ks, 1, nq, operand, xs.plane, xs.ld,
+                                      p.Lin, NT, epi);
     } else {
       // dead from the variance chain's planes on
-      Range st = float_range(xs.at<F::kParts>(1, 0),
+      Range st = float_range(xs.at<F>(1, 0),
                              split_end(p, xs, kx, kz, real_x));
       if (real_x) {
         const float* const xr[2] = {xm_re, xm_re};
@@ -1067,13 +1195,13 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
       const int off = c * zs.ld + l * p.Nr + m;
       const int e = (c * p.Lh + l) * NrP + m;
       if (kVP != 0)
-        zs.put<F::kParts>(0, off, zc);
+        zs.put<F>(0, off, zc);
       else
         Pv[e] = zc;
       if (kXP != 0) {
-        zs.put<F::kParts>(1, off, za + zb);
-        zs.put<F::kParts>(2, off, za);
-        zs.put<F::kParts>(3, off, zb);
+        zs.put<F>(1, off, za + zb);
+        zs.put<F>(2, off, za);
+        zs.put<F>(3, off, zb);
       } else {
         Pr[e] = za;
         Pi[e] = zb;
@@ -1084,8 +1212,8 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   auto zero_slot = [&](int c, int j) {
 #pragma unroll
-    for (int q = 0; q < 4 * F::kParts; ++q)
-      if (q < F::kParts ? kVP != 0 : kXP != 0)
+    for (int q = 0; q < F::plane_of(4); ++q)
+      if (q < F::kVParts ? kVP != 0 : kXP != 0)
         zs.base[q * zs.plane + c * zs.ld + j] = zero;
   };
   // the pad columns W .. kz-1 of every column block
@@ -1120,8 +1248,11 @@ __device__ __forceinline__ void adjoint_high(
   using F = Form<kVP, kXP>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mtiles = kx / 16, ks = kz / 16, NT = (p.Lin + 7) / 8;
-  const size_t plane = static_cast<size_t>(mtiles) * ks * 32 * F::kWords;
-  auto operand = [&](int q) { return zs.at<F::kParts>(q, 0); };
+  // as in forward_high; the adjoint's planes follow the forward's four
+  const size_t words = static_cast<size_t>(mtiles) * ks * 32;
+  const size_t plane = words * F::kWords;
+  const size_t vplane = words * F::kVParts, xplane = words * F::kXParts;
+  auto operand = [&](int q) { return zs.at<F>(q, 0); };
   auto epi = [&](int mt, int q, int n0, int n1,
                  const float (&v)[kMaxNT][4]) {
 #pragma unroll
@@ -1129,14 +1260,14 @@ __device__ __forceinline__ void adjoint_high(
       const int k = mt * 16 + g + 8 * h;
       if (k >= p.Nt) continue;
 #pragma unroll
-      for (int nt = 0; nt < kMaxNT; ++nt) {
-        if (nt < n0 || nt >= n1) continue;
+      for (int i = 0; i < kMaxNT; ++i) {
+        if (n0 + i >= n1) continue;
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
-          const int c = nt * 8 + 2 * t + w;
+          const int c = (n0 + i) * 8 + 2 * t + w;
           if (c >= p.Lin) continue;
           const int j = c * p.Nt + k;
-          const float val = v[nt][2 * h + w];
+          const float val = v[i][2 * h + w];
           if (q == 0) {
             cov[j] = 1.f / val;
           } else if (q == 1) {
@@ -1151,11 +1282,10 @@ __device__ __forceinline__ void adjoint_high(
       }
     }
   };
-  const uint4* taps = p.taps + 4 * plane;
   if constexpr (kVP == kXP) {
-    high_pass<kVP == 1, F::kWords>(taps, plane, mtiles, ks, 0, 4,
-                                            operand, zs.plane, zs.ld, p.Lin,
-                                            NT, epi);
+    high_pass<kVP == 1, F::kWords>(p.taps + 4 * plane, plane, mtiles, ks,
+                                   0, 4, operand, zs.plane, zs.ld, p.Lin,
+                                   NT, epi);
   } else {
     // the FP32 planes (W, Nt): S_a2^T, Re S^T, -Im S^T - Re S^T, Re S^T -
     // Im S^T, after the forward's four
@@ -1163,13 +1293,13 @@ __device__ __forceinline__ void adjoint_high(
     const float* t32 = p.taps32 + 4 * p32;
     const int rs = p.Lh * NrP;
     if constexpr (kVP != 0) {
-      high_pass<kVP == 1, F::kWords>(taps, plane, mtiles, ks, 0, 1,
-                                              operand, zs.plane, zs.ld,
-                                              p.Lin, NT, epi);
+      high_pass<kVP == 1, F::kVParts>(F::taps_of(p, true) + 4 * vplane,
+                                      vplane, mtiles, ks, 0, 1, operand,
+                                      zs.plane, zs.ld, p.Lin, NT, epi);
     } else {
       const float* const xv[1] = {Zc};
       const Range st =
-          dead_var<F::kParts>(zs, 4, split_end(p, zs, kx, kz, real_x));
+          dead_var<F>(zs, 4, split_end(p, zs, kx, kz, real_x));
       fp32_pass<1>(t32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr, xv, st.lo,
                    st.hi, [&](int c, int k, const float (&o)[1]) {
                      cov[c * p.Nt + k] = 1.f / o[0];
@@ -1177,16 +1307,19 @@ __device__ __forceinline__ void adjoint_high(
     }
     // k1's operand A + B of an FP32 xmap chain, formed once (dead from the
     // variance chain's planes on)
-    Range st = float_range(zs.at<F::kParts>(1, 0),
+    Range st = float_range(zs.at<F>(1, 0),
                            split_end(p, zs, kx, kz, real_x));
     const int S = p.Lin * rs;
     if (kXP == 0)
       for (int e = threadIdx.x; e < S; e += blockDim.x) st.lo[e] = A[e] + B[e];
     __syncthreads();
-    if constexpr (kXP != 0) {
-      high_pass<kXP == 1, F::kWords>(taps, plane, mtiles, ks, 1, 4,
-                                              operand, zs.plane, zs.ld,
-                                              p.Lin, NT, epi);
+    if constexpr (F::kMixed && kXP == 1 && kFuseOnePass) {
+      one_pass_products<3>(F::taps_of(p, false) + 4 * xplane, xplane,
+                           mtiles, ks, 1, 4, operand, zs.ld, p.Lin, NT, epi);
+    } else if constexpr (kXP != 0) {
+      high_pass<kXP == 1, F::kXParts>(F::taps_of(p, false) + 4 * xplane,
+                                      xplane, mtiles, ks, 1, 4, operand,
+                                      zs.plane, zs.ld, p.Lin, NT, epi);
     } else {
       const float* const xa[3] = {st.lo, A, B};
       fp32_pass<3>(
@@ -1215,7 +1348,7 @@ __device__ __forceinline__ void zero_x_pad(const Split& xs, int Lin, int kx,
   for (int i = threadIdx.x; i < Lin * pad; i += blockDim.x) {
     const int c = i / pad;
     const int off = c * xs.ld + xs.Nt + (i - c * pad);
-    for (int q = o0 * F::kParts; q < o1 * F::kParts; ++q)
+    for (int q = F::plane_of(o0); q < F::plane_of(o1); ++q)
       xs.base[q * xs.plane + off] = zero;
   }
 }
@@ -1264,7 +1397,7 @@ __device__ __forceinline__ float small_sum(int n, Get get) {
 // the new state's operands of kMask split into xs (Split::store_x).  KS >
 // 0: the alphabet's size K, known to the compiler (the same arithmetic, no
 // loop over kMaxK symbols); 0: K as it comes.
-template <int kMask, int kParts, int KS = 0>
+template <int kMask, class F, int KS = 0>
 __device__ __forceinline__ int group_posterior(
     int j0, int M, int K_in, int G, int t, unsigned mask, const float* sr,
     const float* si, bool real_x, const float* x_re, const float* xmap_g,
@@ -1355,7 +1488,7 @@ __device__ __forceinline__ int group_posterior(
     xm_re[j] = mr;
     if (!real_x) xm_im[j] = mi;
     var[j] = vn;
-    if (kMask) xs.store_x<kMask, kParts>(j, mr, mi, vn, real_x);
+    if (kMask) xs.store_x<kMask, F>(j, mr, mi, vn, real_x);
     flag |= int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
   }
   return flag;
@@ -1366,7 +1499,7 @@ __device__ __forceinline__ int group_posterior(
 // step side by side (the same operations in the same order per segment,
 // so the same bits), so that the shuffles, divisions and loads of one
 // overlap the other's.  K known to the compiler (KS > 0).
-template <int kMask, int kParts, int KS>
+template <int kMask, class F, int KS>
 __device__ __forceinline__ int pair_posterior(
     const int (&j0)[2], int G, int t, unsigned mask, const float* sr,
     const float* si, bool real_x, const float* x_re, const float* xmap_g,
@@ -1432,7 +1565,7 @@ __device__ __forceinline__ int pair_posterior(
     xm_re[j[s]] = mr;
     if (!real_x) xm_im[j[s]] = mi;
     var[j[s]] = vn;
-    if (kMask) xs.store_x<kMask, kParts>(j[s], mr, mi, vn, real_x);
+    if (kMask) xs.store_x<kMask, F>(j[s], mr, mi, vn, real_x);
     flag |= int(fabsf(vn - old[s]) > kAtol + kRtol * fabsf(old[s]));
   }
   return flag;
@@ -1441,7 +1574,7 @@ __device__ __forceinline__ int pair_posterior(
 // The Bernoulli-symbol mixture posterior of element j, with the exponent
 // clamps and the zero-norm guard of the plain version (kMask != 0: also
 // split into xs).
-template <int kMask, int kParts>
+template <int kMask, class F>
 __device__ __forceinline__ int mixture_posterior(
     const Params& p, int j, bool real_x, const float* x_re,
     const float* xmap_g, const float* cov, float* xm_re, float* xm_im,
@@ -1471,7 +1604,7 @@ __device__ __forceinline__ int mixture_posterior(
   xm_re[j] = mr;
   if (!real_x) xm_im[j] = mi;
   var[j] = vn;
-  if (kMask) xs.store_x<kMask, kParts>(j, mr, mi, vn, real_x);
+  if (kMask) xs.store_x<kMask, F>(j, mr, mi, vn, real_x);
   return int(fabsf(vn - old) > kAtol + kRtol * fabsf(old));
 }
 
@@ -1560,7 +1693,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     xm_re[j] = m.x;
     if (!real_x) xm_im[j] = m.y;
     var[j] = p.var_in[xo + j];
-    if (kHigh) xs.store_x<kMask, F::kParts>(j, m.x, m.y, var[j], real_x);
+    if (kHigh) xs.store_x<kMask, F>(j, m.x, m.y, var[j], real_x);
   }
   if (kHigh) zero_x_pad<kVP, kXP>(xs, p.Lin, kx, real_x);
   for (int o = tid; o < n; o += blockDim.x) {
@@ -1675,13 +1808,13 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
           if (G == p.M)
             for (; s + groups < nseg; s += 2 * groups) {
               const int j0[2] = {s * p.M, (s + groups) * p.M};
-              bad |= pair_posterior<kMask, F::kParts, KS>(
+              bad |= pair_posterior<kMask, F, KS>(
                   j0, G, t, mask, p.sym_re, p.sym_im, real_x, xmap_re,
                   xmap_g, cov, xm_re, xm_im, var, xs);
             }
         }
         for (; s < nseg; s += groups)
-          bad |= group_posterior<kMask, F::kParts, KS>(
+          bad |= group_posterior<kMask, F, KS>(
               s * p.M, p.M, p.K, G, t, mask, p.sym_re, p.sym_im, real_x,
               xmap_re, xmap_g, cov, xm_re, xm_im, var, xs);
       };
@@ -1700,7 +1833,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       }
     } else {
       for (int j = tid; j < N; j += blockDim.x)
-        bad |= mixture_posterior<kMask, F::kParts>(
+        bad |= mixture_posterior<kMask, F>(
             p, j, real_x, xmap_re, xmap_g, cov, xm_re, xm_im, var, xs);
     }
     if (kHigh) zero_x_pad<kVP, kXP>(xs, p.Lin, kx, real_x);
@@ -1761,7 +1894,9 @@ extern "C" {
 // the HIGHEST, HIGH or DEFAULT form; else a split form.  Every form but
 // HIGHEST runs on the tap fragments `taps` (folded: the gains are in them)
 // with `threads` threads a block; a split form with a chain at HIGHEST
-// also on the FP32 tap planes `taps32` (fused_bamp.py::fp32_taps).  Returns
+// also on the FP32 tap planes `taps32` (fused_bamp.py::fp32_taps), a mixed
+// form (one chain 'high', the other 'default') its one-pass chain on the
+// hi-only fragments `taps1` (fused_bamp.py::default_taps).  Returns
 // a cudaError_t code (0 on success): the attribute call's, or
 // cudaGetLastError() after the launch.  The kernel allocates nothing;
 // every buffer is the caller's.
@@ -1777,7 +1912,7 @@ int fused_bamp_decode(
     int B, int Nt, int Nr, int Lin, int Lout, int Lh, int trunc, int M,
     int K, int den, int real_x, float Ps, float P0, float sigma2, int cap,
     int smem, int high, int xhigh, const void* taps, const void* taps32,
-    int folded, int threads, void* stream) {
+    const void* taps1, int folded, int threads, void* stream) {
   if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.y = static_cast<const float2*>(y);
@@ -1819,11 +1954,13 @@ int fused_bamp_decode(
   p.cap = cap;
   p.taps = static_cast<const uint4*>(taps);
   p.taps32 = static_cast<const float*>(taps32);
+  p.taps1 = static_cast<const uint4*>(taps1);
   p.folded = folded;
   const bool split = high != xhigh;
   if (high < 0 || high > 2 || xhigh < 0 || xhigh > 2 ||
-      ((high || xhigh) && (taps == nullptr || Lin > 8 * kMaxNT)) ||
-      (split && !(high && xhigh) && taps32 == nullptr))
+      ((high || xhigh) && taps == nullptr) ||
+      (split && !(high && xhigh) && taps32 == nullptr) ||
+      (split && high && xhigh && taps1 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Kernel kernel = bamp_decode_kernel<0, 0, kThreads, 3>;
   const bool one = high == 2;

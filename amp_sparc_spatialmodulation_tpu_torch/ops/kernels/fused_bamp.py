@@ -47,7 +47,9 @@ the HIGH form's function with the variance chain's products (``Pv`` and
 as in those forms, a chain at ``'highest'`` in FP32 on the CUDA cores on
 the FP32 tap planes of :func:`fp32_taps` (staged through the split planes
 that chain leaves dead).  Its block is the HIGH form's (a form whose bf16
-chain is 'default' reads :func:`default_taps` and splits hi halves only);
+chain is 'default' reads :func:`default_taps` and splits hi halves only;
+the mixed forms, one chain 'high' and the other 'default' (:func:`mixed`),
+give each chain its own planes and tap fragments, :func:`chain_parts`);
 its plain version is ``bamp.plain_loop_split`` (:func:`decode_plain_split`).
 
 Both take and return a :class:`..models.bamp.BAMPState` in the JAX
@@ -56,9 +58,13 @@ result's ``active``, ``T`` and ``t`` follow ``bamp.py:153-165``.
 
 Dispatch (``models/bamp.py::route``): the kernel is the first link of the
 decode chain, taken whenever :func:`covers` and :func:`fits` hold for the
-config, decided before any launch; the per-iteration kernels K6 and K5 and
-the plain loop take the configs it declines.  A failed build or launch
-raises; nothing falls back to the plain version after it.
+config, decided before any launch (any number of column blocks); where
+:func:`fits` does not hold and JAX's kernel would take the batch
+(:func:`jax_fits`), the route runs the kernel's function as its plain
+version (``'whole_plain'``: :data:`PLAIN`, :func:`decode_plain_split`);
+the per-iteration kernels K6 and K5 and the plain loop take the rest.  A
+failed build or launch raises; nothing falls back to the plain version
+after it.
 """
 from __future__ import annotations
 
@@ -81,9 +87,6 @@ launches_default = 0
 launches_xmap = 0
 # The form code each launcher (K1, K3, K4, K5) takes for each precision.
 FORM = {prec.HIGHEST: 0, prec.HIGH: 1, prec.DEFAULT: 2}
-
-# Column blocks the HIGH form's products take (four n8 mma tiles).
-HIGH_MAX_LIN = 32
 
 # Dynamic shared memory one Hopper block may use (227 KB).
 SMEM_LIMIT = 232448
@@ -167,6 +170,26 @@ def split_parts(precision: str = "highest", x_precision=None) -> int:
     return 2 if prec.HIGH in chains(precision, x_precision) else 1
 
 
+def mixed(precision: str = "highest", x_precision=None) -> bool:
+    """The split forms with both chains on the tensor cores, one at 'high'
+    (three passes), the other at 'default' (one): ``<3, 1>`` and ``<1,
+    3>``.  Each chain's split operands have their own planes (hi and lo,
+    or hi alone: :func:`chain_parts`) and each chain reads its own tap
+    fragments (:func:`high_taps`, :func:`default_taps`)."""
+    return set(chains(precision, x_precision)) == {prec.HIGH, prec.DEFAULT}
+
+
+def chain_parts(precision: str = "highest", x_precision=None):
+    """``(variance, xmap)``: the planes per split operand of each chain on
+    the HIGH layout, 2 (hi and lo) for a chain of three passes, 1 (hi
+    alone) for a chain of one in a mixed form (:func:`mixed`); every other
+    form has :func:`split_parts` planes for every operand."""
+    if mixed(precision, x_precision):
+        return tuple(2 if c == prec.HIGH else 1
+                     for c in chains(precision, x_precision))
+    return (split_parts(precision, x_precision),) * 2
+
+
 def smem_bytes(cfg: Config, precision: str = "highest",
                x_precision=None) -> int:
     """Dynamic shared memory of one block, passed to the launch: 3 scratch
@@ -175,14 +198,21 @@ def smem_bytes(cfg: Config, precision: str = "highest",
     y-side planes of float32, carved in that order by the kernel; on the
     HIGH layout (:func:`high_layout`) then the split operands
     (:func:`high_split_elems`; the DEFAULT form's hi planes alone, half of
-    it; a split form keeps the HIGH form's region whole: its FP32 chain
-    reads the FP32 planes, writes its adjoint inputs into the scratch
-    planes and stages its taps through the split planes it leaves
-    dead)."""
+    it; a mixed form the planes of :func:`chain_parts`, operand 0 the
+    variance chain's, operands 1.. the xmap chain's; a split form with an
+    FP32 chain keeps the HIGH form's region whole: that chain reads the
+    FP32 planes, writes its adjoint inputs into the scratch planes and
+    stages its taps through the split planes it leaves dead)."""
     fp32 = 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
                 + (4 if real_x(cfg) else 5) * cfg.N + 5 * cfg.n)
     if not high_layout(precision, x_precision):
         return fp32
+    if mixed(precision, x_precision):
+        pv, px = chain_parts(precision, x_precision)
+        nx = 2 if real_x(cfg) else 4
+        return fp32 + 2 * max(
+            (pv + (nx - 1) * px) * cfg.Lin * split_ld(cfg.Nt),
+            (pv + 3 * px) * cfg.Lin * split_ld(cfg.Lh * cfg.Nr))
     precision, x_precision = chains(precision, x_precision)
     region = 2 * high_split_elems(cfg)
     if precision == x_precision:
@@ -204,14 +234,39 @@ def high_threads(cfg: Config) -> int:
 
 
 def fits(cfg: Config, precision: str = "highest", x_precision=None) -> bool:
-    """True when one trial's planes fit a block's shared memory (and, on
-    the HIGH layout, its column blocks the products' tiles); the form is
-    that of ``precision`` for the variance chain and ``x_precision`` (None:
-    the same) for the xmap chain."""
-    ok = smem_bytes(cfg, precision, x_precision) <= SMEM_LIMIT
-    if high_layout(precision, x_precision):
-        ok = ok and cfg.Lin <= HIGH_MAX_LIN
-    return ok
+    """True when one trial's planes fit a block's shared memory, for the
+    form of ``precision`` for the variance chain and ``x_precision`` (None:
+    the same) for the xmap chain.  Any number of column blocks: a unit of
+    the HIGH layout's products spans at most four n8 tiles of them, and a
+    16-row tile takes as many units as it needs."""
+    return smem_bytes(cfg, precision, x_precision) <= SMEM_LIMIT
+
+
+# The JAX kernel's VMEM budget for a trial tile (`fused_bamp.py:735-772`
+# there, ``_pick_tile``) and the trial tiles it tries, largest first.
+JAX_VMEM_BUDGET = 11 * 1024 * 1024
+JAX_TILES = (512, 256, 128, 64, 32, 16, 8)
+
+
+def jax_fits(cfg: Config, batch: int) -> bool:
+    """Where JAX takes its whole-decode kernel: ``FusedBandedDecode.fits(
+    cfg, batch)`` (`fused_bamp.py:966-971` there), a copy of ``_pick_tile``'s
+    arithmetic with ``n_x = 10 + 2K`` x-side and ``n_y = 9`` y-side planes:
+    a trial tile of 512 down to 8 trials that divides ``batch`` and whose
+    planes, lanes padded to 128 and double-buffered where the grid has more
+    than one tile, stay under 11 MiB.  It does not read ``PALLAS_TILE``,
+    the JAX package's tile experiment on a TPU."""
+    lane = lambda d: -(-d // 128) * 128  # noqa: E731
+    n_x, n_y = 10 + 2 * cfg.K, 9
+    for tile in JAX_TILES:
+        if batch % tile:
+            continue
+        xside = n_x * tile * cfg.Lin * lane(cfg.Nt) * 4
+        yside = n_y * tile * cfg.Lout * lane(cfg.Nr) * 4
+        mult = 1 if tile == batch else 2
+        if mult * (xside + yside) < JAX_VMEM_BUDGET:
+            return True
+    return False
 
 
 # The kernel's function in plain PyTorch (any device), with the wrapper's
@@ -315,8 +370,9 @@ def default_taps(op):
 def instance_taps(op, precision: str = "highest", x_precision=None):
     """``(taps, folded)``: the tap fragments the form's instance reads
     (:func:`default_taps` where :func:`split_parts` is 1, else
-    :func:`high_taps`), and whether the gains are folded into them; None
-    and False off the HIGH layout."""
+    :func:`high_taps`; a mixed form's one-pass chain reads
+    :func:`default_taps` besides), and whether the gains are folded into
+    them; None and False off the HIGH layout."""
     if not high_layout(precision, x_precision):
         return None, False
     if split_parts(precision, x_precision) == 1:
@@ -330,7 +386,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_decode.argtypes = (
             [ptr] * 23 + [i32] * 11 + [f32] * 3
-            + [i32, i32, i32, i32, ptr, ptr, i32, i32, ptr])
+            + [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, ptr])
         lib.fused_bamp_decode.restype = i32
         lib.fused_bamp_error_string.argtypes = [i32]
         lib.fused_bamp_error_string.restype = ctypes.c_char_p
@@ -415,6 +471,8 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     gains2 = op.gains2.contiguous()
     sym_re, sym_im = symbol_planes(cfg, dev)
     taps, folded = instance_taps(op, precision, x_precision)
+    taps1 = (default_taps(op)[0] if mixed(precision, x_precision)
+             else None)
     taps32 = (fp32_taps(op) if split and prec.HIGHEST in (precision,
                                                           x_precision)
               else None)
@@ -436,7 +494,8 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
         float(np.float32(sigma2)), cap_rem,
         smem_bytes(cfg, precision, x_precision), FORM[precision],
         FORM[x_precision], taps.data_ptr() if high else None,
-        None if taps32 is None else taps32.data_ptr(), int(folded),
+        None if taps32 is None else taps32.data_ptr(),
+        None if taps1 is None else taps1.data_ptr(), int(folded),
         high_threads(cfg) if high else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

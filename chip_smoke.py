@@ -228,7 +228,17 @@ Phases, each printing one JSON line:
    beside HIGHEST and DEFAULT on the same seeds (each split run through its
    split instance alone, FER and BER within 3 sigma of HIGHEST's, mean T
    printed), then the other four pairs on 2 x 65536 each (the path alone);
-18. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+   kernel_timing_bamp_xmap_mixed, the mixed forms' (high, default) and
+   (default, high) time, bound, library call and launches in one line;
+18. K1 past 32 column blocks: kernel_wide_bamp (inside kernels_bamp_high,
+   kernels_bamp_default and kernels_bamp_xmap), each form against its
+   plain version on the small OOK geometry and the OOK flagship's
+   dimensions at Lin 40 (``k1_wide_checks``); main_bamp_wide,
+   ``bamp.decode`` at 'high' on the QPSK flagship at Lin 32, whose HIGH
+   block holds no trial where JAX's K1 takes the batch: route
+   ``'whole_plain'``, one plain decode, no launch, the plain version's
+   result bit for bit;
+19. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -1776,7 +1786,219 @@ def phase_kernels_bamp_high(torch, dev, ptxas_lines):
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"K1 HIGH kernel != plain: {failed}")
+    max_err = max(max_err, k1_wide_checks(torch, dev, high))
     return max_err, timings
+
+
+# K1 past 32 column blocks (its HIGH layout's units span at most four n8
+# tiles): the small OOK geometry at Lin 40 (1024 trials) and the OOK
+# flagship's dimensions at Lin 40 (4096 trials, 8 dB, cap 12), each form
+# held to its plain version under compare with the small rule and
+# WIDE_RULES, the form with wrong products held to the same rule (it must
+# fail it) and the form's one-iteration control; timed at the flagship's
+# dimensions.
+WIDE_LIN = 40
+WIDE_B = 4096
+# The flagship-dimension rule at Lin 40 per form (T agreement, |d mean T|,
+# the state bound on the trials that stopped in both), between the
+# readings of tests/torch_bamp_high_rule.py --lin 40 on an NVIDIA H100
+# 80GB HBM3 at 700 W (kernel / float64 sums / the form with wrong
+# products): HIGH 95.04% / 95.36% / HIGHEST's 89.50%, |d mean T| 0.0083 /
+# 0.0015 / 0.074; DEFAULT 98.34% / 99.02% / HIGH's 77.71%, 0.0022 /
+# 0.0007 / 0.176, state 5.4e-4 / 5.4e-4; the six split pairs 94.51-99.61%
+# / 94.78-98.97% / the form at the variance chain's precision 67.14-
+# 90.01%, |d mean T| at most 0.0034 / 0.0127 / at least 0.081, state at
+# most 6.2e-4.  Twice the column blocks of the OOK flagship give about
+# twice the trials one rounding at the stop test's tolerance parts (95.0%
+# here against 97.7% at Lin 20 for HIGH), so the phase-1 rules' T limits
+# (0.965, 0.985) do not hold two correct decodes here; compare's default
+# limits (99.5%, 0.02) are printed beside (inside_default_rule).
+WIDE_RULES = {"high": (0.93, 0.02, 1e-3), "default": (0.97, 0.02, 3e-3),
+              "split": (0.93, 0.02, 3e-3)}
+
+
+def k1_wide_checks(torch, dev, precision, x_precision=None):
+    """The checks above for K1's form ``(precision, x_precision)``; the
+    kernel must run (its launch counter moves); returns the largest state
+    error of the trials whose T agrees and that converged; raises on a
+    failed check."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        Config, flagship_bamp_ook)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    v, x = precision, x_precision or precision
+    split = x != v
+    label = f"{v}:{x}"
+    counter = ("launches_xmap" if split else "launches_default"
+               if v == "default" else "launches_high")
+    rule = WIDE_RULES["split" if split else v]
+    kernel = lambda op, s, y, s2, c, cfg: fused_bamp.whole_decode(
+        op, s, y, s2, c, cfg, v, x if split else None)
+    plain = lambda op, s, y, s2, c, cfg: fused_bamp.decode_plain_split(
+        op, s, y, s2, c, cfg, v, x) if split else fused_bamp.PLAIN[v](
+            op, s, y, s2, c, cfg)
+    small = Config(Nt=16, Na=4, Nr=8, Lin=WIDE_LIN, Lh=3, mode="segmented",
+                   profile="uniform", alphabet="OOK", trunc="tail",
+                   iterations=12)
+    flag = dataclasses.replace(flagship_bamp_ook(), Lin=WIDE_LIN)
+    failed, max_err = [], 0.0
+    for name, cfg, B, cap, snr, seed, (min_agree, max_dmean, tol) in (
+            ("small_ook_lin40", small, SMALL_B, small.N_Layers, 10 ** 1.2,
+             300, (BAMP_HIGH_SMALL_RULE["min_agree"],
+                   BAMP_HIGH_SMALL_RULE["dmean_T_of_cap"] * small.N_Layers,
+                   1e-4)),
+            ("ook_flagship_lin40", flag, WIDE_B, K1, snr_of(flag, EBN0_DB),
+             301, rule)):
+        assert -(-cfg.Lin // 8) > 4 and fused_bamp.fits(cfg, v, x)
+        r = montecarlo.generate_realization(make_generator(dev, seed), cfg,
+                                            "sparc", "banded", B, snr, v)
+        op, y, s2 = r.A, r.y, r.sigma2
+        s0 = bamp.initial_state(y, cfg.N, s2)
+        before = getattr(fused_bamp, counter)
+        sk = kernel(op, s0, y, s2, cap, cfg)
+        torch.cuda.synchronize()
+        launched = getattr(fused_bamp, counter) - before
+        sp = plain(op, s0, y, s2, cap, cfg)
+        frac, dmean, inside = rule_passes(sk, sp, 0.995, 0.02)
+        try:
+            max_err = max(max_err, compare(
+                "kernel_wide_bamp", sk, sp, tol, free_unconverged=True,
+                min_agree=min_agree, max_dmean_T=max_dmean, case=name,
+                form=label, Lin=cfg.Lin, cap=cap, launches=launched,
+                inside_default_rule=inside,
+                stopped_within_1e4=stopped_share(sk, sp)))
+        except AssertionError as err:
+            failed.append(str(err))
+        if launched != 1:
+            failed.append(f"{name}: {launched} launches of {counter}")
+        if name.startswith("ook_flagship"):
+            # timed as kernels_bamp_xmap times a form: the kernel beside its
+            # plain version, the bound and the same products as PyTorch
+            # calls
+            ms = cuda_ms(lambda: kernel(op, s0, y, s2, cap, cfg), 1, 2)
+            plain_ms = cuda_ms(lambda: plain(op, s0, y, s2, cap, cfg), 0, 1)
+            tensors = [getattr(st, f) for st in (s0, sk)
+                       for f in st._fields if f != "t"]
+            tensors += [y] + k1_form_taps(cfg, op, v, x)
+            flop, nbytes, iters, bound_ms, bound_by = split_work(
+                cfg, s0, sk, tensors, v, x)
+            rows, W = B * cfg.Lin, cfg.Lh * cfg.Nr
+            lib, lib_form = split_library(
+                torch, cfg, op, sk.var.reshape(rows, cfg.Nt),
+                torch.rand(rows, W, device=dev), v, x)
+            library_iter_ms = cuda_ms(lib, 1, 3)
+            del lib, tensors
+            emit("kernel_timing_bamp_wide", case=name, form=label, B=B,
+                 cap=cap, Lin=cfg.Lin, ms=ms, plain_ms=plain_ms,
+                 iterations=iters, flop=flop, bytes=nbytes,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 pct_of_bound=100 * bound_ms / ms,
+                 library_ms=library_iter_ms * iters / B,
+                 library_form=lib_form,
+                 smem_bytes=fused_bamp.smem_bytes(cfg, v, x),
+                 threads=fused_bamp.high_threads(cfg))
+            # the form with the wrong products, held to the same rule, must
+            # fail it: the form at the variance chain's precision, HIGHEST
+            # for HIGH, HIGH for DEFAULT
+            wrong = v if split else "high" if v == "default" else "highest"
+            sw = fused_bamp.whole_decode(op, s0, y, s2, cap, cfg, wrong)
+            frac, dmean, inside = rule_passes(sw, sp, min_agree, max_dmean)
+            emit("kernel_wide_bamp_wrong", case=name, form=label,
+                 wrong=wrong, T_agree_fraction=frac, abs_dmean_T=dmean,
+                 inside_rule=inside)
+            if inside:
+                failed.append(f"{name}: the {wrong} form passes the rule")
+            del sw
+        del sk, sp
+        if name.startswith("ook_flagship"):
+            # the form's one-iteration control, as its phase takes it
+            if split:
+                ps = plain(op, s0, y, s2, 2, cfg)
+                one = plain(op, ps, y, s2, 3, cfg)
+                gate_control(failed, "kernel_wide_bamp_control",
+                             vamp_gap(kernel(op, ps, y, s2, 3, cfg), one),
+                             vamp_gap(fused_bamp.whole_decode(
+                                 op, ps, y, s2, 3, cfg, v), one),
+                             XMAP_CONTROL, "xmap_p50", case=name,
+                             form=label, presteps=2)
+            elif v == "default":
+                ps = plain(op, s0, y, s2, 2, cfg)
+                one = plain(op, ps, y, s2, 3, cfg)
+                gate_control(failed, "kernel_wide_bamp_control",
+                             vamp_gap(kernel(op, ps, y, s2, 3, cfg), one),
+                             vamp_gap(fused_bamp.whole_decode(
+                                 op, ps, y, s2, 3, cfg, "high"), one),
+                             K1_DEFAULT_CONTROL, "xmap_p50", case=name,
+                             form=label, presteps=2)
+            else:
+                one = plain(op, s0, y, s2, 1, cfg)
+                gate_control(failed, "kernel_wide_bamp_control",
+                             vamp_gap(kernel(op, s0, y, s2, 1, cfg), one),
+                             vamp_gap(fused_bamp.whole_decode(
+                                 op, s0, y, s2, 1, cfg), one),
+                             {BAMP_HIGH_CONTROL_STAT: HIGH_CONTROL_TOL},
+                             BAMP_HIGH_CONTROL_STAT, case=name, form=label)
+        del r, op, y, s0
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K1 {label} past 32 column blocks: {failed}")
+    return max_err
+
+
+def phase_main_bamp_wide(torch, dev):
+    """K1's function where JAX's K1 runs and the port's block holds no
+    trial: ``bamp.decode`` at 'high' on the QPSK flagship at Lin 32 (its
+    HIGH block 281,728 B), 4096 trials at 5 dB, cap 100: the route must be
+    ``'whole_plain'`` (K1's plain HIGH version on the card, one plain
+    decode, no kernel launch), the result finite and the plain version's
+    bit for bit.  Prints the route, the plain-decode count and the
+    seconds."""
+    import dataclasses
+
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    cfg = dataclasses.replace(flagship_bamp_qpsk(), Lin=32)
+    r = montecarlo.generate_realization(
+        make_generator(dev, 302), cfg, "sparc", "banded", FLAGSHIP_B,
+        snr_of(cfg, BAMP_HIGH_EBN0_DB), "high")
+    way = bamp.route(cfg, r.A, FLAGSHIP_B, dev, "high")
+    counters = ("launches", "launches_high", "launches_default",
+                "launches_xmap")
+    before = [getattr(fused_bamp, c) for c in counters]
+    bamp.plain_decodes = 0
+    t0 = time.perf_counter()
+    out, st = bamp.decode(r.A, r.y, r.sigma2, cfg, precision="high",
+                          return_state=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    plain = bamp.plain_decodes
+    launched = [getattr(fused_bamp, c) - b for c, b in zip(counters, before)]
+    s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
+    want = fused_bamp.decode_plain_high(r.A, s0, r.y, r.sigma2,
+                                        cfg.N_Layers, cfg)
+    same = bool(torch.equal(out.T, want.T)
+                and torch.equal(out.xmap, want.xmap))
+    finite = bool(torch.isfinite(torch.view_as_real(out.xmap)).all())
+    emit("main_bamp_wide", Lin=cfg.Lin, B=FLAGSHIP_B, route=way,
+         plain_decodes=plain, k1_launches=dict(zip(counters, launched)),
+         seconds=seconds, mean_T=float(out.T.float().mean()),
+         smem_high=fused_bamp.smem_bytes(cfg, "high"),
+         jax_fits=fused_bamp.jax_fits(cfg, FLAGSHIP_B),
+         identical_to_plain=same, finite=finite)
+    if (way != "whole_plain" or plain != 1 or any(launched) or not same
+            or not finite):
+        raise AssertionError("main_bamp_wide: K1's plain version did not "
+                             "take the QPSK flagship at Lin 32")
 
 
 def phase_main_bamp_high(torch, dev):
@@ -4084,6 +4306,7 @@ def phase_kernels_bamp_default(torch, dev, ptxas_lines):
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"K1 DEFAULT kernel != plain: {failed}")
+    max_err = max(max_err, k1_wide_checks(torch, dev, p))
     return max_err, timings
 
 
@@ -4256,21 +4479,39 @@ def k1_tap_stream(cfg, iters, precision, x_precision=None):
     """Tap bytes one launch of K1's form streams from L2, each tap once per
     trial-iteration: the mma fragments of the planes its bf16 chains
     multiply (``fused_bamp.instance_taps``: 16 bytes a lane and k16 step
-    of a one-pass form, 32 of a three-pass one) and the FP32 planes of a
+    of a one-pass form, 32 of a three-pass one; in a mixed form each
+    chain's own, ``fused_bamp.chain_parts``) and the FP32 planes of a
     chain at 'highest' (``fused_bamp.fp32_taps``)."""
     from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
     x_precision = x_precision or precision
-    words = fused_bamp.split_parts(precision, x_precision)
+    words = dict(zip(("var", "xmap"),
+                     fused_bamp.chain_parts(precision, x_precision)))
     real = fused_bamp.real_x(cfg)
     W = cfg.Lh * cfg.Nr
-    frag = (fused_bamp.padded16(W) * fused_bamp.padded16(cfg.Nt) * 2
-            * words)
+    frag = fused_bamp.padded16(W) * fused_bamp.padded16(cfg.Nt) * 2
     fp32 = 4 * cfg.Nt * W
     planes = {"var": 2, "xmap": (2 if real else 3) + 3}
     total = 0
     for chain, p in (("var", precision), ("xmap", x_precision)):
-        total += planes[chain] * (fp32 if p == "highest" else frag)
+        total += planes[chain] * (fp32 if p == "highest"
+                                  else frag * words[chain])
     return iters * total
+
+
+def k1_form_taps(cfg, op, precision, x_precision=None) -> list:
+    """The tap tensors K1's form reads, for its bound's bytes: the buffer
+    of ``fused_bamp.instance_taps``, or in a mixed form the planes each
+    chain multiplies of its own buffer (the variance chain's 2 of the
+    eight, the xmap chain's 5 or 6)."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    taps = fused_bamp.instance_taps(op, precision, x_precision)[0]
+    if not fused_bamp.mixed(precision, x_precision):
+        return [taps]
+    bufs = {2: fused_bamp.high_taps(op)[0].view(8, -1),
+            1: fused_bamp.default_taps(op)[0].view(8, -1)}
+    pv, px = fused_bamp.chain_parts(precision, x_precision)
+    xq = [1, 2, 5, 6, 7] if fused_bamp.real_x(cfg) else [1, 2, 3, 5, 6, 7]
+    return [bufs[pv][[0, 4]], bufs[px][xq]]
 
 
 def phase_kernels_vamp_default(torch, dev, algo: str, ptxas_lines):
@@ -4981,7 +5222,7 @@ def phase_kernels_bamp_xmap(torch, dev, ptxas_lines):
                 plain_ms = cuda_ms(lambda: plain(s0, cap), 0, 1)
                 tensors = [getattr(s0, f) for f in s0._fields if f != "t"]
                 tensors += [getattr(s1, f) for f in s1._fields if f != "t"]
-                tensors += [y, fused_bamp.instance_taps(op, v, x)[0]]
+                tensors += [y] + k1_form_taps(cfg, op, v, x)
                 if "highest" in pair:
                     tensors.append(fused_bamp.fp32_taps(op))
                 flop, nbytes, iters, bound_ms, bound_by = split_work(
@@ -5017,6 +5258,8 @@ def phase_kernels_bamp_xmap(torch, dev, ptxas_lines):
             torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"K1 split kernel != plain: {failed}")
+    for pair in XMAP_PAIRS:
+        errs[pair] = max(errs[pair], k1_wide_checks(torch, dev, *pair))
     return {pair: (errs[pair], times[pair]) for pair in XMAP_PAIRS}
 
 
@@ -5246,6 +5489,16 @@ def main() -> int:
     xmap_launches = phase_main_bamp_xmap(torch, dev)
     torch.cuda.empty_cache()
     emit("xmap_phases", seconds=time.perf_counter() - t0)
+    for pair in (("high", "default"), ("default", "high")):
+        emit("kernel_timing_bamp_xmap_mixed", pair=":".join(pair),
+             launches=xmap_launches[pair], **{
+                 f"{t['case']}_{k}": t[k] for t in xmap_checks[pair][1]
+                 for k in ("ms", "bound_ms", "bound_by", "library_ms",
+                           "plain_ms", "form_ms")})
+    t0 = time.perf_counter()
+    phase_main_bamp_wide(torch, dev)
+    torch.cuda.empty_cache()
+    emit("wide_phases", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_main_auto_k1(torch, dev)
     phase_main_plain(torch, dev)

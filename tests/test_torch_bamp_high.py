@@ -436,7 +436,8 @@ def test_wrapper_high_on_cpu_is_plain_high():
 def test_smem_and_fit_of_the_high_form():
     """The HIGH carve-out: the FP32 planes of the HIGHEST form, then one
     region for the split operands (the forward's and the adjoint's in
-    turn); the flagships fit (two OOK blocks or one QPSK block per SM)."""
+    turn); the flagships fit (two OOK blocks or one QPSK block per SM); a
+    trial of more than 32 column blocks fits where its planes do."""
     from amp_sparc_spatialmodulation_tpu_torch.config import (
         flagship_bamp_ook, flagship_bamp_qpsk, massive_mimo)
     ook, qpsk = flagship_bamp_ook(), flagship_bamp_qpsk()
@@ -448,8 +449,11 @@ def test_smem_and_fit_of_the_high_form():
     assert fused_bamp.fits(ook, "high") and fused_bamp.fits(qpsk, "high")
     assert 2 * fused_bamp.smem_bytes(ook, "high") <= fused_bamp.SMEM_LIMIT
     assert not fused_bamp.fits(massive_mimo(), "high")
-    assert not fused_bamp.fits(Config(**dict(SMALL, Lin=40)), "high")
+    assert fused_bamp.fits(Config(**dict(SMALL, Lin=40)), "high")
     assert fused_bamp.fits(Config(**dict(SMALL, Lin=40)))
+    assert not fused_bamp.fits(Config(**dict(SMALL, Lin=40, Nt=256)), "high")
+    assert fused_bamp.smem_bytes(Config(**dict(SMALL, Lin=40, Nt=256)),
+                                 "high") > fused_bamp.SMEM_LIMIT
 
 
 def test_routes_at_high(monkeypatch):

@@ -328,17 +328,21 @@ def _jax_banded(jop):
 def test_bamp_plain_default_matches_xla_default(witness, name, kw, seed,
                                                 snr_exp, form):
     """BAMP's plain loop at DEFAULT (a dense operator; Lin = 33, which K1's
-    bf16 forms do not hold and which QPSK takes to the plain loop) against
-    JAX's XLA decode at DEFAULT under the witness."""
+    bf16 forms now hold, as JAX's K1 does, so the plain loop is asked for
+    by use_pallas=False) against JAX's XLA decode at DEFAULT under the
+    witness."""
     cfg, op, _, y, s2, jcfg, jop, jy = banded_inputs(kw, seed, snr_exp)
     H, jH = op, _jax_banded(jop)
     if form == "dense":
         H, jH = op.densify(), jop.densify()
+    knob = False if name == "qpsk_lin33" else "auto"
     assert bamp.route(cfg, operators.as_operator(H), 8, "cpu",
-                      "default") == "plain"
+                      "default") == ("plain" if knob else "whole")
+    assert bamp.route(cfg, operators.as_operator(H), 8, "cpu", "default",
+                      knob) == "plain"
     before = bamp.plain_decodes
     port, st = bamp.decode(H, y, s2, cfg, precision="default",
-                           return_state=True)
+                           return_state=True, use_pallas=knob)
     assert bamp.plain_decodes == before + 1
     ref = jbamp.decode(jH, jy, s2, jcfg, precision=DEFAULT)
     stopped_rule(port.T, ref.T, port, ref, st.active,

@@ -4,8 +4,13 @@ chains (``fused_bamp_decode.cu``), checked on the CPU in a few seconds:
 * ``fused_bamp.default_taps``: the hi halves of the eight Gauss planes laid
   out as one 16-byte A fragment per lane and k16 step, zero in every pad;
 * the carve-out of the DEFAULT form (hi planes alone, half the HIGH form's
-  split region) and of the six split forms (the HIGH form's), their fit
-  and threads, within 227 KB at both flagships and the test geometries;
+  split region) and of the six split forms (the HIGH form's, but for the
+  mixed forms <3, 1> and <1, 3>: each chain's operands on their own
+  planes, hi and lo for the three-pass chain, hi alone for the one-pass
+  one, ``Form::plane_of``), their fit and threads, within 227 KB at both
+  flagships and the test geometries; the mixed forms' tap buffers (the
+  three-pass chain on ``high_taps``, the one-pass chain on
+  ``default_taps``);
 * the two-segment denoiser rounds (``pair_posterior``): each group's
   segments, two a round, then one, are the one-a-round loop's;
 * the FP32 chains' register tiles (``fp32_pass`` / ``fp32_tiles``): the
@@ -70,6 +75,8 @@ def test_default_taps_are_the_hi_planes(name):
     assert fused_bamp.instance_taps(op, "highest", "default")[0] is taps
     assert fused_bamp.instance_taps(op, "high", "default")[0] is (
         fused_bamp.high_taps(op)[0])
+    assert fused_bamp.instance_taps(op, "default", "high")[0] is (
+        fused_bamp.high_taps(op)[0])
     assert fused_bamp.instance_taps(op) == (None, False)
     t = bamp.gauss_taps(op)
     kx = fused_bamp.padded16(cfg.Nt)
@@ -102,11 +109,30 @@ def _region(cfg, parts_all=2):
     return 2 * fused_bamp.high_split_elems(cfg) * parts_all // 2
 
 
+def plane_of(o, pv, px):
+    """The first plane of split operand o (csrc: ``Form::plane_of``):
+    operand 0 (var, Zc) of the variance chain's ``pv`` planes, operands
+    1.. of the xmap chain's ``px``."""
+    return 0 if o == 0 else pv + (o - 1) * px
+
+
+def _mixed_region(cfg, pv, px):
+    """bf16 bytes of a mixed form's region: the forward's x side (var and
+    the xmap chain's 1 or 3 operands) and, in the same place, the
+    adjoint's 4 inputs."""
+    nx = 2 if fused_bamp.real_x(cfg) else 4
+    ld = fused_bamp.split_ld
+    return 2 * max(plane_of(nx, pv, px) * cfg.Lin * ld(cfg.Nt),
+                   plane_of(4, pv, px) * cfg.Lin * ld(cfg.Lh * cfg.Nr))
+
+
 @pytest.mark.parametrize("name", list(GEOMETRIES))
 def test_carve_outs_fits_and_threads(name):
     """DEFAULT: the FP32 planes and the split region's hi planes (half the
-    HIGH form's region); the split forms: the HIGH form's; every form the
-    HIGH form's threads; within 227 KB wherever the HIGH form fits."""
+    HIGH form's region); the split forms with an FP32 chain: the HIGH
+    form's; the mixed forms: each chain's planes (:func:`plane_of`); every
+    form the HIGH form's threads; within 227 KB wherever the HIGH form
+    fits."""
     cfg = GEOMETRIES[name]()
     nrp = -(-cfg.Nr // 4) * 4
     fp32 = 4 * (3 * cfg.Lin * cfg.Lh * nrp
@@ -117,10 +143,17 @@ def test_carve_outs_fits_and_threads(name):
     assert fused_bamp.split_parts("default") == 1
     assert fused_bamp.split_parts("high") == 2
     for pair in PAIRS:
-        assert fused_bamp.smem_bytes(cfg, *pair) == high
+        smem = fused_bamp.smem_bytes(cfg, *pair)
+        if fused_bamp.mixed(*pair):
+            pv, px = fused_bamp.chain_parts(*pair)
+            assert smem == fp32 + _mixed_region(cfg, pv, px) < high
+            assert fused_bamp.fits(cfg, *pair)
+        else:
+            assert smem == high
+            assert fused_bamp.fits(cfg, *pair) == fused_bamp.fits(cfg,
+                                                                  "high")
         assert fused_bamp.split_parts(*pair) == (1 if "high" not in pair
                                                  else 2)
-        assert fused_bamp.fits(cfg, *pair) == fused_bamp.fits(cfg, "high")
     assert fused_bamp.fits(cfg, "high") and fused_bamp.fits(cfg, "default")
     assert high <= fused_bamp.SMEM_LIMIT
     assert fused_bamp.high_threads(cfg) in (256, 512)
@@ -139,6 +172,112 @@ def test_carve_outs_at_the_flagships():
     assert 3 * (82880 + 1024) > fused_bamp.SM_SMEM
     assert fused_bamp.high_threads(q) == 512
     assert fused_bamp.high_threads(o) == 256
+
+
+MIXED = (("high", "default"), ("default", "high"))
+
+
+def test_mixed_forms_chain_parts():
+    """Only <3, 1> and <1, 3> are mixed; each chain's planes: 2 for the
+    'high' chain, 1 for the 'default' one; every other form keeps
+    ``split_parts`` planes for every operand."""
+    assert [p for p in PAIRS if fused_bamp.mixed(*p)] == list(MIXED)
+    assert fused_bamp.chain_parts("high", "default") == (2, 1)
+    assert fused_bamp.chain_parts("default", "high") == (1, 2)
+    for pair in PAIRS + (("high", None), ("default", None)):
+        if not fused_bamp.mixed(*pair):
+            n = fused_bamp.split_parts(*pair)
+            assert fused_bamp.chain_parts(*pair) == (n, n)
+
+
+@pytest.mark.parametrize("pair", MIXED)
+@pytest.mark.parametrize("real", [True, False])
+def test_mixed_forms_planes_tile_the_region(pair, real):
+    """The operands' planes follow each other without gap or overlap (hi
+    then lo where a chain runs three passes), the forward's x side and the
+    adjoint's inputs each within the region; with equal parts the uniform
+    layout ``kParts o + part``."""
+    pv, px = fused_bamp.chain_parts(*pair)
+    nx = 2 if real else 4
+    for n_ops in (nx, 4):
+        planes = [plane_of(o, pv, px) + part for o in range(n_ops)
+                  for part in range(pv if o == 0 else px)]
+        assert planes == list(range(plane_of(n_ops, pv, px)))
+    for k in (1, 2):
+        assert [plane_of(o, k, k) for o in range(5)] == [k * o
+                                                         for o in range(5)]
+
+
+def test_mixed_carve_outs_at_the_flagships():
+    """<3, 1>: 190,800 B (QPSK) and 86,400 B (OOK); <1, 3>: 210,800 B and
+    93,440 B, against the HIGH form's 220,800 and 96,960; neither gains a
+    block per SM, so both keep the HIGH form's threads."""
+    q, o = flagship_bamp_qpsk(), flagship_bamp_ook()
+    assert fused_bamp.smem_bytes(q, *MIXED[0]) == 190800
+    assert fused_bamp.smem_bytes(o, *MIXED[0]) == 86400
+    assert fused_bamp.smem_bytes(q, *MIXED[1]) == 210800
+    assert fused_bamp.smem_bytes(o, *MIXED[1]) == 93440
+    assert 2 * (190800 + 1024) > fused_bamp.SM_SMEM
+    assert 3 * (86400 + 1024) > fused_bamp.SM_SMEM
+
+
+def test_mixed_forms_read_both_tap_buffers():
+    """The launch of a mixed form passes the three-pass chain's
+    ``high_taps`` as ``taps`` and the one-pass chain's ``default_taps`` as
+    ``taps1`` (the hi words of the same fragments); the kernel picks a
+    chain's buffer and words by its planes (``Form::taps_of``)."""
+    cfg = flagship_bamp_ook()
+    op = _op(cfg)
+    high, _ = fused_bamp.high_taps(op)
+    one, _ = fused_bamp.default_taps(op)
+    for pair in MIXED:
+        assert fused_bamp.instance_taps(op, *pair)[0] is high
+    assert torch.equal(one.reshape(-1, 8), high.reshape(-1, 2, 8)[:, 0])
+    src = (fused_bamp.build.CSRC / "fused_bamp_decode.cu").read_text()
+    assert "kMixed && (v ? kVParts : kXParts) == 1 ? p.taps1 : p.taps" in src
+    assert ("split && high && xhigh && taps1 == nullptr" in src)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("nq", [3, 4])
+def test_fused_one_pass_products_are_the_separate_sums(nq, seed):
+    """The mixed forms' one-pass chain (``one_pass_products<3>``, products
+    q0 = 1 .. nq-1: two for a real x, three for a complex one) issues every
+    product's mma of a k16 step before the next step, where high_pass<true>
+    ran the products one after another; each accumulator still sums its
+    own product's steps in order from zero, so every sum is the same bit
+    for bit, and the epilogues run in the order 1 .. nq-1 (k1 parked in its
+    slot before the products that read it)."""
+    rng = np.random.default_rng(10 * nq + seed)
+    a = rng.standard_normal((nq, 16, 128)).astype(np.float32)
+    b = rng.standard_normal((nq, 128, 8)).astype(np.float32)
+    alone, order = {}, []
+    for q in range(1, nq):
+        acc = np.zeros((16, 8), np.float32)
+        for k in range(0, 128, 16):
+            acc = acc + a[q][:, k:k + 16] @ b[q][k:k + 16]
+        alone[q] = acc
+    fused = {q: np.zeros((16, 8), np.float32) for q in range(1, nq)}
+    for k in range(0, 128, 16):
+        for q in fused:
+            fused[q] = fused[q] + a[q][:, k:k + 16] @ b[q][k:k + 16]
+    for q in fused:
+        order.append(q)
+        assert np.array_equal(fused[q], alone[q])
+    assert order == list(range(1, nq)) and len(order) <= 3
+
+
+def test_one_pass_products_in_the_source():
+    """The mixed forms' one-pass chain runs its products in one k16 loop
+    (forward and adjoint), switched by kFuseOnePass; the DEFAULT form and
+    the other forms keep high_pass."""
+    src = (fused_bamp.build.CSRC / "fused_bamp_decode.cu").read_text()
+    assert "constexpr bool kFuseOnePass = true;" in src
+    assert src.count("one_pass_products<3>(") == 2
+    assert src.count("if constexpr (F::kMixed && kXP == 1 && "
+                     "kFuseOnePass)") == 2
+    assert "one_pass_products<" not in src.split(
+        "if constexpr (kVP == kXP) {")[1].split("} else {")[0]
 
 
 # ---- the FP32 chains --------------------------------------------------

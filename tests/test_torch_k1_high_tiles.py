@@ -1,14 +1,17 @@
 """The host-side mirrors of K1's HIGH form (``fused_bamp_decode.cu``, the
 ``kHigh`` instances) checked on the CPU:
 
-* its shared memory and fit are those of the earlier form wherever that
-  form fit (a copy of the earlier formula is kept here), so that
-  ``bamp.route`` routes as before;
+* its shared memory is that of the earlier form (a copy of the earlier
+  formula is kept here), and it fits wherever its planes fit one block:
+  where the earlier form fit (at most 32 column blocks), and past that;
 * the rule that picks the block (``fused_bamp.high_threads``): 16 warps
   where one block fills an SM's shared memory, else 8 warps and two blocks
   per SM, 128 registers a thread either way;
 * the units of each pass (mirrored here from ``high_pass``): every
-  (16-row tile, n8 tile) of a product once, spread over the warps;
+  (16-row tile, n8 tile) of a product once, spread over the warps, no
+  unit over more than four n8 tiles (kMaxNT: at Lin 33-48, five or six
+  n8 tiles, a tile takes two units at least), and at Lin <= 32 the units
+  of the earlier rule;
 * the tap fragments the wrapper lays out (``high_taps``): the bf16 split of
   ``bamp.gauss_taps``'s planes, zero in every pad;
 * the B fragment words a lane reads from the split operands: those the
@@ -24,6 +27,7 @@
 The kernel itself is held against its plain HIGH version on the card by
 ``chip_smoke.py`` (``kernels_bamp_high``).
 """
+import dataclasses
 import itertools
 
 import numpy as np
@@ -40,7 +44,8 @@ from amp_sparc_spatialmodulation_tpu_torch.ops.operators import (
 
 SMALL = dict(Nt=16, Na=4, Nr=8, Lin=8, Lh=3, mode="segmented",
              profile="uniform")
-# chip_smoke.py's kernels_bamp_high geometries, both flagships and Lin = 32
+# chip_smoke.py's kernels_bamp_high geometries, both flagships at Lin = 32,
+# 40 and 48, and the small QPSK geometry at Lin 33 and 48
 GEOMETRIES = {
     "ook_tail": dict(SMALL, alphabet="OOK", trunc="tail"),
     "ook_trunc": dict(SMALL, alphabet="OOK", trunc="trunc"),
@@ -51,6 +56,8 @@ GEOMETRIES = {
     "random_qpsk": dict(SMALL, alphabet="QPSK", trunc="tail",
                         mode="random"),
     "qpsk_lin32": dict(SMALL, alphabet="QPSK", trunc="tail", Lin=32),
+    "qpsk_lin33": dict(SMALL, alphabet="QPSK", trunc="tail", Lin=33),
+    "ook_lin48": dict(SMALL, alphabet="OOK", trunc="trunc", Lin=48),
 }
 FLAGSHIPS = {"ook_flagship": flagship_bamp_ook, "qpsk_flagship":
              flagship_bamp_qpsk}
@@ -62,21 +69,31 @@ def config(name: str) -> Config:
     return Config(**GEOMETRIES[name])
 
 
-NAMES = list(GEOMETRIES) + list(FLAGSHIPS) + ["ook_flagship_lin32",
-                                             "qpsk_flagship_lin32"]
+WIDE = [f"{f}_lin{lin}" for f in FLAGSHIPS for lin in (32, 40, 48)]
+NAMES = list(GEOMETRIES) + list(FLAGSHIPS) + WIDE
 
 
 def _config(name: str) -> Config:
-    if name.endswith("_flagship_lin32"):
-        cfg = config(name[:-len("_lin32")])
-        return Config(**{**cfg.__dict__, "Lin": 32})
+    if name in WIDE:
+        flag, lin = name.rsplit("_lin", 1)
+        return dataclasses.replace(config(flag), Lin=int(lin))
     return config(name)
+
+
+# n8 tiles a unit of a HIGH pass spans at most (csrc: kMaxNT)
+MAX_NT = 4
 
 
 def high_parts(mtiles: int, warps: int, NT: int) -> int:
     """Ranges of its ``NT`` n8 tiles that each 16-row tile of a HIGH pass
     is cut into (csrc: ``high_parts``): as many as the block has warps
-    per tile, at least 1, at most NT."""
+    per tile, at least 1, at most NT, and at least as many as keep each
+    range within ``MAX_NT`` tiles."""
+    return max(parent_high_parts(mtiles, warps, NT), -(-NT // MAX_NT))
+
+
+def parent_high_parts(mtiles: int, warps: int, NT: int) -> int:
+    """The earlier rule, for at most 32 column blocks (NT <= 4)."""
     return max(1, min(NT, warps // mtiles))
 
 
@@ -116,30 +133,49 @@ def parent_smem_high(cfg: Config) -> int:
 
 
 def parent_fits_high(cfg: Config) -> bool:
+    """The earlier fit: the planes in one block and at most 32 column
+    blocks."""
     return parent_smem_high(cfg) <= 232448 and cfg.Lin <= 32
+
+
+def fits_high(cfg: Config) -> bool:
+    """The fit now: the planes in one block, any number of column
+    blocks."""
+    return parent_smem_high(cfg) <= 232448
+
+
+# the geometries whose HIGH block passes the shared memory
+TOO_BIG = {"qpsk_flagship_lin32", "qpsk_flagship_lin40",
+           "qpsk_flagship_lin48"}
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_smem_and_fit_as_before(name):
     cfg = _config(name)
     assert fused_bamp.smem_bytes(cfg, "high") == parent_smem_high(cfg)
-    assert fused_bamp.fits(cfg, "high") == parent_fits_high(cfg)
-    if not name.endswith("_flagship_lin32"):
-        assert fused_bamp.fits(cfg, "high")
+    assert fused_bamp.fits(cfg, "high") == fits_high(cfg)
+    if cfg.Lin <= 32:
+        assert fused_bamp.fits(cfg, "high") == parent_fits_high(cfg)
+    assert fused_bamp.fits(cfg, "high") == (name not in TOO_BIG)
 
 
 def test_fit_as_before_over_a_grid():
     """Every geometry of a grid around the repo's configs fits at 'high'
-    exactly where the earlier form fit."""
-    n = 0
+    exactly where the earlier form fit at up to 32 column blocks, and
+    where its planes fit one block past that."""
+    n = wide = 0
     for Nt, Nr, Lin, Lh, alphabet in itertools.product(
             (16, 24, 32, 64, 128), (4, 8, 24, 32, 48), (4, 8, 20, 25, 32, 40),
             (1, 3, 6), ("OOK", "QPSK")):
         cfg = Config(Nt=Nt, Na=4, Nr=Nr, Lin=Lin, Lh=Lh, mode="segmented",
                      profile="uniform", alphabet=alphabet, trunc="tail")
-        assert fused_bamp.fits(cfg, "high") == parent_fits_high(cfg), cfg
-        n += fused_bamp.fits(cfg, "high")
-    assert n > 100
+        fit = fused_bamp.fits(cfg, "high")
+        assert fit == fits_high(cfg), cfg
+        if Lin <= 32:
+            assert fit == parent_fits_high(cfg), cfg
+        n += fit
+        wide += fit and Lin > 32
+    assert n > 100 and wide > 20
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -166,6 +202,9 @@ def test_block_rule_at_the_flagships():
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("threads", [256, 512])
 def test_units_cover_every_tile_once(name, threads):
+    """Every (16-row tile, n8 tile) once, the warps' loads within one unit
+    of each other, no unit over MAX_NT n8 tiles, and at most 32 column
+    blocks the units of the earlier rule."""
     cfg = _config(name)
     NT = -(-cfg.Lin // 8)
     units = high_units(cfg, threads)
@@ -180,6 +219,30 @@ def test_units_cover_every_tile_once(name, threads):
         parts = high_parts(mtiles, threads // 32, NT)
         assert all(n1 - n0 in (NT // parts, -(-NT // parts))
                    for warp in units[pas] for _, n0, n1 in warp)
+        assert all(0 < n1 - n0 <= MAX_NT
+                   for warp in units[pas] for _, n0, n1 in warp), pas
+        if cfg.Lin <= 32:
+            assert parts == parent_high_parts(mtiles, threads // 32, NT)
+        else:
+            assert NT > MAX_NT and parts >= 2
+
+
+@pytest.mark.parametrize("lin,NT", [(33, 5), (40, 5), (48, 6)])
+def test_units_past_32_column_blocks(lin, NT):
+    """Five and six n8 tiles: at the OOK flagship's 8 warps (forward 5
+    tiles, adjoint 8) every tile takes two units (of 2-3 tiles); at 16
+    warps the forward's tiles take three where the block has the warps."""
+    cfg = dataclasses.replace(flagship_bamp_ook(), Lin=lin)
+    assert -(-cfg.Lin // 8) == NT
+    for threads, want in ((256, {"forward": 2, "adjoint": 2}),
+                          (512, {"forward": 3, "adjoint": 2})):
+        units = high_units(cfg, threads)
+        for pas, n in want.items():
+            mtiles = len({mt for w in units[pas] for mt, _, _ in w})
+            assert sum(len(w) for w in units[pas]) == n * mtiles, (pas,
+                                                                    threads)
+            assert {n1 - n0 for w in units[pas] for _, n0, n1 in w} == {
+                NT // n, -(-NT // n)}
 
 
 def test_units_at_the_qpsk_flagship():
@@ -290,20 +353,25 @@ def test_b_words_are_the_mma_fragments(k, nrows):
 
 def _engine(units, nq, prods, epi):
     """The engine's order in NumPy: per warp, per unit, product q of its
-    tile and n8 tiles, handed to epi(mt, q, n0, n1, out) with out[nt] the
-    (16, 8) block of product ``prods[q]`` at tile mt, n8 tile nt."""
+    tile and n8 tiles, handed to epi(mt, q, n0, n1, out) with out[i] the
+    (16, 8) block of product ``prods[q]`` at tile mt, n8 tile n0 + i (at
+    most MAX_NT of them, indexed from the unit's first)."""
     for warp in units:
         for mt, n0, n1 in warp:
+            assert n1 - n0 <= MAX_NT
             for q in range(nq):
-                out = {nt: prods[q][mt * 16:mt * 16 + 16, nt * 8:nt * 8 + 8]
-                       for nt in range(n0, n1)}
+                out = [prods[q][mt * 16:mt * 16 + 16, nt * 8:nt * 8 + 8]
+                       for nt in range(n0, n1)]
                 epi(mt, q, n0, n1, out)
 
 
 @pytest.mark.parametrize("name,threads", [("qpsk_flagship", 512),
                                           ("ook_flagship", 256),
                                           ("qpsk_tail", 256),
-                                          ("ook_cyclic", 512)])
+                                          ("ook_cyclic", 512),
+                                          ("ook_flagship_lin40", 256),
+                                          ("qpsk_lin33", 512),
+                                          ("ook_lin48", 256)])
 def test_engine_parks_give_the_gauss_combinations(name, threads):
     """The units and the parked epilogues of forward_high and adjoint_high
     write, for every output, what the Gauss combinations of whole products
@@ -325,12 +393,12 @@ def test_engine_parks_give_the_gauss_combinations(name, threads):
     P = {name: np.full((Lin, W), np.nan) for name in ("v", "re", "im")}
 
     def fwd(mt, q, n0, n1, out):
-        for nt in range(n0, n1):
+        for i in range(n1 - n0):
             for r, col in itertools.product(range(16), range(8)):
-                j, c = mt * 16 + r, nt * 8 + col
+                j, c = mt * 16 + r, (n0 + i) * 8 + col
                 if j >= W or c >= Lin:
                     continue
-                val = out[nt][r, col]
+                val = out[i][r, col]
                 if q == 0:
                     P["v"][c, j] = val
                 elif q == 1:
@@ -355,12 +423,12 @@ def test_engine_parks_give_the_gauss_combinations(name, threads):
     cov, xmap_re, xmap_im = (np.full((Lin, Nt), np.nan) for _ in range(3))
 
     def adj(mt, q, n0, n1, out):
-        for nt in range(n0, n1):
+        for i in range(n1 - n0):
             for r, col in itertools.product(range(16), range(8)):
-                kk, c = mt * 16 + r, nt * 8 + col
+                kk, c = mt * 16 + r, (n0 + i) * 8 + col
                 if kk >= Nt or c >= Lin:
                     continue
-                val = out[nt][r, col]
+                val = out[i][r, col]
                 if q == 0:
                     cov[c, kk] = 1.0 / val
                 elif q == 1:

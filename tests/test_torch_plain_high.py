@@ -19,13 +19,17 @@ summation order of XLA's and PyTorch's products, as
 through ``base_product``'s three passes on the base matrix, the port's
 product-plus-sum form of JAX's ``mm(psi, Wt)``.
 
-Also the route chain at HIGH: where K1's HIGH form holds no trial (Lin >
-32), BAMP falls through to K6 at HIGHEST (OOK), to K5 at HIGH (a real
-alphabet with K > 1) or to the plain loop at HIGH (QPSK), as JAX's chain
-does where its K1 declines (``bamp.py:241-283``); JAX's K1 at HIGH may
-still hold such a trial in VMEM, so those decodes are held to the port's
-own routes, not to JAX's kernel.
+Also the route chain at HIGH: where the chain skips K1
+(``AMP_PALLAS_MODE=periter``), BAMP falls through to K6 at HIGHEST (OOK),
+to K5 at HIGH (a real alphabet with K > 1) or to the plain loop at HIGH
+(QPSK), as JAX's chain does where its K1 declines (``bamp.py:241-283``);
+at Lin > 32 K1 now takes the trial (where JAX's K1 does), and where the
+port's block holds none, K1's plain version does (``'whole_plain'``).
+Those decodes are held to the port's own routes here, and to JAX's K1 by
+``tests/test_torch_k1_wide.py``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +46,8 @@ from amp_sparc_spatialmodulation_tpu.ops import message as jmessage
 from amp_sparc_spatialmodulation_tpu.ops import operators as joperators
 from amp_sparc_spatialmodulation_tpu.ops.pallas import fused_bamp as jfb
 from amp_sparc_spatialmodulation_tpu_torch import interop
-from amp_sparc_spatialmodulation_tpu_torch.config import Config
+from amp_sparc_spatialmodulation_tpu_torch.config import (Config,
+                                                          flagship_bamp_qpsk)
 from amp_sparc_spatialmodulation_tpu_torch.models import (bamp, scamp, vamp,
                                                           vamp2)
 from amp_sparc_spatialmodulation_tpu_torch.ops import operators
@@ -132,8 +137,9 @@ def assert_same_high(port, ref, active, tol=1e-4, tol_unconverged=1e-3):
 
 # (name, config overrides, seed, SNR exponent, operator form, the state
 # bound on unconverged trials): BAMP on a dense operator, in the
-# real-channel mode and at Lin > 32 (QPSK: no kernel takes it at HIGH),
-# each the plain loop at HIGH.  In the real mode no trial converges within
+# real-channel mode and at Lin = 33 (QPSK: K1 takes it at HIGH, as JAX's
+# K1 does; the plain loop is asked for by use_pallas=False), each the
+# plain loop at HIGH.  In the real mode no trial converges within
 # the cap of 10, and the gap between two decodes grows about threefold an
 # iteration: at HIGHEST from 1.2e-7 after one iteration to 9.4e-5 after
 # ten, at HIGH from 8.9e-8 to 1.1e-3 (a one-ulp change of an operand can
@@ -159,11 +165,14 @@ def test_bamp_plain_high_matches_xla_high(witness, name, kw, seed, snr_exp,
     H, jH = op, jop
     if form == "dense":
         H, jH = op.densify(), jop.densify()
+    knob = False if name == "qpsk_lin33" else "auto"
     assert bamp.route(cfg, operators.as_operator(H), 8, "cpu",
-                      "high") == "plain"
+                      "high") == ("plain" if knob else "whole")
+    assert bamp.route(cfg, operators.as_operator(H), 8, "cpu", "high",
+                      knob) == "plain"
     before = bamp.plain_decodes
     port, st = bamp.decode(H, y, s2, cfg, precision="high",
-                           return_state=True)
+                           return_state=True, use_pallas=knob)
     assert bamp.plain_decodes == before + 1
     ref = jbamp.decode(jH, jy, s2, jcfg, precision=HIGH)
     assert_same_high(port, ref, st.active, tol_unconverged=tol_unconverged)
@@ -172,26 +181,36 @@ def test_bamp_plain_high_matches_xla_high(witness, name, kw, seed, snr_exp,
 
 
 def test_bamp_falls_through_at_high(monkeypatch):
-    """Lin = 33: K1's HIGH form holds no trial, K1's HIGHEST form does.  At
-    HIGH an OOK decode takes K6 at HIGHEST (its decode at HIGH is the
-    HIGHEST one bit for bit), a BPSK one (real, K = 2) K5 at HIGH (the
-    plain HIGH plane loop), a QPSK one the plain loop at HIGH."""
+    """Lin = 33: K1's HIGH layout now holds a trial of more than 32 column
+    blocks (a unit of its products spans at most four n8 tiles), so at HIGH
+    every alphabet takes K1, as JAX's K1 does there, and the decode is K1's
+    plain HIGH version.  Only where the chain skips K1
+    (``AMP_PALLAS_MODE=periter``) does it still fall through: OOK to K6 at
+    HIGHEST (its decode at HIGH is the HIGHEST one bit for bit), BPSK to K5
+    at HIGH (the plain HIGH plane loop), QPSK to the plain loop.  Where
+    JAX's K1 takes the batch and the port's block holds no trial, the
+    route is K1's plain version on the card (``'whole_plain'``)."""
     geo = dict(BASE, Lin=33)
-    assert not fused_bamp.fits(Config(**geo), "high")
+    assert fused_bamp.fits(Config(**geo), "high")
     assert fused_bamp.fits(Config(**geo))
-    routes = {a: bamp.route_of(Config(**dict(geo, alphabet=a)), True,
-                               precision="high")
-              for a in ("OOK", "BPSK", "QPSK")}
-    assert routes == {"OOK": "periter", "BPSK": "tiled", "QPSK": "plain"}
-    for a in ("OOK", "BPSK", "QPSK"):
-        assert bamp.route_of(Config(**dict(geo, alphabet=a)), True) == \
-            "whole"
+    alphabets = ("OOK", "BPSK", "QPSK")
+    for a in alphabets:
+        cfg = Config(**dict(geo, alphabet=a))
+        assert bamp.route_of(cfg, True, precision="high", batch=8) == "whole"
+        assert bamp.route_of(cfg, True, batch=8) == "whole"
     cfg, op, _, y, s2, *_ = banded_inputs(
         dict(alphabet="OOK", Lin=33, iterations=12), 0, 1.2)
     high = bamp.decode(op, y, s2, cfg, precision="high")
+    s0 = bamp.initial_state(y, cfg.N, float(np.float32(s2)))
+    want = fused_bamp.decode_plain_high(op, s0, y, s2, cfg.N_Layers, cfg)
+    assert torch.equal(high.T, want.T) and torch.equal(high.xmap, want.xmap)
     monkeypatch.setenv("AMP_PALLAS_MODE", "periter")
+    routes = {a: bamp.route_of(Config(**dict(geo, alphabet=a)), True,
+                               precision="high", batch=8)
+              for a in alphabets}
+    assert routes == {"OOK": "periter", "BPSK": "tiled", "QPSK": "plain"}
+    high = bamp.decode(op, y, s2, cfg, precision="high")
     highest = bamp.decode(op, y, s2, cfg)
-    monkeypatch.delenv("AMP_PALLAS_MODE")
     assert torch.equal(high.T, highest.T)
     assert torch.equal(high.xmap, highest.xmap)
     cfg, op, _, y, s2, *_ = banded_inputs(
@@ -200,6 +219,19 @@ def test_bamp_falls_through_at_high(monkeypatch):
     s0 = bamp.initial_state(y, cfg.N, float(np.float32(s2)))
     want = fused_bamp_tiled.decode_plain(op, s0, y, s2, cfg.N_Layers, cfg,
                                          "high")
+    assert torch.equal(high.T, want.T) and torch.equal(high.xmap, want.xmap)
+    monkeypatch.delenv("AMP_PALLAS_MODE")
+    # a block that holds no trial, where JAX's K1 takes the batch
+    flag = dataclasses.replace(flagship_bamp_qpsk(), Lin=32)
+    assert not fused_bamp.fits(flag, "high") and fused_bamp.jax_fits(flag, 8)
+    assert bamp.route_of(flag, True, precision="high", batch=8) == \
+        "whole_plain"
+    monkeypatch.setattr(fused_bamp, "fits", lambda *a: False)
+    assert bamp.route(cfg, op, 8, "cpu", "high") == "whole_plain"
+    before = bamp.plain_decodes
+    high = bamp.decode(op, y, s2, cfg, precision="high")
+    assert bamp.plain_decodes == before + 1
+    want = fused_bamp.decode_plain_high(op, s0, y, s2, cfg.N_Layers, cfg)
     assert torch.equal(high.T, want.T) and torch.equal(high.xmap, want.xmap)
 
 

@@ -145,9 +145,11 @@ def test_plane_loop_matches_jax_tiled_kernel(Lin, Lh, F):
 
 def force_tiled(monkeypatch):
     """Make the whole-decode and per-iteration kernels decline, as they do
-    at the massive geometry, so that small geometries take K5."""
+    at the massive geometry (where JAX's K1 finds no tile either), so that
+    small geometries take K5."""
     monkeypatch.setattr(fused_bamp, "fits",
-                        lambda cfg, precision="highest": False)
+                        lambda cfg, precision="highest", x=None: False)
+    monkeypatch.setattr(fused_bamp, "jax_fits", lambda cfg, batch: False)
     monkeypatch.setattr(fused_bamp_iteration, "fits", lambda cfg: False)
 
 

@@ -249,22 +249,44 @@ def test_knob_ignored_by_the_other_decoders(monkeypatch, algo):
 
 
 def test_split_that_does_not_fit_raises(monkeypatch):
-    """Where K1's HIGHEST form holds a trial and the split form does not
-    (the SCAMP flagship's dimensions under BAMP: Lin = 40 column blocks,
-    more than the HIGH layout's 32), the route raises, naming the
-    geometry, rather than take K6, K5 or the plain loop (which ignore the
-    variable, where JAX's K1 runs the split); the flagships fit."""
+    """Where K1's HIGHEST form holds a trial and the split form asked for
+    does not (the SCAMP flagship's dimensions under BAMP at 'highest' with
+    the variable at 'high': the HIGH layout's block passes the shared
+    memory), the route takes K1's split function as its plain version
+    (``'whole_plain'``, ``decode_plain_split``), as JAX's K1 runs the split
+    there, and does not raise; not K6, K5 or the plain loop (which ignore
+    the variable).  The flagships fit every pair: the mixed forms
+    ``<3, 1>`` and ``<1, 3>`` on each chain's planes, the others on the
+    HIGH form's region."""
     big = flagship_scamp()
     assert fused_bamp.fits(big) and not fused_bamp.fits(big, "highest",
                                                          "high")
     monkeypatch.setenv(VAR, "high")
-    with pytest.raises(ValueError, match="Lin=40"):
-        bamp.route_of(big, True)
+    assert bamp.route_of(big, True) == "whole_plain"
+    assert bamp.route_of(big, True, batch=4096) == "whole_plain"
+    assert bamp.route_of(big, True, precision="high",
+                         batch=4096) == "whole_plain"
+    # the dispatch, on a small geometry whose split form is made to
+    # decline: the plain split version, counted in plain_decodes
+    _, kw, seed, snr_exp = SPLIT_GEOMETRIES[0]
+    cfg, op, y, s2, *_ = shared_inputs(kw, seed, snr_exp)
+    monkeypatch.setattr(fused_bamp, "fits",
+                        lambda c, p="highest", x=None: x is None)
+    assert bamp.route(cfg, op, y.shape[0], "cpu") == "whole_plain"
+    before = bamp.plain_decodes
+    _, st = bamp.decode(op, y, s2, cfg, return_state=True)
+    assert bamp.plain_decodes == before + 1
+    s0 = bamp.initial_state(y, cfg.N, float(np.float32(s2)))
+    same_state(st, fused_bamp.decode_plain_split(op, s0, y, s2,
+                                                 cfg.N_Layers, cfg,
+                                                 "highest", "high"))
+    monkeypatch.undo()
     for cfg in (flagship_bamp_ook(), flagship_bamp_qpsk()):
+        high = fused_bamp.smem_bytes(cfg, "high")
         for pair in PAIRS:
             assert fused_bamp.fits(cfg, *pair)
-            assert fused_bamp.smem_bytes(cfg, *pair) == \
-                fused_bamp.smem_bytes(cfg, "high")
+            smem = fused_bamp.smem_bytes(cfg, *pair)
+            assert smem < high if fused_bamp.mixed(*pair) else smem == high
 
 
 # ---- the sweep with the variable set ----------------------------------------

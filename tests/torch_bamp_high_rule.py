@@ -39,6 +39,8 @@ iterations, its median |d z_re|, |d xmap_re| and |d u|.
         [--massive-db 10]
     env PYTHONPATH=. python tests/torch_bamp_high_rule.py --precision default \
         [--route tiled]
+    env PYTHONPATH=. python tests/torch_bamp_high_rule.py --lin 40 \
+        [--precision default | --split]
 
 With ``--precision default`` the readings of the DEFAULT rule (one bf16
 pass, ``chip_smoke.py``'s ``kernels_bamp_default`` and
@@ -63,6 +65,11 @@ variable unset: a wrong xmap chain); the control as at DEFAULT.
 
     env PYTHONPATH=. python tests/torch_bamp_high_rule.py --split \
         [--pairs highest:high,highest:default]
+
+With ``--lin L`` the same readings (at ``--precision``, or with
+``--split`` for each pair) at one shape only: the OOK flagship's
+dimensions with L column blocks at chip_smoke's ``k1_wide_checks`` shape
+(``WIDE_B`` trials, cap 12, 8 dB, seed 301), K1 past 32 column blocks.
 
 Prints one JSON line per shape and decode: T agreement, mean T of both,
 |d mean T|, the trials that converged in both, the largest state error on
@@ -348,12 +355,29 @@ def main() -> None:
                     "DEFAULT instances (module docstring)")
     ap.add_argument("--split", action="store_true",
                     help="the rule of the split forms (module docstring)")
+    ap.add_argument("--lin", type=int, default=None,
+                    help="the readings at the OOK flagship's dimensions "
+                    "with this many column blocks instead (chip_smoke's "
+                    "k1_wide_checks: WIDE_B trials, cap 12, 8 dB, seed "
+                    "301), at --precision or, with --split, each pair")
     ap.add_argument("--pairs", default=",".join(
         f"{v}:{x}" for v, x in chip_smoke.XMAP_PAIRS),
         help="--split: variance:xmap precision pairs")
     args = ap.parse_args()
     dev = torch.device("cuda")
     print(chip_smoke.nvidia_smi(), flush=True)
+    if args.lin is not None:
+        import dataclasses
+        wide = (f"ook_lin{args.lin}",
+                dataclasses.replace(flagship_bamp_ook(), Lin=args.lin),
+                chip_smoke.WIDE_B, chip_smoke.K1, chip_smoke.EBN0_DB, 301,
+                dev)
+        if args.split:
+            shape_split(*wide, [tuple(p.split(":"))
+                                for p in args.pairs.split(",")])
+        else:
+            shape(*wide, args.precision)
+        return
     if args.split:
         pairs = [tuple(p.split(":")) for p in args.pairs.split(",")]
         shape_split("ook_phase1", flagship_bamp_ook(), chip_smoke.RES,

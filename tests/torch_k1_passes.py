@@ -467,6 +467,94 @@ NO_VAR_SPLIT = replace_every(
      "zero;",
      "    for (int q = 2; q < 2 * nx; ++q) xs.base[q * xs.plane + off] = "
      "zero;"))
+def cut_named_calls(name: str):
+    """Remove every statement that calls exactly ``name`` (a function with
+    its template arguments, e.g. ``high_pass<kXP == 1, F::kWords>``);
+    raises where there is none."""
+    return cut_calls(re.escape(name))
+
+
+# The mixed bf16 split forms (<3, 1>, <1, 3>): one chain runs three passes,
+# the other one.  The one-pass chain's high_pass reads the hi word of each
+# tap fragment at the three-pass stride (32 bytes a lane); read instead
+# one 16-byte word a lane contiguously (wrong taps, the stream a hi-only
+# buffer gives).
+ONE_PASS_DENSE_TAPS = replace_every(
+    ("taps + (static_cast<size_t>(mt) * ks * 32 + lane) * kWords;",
+     "taps + (static_cast<size_t>(mt) * ks * 32 + lane) * (kOne ? 1 : "
+     "kWords);"),
+    ("ap += 32 * kWords, b += 16) {",
+     "ap += 32 * (kOne ? 1 : kWords), b += 16) {"))
+# The lo plane of a split write kept only where the chain that reads the
+# operand runs three passes: the xmap chain's operands (1..3) for <3, 1>,
+# var's (and Zc's, operand 0) for <1, 3> (the one-pass chain reads no lo,
+# so those forms' results stay the same bit for bit).
+_PUT_LO = ("    if (kParts == 2) hi[plane] = __float2bfloat16_rn(x - "
+           "__bfloat162float(h));")
+
+
+def lo_only_for(var_chain: bool):
+    cond = "o == 0" if var_chain else "o != 0"
+    return replace_first((_PUT_LO, _PUT_LO.replace(
+        "if (kParts == 2)", f"if (kParts == 2 && {cond})")))
+
+
+# The mma of one kind of pass emptied, as ``no_mma`` empties every mma
+# (the operands still loaded, the accumulators kept), the other kind's
+# kept: in high_pass each mma goes through mma_kind<kCut>, whose cut form
+# is an asm statement without an instruction.
+_MMA_KIND = """// A lane's tap fragment of one k16 step"""
+_MMA_KIND_DEF = """__device__ __forceinline__ void mma_nop(float (&d)[4],
+                                        const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+  asm("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <bool kCut>
+__device__ __forceinline__ void mma_kind(float (&d)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  if (kCut) mma_nop(d, a, b0, b1);
+  else mma_bf16(d, a, b0, b1);
+}
+
+"""
+
+
+def mma_cut(cut: str, fused: bool):
+    """high_pass's mma through mma_kind<cut> (``cut`` a condition on its
+    kOne), and one_pass_products' (the mixed forms' one-pass chain) cut
+    too where ``fused``."""
+    fused_mma = ("mma_bf16(acc[j][i], a,",
+                 f"mma_kind<{'true' if fused else 'false'}>(acc[j][i], a,")
+    return replace_every(
+        (_MMA_KIND, _MMA_KIND_DEF + _MMA_KIND), fused_mma,
+        *((f"mma_bf16({a}[{n}], {b},", f"mma_kind<{cut}>({a}[{n}], {b},")
+          for n in ("nt", "i") for a, b in (("hh", "ah"), ("cx", "ah"),
+                                            ("cx", "al"))))
+
+
+NO_MMA_THREE = [mma_cut("!kOne", fused=False)]
+NO_MMA_ONE = [mma_cut("kOne", fused=True)]
+# Each chain's products alone: the other chain's product calls cut (the
+# parent's spelling and this tree's).
+VAR_CALLS = ("high_pass<kVP == 1, F::kWords>",
+             "high_pass<kVP == 1, F::kVParts>")
+XMAP_CALLS = ("high_pass<kXP == 1, F::kWords>",
+              "high_pass<kXP == 1, F::kXParts>", "one_pass_products<3>")
+
+
+def cut_any_calls(names):
+    """Remove every statement that calls one of ``names`` (as
+    :func:`cut_named_calls`); raises where none is called."""
+    def edit(src: str) -> str:
+        hit = [n for n in names if _calls(re.escape(n), src)]
+        if not hit:
+            raise ValueError(f"no call of {names} found")
+        for n in hit:
+            src = cut_named_calls(n)(src)
+        return src
+    return edit
 HIGH_PROBES = {
     "full": [],
     "taps_in_registers": [TAPS_IN_REGISTERS],
@@ -503,6 +591,19 @@ HIGH_PROBES = {
     "no_split_lo": [NO_SPLIT_LO],
     "no_xmap_split": [NO_XMAP_SPLIT],
     "no_var_split": [NO_VAR_SPLIT],
+    # the mixed bf16 split forms' suspects: the one-pass chain's taps read
+    # contiguously, the lo planes of its operands not written (exact), the
+    # mma of one kind of pass cut, each chain's products alone, the
+    # denoiser's split writes cut
+    "one_pass_dense_taps": [ONE_PASS_DENSE_TAPS],
+    "no_lo_xmap_chain": [lo_only_for(var_chain=True)],
+    "no_lo_var_chain": [lo_only_for(var_chain=False)],
+    "no_mma_three": NO_MMA_THREE,
+    "no_mma_one": NO_MMA_ONE,
+    "var_chain_only": [cut_any_calls(XMAP_CALLS)],
+    "xmap_chain_only": [cut_any_calls(VAR_CALLS)],
+    "no_split_store": [replace_every(("if (kMask) xs.store_x<",
+                                      "if (kMask && false) xs.store_x<"))],
 }
 # Probes that leave the forms they are meant for bit-identical to ``full``
 # (they cut only writes those forms never read): {probe: forms}.
@@ -510,7 +611,9 @@ EXACT_PROBES = {"no_split_lo": {("default", "default")},
                 "no_xmap_split": {("default", "highest"),
                                   ("high", "highest")},
                 "no_var_split": {("highest", "default"),
-                                 ("highest", "high")}}
+                                 ("highest", "high")},
+                "no_lo_xmap_chain": {("high", "default")},
+                "no_lo_var_chain": {("default", "high")}}
 
 
 # Variants of the redesigned HIGH engine (``high_pass``) and denoiser,
@@ -524,7 +627,9 @@ SEGMENTS = ("        for (int s = tid / G; s < N / p.M; s += blockDim.x / G)\n",
 HIGH_VARIANTS = {
     # every tile one unit, whatever the warps (the three-pass forms)
     "no_parts": [replace_first(("  return s < 1 ? 1 : (s > NT ? NT : s);",
-                                "  return 1;"))],
+                                "  return 1;"),
+                               ("  return parts < least ? least : parts;",
+                                "  return least;"))],
     # two k16 steps per turn of the loop
     "unroll_k2": [replace_first(*((k, "#pragma unroll 2\n" + k)
                                   for k in K_LOOPS))],
@@ -561,6 +666,9 @@ HIGH_VARIANTS = {
     # where the rule picks 5 rows a tile, 8
     "fp32_r8": [replace_first(("    fp32_tiles<kQ, 5, kC>(",
                                "    fp32_tiles<kQ, 8, kC>("))],
+    # the mixed forms' one-pass products one at a time (high_pass<true>)
+    "no_fuse": [replace_first(("constexpr bool kFuseOnePass = true;",
+                               "constexpr bool kFuseOnePass = false;"))],
     # the denoiser one segment a round in every form
     "no_pair": [replace_first((
         "  constexpr bool kPair = kHigh;",
@@ -568,9 +676,40 @@ HIGH_VARIANTS = {
 }
 
 
-def high_sources(root: Path, probes):
+# The passes of a chain (the kernel's template arguments) and the form code
+# the launcher takes (``fused_bamp.FORM``), per precision.
+PASSES = {"highest": 0, "high": 3, "default": 1}
+FORM_CODE = {"highest": 0, "high": 1, "default": 2}
+
+
+def only_instance(precision: str, x_precision: str):
+    """The launcher with every kernel instance but the timed form's
+    replaced by nullptr, so that a probe build compiles one instance (the
+    shipped build keeps them all, for ptxas's lines)."""
+    v, x = PASSES[precision], PASSES[x_precision]
+    vf, xf = FORM_CODE[precision], FORM_CODE[x_precision]
+
+    def direct(m):
+        return (m.group(0) if (int(m.group(1)), int(m.group(2))) == (v, x)
+                else "nullptr")
+
+    def case(m):
+        return (m.group(0) if (int(m.group(2)), int(m.group(3))) == (vf, xf)
+                else f"case {m.group(1)}: return nullptr;")
+
+    def edit(src: str) -> str:
+        src = re.sub(r"bamp_decode_kernel<(\d), (\d), k\w+, \d>", direct,
+                     src)
+        return re.sub(r"case (\d): return split_kernel<(\d), (\d)>\(\);",
+                      case, src)
+    return edit
+
+
+def high_sources(root: Path, probes, form=None):
     """{variant: {file name: text}} of K1's source in the checkout at
-    ``root``: as shipped and each probe or variant of ``probes``."""
+    ``root``: as shipped and each probe or variant of ``probes`` (with
+    ``form``, a (precision, x_precision) pair, only that form's instance
+    in the probe builds)."""
     csrc = root / "amp_sparc_spatialmodulation_tpu_torch" / "ops" \
         / "kernels" / "csrc"
     files = {f.name: f.read_text() for f in csrc.glob("*.cuh")}
@@ -587,6 +726,8 @@ def high_sources(root: Path, probes):
                 text = variant(src, to_cap)
                 for edit in HIGH_PROBES[name]:
                     text = edit(text)
+            if form is not None:
+                text = only_instance(*form)(text)
         except ValueError as err:
             # a probe whose text this tree lacks is skipped for it
             print(json.dumps({"tree": str(root), "probe": name,
@@ -662,7 +803,7 @@ def main_high(args, roots, smi) -> int:
     for tree, root in roots.items():
         mine = [p for p in probes
                 if p not in HIGH_VARIANTS or tree == "change"]
-        for v, files in high_sources(root, mine).items():
+        for v, files in high_sources(root, mine, form).items():
             d = args.out.joinpath(label, tree, v)
             if d.exists():
                 shutil.rmtree(d)

@@ -53,7 +53,7 @@ tree to the other, they are held to
 bit-identical share is printed; K5's HIGH and DEFAULT results are not
 held (their bits may change from tree to tree, the rules of chip_smoke
 hold them): whether they are identical and the share of bit-identical
-elements are printed; K1's HIGH, DEFAULT and split results, the share.
+elements are printed; so are K1's HIGH, DEFAULT and split results'.
 At the K5 HIGH and DEFAULT cases each tree first runs one iteration of
 its own from the shared state, so that the timed call takes the split
 planes its own denoiser laid out.  A kernel whose source the other checkout
@@ -461,11 +461,10 @@ def _across(case, first) -> dict:
     if len(first) < 2:
         return {}
     a, b = first["change"], first["parent"]
-    if case.startswith(("tiled_high", "tiled_default")):
+    if case.startswith(("tiled_high", "tiled_default", "bamp_high",
+                        "bamp_default", "bamp_xmap")):
         return {"identical": _same(a, b),
                 "bit_identical_share": _same_share(a, b)}
-    if case.startswith(("bamp_high", "bamp_default", "bamp_xmap")):
-        return {"bit_identical_share": _same_share(a, b)}
     identical = _same(a, b)
     if not case.startswith("vamp"):
         if not identical:
