@@ -4,8 +4,9 @@ tensor cores' accumulator, on the card.
 K1's HIGH-layout engine (``fused_bamp_decode.cu::high_pass``) sums each
 output's k16 steps inside the mma accumulator: ``mma.sync.m16n8k16`` with
 bf16 operands and an FP32 accumulator, k16 step after k16 step from zero.
-The tensor cores truncate as they add into an accumulator (PERF.md, PR
-16), so another instruction may round those sums otherwise.  Moving the
+The tensor cores truncate as they add into an accumulator (PERF.md, the
+lessons of section 6), so another instruction may round those sums
+otherwise.  Moving the
 engine to ``wgmma`` (four warps issuing one m64nNk16 product, the A
 operand from registers in ``mma.sync``'s fragment layout, B from shared
 memory) keeps K1's results only if ``wgmma`` accumulating step after step
