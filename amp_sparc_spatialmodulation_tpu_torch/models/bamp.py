@@ -30,9 +30,10 @@ as in JAX, whose per-iteration kernel has no precision knob
 (`fused_bamp.py:409` there); the plain loop runs the JAX decoder's XLA body
 at HIGH (`bamp.py:333-352` there, each operator map's products through
 ``ops/precision.py::matmul``), a different function from
-:func:`linear_step_high`.  Where K1's HIGH form holds no trial in one
-block, the route falls through to the next link, as JAX's does
-(`bamp.py:241-283`).
+:func:`linear_step_high`.  Where K1's form holds no trial in one block
+and JAX's K1 takes the batch, K1 runs as a thread-block cluster of blocks
+a trial (:func:`route`); where neither K1 takes it, the route falls
+through to the next link, as JAX's does (`bamp.py:241-283`).
 
 ``decode(precision='default')`` is the JAX decoder's ``precision=DEFAULT``,
 the one-pass bf16 product (``ops/precision.py::dot1``), on the same chain
@@ -509,16 +510,21 @@ def route(cfg: Config, op, B: int, device, precision: str = "highest",
 
     * ``'whole'``: K1, when ``AMP_PALLAS_MODE`` is ``whole`` (the default),
       K1 covers the config, JAX's K1 would take it or the port's K1 form
-      at ``precision`` holds a trial in one block, and the port's K1 form
-      (the split form where ``AMP_KERNEL_XMAP_PRECISION`` asks for one)
-      holds a trial in one block;
+      at ``precision`` holds a trial in one block, and
+      ``fused_bamp.cluster_plan`` holds a trial of the port's K1 form (the
+      split form where ``AMP_KERNEL_XMAP_PRECISION`` asks for one): in one
+      block, or where one block's shared memory holds none (the QPSK
+      flagship's dimensions at Lin 27-50 at 'high', 33-50 at 'default',
+      42-50 at 'highest'; the SCAMP flagship's dimensions under BAMP at
+      Lin 33-49 at 'high', 40-49 at 'default', and in the split forms; the
+      OOK flagship's at Lin 49-66 at 'high', 57-66 at 'default'), as a
+      thread-block cluster of 2, 4 or 8 blocks a trial;
     * ``'whole_plain'``: where JAX's K1 takes ``B`` trials
-      (``fused_bamp.jax_fits``) and the port's K1 form holds no trial in
-      one block's shared memory (the QPSK flagship at Lin 32-48 at
-      'high', the SCAMP flagship's dimensions under BAMP at 'high' and
-      'default'): K1's function as its plain version on the decode's
-      device (``fused_bamp.PLAIN``, ``decode_plain_split`` under the
-      variable), counted in ``plain_decodes``; a plain version, not a
+      (``fused_bamp.jax_fits``) and no cluster of 8 blocks holds a trial
+      of the port's K1 form (no geometry of the three flagships'
+      dimensions up to Lin 66): K1's function as its plain version on the
+      decode's device (``fused_bamp.PLAIN``, ``decode_plain_split`` under
+      the variable), counted in ``plain_decodes``; a plain version, not a
       kernel;
     * ``'periter'``: K6, for K=1 segmented alphabets with M a power of two
       whose trial fits one block;
@@ -565,8 +571,9 @@ def route_of(cfg: Config, banded: bool, op=None, precision: str = "highest",
     which JAX's ``use_pallas=True`` takes there too.
     ``AMP_KERNEL_XMAP_PRECISION`` is read only where the chain takes K1, as
     JAX's K1 alone reads it (`fused_bamp.py:990-991` there): a bad value
-    raises there (:func:`xmap_split`); where the split form it asks for
-    holds no trial in one block, the route is ``'whole_plain'`` (the plain
+    raises there (:func:`xmap_split`); the split form it asks for runs in
+    one block or as a cluster (``fused_bamp.cluster_plan``), and only
+    where no cluster holds it is the route ``'whole_plain'`` (the plain
     split version)."""
     from ..ops.kernels import (fused_bamp, fused_bamp_iteration,
                                fused_bamp_tiled)
@@ -590,7 +597,7 @@ def route_of(cfg: Config, banded: bool, op=None, precision: str = "highest",
             fused_bamp.fits(cfg, precision)
             or (batch is not None and fused_bamp.jax_fits(cfg, batch))):
         x = xmap_split(precision)
-        if fused_bamp.fits(cfg, precision, x):
+        if fused_bamp.cluster_plan(cfg, precision, x).ctas >= 1:
             return "whole"
         return "whole_plain"
     if fused_bamp_iteration.covers(cfg) and fused_bamp_iteration.fits(cfg):
@@ -623,9 +630,11 @@ def decode(H, y: torch.Tensor, sigma2, cfg: Config, *,
 
     The route is :func:`route`'s.  A banded operator with a complex
     segmented, sparc or random-mode config whose trial fits one block's
-    shared memory takes the whole-decode kernel K1 (where JAX's K1 takes
-    the batch and the port's block holds no trial, K1's function as its
-    plain version, ``'whole_plain'``); the massive geometry
+    shared memory takes the whole-decode kernel K1; where JAX's K1 takes
+    the batch and one block holds no trial, K1's cluster form (a trial on
+    a thread-block cluster of 2, 4 or 8 blocks, ``fused_bamp.
+    cluster_plan``), and only where no cluster of 8 holds one, K1's
+    function as its plain version (``'whole_plain'``); the massive geometry
     (``config.massive_mimo()``, OOK) takes the frame-tiled kernel K5.  The
     plain loop runs dense operators, the real-channel mode, and the
     geometries that fit no block with a complex alphabet or a truncation

@@ -22,8 +22,9 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_bamp_decode", "fused_scamp_decode", "fused_vamp_decode",
-           "fused_vamp2_decode", "fused_bamp_tiled", "fused_bamp_iteration")
+SOURCES = ("fused_bamp_decode", "fused_bamp_cluster", "fused_scamp_decode",
+           "fused_vamp_decode", "fused_vamp2_decode", "fused_bamp_tiled",
+           "fused_bamp_iteration")
 # -fmad=false: elementwise expressions round after every operation, as
 # PyTorch's separate elementwise kernels do; explicit fmaf() stays fused.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,9 +1,10 @@
 // Device code shared by the whole-decode kernels (fused_bamp_decode.cu,
-// fused_scamp_decode.cu): band placement of the tap-form operator, sums in
-// the order of PyTorch's CUDA reduction, |x|^2 and the segmented softmax
-// posterior.  Every function rounds where the plain PyTorch version
-// rounds; the sources are built with -fmad=false, so an expression rounds
-// after each operation unless it calls fmaf().
+// fused_scamp_decode.cu): band placement of the tap-form operator, the
+// cluster helpers (distributed shared memory), sums in the order of
+// PyTorch's CUDA reduction, |x|^2 and the segmented softmax posterior.
+// Every function rounds where the plain PyTorch version rounds; the
+// sources are built with -fmad=false, so an expression rounds after each
+// operation unless it calls fmaf().
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +37,26 @@ __device__ __forceinline__ int dst_block(int c, int l, const P& p) {
   const int r = c + l;
   if (p.trunc == kCyclic) return r % p.Lin;
   return r < p.Lout ? r : -1;
+}
+
+// Thread-block clusters (sm_90): the generic address of the same
+// shared-memory location in block `rank` of this block's cluster (a plain
+// load or store through it reaches that block's shared memory), and the
+// cluster-wide barrier, which orders every block's shared-memory writes
+// before it against every block's reads after it.  All threads of every
+// block of the cluster call cluster_sync.
+template <class T>
+__device__ __forceinline__ T* map_rank(T* p, int rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ int last_pow2(int n) {

@@ -198,12 +198,27 @@
 // chain still bounds its form at about a quarter of the FP32 peak, held
 // back neither by its loads, its barriers nor its tap stream from L2
 // (cutting each gains little); what does hold it is not measured yet.
+//
+// Every form also runs as a thread-block cluster of 2, 4 or 8 blocks a
+// trial, where one block's shared memory holds no trial (the cluster form,
+// below Params: each block its own column blocks, the fold across blocks
+// through distributed shared memory; the same bits as one block).  It is
+// this source built with K1_CLUSTER set (fused_bamp_cluster.cu), into a
+// library of its own: the one-block instances here compile without the
+// cluster's fold, barriers and block spans, so their registers and times
+// stay those of one block (with the cluster code in the same instances
+// their spills grew and the split forms ran up to 13% slower), and both
+// libraries build side by side.
 
 #include <cuda_bf16.h>
 
 #include <type_traits>
 
 #include "decode_common.cuh"
+
+#ifndef K1_CLUSTER
+#define K1_CLUSTER 0
+#endif
 
 namespace {
 
@@ -260,7 +275,58 @@ struct Params {
   // the mixed forms <3, 1> and <1, 3> only: the one-pass chain's tap
   // fragments, hi alone (fused_bamp.py::default_taps)
   const uint4* taps1;
+  // blocks a trial (1, or the cluster's 2, 4 or 8) and the dynamic shared
+  // memory of each block, whose last kFlagInts ints hold a cluster's stop
+  // flags
+  int ctas, smem;
 };
+
+// The cluster form.  Where one block's shared memory holds no trial
+// (fused_bamp.py::cluster_plan), a trial runs on a thread-block cluster of
+// ctas blocks: block i holds column blocks c0 .. c0 + nc - 1 (c0 = i Lin /
+// ctas) and the output row blocks of the same numbers (the last block also
+// those past Lin), each laid out as a one-block trial of lc column and rc
+// output row blocks (the last block's, the largest), so that a slot lies
+// at the same offset in every block.  The forward products, the adjoint
+// and the denoiser of a column block are the block's own; only the fold
+// crosses blocks: row r reads P[r - l, l, m] and writes the adjoint inputs
+// of (r - l, l, m), in the block that holds column block r - l, through
+// distributed shared memory (map_rank), its taps in the order l = 0 ..
+// Lh - 1 as in one block.  Cluster barriers stand before and after the
+// fold (every block's forward done before any fold reads it, every fold
+// done before any adjoint reads its inputs) and at the stop test, an OR
+// of the blocks' flags written into every block.  No partition changes
+// the order of any sum, so the cluster form gives the one-block form's
+// state and T bit for bit (chip_smoke.py, kernel_cluster_bamp).
+constexpr bool kCluster = K1_CLUSTER != 0;
+constexpr int kFlagInts = 8;  // fused_bamp.py::CLUSTER_FLAG_BYTES / 4
+
+struct Span {
+  int c0, nc;  // column blocks c0 .. c0 + nc - 1
+  int r0, nr;  // output row blocks r0 .. r0 + nr - 1
+  int lc, rc;  // column and output row blocks of the carve
+  int rank;    // the block's rank in its cluster
+};
+
+// This block's span (fused_bamp.py::cluster_ranges; blocks of a cluster
+// are consecutive in x, a trial b = blockIdx.x / ctas); one block:
+// everything.
+__device__ __forceinline__ Span block_span(const Params& p) {
+  if constexpr (!kCluster) return {0, p.Lin, 0, p.Lout, p.Lin, p.Lout, 0};
+  const int C = p.ctas;
+  const int rank = blockIdx.x % C;
+  const int c0 = rank * p.Lin / C, c1 = (rank + 1) * p.Lin / C;
+  const int lc = (p.Lin + C - 1) / C;
+  return {c0, c1 - c0, c0, (rank == C - 1 ? p.Lout : c1) - c0, lc,
+          lc + p.Lout - p.Lin, rank};
+}
+
+// The block of the cluster that holds column block c, and c's index there.
+__device__ __forceinline__ int owner_of(const Params& p, int c, int& local) {
+  const int rank = ((c + 1) * p.ctas - 1) / p.Lin;
+  local = c - rank * p.Lin / p.ctas;
+  return rank;
+}
 
 // Four consecutive floats of shared memory: one 16-byte load when the
 // address is aligned (kVec), else four.
@@ -288,20 +354,21 @@ __device__ __forceinline__ void fwd_step(float& pv, float& pr, float& pi,
   if (!kReal) pi = fmaf(xj, hv.x, pi);
 }
 
-// The products of column (l, m) of the tap stack with source blocks c0 ..
-// c0+kFR-1, written to P[c, l, m] (the rows past Lin repeat the last one
-// and are dropped, as are the blocks tap l places nowhere).
+// The products of column (l, m) of the tap stack with the block's source
+// blocks c0 .. c0+kFR-1, written to P[c, l, m] (the rows past the block's
+// repeat its last one and are dropped, as are the blocks tap l places
+// nowhere).
 template <bool kVec, bool kReal>
 __device__ __forceinline__ void forward_tile(
-    const Params& p, int c0, int l, int m, const float* xm_re,
-    const float* xm_im, const float* var, float* Pv, float* Pr, float* Pi,
-    int NrP) {
+    const Params& p, const Span& sp, int c0, int l, int m,
+    const float* xm_re, const float* xm_im, const float* var, float* Pv,
+    float* Pr, float* Pi, int NrP) {
   const size_t tap = static_cast<size_t>(l) * p.Nt * p.Nr + m;
   const float2* ht = p.hT + tap;
   const float* at = p.a2T + tap;
   int row[kFR];
 #pragma unroll
-  for (int i = 0; i < kFR; ++i) row[i] = min(c0 + i, p.Lin - 1) * p.Nt;
+  for (int i = 0; i < kFR; ++i) row[i] = min(c0 + i, sp.nc - 1) * p.Nt;
   float pv[kFR], pr[kFR], pi[kFR];
 #pragma unroll
   for (int i = 0; i < kFR; ++i) pv[i] = pr[i] = pi[i] = 0.f;
@@ -339,7 +406,7 @@ __device__ __forceinline__ void forward_tile(
 #pragma unroll
   for (int i = 0; i < kFR; ++i) {
     const int c = c0 + i;
-    if (c < p.Lin && dst_block(c, l, p) >= 0) {
+    if (c < sp.nc && dst_block(sp.c0 + c, l, p) >= 0) {
       const int e = (c * p.Lh + l) * NrP + m;
       Pv[e] = pv[i];
       Pr[e] = pr[i];
@@ -391,16 +458,17 @@ __device__ __forceinline__ void adjoint_quad(
   }
 }
 
-// The adjoint of x element k of column blocks c0 .. c0+kAR-1: cov and the
-// pseudo-data xmap (its imaginary part to xmap_g, stride 2).
+// The adjoint of x element k of the block's column blocks c0 ..
+// c0+kAR-1 (nc of them): cov and the pseudo-data xmap (its imaginary part
+// to xmap_g, stride 2).
 __device__ __forceinline__ void adjoint_tile(
-    const Params& p, int c0, int k, const float* Zc, const float* Zr,
+    const Params& p, int nc, int c0, int k, const float* Zc, const float* Zr,
     const float* Zi, int NrP, const float* xm_re, const float* xm_im,
     float* xmap_re, float* xmap_g, float* cov, bool real_x) {
   int zrow[kAR];
 #pragma unroll
   for (int i = 0; i < kAR; ++i)
-    zrow[i] = min(c0 + i, p.Lin - 1) * p.Lh * NrP;
+    zrow[i] = min(c0 + i, nc - 1) * p.Lh * NrP;
   float cs[kAR], ar[kAR], ai[kAR];
 #pragma unroll
   for (int i = 0; i < kAR; ++i) cs[i] = ar[i] = ai[i] = 0.f;
@@ -420,7 +488,7 @@ __device__ __forceinline__ void adjoint_tile(
 #pragma unroll
   for (int i = 0; i < kAR; ++i) {
     const int c = c0 + i;
-    if (c < p.Lin) {
+    if (c < nc) {
       const int j = c * p.Nt + k;
       const float cv = 1.f / cs[i];
       cov[j] = cv;
@@ -992,12 +1060,11 @@ __device__ __forceinline__ Range float_range(__nv_bfloat16* a,
   const size_t u = (reinterpret_cast<size_t>(a) + 15) & ~size_t(15);
   return {reinterpret_cast<float*>(u), reinterpret_cast<const float*>(b)};
 }
-// The end of a split form's region (the HIGH form's whole:
-// fused_bamp.py::high_split_elems).
+// The end of a split form's region (the HIGH form's whole, of the carve's
+// lc column blocks: fused_bamp.py::high_split_elems).
 __device__ __forceinline__ const __nv_bfloat16* split_end(
-    const Params& p, const Split& s, int kx, int kz, bool real_x) {
-  return s.base + max((real_x ? 4 : 8) * p.Lin * (kx + 8),
-                      8 * p.Lin * (kz + 8));
+    const Split& s, int lc, int kx, int kz, bool real_x) {
+  return s.base + max((real_x ? 4 : 8) * lc * (kx + 8), 8 * lc * (kz + 8));
 }
 // The larger of an FP32 variance chain's two dead ranges of a split
 // region: its operand's planes, or the region past the xmap chain's nops
@@ -1023,13 +1090,14 @@ __device__ __forceinline__ Range dead_var(const Split& s, int nops,
 // leaves dead.
 template <int kVP, int kXP>
 __device__ __forceinline__ void forward_high(
-    const Params& p, const Split& xs, int kx, int kz, bool real_x,
+    const Params& p, const Span& sp, const Split& xs, int kx, int kz,
+    bool real_x,
     const float* xm_re, const float* xm_im, const float* var, float* Pv,
     float* Pr, float* Pi, int NrP) {
   using F = Form<kVP, kXP>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int W = p.Lh * p.Nr;
-  const int mtiles = kz / 16, ks = kx / 16, NT = (p.Lin + 7) / 8;
+  const int mtiles = kz / 16, ks = kx / 16, NT = (sp.nc + 7) / 8;
   // a tap plane's 16-byte words per word a lane reads a k16 step, and the
   // plane of the form's and of each chain's tap fragments
   const size_t words = static_cast<size_t>(mtiles) * ks * 32;
@@ -1056,7 +1124,7 @@ __device__ __forceinline__ void forward_high(
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
           const int c = (n0 + i) * 8 + 2 * t + w;
-          if (c >= p.Lin || dst_block(c, l, p) < 0) continue;
+          if (c >= sp.nc || dst_block(sp.c0 + c, l, p) < 0) continue;
           const int slot = c * p.Lh * NrP + row;
           const float val = v[i][2 * h + w];
           if (q == 0) Pv[slot] = val;
@@ -1069,25 +1137,26 @@ __device__ __forceinline__ void forward_high(
   };
   if constexpr (kVP == kXP) {
     high_pass<kVP == 1, F::kWords>(p.taps, plane, mtiles, ks, 0, nq,
-                                   operand, xs.plane, xs.ld, p.Lin, NT, epi);
+                                   operand, xs.plane, xs.ld, sp.nc, NT, epi);
   } else {
     // the FP32 planes (Nt, W): S_a2, S_re, Im S - Re S, Re S + Im S
     const size_t p32 = static_cast<size_t>(p.Nt) * W;
     // the slot of output (c, j) where tap l = j / Nr places a block, else -1
     auto slot_of = [&](int c, int j) {
       const int l = j / p.Nr;
-      return dst_block(c, l, p) < 0 ? -1
-                                     : (c * p.Lh + l) * NrP + (j - l * p.Nr);
+      return dst_block(sp.c0 + c, l, p) < 0
+                 ? -1
+                 : (c * p.Lh + l) * NrP + (j - l * p.Nr);
     };
     if constexpr (kVP != 0) {
       high_pass<kVP == 1, F::kVParts>(F::taps_of(p, true), vplane, mtiles,
                                       ks, 0, 1, operand, xs.plane, xs.ld,
-                                      p.Lin, NT, epi);
+                                      sp.nc, NT, epi);
     } else {
       const float* const xv[1] = {var};
       const Range st = dead_var<F>(
-          xs, real_x ? 2 : 4, split_end(p, xs, kx, kz, real_x));
-      fp32_pass<1>(p.taps32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt, xv, st.lo,
+          xs, real_x ? 2 : 4, split_end(xs, sp.lc, kx, kz, real_x));
+      fp32_pass<1>(p.taps32, p32, W, sp.nc, p.Nt, 1, 0, p.Nt, xv, st.lo,
                    st.hi, [&](int c, int j, const float (&o)[1]) {
                      const int e = slot_of(c, j);
                      if (e >= 0) Pv[e] = o[0];
@@ -1095,18 +1164,18 @@ __device__ __forceinline__ void forward_high(
     }
     if constexpr (F::kMixed && kXP == 1 && kFuseOnePass) {
       one_pass_products<3>(F::taps_of(p, false), xplane, mtiles, ks, 1, nq,
-                           operand, xs.ld, p.Lin, NT, epi);
+                           operand, xs.ld, sp.nc, NT, epi);
     } else if constexpr (kXP != 0) {
       high_pass<kXP == 1, F::kXParts>(F::taps_of(p, false), xplane, mtiles,
                                       ks, 1, nq, operand, xs.plane, xs.ld,
-                                      p.Lin, NT, epi);
+                                      sp.nc, NT, epi);
     } else {
       // dead from the variance chain's planes on
       Range st = float_range(xs.at<F>(1, 0),
-                             split_end(p, xs, kx, kz, real_x));
+                             split_end(xs, sp.lc, kx, kz, real_x));
       if (real_x) {
         const float* const xr[2] = {xm_re, xm_re};
-        fp32_pass<2>(p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt, xr,
+        fp32_pass<2>(p.taps32 + p32, p32, W, sp.nc, p.Nt, 1, 0, p.Nt, xr,
                      st.lo, st.hi, [&](int c, int j, const float (&o)[2]) {
                        const int e = slot_of(c, j);
                        if (e < 0) return;
@@ -1116,13 +1185,13 @@ __device__ __forceinline__ void forward_high(
       } else {
         // k1's operand xm_re + xm_im, formed once
         float* sum = st.lo;
-        const int N = p.Lin * p.Nt;
+        const int N = sp.nc * p.Nt;
         for (int i = threadIdx.x; i < N; i += blockDim.x)
           sum[i] = xm_re[i] + xm_im[i];
         __syncthreads();
         st.lo = sum + ((N + 3) & ~3);
         const float* const xc[3] = {sum, xm_re, xm_im};
-        fp32_pass<3>(p.taps32 + p32, p32, W, p.Lin, p.Nt, 1, 0, p.Nt, xc,
+        fp32_pass<3>(p.taps32 + p32, p32, W, sp.nc, p.Nt, 1, 0, p.Nt, xc,
                      st.lo, st.hi, [&](int c, int j, const float (&o)[3]) {
                        const int e = slot_of(c, j);
                        if (e < 0) return;
@@ -1134,45 +1203,118 @@ __device__ __forceinline__ void forward_high(
   }
 }
 
-// The fold of the HIGH layout's forms, output (r, m) per thread: the taps
-// summed in order (after their gains unless folded), w = v / u, z' = hx - w
-// (y - z), u' = v + sigma2, then the adjoint's inputs Zc = 1/u', A = (y -
-// z'_re) / u', B = (y - z'_im) / u' (gains^2 and gains applied unless
-// folded) of every (c, l) feeding the row: split into bf16 (hi, and lo at
-// kParts 2) for a chain on the tensor cores (Zc for the variance chain; A +
-// B, A, B for the xmap chain), in FP32 for a chain at kVP or kXP = 0 (Zc
-// in Pv's slot, A and B in Pr's and Pi's, which this thread has just read;
-// the slots of the (c, l) that place no block stay zero from the launch).
-// The split slots no output writes (the pad columns, the (c, l) that place
-// no block) are written zero in the planes a chain reads, a pad column or
-// a (c, l) at a time.
-template <int kVP, int kXP>
-__device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
-                                          int kz, float* Pv, float* Pr,
-                                          float* Pi, int NrP,
-                                          const float* y_re,
+// Where the fold finds column block c (a global number): its index q in
+// the block that holds it and that block's rank, and a pointer of this
+// block's shared memory moved to the same offset in that block's (kClu,
+// the cluster form; one block: c itself, here).
+template <bool kClu>
+__device__ __forceinline__ int home_of(const Params& p, int c, int& q) {
+  if (!kClu) {
+    q = c;
+    return 0;
+  }
+  return owner_of(p, c, q);
+}
+template <bool kClu, class T>
+__device__ __forceinline__ T* in_block(T* ptr, int rank) {
+  return kClu ? map_rank(ptr, rank) : ptr;
+}
+
+// The fold of the HIGHEST form, output (r, m) per thread (the block's
+// output rows): the taps summed in order after their gains, Onsager, u',
+// then the gain-weighted adjoint inputs Z[c, l, m] of every (c, l)
+// feeding the row, written into the slots of the P just read (in the
+// block that holds c: kClu).
+template <bool kClu>
+__device__ __forceinline__ void fold_fp32(const Params& p, const Span& sp,
+                                          float* Zc, float* Zr, float* Zi,
+                                          int NrP, const float* y_re,
                                           const float* y_im, float* z_re,
                                           float* z_im, float* u) {
-  using F = Form<kVP, kXP>;
-  const int n = p.Lout * p.Nr;
-  const bool folded = p.folded != 0;
+  const int n = sp.nr * p.Nr;
   for (int o = threadIdx.x; o < n; o += blockDim.x) {
-    const int r = o / p.Nr;
-    const int m = o - r * p.Nr;
+    const int rl = o / p.Nr;
+    const int m = o - rl * p.Nr;
+    const int r = sp.r0 + rl;
     float v = 0.f, hx_re = 0.f, hx_im = 0.f;
     for (int l = 0; l < p.Lh; ++l) {
       const int c = src_block(r, l, p);
       if (c < 0) continue;
-      const int e = (c * p.Lh + l) * NrP + m;
+      int q;
+      const int rank = home_of<kClu>(p, c, q);
+      const int e = (q * p.Lh + l) * NrP + m;
+      const float g = p.gains[l * p.Lin + c];
+      v = v + p.gains2[l * p.Lin + c] * in_block<kClu>(Zc, rank)[e];
+      hx_re = hx_re + g * in_block<kClu>(Zr, rank)[e];
+      hx_im = hx_im + g * in_block<kClu>(Zi, rank)[e];
+    }
+    const float uo = u[o];
+    const float zr = hx_re - (v * (y_re[o] - z_re[o])) / uo;
+    const float zi = hx_im - (v * (y_im[o] - z_im[o])) / uo;
+    const float un = v + p.sigma2;
+    z_re[o] = zr;
+    z_im[o] = zi;
+    u[o] = un;
+    // gain-weighted adjoint inputs of every (c, l) feeding this row
+    const float wc = 1.f / un;
+    const float wr = (y_re[o] - zr) / un;
+    const float wi = (y_im[o] - zi) / un;
+    for (int l = 0; l < p.Lh; ++l) {
+      const int c = src_block(r, l, p);
+      if (c < 0) continue;
+      int q;
+      const int rank = home_of<kClu>(p, c, q);
+      const int e = (q * p.Lh + l) * NrP + m;
+      in_block<kClu>(Zc, rank)[e] = p.gains2[l * p.Lin + c] * wc;
+      in_block<kClu>(Zr, rank)[e] = p.gains[l * p.Lin + c] * wr;
+      in_block<kClu>(Zi, rank)[e] = p.gains[l * p.Lin + c] * wi;
+    }
+  }
+}
+
+// The fold of the HIGH layout's forms, output (r, m) per thread (the
+// block's output rows): the taps summed in order (after their gains unless
+// folded), w = v / u, z' = hx - w (y - z), u' = v + sigma2, then the
+// adjoint's inputs Zc = 1/u', A = (y - z'_re) / u', B = (y - z'_im) / u'
+// (gains^2 and gains applied unless folded) of every (c, l) feeding the
+// row, in the block that holds c (kClu): split into bf16 (hi, and lo at
+// kParts 2) for a chain on the tensor cores (Zc for the variance chain; A
+// + B, A, B for the xmap chain), in FP32 for a chain at kVP or kXP = 0 (Zc
+// in Pv's slot, A and B in Pr's and Pi's, which this thread has just read;
+// the slots of the (c, l) that place no block stay zero from the launch).
+// The split slots no output writes (the pad columns, the (c, l) that place
+// no block) are written zero in the planes a chain reads, a pad column or
+// a (c, l) at a time, each block its own column blocks'.
+template <int kVP, int kXP, bool kClu>
+__device__ __forceinline__ void fold_high(const Params& p, const Span& sp,
+                                          const Split& zs, int kz, float* Pv,
+                                          float* Pr, float* Pi, int NrP,
+                                          const float* y_re,
+                                          const float* y_im, float* z_re,
+                                          float* z_im, float* u) {
+  using F = Form<kVP, kXP>;
+  const int n = sp.nr * p.Nr;
+  const bool folded = p.folded != 0;
+  for (int o = threadIdx.x; o < n; o += blockDim.x) {
+    const int rl = o / p.Nr;
+    const int m = o - rl * p.Nr;
+    const int r = sp.r0 + rl;
+    float v = 0.f, hx_re = 0.f, hx_im = 0.f;
+    for (int l = 0; l < p.Lh; ++l) {
+      const int c = src_block(r, l, p);
+      if (c < 0) continue;
+      int q;
+      const int rank = home_of<kClu>(p, c, q);
+      const int e = (q * p.Lh + l) * NrP + m;
       if (folded) {
-        v = v + Pv[e];
-        hx_re = hx_re + Pr[e];
-        hx_im = hx_im + Pi[e];
+        v = v + in_block<kClu>(Pv, rank)[e];
+        hx_re = hx_re + in_block<kClu>(Pr, rank)[e];
+        hx_im = hx_im + in_block<kClu>(Pi, rank)[e];
       } else {
         const float gn = p.gains[l * p.Lin + c];
-        v = v + (gn * gn) * Pv[e];
-        hx_re = hx_re + gn * Pr[e];
-        hx_im = hx_im + gn * Pi[e];
+        v = v + (gn * gn) * in_block<kClu>(Pv, rank)[e];
+        hx_re = hx_re + gn * in_block<kClu>(Pr, rank)[e];
+        hx_im = hx_im + gn * in_block<kClu>(Pi, rank)[e];
       }
     }
     const float w = v / u[o];
@@ -1188,23 +1330,27 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
     for (int l = 0; l < p.Lh; ++l) {
       const int c = src_block(r, l, p);
       if (c < 0) continue;
+      int q;
+      const int rank = home_of<kClu>(p, c, q);
       const float gn = folded ? 1.f : p.gains[l * p.Lin + c];
       const float zc = folded ? uinv : (gn * gn) * uinv;
       const float za = folded ? rr : gn * rr;
       const float zb = folded ? ri : gn * ri;
-      const int off = c * zs.ld + l * p.Nr + m;
-      const int e = (c * p.Lh + l) * NrP + m;
+      const int off = q * zs.ld + l * p.Nr + m;
+      const int e = (q * p.Lh + l) * NrP + m;
+      Split zt = zs;
+      zt.base = in_block<kClu>(zs.base, rank);
       if (kVP != 0)
-        zs.put<F>(0, off, zc);
+        zt.put<F>(0, off, zc);
       else
-        Pv[e] = zc;
+        in_block<kClu>(Pv, rank)[e] = zc;
       if (kXP != 0) {
-        zs.put<F>(1, off, za + zb);
-        zs.put<F>(2, off, za);
-        zs.put<F>(3, off, zb);
+        zt.put<F>(1, off, za + zb);
+        zt.put<F>(2, off, za);
+        zt.put<F>(3, off, zb);
       } else {
-        Pr[e] = za;
-        Pi[e] = zb;
+        in_block<kClu>(Pr, rank)[e] = za;
+        in_block<kClu>(Pi, rank)[e] = zb;
       }
     }
   }
@@ -1218,15 +1364,15 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
   };
   // the pad columns W .. kz-1 of every column block
   const int pad = kz - W;
-  for (int i = threadIdx.x; i < p.Lin * pad; i += blockDim.x) {
+  for (int i = threadIdx.x; i < sp.nc * pad; i += blockDim.x) {
     const int c = i / pad;
     zero_slot(c, W + (i - c * pad));
   }
   // the Nr slots of every (c, l) that places no block
-  for (int i = threadIdx.x; i < p.Lin * p.Lh; i += blockDim.x) {
+  for (int i = threadIdx.x; i < sp.nc * p.Lh; i += blockDim.x) {
     const int c = i / p.Lh;
     const int l = i - c * p.Lh;
-    if (dst_block(c, l, p) >= 0) continue;
+    if (dst_block(sp.c0 + c, l, p) >= 0) continue;
     for (int m = 0; m < p.Nr; ++m) zero_slot(c, l * p.Nr + m);
   }
 }
@@ -1242,12 +1388,13 @@ __device__ __forceinline__ void fold_high(const Params& p, const Split& zs,
 // wrote, its taps staged as in forward_high).
 template <int kVP, int kXP>
 __device__ __forceinline__ void adjoint_high(
-    const Params& p, const Split& zs, int kx, int kz, bool real_x,
+    const Params& p, const Span& sp, const Split& zs, int kx, int kz,
+    bool real_x,
     const float* xm_re, const float* xm_im, float* xmap_re, float* xmap_g,
     float* cov, const float* Zc, const float* A, const float* B, int NrP) {
   using F = Form<kVP, kXP>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mtiles = kx / 16, ks = kz / 16, NT = (p.Lin + 7) / 8;
+  const int mtiles = kx / 16, ks = kz / 16, NT = (sp.nc + 7) / 8;
   // as in forward_high; the adjoint's planes follow the forward's four
   const size_t words = static_cast<size_t>(mtiles) * ks * 32;
   const size_t plane = words * F::kWords;
@@ -1265,7 +1412,7 @@ __device__ __forceinline__ void adjoint_high(
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
           const int c = (n0 + i) * 8 + 2 * t + w;
-          if (c >= p.Lin) continue;
+          if (c >= sp.nc) continue;
           const int j = c * p.Nt + k;
           const float val = v[i][2 * h + w];
           if (q == 0) {
@@ -1284,7 +1431,7 @@ __device__ __forceinline__ void adjoint_high(
   };
   if constexpr (kVP == kXP) {
     high_pass<kVP == 1, F::kWords>(p.taps + 4 * plane, plane, mtiles, ks,
-                                   0, 4, operand, zs.plane, zs.ld, p.Lin,
+                                   0, 4, operand, zs.plane, zs.ld, sp.nc,
                                    NT, epi);
   } else {
     // the FP32 planes (W, Nt): S_a2^T, Re S^T, -Im S^T - Re S^T, Re S^T -
@@ -1295,12 +1442,12 @@ __device__ __forceinline__ void adjoint_high(
     if constexpr (kVP != 0) {
       high_pass<kVP == 1, F::kVParts>(F::taps_of(p, true) + 4 * vplane,
                                       vplane, mtiles, ks, 0, 1, operand,
-                                      zs.plane, zs.ld, p.Lin, NT, epi);
+                                      zs.plane, zs.ld, sp.nc, NT, epi);
     } else {
       const float* const xv[1] = {Zc};
       const Range st =
-          dead_var<F>(zs, 4, split_end(p, zs, kx, kz, real_x));
-      fp32_pass<1>(t32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr, xv, st.lo,
+          dead_var<F>(zs, 4, split_end(zs, sp.lc, kx, kz, real_x));
+      fp32_pass<1>(t32, p32, p.Nt, sp.nc, rs, p.Lh, NrP, p.Nr, xv, st.lo,
                    st.hi, [&](int c, int k, const float (&o)[1]) {
                      cov[c * p.Nt + k] = 1.f / o[0];
                    });
@@ -1308,22 +1455,22 @@ __device__ __forceinline__ void adjoint_high(
     // k1's operand A + B of an FP32 xmap chain, formed once (dead from the
     // variance chain's planes on)
     Range st = float_range(zs.at<F>(1, 0),
-                           split_end(p, zs, kx, kz, real_x));
-    const int S = p.Lin * rs;
+                           split_end(zs, sp.lc, kx, kz, real_x));
+    const int S = sp.nc * rs;
     if (kXP == 0)
       for (int e = threadIdx.x; e < S; e += blockDim.x) st.lo[e] = A[e] + B[e];
     __syncthreads();
     if constexpr (F::kMixed && kXP == 1 && kFuseOnePass) {
       one_pass_products<3>(F::taps_of(p, false) + 4 * xplane, xplane,
-                           mtiles, ks, 1, 4, operand, zs.ld, p.Lin, NT, epi);
+                           mtiles, ks, 1, 4, operand, zs.ld, sp.nc, NT, epi);
     } else if constexpr (kXP != 0) {
       high_pass<kXP == 1, F::kXParts>(F::taps_of(p, false) + 4 * xplane,
                                       xplane, mtiles, ks, 1, 4, operand,
-                                      zs.plane, zs.ld, p.Lin, NT, epi);
+                                      zs.plane, zs.ld, sp.nc, NT, epi);
     } else {
       const float* const xa[3] = {st.lo, A, B};
       fp32_pass<3>(
-          t32 + p32, p32, p.Nt, p.Lin, rs, p.Lh, NrP, p.Nr, xa,
+          t32 + p32, p32, p.Nt, sp.nc, rs, p.Lh, NrP, p.Nr, xa,
           st.lo + ((S + 3) & ~3), st.hi,
           [&](int c, int k, const float (&o)[3]) {
             const int j = c * p.Nt + k;
@@ -1336,16 +1483,16 @@ __device__ __forceinline__ void adjoint_high(
 }
 
 // Zeros in the pad columns Nt .. kx-1 of the forward's split operands
-// that a chain on the tensor cores reads.
+// that a chain on the tensor cores reads, in the block's nc rows.
 template <int kVP, int kXP>
-__device__ __forceinline__ void zero_x_pad(const Split& xs, int Lin, int kx,
+__device__ __forceinline__ void zero_x_pad(const Split& xs, int nc, int kx,
                                            bool real_x) {
   using F = Form<kVP, kXP>;
   const int pad = kx - xs.Nt;
   const int o0 = kVP != 0 ? 0 : 1;
   const int o1 = kXP == 0 ? 1 : real_x ? 2 : 4;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int i = threadIdx.x; i < Lin * pad; i += blockDim.x) {
+  for (int i = threadIdx.x; i < nc * pad; i += blockDim.x) {
     const int c = i / pad;
     const int off = c * xs.ld + xs.Nt + (i - c * pad);
     for (int q = F::plane_of(o0); q < F::plane_of(o1); ++q)
@@ -1623,19 +1770,24 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   // the denoiser's segments two at a time where each lane holds one element
   // and K is fixed (pair_posterior): every form on the HIGH layout
   constexpr bool kPair = kHigh;
-  const int b = blockIdx.x;
+  const Span sp = block_span(p);
+  const int b = kCluster ? blockIdx.x / p.ctas : blockIdx.x;
   const int tid = threadIdx.x;
-  const int N = p.Lin * p.Nt;
-  const int n = p.Lout * p.Nr;
+  // this block's x-side elements and y-side outputs, and the trial's
+  const int N = sp.nc * p.Nt;
+  const int n = sp.nr * p.Nr;
   const int NrP = (p.Nr + 3) & ~3;
-  const size_t xo = static_cast<size_t>(b) * N;
-  const size_t yo = static_cast<size_t>(b) * n;
+  const size_t xo = static_cast<size_t>(b) * (p.Lin * p.Nt) +
+                    static_cast<size_t>(sp.c0) * p.Nt;
+  const size_t yo = static_cast<size_t>(b) * (p.Lout * p.Nr) +
+                    static_cast<size_t>(sp.r0) * p.Nr;
   const bool real_x = p.real_x != 0;
   int act = p.act_in[b];
   int T = p.T_in[b];
 
   if (!act || p.cap <= 0) {
-    // Frozen trial: state passes through.
+    // Frozen trial: state passes through (every block of a cluster takes
+    // this branch and copies its own ranges; no block reads another's).
     for (int j = tid; j < N; j += blockDim.x) {
       p.xmap_out[xo + j] = p.xmap_in[xo + j];
       p.xmmse_out[xo + j] = p.xmmse_in[xo + j];
@@ -1645,32 +1797,34 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       p.z_out[yo + o] = p.z_in[yo + o];
       p.u_out[yo + o] = p.u_in[yo + o];
     }
-    if (tid == 0) {
+    if (tid == 0 && sp.rank == 0) {
       p.act_out[b] = act;
       p.T_out[b] = T;
     }
     return;
   }
 
-  // Shared-memory planes of this trial, in the order whose size
-  // smem_bytes() in fused_bamp.py computes.  The scratch planes come first
-  // (16-byte rows of NrP floats): the forward products P[c, l, m], then in
-  // the same slots the adjoint inputs Z[c, l, m].
+  // Shared-memory planes of this trial (of the block's carve of lc column
+  // and rc output row blocks), in the order whose size block_bytes() in
+  // fused_bamp.py computes.  The scratch planes come first (16-byte rows of
+  // NrP floats): the forward products P[c, l, m], then in the same slots the
+  // adjoint inputs Z[c, l, m].
   extern __shared__ __align__(16) float sm[];
-  const int S = p.Lin * p.Lh * NrP;
+  const int S = sp.lc * p.Lh * NrP;
+  const int NX = sp.lc * p.Nt, NY = sp.rc * p.Nr;
   float* Zc = sm;
   float* Zr = Zc + S;
   float* Zi = Zr + S;
   float* xm_re = Zi + S;
-  float* xm_im = xm_re + N;                 // absent for real alphabets
-  float* var = xm_im + (real_x ? 0 : N);
-  float* xmap_re = var + N;
-  float* cov = xmap_re + N;
-  float* y_re = cov + N;
-  float* y_im = y_re + n;
-  float* z_re = y_im + n;
-  float* z_im = z_re + n;
-  float* u = z_im + n;
+  float* xm_im = xm_re + NX;                // absent for real alphabets
+  float* var = xm_im + (real_x ? 0 : NX);
+  float* xmap_re = var + NX;
+  float* cov = xmap_re + NX;
+  float* y_re = cov + NX;
+  float* y_im = y_re + NY;
+  float* z_re = y_im + NY;
+  float* z_im = z_re + NY;
+  float* u = z_im + NY;
   // The pseudo-data's imaginary part lives in the output (stride 2).
   float* xmap_g = reinterpret_cast<float*>(p.xmap_out + xo);
   // HIGH form: the split operands after the FP32 planes, the forward's x
@@ -1680,9 +1834,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   // region is the HIGH form's whole).
   const int kx = (p.Nt + 15) & ~15;
   const int kz = (p.Lh * p.Nr + 15) & ~15;
-  __nv_bfloat16* split = reinterpret_cast<__nv_bfloat16*>(u + n);
-  const Split xs{split, p.Nt, kx + 8, p.Lin * (kx + 8)};
-  const Split zs{split, p.Nt, kz + 8, p.Lin * (kz + 8)};
+  __nv_bfloat16* split = reinterpret_cast<__nv_bfloat16*>(u + NY);
+  const Split xs{split, p.Nt, kx + 8, sp.lc * (kx + 8)};
+  const Split zs{split, p.Nt, kz + 8, sp.lc * (kz + 8)};
 
   // Slots of (c, l) pairs that place no block, and the row padding, stay
   // zero: the adjoint reads them as exact zeros.
@@ -1695,7 +1849,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     var[j] = p.var_in[xo + j];
     if (kHigh) xs.store_x<kMask, F>(j, m.x, m.y, var[j], real_x);
   }
-  if (kHigh) zero_x_pad<kVP, kXP>(xs, p.Lin, kx, real_x);
+  if (kHigh) zero_x_pad<kVP, kXP>(xs, sp.nc, kx, real_x);
   for (int o = tid; o < n; o += blockDim.x) {
     const float2 yy = p.y[yo + o];
     const float2 zz = p.z_in[yo + o];
@@ -1707,22 +1861,31 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
   __syncthreads();
 
+  // The barrier around the fold: the block's own, or the cluster's, whose
+  // fold reads and writes the other blocks' slots (the first one also
+  // waits for every block of the cluster to have started).
+  auto fold_barrier = [&]() {
+    if constexpr (kCluster)
+      cluster_sync();
+    else
+      __syncthreads();
+  };
   const int cols = p.Lh * p.Nr;
-  const int fwd_tiles = (p.Lin + kFR - 1) / kFR * cols;
-  const int adj_tiles = (p.Lin + kAR - 1) / kAR * p.Nt;
+  const int fwd_tiles = (sp.nc + kFR - 1) / kFR * cols;
+  const int adj_tiles = (sp.nc + kAR - 1) / kAR * p.Nt;
   const bool vec = p.Nt % 4 == 0;
   for (int it = 0; it < p.cap; ++it) {
     if (kHigh) {
       // ---- the HIGH layout's linear half: each chain on the tensor cores
       // or, in a split form, in FP32 on the CUDA cores ---
-      forward_high<kVP, kXP>(p, xs, kx, kz, real_x, xm_re, xm_im, var, Zc,
-                             Zr, Zi, NrP);
-      __syncthreads();
-      fold_high<kVP, kXP>(p, zs, kz, Zc, Zr, Zi, NrP, y_re, y_im, z_re,
-                          z_im, u);
-      __syncthreads();
-      adjoint_high<kVP, kXP>(p, zs, kx, kz, real_x, xm_re, xm_im, xmap_re,
-                             xmap_g, cov, Zc, Zr, Zi, NrP);
+      forward_high<kVP, kXP>(p, sp, xs, kx, kz, real_x, xm_re, xm_im, var,
+                             Zc, Zr, Zi, NrP);
+      fold_barrier();
+      fold_high<kVP, kXP, kCluster>(p, sp, zs, kz, Zc, Zr, Zi, NrP, y_re,
+                                    y_im, z_re, z_im, u);
+      fold_barrier();
+      adjoint_high<kVP, kXP>(p, sp, zs, kx, kz, real_x, xm_re, xm_im,
+                             xmap_re, xmap_g, cov, Zc, Zr, Zi, NrP);
       __syncthreads();
     } else {
     // ---- forward products: thread per (kFR source blocks, tap column) ---
@@ -1731,61 +1894,29 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       const int l = (f - g * cols) / p.Nr;
       const int m = f - g * cols - l * p.Nr;
       if (vec && real_x)
-        forward_tile<true, true>(p, g * kFR, l, m, xm_re, xm_im, var, Zc, Zr,
-                                 Zi, NrP);
+        forward_tile<true, true>(p, sp, g * kFR, l, m, xm_re, xm_im, var, Zc,
+                                 Zr, Zi, NrP);
       else if (vec)
-        forward_tile<true, false>(p, g * kFR, l, m, xm_re, xm_im, var, Zc,
-                                  Zr, Zi, NrP);
+        forward_tile<true, false>(p, sp, g * kFR, l, m, xm_re, xm_im, var,
+                                  Zc, Zr, Zi, NrP);
       else if (real_x)
-        forward_tile<false, true>(p, g * kFR, l, m, xm_re, xm_im, var, Zc,
-                                  Zr, Zi, NrP);
+        forward_tile<false, true>(p, sp, g * kFR, l, m, xm_re, xm_im, var,
+                                  Zc, Zr, Zi, NrP);
       else
-        forward_tile<false, false>(p, g * kFR, l, m, xm_re, xm_im, var, Zc,
-                                   Zr, Zi, NrP);
+        forward_tile<false, false>(p, sp, g * kFR, l, m, xm_re, xm_im, var,
+                                   Zc, Zr, Zi, NrP);
     }
-    __syncthreads();
+    fold_barrier();
 
     // ---- fold, Onsager residual and adjoint inputs: thread per (r, m) ---
-    for (int o = tid; o < n; o += blockDim.x) {
-      const int r = o / p.Nr;
-      const int m = o - r * p.Nr;
-      float v = 0.f, hx_re = 0.f, hx_im = 0.f;
-      for (int l = 0; l < p.Lh; ++l) {
-        const int c = src_block(r, l, p);
-        if (c < 0) continue;
-        const int e = (c * p.Lh + l) * NrP + m;
-        const float g = p.gains[l * p.Lin + c];
-        v = v + p.gains2[l * p.Lin + c] * Zc[e];
-        hx_re = hx_re + g * Zr[e];
-        hx_im = hx_im + g * Zi[e];
-      }
-      const float uo = u[o];
-      const float zr = hx_re - (v * (y_re[o] - z_re[o])) / uo;
-      const float zi = hx_im - (v * (y_im[o] - z_im[o])) / uo;
-      const float un = v + p.sigma2;
-      z_re[o] = zr;
-      z_im[o] = zi;
-      u[o] = un;
-      // gain-weighted adjoint inputs of every (c, l) feeding this row
-      const float wc = 1.f / un;
-      const float wr = (y_re[o] - zr) / un;
-      const float wi = (y_im[o] - zi) / un;
-      for (int l = 0; l < p.Lh; ++l) {
-        const int c = src_block(r, l, p);
-        if (c < 0) continue;
-        const int e = (c * p.Lh + l) * NrP + m;
-        Zc[e] = p.gains2[l * p.Lin + c] * wc;
-        Zr[e] = p.gains[l * p.Lin + c] * wr;
-        Zi[e] = p.gains[l * p.Lin + c] * wi;
-      }
-    }
-    __syncthreads();
+    fold_fp32<kCluster>(p, sp, Zc, Zr, Zi, NrP, y_re, y_im, z_re, z_im, u);
+    fold_barrier();
 
     // ---- adjoint products: thread per (kAR column blocks, x element) ---
     for (int f = tid; f < adj_tiles; f += blockDim.x) {
       const int g = f / p.Nt;
-      adjoint_tile(p, g * kAR, f - g * p.Nt, Zc, Zr, Zi, NrP, xm_re, xm_im,
-                   xmap_re, xmap_g, cov, real_x);
+      adjoint_tile(p, sp.nc, g * kAR, f - g * p.Nt, Zc, Zr, Zi, NrP, xm_re,
+                   xm_im, xmap_re, xmap_g, cov, real_x);
     }
     __syncthreads();
     }
@@ -1798,8 +1929,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       const int t = tid & (G - 1);
       const unsigned mask =
           G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((tid & 31) & ~(G - 1));
-      // every segment of the trial, K known to the compiler where KS > 0;
-      // group g takes segments g, g + groups, ..., at kPair two at a time
+      // every segment of the block's column blocks, K known to the compiler
+      // where KS > 0; group g takes segments g, g + groups, ..., at kPair
+      // two at a time
       auto segments = [&](auto ks) {
         constexpr int KS = decltype(ks)::value;
         const int nseg = N / p.M, groups = blockDim.x / G;
@@ -1836,9 +1968,23 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
         bad |= mixture_posterior<kMask, F>(
             p, j, real_x, xmap_re, xmap_g, cov, xm_re, xm_im, var, xs);
     }
-    if (kHigh) zero_x_pad<kVP, kXP>(xs, p.Lin, kx, real_x);
+    if (kHigh) zero_x_pad<kVP, kXP>(xs, sp.nc, kx, real_x);
     ++T;
-    if (!__syncthreads_or(bad)) {
+    int any = __syncthreads_or(bad);
+    if constexpr (kCluster) {
+      // the OR across the cluster: each block's flag into slot rank of
+      // every block (the last kFlagInts ints of its dynamic shared memory,
+      // past the carve), then the cluster barrier (the slots are written
+      // again only after the next iteration's fold barriers, by which time
+      // every block has read them)
+      int* flags = reinterpret_cast<int*>(reinterpret_cast<char*>(sm) +
+                                          p.smem) - kFlagInts;
+      if (tid < p.ctas) map_rank(flags, tid)[sp.rank] = any;
+      cluster_sync();
+      any = 0;
+      for (int i = 0; i < p.ctas; ++i) any |= flags[i];
+    }
+    if (!any) {
       act = 0;
       break;
     }
@@ -1853,10 +1999,15 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     p.z_out[yo + o] = make_float2(z_re[o], z_im[o]);
     p.u_out[yo + o] = u[o];
   }
-  if (tid == 0) {
+  // the trial's T and activity, from the first block of its cluster
+  // (every block holds the same)
+  if (tid == 0 && sp.rank == 0) {
     p.act_out[b] = act;
     p.T_out[b] = T;
   }
+  // no block leaves while another of its cluster may still reach its
+  // shared memory
+  if constexpr (kCluster) cluster_sync();
 }
 
 using Kernel = void (*)(Params);
@@ -1896,10 +2047,15 @@ extern "C" {
 // with `threads` threads a block; a split form with a chain at HIGHEST
 // also on the FP32 tap planes `taps32` (fused_bamp.py::fp32_taps), a mixed
 // form (one chain 'high', the other 'default') its one-pass chain on the
-// hi-only fragments `taps1` (fused_bamp.py::default_taps).  Returns
-// a cudaError_t code (0 on success): the attribute call's, or
-// cudaGetLastError() after the launch.  The kernel allocates nothing;
-// every buffer is the caller's.
+// hi-only fragments `taps1` (fused_bamp.py::default_taps).  ctas: the
+// blocks a trial, 1 in the one-block library, a cluster of 2, 4 or 8 in
+// the cluster form's (K1_CLUSTER; fused_bamp.py::cluster_plan: the grid B
+// ctas blocks, cudaLaunchKernelEx with the cluster dimension, after
+// cudaOccupancyMaxActiveClusters has found a cluster of them can be
+// resident; where it finds none, cudaErrorInvalidConfiguration, and
+// nothing runs).  Returns a cudaError_t code (0 on success): the
+// attribute or occupancy call's, or the launch's and cudaGetLastError()
+// after it.  The kernel allocates nothing; every buffer is the caller's.
 int fused_bamp_decode(
     const void* y, const void* xmap_in, const void* xmmse_in,
     const void* var_in, const void* z_in, const void* u_in,
@@ -1912,8 +2068,12 @@ int fused_bamp_decode(
     int B, int Nt, int Nr, int Lin, int Lout, int Lh, int trunc, int M,
     int K, int den, int real_x, float Ps, float P0, float sigma2, int cap,
     int smem, int high, int xhigh, const void* taps, const void* taps32,
-    const void* taps1, int folded, int threads, void* stream) {
+    const void* taps1, int folded, int threads, int ctas, void* stream) {
   if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (!(kCluster ? ctas == 2 || ctas == 4 || ctas == 8 : ctas == 1) ||
+      ctas > Lin ||
+      (kCluster && smem < kFlagInts * static_cast<int>(sizeof(int))))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.y = static_cast<const float2*>(y);
   p.xmap_in = static_cast<const float2*>(xmap_in);
@@ -1956,6 +2116,8 @@ int fused_bamp_decode(
   p.taps32 = static_cast<const float*>(taps32);
   p.taps1 = static_cast<const uint4*>(taps1);
   p.folded = folded;
+  p.ctas = ctas;
+  p.smem = smem;
   const bool split = high != xhigh;
   if (high < 0 || high > 2 || xhigh < 0 || xhigh > 2 ||
       ((high || xhigh) && taps == nullptr) ||
@@ -1979,7 +2141,28 @@ int fused_bamp_decode(
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  if (!kCluster) {
+    kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(B) * ctas);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaLaunchKernelEx(&config, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

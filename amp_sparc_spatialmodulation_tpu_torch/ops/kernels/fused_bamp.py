@@ -8,7 +8,8 @@ freeze and ``T`` — with the iteration loop inside the kernel.  The CUDA
 source is ``csrc/fused_bamp_decode.cu``: one thread block per trial, its
 state in shared memory, so each trial stops at its own convergence; the
 banded products run as register tiles that reuse each tap for several
-column blocks.
+column blocks.  Its cluster form (below) is the same source built into a
+library of its own (``csrc/fused_bamp_cluster.cu``).
 
 * :func:`whole_decode` is the wrapper.  On a CUDA tensor it launches the
   kernel (or raises); on a CPU tensor it runs :func:`decode_plain`.
@@ -17,7 +18,9 @@ column blocks.
   ``bamp.decode`` loop.
 * ``launches`` counts kernel launches of the HIGHEST form,
   ``launches_high`` those of the HIGH form, ``launches_default`` those of
-  the DEFAULT form, ``launches_xmap`` those of the split forms.
+  the DEFAULT form, ``launches_xmap`` those of the split forms, each with
+  one block a trial; ``launches_cluster`` those of the cluster form (any
+  form, a thread-block cluster a trial).
 
 Both take ``precision``: ``'highest'`` (the default; FP32 products on the
 CUDA cores, bit for bit the plain version's) or ``'high'``, the JAX
@@ -56,20 +59,34 @@ Both take and return a :class:`..models.bamp.BAMPState` in the JAX
 layouts and are resumable: ``cap`` is the global iteration cap, and the
 result's ``active``, ``T`` and ``t`` follow ``bamp.py:153-165``.
 
+The cluster form.  Where one block's shared memory (227 KB) holds no
+trial, the same kernel runs a trial on a thread-block cluster of 2, 4 or
+8 blocks (:func:`cluster_plan`): each block holds a contiguous range of
+the column blocks and the output rows of the same numbers (the last block
+also the rows past Lin), laid out as a one-block trial of the largest
+range; the forward products, the adjoint and the denoiser of a column
+block are its block's own, and only the fold of the banded maps crosses
+blocks, through the blocks' distributed shared memory, with cluster
+barriers around it and at the stop test (an OR of the blocks' flags).  No
+partition changes the order of a sum, so the cluster form gives the
+one-block form's state and ``T`` bit for bit.
+
 Dispatch (``models/bamp.py::route``): the kernel is the first link of the
-decode chain, taken whenever :func:`covers` and :func:`fits` hold for the
-config, decided before any launch (any number of column blocks); where
-:func:`fits` does not hold and JAX's kernel would take the batch
-(:func:`jax_fits`), the route runs the kernel's function as its plain
-version (``'whole_plain'``: :data:`PLAIN`, :func:`decode_plain_split`);
-the per-iteration kernels K6 and K5 and the plain loop take the rest.  A
-failed build or launch raises; nothing falls back to the plain version
-after it.
+decode chain, taken whenever :func:`covers` holds and :func:`fits` or
+JAX's kernel would take the batch (:func:`jax_fits`), decided before any
+launch (any number of column blocks): in one block where :func:`fits`
+holds, else as a cluster; where no cluster of 8 blocks holds a trial, the
+route runs the kernel's function as its plain version
+(``'whole_plain'``: :data:`PLAIN`, :func:`decode_plain_split`); the
+per-iteration kernels K6 and K5 and the plain loop take the rest.  A
+failed build or launch raises (a cluster that cannot be resident too);
+nothing falls back to the plain version after it.
 """
 from __future__ import annotations
 
 import ctypes
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,12 +96,14 @@ from ...models import bamp
 from .. import precision as prec
 from . import build
 
-# Kernel launches made by whole_decode: the HIGHEST form, the HIGH form,
-# the DEFAULT form, the split forms (any of the six).
+# Kernel launches made by whole_decode with one block a trial: the HIGHEST
+# form, the HIGH form, the DEFAULT form, the split forms (any of the six);
+# and the launches of the cluster form (any form, a cluster a trial).
 launches = 0
 launches_high = 0
 launches_default = 0
 launches_xmap = 0
+launches_cluster = 0
 # The form code each launcher (K1, K3, K4, K5) takes for each precision.
 FORM = {prec.HIGHEST: 0, prec.HIGH: 1, prec.DEFAULT: 2}
 
@@ -137,15 +156,18 @@ def split_ld(k: int) -> int:
     return padded16(k) + 8
 
 
-def high_split_elems(cfg: Config) -> int:
+def high_split_elems(cfg: Config, cols=None) -> int:
     """bf16 of the HIGH form's split operands, in one region: the forward's
     x side (hi and lo of var and xm_re, and for a complex alphabet of xm_re
     + xm_im and xm_im: (Lin, split_ld(Nt)) each), and in the same place,
     once the forward has read it, the adjoint's inputs (hi and lo of the
-    four Gauss operands: (Lin, split_ld(Lh*Nr)) each)."""
+    four Gauss operands: (Lin, split_ld(Lh*Nr)) each).  ``cols``: the
+    column blocks a block holds (Lin where None; a block of a cluster its
+    carve's, :func:`cluster_plan`)."""
+    cols = cfg.Lin if cols is None else cols
     nx = 2 if real_x(cfg) else 4
-    return max(2 * nx * cfg.Lin * split_ld(cfg.Nt),
-               8 * cfg.Lin * split_ld(cfg.Lh * cfg.Nr))
+    return max(2 * nx * cols * split_ld(cfg.Nt),
+               8 * cols * split_ld(cfg.Lh * cfg.Nr))
 
 
 def chains(precision: str = "highest", x_precision=None):
@@ -192,35 +214,45 @@ def chain_parts(precision: str = "highest", x_precision=None):
 
 def smem_bytes(cfg: Config, precision: str = "highest",
                x_precision=None) -> int:
-    """Dynamic shared memory of one block, passed to the launch: 3 scratch
-    planes of (Lin, Lh, scratch_row) floats (the forward products, then
-    the adjoint inputs), 4 x-side planes (5 for complex alphabets) and 5
-    y-side planes of float32, carved in that order by the kernel; on the
-    HIGH layout (:func:`high_layout`) then the split operands
+    """Dynamic shared memory of one block that holds a whole trial, passed
+    to the launch: :func:`block_bytes` of all Lin column blocks and Lout
+    output row blocks."""
+    return block_bytes(cfg, cfg.Lin, cfg.Lout, precision, x_precision)
+
+
+def block_bytes(cfg: Config, cols: int, rows: int,
+                precision: str = "highest", x_precision=None) -> int:
+    """Dynamic shared memory of a block that holds ``cols`` column blocks
+    and ``rows`` output row blocks of a trial: 3 scratch planes of (cols,
+    Lh, scratch_row) floats (the forward products, then the adjoint
+    inputs), 4 x-side planes (5 for complex alphabets) of cols*Nt and 5
+    y-side planes of rows*Nr float32, carved in that order by the kernel;
+    on the HIGH layout (:func:`high_layout`) then the split operands
     (:func:`high_split_elems`; the DEFAULT form's hi planes alone, half of
     it; a mixed form the planes of :func:`chain_parts`, operand 0 the
     variance chain's, operands 1.. the xmap chain's; a split form with an
     FP32 chain keeps the HIGH form's region whole: that chain reads the
     FP32 planes, writes its adjoint inputs into the scratch planes and
     stages its taps through the split planes it leaves dead)."""
-    fp32 = 4 * (3 * cfg.Lin * cfg.Lh * scratch_row(cfg)
-                + (4 if real_x(cfg) else 5) * cfg.N + 5 * cfg.n)
+    fp32 = 4 * (3 * cols * cfg.Lh * scratch_row(cfg)
+                + (4 if real_x(cfg) else 5) * cols * cfg.Nt
+                + 5 * rows * cfg.Nr)
     if not high_layout(precision, x_precision):
         return fp32
     if mixed(precision, x_precision):
         pv, px = chain_parts(precision, x_precision)
         nx = 2 if real_x(cfg) else 4
         return fp32 + 2 * max(
-            (pv + (nx - 1) * px) * cfg.Lin * split_ld(cfg.Nt),
-            (pv + 3 * px) * cfg.Lin * split_ld(cfg.Lh * cfg.Nr))
+            (pv + (nx - 1) * px) * cols * split_ld(cfg.Nt),
+            (pv + 3 * px) * cols * split_ld(cfg.Lh * cfg.Nr))
     precision, x_precision = chains(precision, x_precision)
-    region = 2 * high_split_elems(cfg)
+    region = 2 * high_split_elems(cfg, cols)
     if precision == x_precision:
         region = region * split_parts(precision) // 2
     return fp32 + region
 
 
-def high_threads(cfg: Config) -> int:
+def high_threads(cfg: Config, ctas: int = 1) -> int:
     """Threads of the block of every form on the HIGH layout for ``cfg``,
     by the HIGH form's carve-out: 8 warps where two blocks share an SM's
     shared memory (each still runs 128 registers a thread), else 16 warps
@@ -228,8 +260,12 @@ def high_threads(cfg: Config) -> int:
     hide the latency of the products, the fold and the denoiser).  The
     DEFAULT form's smaller region gives neither flagship another block per
     SM (180,800 B at the QPSK flagship, still one; 82,880 B at the OOK
-    one, still two), so it runs the HIGH form's block."""
-    two = 2 * (smem_bytes(cfg, "high") + BLOCK_RESERVED) <= SM_SMEM
+    one, still two), so it runs the HIGH form's block.  ``ctas``: the
+    blocks of a cluster that holds one trial (:func:`cluster_plan`), each
+    block judged by its own carve-out."""
+    high = (smem_bytes(cfg, "high") if ctas == 1
+            else _cluster_smem(cfg, ctas, "high"))
+    two = 2 * (high + BLOCK_RESERVED) <= SM_SMEM
     return HIGH_THREADS_TWO_BLOCKS if two else HIGH_THREADS_ONE_BLOCK
 
 
@@ -240,6 +276,96 @@ def fits(cfg: Config, precision: str = "highest", x_precision=None) -> bool:
     the HIGH layout's products spans at most four n8 tiles of them, and a
     16-row tile takes as many units as it needs."""
     return smem_bytes(cfg, precision, x_precision) <= SMEM_LIMIT
+
+
+# K1's cluster form: the cluster sizes it takes, smallest first (within
+# the portable size of 8), and the bytes each block of a cluster keeps
+# past its carve for the cluster's stop flags (one int per block).
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER_FLAG_BYTES = 32
+
+
+class ClusterPlan(NamedTuple):
+    """How K1 spreads one trial of a geometry over the blocks of a
+    thread-block cluster (:func:`cluster_plan`).  ``ctas``: blocks a
+    trial (1: one block, the forms that fit; 0: no cluster of 8 holds a
+    trial).  Per block: ``cols`` its column blocks ``(c0, c1)``, ``rows``
+    its output row blocks ``(r0, r1)``, ``bytes`` the dynamic shared
+    memory of its own ranges.  ``smem``: the launch's dynamic shared
+    memory, the carve of the largest ranges, which every block of the
+    cluster lays out alike; ``threads``: the block's threads on the HIGH
+    layout (0 off it)."""
+    ctas: int
+    cols: tuple
+    rows: tuple
+    bytes: tuple
+    smem: int
+    threads: int
+
+
+def cluster_ranges(cfg: Config, ctas: int):
+    """``(cols, rows)`` of the ``ctas`` blocks of a trial: block i holds
+    column blocks ``i Lin // ctas`` up to the next block's first (sizes
+    differ by one at most, the last block's is ``ceil(Lin / ctas)``, none
+    is empty while ``ctas <= Lin``) and the output row blocks of the same
+    numbers, the last block also the ``Lout - Lin`` rows past Lin (tail
+    truncation's ``Lh - 1``).  The kernel computes the same ranges
+    (``block_span`` in ``csrc/fused_bamp_decode.cu``)."""
+    c0 = [i * cfg.Lin // ctas for i in range(ctas)] + [cfg.Lin]
+    cols = tuple((c0[i], c0[i + 1]) for i in range(ctas))
+    rows = tuple((a, cfg.Lout if i == ctas - 1 else b)
+                 for i, (a, b) in enumerate(cols))
+    return cols, rows
+
+
+def _cluster_smem(cfg: Config, ctas: int, precision: str = "highest",
+                  x_precision=None) -> int:
+    """The launch's dynamic shared memory for clusters of ``ctas`` blocks:
+    the carve of ceil(Lin / ctas) column blocks and as many output row
+    blocks plus Lout - Lin (the last block's ranges, the largest), then
+    the stop flags."""
+    cols = -(-cfg.Lin // ctas)
+    return (block_bytes(cfg, cols, cols + cfg.Lout - cfg.Lin, precision,
+                        x_precision) + CLUSTER_FLAG_BYTES)
+
+
+def cluster_plan(cfg: Config, precision: str = "highest", x_precision=None,
+                 ctas=None) -> ClusterPlan:
+    """How many blocks of a cluster hold one trial of ``cfg`` in the form
+    of ``(precision, x_precision)``, and each block's ranges and bytes,
+    with no launch: 1 where :func:`fits` holds; else the smallest of
+    :data:`CLUSTER_SIZES` whose every block fits ``SMEM_LIMIT``; 0 where
+    none does.  A cluster holds no more than Lin blocks, and a segmented
+    trial only where its segments lie inside a column block (M divides
+    Nt: a column block's denoiser is its block's own).  ``ctas`` forces a
+    cluster size (for checks of the cluster form where one block would
+    do); the plan then says 0 where a block of that size does not fit."""
+    high = high_layout(precision, x_precision)
+
+    def holds(c):
+        if c == 1:
+            return fits(cfg, precision, x_precision)
+        return (c <= cfg.Lin
+                and (cfg.mode == "random" or cfg.Nt % cfg.M == 0)
+                and _cluster_smem(cfg, c, precision, x_precision)
+                <= SMEM_LIMIT)
+
+    if ctas is None:
+        ctas = next((c for c in (1,) + CLUSTER_SIZES if holds(c)), 0)
+    elif ctas not in (1,) + CLUSTER_SIZES:
+        raise ValueError(f"clusters of {ctas} blocks: K1 takes 1, "
+                         f"{', '.join(map(str, CLUSTER_SIZES))}")
+    elif not holds(ctas):
+        ctas = 0
+    if ctas == 0:
+        return ClusterPlan(0, (), (), (), 0, 0)
+    cols, rows = cluster_ranges(cfg, ctas)
+    flags = CLUSTER_FLAG_BYTES if ctas > 1 else 0
+    nbytes = tuple(block_bytes(cfg, c1 - c0, r1 - r0, precision,
+                               x_precision) + flags
+                   for (c0, c1), (r0, r1) in zip(cols, rows))
+    return ClusterPlan(ctas, cols, rows, nbytes, nbytes[-1],
+                       high_threads(cfg, ctas) if high else 0)
 
 
 # The JAX kernel's VMEM budget for a trial tile (`fused_bamp.py:735-772`
@@ -380,13 +506,16 @@ def instance_taps(op, precision: str = "highest", x_precision=None):
     return high_taps(op)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("fused_bamp_decode")
+def _library(cluster: bool = False) -> ctypes.CDLL:
+    """The kernel's library: the one-block instances, or the cluster form's
+    (the same source built with ``K1_CLUSTER``, csrc/fused_bamp_cluster.cu),
+    with the same C entry."""
+    lib = build.load("fused_bamp_cluster" if cluster else "fused_bamp_decode")
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_bamp_decode.argtypes = (
             [ptr] * 23 + [i32] * 11 + [f32] * 3
-            + [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, ptr])
+            + [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, ptr])
         lib.fused_bamp_decode.restype = i32
         lib.fused_bamp_error_string.argtypes = [i32]
         lib.fused_bamp_error_string.restype = ctypes.c_char_p
@@ -418,15 +547,19 @@ def symbol_planes(cfg: Config, device):
 
 def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
                  cap: int, cfg: Config, precision: str = "highest",
-                 x_precision=None) -> bamp.BAMPState:
+                 x_precision=None, ctas=None) -> bamp.BAMPState:
     """The whole decode of ``y`` from state ``s0`` up to global iteration
     ``cap``: the CUDA kernel for a CUDA tensor, :func:`decode_plain` (at
     ``'high'`` :func:`decode_plain_high`, at ``'default'``
     :func:`decode_plain_default`; with an ``x_precision`` other than
     ``precision``, :func:`decode_plain_split`) for a CPU tensor.  The
-    caller has checked :func:`covers` and :func:`fits` at ``precision``
-    and ``x_precision`` for ``cfg`` (``bamp.decode`` does); on the card the
-    form asked for is the form that runs, or the call raises."""
+    caller has checked :func:`covers` for ``cfg`` and that
+    :func:`cluster_plan` at ``precision`` and ``x_precision`` holds a trial
+    (``bamp.decode`` does); on the card the form asked for is the form that
+    runs, or the call raises.  Where one block holds no trial, the kernel
+    runs as a cluster of the plan's blocks a trial (counted in
+    ``launches_cluster``); ``ctas`` forces a cluster size where one block
+    would do (checks of the cluster form), and is ignored on the CPU."""
     precision, x_precision = chains(precision, x_precision)
     split = x_precision != precision
     high = high_layout(precision, x_precision)
@@ -438,6 +571,7 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     if y.device.type != "cuda":
         raise ValueError(f"no kernel for device {y.device}")
     global launches, launches_high, launches_default, launches_xmap
+    global launches_cluster
     B = y.shape[0]
     N, n = cfg.N, cfg.n
     dev = y.device
@@ -452,8 +586,10 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
     _check("gains", op.gains, (cfg.Lh, cfg.Lin), f32, dev)
     if (op.Lin, op.Lout, op.trunc) != (cfg.Lin, cfg.Lout, cfg.trunc):
         raise ValueError("operator geometry differs from the config")
-    if not fits(cfg, precision, x_precision):
-        raise ValueError(f"no block holds a trial of this geometry at "
+    plan = cluster_plan(cfg, precision, x_precision, ctas)
+    if plan.ctas == 0:
+        raise ValueError(f"no cluster of {ctas or CLUSTER_SIZES[-1]} "
+                         f"blocks holds a trial of this geometry at "
                          f"precision={precision!r}, "
                          f"x_precision={x_precision!r}")
     if B == 0:
@@ -477,7 +613,7 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
                                                           x_precision)
               else None)
     cap_rem = max(int(cap) - int(s0.t), 0)
-    lib = _library()
+    lib = _library(plan.ctas > 1)
     rc = lib.fused_bamp_decode(
         y.data_ptr(), s0.xmap.data_ptr(), s0.xmmse.data_ptr(),
         s0.var.data_ptr(), s0.z.data_ptr(), s0.u.data_ptr(),
@@ -492,16 +628,17 @@ def whole_decode(op, s0: bamp.BAMPState, y: torch.Tensor, sigma2: float,
         cfg.M, cfg.K, 0 if cfg.mode in ("segmented", "sparc") else 1,
         int(real_x(cfg)), float(cfg.Ps), float(cfg.P0),
         float(np.float32(sigma2)), cap_rem,
-        smem_bytes(cfg, precision, x_precision), FORM[precision],
-        FORM[x_precision], taps.data_ptr() if high else None,
+        plan.smem, FORM[precision], FORM[x_precision],
+        taps.data_ptr() if high else None,
         None if taps32 is None else taps32.data_ptr(),
         None if taps1 is None else taps1.data_ptr(), int(folded),
-        high_threads(cfg) if high else 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        plan.threads, plan.ctas, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_bamp_decode launch failed: "
                            + lib.fused_bamp_error_string(rc).decode())
-    if split:
+    if plan.ctas > 1:
+        launches_cluster += 1
+    elif split:
         launches_xmap += 1
     elif precision == prec.DEFAULT:
         launches_default += 1

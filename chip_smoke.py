@@ -233,12 +233,28 @@ Phases, each printing one JSON line:
 18. K1 past 32 column blocks: kernel_wide_bamp (inside kernels_bamp_high,
    kernels_bamp_default and kernels_bamp_xmap), each form against its
    plain version on the small OOK geometry and the OOK flagship's
-   dimensions at Lin 40 (``k1_wide_checks``); main_bamp_wide,
-   ``bamp.decode`` at 'high' on the QPSK flagship at Lin 32, whose HIGH
-   block holds no trial where JAX's K1 takes the batch: route
-   ``'whole_plain'``, one plain decode, no launch, the plain version's
-   result bit for bit;
-19. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+   dimensions at Lin 40 (``k1_wide_checks``), then as a cluster
+   (``k1_cluster_checks``) at the SCAMP QPSK geometry (every form on the
+   HIGH layout) and the QPSK flagship's dimensions at Lin 48 (HIGHEST,
+   HIGH, DEFAULT), 4096 trials, cap 100: compare with the shape's rule,
+   one cluster launch a check, the form with wrong products failing the
+   rule, the form's control;
+19. K1's cluster form (a trial on a thread-block cluster where one block's
+   shared memory holds none): kernel_cluster_bamp, every form (HIGHEST,
+   HIGH, DEFAULT, the six split pairs) at the OOK flagship (cap 12) and
+   the QPSK flagship (5 dB, cap 100), 4096 trials, forced onto clusters of
+   2 and 4 blocks (``whole_decode(..., ctas=c)``), must equal the one-block
+   launch on every plane of every trial, T and the active flags, both
+   times printed; main_bamp_wide, ``Simulator(config.flagship_scamp(),
+   algo='bamp', precision='high')`` at 12 dB, cap 100, beside
+   ``precision='highest'`` (a one-block K1 there) on the same seeds, 2
+   realizations of 65536 each: route ``'whole'``, cluster launches alone
+   in the HIGH run, no plain decode, FER and BER within 3 sigma and mean
+   T within 1.0 of HIGHEST's, both runs' trials/s and a per-layer split;
+   kernel_timing_bamp_cluster, the cluster form at that shape beside its
+   bound, the same bf16 products as torch.matmul calls and the plain HIGH
+   version;
+20. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ``ok`` line.  Without a CUDA device,
@@ -1817,11 +1833,67 @@ WIDE_RULES = {"high": (0.93, 0.02, 1e-3), "default": (0.97, 0.02, 3e-3),
               "split": (0.93, 0.02, 3e-3)}
 
 
+def k1_wide_wrong(failed, op, s0, y, s2, cap, cfg, sp, v, split, label,
+                  name, min_agree, max_dmean):
+    """The form with the wrong products, held to the rule of the form
+    ``label`` against the plain version's ``sp``, must fail it: the form
+    at the variance chain's precision, HIGHEST for HIGH, HIGH for
+    DEFAULT."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    wrong = v if split else "high" if v == "default" else "highest"
+    sw = fused_bamp.whole_decode(op, s0, y, s2, cap, cfg, wrong)
+    frac, dmean, inside = rule_passes(sw, sp, min_agree, max_dmean)
+    emit("kernel_wide_bamp_wrong", case=name, form=label, wrong=wrong,
+         T_agree_fraction=frac, abs_dmean_T=dmean, inside_rule=inside)
+    if inside:
+        failed.append(f"{name}: the {wrong} form passes the rule")
+
+
+def k1_wide_control(failed, kernel, plain, op, s0, y, s2, cfg, v, split,
+                    label, name):
+    """The form's one-iteration control, as its phase takes it."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    if split or v == "default":
+        ps = plain(op, s0, y, s2, 2, cfg)
+        one = plain(op, ps, y, s2, 3, cfg)
+        gate_control(failed, "kernel_wide_bamp_control",
+                     vamp_gap(kernel(op, ps, y, s2, 3, cfg), one),
+                     vamp_gap(fused_bamp.whole_decode(
+                         op, ps, y, s2, 3, cfg, v if split else "high"),
+                         one),
+                     XMAP_CONTROL if split else K1_DEFAULT_CONTROL,
+                     "xmap_p50", case=name, form=label, presteps=2)
+    else:
+        one = plain(op, s0, y, s2, 1, cfg)
+        gate_control(failed, "kernel_wide_bamp_control",
+                     vamp_gap(kernel(op, s0, y, s2, 1, cfg), one),
+                     vamp_gap(fused_bamp.whole_decode(
+                         op, s0, y, s2, 1, cfg), one),
+                     {BAMP_HIGH_CONTROL_STAT: HIGH_CONTROL_TOL},
+                     BAMP_HIGH_CONTROL_STAT, case=name, form=label)
+
+
+def k1_form_fns(v, x):
+    """(kernel, plain, launch counter of the one-block form) of K1's form
+    ``(v, x)``, each called as ``(op, s, y, sigma2, cap, cfg)``."""
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    split = x != v
+    counter = ("launches_xmap" if split else "launches_default"
+               if v == "default" else "launches_high" if v == "high"
+               else "launches")
+    kernel = lambda op, s, y, s2, c, cfg: fused_bamp.whole_decode(
+        op, s, y, s2, c, cfg, v, x if split else None)
+    plain = lambda op, s, y, s2, c, cfg: fused_bamp.decode_plain_split(
+        op, s, y, s2, c, cfg, v, x) if split else fused_bamp.PLAIN[v](
+            op, s, y, s2, c, cfg)
+    return kernel, plain, counter
+
+
 def k1_wide_checks(torch, dev, precision, x_precision=None):
-    """The checks above for K1's form ``(precision, x_precision)``; the
-    kernel must run (its launch counter moves); returns the largest state
-    error of the trials whose T agrees and that converged; raises on a
-    failed check."""
+    """The checks above for K1's form ``(precision, x_precision)``, then
+    :func:`k1_cluster_checks`; the kernel must run (its launch counter
+    moves); returns the largest state error of the trials whose T agrees
+    and that converged; raises on a failed check."""
     import dataclasses
 
     from amp_sparc_spatialmodulation_tpu_torch.config import (
@@ -1834,14 +1906,8 @@ def k1_wide_checks(torch, dev, precision, x_precision=None):
     v, x = precision, x_precision or precision
     split = x != v
     label = f"{v}:{x}"
-    counter = ("launches_xmap" if split else "launches_default"
-               if v == "default" else "launches_high")
     rule = WIDE_RULES["split" if split else v]
-    kernel = lambda op, s, y, s2, c, cfg: fused_bamp.whole_decode(
-        op, s, y, s2, c, cfg, v, x if split else None)
-    plain = lambda op, s, y, s2, c, cfg: fused_bamp.decode_plain_split(
-        op, s, y, s2, c, cfg, v, x) if split else fused_bamp.PLAIN[v](
-            op, s, y, s2, c, cfg)
+    kernel, plain, counter = k1_form_fns(v, x)
     small = Config(Nt=16, Na=4, Nr=8, Lin=WIDE_LIN, Lh=3, mode="segmented",
                    profile="uniform", alphabet="OOK", trunc="tail",
                    iterations=12)
@@ -1902,103 +1968,393 @@ def k1_wide_checks(torch, dev, precision, x_precision=None):
                  library_form=lib_form,
                  smem_bytes=fused_bamp.smem_bytes(cfg, v, x),
                  threads=fused_bamp.high_threads(cfg))
-            # the form with the wrong products, held to the same rule, must
-            # fail it: the form at the variance chain's precision, HIGHEST
-            # for HIGH, HIGH for DEFAULT
-            wrong = v if split else "high" if v == "default" else "highest"
-            sw = fused_bamp.whole_decode(op, s0, y, s2, cap, cfg, wrong)
-            frac, dmean, inside = rule_passes(sw, sp, min_agree, max_dmean)
-            emit("kernel_wide_bamp_wrong", case=name, form=label,
-                 wrong=wrong, T_agree_fraction=frac, abs_dmean_T=dmean,
-                 inside_rule=inside)
-            if inside:
-                failed.append(f"{name}: the {wrong} form passes the rule")
-            del sw
+            k1_wide_wrong(failed, op, s0, y, s2, cap, cfg, sp, v, split,
+                          label, name, min_agree, max_dmean)
         del sk, sp
         if name.startswith("ook_flagship"):
-            # the form's one-iteration control, as its phase takes it
-            if split:
-                ps = plain(op, s0, y, s2, 2, cfg)
-                one = plain(op, ps, y, s2, 3, cfg)
-                gate_control(failed, "kernel_wide_bamp_control",
-                             vamp_gap(kernel(op, ps, y, s2, 3, cfg), one),
-                             vamp_gap(fused_bamp.whole_decode(
-                                 op, ps, y, s2, 3, cfg, v), one),
-                             XMAP_CONTROL, "xmap_p50", case=name,
-                             form=label, presteps=2)
-            elif v == "default":
-                ps = plain(op, s0, y, s2, 2, cfg)
-                one = plain(op, ps, y, s2, 3, cfg)
-                gate_control(failed, "kernel_wide_bamp_control",
-                             vamp_gap(kernel(op, ps, y, s2, 3, cfg), one),
-                             vamp_gap(fused_bamp.whole_decode(
-                                 op, ps, y, s2, 3, cfg, "high"), one),
-                             K1_DEFAULT_CONTROL, "xmap_p50", case=name,
-                             form=label, presteps=2)
-            else:
-                one = plain(op, s0, y, s2, 1, cfg)
-                gate_control(failed, "kernel_wide_bamp_control",
-                             vamp_gap(kernel(op, s0, y, s2, 1, cfg), one),
-                             vamp_gap(fused_bamp.whole_decode(
-                                 op, s0, y, s2, 1, cfg), one),
-                             {BAMP_HIGH_CONTROL_STAT: HIGH_CONTROL_TOL},
-                             BAMP_HIGH_CONTROL_STAT, case=name, form=label)
+            k1_wide_control(failed, kernel, plain, op, s0, y, s2, cfg, v,
+                            split, label, name)
         del r, op, y, s0
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"K1 {label} past 32 column blocks: {failed}")
-    return max_err
+    return max(max_err, k1_cluster_checks(torch, dev, v, x))
 
 
-def phase_main_bamp_wide(torch, dev):
-    """K1's function where JAX's K1 runs and the port's block holds no
-    trial: ``bamp.decode`` at 'high' on the QPSK flagship at Lin 32 (its
-    HIGH block 281,728 B), 4096 trials at 5 dB, cap 100: the route must be
-    ``'whole_plain'`` (K1's plain HIGH version on the card, one plain
-    decode, no kernel launch), the result finite and the plain version's
-    bit for bit.  Prints the route, the plain-decode count and the
-    seconds."""
+# K1's cluster form where one block holds no trial and JAX's K1 takes the
+# batch (kernel_wide_bamp, case scamp_dims / qpsk_lin48): the SCAMP QPSK
+# geometry (config.flagship_scamp(), Lin 40, published under
+# Simulations/SCAMP/QPSK) for the forms on the HIGH layout (its HIGHEST
+# form fits one block), and the QPSK flagship's dimensions at Lin 48 for
+# HIGHEST, HIGH and DEFAULT (the split forms are held at the SCAMP
+# geometry); 4096 trials, cap 100, at the Eb/N0 of CLUSTER_SHAPES.  Each
+# form against its plain version under compare with the shape's rule
+# (CLUSTER_RULES: T agreement, |d mean T|, and the state either within a
+# bound on the trials that stopped in both with the same T, or, where
+# two correct decodes part on a decided symbol, as the share of those
+# trials within 1e-4), and the form's one-iteration control.  The limits
+# lie between the readings of tests/torch_bamp_high_rule.py --cluster
+# scamp_dims|qpsk_lin48 on an NVIDIA H100 80GB HBM3 at 700 W (kernel /
+# float64 sums / the form with wrong products):
+# - qpsk_lin48, 8 dB: HIGHEST identical to its plain version; HIGH T
+#   agreement 74.41% / 74.63% / HIGHEST's 41.43%, |d mean T| 0.50 / 0.55
+#   / 26.4, state 8.9e-6 / 3.5e-5; DEFAULT 94.07% / 94.41% / HIGH's
+#   69.90%, 0.05 / 0.07 / 12.1, state 4.3e-4 / 4.3e-4: the form with
+#   wrong products must fail the rule;
+# - scamp_dims, 16 dB: BAMP decodes few trials at this geometry (mean T
+#   88 of 100; 12 dB, main_bamp_wide's point, 94), and those that stop
+#   do so near the allclose tolerance, so T parts as much between two
+#   correct decodes as between right and wrong products (HIGH 87.94% /
+#   88.18% / HIGHEST's 87.21%; DEFAULT 74.93% / 74.73% / HIGH's 73.54%;
+#   the split pairs 74.3-90.2% / 75.3-91.1% / 72.9-86.8%, |d mean T| up
+#   to 0.51 in every column), and two correct decodes may converge to
+#   different decided symbols (state 0.31 on the trials that stopped with
+#   the same T, float64 sums against the plain HIGH version).  There the
+#   rule holds what two correct decodes share, and the control alone
+#   tells wrong products (HIGH 1.3e-7 against HIGHEST's 4.7e-6; DEFAULT
+#   and the split forms with a 'default' chain under XMAP_CONTROL's
+#   1.5e-6, their wrong forms at 2.5e-3; every split pair under it, the
+#   wrong forms over it).  The share of the stopped trials with the same T
+#   within 1e-4 holds two correct decodes (HIGH 100% / 99.83%, DEFAULT
+#   99.02% / 100%, the split pairs 99.49-100% / 99.58-100%) and fails the
+#   forms with a wrong 'default' chain (0%).
+CLUSTER_B = 4096
+CLUSTER_CAP = 100
+CLUSTER_SHAPES = {"scamp_dims": (16.0, 305), "qpsk_lin48": (8.0, 306)}
+# (T agreement, |d mean T|, state bound or None, share of the stopped
+# trials within 1e-4 or None, the form with wrong products must fail)
+CLUSTER_RULES = {
+    ("qpsk_lin48", "highest:highest"): (0.995, 0.02, 1e-3, None, False),
+    ("qpsk_lin48", "high:high"): (0.70, 2.0, 1e-3, None, True),
+    ("qpsk_lin48", "default:default"): (0.90, 2.0, 3e-3, None, True),
+    ("scamp_dims", "high:high"): (0.85, 0.8, None, 0.98, False),
+    ("scamp_dims", "default:default"): (0.72, 0.8, None, 0.98, False),
+    ("scamp_dims", "highest:high"): (0.84, 0.8, None, 0.98, False),
+    ("scamp_dims", "highest:default"): (0.71, 0.8, None, 0.98, False),
+    ("scamp_dims", "high:default"): (0.71, 0.8, None, 0.98, False),
+    ("scamp_dims", "high:highest"): (0.87, 0.8, None, 0.98, False),
+    ("scamp_dims", "default:high"): (0.79, 0.8, None, 0.98, False),
+    ("scamp_dims", "default:highest"): (0.81, 0.8, None, 0.98, False),
+}
+# The state errors of every cluster check with a state bound, for the
+# cluster form's entry of the kernels line.
+CLUSTER_ERRS = []
+
+
+def cluster_config(name):
     import dataclasses
 
     from amp_sparc_spatialmodulation_tpu_torch.config import (
-        flagship_bamp_qpsk)
+        flagship_bamp_qpsk, flagship_scamp)
+    if name == "scamp_dims":
+        return flagship_scamp()
+    return dataclasses.replace(flagship_bamp_qpsk(), Lin=48)
+
+
+def k1_cluster_checks(torch, dev, v, x=None):
+    """The cluster checks above for K1's form ``(v, x)`` at the shapes that
+    hold it: the launch must be a cluster launch (``launches_cluster``
+    moves by one, the form's own counter not at all); returns the largest
+    state error under a state bound; raises on a failed check."""
     from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
     from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
     from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
         make_generator)
 
-    cfg = dataclasses.replace(flagship_bamp_qpsk(), Lin=32)
-    r = montecarlo.generate_realization(
-        make_generator(dev, 302), cfg, "sparc", "banded", FLAGSHIP_B,
-        snr_of(cfg, BAMP_HIGH_EBN0_DB), "high")
-    way = bamp.route(cfg, r.A, FLAGSHIP_B, dev, "high")
+    x = x or v
+    split = x != v
+    label = f"{v}:{x}"
+    kernel, plain, counter = k1_form_fns(v, x)
+    failed, max_err = [], 0.0
+    for name, (ebn0, seed) in CLUSTER_SHAPES.items():
+        if (name, label) not in CLUSTER_RULES:
+            continue
+        min_agree, max_dmean, tol, min_stopped, separates = CLUSTER_RULES[
+            (name, label)]
+        cfg = cluster_config(name)
+        plan = fused_bamp.cluster_plan(cfg, v, x)
+        assert plan.ctas > 1 and fused_bamp.jax_fits(cfg, RES)
+        r = montecarlo.generate_realization(
+            make_generator(dev, seed), cfg, "sparc", "banded", CLUSTER_B,
+            snr_of(cfg, ebn0), v)
+        op, y, s2 = r.A, r.y, r.sigma2
+        s0 = bamp.initial_state(y, cfg.N, s2)
+        before = (fused_bamp.launches_cluster, getattr(fused_bamp, counter))
+        sk = kernel(op, s0, y, s2, CLUSTER_CAP, cfg)
+        torch.cuda.synchronize()
+        launched = (fused_bamp.launches_cluster - before[0],
+                    getattr(fused_bamp, counter) - before[1])
+        sp = plain(op, s0, y, s2, CLUSTER_CAP, cfg)
+        inside = rule_passes(sk, sp, 0.995, 0.02)[2]
+        stopped = stopped_share(sk, sp)
+        try:
+            err = compare(
+                "kernel_wide_bamp", sk, sp, math.inf if tol is None else tol,
+                free_unconverged=True, min_agree=min_agree,
+                max_dmean_T=max_dmean, case=name, form=label, Lin=cfg.Lin,
+                cap=CLUSTER_CAP, ebn0_db=ebn0, ctas=plan.ctas,
+                smem_bytes=plan.smem, threads=plan.threads,
+                cluster_launches=launched[0], inside_default_rule=inside,
+                stopped_within_1e4=stopped, min_stopped_within_1e4=min_stopped)
+            if tol is not None:
+                max_err = max(max_err, err)
+                CLUSTER_ERRS.append(err)
+        except AssertionError as exc:
+            failed.append(str(exc))
+        if min_stopped is not None and stopped < min_stopped:
+            failed.append(f"{name}: {stopped} of the stopped trials within "
+                          "1e-4")
+        if launched != (1, 0):
+            failed.append(f"{name}: launches (cluster, {counter}) "
+                          f"{launched}")
+        if v != "highest" or split:
+            wrong = []
+            k1_wide_wrong(wrong, op, s0, y, s2, CLUSTER_CAP, cfg, sp, v,
+                          split, label, name, min_agree, max_dmean)
+            if separates:
+                failed += wrong
+            k1_wide_control(failed, kernel, plain, op, s0, y, s2, cfg, v,
+                            split, label, name)
+        del sk, sp, r, op, y, s0
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K1 {label} as a cluster: {failed}")
+    return max_err
+
+
+# K1's forms: HIGHEST, HIGH, DEFAULT, then the six split pairs.
+K1_FORMS = (("highest", "highest"), ("high", "high"),
+            ("default", "default"))
+# The cluster sizes kernel_cluster_bamp forces where one block would do.
+CLUSTER_FORCED = (2, 4)
+
+
+def phase_kernel_cluster_bamp(torch, dev):
+    """K1's cluster form against its one-block form: every form (HIGHEST,
+    HIGH, DEFAULT and the six split pairs) at the OOK flagship (Lin 20,
+    4096 trials, 8 dB, cap 12) and the QPSK flagship (Lin 25, 4096 trials,
+    5 dB, cap 100), forced onto clusters of 2 and 4 blocks a trial
+    (``whole_decode(..., ctas=c)``).  No partition changes the order of any
+    sum, so every plane of every trial, T and the active flags must equal
+    the one-block launch's bit for bit; each cluster launch is counted in
+    ``launches_cluster``.  Prints both times by CUDA events.  Then the
+    HIGHEST cluster checks of :func:`k1_cluster_checks` (the other forms
+    run theirs in their phases).  Returns the timings."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import (
+        flagship_bamp_ook, flagship_bamp_qpsk)
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    fields = BAMP_FIELDS + ("active", "T")
+    failed, timings = [], []
+    for name, cfg, cap, ebn0, seed in (
+            ("ook_flagship", flagship_bamp_ook(), K1, EBN0_DB, 303),
+            ("qpsk_flagship", flagship_bamp_qpsk(), 100, BAMP_HIGH_EBN0_DB,
+             304)):
+        r = montecarlo.generate_realization(
+            make_generator(dev, seed), cfg, "sparc", "banded", FLAGSHIP_B,
+            snr_of(cfg, ebn0), "highest")
+        op, y, s2 = r.A, r.y, r.sigma2
+        s0 = bamp.initial_state(y, cfg.N, s2)
+        for v, x in K1_FORMS + XMAP_PAIRS:
+            run = partial(fused_bamp.whole_decode, op, s0, y, s2, cap, cfg,
+                          v, x)
+            one = run(ctas=1)
+            line = dict(case=name, form=f"{v}:{x}", B=FLAGSHIP_B, cap=cap,
+                        one_block_ms=cuda_ms(partial(run, ctas=1), 0, 2),
+                        one_block_smem=fused_bamp.smem_bytes(cfg, v, x),
+                        mean_T=float(one.T.float().mean()))
+            for c in CLUSTER_FORCED:
+                plan = fused_bamp.cluster_plan(cfg, v, x, ctas=c)
+                if plan.ctas != c:
+                    failed.append(f"{name} {v}:{x}: no cluster of {c}")
+                    continue
+                before = fused_bamp.launches_cluster
+                sc = run(ctas=c)
+                torch.cuda.synchronize()
+                launched = fused_bamp.launches_cluster - before
+                same = [f for f in fields
+                        if torch.equal(getattr(sc, f), getattr(one, f))]
+                line[f"ctas{c}"] = dict(
+                    ms=cuda_ms(partial(run, ctas=c), 0, 2),
+                    identical=len(same) == len(fields) and sc.t == one.t,
+                    differing=[f for f in fields if f not in same],
+                    launches=launched, smem=plan.smem, threads=plan.threads,
+                    cols=plan.cols)
+                if not line[f"ctas{c}"]["identical"] or launched != 1:
+                    failed.append(f"{name} {v}:{x} ctas={c}")
+                del sc
+            emit("kernel_cluster_bamp", **line)
+            timings.append(line)
+            del one
+        del r, op, y, s0
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K1's cluster form != its one-block form: "
+                             f"{failed}")
+    k1_cluster_checks(torch, dev, "highest")
+    return timings
+
+
+# main_bamp_wide: BAMP on the SCAMP QPSK geometry (config.flagship_scamp(),
+# the uncoupled baseline of that published SCAMP curve) at one of its
+# points, HIGH beside HIGHEST on the same seeds, 2 realizations of 65536.
+WIDE_MAIN_DB = 12.0
+WIDE_MAIN_REALIZATIONS = 2
+# The plain HIGH version's trials a call in the timing line (15 GB of the
+# card's memory at this geometry; 65536 in one call pass its 80 GB).
+WIDE_PLAIN_CHUNK = 16384
+
+
+def phase_main_bamp_wide(torch, dev):
+    """``Simulator(config.flagship_scamp(), algo='bamp', precision='high')``
+    beside ``precision='highest'`` on the same seeds at Eb/N0 = 12 dB, cap
+    100, single phase, 2 realizations of 65536 each: the user's ``cli sweep
+    --Nt 128 --Na 16 --Nr 16 --Lin 40 --Lh 9 --mode sparc --alphabet QPSK
+    --algo bamp --precision high``.  One block holds no HIGH trial there
+    (284,160 B) and JAX's K1 takes the batch, so the HIGH run goes through
+    K1's cluster form; HIGHEST is a one-block K1.  Gates as in
+    ``main_bamp_high``: route ``'whole'``, cluster launches > 0 and no
+    other K1 launch in the HIGH run, no plain decode, FER and BER within 3
+    sigma of HIGHEST's, mean T within 1.0.  Prints both runs' trials/s,
+    FER, BER, mean T and a per-layer split of one HIGH realization, then
+    the cluster form's timing at this shape (``kernel_timing_bamp_cluster``:
+    ms per launch by CUDA events, the bound, the same bf16 products as
+    torch.matmul calls, the plain HIGH version).  Returns (cluster
+    launches, the timing)."""
+    from amp_sparc_spatialmodulation_tpu_torch.config import flagship_scamp
+    from amp_sparc_spatialmodulation_tpu_torch.models import bamp, montecarlo
+    from amp_sparc_spatialmodulation_tpu_torch.ops.kernels import fused_bamp
+    from amp_sparc_spatialmodulation_tpu_torch.utils import metrics
+    from amp_sparc_spatialmodulation_tpu_torch.utils.device import (
+        make_generator)
+
+    cfg = flagship_scamp()
+    n_real, epochs = WIDE_MAIN_REALIZATIONS, WIDE_MAIN_REALIZATIONS * RES
+    plan = fused_bamp.cluster_plan(cfg, "high")
     counters = ("launches", "launches_high", "launches_default",
-                "launches_xmap")
-    before = [getattr(fused_bamp, c) for c in counters]
-    bamp.plain_decodes = 0
-    t0 = time.perf_counter()
-    out, st = bamp.decode(r.A, r.y, r.sigma2, cfg, precision="high",
-                          return_state=True)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    plain = bamp.plain_decodes
-    launched = [getattr(fused_bamp, c) - b for c, b in zip(counters, before)]
-    s0 = bamp.initial_state(r.y, cfg.N, r.sigma2)
-    want = fused_bamp.decode_plain_high(r.A, s0, r.y, r.sigma2,
-                                        cfg.N_Layers, cfg)
-    same = bool(torch.equal(out.T, want.T)
-                and torch.equal(out.xmap, want.xmap))
+                "launches_xmap", "launches_cluster")
+    runs = {}
+    for precision in ("highest", "high"):
+        sim = montecarlo.Simulator(cfg, algo="bamp", device=dev,
+                                   precision=precision,
+                                   progress=lambda s: None)
+        torch.cuda.synchronize()
+        for c in counters:
+            setattr(fused_bamp, c, 0)
+        bamp.plain_decodes = 0
+        t0 = time.perf_counter()
+        avg = sim.run_point(WIDE_MAIN_DB, epochs=epochs, res=RES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[precision] = dict(
+            avg=avg, seconds=seconds, trials_per_s=epochs / seconds,
+            plain=bamp.plain_decodes,
+            **{c: getattr(fused_bamp, c) for c in counters})
+    hi, hs = runs["high"], runs["highest"]
+
+    gen = make_generator(dev, 12346)
+    layers = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        layers[name] = time.perf_counter() - t
+        return res
+
+    r = timed("generate_s", lambda: montecarlo.generate_realization(
+        gen, cfg, "sparc", "banded", RES, snr_of(cfg, WIDE_MAIN_DB), "high"))
+    way = bamp.route(cfg, r.A, RES, dev, "high")
+    out = timed("decode_s", lambda: bamp.decode(r.A, r.y, r.sigma2, cfg,
+                                                precision="high"))
+    timed("metrics_s", lambda: metrics.fetch_sums(metrics.evaluate_sums(
+        out.xmap, out.xmmse, r.msg, out.T, cfg)))
+    bsig = ber_sigma(torch, cfg, out, r.msg, RES, epochs)
     finite = bool(torch.isfinite(torch.view_as_real(out.xmap)).all())
-    emit("main_bamp_wide", Lin=cfg.Lin, B=FLAGSHIP_B, route=way,
-         plain_decodes=plain, k1_launches=dict(zip(counters, launched)),
-         seconds=seconds, mean_T=float(out.T.float().mean()),
-         smem_high=fused_bamp.smem_bytes(cfg, "high"),
-         jax_fits=fused_bamp.jax_fits(cfg, FLAGSHIP_B),
-         identical_to_plain=same, finite=finite)
-    if (way != "whole_plain" or plain != 1 or any(launched) or not same
-            or not finite):
-        raise AssertionError("main_bamp_wide: K1's plain version did not "
-                             "take the QPSK flagship at Lin 32")
+    del out
+
+    sigma = fer_sigma(hs["avg"]["fer"], epochs)
+    emit("main_bamp_wide", config="flagship_scamp", algo="bamp",
+         ebn0_db=WIDE_MAIN_DB, res=RES, realizations=n_real, trials=epochs,
+         cap=cfg.N_Layers, route=way, ctas=plan.ctas, smem=plan.smem,
+         threads=plan.threads, smem_one_block=fused_bamp.smem_bytes(
+             cfg, "high"), jax_fits=fused_bamp.jax_fits(cfg, RES),
+         **{f"{p}_{k}": v for p, run in runs.items()
+            for k, v in (("seconds", run["seconds"]),
+                         ("trials_per_s", run["trials_per_s"]),
+                         ("mean_T", run["avg"]["T"]),
+                         ("fer", run["avg"]["fer"]),
+                         ("ber", run["avg"]["ber"]),
+                         ("plain_decodes", run["plain"]),
+                         *((c, run[c]) for c in counters))},
+         high_over_highest_trials_per_s=(hi["trials_per_s"]
+                                         / hs["trials_per_s"]),
+         fer_sigma=sigma, ber_sigma=bsig, layers_high=layers, finite=finite,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if (way != "whole" or plan.ctas < 2 or hi["launches_cluster"] <= 0
+            or any(hi[c] for c in counters[:-1]) or hi["plain"]
+            or hs["plain"] or not finite):
+        raise AssertionError("the BAMP HIGH path on the SCAMP geometry did "
+                             "not run through K1's cluster form alone")
+    if abs(hi["avg"]["fer"] - hs["avg"]["fer"]) > 3 * sigma:
+        raise AssertionError(f"BAMP wide HIGH FER {hi['avg']['fer']} vs "
+                             f"HIGHEST {hs['avg']['fer']}")
+    if abs(hi["avg"]["ber"] - hs["avg"]["ber"]) > 3 * bsig:
+        raise AssertionError(f"BAMP wide HIGH BER {hi['avg']['ber']} vs "
+                             f"HIGHEST {hs['avg']['ber']}")
+    if abs(hi["avg"]["T"] - hs["avg"]["T"]) > 1.0:
+        raise AssertionError(f"BAMP wide HIGH mean T {hi['avg']['T']} vs "
+                             f"HIGHEST {hs['avg']['T']}")
+
+    # the cluster form at this shape: the realization above, decoded once
+    # more to cap 100 and timed
+    op, y, s2 = r.A, r.y, r.sigma2
+    s0 = bamp.initial_state(y, cfg.N, s2)
+    kernel, plain, _ = k1_form_fns("high", "high")
+    before = fused_bamp.launches_cluster
+    s1 = kernel(op, s0, y, s2, cfg.N_Layers, cfg)
+    torch.cuda.synchronize()
+    if fused_bamp.launches_cluster - before != 1:
+        raise AssertionError("the timed decode was not a cluster launch")
+    ms = cuda_ms(lambda: kernel(op, s0, y, s2, cfg.N_Layers, cfg), 0, 2)
+    tensors = [getattr(st, f) for st in (s0, s1) for f in st._fields
+               if f != "t"]
+    tensors += [y] + k1_form_taps(cfg, op, "high")
+    flop, nbytes, iters, bound_ms, bound_by = split_work(
+        cfg, s0, s1, tensors, "high", "high")
+    rows, W = RES * cfg.Lin, cfg.Lh * cfg.Nr
+    lib, lib_form = split_library(torch, cfg, op,
+                                  s1.var.reshape(rows, cfg.Nt),
+                                  torch.rand(rows, W, device=dev), "high",
+                                  "high")
+    library_iter_ms = cuda_ms(lib, 1, 2)
+    del lib, tensors
+    # the plain version over the same trials in chunks (its planes at
+    # 65536 trials pass the card's memory)
+    chunks = [(y[i:i + WIDE_PLAIN_CHUNK], bamp.initial_state(
+        y[i:i + WIDE_PLAIN_CHUNK], cfg.N, s2))
+        for i in range(0, RES, WIDE_PLAIN_CHUNK)]
+    plain_ms = cuda_ms(lambda: [plain(op, c0, yc, s2, cfg.N_Layers, cfg)
+                                for yc, c0 in chunks], 0, 1)
+    del chunks
+    timing = dict(kernel="fused_bamp_decode_cluster", case="scamp_dims",
+                  form="high:high", B=RES, cap=cfg.N_Layers,
+                  ebn0_db=WIDE_MAIN_DB, ctas=plan.ctas, ms=ms,
+                  plain_ms=plain_ms, plain_chunk=WIDE_PLAIN_CHUNK,
+                  iterations=iters,
+                  mean_T=float(s1.T.float().mean()), flop=flop,
+                  bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                  pct_of_bound=100 * bound_ms / ms,
+                  library_ms=library_iter_ms * iters / RES,
+                  library_ms_per_iteration=library_iter_ms,
+                  library_form=lib_form, smem_bytes=plan.smem,
+                  threads=plan.threads)
+    emit("kernel_timing_bamp_cluster", **timing)
+    return hi["launches_cluster"], timing
 
 
 def phase_main_bamp_high(torch, dev):
@@ -5496,9 +5852,12 @@ def main() -> int:
                  for k in ("ms", "bound_ms", "bound_by", "library_ms",
                            "plain_ms", "form_ms")})
     t0 = time.perf_counter()
-    phase_main_bamp_wide(torch, dev)
+    cluster_timings = phase_kernel_cluster_bamp(torch, dev)
     torch.cuda.empty_cache()
-    emit("wide_phases", seconds=time.perf_counter() - t0)
+    cluster_launches, cluster_timing = phase_main_bamp_wide(torch, dev)
+    torch.cuda.empty_cache()
+    emit("wide_phases", seconds=time.perf_counter() - t0,
+         forced_clusters=len(cluster_timings))
     t0 = time.perf_counter()
     phase_main_auto_k1(torch, dev)
     phase_main_plain(torch, dev)
@@ -5562,7 +5921,10 @@ def main() -> int:
                         "fused_bamp.py:617", xmap_launches[(v, x)],
                         xmap_checks[(v, x)][0], xmap_checks[(v, x)][1][-1],
                         source="fused_bamp_decode")
-           for v, x in XMAP_PAIRS]}), flush=True)
+           for v, x in XMAP_PAIRS]
+        + [kernel_entry("fused_bamp_decode_cluster", "fused_bamp.py:617",
+                        cluster_launches, max(CLUSTER_ERRS), cluster_timing,
+                        source="fused_bamp_cluster")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

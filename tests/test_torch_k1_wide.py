@@ -5,15 +5,18 @@ JAX takes its whole-decode kernel K1 at the decode's precision wherever
 ``FusedBandedDecode.fits(cfg, batch)`` holds (`models/bamp.py:255-268`,
 `ops/pallas/fused_bamp.py:966-971` there: a trial tile in 11 MiB of VMEM).
 The port takes K1 where that holds or where its own block holds a trial
-(``bamp.route_of``): ``'whole'`` where the port's K1 form (the split form
-under ``AMP_KERNEL_XMAP_PRECISION``) holds a trial in one block's shared
-memory, whatever its number of column blocks, else ``'whole_plain'``,
-K1's function as its plain version on the decode's device.
+(``bamp.route_of``): ``'whole'`` wherever ``fused_bamp.cluster_plan``
+holds a trial of the port's K1 form (the split form under
+``AMP_KERNEL_XMAP_PRECISION``): in one block's shared memory, whatever its
+number of column blocks, else spread over a thread-block cluster of 2, 4
+or 8 blocks (``tests/test_torch_k1_cluster.py``); ``'whole_plain'``, K1's
+function as its plain version on the decode's device, only where no
+cluster of 8 holds one.
 
 * ``fused_bamp.jax_fits`` equals ``FusedBandedDecode.fits`` over the three
   flagships' dimensions at Lin 20-96 and 64, 4096 and 65536 trials;
-* ``route_of`` takes K1's function (``'whole'`` or ``'whole_plain'``) on
-  every geometry where JAX takes K1, never K6, K5 or the plain loop;
+* ``route_of`` takes K1 (``'whole'``, one block or a cluster) on every
+  geometry where JAX takes K1, never K6, K5 or the plain loop;
 * at Lin 33 on a small geometry (more than the 32 column blocks K1's HIGH
   layout took before), the port's ``bamp.decode`` gives JAX's K1 in
   interpret mode at 'high' (OOK, BPSK, QPSK), at 'default' (under
@@ -95,38 +98,40 @@ def test_jax_fits_reads_no_tile_experiment(monkeypatch):
     assert not fused_bamp.jax_fits(cfg, 4099)
 
 
-# The Motivation's geometries: (name, config, route at highest / high /
-# default) once K1's function runs wherever JAX's K1 does.
+# The Motivation's geometries: (name, config, K1's blocks a trial at
+# highest / high / default): K1 takes each, in one block (1) or as a
+# cluster (2).
 ROUTES = [
     ("qpsk_lin32", dataclasses.replace(flagship_bamp_qpsk(), Lin=32),
-     ("whole", "whole_plain", "whole")),
+     (1, 2, 1)),
     ("ook_lin40", dataclasses.replace(flagship_bamp_ook(), Lin=40),
-     ("whole", "whole", "whole")),
-    ("scamp_dims", flagship_scamp(), ("whole", "whole_plain",
-                                      "whole_plain")),
+     (1, 1, 1)),
+    ("scamp_dims", flagship_scamp(), (1, 2, 2)),
     ("ook_lin48", dataclasses.replace(flagship_bamp_ook(), Lin=48),
-     ("whole", "whole", "whole")),
+     (1, 1, 1)),
     ("qpsk_lin48", dataclasses.replace(flagship_bamp_qpsk(), Lin=48),
-     ("whole_plain", "whole_plain", "whole_plain")),
+     (2, 2, 2)),
 ]
 
 
 @pytest.mark.parametrize("name,cfg,want", ROUTES, ids=[r[0] for r in ROUTES])
 def test_route_takes_k1_where_jax_does(monkeypatch, name, cfg, want):
-    """At every batch where JAX's K1 fits, ``route_of`` takes K1's
-    function at each precision; ``'whole'`` exactly where the port's form
-    holds a trial in one block; under ``use_pallas=True`` the same route
-    (JAX takes K1 there too).  AMP_PALLAS_MODE=periter skips K1 (QPSK's K
-    = 4 then leaves K6 and the plain loop takes it)."""
+    """At every batch where JAX's K1 fits, ``route_of`` takes K1
+    (``'whole'``) at each precision: in one block exactly where the port's
+    form holds a trial in one block, else as the cluster of the plan;
+    under ``use_pallas=True`` the same route (JAX takes K1 there too).
+    AMP_PALLAS_MODE=periter skips K1 (QPSK's K = 4 then leaves K6 and the
+    plain loop takes it)."""
     monkeypatch.delenv(VAR, raising=False)
     for batch in TRIALS:
         assert fused_bamp.jax_fits(cfg, batch)
-        for precision, way in zip(("highest", "high", "default"), want):
+        for precision, ctas in zip(("highest", "high", "default"), want):
             got = bamp.route_of(cfg, True, precision=precision, batch=batch)
-            assert got == way, (batch, precision)
-            assert (got == "whole") == fused_bamp.fits(cfg, precision)
+            assert got == "whole", (batch, precision)
+            assert fused_bamp.cluster_plan(cfg, precision).ctas == ctas
+            assert (ctas == 1) == fused_bamp.fits(cfg, precision)
             assert bamp.route_of(cfg, True, precision=precision,
-                                 use_pallas=True, batch=batch) == way
+                                 use_pallas=True, batch=batch) == "whole"
     monkeypatch.setenv("AMP_PALLAS_MODE", "periter")
     assert bamp.route_of(cfg, True, precision="high", batch=4096) in (
         "periter", "plain")
@@ -135,15 +140,16 @@ def test_route_takes_k1_where_jax_does(monkeypatch, name, cfg, want):
 @pytest.mark.parametrize("x", ["highest", "high", "default"])
 def test_split_route_at_the_scamp_dims(monkeypatch, x):
     """Under the variable the SCAMP flagship's dimensions take K1's split
-    function: the kernel where the split form fits, else its plain version;
-    the route raises for none of them."""
+    form: in one block where it fits, else as a cluster; the route raises
+    for none of them and leaves none to the plain version."""
     cfg = flagship_scamp()
     monkeypatch.setenv(VAR, x)
     for precision in ("highest", "high", "default"):
         xs = bamp.xmap_split(precision)
         got = bamp.route_of(cfg, True, precision=precision, batch=4096)
-        fits = fused_bamp.fits(cfg, precision, xs)
-        assert got == ("whole" if fits else "whole_plain"), precision
+        plan = fused_bamp.cluster_plan(cfg, precision, xs)
+        assert (plan.ctas == 1) == fused_bamp.fits(cfg, precision, xs)
+        assert plan.ctas >= 1 and got == "whole", precision
 
 
 # (name, alphabet, seed, SNR exponent, iterations) at Lin 33.  OOK at

@@ -24,7 +24,8 @@ Also the route chain at HIGH: where the chain skips K1
 to K5 at HIGH (a real alphabet with K > 1) or to the plain loop at HIGH
 (QPSK), as JAX's chain does where its K1 declines (``bamp.py:241-283``);
 at Lin > 32 K1 now takes the trial (where JAX's K1 does), and where the
-port's block holds none, K1's plain version does (``'whole_plain'``).
+port's block holds none, K1's cluster form does; only where no cluster
+holds one, K1's plain version (``'whole_plain'``).
 Those decodes are held to the port's own routes here, and to JAX's K1 by
 ``tests/test_torch_k1_wide.py``.
 """
@@ -189,7 +190,9 @@ def test_bamp_falls_through_at_high(monkeypatch):
     HIGHEST (its decode at HIGH is the HIGHEST one bit for bit), BPSK to K5
     at HIGH (the plain HIGH plane loop), QPSK to the plain loop.  Where
     JAX's K1 takes the batch and the port's block holds no trial, the
-    route is K1's plain version on the card (``'whole_plain'``)."""
+    route is K1's cluster form (``'whole'``); where no cluster holds one
+    either (a plan made to say so), K1's plain version
+    (``'whole_plain'``)."""
     geo = dict(BASE, Lin=33)
     assert fused_bamp.fits(Config(**geo), "high")
     assert fused_bamp.fits(Config(**geo))
@@ -224,9 +227,12 @@ def test_bamp_falls_through_at_high(monkeypatch):
     # a block that holds no trial, where JAX's K1 takes the batch
     flag = dataclasses.replace(flagship_bamp_qpsk(), Lin=32)
     assert not fused_bamp.fits(flag, "high") and fused_bamp.jax_fits(flag, 8)
-    assert bamp.route_of(flag, True, precision="high", batch=8) == \
-        "whole_plain"
+    assert fused_bamp.cluster_plan(flag, "high").ctas == 2
+    assert bamp.route_of(flag, True, precision="high", batch=8) == "whole"
     monkeypatch.setattr(fused_bamp, "fits", lambda *a: False)
+    monkeypatch.setattr(fused_bamp, "cluster_plan",
+                        lambda *a, **k: fused_bamp.ClusterPlan(
+                            0, (), (), (), 0, 0))
     assert bamp.route(cfg, op, 8, "cpu", "high") == "whole_plain"
     before = bamp.plain_decodes
     high = bamp.decode(op, y, s2, cfg, precision="high")

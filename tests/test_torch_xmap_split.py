@@ -252,26 +252,32 @@ def test_split_that_does_not_fit_raises(monkeypatch):
     """Where K1's HIGHEST form holds a trial and the split form asked for
     does not (the SCAMP flagship's dimensions under BAMP at 'highest' with
     the variable at 'high': the HIGH layout's block passes the shared
-    memory), the route takes K1's split function as its plain version
-    (``'whole_plain'``, ``decode_plain_split``), as JAX's K1 runs the split
-    there, and does not raise; not K6, K5 or the plain loop (which ignore
-    the variable).  The flagships fit every pair: the mixed forms
+    memory), the route takes K1's split form as a cluster of two blocks a
+    trial (``'whole'``), as JAX's K1 runs the split there, and does not
+    raise; not K6, K5 or the plain loop (which ignore the variable).  Where
+    no cluster holds the split form either (a plan made to say so), K1's
+    split function as its plain version (``'whole_plain'``,
+    ``decode_plain_split``).  The flagships fit every pair: the mixed forms
     ``<3, 1>`` and ``<1, 3>`` on each chain's planes, the others on the
     HIGH form's region."""
     big = flagship_scamp()
     assert fused_bamp.fits(big) and not fused_bamp.fits(big, "highest",
                                                          "high")
+    assert fused_bamp.cluster_plan(big, "highest", "high").ctas == 2
     monkeypatch.setenv(VAR, "high")
-    assert bamp.route_of(big, True) == "whole_plain"
-    assert bamp.route_of(big, True, batch=4096) == "whole_plain"
-    assert bamp.route_of(big, True, precision="high",
-                         batch=4096) == "whole_plain"
+    assert bamp.route_of(big, True) == "whole"
+    assert bamp.route_of(big, True, batch=4096) == "whole"
+    assert bamp.route_of(big, True, precision="high", batch=4096) == "whole"
     # the dispatch, on a small geometry whose split form is made to
     # decline: the plain split version, counted in plain_decodes
     _, kw, seed, snr_exp = SPLIT_GEOMETRIES[0]
     cfg, op, y, s2, *_ = shared_inputs(kw, seed, snr_exp)
-    monkeypatch.setattr(fused_bamp, "fits",
-                        lambda c, p="highest", x=None: x is None)
+    real = fused_bamp.cluster_plan
+    monkeypatch.setattr(
+        fused_bamp, "cluster_plan",
+        lambda c, p="highest", x=None, ctas=None: real(
+            c, p, x, ctas)._replace(ctas=0) if x is not None
+        else real(c, p, x, ctas))
     assert bamp.route(cfg, op, y.shape[0], "cpu") == "whole_plain"
     before = bamp.plain_decodes
     _, st = bamp.decode(op, y, s2, cfg, return_state=True)

@@ -70,6 +70,14 @@ With ``--lin L`` the same readings (at ``--precision``, or with
 ``--split`` for each pair) at one shape only: the OOK flagship's
 dimensions with L column blocks at chip_smoke's ``k1_wide_checks`` shape
 (``WIDE_B`` trials, cap 12, 8 dB, seed 301), K1 past 32 column blocks.
+With ``--cluster NAME`` the same at one of chip_smoke's
+``CLUSTER_SHAPES`` (``scamp_dims``, ``qpsk_lin48``: ``CLUSTER_B``
+trials, cap ``CLUSTER_CAP``, K1's cluster form), at its Eb/N0 or at each
+of ``--db``; ``--precision highest`` there reads K1's HIGHEST form
+(``kernel_highest`` against the plain version, and its mean T).
+
+    env PYTHONPATH=. python tests/torch_bamp_high_rule.py \
+        --cluster scamp_dims [--db 14 16] [--precision default | --split]
 
 Prints one JSON line per shape and decode: T agreement, mean T of both,
 |d mean T|, the trials that converged in both, the largest state error on
@@ -129,7 +137,8 @@ def reading(sk, sp) -> dict:
                 abs_dmean_T=abs(mean_k - mean_p),
                 converged_both=int(converged.sum()),
                 max_abs_err_converged=chip_smoke.state_err(
-                    sk, sp, agree & converged))
+                    sk, sp, agree & converged),
+                stopped_within_1e4=chip_smoke.stopped_share(sk, sp))
 
 
 def shape(tag, cfg, B, cap, ebn0_db, seed, dev, precision="high"):
@@ -145,6 +154,13 @@ def shape(tag, cfg, B, cap, ebn0_db, seed, dev, precision="high"):
     s0 = bamp.initial_state(y, cfg.N, s2)
     if precision == "default":
         shape_default(tag, cfg, B, cap, ebn0_db, op, y, s2, s0)
+        return
+    if precision == "highest":
+        sk = fused_bamp.whole_decode(op, s0, y, s2, cap, cfg)
+        sp = fused_bamp.decode_plain(op, s0, y, s2, cap, cfg)
+        print(json.dumps({"shape": tag, "decode": "kernel_highest", "B": B,
+                          "cap": cap, "ebn0_db": ebn0_db,
+                          **reading(sk, sp)}), flush=True)
         return
     forms = {
         "kernel_high": lambda c: fused_bamp.whole_decode(
@@ -234,8 +250,6 @@ def shape_split(tag, cfg, B, cap, ebn0_db, seed, dev, pairs):
             print(json.dumps({"shape": tag, "pair": f"{v}:{x}",
                               "decode": name, "B": B, "cap": cap,
                               "ebn0_db": ebn0_db, **reading(sk, sp),
-                              "stopped_within_1e4": chip_smoke.stopped_share(
-                                  sk, sp),
                               **{f"control_{k}": gap[k] for k in (
                                   "z_p50", "xmap_p50", "u_p50")}}),
                   flush=True)
@@ -350,7 +364,7 @@ def main() -> None:
     ap.add_argument("--massive-db", type=float, nargs="*",
                     default=[chip_smoke.MASSIVE_CONVERGING_DB],
                     help="--route tiled: massive points at cap 100 (dB)")
-    ap.add_argument("--precision", choices=["high", "default"],
+    ap.add_argument("--precision", choices=["highest", "high", "default"],
                     default="high", help="the rule of the HIGH or the "
                     "DEFAULT instances (module docstring)")
     ap.add_argument("--split", action="store_true",
@@ -360,12 +374,30 @@ def main() -> None:
                     "with this many column blocks instead (chip_smoke's "
                     "k1_wide_checks: WIDE_B trials, cap 12, 8 dB, seed "
                     "301), at --precision or, with --split, each pair")
+    ap.add_argument("--cluster", choices=sorted(chip_smoke.CLUSTER_SHAPES),
+                    default=None, help="the readings at this cluster "
+                    "shape of chip_smoke's k1_cluster_checks instead")
+    ap.add_argument("--db", type=float, nargs="*", default=None,
+                    help="--cluster: Eb/N0 points (dB) instead of the "
+                    "shape's own")
     ap.add_argument("--pairs", default=",".join(
         f"{v}:{x}" for v, x in chip_smoke.XMAP_PAIRS),
         help="--split: variance:xmap precision pairs")
     args = ap.parse_args()
     dev = torch.device("cuda")
     print(chip_smoke.nvidia_smi(), flush=True)
+    if args.cluster is not None:
+        ebn0, seed = chip_smoke.CLUSTER_SHAPES[args.cluster]
+        cfg = chip_smoke.cluster_config(args.cluster)
+        for db in args.db or [ebn0]:
+            at = (f"{args.cluster}_{db:g}db", cfg, chip_smoke.CLUSTER_B,
+                  chip_smoke.CLUSTER_CAP, db, seed, dev)
+            if args.split:
+                shape_split(*at, [tuple(p.split(":"))
+                                  for p in args.pairs.split(",")])
+            else:
+                shape(*at, args.precision)
+        return
     if args.lin is not None:
         import dataclasses
         wide = (f"ook_lin{args.lin}",
